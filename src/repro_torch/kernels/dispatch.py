@@ -1,0 +1,134 @@
+"""The kernel registry every serving op of the port resolves through.
+
+Counterpart of ``repro.kernels.dispatch``, keyed on the tensor's device
+instead of an environment variable:
+
+  * ``@register_impl(op, tier, pad=...)`` registers one implementation of
+    ``op`` at one tier — ``cuda`` (the hand-written Hopper kernel) or
+    ``torch`` (the plain PyTorch version, arithmetic in the JAX ``ref.py``
+    order).
+  * ``resolve(op, like)`` picks the tier from ``like.device``: a CUDA tensor
+    gets the kernel, a CPU tensor the plain version. Nothing else selects a
+    tier — no environment variable, no global switch — and the CUDA tier
+    never falls back: if its kernel cannot build or launch, the call raises.
+  * Every kernel wrapper calls ``count_launch(op)`` right where it launches
+    its kernel, and nowhere else, so a run can show that its main path went
+    through the kernels (``launch_counts`` / ``reset_launch_counts``).
+
+Padding is policy here too: ``_pad_to`` is the one helper, and every impl
+declares its pad convention — ``"zero"`` (GEMMs: zero rows/cols contribute
+exact zeros) or ``"zero-scale"`` (attention: padded positions carry scale 0,
+the "invalid" marker). Two impls of one op declaring different conventions
+is an error at import time. Both CUDA kernels zero-fill their own tiles, so
+no caller reads the declared convention yet; it records the contract the
+plain tiers and any later padded kernel keep to.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+#: implementation tiers, in display order
+TIERS = ("cuda", "torch")
+
+#: pad/mask conventions an impl may declare (None = op never pads)
+PAD_CONVENTIONS = ("zero", "zero-scale")
+
+_REGISTRY: Dict[str, Dict[str, Callable]] = {}
+_PAD: Dict[str, str] = {}
+_LAUNCHES: Dict[str, int] = {}
+
+
+def _pad_to(x: torch.Tensor, m: int, dim: int) -> torch.Tensor:
+    """Right-pad ``x`` along ``dim`` to a multiple of ``m`` (zeros)."""
+    pad = (-x.shape[dim]) % m
+    if pad == 0:
+        return x
+    dim = dim % x.ndim
+    widths = [0, 0] * (x.ndim - dim - 1) + [0, pad]
+    return F.pad(x, widths)
+
+
+def register_impl(op: str, tier: str, *, pad: Optional[str] = None):
+    """Decorator: register ``fn`` as ``op``'s implementation at ``tier``.
+    All impls of an op must agree on ``pad`` (or declare nothing)."""
+    if tier not in TIERS:
+        raise ValueError(f"register_impl({op!r}): unknown tier {tier!r}; "
+                         f"tiers are {TIERS}")
+    if pad is not None and pad not in PAD_CONVENTIONS:
+        raise ValueError(f"register_impl({op!r}, {tier!r}): unknown pad "
+                         f"convention {pad!r}; conventions are "
+                         f"{PAD_CONVENTIONS}")
+
+    def deco(fn: Callable) -> Callable:
+        impls = _REGISTRY.setdefault(op, {})
+        if tier in impls and impls[tier] is not fn:
+            raise ValueError(f"register_impl: {op!r} already has a {tier!r} "
+                             f"impl ({impls[tier].__name__})")
+        if pad is not None:
+            prev = _PAD.get(op)
+            if prev is not None and prev != pad:
+                raise ValueError(
+                    f"register_impl: {op!r} impls disagree on the pad "
+                    f"convention — existing impls declare {prev!r}, "
+                    f"{fn.__name__} ({tier!r}) declares {pad!r}")
+            _PAD[op] = pad
+        impls[tier] = fn
+        _LAUNCHES.setdefault(op, 0)
+        return fn
+
+    return deco
+
+
+def ops() -> tuple:
+    """The registered op names, sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
+def pad_convention(op: str) -> Optional[str]:
+    _registered(op)
+    return _PAD.get(op)
+
+
+def _registered(op: str) -> Dict[str, Callable]:
+    try:
+        return _REGISTRY[op]
+    except KeyError:
+        raise KeyError(f"unknown kernel op {op!r}; registered ops: "
+                       f"{', '.join(sorted(_REGISTRY)) or '(none)'}") from None
+
+
+def tier_for(like: torch.Tensor) -> str:
+    """``cuda`` for a CUDA tensor, ``torch`` for a CPU tensor."""
+    if like.device.type == "cuda":
+        return "cuda"
+    if like.device.type == "cpu":
+        return "torch"
+    raise ValueError(f"no kernel tier for device {like.device}")
+
+
+def resolve(op: str, like: torch.Tensor) -> Callable:
+    """``op``'s implementation for the device ``like`` lives on."""
+    impls = _registered(op)
+    tier = tier_for(like)
+    try:
+        return impls[tier]
+    except KeyError:
+        raise ValueError(f"op {op!r} has no {tier!r} implementation") from None
+
+
+def count_launch(op: str) -> None:
+    """Called by a kernel wrapper exactly where it launches its kernel."""
+    _LAUNCHES[op] = _LAUNCHES.get(op, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """{op: kernel launches since the last reset}."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for op in _LAUNCHES:
+        _LAUNCHES[op] = 0

@@ -1,0 +1,46 @@
+"""Public W8A8 GEMM op, dispatched on the activation's device.
+
+The JAX op's ``quantize_out`` epilogue variant and its ``a_zero_point``
+branch are off the serving path and not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..dispatch import register_impl, resolve
+from .kernel import qmatmul_w8a8_cuda
+from .ref import qmatmul_w8a8_ref
+
+
+@register_impl("qmatmul_w8a8", "cuda", pad="zero")
+def _w8a8_cuda(a_q, w_q, a_scale, w_scale, bias, *, out_dtype):
+    # the kernel zero-fills ragged M / N / K tiles itself
+    return qmatmul_w8a8_cuda(a_q, w_q, a_scale, w_scale, bias,
+                             out_dtype=out_dtype)
+
+
+@register_impl("qmatmul_w8a8", "torch", pad="zero")
+def _w8a8_torch(a_q, w_q, a_scale, w_scale, bias, *, out_dtype):
+    return qmatmul_w8a8_ref(a_q, w_q, a_scale, w_scale, bias, out_dtype)
+
+
+def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,
+                 bias: Optional[torch.Tensor] = None, *,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """y = dequant(a_q) @ dequant(w_q) + bias. a_q [M, K] int8, w_q [K, N]
+    int8, a_scale [M] | [1], w_scale [N] | [1], bias [N]."""
+    M = a_q.shape[0]
+    N = w_q.shape[1]
+    dev = a_q.device
+    a_scale = torch.broadcast_to(
+        torch.as_tensor(a_scale, dtype=torch.float32, device=dev), (M,)
+    ).contiguous()
+    w_scale = torch.broadcast_to(
+        torch.as_tensor(w_scale, dtype=torch.float32, device=dev), (N,)
+    ).contiguous()
+    bias = (torch.zeros((N,), dtype=torch.float32, device=dev) if bias is None
+            else bias.to(torch.float32).contiguous())
+    return resolve("qmatmul_w8a8", a_q)(a_q, w_q, a_scale, w_scale, bias,
+                                        out_dtype=out_dtype)

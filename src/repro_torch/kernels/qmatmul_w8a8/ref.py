@@ -1,0 +1,34 @@
+"""Plain PyTorch version of the W8A8 GEMM.
+
+Arithmetic in the order of ``repro/kernels/qmatmul_w8a8/ref.py``: exact
+integer accumulation, then ``((acc * a_scale) * w_scale) + bias`` in float32.
+CUDA has no integer matmul, so the accumulator is taken in float64, which is
+exact here on either device: every partial sum is an integer of magnitude at
+most 128 * 127 * K, far below 2**53 for any K the models use.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def qmatmul_w8a8_acc(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Σ_k a_q[m, k] · w_q[k, n], exact, as float64 [M, N]."""
+    return a_q.to(torch.float64) @ w_q.to(torch.float64)
+
+
+def qmatmul_w8a8_ref(
+    a_q: torch.Tensor,          # [M, K] int8
+    w_q: torch.Tensor,          # [K, N] int8
+    a_scale: torch.Tensor,      # [M] or [1]
+    w_scale: torch.Tensor,      # [N] or [1]
+    bias: Optional[torch.Tensor] = None,   # [N] float32
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    out = qmatmul_w8a8_acc(a_q, w_q).to(torch.float32)
+    out = (out * torch.atleast_1d(a_scale).float()[:, None]
+           * torch.atleast_1d(w_scale).float()[None, :])
+    if bias is not None:
+        out = out + bias.float()[None, :]
+    return out.to(out_dtype)

@@ -1,0 +1,89 @@
+"""Typed serving configuration: one dataclass is both the ``serve`` API and
+(through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. Only
+the knobs of the port's serving path so far.
+
+The port serves one layout, W8A8 weights with an int8 KV cache, so that is a
+pair of constants here, not fields: the CLI still takes ``--quantize w8a8
+--kv-bits 8`` as the JAX launcher does, and refuses any other value."""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+
+#: the one serving layout ported so far
+QUANTIZE = "w8a8"
+KV_BITS = 8
+
+
+class ServeConfigError(ValueError):
+    """Invalid serving configuration."""
+
+
+def _f(default, help=None, **cli):
+    return dataclasses.field(default=default, metadata={"help": help, **cli})
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    arch: str = _f("qwen2-0.5b", "architecture id (see configs.registry)")
+    smoke: bool = _f(False, "use the arch's smoke-sized config", switch=True)
+    seed: int = _f(0, "seed of the random weights", type=int)
+    device: str = _f("cuda", "cuda (default) or cpu (the plain PyTorch "
+                     "versions of the kernels)")
+    slots: int = _f(4, "engine cache-pool size (decode batch width)", type=int)
+    max_len: Optional[int] = _f(
+        None, "per-slot KV capacity (default: fits prompt+gen)", type=int)
+    prefill_chunk: int = _f(16, None, type=int)
+    prompt_len: int = _f(32, "longest prompt", type=int)
+    gen_len: int = _f(32, "most new tokens", type=int)
+    prompt_min: int = _f(4, "shortest prompt", type=int)
+    gen_min: int = _f(4, "fewest new tokens", type=int)
+    trace: int = _f(4, "serve a synthetic arrival schedule of N requests "
+                    "(log-uniform lengths, Poisson arrivals)", type=int,
+                    metavar="N")
+    trace_seed: int = _f(0, None, type=int)
+    profile: bool = _f(False, "trace the serving loop with torch.profiler and "
+                       "print device time by kernel and the device busy "
+                       "share", switch=True)
+
+    def validate(self) -> "ServeConfig":
+        for name in ("slots", "prefill_chunk", "trace", "prompt_len",
+                     "gen_len", "prompt_min", "gen_min"):
+            if getattr(self, name) < 1:
+                raise ServeConfigError(f"{name} must be >= 1")
+        if self.prompt_min > self.prompt_len or self.gen_min > self.gen_len:
+            raise ServeConfigError("--prompt-min/--gen-min exceed "
+                                   "--prompt-len/--gen-len")
+        return self
+
+    @classmethod
+    def from_args(cls, ns: argparse.Namespace) -> "ServeConfig":
+        return cls(**{f.name: getattr(ns, f.name)
+                      for f in dataclasses.fields(cls)})
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The ``python -m repro_torch.launch.serve`` flags, derived from the
+    ServeConfig fields."""
+    ap = argparse.ArgumentParser(
+        description="pack a model to int8 and serve it with the "
+                    "continuous-batching engine on the card")
+    for f in dataclasses.fields(ServeConfig):
+        md = dict(f.metadata)
+        help_ = md.pop("help", None)
+        flag = "--" + f.name.replace("_", "-")
+        if md.pop("switch", False):
+            ap.add_argument(flag, dest=f.name, action="store_true",
+                            default=f.default, help=help_)
+        else:
+            ap.add_argument(flag, dest=f.name, default=f.default, help=help_,
+                            **md)
+    ap.add_argument("--quantize", default=QUANTIZE, choices=[QUANTIZE],
+                    help="weight/activation scheme: int8 weights, dynamic "
+                         "int8 activations (the one ported)")
+    ap.add_argument("--kv-bits", default=KV_BITS, type=int, choices=[KV_BITS],
+                    help="KV-cache precision (the int8 cache is the one "
+                         "ported)")
+    return ap

@@ -1,0 +1,74 @@
+"""Architecture configuration: the dense-transformer fields of
+``repro.models.config.ModelConfig`` and its ``smoke()`` reduction."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None           # default d_model // n_heads
+    act: str = "silu_glu"                     # silu_glu (the one ported)
+    norm: str = "rms"                         # rms
+    qkv_bias: bool = False
+    rope: bool = True
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"                   # activation compute dtype
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.head_dim is None and self.n_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+
+    @property
+    def attn_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def params_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def param_count(self) -> int:
+        """Parameter count: embedding (tied head) + dense blocks."""
+        d, f = self.d_model, self.d_ff
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.attn_dim + 2 * d * self.kv_dim + self.attn_dim * d
+        mlp = 3 * d * f                               # gated: wg, wu, wd
+        return n + self.n_layers * (attn + mlp)
+
+    def smoke(self) -> "ModelConfig":
+        """Reduced same-family config for CPU tests (as the JAX package's)."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=2,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            head_dim=16,
+            d_ff=128,
+            vocab_size=256,
+            dtype="float32",
+            param_dtype="float32",
+        )

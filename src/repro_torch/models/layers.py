@@ -1,0 +1,211 @@
+"""Transformer building blocks — plain functions over parameter dicts.
+
+The dense subset of ``repro.models.layers``, with the same conventions:
+linear weights are ``[d_in, d_out]`` applied as ``y = x @ w + b``, attention
+projections are flat ``[D, n_heads*head_dim]`` (head-major), and a
+``QTensor`` weight routes through the int8 kernels.
+
+Attention here is the serving path only: a per-slot int8 KV cache, the
+single-token decode through the fused decode kernel (with the quantize-out
+epilogue feeding a W8A8 ``wo``), and the chunked prefill (append-quantize,
+then plain softmax attention over the dequantized cache). The cache tensors
+are updated IN PLACE; the JAX layers return updated copies.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..kernels.fused_decode.ops import fused_decode
+from ..kernels.kv_attention.ops import append_quantize
+from ..quantized.qtensor import (
+    QTensor,
+    qtensor_matmul,
+    qtensor_matmul_prequant,
+    quantize_input,
+)
+
+NEG_INF = -1e30
+
+
+def linear(x, w, b=None):
+    """y = x @ w + b; an int8 ``QTensor`` weight routes through the kernels."""
+    if isinstance(w, QTensor):
+        return qtensor_matmul(x, w, b)
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _all_w8a8(*ws) -> bool:
+    return all(isinstance(w, QTensor) and w.mode == "w8a8" for w in ws)
+
+
+def _shared_linears(x, wbs):
+    """Several W8A8 projections reading the SAME activation share one
+    ``quantize_act`` launch; per-row quantization depends only on the row, so
+    each output is bitwise what its own ``linear`` would give."""
+    a_q, a_s, lead = quantize_input(x)
+    return [qtensor_matmul_prequant(a_q, a_s, w, b, lead, out_dtype=x.dtype)
+            for w, b in wbs]
+
+
+# --------------------------------------------------------------------------
+# Norms and RoPE
+# --------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """Statistics in float32, data path in the compute dtype."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * weight.to(x.dtype)
+
+
+def apply_norm(x, p, kind: str):
+    if kind != "rms":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return rms_norm(x, p["w"])
+
+
+def rope_angles(positions, head_dim: int, theta: float):
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.float()[..., None] * freqs          # [..., T, half]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [B, T, H, hd]; cos/sin [T, hd/2] or [B, T, hd/2]."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.ndim == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    n_q: int
+    n_kv: int
+    head_dim: int
+    rope: bool = True
+    rope_theta: float = 10000.0
+
+
+class SlotWrite(NamedTuple):
+    """Where a forward's T new tokens land in a per-slot ring cache, and what
+    each of them may attend to. Every layer shares it (the JAX layers each
+    recompute it from the same pre-write bookkeeping)."""
+    idx: torch.Tensor     # [B, T] ring write offsets
+    kpos: torch.Tensor    # [B, S] absolute positions after the write (-1 = empty)
+    mask: torch.Tensor    # [B, T, S] bool, True = attend
+
+
+def slot_write(kpos: torch.Tensor, positions: torch.Tensor) -> SlotWrite:
+    """kpos [B, S] before the write; positions [B, T] of the new tokens."""
+    B, S = kpos.shape
+    idx = positions % S
+    row = torch.arange(B, device=kpos.device)[:, None]
+    kpos = kpos.clone()
+    kpos[row, idx] = positions
+    mask = (kpos >= 0)[:, None, :] & (kpos[:, None, :] <= positions[..., None])
+    return SlotWrite(idx, kpos, mask)
+
+
+def _repeat_kv(x, group: int):
+    return x if group == 1 else torch.repeat_interleave(x, group, dim=2)
+
+
+def attention_scores_softmax(q, k, v, mask):
+    """softmax(q·kᵀ)·v. q [B, Tq, H, hd]; k, v [B, Tk, H, hd]; mask
+    [B, Tq, Tk] (True = attend) or [Tq, Tk]."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    s = s.float()
+    if mask is not None:
+        m = mask[None, None] if mask.ndim == 2 else mask[:, None]
+        s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
+                    positions: torch.Tensor, cache: dict,
+                    slots: SlotWrite) -> torch.Tensor:
+    """qkv projection → rope → int8-cache attention → output projection.
+
+    cache: this layer's {"k", "v" [B, S, Hkv, hd] int8, "k_scale",
+    "v_scale" [B, S, Hkv] float32}, written in place. T == 1 is the decode
+    hot path (one fused decode launch); T > 1 a prefill chunk.
+    """
+    B, T, D = x.shape
+    nq, nkv, hd = dims.n_q, dims.n_kv, dims.head_dim
+    if _all_w8a8(p["wq"], p["wk"], p["wv"]):
+        q, k, v = _shared_linears(
+            x, [(p["wq"], p.get("bq")), (p["wk"], p.get("bk")),
+                (p["wv"], p.get("bv"))])
+    else:
+        q = linear(x, p["wq"], p.get("bq"))
+        k = linear(x, p["wk"], p.get("bk"))
+        v = linear(x, p["wv"], p.get("bv"))
+    q = q.reshape(B, T, nq, hd)
+    k = k.reshape(B, T, nkv, hd)
+    v = v.reshape(B, T, nkv, hd)
+    if dims.rope:
+        cos, sin = rope_angles(positions, hd, dims.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    if T == 1:
+        # decode: ONE launch from roped q/k/v to the attention output; the
+        # W8A8 wo reads the kernel's quantize-out epilogue (int8 + scale)
+        want_q8 = _all_w8a8(p["wo"])
+        res, _ = fused_decode(
+            q[:, 0], cache["k"], cache["k_scale"], cache["v"],
+            cache["v_scale"], k, v, slots.idx, valid=slots.mask[:, 0, :],
+            out_dtype=x.dtype, quantize_out=want_q8)
+        if want_q8:
+            return qtensor_matmul_prequant(res[1], res[2], p["wo"],
+                                           p.get("bo"), (B, T),
+                                           out_dtype=x.dtype)
+        return linear(res.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
+
+    # chunked prefill: append-quantize once, then attend over the
+    # dequantized cache in the compute dtype
+    ck, ks, cv, vs = append_quantize(cache["k"], cache["k_scale"], cache["v"],
+                                     cache["v_scale"], k, v, slots.idx)
+    kd = ck.to(x.dtype) * ks.to(x.dtype)[..., None]
+    vd = cv.to(x.dtype) * vs.to(x.dtype)[..., None]
+    group = nq // nkv
+    attn = attention_scores_softmax(q, _repeat_kv(kd, group),
+                                    _repeat_kv(vd, group), slots.mask)
+    return linear(attn.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def mlp_block(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The gated MLP ``wd(silu(wg·x) * wu·x)`` — silu_glu, the one
+    activation a ported config uses."""
+    if act != "silu_glu":
+        raise NotImplementedError(f"mlp activation {act!r} is not ported yet")
+    if _all_w8a8(p["wg"], p["wu"]):
+        g, u = _shared_linears(x, [(p["wg"], p.get("bg")),
+                                   (p["wu"], p.get("bu"))])
+    else:
+        g = linear(x, p["wg"], p.get("bg"))
+        u = linear(x, p["wu"], p.get("bu"))
+    return linear(g * torch.sigmoid(g) * u, p["wd"], p.get("bd"))

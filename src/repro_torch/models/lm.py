@@ -1,0 +1,208 @@
+"""Decoder-only dense LM: init, per-slot int8 KV cache, prefill, decode.
+
+Port of the dense branch of ``repro.models.lm.LMModel``. Parameters keep the
+JAX package's layout — nested dicts with every block leaf stacked ``[L, ...]``
+— so weights carry across unchanged (``repro_torch.weights``). Layers run as
+a Python loop over per-layer views of the stacked leaves. The KV cache is
+updated IN PLACE (the JAX model returns updated copies under donation);
+``prefill`` / ``decode_step`` still return ``(logits, cache)`` with fresh
+``kpos`` / ``pos`` bookkeeping tensors.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from ..device import resolve_device
+from ..quantized.qtensor import QTensor
+from .config import ModelConfig
+from .layers import (
+    AttnDims,
+    apply_norm,
+    attention_block,
+    mlp_block,
+    slot_write,
+)
+
+#: the cache's int8 payload leaves, each [L, B, S, ...]
+KV_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def _map_leaves(fn, tree):
+    """Apply ``fn`` to every tensor of a params tree (QTensor: q and scale)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(fn(tree.q), fn(tree.scale), tree.mode)
+    return fn(tree)
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+class LMModel:
+    def __init__(self, cfg: ModelConfig):
+        unsupported = [
+            what for what, bad in (
+                (f"family {cfg.family!r}", cfg.family != "dense"),
+                (f"norm {cfg.norm!r}", cfg.norm != "rms"),
+                ("qk_norm", cfg.qk_norm),
+            ) if bad]
+        if unsupported:
+            raise NotImplementedError(
+                f"{cfg.name}: {', '.join(unsupported)} not ported yet (the "
+                f"port serves dense RMSNorm decoders)")
+        self.cfg = cfg
+        # (params object, its compute-dtype copy, per-layer views) — see
+        # prepare; the serving loop reuses one params tree every step
+        self._prepared = None
+
+    # ------------------------------------------------------------------ init
+    def init(self, seed: Union[int, torch.Generator] = 0, *,
+             device: Optional[Union[str, torch.device]] = "cuda") -> dict:
+        """Seeded random parameters on ``device`` (default: the card), in the
+        JAX init's scales: normal · d_in^-1/2 linears, normal · 0.02
+        embedding, zero biases, unit norms. ``torch.Generator`` draws differ
+        from ``jax.random``'s; tests carry JAX weights across instead."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        if isinstance(seed, torch.Generator):
+            gen = seed
+        else:
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+        dtype = cfg.params_dtype
+        L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+
+        def normal(shape, scale):
+            return (torch.randn(shape, generator=gen, device=device)
+                    * scale).to(dtype)
+
+        def lin(d_in, d_out):
+            return normal((L, d_in, d_out), d_in ** -0.5)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        def ones(*shape):
+            return torch.ones(shape, dtype=dtype, device=device)
+
+        attn = {"wq": lin(D, cfg.attn_dim), "wk": lin(D, cfg.kv_dim),
+                "wv": lin(D, cfg.kv_dim), "wo": lin(cfg.attn_dim, D),
+                "bo": zeros(L, D)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(L, cfg.attn_dim), bk=zeros(L, cfg.kv_dim),
+                        bv=zeros(L, cfg.kv_dim))
+        mlp = {"wu": lin(D, F), "wd": lin(F, D), "bd": zeros(L, D),
+               "wg": lin(D, F)}
+        params = {
+            "embed": normal((cfg.vocab_size, D), 0.02),
+            "final_norm": {"w": ones(D)},
+            "blocks": {"attn_norm": {"w": ones(L, D)}, "attn": attn,
+                       "mlp_norm": {"w": ones(L, D)}, "mlp": mlp},
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = normal((D, cfg.vocab_size), D ** -0.5)
+        return params
+
+    def weight_sites(self) -> tuple:
+        """Paths of every weight the serving pack quantizes — the dense sites
+        of the JAX ``dfq_plan`` (its DFQ ops are a later slice)."""
+        sites = [("blocks", "attn", w) for w in ("wq", "wk", "wv", "wo")]
+        sites += [("blocks", "mlp", w) for w in ("wu", "wd", "wg")]
+        return tuple(sites)
+
+    # ------------------------------------------------------------- forward
+    def _attn_dims(self) -> AttnDims:
+        cfg = self.cfg
+        return AttnDims(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                        head_dim=cfg.head_dim, rope=cfg.rope,
+                        rope_theta=cfg.rope_theta)
+
+    def prepare(self, params: dict):
+        """The params cast to the compute dtype (every float32 leaf,
+        QTensor scales included, as the JAX forward casts them) plus the
+        per-layer views of the stacked blocks — computed once per params
+        object, since the serving loop passes the same tree every step."""
+        if self._prepared is not None and self._prepared[0] is params:
+            return self._prepared[1], self._prepared[2]
+        compute = self.cfg.compute_dtype
+        p = _map_leaves(
+            lambda a: (a.to(compute) if a.dtype == torch.float32
+                       and compute != torch.float32 else a), params)
+        layers = [_layer(p["blocks"], i) for i in range(self.cfg.n_layers)]
+        self._prepared = (params, p, layers)
+        return p, layers
+
+    def _transformer_block(self, p, x, *, positions, cache, slots):
+        cfg = self.cfg
+        h = apply_norm(x, p["attn_norm"], cfg.norm)
+        x = x + attention_block(p["attn"], h, self._attn_dims(),
+                                positions=positions, cache=cache, slots=slots)
+        h = apply_norm(x, p["mlp_norm"], cfg.norm)
+        return x + mlp_block(p["mlp"], h, cfg.act)
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens].to(self.cfg.compute_dtype)
+
+    def _unembed(self, params, h):
+        w = params.get("lm_head")
+        if w is None:
+            w = params["embed"].t()
+        return h @ w.to(h.dtype)
+
+    # ---------------------------------------------------------------- cache
+    def init_cache(self, batch: int, seq_len: int, *,
+                   device: Optional[Union[str, torch.device]] = "cuda",
+                   per_slot: bool = True, kv_bits: int = 8) -> dict:
+        """The continuous-batching cache: every batch row is a serving slot
+        with its own write offset (``pos`` [B]) and absolute slot positions
+        (``kpos`` [B, S], -1 = empty). int8 payload with per-token, per-head
+        float32 scales; scale 0 marks an unwritten position."""
+        cfg = self.cfg
+        if kv_bits != 8 or not per_slot:
+            raise NotImplementedError(
+                f"the port serves a per-slot int8 KV cache (kv_bits=8, "
+                f"per_slot=True); got kv_bits={kv_bits}, per_slot={per_slot}")
+        device = resolve_device(device)
+        L, S, H, hd = cfg.n_layers, seq_len, cfg.n_kv_heads, cfg.head_dim
+        return {
+            "k": torch.zeros((L, batch, S, H, hd), dtype=torch.int8, device=device),
+            "v": torch.zeros((L, batch, S, H, hd), dtype=torch.int8, device=device),
+            "k_scale": torch.zeros((L, batch, S, H), dtype=torch.float32, device=device),
+            "v_scale": torch.zeros((L, batch, S, H), dtype=torch.float32, device=device),
+            "kpos": torch.full((batch, S), -1, dtype=torch.int64, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int64, device=device),
+        }
+
+    def _forward_cached(self, params, tokens, cache, *, logits_at=None):
+        """Run T tokens from each row's ``cache["pos"]``; ``logits_at`` [B]
+        picks each row's logits position (default: the last)."""
+        p, layers = self.prepare(params)
+        B, T = tokens.shape
+        pos = cache["pos"]
+        positions = pos[:, None] + torch.arange(T, device=pos.device)[None, :]
+        slots = slot_write(cache["kpos"], positions)
+        x = self._embed(p, tokens)
+        for i, lp in enumerate(layers):
+            x = self._transformer_block(
+                lp, x, positions=positions, slots=slots,
+                cache={k: cache[k][i] for k in KV_KEYS})
+        x = apply_norm(x, p["final_norm"], self.cfg.norm)
+        if logits_at is None:
+            h_last = x[:, -1:, :]
+        else:
+            at = logits_at.to(torch.int64)[:, None, None].expand(B, 1, x.shape[-1])
+            h_last = torch.gather(x, 1, at)
+        logits = self._unembed(p, h_last)[:, 0]
+        return logits, {**cache, "kpos": slots.kpos, "pos": pos + T}
+
+    def prefill(self, params, tokens, cache, *, logits_at=None):
+        return self._forward_cached(params, tokens, cache, logits_at=logits_at)
+
+    def decode_step(self, params, token, cache):
+        """token [B, 1] → (logits [B, V], cache)."""
+        return self._forward_cached(params, token, cache)

@@ -1,0 +1,13 @@
+"""int8 weights: the QTensor container and the serving pack stage."""
+from .ptq import quantize_for_serving, serving_summary
+from .qtensor import (
+    QTensor,
+    qtensor_matmul,
+    qtensor_matmul_prequant,
+    quantize_input,
+    quantize_param,
+)
+
+__all__ = ["QTensor", "qtensor_matmul", "qtensor_matmul_prequant",
+           "quantize_for_serving", "quantize_input", "quantize_param",
+           "serving_summary"]

@@ -1,0 +1,91 @@
+"""QTensor: the int8 weight container the model code dispatches on.
+
+As in ``repro.quantized.qtensor``, ``models.layers.linear`` routes an
+activation through a ``QTensor`` weight by its mode:
+
+    y = x @ W          (torch.Tensor)
+    y = w8a8(q(x), W)  (QTensor, mode="w8a8": dynamic act quant + int8 GEMM)
+    y = w8a16(x, W)    (QTensor, mode="w8a16": a later slice of the port)
+
+Layout: ``q`` is the public [..., K, N] view, as in the JAX package, but its
+storage is K-major — a contiguous [..., N, K] buffer, transposed — which is
+the B operand layout the W8A8 kernel reads. The constructor normalizes any
+other layout once, so no GEMM call ever copies a weight.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """``q`` [..., K, N] with [..., N, K]-contiguous storage (a no-op when it
+    already is)."""
+    t = q.transpose(-1, -2)
+    return q if t.is_contiguous() else t.contiguous().transpose(-1, -2)
+
+
+@dataclasses.dataclass
+class QTensor:
+    q: torch.Tensor                # int8 payload [..., K, N] (K-major storage)
+    scale: torch.Tensor            # [..., N] or [..., 1] (symmetric)
+    mode: str = "w8a16"            # w8a16 | w8a8
+
+    def __post_init__(self):
+        self.q = k_major(self.q)
+
+    def __getitem__(self, i) -> "QTensor":
+        """Slice the stacked leading (layer) axis."""
+        return QTensor(self.q[i], self.scale[i], self.mode)
+
+
+def quantize_param(w: torch.Tensor, *, per_channel: bool = True,
+                   mode: str = "w8a16") -> QTensor:
+    """Symmetric int8 quantization of a [..., K, N] weight (per-out-channel
+    or per-tensor scale), in the order of the JAX ``quantize_param``."""
+    if per_channel:
+        amax = w.abs().amax(dim=-2)                                  # [..., N]
+    else:
+        amax = w.abs().amax(dim=(-2, -1), keepdim=True)[..., 0]      # [..., 1]
+    scale = torch.clamp_min(amax, 1e-12) / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(w / scale[..., None, :]), -127, 127)
+    return QTensor(q.to(torch.int8), scale.to(torch.float32), mode)
+
+
+def quantize_input(x: torch.Tensor):
+    """Dynamic-quantize an activation once for every W8A8 projection that
+    reads it (the qkv trio, the GLU gate/up pair): returns (x_q int8 [M, K],
+    x_scale float32 [M], lead shape)."""
+    from ..kernels.quantize_act.ops import quantize_act
+
+    lead = tuple(x.shape[:-1])
+    a_q, a_s = quantize_act(x.reshape(-1, x.shape[-1]))
+    return a_q, a_s, lead
+
+
+def qtensor_matmul(x: torch.Tensor, w: QTensor,
+                   bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Route an activation [..., K] through a quantized weight."""
+    if w.q.ndim != 2:
+        raise ValueError("stacked QTensors must be sliced per layer before use")
+    if w.mode != "w8a8":
+        raise NotImplementedError(
+            f"QTensor mode {w.mode!r}: the port serves W8A8 so far; the "
+            f"W8A16 GEMM (qmatmul_w8a16) is a later slice of the port")
+    a_q, a_s, lead = quantize_input(x)
+    return qtensor_matmul_prequant(a_q, a_s, w, bias, lead, out_dtype=x.dtype)
+
+
+def qtensor_matmul_prequant(a_q: torch.Tensor, a_s: torch.Tensor, w: QTensor,
+                            bias: Optional[torch.Tensor], lead: tuple, *,
+                            out_dtype: torch.dtype = torch.float32):
+    """W8A8 matmul over an already-quantized activation (from
+    ``quantize_input`` or the fused decode's quantize-out epilogue)."""
+    from ..kernels.qmatmul_w8a8.ops import qmatmul_w8a8
+
+    if w.mode != "w8a8":
+        raise ValueError("prequantized inputs feed W8A8 weights")
+    y = qmatmul_w8a8(a_q, w.q, a_s, w.scale, bias, out_dtype=out_dtype)
+    return y.reshape(*lead, w.q.shape[-1])
