@@ -9,23 +9,35 @@ Phases, each of which must pass (nothing here catches a failure):
      nvcc per source, in parallel) and print the build time, the
      registers/spills ptxas reports, and the card's name and power limit.
   2. kernels — call each kernel's wrapper on the card at the shapes the
-     serving path gives it and hold it against its plain PyTorch version on
-     the same inputs: quantize_act and qmatmul_w8a8 bit-equal, fused_decode's
-     appended cache bit-equal, its output within ``OUT_TOL``, and its
-     quantize-out bit-equal to quantize_act of that output and off the
-     plain version's only at rounding ties.
+     serving paths give it and hold it against its plain PyTorch version on
+     the same inputs: quantize_act and qmatmul_w8a8 bit-equal; qmatmul_w8a16
+     within ``W8A16_TOL`` (it applies the scale after the sum, the plain
+     version before it); fused_decode's appended cache bit-equal, its
+     output within ``OUT_TOL``, and its quantize-out bit-equal to
+     quantize_act of that output and off the plain version's only at
+     rounding ties. In float32 the W8A16 check also runs two controls that
+     must fall outside its tolerance (TF32, and ``a`` rounded to bf16).
      Times each kernel (device time, queued behind a sleep kernel so the
      host's per-call cost is hidden, and the time of a back-to-back wrapper
      call, host included), its plain version and, where one exists, the one
      PyTorch call computing the same function, all with CUDA events.
-  3. reference — a smoke-size qwen2 on the card against the same model on
-     the CPU (plain versions): teacher-forced logits within tolerance.
-  4. serve — ``repro_torch.serve``: qwen2-0.5b at full width (24 layers,
-     seeded random weights packed to int8 by the pack stage alone — no norm
-     folding, CLE or bias absorption), the stepwise engine with 8 slots,
-     max_len 512, prefill chunks of 32, 16 requests of 32-256 prompt tokens
-     and 32 new tokens each. Every request must finish with finite logits,
-     and every kernel's launch count (reset just before) must be above 0.
+  3. reference — for each serving recipe, ``repro_torch.quantize`` of a
+     smoke-size qwen2 (seeded weights that need every rewrite) on the card
+     against the same call on the CPU: payloads, scales and float leaves
+     bit-equal (``bo`` within its matrix product's rounding bound); then
+     that model on the card against the CPU's (plain versions):
+     teacher-forced logits within tolerance.
+  4. serve — ``repro_torch.serve`` four times: qwen2-0.5b at full width (24
+     layers, seeded random weights through ``repro_torch.quantize``: norm
+     folding, CLE and bias absorption on the card, then the int8 pack), the
+     stepwise engine with 8 slots, max_len 512, prefill chunks of 32, 16
+     requests of 32-256 prompt tokens and 32 new tokens each; first under
+     ``serve-w8a16-kv8`` (the default), then under ``serve-w8a8-kv8``,
+     and the two once more.
+     Every request must finish with 32 tokens and finite logits. The launch
+     counts are reset just before each run and read just after: the w8a16
+     run must launch qmatmul_w8a16 and fused_decode and no quantize_act or
+     qmatmul_w8a8, the w8a8 run its three kernels.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -38,17 +50,37 @@ import os
 import subprocess
 import sys
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 tensor-core
-# operations/s, float32 (CUDA-core) operations/s.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 and bf16
+# tensor-core operations/s, float32 (CUDA-core) operations/s.
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
 
 # fused_decode's ``out`` against its plain version (expf and the order of the
 # sums differ, so the float32 results are ~1e-7 apart): float32 within
-# atol 1e-6 + rtol 1e-5; bfloat16 within one bf16 ulp of the reference value,
-# since two float32 values that close can round to neighbouring bf16 values.
-OUT_TOL = {"float32": "atol 1e-6 + rtol 1e-5", "bfloat16": "1 bf16 ulp"}
+# T = atol 1e-6 + rtol 1e-5; bfloat16 within T plus one bf16 ulp of
+# |reference| + T, since two float32 values that close can round to
+# neighbouring bf16 values. (One bf16 ulp alone does not hold near zero,
+# where two float32 values within T may lie more than a bf16 ulp apart.)
+OUT_TOL = {"float32": "T = atol 1e-6 + rtol 1e-5",
+           "bfloat16": "T + 1 bf16 ulp"}
+
+# qmatmul_w8a16 against its plain version: the kernel sums a·q in float32
+# and scales after the sum; the plain version rounds q·s first and sums
+# a·(q·s). Both are float32 sums of the same K products, rounded in other
+# orders, and such rounding errors add like a random walk: about
+# sqrt(K) · 2^-24 · ||a_m ⊙ w_n||, the products' 2-norm being
+# sqrt(a² @ w_deq²). The float32 tolerance is 16 times that, plus the
+# epilogue's roundings of the scale and the bias:
+#   E = 16 · sqrt(K) · 2^-24 · sqrt(a² @ w_deq²) + 2^-22 · (|y| + |bias|).
+# A product with 10-bit mantissas (TF32: about 2^-11 · ||a_m ⊙ w_n||) or
+# with a rounded to bf16 lies well outside it, and phase 2 checks that both
+# do. The bfloat16 output rounds the two float32 results once more: within
+# E plus one bf16 ulp of |y| + E (one ulp alone fails where the sum cancels,
+# |y| far below the products' norm).
+W8A16_TOL = {"float32": "E = 16 sqrt(K) 2^-24 sqrt(a^2 @ w^2) + 2^-22 (|y|+|b|)",
+             "bfloat16": "E + 1 bf16 ulp"}
 
 
 def log(msg: str = "") -> None:
@@ -213,6 +245,102 @@ def check_qmatmul(torch, dev, gen):
     return rows
 
 
+def w8a16_tolerance(torch, a, w_q, w_scale, bias, y_ref):
+    """``W8A16_TOL`` elementwise for the plain version's output ``y_ref``."""
+    w_deq = w_q.float() * torch.atleast_1d(w_scale).float()[None, :]
+    norm = torch.sqrt(a.float().square() @ w_deq.square())
+    e = 16 * a.shape[1] ** 0.5 * 2.0 ** -24 * norm + 2.0 ** -22 * (
+        y_ref.float().abs() + (0 if bias is None else bias.float().abs()))
+    if y_ref.dtype == torch.bfloat16:
+        e = e + bf16_ulp(torch, y_ref.float().abs() + e)
+    return e
+
+
+def check_qmatmul_w8a16(torch, dev, gen):
+    """The W8A16 GEMM at the serving path's shapes: every projection at
+    decode (M = 8) and at a prefill chunk (M = 8 slots x 32 = 256), a
+    per-tensor [1] scale, a bias (bq, bk, bv, bo and bd have one), in bf16
+    (scale and bias bf16, as the bf16 model casts them) and in float32. In
+    float32 two controls must fall outside the tolerance: the plain version
+    with TF32 allowed, and with ``a`` rounded to bf16."""
+    from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_cuda
+    from repro_torch.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref
+
+    has_lib = torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+    rows = []
+    for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896)):
+        w = _kmajor_int8(torch, gen, dev, K, N)
+        for M in (8, 256):
+            for dtype in (torch.bfloat16, torch.float32):
+                a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+                sw = (torch.rand((1,), generator=gen, device=dev) * 0.01
+                      + 1e-4).to(dtype)
+                bias = torch.randn((N,), generator=gen, device=dev).to(dtype)
+                y = qmatmul_w8a16_cuda(a, w, sw, bias)
+                yr = qmatmul_w8a16_ref(a, w, sw, bias, dtype)
+                torch.cuda.synchronize()
+                diff = (y.float() - yr.float()).abs()
+                tol = w8a16_tolerance(torch, a, w, sw, bias, yr)
+                name = str(dtype)[6:]
+                worst = int((diff - tol).argmax())
+                assert bool((diff <= tol).all()), (
+                    f"qmatmul_w8a16 M={M} K={K} N={N} {name}: off the plain "
+                    f"version at {int((diff > tol).sum())} values (max |diff| "
+                    f"{float(diff.max())}, {W8A16_TOL[name]}; worst: kernel "
+                    f"{float(y.flatten()[worst])!r}, plain "
+                    f"{float(yr.flatten()[worst])!r}, tolerance "
+                    f"{float(tol.flatten()[worst])!r})")
+                note = f"max |diff|/tol {float((diff / tol).max()):.3g}"
+                if dtype == torch.bfloat16:
+                    ulp = bf16_ulp(torch, yr.float())
+                    note += (f"; of {diff.numel()}: "
+                             f"{int(((diff > 0) & (diff <= ulp)).sum())} one "
+                             f"bf16 ulp off, {int((diff > ulp).sum())} more")
+                if dtype == torch.float32:
+                    # controls: a lower-precision product must fail E
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    y_tf32 = qmatmul_w8a16_ref(a, w, sw, bias, dtype)
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                    y_a16 = qmatmul_w8a16_ref(a.bfloat16(), w, sw, bias, dtype)
+                    ctl = [float(((c - yr).abs() / tol).max())
+                           for c in (y_tf32, y_a16)]
+                    assert min(ctl) > 1, (
+                        f"qmatmul_w8a16 M={M} K={K} N={N}: a control passed "
+                        f"the float32 tolerance (max |diff|/tol: TF32 "
+                        f"{ctl[0]}, a in bf16 {ctl[1]})")
+                    note += (f"; controls max |diff|/tol: TF32 {ctl[0]:.3g}, "
+                             f"a in bf16 {ctl[1]:.3g}")
+                log(f"  qmatmul_w8a16 M={M} K={K} N={N} {name}: max |diff| "
+                    f"{float(diff.max()):.3g} ({W8A16_TOL[name]}); {note}")
+                e = a.element_size()
+                b, by = bound_ms(M * K * e + K * N + e + N * e + M * N * e,
+                                 2 * M * K * N,
+                                 BF16_OPS_S if dtype == torch.bfloat16
+                                 else F32_OPS_S)
+                if has_lib:
+                    # int8 weight [N, K] and a per-channel scale in a's type
+                    wt, s_n = w.t(), sw.expand(N).contiguous()
+                    lib_fn = lambda: torch._weight_int8pack_mm(a, wt, s_n)
+                    lib_call = "torch._weight_int8pack_mm"
+                else:
+                    # the weight pre-dequantized to a's type: reads twice
+                    # the int8 weight's bytes in bf16
+                    w_deq_t = (w.float() * sw.float()).to(dtype).t().contiguous()
+                    lib_fn = lambda: torch.nn.functional.linear(a, w_deq_t, bias)
+                    lib_call = "F.linear on the pre-dequantized weight"
+                kern = lambda: qmatmul_w8a16_cuda(a, w, sw, bias)
+                rows.append({
+                    "shape": f"M={M} K={K} N={N} {name}",
+                    "max_abs_err": float(diff.max()),
+                    "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
+                    "plain_ms": device_ms(lambda: qmatmul_w8a16_ref(
+                        a, w, sw, bias, dtype), 10),
+                    "bound_ms": b, "bound_by": by,
+                    "library_ms": device_ms(lib_fn, 50), "library": lib_call})
+    return rows
+
+
 def bf16_ulp(torch, x):
     """Spacing of bfloat16 numbers at |x| (float32): 2**(e-8) for |x| in
     [2**(e-1), 2**e), the subnormal spacing 2**-133 below 2**-126."""
@@ -229,9 +357,31 @@ def check_fused_out(torch, out, outr, oq, os_, oqr, osr, what):
     o, r = out.float().reshape(B, -1), outr.float().reshape(B, -1)
     diff = (o - r).abs()
     bf16 = out.dtype == torch.bfloat16
-    ok = diff <= (bf16_ulp(torch, r) if bf16 else 1e-6 + 1e-5 * r.abs())
-    assert bool(ok.all()), (f"{what}: out off at {int((~ok).sum())} values "
-                            f"(max |diff| {float(diff.max())})")
+    tol = 1e-6 + 1e-5 * r.abs()
+    if bf16:
+        tol = tol + bf16_ulp(torch, r.abs() + tol)
+    ok = diff <= tol
+    worst = int((diff - tol).argmax())
+    assert bool(ok.all()), (
+        f"{what}: out off at {int((~ok).sum())} values (max |diff| "
+        f"{float(diff.max())}; worst at row {worst // o.shape[1]} col "
+        f"{worst % o.shape[1]}: kernel {float(o.flatten()[worst])!r}, plain "
+        f"{float(r.flatten()[worst])!r}, tolerance {float(tol.flatten()[worst])!r})")
+    past = ""
+    if bf16:
+        # the elements one bf16 ulp alone would not admit, and the worst one
+        ulp = bf16_ulp(torch, r)
+        over = diff > ulp
+        if bool(over.any()):
+            i = int(torch.where(over, diff - ulp, -1.0).argmax())
+            past = (f"; beyond one bf16 ulp at {int(over.sum())} of "
+                    f"{diff.numel()}, all at |plain| <= "
+                    f"{float(r.abs()[over].max()):.3g} (worst: kernel "
+                    f"{float(o.flatten()[i])!r}, plain {float(r.flatten()[i])!r}"
+                    f", one ulp {float(ulp.flatten()[i])!r}, T + ulp "
+                    f"{float(tol.flatten()[i])!r})")
+        else:
+            past = "; within one bf16 ulp everywhere"
     # the epilogue quantizes the cast output (not the float32 accumulator)
     # with the quantize_act formula: bit-equal to that on the kernel's out
     qs, ss = quantize_act_ref(o)
@@ -257,7 +407,7 @@ def check_fused_out(torch, out, outr, oq, os_, oqr, osr, what):
         f"out bit-equal in {int(same.sum())}/{B} rows; quantize-out bit-equal "
         f"to quantize_act of the kernel's out; int8 off by 1 at "
         f"{int((dq > 0).sum())} of {dq.numel()} (at ties "
-        f"{int(((dq > 0) & tie).sum())})")
+        f"{int(((dq > 0) & tie).sum())}){past}")
 
 
 def check_fused_decode(torch, dev, gen):
@@ -323,28 +473,109 @@ def check_fused_decode(torch, dev, gen):
 
 
 # --------------------------------------------------------------- phase 3
-def check_reference(torch, dev):
-    """Smoke-size qwen2: the card (kernels) against the CPU (plain)."""
-    from repro_torch import build_model, get_config
-    from repro_torch.quantized import QTensor, quantize_for_serving
+def hostile_smoke_params(torch, model):
+    """Seeded smoke weights that give every rewrite work: log-normal norm
+    gains, random q/k/v/o biases, and the MLP's hidden channels spread over
+    two decades each way (up times s, down divided by s: the same
+    function)."""
+    gen = torch.Generator().manual_seed(2)
+    params = model.init(0, device="cpu")
+    blocks, mlp = params["blocks"], params["blocks"]["mlp"]
+    for norm in ("attn_norm", "mlp_norm"):
+        shape = blocks[norm]["w"].shape
+        blocks[norm]["w"] = torch.exp(torch.randn(shape, generator=gen) * 0.5)
+    for k in ("bq", "bk", "bv", "bo"):
+        shape = blocks["attn"][k].shape
+        blocks["attn"][k] = torch.randn(shape, generator=gen) * 0.5
+    L, _, F = mlp["wu"].shape
+    s = torch.exp(torch.randn((L, F), generator=gen) * 2.3)
+    mlp["wu"] = mlp["wu"] * s[:, None, :]
+    mlp["wd"] = mlp["wd"] / s[:, :, None]
+    return params
 
-    cfg = get_config("qwen2-0.5b-smoke")
-    model = build_model(cfg)
-    params = quantize_for_serving(model.init(0, device="cpu"),
-                                  model.weight_sites(), mode="w8a8")
-    def to_dev(t):
-        if isinstance(t, dict):
-            return {k: to_dev(v) for k, v in t.items()}
-        if isinstance(t, QTensor):
-            return QTensor(t.q.to(dev), t.scale.to(dev), t.mode)
-        return t.to(dev)
 
-    params_dev = to_dev(params)
+def _leaves(tree, path=()):
+    from repro_torch.quantized import QTensor
+
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, QTensor):
+        yield path + ("q",), tree.q
+        yield path + ("scale",), tree.scale
+    else:
+        yield path, tree
+
+
+def check_dfq_on_card(torch, dev, model, params, recipe):
+    """``repro_torch.quantize`` on the card against the same call on the
+    CPU: every int8 payload, scale and float leaf bit-equal, but ``bo``,
+    whose value-bias shift is a matrix product summed in another order and
+    is held to that product's rounding bound n · 2^-23 · (|c| @ |wo|) plus
+    one float32 ulp; the stage records equal and the pack stage's per-site
+    SQNR within 1e-4 dB. Returns (CPU, card) QuantizedModels."""
+    import repro_torch
+
+    cpu = repro_torch.quantize(model, params, recipe=recipe, device="cpu")
+    card = repro_torch.quantize(model, params, recipe=recipe, device=dev)
+    cfg = model.cfg
+    attn = repro_torch.quantize(model, params, recipe=["fold_norm", "cle"],
+                                device="cpu").params["blocks"]["attn"]
+    group = cfg.n_heads // cfg.n_kv_heads
+    L = attn["bv"].shape[0]
+    c = attn["bv"].reshape(L, cfg.n_kv_heads, 1, cfg.head_dim).expand(
+        L, cfg.n_kv_heads, group, cfg.head_dim).reshape(L, -1)
+    n = c.shape[-1]
+    bo_tol = n * 2.0 ** -23 * torch.einsum("ln,lno->lo", c.abs(),
+                                           attn["wo"].abs())
+    want, got = dict(_leaves(cpu.params)), dict(_leaves(card.params))
+    assert sorted(want) == sorted(got), f"{recipe}: card tree differs"
+    bo_err = 0.0
+    for path, t in want.items():
+        g = got[path].cpu()
+        assert g.dtype == t.dtype and g.shape == t.shape, path
+        if path == ("blocks", "attn", "bo"):
+            diff = (g - t).abs()
+            tol = bo_tol + (torch.nextafter(t.abs(), torch.tensor(float("inf")))
+                            - t.abs())
+            assert bool((diff <= tol).all()), (
+                f"{recipe}: bo on the card off the CPU's by {float(diff.max())}")
+            bo_err = float(diff.max())
+        else:
+            assert torch.equal(g, t), (
+                f"{recipe}: {'/'.join(path)} on the card differs from the "
+                f"CPU's at {int((g != t).sum())} of {t.numel()}")
+    snr = {}
+    for rc, rg in zip(cpu.report, card.report):
+        mc, mg = dict(rc["metrics"]), dict(rg["metrics"])
+        assert rc["stage"] == rg["stage"], recipe
+        sc, sg = mc.pop("sqnr_db", {}), mg.pop("sqnr_db", {})
+        assert mc == mg, f"{recipe}: stage {rc['stage']} records differ"
+        assert sorted(sc) == sorted(sg), recipe
+        snr.update({k: abs(sc[k] - sg[k]) for k in sc})
+    assert max(snr.values()) <= 1e-4, f"{recipe}: per-site SQNR differs"
+    log(f"  {recipe} on the card vs the CPU (smoke, weights that need every "
+        f"rewrite): {len(want) - 1} leaves bit-equal, bo max |diff| "
+        f"{bo_err:.3g}, stage records equal, per-site SQNR max |diff| "
+        f"{max(snr.values()):.3g} dB")
+    return cpu, card
+
+
+def check_reference(torch, dev, recipe):
+    """Smoke-size qwen2 under ``recipe``: DFQ on the card against DFQ on
+    the CPU, then the model on the card (kernels) against the CPU (plain
+    versions)."""
+    import repro_torch
+
+    model = repro_torch.build_model(repro_torch.get_config("qwen2-0.5b-smoke"))
+    cpu, card = check_dfq_on_card(torch, dev, model,
+                                  hostile_smoke_params(torch, model), recipe)
+    cfg = model.cfg
     gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen)
     out = {}
-    for name, d, p in (("cpu", "cpu", params), ("cuda", dev, params_dev)):
-        m = build_model(cfg)
+    for name, d, p in (("cpu", "cpu", cpu.params), ("cuda", dev, card.params)):
+        m = repro_torch.build_model(cfg)
         cache = m.init_cache(4, 32, device=d)
         lg, cache = m.prefill(p, toks[:, :8].to(d), cache)
         steps = [lg]
@@ -355,11 +586,48 @@ def check_reference(torch, dev):
     diff = float((out["cpu"] - out["cuda"]).abs().max())
     scale = float(out["cpu"].abs().max())
     agree = float((out["cpu"].argmax(-1) == out["cuda"].argmax(-1)).float().mean())
-    log(f"  smoke qwen2 (2 layers, f32) card vs CPU plain versions, prefill 8 "
-        f"+ 16 teacher-forced decode steps: max |logit diff| {diff:.3g} (max "
-        f"|logit| {scale:.3g}), greedy agreement {agree:.3f}")
+    log(f"  smoke qwen2 (2 layers, f32) under {recipe}, card vs CPU plain "
+        f"versions, prefill 8 + 16 teacher-forced decode steps: max |logit "
+        f"diff| {diff:.3g} (max |logit| {scale:.3g}), greedy agreement "
+        f"{agree:.3f}")
     assert all(torch.isfinite(v).all() for v in out.values())
     assert diff <= 0.05 * scale and agree >= 0.9, "card and CPU disagree"
+
+
+def serve_full_width(torch, quantize, expect_launched, expect_idle):
+    """Serve qwen2-0.5b at full width under ``serve-<quantize>-kv8``; the
+    launch counts are reset just before the run and read just after."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    config = repro_torch.ServeConfig(
+        arch="qwen2-0.5b", seed=0, device="cuda", quantize=quantize,
+        slots=8, max_len=512, prefill_chunk=32, trace=16, trace_seed=0,
+        prompt_min=32, prompt_len=256, gen_min=32, gen_len=32)
+    reset_launch_counts()
+    run = repro_torch.serve(config)
+    counts = launch_counts()
+    assert len(run.results) == 16, f"{len(run.results)} of 16 requests served"
+    for r in run.results.values():
+        assert r.status == "ok", f"request {r.rid}: {r.status} (non-finite logits)"
+        assert len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens"
+    sqnr = next(r for r in run.report if r["stage"] == "pack")["metrics"]["sqnr_db"]
+    log(f"  serve-{quantize}-kv8: 16/16 requests finished with 32 tokens and "
+        f"finite logits, {run.generated_tokens} tokens in {run.seconds:.3f} s "
+        f"= {run.tokens_per_second:.1f} tok/s (stepwise engine, "
+        f"{config.slots} slots, "
+        f"{run.stats['decode_steps']} decode steps, "
+        f"{run.stats['prefill_chunks']} prefill chunks)")
+    log("  pack stage per-site weight SQNR (dB): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sqnr.items()))
+    log(f"  kernel launches on the serve-{quantize}-kv8 path: "
+        f"{json.dumps(counts)}")
+    for name in expect_launched:
+        assert counts[name] > 0, f"{name} was never launched while serving"
+    for name in expect_idle:
+        assert counts[name] == 0, (f"{name} was launched {counts[name]} "
+                                   f"times on the serve-{quantize}-kv8 path")
+    return counts, run.tokens_per_second
 
 
 # --------------------------------------------------------------- main
@@ -377,8 +645,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    import repro_torch
-    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -398,6 +665,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     tables = {"quantize_act": check_quantize_act(torch, dev, gen),
               "qmatmul_w8a8": check_qmatmul(torch, dev, gen),
+              "qmatmul_w8a16": check_qmatmul_w8a16(torch, dev, gen),
               "fused_decode": check_fused_decode(torch, dev, gen)}
     for name, rows in tables.items():
         for r in rows:
@@ -407,47 +675,49 @@ def main() -> int:
                 f"{r['ms'] * 1e3:8.2f} us (call {r['call_ms'] * 1e3:7.2f})  "
                 f"plain {r['plain_ms'] * 1e3:9.2f} us  library {lib_ms:>6s} us"
                 f"  bound {r['bound_ms'] * 1e3:7.3f} us ({r['bound_by']})"
-                + (f"  [{r['library']}]" if "padded" in r.get("library", "")
-                   else ""))
+                + (f"  [{r['library']}]" if "library" in r else ""))
 
     log("== phase 3: small-input reference")
-    check_reference(torch, dev)
+    for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8"):
+        check_reference(torch, dev, recipe)
 
     log("== phase 4: serve qwen2-0.5b (full width) through repro_torch.serve")
-    config = repro_torch.ServeConfig(
-        arch="qwen2-0.5b", seed=0, device="cuda",
-        slots=8, max_len=512, prefill_chunk=32, trace=16, trace_seed=0,
-        prompt_min=32, prompt_len=256, gen_min=32, gen_len=32)
-    reset_launch_counts()
-    run = repro_torch.serve(config)
-    counts = launch_counts()
-    assert len(run.results) == 16, f"{len(run.results)} of 16 requests served"
-    for r in run.results.values():
-        assert r.status == "ok", f"request {r.rid}: {r.status} (non-finite logits)"
-        assert len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens"
-    log(f"  16/16 requests finished with finite logits, "
-        f"{run.generated_tokens} tokens in {run.seconds:.3f} s = "
-        f"{run.tokens_per_second:.1f} tok/s (stepwise engine, 8 slots)")
-    log(f"  kernel launches on the serving path: {json.dumps(counts)}")
-    for name in tables:
-        assert counts.get(name, 0) > 0, f"{name} was never launched while serving"
+    # each recipe twice, alternating, so that the spread of tok/s within
+    # one call shows beside the gap between the recipes
+    paths = (("w8a16", ("qmatmul_w8a16", "fused_decode"),
+              ("quantize_act", "qmatmul_w8a8")),
+             ("w8a8", ("quantize_act", "qmatmul_w8a8", "fused_decode"),
+              ("qmatmul_w8a16",)))
+    runs, speeds = {}, []
+    for _ in range(2):
+        for quantize, launched, idle in paths:
+            counts, tok_s = serve_full_width(torch, quantize, launched, idle)
+            runs.setdefault(quantize, counts)
+            speeds.append(f"{quantize} {tok_s:.1f}")
+    log("  tok/s in run order: " + ", ".join(speeds))
 
-    main_shape = {"quantize_act": "x[8,896] bfloat16",
-                  "qmatmul_w8a8": "M=8 K=896 N=4864 -> bf16",
-                  "fused_decode": "B=8 Hq=14 Hkv=2 hd=64 S=512 bfloat16"}
+    # each kernel's launches come from the run of the path it serves; the
+    # fused decode from the default (w8a16) path
+    main = {"quantize_act": ("x[8,896] bfloat16", "w8a8"),
+            "qmatmul_w8a8": ("M=8 K=896 N=4864 -> bf16", "w8a8"),
+            "qmatmul_w8a16": ("M=8 K=896 N=4864 bfloat16", "w8a16"),
+            "fused_decode": ("B=8 Hq=14 Hkv=2 hd=64 S=512 bfloat16", "w8a16")}
     sources = {"quantize_act": ("src/repro_torch/csrc/quantize_act.cu",
                                 "src/repro/kernels/quantize_act/kernel.py:27"),
                "qmatmul_w8a8": ("src/repro_torch/csrc/qmatmul_w8a8.cu",
                                 "src/repro/kernels/qmatmul_w8a8/kernel.py:72"),
+               "qmatmul_w8a16": ("src/repro_torch/csrc/qmatmul_w8a16.cu",
+                                 "src/repro/kernels/qmatmul_w8a16/kernel.py:64"),
                "fused_decode": ("src/repro_torch/csrc/fused_decode.cu",
                                 "src/repro/kernels/fused_decode/kernel.py:143")}
     kernels = []
     for name, rows in tables.items():
-        row = next(r for r in rows if r["shape"] == main_shape[name])
+        shape, path = main[name]
+        row = next(r for r in rows if r["shape"] == shape)
         kernels.append({"name": name, "route": "cuda",
                         "source": sources[name][0],
                         "replaces": sources[name][1],
-                        "launches": counts[name], **row})
+                        "launches": runs[path][name], **row})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ Padding is policy here too: ``_pad_to`` is the one helper, and every impl
 declares its pad convention — ``"zero"`` (GEMMs: zero rows/cols contribute
 exact zeros) or ``"zero-scale"`` (attention: padded positions carry scale 0,
 the "invalid" marker). Two impls of one op declaring different conventions
-is an error at import time. Both CUDA kernels zero-fill their own tiles, so
+is an error at import time. The CUDA kernels zero-fill their own tiles, so
 no caller reads the declared convention yet; it records the contract the
 plain tiers and any later padded kernel keep to.
 """

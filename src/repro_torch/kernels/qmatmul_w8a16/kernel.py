@@ -1,0 +1,76 @@
+"""Launch wrapper of the CUDA W8A16 GEMM (``csrc/qmatmul_w8a16.cu``).
+
+Replaces ``qmatmul_w8a16_pallas`` (``repro/kernels/qmatmul_w8a16/kernel.py``).
+The weight must be stored K-major, as the port's ``QTensor`` keeps every
+int8 weight: ``w_q`` is the [K, N] view of an [N, K] contiguous buffer. The
+scale is read through a pointer and a stride (0 for a per-tensor ``[1]``
+scale) and the bias through a nullable pointer, each float32 or bfloat16 as
+the caller holds it, so a call allocates nothing but its output.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import _build
+from ..dispatch import count_launch
+
+_ARGS = ((ctypes.c_void_p,) * 2 + (ctypes.c_void_p,) + (ctypes.c_int,) * 2
+         + (ctypes.c_void_p,) + (ctypes.c_int,) + (ctypes.c_void_p,)
+         + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def qmatmul_w8a16_cuda(a: torch.Tensor, w_q: torch.Tensor,
+                       w_scale: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a [M, K] float32 | bfloat16, w_q [K, N] int8 (K-major), w_scale [N]
+    or [1], bias [N] or None (float32 | bfloat16), all on the card → [M, N]
+    in a's dtype."""
+    dev = a.device
+    named = {"a": a, "w_q": w_q, "w_scale": w_scale}
+    if bias is not None:
+        named["bias"] = bias
+    for name, t in named.items():
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"qmatmul_w8a16_cuda: {name} is on {t.device}, "
+                             f"expected a CUDA device ({dev})")
+    if a.dtype not in _FLOATS or w_q.dtype != torch.int8 or a.ndim != 2 \
+            or w_q.ndim != 2 or a.shape[1] != w_q.shape[0]:
+        raise ValueError(f"qmatmul_w8a16_cuda: want float32/bfloat16 a "
+                         f"[M, K] and int8 w [K, N], got {tuple(a.shape)} "
+                         f"{a.dtype} and {tuple(w_q.shape)} {w_q.dtype}")
+    M, K = a.shape
+    N = w_q.shape[1]
+    wt = w_q.t()
+    if not wt.is_contiguous():
+        raise ValueError("qmatmul_w8a16_cuda: w_q must be the [K, N] view of "
+                         "a contiguous [N, K] buffer (QTensor's K-major "
+                         "layout)")
+    if w_scale.dtype not in _FLOATS or w_scale.ndim != 1 \
+            or w_scale.shape[0] not in (1, N) or not w_scale.is_contiguous():
+        raise ValueError(f"qmatmul_w8a16_cuda: w_scale must be contiguous "
+                         f"float32/bfloat16 [{N}] or [1], got "
+                         f"{tuple(w_scale.shape)} {w_scale.dtype}")
+    if bias is not None and (bias.dtype not in _FLOATS
+                             or tuple(bias.shape) != (N,)
+                             or not bias.is_contiguous()):
+        raise ValueError(f"qmatmul_w8a16_cuda: bias must be contiguous "
+                         f"float32/bfloat16 [{N}], got {tuple(bias.shape)} "
+                         f"{bias.dtype}")
+    a = a.contiguous()
+    vec = int(K % 16 == 0 and a.data_ptr() % 16 == 0
+              and wt.data_ptr() % 16 == 0)
+    out = torch.empty((M, N), dtype=a.dtype, device=dev)
+    _build.call(
+        "repro_qmatmul_w8a16", _ARGS, a.data_ptr(), wt.data_ptr(),
+        w_scale.data_ptr(), int(w_scale.shape[0] == N),
+        int(w_scale.dtype == torch.bfloat16),
+        None if bias is None else bias.data_ptr(),
+        int(bias is not None and bias.dtype == torch.bfloat16),
+        out.data_ptr(), M, N, K, int(a.dtype == torch.bfloat16), vec,
+        torch.cuda.current_stream(dev).cuda_stream)
+    count_launch("qmatmul_w8a16")
+    return out

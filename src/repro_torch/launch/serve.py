@@ -1,19 +1,20 @@
-"""Serving launcher: build a model, pack it to int8 and serve it with the
-continuous-batching engine — on the card unless told otherwise.
+"""Serving launcher: build a model, quantize it data-free and serve it with
+the continuous-batching engine — on the card unless told otherwise.
 
-    python -m repro_torch.launch.serve --arch qwen2-0.5b --quantize w8a8 \
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --quantize w8a16 \
         --kv-bits 8 --trace 16 --slots 8 --prefill-chunk 32
 
     import repro_torch
     run = repro_torch.serve(repro_torch.ServeConfig(arch="qwen2-0.5b",
                                                     trace=16))
 
-The weights are random (seeded) and packed by the ``pack`` stage alone
-(``quantize_for_serving``, per-tensor scales): the DFQ rewrites the JAX
-package runs first (norm folding, CLE, bias absorption) are a later slice of
-the port. ``serve`` returns a ``ServeRun`` with the results, the engine's
-stats and the wall time of the serving loop (the JAX launcher returns the
-results map alone).
+The weights are random (seeded). As in the JAX launcher, they go through
+the ``serve-<quantize>-kv8`` recipe (``repro_torch.quantize``): norm
+folding, cross-layer equalization, bias absorption, the int8 pack
+(per-tensor scales) and the int8 KV cache. ``serve`` returns a ``ServeRun``
+with the results, the engine's stats, the pipeline's stage report and the
+wall time of the serving loop (the JAX launcher returns the results map
+alone).
 """
 from __future__ import annotations
 
@@ -26,11 +27,11 @@ import torch
 from ..configs import get_config
 from ..device import resolve_device
 from ..models import build_model
-from ..quantized import quantize_for_serving, serving_summary
+from ..pipeline import quantize
 from ..serving import ServingEngine, required_cache_len, synthetic_trace
 from .serve_config import (  # noqa: F401
     KV_BITS,
-    QUANTIZE,
+    QUANTIZE_CHOICES,
     ServeConfig,
     ServeConfigError,
     build_parser,
@@ -43,6 +44,7 @@ class ServeRun:
     stats: dict              # the engine's counters
     seconds: float           # wall time of the serving loop (synchronized)
     generated_tokens: int
+    report: list             # the quantization pipeline's stage records
 
     @property
     def tokens_per_second(self) -> float:
@@ -79,17 +81,22 @@ def _report_profile(prof, wall_s: float, top: int = 12) -> None:
 
 
 def serve(config: ServeConfig) -> ServeRun:
-    """Build, pack and serve per ``config``; prints a short report."""
+    """Build, quantize and serve per ``config``; prints a short report."""
     config = dataclasses.replace(config).validate()
     device = resolve_device(config.device)
     cfg = get_config(config.arch, smoke=config.smoke)
     model = build_model(cfg)
     params = model.init(config.seed, device=device)
-    params = quantize_for_serving(params, model.weight_sites(), mode=QUANTIZE)
-    s = serving_summary(params)
-    print(f"packed {cfg.name} to int8 w8a8 (pack stage only: no norm "
-          f"folding, CLE or bias absorption): {s['int8_bytes'] / 1e6:.1f} MB "
-          f"vs fp32 {s['fp32_bytes'] / 1e6:.1f} MB")
+    qm = quantize(model, params, recipe=f"serve-{config.quantize}-kv8",
+                  device=device)
+    params = qm.params
+    print(f"quantized {cfg.name} with recipe {qm.recipe.name!r} on {device}:")
+    for rec in qm.report:
+        notes = {k: v for k, v in rec["metrics"].items() if k != "sqnr_db"}
+        print(f"  {rec['stage']}: {notes} ({rec['seconds'] * 1e3:.1f} ms)")
+    sqnr = qm.site_sqnr_db()
+    print("  per-site weight SQNR (dB): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sqnr.items()))
 
     requests = synthetic_trace(
         config.trace_seed, config.trace, vocab_size=cfg.vocab_size,
@@ -100,7 +107,7 @@ def serve(config: ServeConfig) -> ServeRun:
     engine = ServingEngine(model, params, cfg, num_slots=config.slots,
                            max_len=config.max_len or need,
                            prefill_chunk=config.prefill_chunk,
-                           kv_bits=KV_BITS, device=device)
+                           kv_bits=qm.kv_bits, device=device)
     print(f"kv cache: int8 ({engine.pool.bytes_per_slot() / 1e3:.1f} kB/slot, "
           f"{config.slots} slots x {engine.max_len} positions) on {device}")
     if device.type == "cuda":
@@ -115,7 +122,8 @@ def serve(config: ServeConfig) -> ServeRun:
     if config.profile:
         _report_profile(prof, dt)
     run = ServeRun(results=results, stats=dict(engine.stats), seconds=dt,
-                   generated_tokens=engine.stats["generated_tokens"])
+                   generated_tokens=engine.stats["generated_tokens"],
+                   report=qm.report)
     print(f"served {len(results)} requests / {run.generated_tokens} generated "
           f"tokens in {dt * 1e3:.1f} ms ({run.tokens_per_second:.1f} tok/s, "
           f"stepwise path)")

@@ -2,9 +2,10 @@
 (through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. Only
 the knobs of the port's serving path so far.
 
-The port serves one layout, W8A8 weights with an int8 KV cache, so that is a
-pair of constants here, not fields: the CLI still takes ``--quantize w8a8
---kv-bits 8`` as the JAX launcher does, and refuses any other value."""
+``quantize`` picks the weight scheme (``w8a16``, the JAX launcher's default,
+or ``w8a8``); the port serves an int8 KV cache only, so the KV precision is
+a constant here, not a field: the CLI still takes ``--kv-bits 8`` as the
+JAX launcher does, and refuses any other value."""
 from __future__ import annotations
 
 import argparse
@@ -12,8 +13,9 @@ import dataclasses
 from typing import Optional
 
 
-#: the one serving layout ported so far
-QUANTIZE = "w8a8"
+#: the weight schemes the port serves (the JAX launcher also has "none")
+QUANTIZE_CHOICES = ("w8a16", "w8a8")
+#: the one KV-cache precision ported so far
 KV_BITS = 8
 
 
@@ -30,6 +32,10 @@ class ServeConfig:
     arch: str = _f("qwen2-0.5b", "architecture id (see configs.registry)")
     smoke: bool = _f(False, "use the arch's smoke-sized config", switch=True)
     seed: int = _f(0, "seed of the random weights", type=int)
+    quantize: str = _f("w8a16", "weight/activation scheme: int8 weights "
+                       "with fp activations (w8a16) or with dynamic int8 "
+                       "activations (w8a8); serves the serve-<scheme>-kv8 "
+                       "recipe", choices=list(QUANTIZE_CHOICES))
     device: str = _f("cuda", "cuda (default) or cpu (the plain PyTorch "
                      "versions of the kernels)")
     slots: int = _f(4, "engine cache-pool size (decode batch width)", type=int)
@@ -53,6 +59,9 @@ class ServeConfig:
                      "gen_len", "prompt_min", "gen_min"):
             if getattr(self, name) < 1:
                 raise ServeConfigError(f"{name} must be >= 1")
+        if self.quantize not in QUANTIZE_CHOICES:
+            raise ServeConfigError(f"quantize must be one of "
+                                   f"{QUANTIZE_CHOICES}, got {self.quantize!r}")
         if self.prompt_min > self.prompt_len or self.gen_min > self.gen_len:
             raise ServeConfigError("--prompt-min/--gen-min exceed "
                                    "--prompt-len/--gen-len")
@@ -68,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     """The ``python -m repro_torch.launch.serve`` flags, derived from the
     ServeConfig fields."""
     ap = argparse.ArgumentParser(
-        description="pack a model to int8 and serve it with the "
+        description="quantize a model data-free (norm folding, CLE, bias "
+                    "absorption, int8 pack) and serve it with the "
                     "continuous-batching engine on the card")
     for f in dataclasses.fields(ServeConfig):
         md = dict(f.metadata)
@@ -80,9 +90,6 @@ def build_parser() -> argparse.ArgumentParser:
         else:
             ap.add_argument(flag, dest=f.name, default=f.default, help=help_,
                             **md)
-    ap.add_argument("--quantize", default=QUANTIZE, choices=[QUANTIZE],
-                    help="weight/activation scheme: int8 weights, dynamic "
-                         "int8 activations (the one ported)")
     ap.add_argument("--kv-bits", default=KV_BITS, type=int, choices=[KV_BITS],
                     help="KV-cache precision (the int8 cache is the one "
                          "ported)")

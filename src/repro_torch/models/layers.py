@@ -5,11 +5,12 @@ linear weights are ``[d_in, d_out]`` applied as ``y = x @ w + b``, attention
 projections are flat ``[D, n_heads*head_dim]`` (head-major), and a
 ``QTensor`` weight routes through the int8 kernels.
 
-Attention here is the serving path only: a per-slot int8 KV cache, the
-single-token decode through the fused decode kernel (with the quantize-out
-epilogue feeding a W8A8 ``wo``), and the chunked prefill (append-quantize,
-then plain softmax attention over the dequantized cache). The cache tensors
-are updated IN PLACE; the JAX layers return updated copies.
+Attention is the serving path — a per-slot int8 KV cache, the single-token
+decode through the fused decode kernel (with the quantize-out epilogue
+feeding a W8A8 ``wo``), and the chunked prefill (append-quantize, then
+plain softmax attention over the dequantized cache) — plus the cache-free
+causal attention of the eval forward. The cache tensors are updated IN
+PLACE; the JAX layers return updated copies.
 """
 from __future__ import annotations
 
@@ -140,6 +141,42 @@ def attention_scores_softmax(q, k, v, mask):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def _project_qkv(p: dict, x: torch.Tensor, dims: AttnDims, positions):
+    """q [B, T, Hq, hd], k and v [B, T, Hkv, hd], q and k roped."""
+    B, T, _ = x.shape
+    if _all_w8a8(p["wq"], p["wk"], p["wv"]):
+        q, k, v = _shared_linears(
+            x, [(p["wq"], p.get("bq")), (p["wk"], p.get("bk")),
+                (p["wv"], p.get("bv"))])
+    else:
+        q = linear(x, p["wq"], p.get("bq"))
+        k = linear(x, p["wk"], p.get("bk"))
+        v = linear(x, p["wv"], p.get("bv"))
+    q = q.reshape(B, T, dims.n_q, dims.head_dim)
+    k = k.reshape(B, T, dims.n_kv, dims.head_dim)
+    v = v.reshape(B, T, dims.n_kv, dims.head_dim)
+    if dims.rope:
+        cos, sin = rope_angles(positions, dims.head_dim, dims.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def causal_attention_block(p: dict, x: torch.Tensor,
+                           dims: AttnDims) -> torch.Tensor:
+    """The cache-free causal attention of the eval forward (``LMModel.apply``):
+    fp keys and values, plain softmax."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)
+    q, k, v = _project_qkv(p, x, dims, positions)
+    group = dims.n_q // dims.n_kv
+    mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    attn = attention_scores_softmax(q, _repeat_kv(k, group),
+                                    _repeat_kv(v, group), mask)
+    return linear(attn.reshape(B, T, dims.n_q * dims.head_dim), p["wo"],
+                  p.get("bo"))
+
+
 def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
                     positions: torch.Tensor, cache: dict,
                     slots: SlotWrite) -> torch.Tensor:
@@ -151,21 +188,7 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
     """
     B, T, D = x.shape
     nq, nkv, hd = dims.n_q, dims.n_kv, dims.head_dim
-    if _all_w8a8(p["wq"], p["wk"], p["wv"]):
-        q, k, v = _shared_linears(
-            x, [(p["wq"], p.get("bq")), (p["wk"], p.get("bk")),
-                (p["wv"], p.get("bv"))])
-    else:
-        q = linear(x, p["wq"], p.get("bq"))
-        k = linear(x, p["wk"], p.get("bk"))
-        v = linear(x, p["wv"], p.get("bv"))
-    q = q.reshape(B, T, nq, hd)
-    k = k.reshape(B, T, nkv, hd)
-    v = v.reshape(B, T, nkv, hd)
-    if dims.rope:
-        cos, sin = rope_angles(positions, hd, dims.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    q, k, v = _project_qkv(p, x, dims, positions)
 
     if T == 1:
         # decode: ONE launch from roped q/k/v to the attention output; the

@@ -6,7 +6,8 @@ JAX package's layout — nested dicts with every block leaf stacked ``[L, ...]``
 a Python loop over per-layer views of the stacked leaves. The KV cache is
 updated IN PLACE (the JAX model returns updated copies under donation);
 ``prefill`` / ``decode_step`` still return ``(logits, cache)`` with fresh
-``kpos`` / ``pos`` bookkeeping tensors.
+``kpos`` / ``pos`` bookkeeping tensors. ``dfq_plan`` tells the quantization
+pipeline where the paper's rewrites apply.
 """
 from __future__ import annotations
 
@@ -14,28 +15,29 @@ from typing import Optional, Union
 
 import torch
 
+from ..core.graph import (
+    DensePairOp,
+    DFQPlan,
+    NormFoldOp,
+    QKPairOp,
+    VBiasAbsorbOp,
+    VOPairOp,
+    WeightSite,
+)
 from ..device import resolve_device
-from ..quantized.qtensor import QTensor
+from ..quantized.qtensor import map_leaves
 from .config import ModelConfig
 from .layers import (
     AttnDims,
     apply_norm,
     attention_block,
+    causal_attention_block,
     mlp_block,
     slot_write,
 )
 
 #: the cache's int8 payload leaves, each [L, B, S, ...]
 KV_KEYS = ("k", "v", "k_scale", "v_scale")
-
-
-def _map_leaves(fn, tree):
-    """Apply ``fn`` to every tensor of a params tree (QTensor: q and scale)."""
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    if isinstance(tree, QTensor):
-        return QTensor(fn(tree.q), fn(tree.scale), tree.mode)
-    return fn(tree)
 
 
 def _layer(tree, i: int):
@@ -108,12 +110,54 @@ class LMModel:
             params["lm_head"] = normal((D, cfg.vocab_size), D ** -0.5)
         return params
 
-    def weight_sites(self) -> tuple:
-        """Paths of every weight the serving pack quantizes — the dense sites
-        of the JAX ``dfq_plan`` (its DFQ ops are a later slice)."""
-        sites = [("blocks", "attn", w) for w in ("wq", "wk", "wv", "wo")]
-        sites += [("blocks", "mlp", w) for w in ("wu", "wd", "wg")]
-        return tuple(sites)
+    def dfq_plan(self) -> DFQPlan:
+        """Where DFQ's rewrites apply in this model's params, and its weight
+        sites — the dense branch of the JAX ``LMModel.dfq_plan``, op for op
+        and site for site."""
+        cfg = self.cfg
+
+        def P(*rest):
+            return ("blocks",) + rest
+
+        attn_bias = ((P("attn", "bq"), P("attn", "bk"), P("attn", "bv"))
+                     if cfg.qkv_bias else (None, None, None))
+        ops: list = [
+            NormFoldOp(norm_w=P("attn_norm", "w"),
+                       consumers=[P("attn", "wq"), P("attn", "wk"),
+                                  P("attn", "wv")],
+                       consumer_biases=list(attn_bias)),
+            NormFoldOp(norm_w=P("mlp_norm", "w"),
+                       consumers=[P("mlp", "wg"), P("mlp", "wu")],
+                       consumer_biases=[None, None]),
+            VOPairOp(wv=P("attn", "wv"), wo=P("attn", "wo"),
+                     bv=P("attn", "bv") if cfg.qkv_bias else None,
+                     n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                     head_dim=cfg.head_dim),
+        ]
+        if not cfg.qk_norm:
+            ops.append(QKPairOp(
+                wq=P("attn", "wq"), wk=P("attn", "wk"),
+                bq=P("attn", "bq") if cfg.qkv_bias else None,
+                bk=P("attn", "bk") if cfg.qkv_bias else None,
+                n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                rope=cfg.rope))
+        ops.append(DensePairOp(
+            w1=P("mlp", "wu"), w2=P("mlp", "wd"),
+            exact=cfg.act.endswith("_glu") or cfg.act == "relu"))
+        if cfg.qkv_bias:
+            ops.append(VBiasAbsorbOp(
+                bv=P("attn", "bv"), wo=P("attn", "wo"), bo=P("attn", "bo"),
+                n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim))
+        sites = (
+            WeightSite("wq", P("attn", "wq"), P("attn", "bq"), "dense", "attn_in"),
+            WeightSite("wk", P("attn", "wk"), P("attn", "bk"), "dense", "attn_in"),
+            WeightSite("wv", P("attn", "wv"), P("attn", "bv"), "dense", "attn_in"),
+            WeightSite("wo", P("attn", "wo"), P("attn", "bo"), "dense", "o_in"),
+            WeightSite("wu", P("mlp", "wu"), P("mlp", "bu"), "dense", "mlp_in"),
+            WeightSite("wd", P("mlp", "wd"), P("mlp", "bd"), "dense", "down_in"),
+            WeightSite("wg", P("mlp", "wg"), P("mlp", "bg"), "dense", "mlp_in"),
+        )
+        return DFQPlan(tuple(ops), sites, cfg.name)
 
     # ------------------------------------------------------------- forward
     def _attn_dims(self) -> AttnDims:
@@ -130,7 +174,7 @@ class LMModel:
         if self._prepared is not None and self._prepared[0] is params:
             return self._prepared[1], self._prepared[2]
         compute = self.cfg.compute_dtype
-        p = _map_leaves(
+        p = map_leaves(
             lambda a: (a.to(compute) if a.dtype == torch.float32
                        and compute != torch.float32 else a), params)
         layers = [_layer(p["blocks"], i) for i in range(self.cfg.n_layers)]
@@ -144,6 +188,20 @@ class LMModel:
                                 positions=positions, cache=cache, slots=slots)
         h = apply_norm(x, p["mlp_norm"], cfg.norm)
         return x + mlp_block(p["mlp"], h, cfg.act)
+
+    def apply(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """The eval forward: causal, no cache, fp keys and values. tokens
+        [B, T] → logits [B, T, V] (the JAX ``apply`` also returns aux
+        losses and statistics, which this dense model does not have)."""
+        cfg = self.cfg
+        p, layers = self.prepare(params)
+        x = self._embed(p, tokens)
+        for lp in layers:
+            h = apply_norm(x, lp["attn_norm"], cfg.norm)
+            x = x + causal_attention_block(lp["attn"], h, self._attn_dims())
+            h = apply_norm(x, lp["mlp_norm"], cfg.norm)
+            x = x + mlp_block(lp["mlp"], h, cfg.act)
+        return self._unembed(p, apply_norm(x, p["final_norm"], cfg.norm))
 
     def _embed(self, params, tokens):
         return params["embed"][tokens].to(self.cfg.compute_dtype)

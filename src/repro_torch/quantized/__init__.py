@@ -2,12 +2,13 @@
 from .ptq import quantize_for_serving, serving_summary
 from .qtensor import (
     QTensor,
+    map_leaves,
     qtensor_matmul,
     qtensor_matmul_prequant,
     quantize_input,
     quantize_param,
 )
 
-__all__ = ["QTensor", "qtensor_matmul", "qtensor_matmul_prequant",
+__all__ = ["QTensor", "map_leaves", "qtensor_matmul", "qtensor_matmul_prequant",
            "quantize_for_serving", "quantize_input", "quantize_param",
            "serving_summary"]

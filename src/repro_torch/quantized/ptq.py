@@ -1,42 +1,28 @@
 """Post-training quantization → serving parameters (the ``pack`` stage).
 
-``quantize_for_serving`` replaces every weight site's fp weight with an int8
-``QTensor`` (per-tensor scale by default — the paper's hardware-friendly
-setting). The function-preserving DFQ rewrites that the JAX package runs
-before it (norm folding, CLE, bias absorption) are a later slice of the
-port: weights packed here went through none of them.
+``quantize_for_serving`` is DFQ's deployment output: after the
+function-preserving rewrites (norm folding, CLE, bias absorption — the
+pipeline's earlier stages), every ``WeightSite``'s fp weight is replaced by
+an int8 ``QTensor`` (per-tensor scale by default — the paper's
+hardware-friendly setting); the model then serves through the int8 kernels
+with no code change.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Mapping
 
+from ..core.graph import DFQPlan
+from ..core.tree import get_path, set_path
 from .qtensor import QTensor, quantize_param
 
 
-def get_path(tree: Mapping, path: Sequence[str]):
-    for key in path:
-        tree = tree[key]
-    return tree
-
-
-def set_path(tree: Mapping, path: Sequence[str], value) -> dict:
-    """A copy of ``tree`` with ``value`` at ``path`` (dicts copied along the
-    path, leaves shared)."""
-    out = dict(tree)
-    if len(path) == 1:
-        out[path[0]] = value
-    else:
-        out[path[0]] = set_path(tree[path[0]], path[1:], value)
-    return out
-
-
-def quantize_for_serving(params: Mapping, sites: Sequence[Sequence[str]], *,
-                         mode: str = "w8a16", per_channel: bool = False) -> dict:
-    """Replace the weight at each path in ``sites`` (``LMModel.weight_sites``)
-    with an int8 ``QTensor``."""
-    for path in sites:
-        params = set_path(params, path, quantize_param(
-            get_path(params, path), per_channel=per_channel, mode=mode))
+def quantize_for_serving(params: Mapping, plan: DFQPlan, *,
+                         mode: str = "w8a16",
+                         per_channel: bool = False) -> dict:
+    """Replace each site's weight with an int8 ``QTensor``."""
+    for site in plan.sites:
+        params = set_path(params, site.w, quantize_param(
+            get_path(params, site.w), per_channel=per_channel, mode=mode))
     return params
 
 

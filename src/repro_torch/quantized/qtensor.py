@@ -5,11 +5,11 @@ activation through a ``QTensor`` weight by its mode:
 
     y = x @ W          (torch.Tensor)
     y = w8a8(q(x), W)  (QTensor, mode="w8a8": dynamic act quant + int8 GEMM)
-    y = w8a16(x, W)    (QTensor, mode="w8a16": a later slice of the port)
+    y = w8a16(x, W)    (QTensor, mode="w8a16": int8 weight, fp activation)
 
 Layout: ``q`` is the public [..., K, N] view, as in the JAX package, but its
 storage is K-major — a contiguous [..., N, K] buffer, transposed — which is
-the B operand layout the W8A8 kernel reads. The constructor normalizes any
+the B operand layout both GEMM kernels read. The constructor normalizes any
 other layout once, so no GEMM call ever copies a weight.
 """
 from __future__ import annotations
@@ -40,6 +40,20 @@ class QTensor:
         """Slice the stacked leading (layer) axis."""
         return QTensor(self.q[i], self.scale[i], self.mode)
 
+    def dequant(self) -> torch.Tensor:
+        """The float32 image ``q · scale`` (the pack stage's SQNR input)."""
+        return self.q.to(torch.float32) * self.scale.to(torch.float32)[..., None, :]
+
+
+def map_leaves(fn, tree):
+    """Apply ``fn`` to every tensor of a params tree (a QTensor's q and
+    scale; the payload's K-major storage is kept)."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(fn(tree.q), fn(tree.scale), tree.mode)
+    return fn(tree)
+
 
 def quantize_param(w: torch.Tensor, *, per_channel: bool = True,
                    mode: str = "w8a16") -> QTensor:
@@ -68,14 +82,19 @@ def quantize_input(x: torch.Tensor):
 def qtensor_matmul(x: torch.Tensor, w: QTensor,
                    bias: Optional[torch.Tensor]) -> torch.Tensor:
     """Route an activation [..., K] through a quantized weight."""
+    from ..kernels.qmatmul_w8a16.ops import qmatmul_w8a16
+
     if w.q.ndim != 2:
         raise ValueError("stacked QTensors must be sliced per layer before use")
-    if w.mode != "w8a8":
-        raise NotImplementedError(
-            f"QTensor mode {w.mode!r}: the port serves W8A8 so far; the "
-            f"W8A16 GEMM (qmatmul_w8a16) is a later slice of the port")
-    a_q, a_s, lead = quantize_input(x)
-    return qtensor_matmul_prequant(a_q, a_s, w, bias, lead, out_dtype=x.dtype)
+    if w.mode == "w8a8":
+        a_q, a_s, lead = quantize_input(x)
+        return qtensor_matmul_prequant(a_q, a_s, w, bias, lead,
+                                       out_dtype=x.dtype)
+    if w.mode != "w8a16":
+        raise ValueError(f"QTensor mode {w.mode!r}: w8a16 or w8a8")
+    y = qmatmul_w8a16(x.reshape(-1, x.shape[-1]), w.q, w.scale, bias,
+                      out_dtype=x.dtype)
+    return y.reshape(*x.shape[:-1], w.q.shape[-1])
 
 
 def qtensor_matmul_prequant(a_q: torch.Tensor, a_s: torch.Tensor, w: QTensor,

@@ -1,14 +1,16 @@
 """The port's stepwise serving engine against the JAX ``ServingEngine``.
 
 Both engines serve the same ``synthetic_trace`` over
-``repro.quantize("qwen2-0.5b-smoke", recipe="serve-w8a8-kv8")`` weights
-(carried across through numpy) with the stepwise path (``fast=False``) and
-an int8 KV pool. Per-request tokens, admission/finish ticks and the stats
-counters must be identical — against the JAX ``ref`` tier (the same blocked
-online softmax the port's plain version runs, selected only through
-``monkeypatch.setenv``) and against the JAX default CPU tier (``xla``, plain
-softmax; identical at this trace seed — the logits agree within atol 1e-5,
-test_torch_model.py).
+``repro.quantize("qwen2-0.5b-smoke", recipe=r)`` weights (carried across
+through numpy), for r in ``serve-w8a8-kv8`` and ``serve-w8a16-kv8``, with
+the stepwise path (``fast=False``) and an int8 KV pool. Per-request
+tokens, admission/finish ticks and the stats counters must be identical —
+against the JAX ``ref`` tier (the same blocked online softmax the port's
+plain version runs, selected only through ``monkeypatch.setenv``) and
+against the JAX default CPU tier (``xla``, plain softmax; identical at
+this trace seed — the logits agree within atol 1e-5, test_torch_model.py,
+measured max 4.5e-7 under serve-w8a16-kv8, where every projection is a
+float32 product summed in another order than XLA's).
 """
 import dataclasses
 
@@ -50,9 +52,9 @@ def _numpy(tree):
     return np.asarray(tree)
 
 
-@pytest.fixture(scope="module")
-def served():
-    qm = repro.quantize(ARCH, recipe="serve-w8a8-kv8")
+@pytest.fixture(scope="module", params=["serve-w8a8-kv8", "serve-w8a16-kv8"])
+def served(request):
+    qm = repro.quantize(ARCH, recipe=request.param)
     cfg = get_config(ARCH)
     model = build_model(cfg)
     params = from_jax_numpy(_numpy(qm.params), cfg, device="cpu")
@@ -168,7 +170,12 @@ def test_serve_entry_point_on_cpu(capsys):
     assert run.generated_tokens == sum(len(r.tokens)
                                        for r in run.results.values())
     out = capsys.readouterr().out
-    assert "pack stage only" in out
+    assert "with recipe 'serve-w8a16-kv8'" in out     # the default scheme
+    for stage in ("fold_norm", "cle", "bias_absorb", "pack", "kv_cache"):
+        assert f"  {stage}: " in out
+    assert "per-site weight SQNR (dB): wq" in out
+    assert [r["stage"] for r in run.report] == [
+        "fold_norm", "cle", "bias_absorb", "pack", "kv_cache"]
     assert "profile: the profiler recorded no device time" in out  # CPU
 
 
@@ -182,5 +189,14 @@ def test_serve_parser_is_derived_from_the_config():
     assert (cfg.smoke, cfg.device, cfg.trace, cfg.slots, cfg.profile) == \
            (True, "cpu", 5, 8, True)
     assert ServeConfig.from_args(build_parser().parse_args([])) == ServeConfig()
+    assert ServeConfig().quantize == "w8a16"
+    ns = build_parser().parse_args(["--quantize", "w8a8", "--kv-bits", "8"])
+    assert ServeConfig.from_args(ns).quantize == "w8a8"
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--quantize", "none"])
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--kv-bits", "16"])
     with pytest.raises(repro_torch.ServeConfigError):
         ServeConfig(slots=0).validate()
+    with pytest.raises(repro_torch.ServeConfigError, match="quantize"):
+        ServeConfig(quantize="w4a16").validate()

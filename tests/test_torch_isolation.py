@@ -37,7 +37,8 @@ def test_no_jax_or_repro_import(path):
 
 def test_port_has_sources_for_its_kernels():
     csrc = {p.stem for p in (PORT / "csrc").glob("*.cu")}
-    assert csrc == {"quantize_act", "qmatmul_w8a8", "fused_decode"}
+    assert csrc == {"quantize_act", "qmatmul_w8a8", "qmatmul_w8a16",
+                    "fused_decode"}
 
 
 def _run(code: str) -> str:
@@ -56,6 +57,7 @@ def test_import_leaves_jax_out_and_torch_state_alone():
         "          torch.are_deterministic_algorithms_enabled())\n"
         "import repro_torch, repro_torch.serving, repro_torch.kernels\n"
         "import repro_torch.launch.serve, repro_torch.weights\n"
+        "import repro_torch.core, repro_torch.pipeline\n"
         "after = (torch.get_default_dtype(), torch.get_num_threads(),\n"
         "         torch.are_deterministic_algorithms_enabled())\n"
         "print(before == after, 'jax' in sys.modules, 'repro' in sys.modules)")

@@ -11,6 +11,13 @@ its ``ref`` tier is called, as the JAX package's own tests do. Tolerances:
     1 ulp (the epilogue is the same three float32 operations in the same
     order; only the accumulator's route differs: int32 in JAX, float64 —
     exact here — in the port).
+  * qmatmul_w8a16 — not bit-equal: both dequantize the weight in float32
+    (bit-equal) and take the float32 product ``a @ w``, but XLA's and
+    PyTorch's CPU products sum in different orders. Float32 output within
+    ``K · 2⁻²³ · (|a| @ |w_deq|)`` (two sums of K products, each within
+    K/2 · 2⁻²³ of the exact one); bfloat16 output within one bf16 ulp of
+    the JAX value. The W8A8 GEMMs were exact in int32: this is the first
+    GEMM on the serving path without bit-parity.
   * fused_decode — output within rtol 1e-5 / atol 1e-6 (float32 exp and
     einsum summation order differ between XLA and PyTorch), appended cache
     leaves bit-equal, quantize-out int8 off by at most 1 and only where the
@@ -27,6 +34,7 @@ from repro.kernels.fused_decode.ops import fused_decode as jax_fused_decode
 from repro.kernels.kv_attention.ops import append_quantize as jax_append
 from repro.kernels.kv_attention.ops import quantize_kv as jax_quantize_kv
 from repro.kernels.qmatmul_w8a8.ref import qmatmul_w8a8_ref as jax_qmm_ref
+from repro.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref as jax_w16_ref
 from repro.kernels.quantize_act.ref import quantize_act_ref as jax_qact_ref
 from repro.quantized.qtensor import quantize_param as jax_quantize_param
 
@@ -45,6 +53,8 @@ from repro_torch.kernels.qmatmul_w8a8 import (
     qmatmul_w8a8_ref,
 )
 from repro_torch.kernels.qmatmul_w8a8.kernel import qmatmul_w8a8_cuda
+from repro_torch.kernels.qmatmul_w8a16 import qmatmul_w8a16, qmatmul_w8a16_ref
+from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_cuda
 from repro_torch.kernels.quantize_act import quantize_act, quantize_act_ref
 from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
 from repro_torch.quantized.qtensor import quantize_param
@@ -145,6 +155,88 @@ def test_qmatmul_w8a8_ref_vs_jax(case, out):
                         None if bias is None else torch.from_numpy(bias),
                         out_dtype=td).float().numpy()
     np.testing.assert_array_equal(y_op, yt)
+
+
+# ------------------------------------------------------------ qmatmul_w8a16
+
+W16_CASES = [  # (M, K, N, per_channel_scale, bias)
+    (1, 16, 8, True, True),
+    (8, 64, 128, False, True),      # decode rows, per-tensor [1] scale
+    (5, 33, 17, True, True),        # ragged M, K and N
+    (64, 96, 40, True, False),
+    (256, 64, 32, False, False),    # a prefill chunk's rows
+    (3, 4864 // 38, 896 // 7, False, True),
+]
+
+
+def _w16_inputs(M, K, N, per_channel, with_bias, seed):
+    rng = np.random.RandomState(seed)
+    a = (rng.randn(M, K) * rng.choice([0.1, 1.0, 4.0])).astype(np.float32)
+    w = rng.randint(-127, 128, (K, N)).astype(np.int8)
+    sw = (rng.rand(N if per_channel else 1) * 0.01 + 1e-4).astype(np.float32)
+    bias = rng.randn(N).astype(np.float32) if with_bias else None
+    return a, w, sw, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", W16_CASES,
+                         ids=lambda c: "x".join(map(str, c[:3]))
+                         + ("-pc" if c[3] else "-pt") + ("-b" if c[4] else ""))
+def test_qmatmul_w8a16_ref_vs_jax(case, dtype):
+    M, K, N, per_channel, with_bias = case
+    a, w, sw, bias = _w16_inputs(M, K, N, per_channel, with_bias,
+                                 seed=M + K + N)
+    aj, at = _both(a, dtype)
+    jd, td = DTYPES[dtype]
+    yj = np.asarray(jax_w16_ref(aj, jnp.asarray(w), jnp.asarray(sw),
+                                None if bias is None else jnp.asarray(bias),
+                                jd).astype(jnp.float32))
+    # on the weight as given and on the K-major storage QTensor keeps (the
+    # CPU product sums in another order for a transposed operand)
+    w_km = torch.from_numpy(np.ascontiguousarray(w.T)).t()
+    bias_t = None if bias is None else torch.from_numpy(bias)
+    if dtype == "float32":
+        w_deq = w.astype(np.float32) * sw[None, :]
+        tol = K * 2.0 ** -23 * (np.abs(at.float().numpy()) @ np.abs(w_deq))
+    else:
+        _, e = np.frexp(np.maximum(np.abs(yj), 2.0 ** -126))
+        tol = np.ldexp(1.0, e - 8)                  # one bf16 ulp of yj
+    for wt in (torch.from_numpy(w), w_km):
+        yt = qmatmul_w8a16_ref(at, wt, torch.from_numpy(sw), bias_t, td)
+        assert yt.dtype == td
+        diff = np.abs(yt.float().numpy() - yj)
+        assert (diff <= tol).all(), float((diff / np.maximum(tol, 1e-30)).max())
+    # the public op on the CPU is this plain version
+    y_op = qmatmul_w8a16(at, w_km, torch.from_numpy(sw), bias_t)
+    assert y_op.dtype == td
+    assert torch.equal(y_op, yt)
+
+
+def test_qmatmul_w8a16_op_on_cpu_is_the_plain_version():
+    a, w, sw, bias = _w16_inputs(6, 40, 24, True, True, seed=7)
+    reset_launch_counts()
+    y = qmatmul_w8a16(torch.from_numpy(a), torch.from_numpy(w),
+                      torch.from_numpy(sw), torch.from_numpy(bias),
+                      out_dtype=torch.float32)
+    assert torch.equal(y, qmatmul_w8a16_ref(
+        torch.from_numpy(a), torch.from_numpy(w), torch.from_numpy(sw),
+        torch.from_numpy(bias), torch.float32))
+    assert launch_counts()["qmatmul_w8a16"] == 0   # no kernel on the CPU
+    assert dispatch.pad_convention("qmatmul_w8a16") == "zero"
+    assert dispatch.resolve("qmatmul_w8a16", y).__name__ == "_w8a16_torch"
+    with pytest.raises(NotImplementedError, match="later slice"):
+        qmatmul_w8a16(torch.from_numpy(a), torch.from_numpy(w),
+                      torch.from_numpy(sw), quantize_out=True)
+
+
+def test_w8a16_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels import _build
+
+    with pytest.raises(ValueError, match="CUDA"):
+        qmatmul_w8a16_cuda(torch.zeros(4, 8), torch.zeros(8, 4,
+                                                          dtype=torch.int8),
+                           torch.ones(1))
+    assert _build._LIB.handle is None
 
 
 # ----------------------------------------------- quantize_kv / append
