@@ -8,36 +8,47 @@ Phases, each of which must pass (nothing here catches a failure):
   1. build  — compile every CUDA kernel from ``src/repro_torch/csrc`` (one
      nvcc per source, in parallel) and print the build time, the
      registers/spills ptxas reports, and the card's name and power limit.
-  2. kernels — call each kernel's wrapper on the card at the shapes the
-     serving paths give it and hold it against its plain PyTorch version on
-     the same inputs: quantize_act and qmatmul_w8a8 bit-equal; qmatmul_w8a16
-     within ``W8A16_TOL`` (it applies the scale after the sum, the plain
-     version before it); fused_decode's appended cache bit-equal, its
-     output within ``OUT_TOL``, and its quantize-out bit-equal to
+  2. kernels — call each of the seven kernels' wrappers on the card at the
+     shapes the serving paths give it and hold it against its plain PyTorch
+     version on the same inputs: quantize_act and qmatmul_w8a8 bit-equal;
+     qmatmul_w8a16 within ``W8A16_TOL`` (it applies the scale after the sum,
+     the plain version before it); fused_decode's appended cache bit-equal,
+     its output within ``OUT_TOL``, and its quantize-out bit-equal to
      quantize_act of that output and off the plain version's only at
-     rounding ties. In float32 the W8A16 check also runs two controls that
-     must fall outside its tolerance (TF32, and ``a`` rounded to bf16).
-     Times each kernel (device time, queued behind a sleep kernel so the
-     host's per-call cost is hidden, and the time of a back-to-back wrapper
-     call, host included), its plain version and, where one exists, the one
-     PyTorch call computing the same function, all with CUDA events.
+     rounding ties; kv_attention within ``OUT_TOL`` at the decode shape, a
+     ragged S, S below the plain version's block, GQA 4 and the JAX bench's
+     long context, with and without v_err, a fully masked row exactly 0;
+     fused_decode bit-equal to append_quantize + kv_attention (+
+     quantize_act); the quantize-out GEMMs (one launch each) bit-equal to
+     the stepwise pair of the port's own kernels (W8A8, and W8A16 with
+     float32 a) and to the W8A8 plain version, W8A16 with bfloat16 a within
+     one step of its plain version. In float32 the W8A16 check also runs
+     two controls that must fall outside its tolerance (TF32, and ``a``
+     rounded to bf16). Times each kernel (device time, queued behind a sleep
+     kernel so the host's per-call cost is hidden, and the time of a
+     back-to-back wrapper call, host included), its plain version, the
+     stepwise pair a quantize-out GEMM replaces and, where one exists, the
+     one PyTorch call computing the same function, all with CUDA events.
   3. reference — for each serving recipe, ``repro_torch.quantize`` of a
      smoke-size qwen2 (seeded weights that need every rewrite) on the card
      against the same call on the CPU: payloads, scales and float leaves
      bit-equal (``bo`` within its matrix product's rounding bound); then
      that model on the card against the CPU's (plain versions):
      teacher-forced logits within tolerance.
-  4. serve — ``repro_torch.serve`` four times: qwen2-0.5b at full width (24
-     layers, seeded random weights through ``repro_torch.quantize``: norm
-     folding, CLE and bias absorption on the card, then the int8 pack), the
-     stepwise engine with 8 slots, max_len 512, prefill chunks of 32, 16
-     requests of 32-256 prompt tokens and 32 new tokens each; first under
-     ``serve-w8a16-kv8`` (the default), then under ``serve-w8a8-kv8``,
-     and the two once more.
-     Every request must finish with 32 tokens and finite logits. The launch
-     counts are reset just before each run and read just after: the w8a16
-     run must launch qmatmul_w8a16 and fused_decode and no quantize_act or
-     qmatmul_w8a8, the w8a8 run its three kernels.
+  4. serve — qwen2-0.5b at full width (24 layers, seeded random weights
+     through ``repro_torch.quantize``: norm folding, CLE and bias
+     absorption on the card, then the int8 pack), the stepwise engine with
+     8 slots, max_len 512, prefill chunks of 32, 16 requests of 32-256
+     prompt tokens and 32 new tokens each, five times:
+     ``repro_torch.serve`` under ``serve-w8a16-kv8`` (the default) and
+     ``serve-w8a8-kv8``, both again with ``REPRO_FUSED_DECODE=0`` (which
+     must serve the fused runs' tokens, request by request), and
+     ``serve-w8a8-kv8`` with the V bias correction (``kv_bias_correct``,
+     a ``repro_torch.ServingEngine`` over the replaced config). Every
+     request must finish with 32 tokens and finite logits. The launch
+     counts are reset just before each run and read just after, and each
+     kernel must have launched exactly as often as the path's layers and
+     steps give (``expected_launches``), every other kernel never.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -348,11 +359,10 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
-def check_fused_out(torch, out, outr, oq, os_, oqr, osr, what):
-    """Hold fused_decode's ``out`` and its quantize-out epilogue against the
-    plain version's; return (max |out diff|, a summary)."""
-    from repro_torch.kernels.quantize_act.ref import quantize_act_ref
-
+def check_attention_out(torch, out, outr, what):
+    """Hold a decode attention output (fused_decode's or kv_attention's)
+    against its plain version within ``OUT_TOL``; return (|diff| [B, Hq·hd],
+    a note on the values one bf16 ulp alone would refuse)."""
     B = out.shape[0]
     o, r = out.float().reshape(B, -1), outr.float().reshape(B, -1)
     diff = (o - r).abs()
@@ -382,6 +392,18 @@ def check_fused_out(torch, out, outr, oq, os_, oqr, osr, what):
                     f"{float(tol.flatten()[i])!r})")
         else:
             past = "; within one bf16 ulp everywhere"
+    return diff, past
+
+
+def check_fused_out(torch, out, outr, oq, os_, oqr, osr, what):
+    """Hold fused_decode's ``out`` and its quantize-out epilogue against the
+    plain version's; return (max |out diff|, a summary)."""
+    from repro_torch.kernels.quantize_act.ref import quantize_act_ref
+
+    B = out.shape[0]
+    o, r = out.float().reshape(B, -1), outr.float().reshape(B, -1)
+    bf16 = out.dtype == torch.bfloat16
+    diff, past = check_attention_out(torch, out, outr, what)
     # the epilogue quantizes the cast output (not the float32 accumulator)
     # with the quantize_act formula: bit-equal to that on the kernel's out
     qs, ss = quantize_act_ref(o)
@@ -469,6 +491,259 @@ def check_fused_decode(torch, dev, gen):
                 q, *run_leaves, kn[:, None], vn[:, None], idx[:, None],
                 valid=valid, out_dtype=dtype, quantize_out=True), 5),
             "bound_ms": b, "bound_by": by, "library_ms": None})
+    return rows
+
+
+# (label, B, Hq, Hkv, hd, S, the plain version's blk, a fully masked row)
+KV_CASES = (("main decode", 8, 14, 2, 64, 512, 512, True),
+            ("S=33 blk=32", 4, 14, 2, 64, 33, 32, True),
+            ("S<blk", 4, 14, 2, 64, 100, 512, False),
+            ("GQA 4", 4, 8, 2, 64, 300, 512, False),
+            # the JAX bench's long context (benchmarks/kernels_bench.py)
+            ("long context", 8, 32, 8, 128, 32768, 512, False))
+
+
+def _int8_cache(torch, dev, gen, B, S, Hkv, hd, lens):
+    """Random int8 K/V and scales, the scales zero past each row's length
+    (the invalid marker the attention masks on); the live mask [B, S]."""
+    live = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    leaves = []
+    for _ in range(2):
+        leaves.append(torch.randint(-127, 128, (B, S, Hkv, hd), generator=gen,
+                                    device=dev, dtype=torch.int8))
+        leaves.append(torch.rand((B, S, Hkv), generator=gen, device=dev)
+                      * 0.02 * live[..., None])
+    return leaves, live
+
+
+def check_kv_attention(torch, dev, gen):
+    """The unfused decode attention at every KV_CASES shape, float32 and
+    bfloat16, with and without v_err (zero where the scales are, as the
+    decode route passes it), within ``OUT_TOL`` of the plain version; a row
+    whose scales are all 0 gives exactly 0."""
+    from repro_torch.kernels.kv_attention.kernel import kv_attention_cuda
+    from repro_torch.kernels.kv_attention.ref import kv_attention_ref
+
+    rows = []
+    for label, B, Hq, Hkv, hd, S, blk, masked in KV_CASES:
+        long = S > 4096
+        lens = (torch.full((B,), S, device=dev) if long else
+                torch.randint(1, S + 1, (B,), generator=gen, device=dev))
+        lens[0] = S
+        if masked:
+            lens[B - 1] = 0
+        (kq, ks, vq, vs), live = _int8_cache(torch, dev, gen, B, S, Hkv, hd,
+                                             lens)
+        v_err = (torch.randn((B, S, Hkv), generator=gen, device=dev) * 1e-3
+                 * live[..., None])
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(dtype)
+            for ve in (None, v_err):
+                out = kv_attention_cuda(q, kq, ks, vq, vs, ve)
+                ref = kv_attention_ref(q, kq, ks, vq, vs, dtype, blk=blk,
+                                       v_err=ve)
+                torch.cuda.synchronize()
+                name = str(dtype)[6:]
+                what = (f"kv_attention {label} B={B} Hq={Hq} Hkv={Hkv} "
+                        f"hd={hd} S={S} {name}" + (" v_err" if ve is not None
+                                                   else ""))
+                diff, past = check_attention_out(torch, out, ref, what)
+                if masked:
+                    assert float(out[B - 1].float().abs().max()) == 0.0, (
+                        f"{what}: the fully masked row is not 0")
+                log(f"  {what} (plain blk={blk}): max |diff| "
+                    f"{float(diff.max()):.3g} ({OUT_TOL[name]}){past}"
+                    + ("; masked row exactly 0" if masked else ""))
+                if label not in ("main decode", "long context"):
+                    continue
+                n_live = int(live.sum())
+                e = q.element_size()
+                bytes_moved = (2 * B * Hq * hd * e + B * S * Hkv * 4
+                               + n_live * Hkv * (2 * hd + 4)
+                               + (n_live * Hkv * 4 if ve is not None else 0))
+                b, by = bound_ms(bytes_moved, 4 * Hq * n_live * hd,
+                                 F32_OPS_S)
+                iters = 5 if long else 50
+                kern = (lambda q=q, ve=ve:
+                        kv_attention_cuda(q, kq, ks, vq, vs, ve))
+                plain = (lambda q=q, ve=ve: kv_attention_ref(
+                    q, kq, ks, vq, vs, dtype, blk=blk, v_err=ve))
+                rows.append({
+                    "shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} {name}"
+                             + (" v_err" if ve is not None else ""),
+                    "max_abs_err": float(diff.max()),
+                    "ms": device_ms(kern, iters),
+                    "call_ms": call_ms(kern, iters),
+                    # at the long context the plain version's ~1,300
+                    # launches a call fill the launch queue behind the
+                    # sleep of device_ms: time it back to back instead
+                    "plain_ms": (call_ms(plain, 2, warmup=1) if long
+                                 else device_ms(plain, 5)),
+                    "bound_ms": b, "bound_by": by, "library_ms": None})
+    return rows
+
+
+def check_fused_equals_unfused(torch, dev, gen):
+    """fused_decode against the unfused composition (append_quantize, the
+    kv_attention kernel, the quantize_act kernel) at the main decode shape:
+    the shared attention body gives the same bits — out, quantize-out and
+    the appended cache."""
+    from repro_torch.kernels.fused_decode.ops import fused_decode
+    from repro_torch.kernels.kv_attention.ops import kv_attention_decode
+    from repro_torch.kernels.quantize_act.ops import quantize_act
+
+    B, Hq, Hkv, hd, S = 8, 14, 2, 64, 512
+    for dtype in (torch.float32, torch.bfloat16):
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        lens[1] = S
+        leaves, valid = _int8_cache(torch, dev, gen, B, S, Hkv, hd, lens)
+        valid[3] = False                              # a fully masked row
+        idx = (lens - 1)[:, None]
+        q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(dtype)
+        kn = (torch.randn((B, 1, Hkv, hd), generator=gen, device=dev) * 2).to(dtype)
+        vn = torch.randn((B, 1, Hkv, hd), generator=gen, device=dev).to(dtype)
+        fused = [t.clone() for t in leaves]
+        comp = [t.clone() for t in leaves]
+        (out, oq, os_), _ = fused_decode(q, *fused, kn, vn, idx, valid=valid,
+                                         out_dtype=dtype, quantize_out=True)
+        outc, _ = kv_attention_decode(q, *comp, kn, vn, idx, valid=valid,
+                                      out_dtype=dtype)
+        oqc, osc = quantize_act(outc.reshape(B, -1))
+        torch.cuda.synchronize()
+        for a, b_, name in zip(fused, comp, ("k", "k_scale", "v", "v_scale")):
+            assert torch.equal(a, b_), f"fused vs unfused {dtype}: {name} differs"
+        assert torch.equal(out, outc), (
+            f"fused vs unfused {dtype}: out differs at "
+            f"{int((out != outc).sum())} values")
+        assert torch.equal(oq, oqc) and torch.equal(os_, osc), (
+            f"fused vs unfused {dtype}: quantize-out differs")
+        assert float(out[3].float().abs().max()) == 0.0
+        log(f"  fused_decode vs append_quantize + kv_attention + quantize_act, "
+            f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} {str(dtype)[6:]}: out, "
+            f"quantize-out and the appended cache bit-equal")
+
+
+# every K x N of the serving path: wq and wo, wk and wv, wg and wu, wd
+PATH_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+
+
+def check_qmatmul_w8a8_q8(torch, dev, gen):
+    """qmatmul_w8a8 with the quantize-out epilogue, one launch: payload and
+    scale bit-equal to the plain version and to the stepwise pair of the
+    port's own kernels (the W8A8 GEMM to float32, then quantize_act)."""
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_q8_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a8.ref import qmatmul_w8a8_q8_ref
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    shapes = [(M, K, N) for K, N in PATH_KN for M in (8, 256)]
+    shapes.append((4096, 4096, 4096))               # the JAX bench's shape
+    rows = []
+    for M, K, N in shapes:
+        big = M * K * N > 1e10
+        w = _kmajor_int8(torch, gen, dev, K, N)
+        sw = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
+        bias = torch.randn((N,), generator=gen, device=dev)
+        a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        sa = torch.rand((M,), generator=gen, device=dev) * 0.05 + 1e-4
+        kern = lambda: qmatmul_w8a8_q8_cuda(a, w, sa, sw, bias)
+        pair = lambda: quantize_act_cuda(qmatmul_w8a8_cuda(a, w, sa, sw, bias))
+        plain = lambda: qmatmul_w8a8_q8_ref(a, w, sa, sw, bias)
+        (q, s), (qp, sp), (qr, sr) = kern(), pair(), plain()
+        torch.cuda.synchronize()
+        for name, (qo, so) in (("the plain version", (qr, sr)),
+                               ("the stepwise pair", (qp, sp))):
+            assert torch.equal(q, qo) and torch.equal(s, so), (
+                f"qmatmul_w8a8 q8 M={M} K={K} N={N}: not bit-equal to {name} "
+                f"({int((q != qo).sum())} payloads, "
+                f"{int((s != so).sum())} scales)")
+        b, by = bound_ms(M * K + K * N + 4 * M + 8 * N + M * N + 4 * M,
+                         2 * M * K * N, INT8_OPS_S)
+        iters = 10 if big else 50
+        rows.append({
+            "shape": f"M={M} K={K} N={N}", "max_abs_err": 0.0,
+            "ms": device_ms(kern, iters), "call_ms": call_ms(kern, iters),
+            "stepwise_ms": device_ms(pair, iters),
+            "plain_ms": device_ms(plain, 3 if big else 10),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+    log(f"  qmatmul_w8a8 q8 at {len(shapes)} shapes: payload and scale "
+        f"bit-equal to the plain version and to the stepwise pair")
+    return rows
+
+
+def check_qmatmul_w8a16_q8(torch, dev, gen):
+    """qmatmul_w8a16 with the quantize-out epilogue, one launch. float32 a:
+    payload and scale bit-equal to the stepwise pair of the port's own
+    kernels (the W8A16 GEMM to float32, then quantize_act). bfloat16 a:
+    against the plain version (float32 sums in another order), no payload
+    more than one step apart (the count of one-step payloads printed), the
+    scale within E/127 + one float32 ulp, E the float32 ``W8A16_TOL`` bound
+    at the row's largest value."""
+    from repro_torch.kernels.qmatmul_w8a16.kernel import (
+        qmatmul_w8a16_cuda,
+        qmatmul_w8a16_q8_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a16.ref import (
+        qmatmul_w8a16_q8_ref,
+        qmatmul_w8a16_ref,
+    )
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    shapes = [(M, K, N) for K, N in PATH_KN for M in (8, 256)]
+    shapes.append((8, 8192, 8192))                  # the JAX bench's decode
+    rows, one_step = [], []
+    for M, K, N in shapes:
+        w = _kmajor_int8(torch, gen, dev, K, N)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+            sw = (torch.rand((1,), generator=gen, device=dev) * 0.01
+                  + 1e-4).to(dtype)
+            bias = torch.randn((N,), generator=gen, device=dev).to(dtype)
+            kern = lambda: qmatmul_w8a16_q8_cuda(a, w, sw, bias)
+            pair = lambda: quantize_act_cuda(qmatmul_w8a16_cuda(a, w, sw, bias))
+            plain = lambda: qmatmul_w8a16_q8_ref(a, w, sw, bias)
+            (q, s), (qr, sr) = kern(), plain()
+            torch.cuda.synchronize()
+            what = f"qmatmul_w8a16 q8 M={M} K={K} N={N} {name}"
+            if dtype == torch.float32:
+                qp, sp = pair()
+                assert torch.equal(q, qp) and torch.equal(s, sp), (
+                    f"{what}: not bit-equal to the stepwise pair "
+                    f"({int((q != qp).sum())} payloads, "
+                    f"{int((s != sp).sum())} scales)")
+            steps = (q.int() - qr.int()).abs()
+            y32 = qmatmul_w8a16_ref(a, w, sw, bias, torch.float32)
+            e_row = w8a16_tolerance(torch, a, w, sw, bias, y32).amax(1)
+            s_tol = e_row / 127 + sr * 2.0 ** -23
+            assert int(steps.max()) <= 1, (
+                f"{what}: a payload {int(steps.max())} steps off the plain "
+                f"version")
+            assert bool(((s - sr).abs() <= s_tol).all()), (
+                f"{what}: scale off the plain version by "
+                f"{float((s - sr).abs().max())} (bound "
+                f"{float(s_tol.min())})")
+            n1 = int((steps > 0).sum())
+            if dtype == torch.bfloat16:
+                one_step.append(f"M={M} K={K} N={N}: {n1} of {q.numel()}")
+            e = a.element_size()
+            b, by = bound_ms(M * K * e + K * N + e + N * e + M * N + 4 * M,
+                             2 * M * K * N,
+                             BF16_OPS_S if dtype == torch.bfloat16
+                             else F32_OPS_S)
+            rows.append({
+                "shape": f"M={M} K={K} N={N} {name}",
+                "max_abs_err": float(steps.max()),
+                "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
+                "stepwise_ms": device_ms(pair, 50),
+                "plain_ms": device_ms(plain, 10),
+                "bound_ms": b, "bound_by": by, "library_ms": None})
+    log(f"  qmatmul_w8a16 q8 at {len(shapes)} shapes: float32 a bit-equal to "
+        f"the stepwise pair; bfloat16 a within one step and E/127 of the "
+        f"plain version; payloads one step apart (bf16): " + "; ".join(one_step))
     return rows
 
 
@@ -594,40 +869,119 @@ def check_reference(torch, dev, recipe):
     assert diff <= 0.05 * scale and agree >= 0.9, "card and CPU disagree"
 
 
-def serve_full_width(torch, quantize, expect_launched, expect_idle):
-    """Serve qwen2-0.5b at full width under ``serve-<quantize>-kv8``; the
-    launch counts are reset just before the run and read just after."""
+# the serving run of phase 4: qwen2-0.5b at full width, 8 slots, 16 requests
+SERVE = dict(arch="qwen2-0.5b", seed=0, device="cuda", slots=8, max_len=512,
+             prefill_chunk=32, trace=16, trace_seed=0, prompt_min=32,
+             prompt_len=256, gen_min=32, gen_len=32)
+
+
+def expected_launches(quantize, fused, steps, chunks):
+    """{kernel: launches} of one serve run: per decode step and per prefill
+    chunk, 24 layers of 7 projections; the fused decode once a layer per
+    decode step, or kv_attention on the unfused route; one quantize_act per
+    W8A8 input (qkv, wo, gate/up, down) but wo's at a fused decode step,
+    which reads the fused kernel's quantize-out."""
+    L = 24
+    gemm = "qmatmul_w8a8" if quantize == "w8a8" else "qmatmul_w8a16"
+    want = {gemm: 7 * L * (steps + chunks),
+            "fused_decode" if fused else "kv_attention": L * steps}
+    if quantize == "w8a8":
+        want["quantize_act"] = 4 * L * chunks + (3 if fused else 4) * L * steps
+    return want
+
+
+def check_served(run, counts, label, want):
+    """Every request finished with 32 tokens and finite logits; the launch
+    counts (reset just before the run, read just after) are ``want``'s, and
+    0 for every other kernel."""
+    assert len(run.results) == 16, f"{label}: {len(run.results)} of 16 served"
+    for r in run.results.values():
+        assert r.status == "ok", f"{label}: request {r.rid}: {r.status}"
+        assert len(r.tokens) == 32, f"{label}: request {r.rid}: {len(r.tokens)} tokens"
+    log(f"  {label}: 16/16 requests finished with 32 tokens and finite "
+        f"logits, {run.generated_tokens} tokens in {run.seconds:.3f} s = "
+        f"{run.tokens_per_second:.1f} tok/s (stepwise engine, "
+        f"{SERVE['slots']} slots, {run.stats['decode_steps']} decode steps, "
+        f"{run.stats['prefill_chunks']} prefill chunks)")
+    log(f"  kernel launches on the {label} path: {json.dumps(counts)}")
+    for name, n in counts.items():
+        assert n == want.get(name, 0), (
+            f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
+
+
+def serve_full_width(torch, quantize, *, fused=True):
+    """``repro_torch.serve`` of qwen2-0.5b at full width under
+    ``serve-<quantize>-kv8``; ``fused=False`` sets REPRO_FUSED_DECODE=0 for
+    this run only."""
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    config = repro_torch.ServeConfig(
-        arch="qwen2-0.5b", seed=0, device="cuda", quantize=quantize,
-        slots=8, max_len=512, prefill_chunk=32, trace=16, trace_seed=0,
-        prompt_min=32, prompt_len=256, gen_min=32, gen_len=32)
+    config = repro_torch.ServeConfig(quantize=quantize, **SERVE)
+    saved = os.environ.get("REPRO_FUSED_DECODE")
+    if not fused:
+        os.environ["REPRO_FUSED_DECODE"] = "0"
+    try:
+        reset_launch_counts()
+        run = repro_torch.serve(config)
+        counts = launch_counts()
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_FUSED_DECODE", None)
+        else:
+            os.environ["REPRO_FUSED_DECODE"] = saved
+    label = f"serve-{quantize}-kv8" + ("" if fused else " unfused")
+    check_served(run, counts, label, expected_launches(
+        quantize, fused, run.stats["decode_dispatches"],
+        run.stats["prefill_dispatches"]))
+    if fused:
+        sqnr = next(r for r in run.report
+                    if r["stage"] == "pack")["metrics"]["sqnr_db"]
+        log("  pack stage per-site weight SQNR (dB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sqnr.items()))
+    return run, counts
+
+
+def serve_bias_corrected(torch):
+    """The same serve with the V bias correction: the model built from a
+    ``kv_bias_correct`` config, quantized by ``repro_torch.quantize`` under
+    ``serve-w8a8-kv8`` and served by the ``ServingEngine``, whose cache then
+    carries the v_err leaf; decode runs kv_attention, never fused_decode."""
+    import dataclasses
+    import time
+
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import ServeRun
+    from repro_torch.serving import ServingEngine, synthetic_trace
+
+    cfg = dataclasses.replace(repro_torch.get_config(SERVE["arch"]),
+                              kv_bias_correct=True)
+    model = repro_torch.build_model(cfg)
+    qm = repro_torch.quantize(model, model.init(SERVE["seed"], device="cuda"),
+                              recipe="serve-w8a8-kv8", device="cuda")
+    engine = ServingEngine(model, qm.params, cfg, num_slots=SERVE["slots"],
+                           max_len=SERVE["max_len"],
+                           prefill_chunk=SERVE["prefill_chunk"], device="cuda")
+    assert "v_err" in engine.pool.cache
+    requests = synthetic_trace(
+        SERVE["trace_seed"], SERVE["trace"], vocab_size=cfg.vocab_size,
+        prompt_lens=(SERVE["prompt_min"], SERVE["prompt_len"]),
+        gen_lens=(SERVE["gen_min"], SERVE["gen_len"]), mean_interarrival=1.0)
+    torch.cuda.synchronize()
     reset_launch_counts()
-    run = repro_torch.serve(config)
+    t0 = time.perf_counter()
+    results = engine.run(requests)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     counts = launch_counts()
-    assert len(run.results) == 16, f"{len(run.results)} of 16 requests served"
-    for r in run.results.values():
-        assert r.status == "ok", f"request {r.rid}: {r.status} (non-finite logits)"
-        assert len(r.tokens) == 32, f"request {r.rid}: {len(r.tokens)} tokens"
-    sqnr = next(r for r in run.report if r["stage"] == "pack")["metrics"]["sqnr_db"]
-    log(f"  serve-{quantize}-kv8: 16/16 requests finished with 32 tokens and "
-        f"finite logits, {run.generated_tokens} tokens in {run.seconds:.3f} s "
-        f"= {run.tokens_per_second:.1f} tok/s (stepwise engine, "
-        f"{config.slots} slots, "
-        f"{run.stats['decode_steps']} decode steps, "
-        f"{run.stats['prefill_chunks']} prefill chunks)")
-    log("  pack stage per-site weight SQNR (dB): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in sqnr.items()))
-    log(f"  kernel launches on the serve-{quantize}-kv8 path: "
-        f"{json.dumps(counts)}")
-    for name in expect_launched:
-        assert counts[name] > 0, f"{name} was never launched while serving"
-    for name in expect_idle:
-        assert counts[name] == 0, (f"{name} was launched {counts[name]} "
-                                   f"times on the serve-{quantize}-kv8 path")
-    return counts, run.tokens_per_second
+    run = ServeRun(results=results, stats=dict(engine.stats), seconds=seconds,
+                   generated_tokens=engine.stats["generated_tokens"],
+                   report=qm.report)
+    check_served(run, counts, "serve-w8a8-kv8 kv_bias_correct",
+                 expected_launches("w8a8", False, run.stats["decode_dispatches"],
+                                   run.stats["prefill_dispatches"]))
+    assert float(engine.pool.cache["v_err"].abs().max()) > 0
+    return run, counts
 
 
 # --------------------------------------------------------------- main
@@ -666,15 +1020,21 @@ def main() -> int:
     tables = {"quantize_act": check_quantize_act(torch, dev, gen),
               "qmatmul_w8a8": check_qmatmul(torch, dev, gen),
               "qmatmul_w8a16": check_qmatmul_w8a16(torch, dev, gen),
-              "fused_decode": check_fused_decode(torch, dev, gen)}
+              "fused_decode": check_fused_decode(torch, dev, gen),
+              "kv_attention": check_kv_attention(torch, dev, gen)}
+    check_fused_equals_unfused(torch, dev, gen)
+    tables["qmatmul_w8a8_q8"] = check_qmatmul_w8a8_q8(torch, dev, gen)
+    tables["qmatmul_w8a16_q8"] = check_qmatmul_w8a16_q8(torch, dev, gen)
     for name, rows in tables.items():
         for r in rows:
             lib_ms = ("-" if r["library_ms"] is None
                       else f"{r['library_ms'] * 1e3:.2f}")
-            log(f"  {name:13s} {r['shape']:34s} kernel "
-                f"{r['ms'] * 1e3:8.2f} us (call {r['call_ms'] * 1e3:7.2f})  "
+            log(f"  {name:16s} {r['shape']:40s} kernel "
+                f"{r['ms'] * 1e3:9.2f} us (call {r['call_ms'] * 1e3:7.2f})  "
                 f"plain {r['plain_ms'] * 1e3:9.2f} us  library {lib_ms:>6s} us"
-                f"  bound {r['bound_ms'] * 1e3:7.3f} us ({r['bound_by']})"
+                f"  bound {r['bound_ms'] * 1e3:8.3f} us ({r['bound_by']})"
+                + (f"  stepwise pair {r['stepwise_ms'] * 1e3:8.2f} us"
+                   if "stepwise_ms" in r else "")
                 + (f"  [{r['library']}]" if "library" in r else ""))
 
     log("== phase 3: small-input reference")
@@ -682,42 +1042,60 @@ def main() -> int:
         check_reference(torch, dev, recipe)
 
     log("== phase 4: serve qwen2-0.5b (full width) through repro_torch.serve")
-    # each recipe twice, alternating, so that the spread of tok/s within
-    # one call shows beside the gap between the recipes
-    paths = (("w8a16", ("qmatmul_w8a16", "fused_decode"),
-              ("quantize_act", "qmatmul_w8a8")),
-             ("w8a8", ("quantize_act", "qmatmul_w8a8", "fused_decode"),
-              ("qmatmul_w8a16",)))
+    log(f"  {smi}")
     runs, speeds = {}, []
-    for _ in range(2):
-        for quantize, launched, idle in paths:
-            counts, tok_s = serve_full_width(torch, quantize, launched, idle)
-            runs.setdefault(quantize, counts)
-            speeds.append(f"{quantize} {tok_s:.1f}")
-    log("  tok/s in run order: " + ", ".join(speeds))
+    for quantize in ("w8a16", "w8a8"):
+        runs[quantize] = serve_full_width(torch, quantize)
+    for quantize in ("w8a16", "w8a8"):
+        run, counts = serve_full_width(torch, quantize, fused=False)
+        fused = runs[quantize][0].results
+        for rid, r in run.results.items():
+            assert r.tokens == fused[rid].tokens, (
+                f"serve-{quantize}-kv8: request {rid}: the unfused route "
+                f"served other tokens than the fused one")
+        log(f"  serve-{quantize}-kv8 unfused: every request's tokens equal "
+            f"the fused run's")
+        runs[quantize + " unfused"] = run, counts
+    runs["w8a8 kv_bias_correct"] = serve_bias_corrected(torch)
+    for label, (run, _) in runs.items():
+        speeds.append(f"{label} {run.tokens_per_second:.1f}")
+    log("  tok/s in run order: " + ", ".join(speeds) + f" ({smi})")
 
     # each kernel's launches come from the run of the path it serves; the
-    # fused decode from the default (w8a16) path
+    # fused decode from the default (w8a16) path, kv_attention from the
+    # default recipe's unfused route; the quantize-out GEMMs are on no
+    # serving path (quantize_out=True only), so the w8a8 run counts them 0
     main = {"quantize_act": ("x[8,896] bfloat16", "w8a8"),
             "qmatmul_w8a8": ("M=8 K=896 N=4864 -> bf16", "w8a8"),
             "qmatmul_w8a16": ("M=8 K=896 N=4864 bfloat16", "w8a16"),
-            "fused_decode": ("B=8 Hq=14 Hkv=2 hd=64 S=512 bfloat16", "w8a16")}
-    sources = {"quantize_act": ("src/repro_torch/csrc/quantize_act.cu",
-                                "src/repro/kernels/quantize_act/kernel.py:27"),
-               "qmatmul_w8a8": ("src/repro_torch/csrc/qmatmul_w8a8.cu",
-                                "src/repro/kernels/qmatmul_w8a8/kernel.py:72"),
-               "qmatmul_w8a16": ("src/repro_torch/csrc/qmatmul_w8a16.cu",
-                                 "src/repro/kernels/qmatmul_w8a16/kernel.py:64"),
-               "fused_decode": ("src/repro_torch/csrc/fused_decode.cu",
-                                "src/repro/kernels/fused_decode/kernel.py:143")}
+            "fused_decode": ("B=8 Hq=14 Hkv=2 hd=64 S=512 bfloat16", "w8a16"),
+            "kv_attention": ("B=8 Hq=14 Hkv=2 hd=64 S=512 bfloat16",
+                             "w8a16 unfused"),
+            "qmatmul_w8a8_q8": ("M=8 K=896 N=4864", "w8a8"),
+            "qmatmul_w8a16_q8": ("M=8 K=896 N=4864 bfloat16", "w8a8")}
+    csrc = "src/repro_torch/csrc/"
+    tpu = "src/repro/kernels/"
+    sources = {"quantize_act": ("quantize_act.cu", "quantize_act/kernel.py:27"),
+               "qmatmul_w8a8": ("qmatmul_w8a8.cu", "qmatmul_w8a8/kernel.py:72"),
+               "qmatmul_w8a16": ("qmatmul_w8a16.cu",
+                                 "qmatmul_w8a16/kernel.py:64"),
+               "fused_decode": ("fused_decode.cu", "fused_decode/kernel.py:143"),
+               "kv_attention": ("kv_attention.cu", "kv_attention/kernel.py:95"),
+               "qmatmul_w8a8_q8": ("qmatmul_w8a8.cu",
+                                   "qmatmul_w8a8/kernel.py:143"),
+               "qmatmul_w8a16_q8": ("qmatmul_w8a16.cu",
+                                    "qmatmul_w8a16/kernel.py:127")}
     kernels = []
     for name, rows in tables.items():
         shape, path = main[name]
         row = next(r for r in rows if r["shape"] == shape)
         kernels.append({"name": name, "route": "cuda",
-                        "source": sources[name][0],
-                        "replaces": sources[name][1],
-                        "launches": runs[path][name], **row})
+                        "source": csrc + sources[name][0],
+                        "replaces": tpu + sources[name][1],
+                        "launches": runs[path][1][name],
+                        "path": ("none: quantize_out=True only"
+                                 if name.endswith("_q8") else path),
+                        **row})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

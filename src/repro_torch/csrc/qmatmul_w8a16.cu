@@ -28,7 +28,18 @@
 //  * The epilogue uses __fmul_rn / __fadd_rn, never contracted into an FMA.
 // No cp.async pipeline, no wgmma, no TMA and no split-K yet: decode launches
 // only N/64 blocks, which leaves most SMs idle — work for a later PR.
+//
+// Quantize-out variant (replaces qmatmul_w8a16_q8_pallas,
+// src/repro/kernels/qmatmul_w8a16/kernel.py:127): the same mainloops and
+// the same float32 y = acc * sw + bias (never rounded to a's type), then
+// q8_epilogue.cuh in the same launch — the (M-tile, N-tile) grid kept, each
+// block writing its float32 tile to a workspace and raising the rows' max
+// with atomicMax, the last block of each M tile (found by a counter after
+// __threadfence()) quantizing the rows. Chosen over one block per M tile
+// walking every N tile, which would run one block at decode (M = 8). For
+// float32 a, bit-equal to this GEMM to float32 followed by quantize_act.
 #include "common.cuh"
+#include "q8_epilogue.cuh"
 
 namespace {
 
@@ -133,18 +144,22 @@ __device__ __forceinline__ void load_a_bf16(__nv_bfloat16* dst,
   }
 }
 
-template <int BM>
+// Q8 (both kernels): write q8 (the quantize-out epilogue) instead of C.
+template <int BM, bool Q8>
 __global__ void __launch_bounds__(128)
 w8a16_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                   const int8_t* __restrict__ Bt, Epilogue ep,
-                  __nv_bfloat16* __restrict__ C, int M, int N, int K,
-                  int vec) {
+                  __nv_bfloat16* __restrict__ C, repro::q8::Args q8, int M,
+                  int N, int K, int vec) {
   constexpr int MT = BM / 16;
   __shared__ __align__(16) __nv_bfloat16 As[BM * LDA];
   __shared__ __align__(16) int8_t Bs[BN * LDB];
+  __shared__ unsigned smax[BM];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if constexpr (Q8)
+    for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
 
   float acc[MT][2][4];
 #pragma unroll
@@ -190,22 +205,30 @@ w8a16_bf16_kernel(const __nv_bfloat16* __restrict__ A,
       for (int c = 0; c < 4; ++c) {
         const int row = m0 + i * 16 + g + (c >= 2 ? 8 : 0);
         const int col = n0 + warp * 16 + j * 8 + t * 2 + (c & 1);
-        if (row < M && col < N)
-          C[static_cast<size_t>(row) * N + col] =
-              __float2bfloat16_rn(ep(acc[i][j][c], col));
+        if (row < M && col < N) {
+          if constexpr (Q8)
+            repro::q8::keep(q8, smax, row, m0, col, N, ep(acc[i][j][c], col));
+          else
+            C[static_cast<size_t>(row) * N + col] =
+                __float2bfloat16_rn(ep(acc[i][j][c], col));
+        }
       }
+  if constexpr (Q8) repro::q8::finish_tile<BM>(q8, smax, m0, M, N);
 }
 
-template <int BM>
+template <int BM, bool Q8>
 __global__ void __launch_bounds__(128)
 w8a16_f32_kernel(const float* __restrict__ A, const int8_t* __restrict__ Bt,
-                 Epilogue ep, float* __restrict__ C, int M, int N, int K,
-                 int vec) {
+                 Epilogue ep, float* __restrict__ C, repro::q8::Args q8, int M,
+                 int N, int K, int vec) {
   constexpr int RPT = BM / 2;     // rows per thread: rg, rg + 2, ...
   __shared__ __align__(16) float As[BM * FBK];
   __shared__ float Bs[FBK * LDF];  // [k][n], the weight as float
+  __shared__ unsigned smax[BM];
   const int col_l = threadIdx.x & 63, rg = threadIdx.x >> 6;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if constexpr (Q8)
+    for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
 
   float acc[RPT];
 #pragma unroll
@@ -262,24 +285,50 @@ w8a16_f32_kernel(const float* __restrict__ A, const int8_t* __restrict__ Bt,
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int row = m0 + rg + 2 * i;
-      if (row < M) C[static_cast<size_t>(row) * N + col] = ep(acc[i], col);
+      if (row >= M) continue;
+      if constexpr (Q8)
+        repro::q8::keep(q8, smax, row, m0, col, N, ep(acc[i], col));
+      else
+        C[static_cast<size_t>(row) * N + col] = ep(acc[i], col);
     }
   }
+  if constexpr (Q8) repro::q8::finish_tile<BM>(q8, smax, m0, M, N);
 }
 
 template <int BM>
-void launch(const void* a, const void* wt, Epilogue ep, void* c, int M,
-            int N, int K, int a_bf16, int vec, cudaStream_t st) {
+void launch(const void* a, const void* wt, Epilogue ep, void* c,
+            const repro::q8::Args& q8, int M, int N, int K, int a_bf16,
+            int vec, cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const int8_t* Bt = static_cast<const int8_t*>(wt);
-  if (a_bf16)
-    w8a16_bf16_kernel<BM><<<grid, 128, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(a), Bt, ep,
-        static_cast<__nv_bfloat16*>(c), M, N, K, vec);
+  const bool q_out = q8.q != nullptr;
+  if (a_bf16) {
+    const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(a);
+    __nv_bfloat16* C = static_cast<__nv_bfloat16*>(c);
+    if (q_out)
+      w8a16_bf16_kernel<BM, true><<<grid, 128, 0, st>>>(A, Bt, ep, C, q8, M, N, K, vec);
+    else
+      w8a16_bf16_kernel<BM, false><<<grid, 128, 0, st>>>(A, Bt, ep, C, q8, M, N, K, vec);
+  } else {
+    const float* A = static_cast<const float*>(a);
+    float* C = static_cast<float*>(c);
+    if (q_out)
+      w8a16_f32_kernel<BM, true><<<grid, 128, 0, st>>>(A, Bt, ep, C, q8, M, N, K, vec);
+    else
+      w8a16_f32_kernel<BM, false><<<grid, 128, 0, st>>>(A, Bt, ep, C, q8, M, N, K, vec);
+  }
+}
+
+int dispatch(const void* a, const void* wt, Epilogue ep, void* c,
+             const repro::q8::Args& q8, int M, int N, int K, int a_bf16,
+             int vec, void* stream) {
+  if (M == 0 || N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 16)
+    launch<16>(a, wt, ep, c, q8, M, N, K, a_bf16, vec, st);
   else
-    w8a16_f32_kernel<BM><<<grid, 128, 0, st>>>(
-        static_cast<const float*>(a), Bt, ep, static_cast<float*>(c), M, N,
-        K, vec);
+    launch<64>(a, wt, ep, c, q8, M, N, K, a_bf16, vec, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -293,12 +342,24 @@ extern "C" int repro_qmatmul_w8a16(const void* a, const void* wt,
                                    const void* bias, int bias_bf16, void* c,
                                    int M, int N, int K, int a_bf16, int vec,
                                    void* stream) {
-  if (M == 0 || N == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epilogue ep{sw, sw_stride, sw_bf16, bias, bias_bf16};
-  if (M <= 16)
-    launch<16>(a, wt, ep, c, M, N, K, a_bf16, vec, st);
-  else
-    launch<64>(a, wt, ep, c, M, N, K, a_bf16, vec, st);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(a, wt, ep, c, repro::q8::Args{}, M, N, K, a_bf16, vec,
+                  stream);
+}
+
+// The quantize-out variant: operands as above; q [M, N] int8 and s [M]
+// float32 out; y [M, N] float32 workspace; scratch [M + ceil(M / 16)]
+// uint32, zero on entry and left zero (the rows' max, then one counter per
+// M tile).
+extern "C" int repro_qmatmul_w8a16_q8(const void* a, const void* wt,
+                                      const void* sw, int sw_stride,
+                                      int sw_bf16, const void* bias,
+                                      int bias_bf16, void* y, void* scratch,
+                                      void* q, void* s, int M, int N, int K,
+                                      int a_bf16, int vec, void* stream) {
+  const Epilogue ep{sw, sw_stride, sw_bf16, bias, bias_bf16};
+  unsigned* amax = static_cast<unsigned*>(scratch);
+  const repro::q8::Args q8{static_cast<float*>(y), amax, amax + M,
+                           static_cast<int8_t*>(q), static_cast<float*>(s)};
+  return dispatch(a, wt, ep, nullptr, q8, M, N, K, a_bf16, vec, stream);
 }

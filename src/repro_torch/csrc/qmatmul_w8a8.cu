@@ -20,7 +20,18 @@
 // blocks, which leaves most SMs idle — work for a later PR.
 // The epilogue uses __fmul_rn / __fadd_rn so it is never contracted into an
 // FMA: for float32 output the result is bit-equal to the plain version.
+//
+// Quantize-out variant (replaces qmatmul_w8a8_q8_pallas,
+// src/repro/kernels/qmatmul_w8a8/kernel.py:143): the same mainloop and the
+// same y, then q8_epilogue.cuh in the same launch — the (M-tile, N-tile)
+// grid kept, each block writing its float32 tile to a workspace and raising
+// the rows' max with atomicMax, the last block of each M tile (found by a
+// counter after __threadfence()) quantizing the rows. Chosen over one block
+// per M tile walking every N tile, which would run one block at decode
+// (M = 8). Payload and scale are bit-equal to the float32 GEMM followed by
+// quantize_act, and to the plain version.
 #include "common.cuh"
+#include "q8_epilogue.cuh"
 
 namespace {
 
@@ -69,18 +80,22 @@ __device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* src,
   }
 }
 
-template <int BM, typename OutT>
+// Q8: write q8 (the quantize-out epilogue) instead of C.
+template <int BM, typename OutT, bool Q8>
 __global__ void __launch_bounds__(128)
 qmatmul_w8a8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
                     const float* __restrict__ sa, const float* __restrict__ sw,
                     const float* __restrict__ bias, OutT* __restrict__ C,
-                    int M, int N, int K, int vec) {
+                    repro::q8::Args q8, int M, int N, int K, int vec) {
   constexpr int MT = BM / 16;
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
+  __shared__ unsigned smax[BM];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if constexpr (Q8)
+    for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
 
   int acc[MT][2][4];
 #pragma unroll
@@ -129,27 +144,46 @@ qmatmul_w8a8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
           const float o = __fadd_rn(
               __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][c]), sa[row]), sw[col]),
               bias[col]);
-          C[static_cast<size_t>(row) * N + col] = repro::from_f32<OutT>(o);
+          if constexpr (Q8)
+            repro::q8::keep(q8, smax, row, m0, col, N, o);
+          else
+            C[static_cast<size_t>(row) * N + col] = repro::from_f32<OutT>(o);
         }
       }
+  if constexpr (Q8) repro::q8::finish_tile<BM>(q8, smax, m0, M, N);
 }
 
 template <int BM>
 void launch(const void* a, const void* wt, const void* sa, const void* sw,
-            const void* bias, void* c, int M, int N, int K, int out_bf16,
-            int vec, cudaStream_t st) {
+            const void* bias, void* c, const repro::q8::Args& q8, int M, int N,
+            int K, int out_bf16, int vec, cudaStream_t st) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const int8_t* A = static_cast<const int8_t*>(a);
   const int8_t* Bt = static_cast<const int8_t*>(wt);
   const float* SA = static_cast<const float*>(sa);
   const float* SW = static_cast<const float*>(sw);
   const float* BI = static_cast<const float*>(bias);
-  if (out_bf16)
-    qmatmul_w8a8_kernel<BM, __nv_bfloat16><<<grid, 128, 0, st>>>(
-        A, Bt, SA, SW, BI, static_cast<__nv_bfloat16*>(c), M, N, K, vec);
+  if (q8.q != nullptr)
+    qmatmul_w8a8_kernel<BM, float, true><<<grid, 128, 0, st>>>(
+        A, Bt, SA, SW, BI, nullptr, q8, M, N, K, vec);
+  else if (out_bf16)
+    qmatmul_w8a8_kernel<BM, __nv_bfloat16, false><<<grid, 128, 0, st>>>(
+        A, Bt, SA, SW, BI, static_cast<__nv_bfloat16*>(c), q8, M, N, K, vec);
   else
-    qmatmul_w8a8_kernel<BM, float><<<grid, 128, 0, st>>>(
-        A, Bt, SA, SW, BI, static_cast<float*>(c), M, N, K, vec);
+    qmatmul_w8a8_kernel<BM, float, false><<<grid, 128, 0, st>>>(
+        A, Bt, SA, SW, BI, static_cast<float*>(c), q8, M, N, K, vec);
+}
+
+int dispatch(const void* a, const void* wt, const void* sa, const void* sw,
+             const void* bias, void* c, const repro::q8::Args& q8, int M,
+             int N, int K, int out_bf16, int vec, void* stream) {
+  if (M == 0 || N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 16)
+    launch<16>(a, wt, sa, sw, bias, c, q8, M, N, K, out_bf16, vec, st);
+  else
+    launch<64>(a, wt, sa, sw, bias, c, q8, M, N, K, out_bf16, vec, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -161,11 +195,20 @@ extern "C" int repro_qmatmul_w8a8(const void* a, const void* wt, const void* sa,
                                   const void* sw, const void* bias, void* c,
                                   int M, int N, int K, int out_bf16, int vec,
                                   void* stream) {
-  if (M == 0 || N == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 16)
-    launch<16>(a, wt, sa, sw, bias, c, M, N, K, out_bf16, vec, st);
-  else
-    launch<64>(a, wt, sa, sw, bias, c, M, N, K, out_bf16, vec, st);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(a, wt, sa, sw, bias, c, repro::q8::Args{}, M, N, K, out_bf16,
+                  vec, stream);
+}
+
+// The quantize-out variant: q [M, N] int8 and s [M] float32 out; y [M, N]
+// float32 workspace; scratch [M + ceil(M / 16)] uint32, zero on entry and
+// left zero (the rows' max, then one counter per M tile).
+extern "C" int repro_qmatmul_w8a8_q8(const void* a, const void* wt,
+                                     const void* sa, const void* sw,
+                                     const void* bias, void* y, void* scratch,
+                                     void* q, void* s, int M, int N, int K,
+                                     int vec, void* stream) {
+  unsigned* amax = static_cast<unsigned*>(scratch);
+  const repro::q8::Args q8{static_cast<float*>(y), amax, amax + M,
+                           static_cast<int8_t*>(q), static_cast<float*>(s)};
+  return dispatch(a, wt, sa, sw, bias, nullptr, q8, M, N, K, 0, vec, stream);
 }

@@ -2,6 +2,7 @@
 resolved by the input's device (``dispatch``)."""
 from . import (  # noqa: F401  (register)
     fused_decode,
+    kv_attention,
     qmatmul_w8a8,
     qmatmul_w8a16,
     quantize_act,

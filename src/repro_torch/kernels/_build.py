@@ -129,7 +129,8 @@ def build() -> _Lib:
     return _LIB
 
 
-def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def function(name: str, argtypes: Sequence,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The library's C function ``name`` with explicit ``argtypes``
     (``c_void_p`` for every pointer and the stream, ``c_int`` for ints)."""
     lib = build()
@@ -137,7 +138,7 @@ def function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     if fn is None:
         fn = getattr(lib.handle, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         lib._fns[name] = fn
     return fn
 

@@ -11,6 +11,8 @@ instead of an environment variable:
     gets the kernel, a CPU tensor the plain version. Nothing else selects a
     tier — no environment variable, no global switch — and the CUDA tier
     never falls back: if its kernel cannot build or launch, the call raises.
+    ``REPRO_FUSED_DECODE`` (``fused_decode.ops.fusion_enabled``) picks a
+    route through the ops, as in the JAX package, never a tier.
   * Every kernel wrapper calls ``count_launch(op)`` right where it launches
     its kernel, and nowhere else, so a run can show that its main path went
     through the kernels (``launch_counts`` / ``reset_launch_counts``).

@@ -2,9 +2,11 @@
 
 Replaces ``fused_decode_pallas`` (``repro/kernels/fused_decode/kernel.py``):
 append-quantize the new token's K/V into ring slot ``idx[b]`` of the cache
-IN PLACE, online-softmax attention over the updated cache, optional
-quantize-out of the output row. The cache tensors are the pool's own; the
-kernel writes them directly (the Pallas kernel aliases them instead).
+IN PLACE, online-softmax attention over the updated cache (the attention
+body of the ``kv_attention`` kernel, ``csrc/decode_attention.cuh``),
+optional quantize-out of the output row. The cache tensors are the pool's
+own; the kernel writes them directly (the Pallas kernel aliases them
+instead).
 """
 from __future__ import annotations
 
@@ -14,20 +16,10 @@ import torch
 
 from .. import _build
 from ..dispatch import count_launch
+from ..kv_attention.kernel import check_smem, check_tensor
 
 _ARGS = ((ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 5 + (ctypes.c_float,)
          + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"fused_decode_cuda: {name} is on {t.device}, "
-                         f"expected {device}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_decode_cuda: {name} must be {dtype} "
-                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_decode_cuda: {name} must be contiguous")
 
 
 def fused_decode_cuda(q, k_q, k_s, v_q, v_s, k_new, v_new, idx, valid, *,
@@ -50,18 +42,20 @@ def fused_decode_cuda(q, k_q, k_s, v_q, v_s, k_new, v_new, idx, valid, *,
     if q.shape[0] != B or q.shape[2] != hd or Hq % Hkv:
         raise ValueError(f"fused_decode_cuda: q {tuple(q.shape)} does not "
                          f"fit the cache {tuple(k_q.shape)}")
-    _check("q", q, q.dtype, (B, Hq, hd), dev)
+    who = "fused_decode_cuda"
+    check_tensor(who, "q", q, q.dtype, (B, Hq, hd), dev)
     for name, t in (("k_q", k_q), ("v_q", v_q)):
-        _check(name, t, torch.int8, (B, S, Hkv, hd), dev)
+        check_tensor(who, name, t, torch.int8, (B, S, Hkv, hd), dev)
         if t.data_ptr() % 16:
             raise ValueError(f"fused_decode_cuda: {name} must be 16-byte "
                              f"aligned")
     for name, t in (("k_s", k_s), ("v_s", v_s)):
-        _check(name, t, torch.float32, (B, S, Hkv), dev)
+        check_tensor(who, name, t, torch.float32, (B, S, Hkv), dev)
     for name, t in (("k_new", k_new), ("v_new", v_new)):
-        _check(name, t, q.dtype, (B, Hkv, hd), dev)
-    _check("idx", idx, torch.int32, (B,), dev)
-    _check("valid", valid, torch.bool, (B, S), dev)
+        check_tensor(who, name, t, q.dtype, (B, Hkv, hd), dev)
+    check_tensor(who, "idx", idx, torch.int32, (B,), dev)
+    check_tensor(who, "valid", valid, torch.bool, (B, S), dev)
+    check_smem(who, Hq, Hkv, hd, False)
     out = torch.empty((B, Hq, hd), dtype=q.dtype, device=dev)
     oq = torch.empty((B, Hq * hd) if quantize_out else (1,),
                      dtype=torch.int8, device=dev)

@@ -1,6 +1,11 @@
-"""int8 KV cache: quantize, append, and the blocked attention oracle."""
-from .ops import append_quantize, quantize_kv
+"""int8 KV cache: quantize, append, and decode attention (kernel + oracle)."""
+from .ops import (
+    append_quantize,
+    kv_attention,
+    kv_attention_decode,
+    quantize_kv,
+)
 from .ref import kv_attention_ref, pad_to_block
 
-__all__ = ["append_quantize", "kv_attention_ref", "pad_to_block",
-           "quantize_kv"]
+__all__ = ["append_quantize", "kv_attention", "kv_attention_decode",
+           "kv_attention_ref", "pad_to_block", "quantize_kv"]

@@ -4,7 +4,10 @@ Mirrors ``repro/kernels/kv_attention/ref.py`` ``kv_attention_ref`` block for
 block: the same block order, float32 op sequence and zero-scale masking
 (scale 0 marks an invalid position; masked scores are -1e30, never -inf, so
 a fully masked row comes out 0, not NaN). The fused decode plain version
-composes it.
+composes it. With ``v_err`` (the per-position V error means of the V bias
+correction) the oracle carries ``e = Σ p·v_err`` beside ``acc`` through the
+same rescaling and returns ``(acc - e) / l``, as the CUDA kernel does; the
+JAX package applies the correction in ``kv_attention_xla`` only.
 """
 from __future__ import annotations
 
@@ -25,13 +28,16 @@ def pad_to_block(k_q, k_s, v_q, v_s, blk: int):
 
 
 def kv_attention_ref(q, k_q, k_s, v_q, v_s, out_dtype=torch.float32, *,
-                     blk: int = 512):
-    """q [B, Hq, hd]; k_q/v_q [B, S, Hkv, hd] int8; k_s/v_s [B, S, Hkv]
-    → [B, Hq, hd] ``out_dtype``."""
+                     blk: int = 512, v_err=None):
+    """q [B, Hq, hd]; k_q/v_q [B, S, Hkv, hd] int8; k_s/v_s (and ``v_err``)
+    [B, S, Hkv] → [B, Hq, hd] ``out_dtype``."""
     B, S, Hkv, hd = k_q.shape
     Hq = q.shape[1]
     group = Hq // Hkv
     k_q, k_s, v_q, v_s, blk_e = pad_to_block(k_q, k_s, v_q, v_s, blk)
+    if v_err is not None:
+        v_err = _pad_to(v_err.float(), blk_e, 1)
+        e_acc = torch.zeros((B, Hq), dtype=torch.float32, device=q.device)
     n_blk = k_q.shape[1] // blk_e
     scale = 1.0 / (hd ** 0.5)
     qg = q.float().reshape(B, Hkv, group, hd)
@@ -52,5 +58,11 @@ def kv_attention_ref(q, k_q, k_s, v_q, v_s, out_dtype=torch.float32, *,
         v = v_q[:, sl].float() * v_s[:, sl].float()[..., None]
         pv = torch.einsum("bngk,bknd->bngd", p.reshape(B, Hkv, group, -1), v)
         acc = acc * corr[..., None] + pv.reshape(B, Hq, hd)
+        if v_err is not None:
+            pe = torch.einsum("bngk,bkn->bng", p.reshape(B, Hkv, group, -1),
+                              v_err[:, sl])
+            e_acc = e_acc * corr + pe.reshape(B, Hq)
         m = m_new
+    if v_err is not None:
+        acc = acc - e_acc[..., None]
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(out_dtype)

@@ -1,6 +1,7 @@
-"""Launch wrapper of the CUDA W8A16 GEMM (``csrc/qmatmul_w8a16.cu``).
+"""Launch wrappers of the CUDA W8A16 GEMM (``csrc/qmatmul_w8a16.cu``).
 
-Replaces ``qmatmul_w8a16_pallas`` (``repro/kernels/qmatmul_w8a16/kernel.py``).
+Replace ``qmatmul_w8a16_pallas`` and, with the quantize-out epilogue,
+``qmatmul_w8a16_q8_pallas`` (``repro/kernels/qmatmul_w8a16/kernel.py``).
 The weight must be stored K-major, as the port's ``QTensor`` keeps every
 int8 weight: ``w_q`` is the [K, N] view of an [N, K] contiguous buffer. The
 scale is read through a pointer and a stride (0 for a per-tensor ``[1]``
@@ -16,11 +17,60 @@ import torch
 
 from .. import _build
 from ..dispatch import count_launch
+from ..qmatmul_w8a8.kernel import q8_workspace
 
 _ARGS = ((ctypes.c_void_p,) * 2 + (ctypes.c_void_p,) + (ctypes.c_int,) * 2
          + (ctypes.c_void_p,) + (ctypes.c_int,) + (ctypes.c_void_p,)
          + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+_ARGS_Q8 = ((ctypes.c_void_p,) * 2 + (ctypes.c_void_p,) + (ctypes.c_int,) * 2
+            + (ctypes.c_void_p,) + (ctypes.c_int,) + (ctypes.c_void_p,) * 4
+            + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
 _FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _checked(a, w_q, w_scale, bias, who):
+    """Check the operands; return (a contiguous, the [N, K] weight, vec)."""
+    dev = a.device
+    named = {"a": a, "w_q": w_q, "w_scale": w_scale}
+    if bias is not None:
+        named["bias"] = bias
+    for name, t in named.items():
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{who}: {name} is on {t.device}, expected a "
+                             f"CUDA device ({dev})")
+    if a.dtype not in _FLOATS or w_q.dtype != torch.int8 or a.ndim != 2 \
+            or w_q.ndim != 2 or a.shape[1] != w_q.shape[0]:
+        raise ValueError(f"{who}: want float32/bfloat16 a [M, K] and int8 "
+                         f"w [K, N], got {tuple(a.shape)} {a.dtype} and "
+                         f"{tuple(w_q.shape)} {w_q.dtype}")
+    M, K = a.shape
+    N = w_q.shape[1]
+    wt = w_q.t()
+    if not wt.is_contiguous():
+        raise ValueError(f"{who}: w_q must be the [K, N] view of a "
+                         f"contiguous [N, K] buffer (QTensor's K-major "
+                         f"layout)")
+    if w_scale.dtype not in _FLOATS or w_scale.ndim != 1 \
+            or w_scale.shape[0] not in (1, N) or not w_scale.is_contiguous():
+        raise ValueError(f"{who}: w_scale must be contiguous "
+                         f"float32/bfloat16 [{N}] or [1], got "
+                         f"{tuple(w_scale.shape)} {w_scale.dtype}")
+    if bias is not None and (bias.dtype not in _FLOATS
+                             or tuple(bias.shape) != (N,)
+                             or not bias.is_contiguous()):
+        raise ValueError(f"{who}: bias must be contiguous float32/bfloat16 "
+                         f"[{N}], got {tuple(bias.shape)} {bias.dtype}")
+    a = a.contiguous()
+    vec = int(K % 16 == 0 and a.data_ptr() % 16 == 0
+              and wt.data_ptr() % 16 == 0)
+    return a, wt, vec
+
+
+def _epilogue_args(w_scale, bias, N):
+    return (w_scale.data_ptr(), int(w_scale.shape[0] == N),
+            int(w_scale.dtype == torch.bfloat16),
+            None if bias is None else bias.data_ptr(),
+            int(bias is not None and bias.dtype == torch.bfloat16))
 
 
 def qmatmul_w8a16_cuda(a: torch.Tensor, w_q: torch.Tensor,
@@ -29,48 +79,38 @@ def qmatmul_w8a16_cuda(a: torch.Tensor, w_q: torch.Tensor,
     """a [M, K] float32 | bfloat16, w_q [K, N] int8 (K-major), w_scale [N]
     or [1], bias [N] or None (float32 | bfloat16), all on the card → [M, N]
     in a's dtype."""
+    a, wt, vec = _checked(a, w_q, w_scale, bias, "qmatmul_w8a16_cuda")
     dev = a.device
-    named = {"a": a, "w_q": w_q, "w_scale": w_scale}
-    if bias is not None:
-        named["bias"] = bias
-    for name, t in named.items():
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"qmatmul_w8a16_cuda: {name} is on {t.device}, "
-                             f"expected a CUDA device ({dev})")
-    if a.dtype not in _FLOATS or w_q.dtype != torch.int8 or a.ndim != 2 \
-            or w_q.ndim != 2 or a.shape[1] != w_q.shape[0]:
-        raise ValueError(f"qmatmul_w8a16_cuda: want float32/bfloat16 a "
-                         f"[M, K] and int8 w [K, N], got {tuple(a.shape)} "
-                         f"{a.dtype} and {tuple(w_q.shape)} {w_q.dtype}")
     M, K = a.shape
-    N = w_q.shape[1]
-    wt = w_q.t()
-    if not wt.is_contiguous():
-        raise ValueError("qmatmul_w8a16_cuda: w_q must be the [K, N] view of "
-                         "a contiguous [N, K] buffer (QTensor's K-major "
-                         "layout)")
-    if w_scale.dtype not in _FLOATS or w_scale.ndim != 1 \
-            or w_scale.shape[0] not in (1, N) or not w_scale.is_contiguous():
-        raise ValueError(f"qmatmul_w8a16_cuda: w_scale must be contiguous "
-                         f"float32/bfloat16 [{N}] or [1], got "
-                         f"{tuple(w_scale.shape)} {w_scale.dtype}")
-    if bias is not None and (bias.dtype not in _FLOATS
-                             or tuple(bias.shape) != (N,)
-                             or not bias.is_contiguous()):
-        raise ValueError(f"qmatmul_w8a16_cuda: bias must be contiguous "
-                         f"float32/bfloat16 [{N}], got {tuple(bias.shape)} "
-                         f"{bias.dtype}")
-    a = a.contiguous()
-    vec = int(K % 16 == 0 and a.data_ptr() % 16 == 0
-              and wt.data_ptr() % 16 == 0)
+    N = wt.shape[0]
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     _build.call(
         "repro_qmatmul_w8a16", _ARGS, a.data_ptr(), wt.data_ptr(),
-        w_scale.data_ptr(), int(w_scale.shape[0] == N),
-        int(w_scale.dtype == torch.bfloat16),
-        None if bias is None else bias.data_ptr(),
-        int(bias is not None and bias.dtype == torch.bfloat16),
-        out.data_ptr(), M, N, K, int(a.dtype == torch.bfloat16), vec,
+        *_epilogue_args(w_scale, bias, N), out.data_ptr(), M, N, K,
+        int(a.dtype == torch.bfloat16), vec,
         torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a16")
     return out
+
+
+def qmatmul_w8a16_q8_cuda(a: torch.Tensor, w_q: torch.Tensor,
+                          w_scale: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None):
+    """The GEMM with the quantize-out epilogue, in one launch: operands as
+    ``qmatmul_w8a16_cuda`` → (q int8 [M, N], scale float32 [M]), the float32
+    result (never rounded to a's dtype) quantized per row by the
+    ``quantize_act`` formula."""
+    a, wt, vec = _checked(a, w_q, w_scale, bias, "qmatmul_w8a16_q8_cuda")
+    dev = a.device
+    M, K = a.shape
+    N = wt.shape[0]
+    y, scratch = q8_workspace(M, N, dev)
+    q = torch.empty((M, N), dtype=torch.int8, device=dev)
+    s = torch.empty((M,), dtype=torch.float32, device=dev)
+    _build.call(
+        "repro_qmatmul_w8a16_q8", _ARGS_Q8, a.data_ptr(), wt.data_ptr(),
+        *_epilogue_args(w_scale, bias, N), y.data_ptr(), scratch.data_ptr(),
+        q.data_ptr(), s.data_ptr(), M, N, K, int(a.dtype == torch.bfloat16),
+        vec, torch.cuda.current_stream(dev).cuda_stream)
+    count_launch("qmatmul_w8a16_q8")
+    return q, s

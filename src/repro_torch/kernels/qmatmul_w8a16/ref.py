@@ -27,3 +27,31 @@ def qmatmul_w8a16_ref(
     if bias is not None:
         out = out + bias.to(torch.float32)[None, :]
     return out.to(out_dtype)
+
+
+def qmatmul_w8a16_q8_ref(a, w_q, w_scale, bias=None, bits: int = 8, *,
+                         bk: int = 1024):
+    """The quantize-out plain version, blocked as ``repro``'s
+    ``qmatmul_w8a16_q8_ref``: the weight cast to a's dtype per K block of
+    ``bk`` (exact for int8), float32 partial sums added block by block, then
+    ``acc · scale + bias`` in float32 (never rounded to a's dtype) and the
+    ``quantize_act`` formula per row → (q int8 [M, N], scale float32 [M])."""
+    M, K = a.shape
+    N = w_q.shape[1]
+    bk_e = min(bk, K)
+    pad = (-K) % bk_e
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        w_q = torch.nn.functional.pad(w_q, (0, 0, 0, pad))
+    acc = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+    for k0 in range(0, K + pad, bk_e):
+        w_blk = w_q[k0:k0 + bk_e].to(a.dtype)
+        acc = acc + a[:, k0:k0 + bk_e].float() @ w_blk.float()
+    out = acc * torch.atleast_1d(w_scale).float()[None, :]
+    if bias is not None:
+        out = out + bias.float()[None, :]
+    qmax = 2 ** (bits - 1) - 1
+    amax = out.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, qmax)
+    q = torch.clamp(torch.round(out / scale[:, None]), -qmax - 1, qmax)
+    return q.to(torch.int8), scale

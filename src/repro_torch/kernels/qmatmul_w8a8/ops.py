@@ -1,7 +1,11 @@
 """Public W8A8 GEMM op, dispatched on the activation's device.
 
-The JAX op's ``quantize_out`` epilogue variant and its ``a_zero_point``
-branch are off the serving path and not ported yet.
+``quantize_out=True`` selects the epilogue variant (its own op and launch
+counter, ``qmatmul_w8a8_q8``): the GEMM emits (int8 out, per-row scale) in
+one launch — the exact ``quantize_act`` formula applied to the float32
+result, so the stepwise GEMM → ``quantize_act`` pair collapses into one
+launch bit-identically. The JAX op's ``a_zero_point`` branch is off the
+serving path and not ported yet.
 """
 from __future__ import annotations
 
@@ -10,8 +14,8 @@ from typing import Optional
 import torch
 
 from ..dispatch import register_impl, resolve
-from .kernel import qmatmul_w8a8_cuda
-from .ref import qmatmul_w8a8_ref
+from .kernel import qmatmul_w8a8_cuda, qmatmul_w8a8_q8_cuda
+from .ref import qmatmul_w8a8_q8_ref, qmatmul_w8a8_ref
 
 
 @register_impl("qmatmul_w8a8", "cuda", pad="zero")
@@ -26,11 +30,25 @@ def _w8a8_torch(a_q, w_q, a_scale, w_scale, bias, *, out_dtype):
     return qmatmul_w8a8_ref(a_q, w_q, a_scale, w_scale, bias, out_dtype)
 
 
+@register_impl("qmatmul_w8a8_q8", "cuda", pad="zero")
+def _w8a8_q8_cuda(a_q, w_q, a_scale, w_scale, bias):
+    return qmatmul_w8a8_q8_cuda(a_q, w_q, a_scale, w_scale, bias)
+
+
+@register_impl("qmatmul_w8a8_q8", "torch", pad="zero")
+def _w8a8_q8_torch(a_q, w_q, a_scale, w_scale, bias):
+    return qmatmul_w8a8_q8_ref(a_q, w_q, a_scale, w_scale, bias)
+
+
 def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,
                  bias: Optional[torch.Tensor] = None, *,
-                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 out_dtype: torch.dtype = torch.float32,
+                 quantize_out: bool = False):
     """y = dequant(a_q) @ dequant(w_q) + bias. a_q [M, K] int8, w_q [K, N]
-    int8, a_scale [M] | [1], w_scale [N] | [1], bias [N]."""
+    int8, a_scale [M] | [1], w_scale [N] | [1], bias [N].
+
+    ``quantize_out=True`` returns (y_q int8 [M, N], y_scale float32 [M])
+    instead — the fused GEMM + quantize epilogue feeding a W8A8 layer."""
     M = a_q.shape[0]
     N = w_q.shape[1]
     dev = a_q.device
@@ -42,5 +60,8 @@ def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,
     ).contiguous()
     bias = (torch.zeros((N,), dtype=torch.float32, device=dev) if bias is None
             else bias.to(torch.float32).contiguous())
+    if quantize_out:
+        return resolve("qmatmul_w8a8_q8", a_q)(a_q, w_q, a_scale, w_scale,
+                                               bias)
     return resolve("qmatmul_w8a8", a_q)(a_q, w_q, a_scale, w_scale, bias,
                                         out_dtype=out_dtype)

@@ -32,3 +32,13 @@ def qmatmul_w8a8_ref(
     if bias is not None:
         out = out + bias.float()[None, :]
     return out.to(out_dtype)
+
+
+def qmatmul_w8a8_q8_ref(a_q, w_q, a_scale, w_scale, bias=None, bits: int = 8):
+    """The quantize-out plain version: the float32 GEMM (exact accumulation)
+    re-quantized per row by ``quantize_act_ref`` — bit-equal to the GEMM
+    followed by ``quantize_act``, as ``repro``'s ``qmatmul_w8a8_q8_ref``."""
+    from ..quantize_act.ref import quantize_act_ref
+
+    return quantize_act_ref(
+        qmatmul_w8a8_ref(a_q, w_q, a_scale, w_scale, bias, torch.float32), bits)

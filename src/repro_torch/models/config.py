@@ -28,6 +28,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     dtype: str = "bfloat16"                   # activation compute dtype
     param_dtype: str = "float32"
+    kv_bias_correct: bool = False             # int8 KV only: store per-token
+                                              # V error means (v_err) and
+                                              # subtract Σ p·v_err (§4.2)
 
     def __post_init__(self):
         if self.head_dim is None and self.n_heads > 0:

@@ -7,10 +7,12 @@ projections are flat ``[D, n_heads*head_dim]`` (head-major), and a
 
 Attention is the serving path — a per-slot int8 KV cache, the single-token
 decode through the fused decode kernel (with the quantize-out epilogue
-feeding a W8A8 ``wo``), and the chunked prefill (append-quantize, then
-plain softmax attention over the dequantized cache) — plus the cache-free
-causal attention of the eval forward. The cache tensors are updated IN
-PLACE; the JAX layers return updated copies.
+feeding a W8A8 ``wo``) or, with ``REPRO_FUSED_DECODE=0`` or the V bias
+correction's ``v_err`` leaf, through ``kv_attention_decode``, and the
+chunked prefill (append-quantize, then plain softmax attention over the
+dequantized cache) — plus the cache-free causal attention of the eval
+forward. The cache tensors are updated IN PLACE; the JAX layers return
+updated copies.
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels.fused_decode.ops import fused_decode
-from ..kernels.kv_attention.ops import append_quantize
+from ..kernels.fused_decode.ops import fused_decode, fusion_enabled
+from ..kernels.kv_attention.ops import append_quantize, kv_attention_decode
 from ..quantized.qtensor import (
     QTensor,
     qtensor_matmul,
@@ -183,33 +185,50 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
     """qkv projection → rope → int8-cache attention → output projection.
 
     cache: this layer's {"k", "v" [B, S, Hkv, hd] int8, "k_scale",
-    "v_scale" [B, S, Hkv] float32}, written in place. T == 1 is the decode
-    hot path (one fused decode launch); T > 1 a prefill chunk.
+    "v_scale" [B, S, Hkv] float32, and with the V bias correction "v_err"
+    [B, S, Hkv] float32}, written in place. T == 1 is the decode hot path,
+    T > 1 a prefill chunk.
     """
     B, T, D = x.shape
     nq, nkv, hd = dims.n_q, dims.n_kv, dims.head_dim
     q, k, v = _project_qkv(p, x, dims, positions)
+    verr = cache.get("v_err")
 
     if T == 1:
-        # decode: ONE launch from roped q/k/v to the attention output; the
-        # W8A8 wo reads the kernel's quantize-out epilogue (int8 + scale)
-        want_q8 = _all_w8a8(p["wo"])
-        res, _ = fused_decode(
-            q[:, 0], cache["k"], cache["k_scale"], cache["v"],
-            cache["v_scale"], k, v, slots.idx, valid=slots.mask[:, 0, :],
-            out_dtype=x.dtype, quantize_out=want_q8)
-        if want_q8:
-            return qtensor_matmul_prequant(res[1], res[2], p["wo"],
-                                           p.get("bo"), (B, T),
-                                           out_dtype=x.dtype)
-        return linear(res.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
+        valid = slots.mask[:, 0, :]
+        if fusion_enabled() and verr is None:
+            # ONE launch from roped q/k/v to the attention output; a W8A8
+            # wo reads the kernel's quantize-out epilogue (int8 + scale)
+            want_q8 = _all_w8a8(p["wo"])
+            out, _ = fused_decode(
+                q[:, 0], cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], k, v, slots.idx, valid=valid,
+                out_dtype=x.dtype, quantize_out=want_q8)
+            if want_q8:
+                return qtensor_matmul_prequant(out[1], out[2], p["wo"],
+                                               p.get("bo"), (B, T),
+                                               out_dtype=x.dtype)
+        else:
+            # the stepwise route (REPRO_FUSED_DECODE=0, or a cache with the
+            # V bias correction): append-quantize, mask, the kv_attention
+            # kernel; a W8A8 wo quantizes its input itself
+            out, _ = kv_attention_decode(
+                q[:, 0], cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], k, v, slots.idx, valid=valid,
+                out_dtype=x.dtype, cache_verr=verr)
+        return linear(out.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
 
     # chunked prefill: append-quantize once, then attend over the
     # dequantized cache in the compute dtype
-    ck, ks, cv, vs = append_quantize(cache["k"], cache["k_scale"], cache["v"],
-                                     cache["v_scale"], k, v, slots.idx)
+    leaves = append_quantize(cache["k"], cache["k_scale"], cache["v"],
+                             cache["v_scale"], k, v, slots.idx,
+                             cache_verr=verr)
+    ck, ks, cv, vs = leaves[:4]
     kd = ck.to(x.dtype) * ks.to(x.dtype)[..., None]
     vd = cv.to(x.dtype) * vs.to(x.dtype)[..., None]
+    if verr is not None:
+        # Σ p (ṽ − e) == Σ p ṽ − Σ p e: the decode route's correction
+        vd = vd - verr.to(x.dtype)[..., None]
     group = nq // nkv
     attn = attention_scores_softmax(q, _repeat_kv(kd, group),
                                     _repeat_kv(vd, group), slots.mask)

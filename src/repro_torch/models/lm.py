@@ -36,8 +36,9 @@ from .layers import (
     slot_write,
 )
 
-#: the cache's int8 payload leaves, each [L, B, S, ...]
-KV_KEYS = ("k", "v", "k_scale", "v_scale")
+#: the cache's per-layer leaves, each [L, B, S, ...] ("v_err" only with
+#: ``kv_bias_correct``)
+KV_KEYS = ("k", "v", "k_scale", "v_scale", "v_err")
 
 
 def _layer(tree, i: int):
@@ -219,7 +220,9 @@ class LMModel:
         """The continuous-batching cache: every batch row is a serving slot
         with its own write offset (``pos`` [B]) and absolute slot positions
         (``kpos`` [B, S], -1 = empty). int8 payload with per-token, per-head
-        float32 scales; scale 0 marks an unwritten position."""
+        float32 scales; scale 0 marks an unwritten position. With
+        ``kv_bias_correct`` a ``v_err`` leaf [L, B, S, Hkv] float32 holds
+        each token's V error mean."""
         cfg = self.cfg
         if kv_bits != 8 or not per_slot:
             raise NotImplementedError(
@@ -227,7 +230,7 @@ class LMModel:
                 f"per_slot=True); got kv_bits={kv_bits}, per_slot={per_slot}")
         device = resolve_device(device)
         L, S, H, hd = cfg.n_layers, seq_len, cfg.n_kv_heads, cfg.head_dim
-        return {
+        cache = {
             "k": torch.zeros((L, batch, S, H, hd), dtype=torch.int8, device=device),
             "v": torch.zeros((L, batch, S, H, hd), dtype=torch.int8, device=device),
             "k_scale": torch.zeros((L, batch, S, H), dtype=torch.float32, device=device),
@@ -235,6 +238,10 @@ class LMModel:
             "kpos": torch.full((batch, S), -1, dtype=torch.int64, device=device),
             "pos": torch.zeros((batch,), dtype=torch.int64, device=device),
         }
+        if cfg.kv_bias_correct:
+            cache["v_err"] = torch.zeros((L, batch, S, H), dtype=torch.float32,
+                                         device=device)
+        return cache
 
     def _forward_cached(self, params, tokens, cache, *, logits_at=None):
         """Run T tokens from each row's ``cache["pos"]``; ``logits_at`` [B]
@@ -248,7 +255,7 @@ class LMModel:
         for i, lp in enumerate(layers):
             x = self._transformer_block(
                 lp, x, positions=positions, slots=slots,
-                cache={k: cache[k][i] for k in KV_KEYS})
+                cache={k: cache[k][i] for k in KV_KEYS if k in cache})
         x = apply_norm(x, p["final_norm"], self.cfg.norm)
         if logits_at is None:
             h_last = x[:, -1:, :]

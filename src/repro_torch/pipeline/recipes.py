@@ -96,7 +96,7 @@ BUILTIN_RECIPES: dict = {
            "fold_norm", "cle", "bias_absorb", ("pack", {"mode": "w8a8"})),
         _r("serve-w8a16-kv8",
            "serve-w8a16 plus an int8 KV cache (per-token/per-head scales; "
-           "decode attends through the fused decode kernel)",
+           "decode attends over it through the int8 attention kernels)",
            "fold_norm", "cle", "bias_absorb", ("pack", {"mode": "w8a16"}),
            ("kv_cache", {"bits": 8})),
         _r("serve-w8a8-kv8",

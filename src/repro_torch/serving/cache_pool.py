@@ -12,7 +12,8 @@ from __future__ import annotations
 
 from .errors import PoolExhausted
 
-#: bookkeeping leaves (everything else is int8 payload or its scales)
+#: bookkeeping leaves (everything else is int8 payload, its scales or the
+#: V error means)
 KNOWN_BOOKKEEPING = frozenset({"kpos", "pos"})
 
 

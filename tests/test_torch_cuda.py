@@ -22,7 +22,16 @@ Tolerances as in chip_smoke.py:
     bf16 ulp (one ulp alone fails near zero), its quantize-out bit-equal to
     quantize_act of the kernel's own output and off the plain version's by
     one only at a rounding tie (or, in bfloat16, where that output element
-    moved).
+    moved);
+  * kv_attention (with and without v_err) within fused_decode's bound of
+    its plain version, a fully masked row exactly 0; fused_decode
+    bit-equal to append_quantize + the kv_attention kernel (+ the
+    quantize_act kernel);
+  * the quantize-out GEMMs in one launch: qmatmul_w8a8's payload and scale
+    bit-equal to its plain version and to the W8A8 kernel to float32
+    followed by the quantize_act kernel; qmatmul_w8a16's with float32 a
+    bit-equal to that pair of its own kernels, with bfloat16 a at most one
+    step off its plain version.
 """
 import pytest
 import torch
@@ -97,6 +106,193 @@ def test_fused_decode_kernel_against_plain(dev, dtype):
     tie = ((r / osr[:, None]).abs() % 1.0 - 0.5).abs() < 1e-3
     allowed = tie | (diff > 0) if dtype == torch.bfloat16 else tie
     assert int(dq.max()) <= 1 and not bool(((dq > 0) & ~allowed).any())
+
+
+def _out_tolerance(r, dtype):
+    """fused_decode's bound: T = atol 1e-6 + rtol 1e-5, plus one bf16 ulp
+    of |r| + T in bfloat16."""
+    tol = 1e-6 + 1e-5 * r.abs()
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp((r.abs() + tol).clamp_min(2.0 ** -126))
+        tol = tol + torch.ldexp(torch.ones_like(r), e - 8)
+    return tol
+
+
+def _cache(dev, B, S, Hkv, hd, gen):
+    def payload():
+        return torch.randint(-127, 128, (B, S, Hkv, hd), device=dev,
+                             dtype=torch.int8, generator=gen)
+
+    def scales():
+        return torch.rand((B, S, Hkv), device=dev, generator=gen) * 0.02
+    return payload(), scales(), payload(), scales()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_attention_kernel_against_plain(dev, dtype):
+    """S = 33 against the plain version's blk = 32 and blk = 512 (S < blk),
+    GQA 2 and 4, with and without v_err (zero where the scales are, as
+    kv_attention_decode passes it); a row whose scales are all 0 gives
+    exactly 0; one launch per call."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.kv_attention import kv_attention, kv_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for B, Hq, Hkv, hd, S in ((3, 4, 2, 16, 33), (2, 8, 2, 32, 70)):
+        kq, ks, vq, vs = _cache(dev, B, S, Hkv, hd, gen)
+        ks[1, S // 2:] = 0                                 # a ragged row
+        vs[1, S // 2:] = 0
+        ks[B - 1] = 0                                      # a masked row
+        vs[B - 1] = 0
+        q = torch.randn((B, Hq, hd), device=dev, generator=gen).to(dtype)
+        v_err = torch.where(ks > 0, torch.randn(
+            (B, S, Hkv), device=dev, generator=gen) * 1e-3, 0.0)
+        for ve in (None, v_err):
+            for blk in (32, 512):
+                reset_launch_counts()
+                out = kv_attention(q, kq, ks, vq, vs, blk=blk, out_dtype=dtype,
+                                   v_err=ve)
+                assert launch_counts()["kv_attention"] == 1
+                r = kv_attention_ref(q, kq, ks, vq, vs, dtype, blk=blk,
+                                     v_err=ve)
+                diff = (out.float() - r.float()).abs()
+                assert bool((diff <= _out_tolerance(r.float(), dtype)).all()), (
+                    B, Hq, S, blk, ve is None, float(diff.max()))
+                assert float(out[B - 1].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_decode_equals_the_composition_bitwise(dev, dtype):
+    """fused_decode against append_quantize + the kv_attention kernel + the
+    quantize_act kernel: the shared attention body gives the same bits."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.fused_decode import fused_decode
+    from repro_torch.kernels.kv_attention import kv_attention_decode
+    from repro_torch.kernels.quantize_act import quantize_act
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, Hq, Hkv, hd, S = 4, 8, 2, 32, 100
+    leaves = _cache(dev, B, S, Hkv, hd, gen)
+    q = torch.randn((B, Hq, hd), device=dev, generator=gen).to(dtype)
+    kn = torch.randn((B, 1, Hkv, hd), device=dev, generator=gen).to(dtype)
+    vn = torch.randn((B, 1, Hkv, hd), device=dev, generator=gen).to(dtype)
+    idx = torch.tensor([[S - 1], [7], [0], [64]], device=dev)
+    valid = torch.arange(S, device=dev)[None] <= idx
+    valid[2] = False
+    fused = [t.clone() for t in leaves]
+    comp = [t.clone() for t in leaves]
+    reset_launch_counts()
+    (out, oq, os_), _ = fused_decode(q, *fused, kn, vn, idx, valid=valid,
+                                     out_dtype=dtype, quantize_out=True)
+    outc, _ = kv_attention_decode(q, *comp, kn, vn, idx, valid=valid,
+                                  out_dtype=dtype)
+    oqc, osc = quantize_act(outc.reshape(B, -1))
+    counts = launch_counts()
+    assert (counts["fused_decode"], counts["kv_attention"],
+            counts["quantize_act"]) == (1, 1, 1)
+    for a, b in zip(fused, comp):
+        assert torch.equal(a, b)
+    assert torch.equal(out, outc)
+    assert torch.equal(oq, oqc) and torch.equal(os_, osc)
+
+
+def test_qmatmul_q8_kernels_one_launch_bit_equal(dev):
+    """Both quantize-out GEMMs at ragged shapes (several M and N tiles, N
+    not a multiple of 4), each called twice so the second call finds its
+    scratch left zero: one launch per call; qmatmul_w8a8's payload and
+    scale bit-equal to its plain version and to the kernel pair (float32
+    GEMM, then quantize_act); qmatmul_w8a16's bit-equal to its own pair for
+    float32 a and at most one step off its plain version for bfloat16 a,
+    its scale within rtol 1e-4 there (float32 sums in other orders)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8 import (
+        qmatmul_w8a8,
+        qmatmul_w8a8_q8_ref,
+    )
+    from repro_torch.kernels.qmatmul_w8a16 import (
+        qmatmul_w8a16,
+        qmatmul_w8a16_q8_ref,
+    )
+    from repro_torch.kernels.quantize_act import quantize_act
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for M, K, N in ((1, 16, 8), (5, 33, 17), (70, 96, 130), (8, 896, 256)):
+        w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
+                          generator=gen).t()
+        sw = torch.rand(N, device=dev, generator=gen) * 0.01 + 1e-4
+        bias = torch.randn(N, device=dev, generator=gen)
+        a_q = torch.randint(-128, 128, (M, K), device=dev, dtype=torch.int8,
+                            generator=gen)
+        sa = torch.rand(M, device=dev, generator=gen) * 0.05 + 1e-4
+        pair = quantize_act(qmatmul_w8a8(a_q, w, sa, sw, bias))
+        want = qmatmul_w8a8_q8_ref(a_q, w, sa, sw, bias)
+        for _ in range(2):
+            reset_launch_counts()
+            q, s = qmatmul_w8a8(a_q, w, sa, sw, bias, quantize_out=True)
+            assert launch_counts()["qmatmul_w8a8_q8"] == 1
+            assert launch_counts()["qmatmul_w8a8"] == 0
+            for got in (pair, want):
+                assert torch.equal(q, got[0]) and torch.equal(s, got[1])
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn((M, K), device=dev, generator=gen).to(dtype)
+            for _ in range(2):
+                reset_launch_counts()
+                q, s = qmatmul_w8a16(a, w, sw, bias, quantize_out=True)
+                assert launch_counts()["qmatmul_w8a16_q8"] == 1
+                assert launch_counts()["qmatmul_w8a16"] == 0
+                if dtype == torch.float32:
+                    qp, sp = quantize_act(qmatmul_w8a16(a, w, sw, bias))
+                    assert torch.equal(q, qp) and torch.equal(s, sp)
+                else:
+                    qr, sr = qmatmul_w8a16_q8_ref(a, w, sw, bias)
+                    assert int((q.int() - qr.int()).abs().max()) <= 1
+                    assert bool(((s - sr).abs() <= 1e-4 * sr).all())
+
+
+@pytest.mark.parametrize("recipe", ["w8a16", "w8a8"])
+def test_unfused_serving_on_the_card_matches_fused(dev, recipe, monkeypatch):
+    """REPRO_FUSED_DECODE=0 serves the fused run's tokens through
+    kv_attention, with no fused_decode launch."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    config = repro_torch.ServeConfig(smoke=True, quantize=recipe, trace=4,
+                                     slots=2, prompt_len=12, gen_len=6,
+                                     prefill_chunk=4)
+    fused = repro_torch.serve(config)
+    monkeypatch.setenv("REPRO_FUSED_DECODE", "0")
+    reset_launch_counts()
+    unfused = repro_torch.serve(config)
+    counts = launch_counts()
+    assert counts["fused_decode"] == 0 and counts["kv_attention"] > 0
+    for rid, r in fused.results.items():
+        assert unfused.results[rid].tokens == r.tokens, rid
+
+
+def test_v_bias_corrected_serving_on_the_card(dev):
+    """kv_bias_correct: the cache carries v_err and decode runs the
+    kv_attention kernel, never fused_decode."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServingEngine, synthetic_trace
+
+    cfg = dataclasses.replace(repro_torch.get_config("qwen2-0.5b-smoke"),
+                              kv_bias_correct=True)
+    model = repro_torch.build_model(cfg)
+    qm = repro_torch.quantize(model, model.init(0, device=dev),
+                              recipe="serve-w8a8-kv8", device=dev)
+    eng = ServingEngine(model, qm.params, cfg, num_slots=2, max_len=32,
+                        prefill_chunk=4, device=dev)
+    assert "v_err" in eng.pool.cache
+    reset_launch_counts()
+    res = eng.run(synthetic_trace(0, 4, vocab_size=cfg.vocab_size,
+                                  prompt_lens=(3, 12), gen_lens=(6, 6)))
+    counts = launch_counts()
+    assert all(r.status == "ok" and len(r.tokens) == 6 for r in res.values())
+    assert counts["fused_decode"] == 0 and counts["kv_attention"] > 0
+    assert bool(eng.pool.cache["v_err"].abs().sum() > 0)
 
 
 def _w8a16_tolerance(a, w_q, w_scale, bias, y_ref):

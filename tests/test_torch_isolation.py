@@ -38,7 +38,7 @@ def test_no_jax_or_repro_import(path):
 def test_port_has_sources_for_its_kernels():
     csrc = {p.stem for p in (PORT / "csrc").glob("*.cu")}
     assert csrc == {"quantize_act", "qmatmul_w8a8", "qmatmul_w8a16",
-                    "fused_decode"}
+                    "kv_attention", "fused_decode"}
 
 
 def _run(code: str) -> str:

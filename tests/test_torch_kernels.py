@@ -53,7 +53,11 @@ from repro_torch.kernels.qmatmul_w8a8 import (
     qmatmul_w8a8_ref,
 )
 from repro_torch.kernels.qmatmul_w8a8.kernel import qmatmul_w8a8_cuda
-from repro_torch.kernels.qmatmul_w8a16 import qmatmul_w8a16, qmatmul_w8a16_ref
+from repro_torch.kernels.qmatmul_w8a16 import (
+    qmatmul_w8a16,
+    qmatmul_w8a16_q8_ref,
+    qmatmul_w8a16_ref,
+)
 from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_cuda
 from repro_torch.kernels.quantize_act import quantize_act, quantize_act_ref
 from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
@@ -224,9 +228,13 @@ def test_qmatmul_w8a16_op_on_cpu_is_the_plain_version():
     assert launch_counts()["qmatmul_w8a16"] == 0   # no kernel on the CPU
     assert dispatch.pad_convention("qmatmul_w8a16") == "zero"
     assert dispatch.resolve("qmatmul_w8a16", y).__name__ == "_w8a16_torch"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        qmatmul_w8a16(torch.from_numpy(a), torch.from_numpy(w),
-                      torch.from_numpy(sw), quantize_out=True)
+    # the quantize-out variant on the CPU is its own plain version too
+    q, s = qmatmul_w8a16(torch.from_numpy(a), torch.from_numpy(w),
+                         torch.from_numpy(sw), quantize_out=True)
+    qr, sr = qmatmul_w8a16_q8_ref(torch.from_numpy(a), torch.from_numpy(w),
+                                  torch.from_numpy(sw))
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert launch_counts()["qmatmul_w8a16_q8"] == 0
 
 
 def test_w8a16_wrapper_refuses_cpu_tensors():

@@ -214,11 +214,15 @@ def test_unported_features_raise():
     m = build_model(cfg)
     with pytest.raises(NotImplementedError, match="int8 KV"):
         m.init_cache(1, 8, device="cpu", kv_bits=16)
-    from repro_torch.kernels.qmatmul_w8a16 import qmatmul_w8a16
-    with pytest.raises(NotImplementedError, match="later slice"):
-        qmatmul_w8a16(torch.zeros((1, 4)), torch.zeros((4, 2),
-                                                        dtype=torch.int8),
-                      torch.ones(1), quantize_out=True)
+    from repro_torch.kernels.qmatmul_w8a16 import (
+        qmatmul_w8a16,
+        qmatmul_w8a16_q8_ref,
+    )
+    a = torch.linspace(-1, 1, 12).reshape(3, 4)
+    w = torch.arange(-4, 4, dtype=torch.int8).reshape(4, 2)
+    q, s = qmatmul_w8a16(a, w, torch.ones(1), quantize_out=True)
+    qr, sr = qmatmul_w8a16_q8_ref(a, w, torch.ones(1))
+    assert torch.equal(q, qr) and torch.equal(s, sr)
     from repro_torch.models.layers import mlp_block
     with pytest.raises(NotImplementedError, match="activation"):
         mlp_block({}, torch.zeros((1, 4)), "gelu")
