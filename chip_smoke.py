@@ -24,11 +24,19 @@ Phases, each of which must pass (nothing here catches a failure):
      float32 a) and to the W8A8 plain version, W8A16 with bfloat16 a within
      one step of its plain version. In float32 the W8A16 check also runs
      two controls that must fall outside its tolerance (TF32, and ``a``
-     rounded to bf16). Times each kernel (device time, queued behind a sleep
-     kernel so the host's per-call cost is hidden, and the time of a
-     back-to-back wrapper call, host included), its plain version, the
-     stepwise pair a quantize-out GEMM replaces and, where one exists, the
-     one PyTorch call computing the same function, all with CUDA events.
+     rounded to bf16). The split sweep runs both GEMMs at every path shape
+     under forced K splits (1, 2, the planner's, the largest it allows):
+     W8A8 bit-equal in both output types at M = 8, 64 and 256, W8A16 within
+     ``W8A16_TOL`` in bf16 and f32, and two calls of each GEMM and each
+     quantize-out variant bit-equal; it logs each split's time. Times each
+     kernel (device time, queued behind a sleep kernel so the host's
+     per-call cost is hidden, and the time of a back-to-back wrapper call,
+     host included), its plain version, the stepwise pair a quantize-out GEMM
+     replaces and, where one exists, the one PyTorch call computing the same
+     function, all with CUDA events. At M = 8 the GEMMs and their library
+     calls are also timed cold: rotating over 128 MB of weight copies, so
+     each call reads its weight from HBM as the serving path does. One line
+     sums the GEMMs' device time over a decode step and a prefill chunk.
   3. reference — for each serving recipe, ``repro_torch.quantize`` of a
      smoke-size qwen2 (seeded weights that need every rewrite) on the card
      against the same call on the CPU: payloads, scales and float leaves
@@ -181,6 +189,28 @@ def bound_ms(bytes_moved: float, ops: float, ops_rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# weight copies a cold timing rotates over: 2.5 times the H100's 50 MB L2
+COLD_BYTES = 128 << 20
+
+
+def cold_ms(torch, call, w, iters: int = 50) -> float:
+    """``device_ms`` of ``call(w_i)`` rotating over copies of the K-major
+    int8 weight ``w`` ([K, N] view of [N, K] storage) that together hold at
+    least ``COLD_BYTES``: each call reads a weight that ~128 MB of other
+    weights were read after, as the serving path reads 358 MB of weights a
+    decode step, so it comes from HBM and not from the L2."""
+    import itertools
+
+    K, N = w.shape
+    n = -(-COLD_BYTES // (K * N))
+    copies = w.t().unsqueeze(0).expand(n, N, K).contiguous()
+    views = [copies[i].t() for i in range(n)]
+    turn = itertools.count()
+    ms = device_ms(lambda: call(views[next(turn) % n]), iters)
+    del views, copies
+    return ms
+
+
 # --------------------------------------------------------------- phase 2
 def check_quantize_act(torch, dev, gen):
     from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
@@ -246,13 +276,21 @@ def check_qmatmul(torch, dev, gen):
                              2 * M * K * N, INT8_OPS_S)
             kern = lambda: qmatmul_w8a8_cuda(a, w, sa, sw, bias,
                                              out_dtype=torch.bfloat16)
-            rows.append({
-                "shape": f"M={M} K={K} N={N} -> bf16", "max_abs_err": 0.0,
+            row = {
+                "shape": f"M={M} K={K} N={N} -> bf16", "mkn": [M, K, N],
+                "max_abs_err": 0.0,
                 "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
                 "plain_ms": device_ms(lambda: qmatmul_w8a8_ref(
                     a, w, sa, sw, bias, torch.bfloat16), 10),
                 "bound_ms": b, "bound_by": by, "library_ms": lib,
-                "library": lib_call})
+                "library": lib_call}
+            if M == 8:
+                # each call's weight from HBM, not from the L2
+                row["cold_ms"] = cold_ms(torch, lambda wc: qmatmul_w8a8_cuda(
+                    a, wc, sa, sw, bias, out_dtype=torch.bfloat16), w)
+                row["library_cold_ms"] = cold_ms(
+                    torch, lambda wc: torch._int_mm(a_lib, wc), w)
+            rows.append(row)
     return rows
 
 
@@ -341,14 +379,23 @@ def check_qmatmul_w8a16(torch, dev, gen):
                     lib_fn = lambda: torch.nn.functional.linear(a, w_deq_t, bias)
                     lib_call = "F.linear on the pre-dequantized weight"
                 kern = lambda: qmatmul_w8a16_cuda(a, w, sw, bias)
-                rows.append({
-                    "shape": f"M={M} K={K} N={N} {name}",
+                row = {
+                    "shape": f"M={M} K={K} N={N} {name}", "mkn": [M, K, N],
                     "max_abs_err": float(diff.max()),
                     "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
                     "plain_ms": device_ms(lambda: qmatmul_w8a16_ref(
                         a, w, sw, bias, dtype), 10),
                     "bound_ms": b, "bound_by": by,
-                    "library_ms": device_ms(lib_fn, 50), "library": lib_call})
+                    "library_ms": device_ms(lib_fn, 50), "library": lib_call}
+                if M == 8:
+                    # each call's weight from HBM, not from the L2
+                    row["cold_ms"] = cold_ms(torch, lambda wc: qmatmul_w8a16_cuda(
+                        a, wc, sw, bias), w)
+                    if has_lib:
+                        row["library_cold_ms"] = cold_ms(
+                            torch, lambda wc: torch._weight_int8pack_mm(
+                                a, wc.t(), s_n), w)
+                rows.append(row)
     return rows
 
 
@@ -747,6 +794,139 @@ def check_qmatmul_w8a16_q8(torch, dev, gen):
     return rows
 
 
+def check_split_sweep(torch, dev, gen):
+    """Both GEMMs at every path K x N under forced K splits (the wrappers'
+    private ``_splits``): S in {1, 2, the plan's, the largest the planner
+    allows}, M in {8, 64, 256} for W8A8 and {8, 256} for W8A16. W8A8
+    bit-equal to its plain version in bfloat16 and float32; W8A16 within
+    ``W8A16_TOL`` in bfloat16 and float32. At the plan's S and the largest,
+    two calls of each GEMM and of each quantize-out variant give the same
+    bits. Logs each S's device time (bfloat16 out): the planner's evidence."""
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_q8_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a8.ref import qmatmul_w8a8_ref
+    from repro_torch.kernels.qmatmul_w8a16.kernel import (
+        qmatmul_w8a16_cuda,
+        qmatmul_w8a16_q8_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref
+
+    def same_twice(fn):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if isinstance(first, tuple):
+            return all(torch.equal(x, y) for x, y in zip(first, second))
+        return torch.equal(first, second)
+
+    checked = 0
+    for K, N in PATH_KN:
+        w = _kmajor_int8(torch, gen, dev, K, N)
+        sw = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
+        bias = torch.randn((N,), generator=gen, device=dev)
+        for M in (8, 64, 256):
+            p = gemm_plan.plan(M, N, K)
+            top = gemm_plan.max_splits(p.k_steps)
+            a_q = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                                dtype=torch.int8)
+            sa = torch.rand((M,), generator=gen, device=dev) * 0.05 + 1e-4
+            a16 = {dt: torch.randn((M, K), generator=gen, device=dev).to(dt)
+                   for dt in (torch.bfloat16, torch.float32)}
+            sw16 = {dt: (sw[:1] * 10).to(dt) for dt in a16}
+            b16 = {dt: bias.to(dt) for dt in a16}
+            times = []
+            for S in sorted({1, min(2, top), p.splits, top}):
+                what = f"M={M} K={K} N={N} S={S}"
+                for od in (torch.bfloat16, torch.float32):
+                    y = qmatmul_w8a8_cuda(a_q, w, sa, sw, bias, out_dtype=od,
+                                          _splits=S)
+                    yr = qmatmul_w8a8_ref(a_q, w, sa, sw, bias, od)
+                    torch.cuda.synchronize()
+                    assert torch.equal(y, yr), (
+                        f"qmatmul_w8a8 {what} {od}: not bit-equal to the "
+                        f"plain version ({int((y != yr).sum())} values)")
+                    checked += 1
+                t8 = device_ms(lambda: qmatmul_w8a8_cuda(
+                    a_q, w, sa, sw, bias, out_dtype=torch.bfloat16,
+                    _splits=S), 20)
+                t16 = None
+                if M != 64:
+                    for dt, a in a16.items():
+                        y = qmatmul_w8a16_cuda(a, w, sw16[dt], b16[dt],
+                                               _splits=S)
+                        yr = qmatmul_w8a16_ref(a, w, sw16[dt], b16[dt], dt)
+                        torch.cuda.synchronize()
+                        diff = (y.float() - yr.float()).abs()
+                        tol = w8a16_tolerance(torch, a, w, sw16[dt], b16[dt], yr)
+                        assert bool((diff <= tol).all()), (
+                            f"qmatmul_w8a16 {what} {dt}: off the plain "
+                            f"version at {int((diff > tol).sum())} values "
+                            f"({W8A16_TOL[str(dt)[6:]]})")
+                        checked += 1
+                    t16 = device_ms(lambda: qmatmul_w8a16_cuda(
+                        a16[torch.bfloat16], w, sw16[torch.bfloat16],
+                        b16[torch.bfloat16], _splits=S), 20)
+                if S in (p.splits, top):
+                    runs = [lambda: qmatmul_w8a8_cuda(
+                                a_q, w, sa, sw, bias, _splits=S),
+                            lambda: qmatmul_w8a8_q8_cuda(
+                                a_q, w, sa, sw, bias, _splits=S)]
+                    if M != 64:
+                        for dt, a in a16.items():
+                            runs.append(lambda a=a, dt=dt: qmatmul_w8a16_cuda(
+                                a, w, sw16[dt], b16[dt], _splits=S))
+                            runs.append(lambda a=a, dt=dt: qmatmul_w8a16_q8_cuda(
+                                a, w, sw16[dt], b16[dt], _splits=S))
+                    for fn in runs:
+                        assert same_twice(fn), (
+                            f"{what}: two calls gave different bits")
+                times.append(f"S={S}{'*' if S == p.splits else ''} "
+                             f"{t8 * 1e3:.2f}" + ("" if t16 is None
+                                                  else f" / {t16 * 1e3:.2f}"))
+            log(f"  split sweep M={M} K={K} N={N} ({p.tiles} tiles, "
+                f"{p.k_steps} K steps; * the plan's), us w8a8"
+                + ("" if M == 64 else " / w8a16") + " bf16: "
+                + ", ".join(times))
+    log(f"  split sweep: {checked} W8A8 results bit-equal to the plain "
+        f"version and W8A16 within {W8A16_TOL['float32']} (+1 bf16 ulp in "
+        f"bf16); two calls of each GEMM and quantize-out variant at the "
+        f"plan's and the largest S bit-equal")
+
+
+# the serving path's projections a layer: (K, N) and how many of each —
+# q and o, k and v, gate and up, down
+LAYER_GEMMS = (((896, 896), 2), ((896, 128), 2), ((896, 4864), 2),
+               ((4864, 896), 1))
+
+
+def log_step_sums(tables):
+    """One line with the device time of one decode step's GEMMs (24 layers x
+    the seven projections at M = 8, warm and cold) and of one prefill
+    chunk's (M = 256), each beside the bound's sum and, for W8A8,
+    ``torch._int_mm``'s."""
+    def total(name, M, key, suffix=""):
+        rows = {tuple(r["mkn"][1:]): r for r in tables[name]
+                if r["mkn"][0] == M and r["shape"].endswith(suffix)}
+        return 24 * sum(n * rows[kn][key] for kn, n in LAYER_GEMMS)
+
+    w16, w8 = "qmatmul_w8a16", "qmatmul_w8a8"
+    log(f"  GEMM device ms per decode step (24 layers x 7 projections, M=8): "
+        f"{w16} bf16 warm {total(w16, 8, 'ms', 'bfloat16'):.4f}, cold "
+        f"{total(w16, 8, 'cold_ms', 'bfloat16'):.4f} (bound "
+        f"{total(w16, 8, 'bound_ms', 'bfloat16'):.4f}); {w8} warm "
+        f"{total(w8, 8, 'ms'):.4f}, cold {total(w8, 8, 'cold_ms'):.4f} (bound "
+        f"{total(w8, 8, 'bound_ms'):.4f}; torch._int_mm, M padded to 32, warm "
+        f"{total(w8, 8, 'library_ms'):.4f}, cold "
+        f"{total(w8, 8, 'library_cold_ms'):.4f})")
+    log(f"  GEMM device ms per prefill chunk (M=256): {w16} bf16 "
+        f"{total(w16, 256, 'ms', 'bfloat16'):.4f} (bound "
+        f"{total(w16, 256, 'bound_ms', 'bfloat16'):.4f}); {w8} "
+        f"{total(w8, 256, 'ms'):.4f} (bound {total(w8, 256, 'bound_ms'):.4f}; "
+        f"torch._int_mm {total(w8, 256, 'library_ms'):.4f})")
+
+
 # --------------------------------------------------------------- phase 3
 def hostile_smoke_params(torch, model):
     """Seeded smoke weights that give every rewrite work: log-normal norm
@@ -1025,6 +1205,7 @@ def main() -> int:
     check_fused_equals_unfused(torch, dev, gen)
     tables["qmatmul_w8a8_q8"] = check_qmatmul_w8a8_q8(torch, dev, gen)
     tables["qmatmul_w8a16_q8"] = check_qmatmul_w8a16_q8(torch, dev, gen)
+    check_split_sweep(torch, dev, gen)
     for name, rows in tables.items():
         for r in rows:
             lib_ms = ("-" if r["library_ms"] is None
@@ -1035,7 +1216,12 @@ def main() -> int:
                 f"  bound {r['bound_ms'] * 1e3:8.3f} us ({r['bound_by']})"
                 + (f"  stepwise pair {r['stepwise_ms'] * 1e3:8.2f} us"
                    if "stepwise_ms" in r else "")
+                + (f"  cold {r['cold_ms'] * 1e3:8.2f} us" if "cold_ms" in r
+                   else "")
+                + (f" (library {r['library_cold_ms'] * 1e3:.2f})"
+                   if "library_cold_ms" in r else "")
                 + (f"  [{r['library']}]" if "library" in r else ""))
+    log_step_sums(tables)
 
     log("== phase 3: small-input reference")
     for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8"):

@@ -15,9 +15,11 @@
 //   3. that block puts the rows' max and the counter back to 0, so the
 //      scratch (`amax`, `count`) is zero between calls on one stream and no
 //      call clears it.
-// The other blocks never wait, so any grid size is safe. Bit-equal to the
-// GEMM to float32 followed by quantize_act: the max is order-independent
-// and every y is the GEMM's own.
+// The other blocks never wait, so any grid size is safe. With K split
+// across a cluster (gemm_mainloop.cuh), only its rank 0, which holds the
+// tile's sum, calls keep() and finish_tile() (the splits that only publish
+// exit first), so an M tile still counts gridDim.x arrivals, one per N tile. Bit-equal to the GEMM to float32 followed by
+// quantize_act: the max is order-independent and every y is the GEMM's own.
 #pragma once
 
 #include "common.cuh"
@@ -28,7 +30,7 @@ namespace q8 {
 struct Args {
   float* y;         // [M, N] float32 workspace
   unsigned* amax;   // [M] running max |y| as float bits, 0 between calls
-  unsigned* count;  // [gridDim.y] finished blocks per M tile, 0 between calls
+  unsigned* count;  // [gridDim.y] reduced tiles per M tile, 0 between calls
   int8_t* q;        // [M, N] int8 out
   float* s;         // [M] float32 scale out
 };
@@ -42,7 +44,8 @@ __device__ __forceinline__ void keep(const Args& a, unsigned* smax, int row,
 }
 
 // Steps 1-3 after every thread of the block has called keep() for its
-// values. Every thread of the block must call it.
+// values. Every thread of the block must call it, and only the one block
+// that reduces each (N tile, M tile).
 template <int BM>
 __device__ void finish_tile(const Args& a, const unsigned* smax, int m0, int M,
                             int N) {

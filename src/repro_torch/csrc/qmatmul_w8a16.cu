@@ -12,43 +12,62 @@
 // Bound on the H100: at decode (M = 8) bytes — the int8 weight is read
 // once (K*N bytes, 4.36 MB at K=896 N=4864: 1.3 us at 3.35 TB/s) against
 // 2*M*K*N flops, ~16 per byte. A prefill chunk (M = 256) moves ~7.3 MB and
-// does 2.2 GFLOP: ~2.2 us either way at 989 bf16 TFLOP/s.
-// Design (simple and right first), as csrc/qmatmul_w8a8.cu:
-//  * bf16: a block of 4 warps owns a BM x 64 output tile (BM = 16 when
-//    M <= 16, else 64); each warp owns 16 columns across all BM rows. K is
-//    walked in 64-element steps through shared memory (rows padded so the
-//    fragment reads are free of bank conflicts). Each int8 pair of a B
-//    fragment is converted to bf16x2 in registers (exact for int8) and fed
-//    to mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32.
-//  * f32: the same tiles on the CUDA cores — each thread owns one column
-//    and BM/2 rows and accumulates with fmaf over K steps of 32; the weight
-//    tile is converted to float once, when it is stored to shared memory.
-//    Never TF32.
-//  * Ragged M, N and K are zero-filled in the loaders.
+// does 2.2 GFLOP: ~2.2 us either way at 989 bf16 TFLOP/s. At these sizes the
+// time is latency: the grid must fill the card and keep loads in flight.
+// Design (gemm_mainloop.cuh, as csrc/qmatmul_w8a8.cu): a CTA owns a 16 x 16
+// output tile at decode (M <= 16), walked by eight one-warp groups that
+// each take a share of its K steps, a 64 x 32 tile walked by two groups of
+// 2 x 2 warps (M <= 256) or a 128 x 64 tile of 4 x 2 warps; each group
+// streams 64-element steps through a cp.async ring of its own. K is split
+// across the CTAs of a cluster where a CTA would walk more than 24 steps and
+// the grid is small (kernels/gemm_plan.py).
+//  * bf16: each lane reads 16 weight bytes of its column per step, turns
+//    each int8 pair into bf16x2 in registers (exact, two PRMT and two FADD)
+//    and feeds mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, four per step.
+//  * f32: the same rings on the CUDA cores — each thread of a group owns one
+//    column and every (group size / BN)-th row and accumulates with fmaf,
+//    k ascending; the weight is converted to float in registers. Never TF32.
+//  * The groups' float32 partials are added in shared memory in group
+//    order, and rank 0 of a split tile's cluster adds the splits' through
+//    distributed shared memory in the order 0 ... S-1, so the bits do not
+//    depend on which finished first; it alone runs the epilogue, whose scale
+//    and bias were loaded before the mainloop.
 //  * The epilogue uses __fmul_rn / __fadd_rn, never contracted into an FMA.
-// No cp.async pipeline, no wgmma, no TMA and no split-K yet: decode launches
-// only N/64 blocks, which leaves most SMs idle — work for a later PR.
 //
 // Quantize-out variant (replaces qmatmul_w8a16_q8_pallas,
 // src/repro/kernels/qmatmul_w8a16/kernel.py:127): the same mainloops and
 // the same float32 y = acc * sw + bias (never rounded to a's type), then
-// q8_epilogue.cuh in the same launch — the (M-tile, N-tile) grid kept, each
-// block writing its float32 tile to a workspace and raising the rows' max
-// with atomicMax, the last block of each M tile (found by a counter after
-// __threadfence()) quantizing the rows. Chosen over one block per M tile
-// walking every N tile, which would run one block at decode (M = 8). For
-// float32 a, bit-equal to this GEMM to float32 followed by quantize_act.
+// q8_epilogue.cuh in the same launch — the CTA that reduces a tile (rank 0
+// of its cluster) writes its float32 tile to a workspace and raises the
+// rows' max with atomicMax, the last such CTA of each M tile (found by a
+// counter after __threadfence()) quantizing the rows. For float32 a,
+// bit-equal to this GEMM to float32 followed by quantize_act.
 #include "common.cuh"
+#include "gemm_mainloop.cuh"
 #include "q8_epilogue.cuh"
 
 namespace {
 
-constexpr int BN = 64;
-constexpr int BK = 64;            // bf16 path: K elements per step
-constexpr int LDA = BK + 8;       // padded bf16 elements per shared A row
-constexpr int LDB = BK + 16;      // padded bytes per shared B row
-constexpr int FBK = 32;           // f32 path: K elements per step
-constexpr int LDF = BN + 1;       // padded floats per shared f32 B row
+using repro::gemm::BK;
+using repro::gemm::int8_to_f32;
+using repro::gemm::ld16;
+using repro::gemm::word;
+
+// bf16 A rows (128 bytes a step) padded by 16 bytes: the two 16-byte
+// fragment reads of 8 lanes (two rows, four quads) then hit distinct banks.
+constexpr int LDA_BF16 = BK * 2 + 16;
+// float32 A rows: every lane of a warp reads the same row (a broadcast).
+constexpr int LDA_F32 = BK * 4;
+// int8 weight rows: unpadded for the MMA path (8 lanes read 128 contiguous
+// bytes); padded by 16 for the f32 path, where 8 lanes read 16 bytes of 8
+// consecutive rows.
+constexpr int LDB = BK;
+constexpr int LDB_F32 = BK + 16;
+
+template <int BM>
+using RingBf16 = repro::gemm::Ring<BM, 2, LDA_BF16, LDB>;
+template <int BM>
+using RingF32 = repro::gemm::Ring<BM, 4, LDA_F32, LDB_F32>;
 
 __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3,
@@ -60,14 +79,13 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Two consecutive int8 weights (k, k+1 of one column) as a bf16x2 register,
-// the lower k in the lower half — exact, an int8 fits bf16's mantissa.
-__device__ __forceinline__ uint32_t int8x2_to_bf16x2(const int8_t* p) {
-  const uint16_t u = *reinterpret_cast<const uint16_t*>(p);
-  __nv_bfloat162 v = __floats2bfloat162_rn(
-      static_cast<float>(static_cast<int8_t>(u & 0xff)),
-      static_cast<float>(static_cast<int8_t>(u >> 8)));
-  return *reinterpret_cast<uint32_t*>(&v);
+// Bytes i and i + 1 of w (consecutive k of one column) as a bf16x2
+// register, byte i in the lower half. Exact: an int8 fits bf16's mantissa,
+// so the float32 values' low halves are zero and the pair is their high
+// halves, packed by one PRMT (no conversion-unit instruction).
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w, int i) {
+  return __byte_perm(__float_as_uint(int8_to_f32(w, i)),
+                     __float_as_uint(int8_to_f32(w, i + 1)), 0x7632);
 }
 
 __device__ __forceinline__ float load_f32(const void* p, int i, int is_bf16) {
@@ -82,253 +100,207 @@ struct Epilogue {
   const void* bias;  // nullable
   int bias_bf16;
 
-  __device__ __forceinline__ float operator()(float acc, int col) const {
-    float o = __fmul_rn(acc, load_f32(sw, col * ss, sw_bf16));
-    if (bias != nullptr) o = __fadd_rn(o, load_f32(bias, col, bias_bf16));
-    return o;
+  // column col's scale and bias as float32 (0 past N), loaded before the
+  // mainloop so their latency hides under it
+  __device__ __forceinline__ void load(int col, int N, float& s, float& b) const {
+    s = col < N ? load_f32(sw, col * ss, sw_bf16) : 0.f;
+    b = col < N && bias != nullptr ? load_f32(bias, col, bias_bf16) : 0.f;
+  }
+  __device__ __forceinline__ float operator()(float acc, float s, float b) const {
+    const float o = __fmul_rn(acc, s);
+    return bias != nullptr ? __fadd_rn(o, b) : o;
   }
 };
-
-union Chunk16 {
-  int4 v;
-  int8_t b[16];
-  uint16_t h[8];
-  float f[4];
-};
-
-// ROWS x BK bytes of the K-major int8 weight Bt [N, K] (rows from r0,
-// bytes from k0) into shared memory, zero-filled past the edge.
-template <int ROWS>
-__device__ __forceinline__ void load_b_int8(int8_t* dst, const int8_t* src,
-                                            int r0, int rows_total, int k0,
-                                            int K, bool vec) {
-  for (int c = threadIdx.x; c < ROWS * (BK / 16); c += blockDim.x) {
-    const int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-    const int gr = r0 + r, gk = k0 + kc;
-    Chunk16 ch;
-    ch.v = make_int4(0, 0, 0, 0);
-    if (gr < rows_total) {
-      const int8_t* p = src + static_cast<size_t>(gr) * K + gk;
-      if (vec && gk + 16 <= K) {
-        ch.v = *reinterpret_cast<const int4*>(p);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) ch.b[i] = (gk + i < K) ? p[i] : 0;
-      }
-    }
-    *reinterpret_cast<int4*>(dst + r * LDB + kc) = ch.v;
-  }
-}
-
-// ROWS x BK bf16 of A [M, K] into shared memory, 8 elements per chunk.
-template <int ROWS>
-__device__ __forceinline__ void load_a_bf16(__nv_bfloat16* dst,
-                                            const __nv_bfloat16* src, int r0,
-                                            int M, int k0, int K, bool vec) {
-  for (int c = threadIdx.x; c < ROWS * (BK / 8); c += blockDim.x) {
-    const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-    const int gr = r0 + r, gk = k0 + kc;
-    Chunk16 ch;
-    ch.v = make_int4(0, 0, 0, 0);
-    if (gr < M) {
-      const __nv_bfloat16* p = src + static_cast<size_t>(gr) * K + gk;
-      if (vec && gk + 8 <= K) {
-        ch.v = *reinterpret_cast<const int4*>(p);
-      } else {
-        const uint16_t* ph = reinterpret_cast<const uint16_t*>(p);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) ch.h[i] = (gk + i < K) ? ph[i] : 0;
-      }
-    }
-    *reinterpret_cast<int4*>(dst + r * LDA + kc) = ch.v;
-  }
-}
 
 // Q8 (both kernels): write q8 (the quantize-out epilogue) instead of C.
 template <int BM, bool Q8>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(repro::gemm::Tile<BM>::THREADS)
 w8a16_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                   const int8_t* __restrict__ Bt, Epilogue ep,
                   __nv_bfloat16* __restrict__ C, repro::q8::Args q8, int M,
                   int N, int K, int vec) {
-  constexpr int MT = BM / 16;
-  __shared__ __align__(16) __nv_bfloat16 As[BM * LDA];
-  __shared__ __align__(16) int8_t Bs[BN * LDB];
+  using W = repro::gemm::WarpTile<BM>;
   __shared__ unsigned smax[BM];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const W w;
+  constexpr int BN = repro::gemm::Tile<BM>::BN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if constexpr (Q8)
     for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
+  float col_s[W::NT][2], col_b[W::NT][2];
+#pragma unroll
+  for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) ep.load(n0 + w.col(j, e), N, col_s[j][e], col_b[j][e]);
 
-  float acc[MT][2][4];
+  float acc[W::ACC];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  for (int i = 0; i < W::ACC; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_a_bf16<BM>(As, A, m0, M, k0, K, vec != 0);
-    load_b_int8<BN>(Bs, Bt, n0, N, k0, K, vec != 0);
-    __syncthreads();
+  RingBf16<BM>::run(A, Bt, M, N, K, m0, n0, vec != 0,
+                    [&](const char* as, const char* bs) {
+    // lane t of a quad holds k [16t, 16t + 16) of its rows: 32 bytes of A
+    // (two uint4, rows g and g + 8) and 16 weight bytes of column g
+    uint4 a[W::MT][2][2], b[W::NT];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t b[2][2];
+    for (int i = 0; i < W::MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int8_t* bp = Bs + (warp * 16 + j * 8 + g) * LDB + kk + t * 2;
-        b[j][0] = int8x2_to_bf16x2(bp);
-        b[j][1] = int8x2_to_bf16x2(bp + 8);
+      for (int h = 0; h < 2; ++h) {
+        const char* p = as + w.row(i, h) * LDA_BF16 + 32 * w.t;
+        a[i][h][0] = ld16(p);
+        a[i][h][1] = ld16(p + 16);
       }
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const __nv_bfloat16* ap = As + (i * 16 + g) * LDA + kk + t * 2;
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap);
-        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap + 8 * LDA);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap + 8);
-        const uint32_t a3 = *reinterpret_cast<const uint32_t*>(ap + 8 * LDA + 8);
+    for (int j = 0; j < W::NT; ++j) b[j] = ld16(bs + w.b_row(j) * LDB + 16 * w.t);
+    // k16 MMA s takes k [4s, 4s + 4) of the lane's 16: the first pair as
+    // the fragment's k 2t, 2t+1, the second as 2t+8, 2t+9
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          mma_bf16(acc[i][j], a0, a1, a2, a3, b[j][0], b[j][1]);
+    for (int s = 0; s < 4; ++s) {
+      uint32_t b0[W::NT], b1[W::NT];
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j) {
+        b0[j] = int8x2_to_bf16x2(word(b[j], s), 0);
+        b1[j] = int8x2_to_bf16x2(word(b[j], s), 2);
       }
+      const int half = s >> 1, w0 = 2 * (s & 1);
+#pragma unroll
+      for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < W::NT; ++j)
+          mma_bf16(&acc[(i * W::NT + j) * 4], word(a[i][0][half], w0),
+                   word(a[i][1][half], w0), word(a[i][0][half], w0 + 1),
+                   word(a[i][1][half], w0 + 1), b0[j], b1[j]);
     }
-    __syncthreads();
-  }
+  });
 
+  const int role = repro::gemm::reduce<BM>(acc);
+  if (role == 0) return;
+  if (role == 2)
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < W::MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < W::NT; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = m0 + i * 16 + g + (c >= 2 ? 8 : 0);
-        const int col = n0 + warp * 16 + j * 8 + t * 2 + (c & 1);
-        if (row < M && col < N) {
-          if constexpr (Q8)
-            repro::q8::keep(q8, smax, row, m0, col, N, ep(acc[i][j][c], col));
-          else
-            C[static_cast<size_t>(row) * N + col] =
-                __float2bfloat16_rn(ep(acc[i][j][c], col));
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + w.row(i, h), col = n0 + w.col(j, 0);
+          if (row >= M || col >= N) continue;
+          const float o0 = ep(acc[(i * W::NT + j) * 4 + 2 * h], col_s[j][0], col_b[j][0]);
+          const float o1 = ep(acc[(i * W::NT + j) * 4 + 2 * h + 1], col_s[j][1], col_b[j][1]);
+          if constexpr (Q8) {
+            repro::q8::keep(q8, smax, row, m0, col, N, o0);
+            if (col + 1 < N) repro::q8::keep(q8, smax, row, m0, col + 1, N, o1);
+          } else {
+            repro::gemm::store_pair(C, row, col, N, o0, o1);
+          }
         }
-      }
   if constexpr (Q8) repro::q8::finish_tile<BM>(q8, smax, m0, M, N);
 }
 
 template <int BM, bool Q8>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(repro::gemm::Tile<BM>::THREADS)
 w8a16_f32_kernel(const float* __restrict__ A, const int8_t* __restrict__ Bt,
                  Epilogue ep, float* __restrict__ C, repro::q8::Args q8, int M,
                  int N, int K, int vec) {
-  constexpr int RPT = BM / 2;     // rows per thread: rg, rg + 2, ...
-  __shared__ __align__(16) float As[BM * FBK];
-  __shared__ float Bs[FBK * LDF];  // [k][n], the weight as float
+  // in each group, thread (rg, col_l) owns column col_l and rows rg,
+  // rg + RG, ...; each warp holds one rg, so its A reads are broadcasts
+  constexpr int BN = repro::gemm::Tile<BM>::BN;
+  constexpr int RG = repro::gemm::Tile<BM>::GROUP_THREADS / BN;
+  constexpr int RPT = BM / RG;
   __shared__ unsigned smax[BM];
-  const int col_l = threadIdx.x & 63, rg = threadIdx.x >> 6;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x % repro::gemm::Tile<BM>::GROUP_THREADS;
+  const int col_l = tid % BN, rg = tid / BN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, col = n0 + col_l;
   if constexpr (Q8)
     for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
+  float col_s, col_b;
+  ep.load(col, N, col_s, col_b);
 
   float acc[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-    for (int c = threadIdx.x; c < BM * (FBK / 4); c += blockDim.x) {
-      const int r = c / (FBK / 4), kc = (c % (FBK / 4)) * 4;
-      const int gr = m0 + r, gk = k0 + kc;
-      Chunk16 ch;
-      ch.v = make_int4(0, 0, 0, 0);
-      if (gr < M) {
-        const float* p = A + static_cast<size_t>(gr) * K + gk;
-        if (vec && gk + 4 <= K) {
-          ch.v = *reinterpret_cast<const int4*>(p);
-        } else {
+  RingF32<BM>::run(A, Bt, M, N, K, m0, n0, vec != 0,
+                   [&](const char* as, const char* bs) {
+    const float* af = reinterpret_cast<const float*>(as);
+#pragma unroll 1
+    for (int kc = 0; kc < BK; kc += 16) {
+      const uint4 wv = ld16(bs + col_l * LDB_F32 + kc);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) ch.f[i] = (gk + i < K) ? p[i] : 0.f;
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t wq = word(wv, q);
+        const float b0 = int8_to_f32(wq, 0), b1 = int8_to_f32(wq, 1);
+        const float b2 = int8_to_f32(wq, 2), b3 = int8_to_f32(wq, 3);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              af + (rg + RG * i) * BK + kc + 4 * q);
+          acc[i] = fmaf(x.x, b0, acc[i]);
+          acc[i] = fmaf(x.y, b1, acc[i]);
+          acc[i] = fmaf(x.z, b2, acc[i]);
+          acc[i] = fmaf(x.w, b3, acc[i]);
         }
       }
-      *reinterpret_cast<int4*>(As + r * FBK + kc) = ch.v;
     }
-    for (int c = threadIdx.x; c < BN * (FBK / 16); c += blockDim.x) {
-      const int n = c / (FBK / 16), kc = (c % (FBK / 16)) * 16;
-      const int gn = n0 + n, gk = k0 + kc;
-      Chunk16 ch;
-      ch.v = make_int4(0, 0, 0, 0);
-      if (gn < N) {
-        const int8_t* p = Bt + static_cast<size_t>(gn) * K + gk;
-        if (vec && gk + 16 <= K) {
-          ch.v = *reinterpret_cast<const int4*>(p);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 16; ++i) ch.b[i] = (gk + i < K) ? p[i] : 0;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        Bs[(kc + i) * LDF + n] = static_cast<float>(ch.b[i]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < FBK; ++kk) {
-      const float b = Bs[kk * LDF + col_l];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-        acc[i] = fmaf(As[(rg + 2 * i) * FBK + kk], b, acc[i]);
-    }
-    __syncthreads();
-  }
+  });
 
-  const int col = n0 + col_l;
-  if (col < N) {
+  const int role = repro::gemm::reduce<BM>(acc);
+  if (role == 0) return;
+  if (role == 2 && col < N) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int row = m0 + rg + 2 * i;
+      const int row = m0 + rg + RG * i;
       if (row >= M) continue;
+      const float o = ep(acc[i], col_s, col_b);
       if constexpr (Q8)
-        repro::q8::keep(q8, smax, row, m0, col, N, ep(acc[i], col));
+        repro::q8::keep(q8, smax, row, m0, col, N, o);
       else
-        C[static_cast<size_t>(row) * N + col] = ep(acc[i], col);
+        C[static_cast<size_t>(row) * N + col] = o;
     }
   }
   if constexpr (Q8) repro::q8::finish_tile<BM>(q8, smax, m0, M, N);
 }
 
 template <int BM>
-void launch(const void* a, const void* wt, Epilogue ep, void* c,
-            const repro::q8::Args& q8, int M, int N, int K, int a_bf16,
-            int vec, cudaStream_t st) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+int launch_tiles(const void* a, const void* wt, Epilogue ep, void* c,
+                 const repro::q8::Args& q8, int M, int N, int K, int splits,
+                 int a_bf16, int vec, cudaStream_t st) {
+  constexpr int BN = repro::gemm::Tile<BM>::BN;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   const int8_t* Bt = static_cast<const int8_t*>(wt);
   const bool q_out = q8.q != nullptr;
+  using repro::gemm::launch;
   if (a_bf16) {
     const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(a);
     __nv_bfloat16* C = static_cast<__nv_bfloat16*>(c);
+    constexpr int smem = RingBf16<BM>::SMEM;
     if (q_out)
-      w8a16_bf16_kernel<BM, true><<<grid, 128, 0, st>>>(A, Bt, ep, C, q8, M, N, K, vec);
-    else
-      w8a16_bf16_kernel<BM, false><<<grid, 128, 0, st>>>(A, Bt, ep, C, q8, M, N, K, vec);
-  } else {
-    const float* A = static_cast<const float*>(a);
-    float* C = static_cast<float*>(c);
-    if (q_out)
-      w8a16_f32_kernel<BM, true><<<grid, 128, 0, st>>>(A, Bt, ep, C, q8, M, N, K, vec);
-    else
-      w8a16_f32_kernel<BM, false><<<grid, 128, 0, st>>>(A, Bt, ep, C, q8, M, N, K, vec);
+      return launch<BM, w8a16_bf16_kernel<BM, true>>(smem, grid, st, A, Bt, ep,
+                                                     C, q8, M, N, K, vec);
+    return launch<BM, w8a16_bf16_kernel<BM, false>>(smem, grid, st, A, Bt, ep,
+                                                    C, q8, M, N, K, vec);
   }
+  const float* A = static_cast<const float*>(a);
+  float* C = static_cast<float*>(c);
+  constexpr int smem = RingF32<BM>::SMEM;
+  if (q_out)
+    return launch<BM, w8a16_f32_kernel<BM, true>>(smem, grid, st, A, Bt, ep, C,
+                                                  q8, M, N, K, vec);
+  return launch<BM, w8a16_f32_kernel<BM, false>>(smem, grid, st, A, Bt, ep, C,
+                                                 q8, M, N, K, vec);
 }
 
 int dispatch(const void* a, const void* wt, Epilogue ep, void* c,
-             const repro::q8::Args& q8, int M, int N, int K, int a_bf16,
-             int vec, void* stream) {
+             const repro::q8::Args& q8, int M, int N, int K, int bm,
+             int splits, int a_bf16, int vec, void* stream) {
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 16)
-    launch<16>(a, wt, ep, c, q8, M, N, K, a_bf16, vec, st);
-  else
-    launch<64>(a, wt, ep, c, q8, M, N, K, a_bf16, vec, st);
-  return static_cast<int>(cudaGetLastError());
+  if (bm == 16)
+    return launch_tiles<16>(a, wt, ep, c, q8, M, N, K, splits, a_bf16, vec, st);
+  if (bm == 64)
+    return launch_tiles<64>(a, wt, ep, c, q8, M, N, K, splits, a_bf16, vec, st);
+  if (bm == 128)
+    return launch_tiles<128>(a, wt, ep, c, q8, M, N, K, splits, a_bf16, vec,
+                             st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -336,15 +308,17 @@ int dispatch(const void* a, const void* wt, Epilogue ep, void* c,
 // a [M, K] bf16 (a_bf16 = 1) or float32; wt [N, K] int8 (the K-major
 // weight); sw float32 or bf16 (sw_bf16) read at col * sw_stride; bias [N]
 // float32 or bf16 (bias_bf16) or NULL; c [M, N] in a's type — all
-// contiguous. `vec` = 1 when K % 16 == 0 and a and wt are 16-byte aligned.
+// contiguous. bm (16, 64 or 128) and splits (1 ... 16, the K splits of a tile)
+// come from kernels/gemm_plan.py. `vec` = 1 when K % 16 == 0 and a and wt
+// are 16-byte aligned.
 extern "C" int repro_qmatmul_w8a16(const void* a, const void* wt,
                                    const void* sw, int sw_stride, int sw_bf16,
                                    const void* bias, int bias_bf16, void* c,
-                                   int M, int N, int K, int a_bf16, int vec,
-                                   void* stream) {
+                                   int M, int N, int K, int bm, int splits,
+                                   int a_bf16, int vec, void* stream) {
   const Epilogue ep{sw, sw_stride, sw_bf16, bias, bias_bf16};
-  return dispatch(a, wt, ep, c, repro::q8::Args{}, M, N, K, a_bf16, vec,
-                  stream);
+  return dispatch(a, wt, ep, c, repro::q8::Args{}, M, N, K, bm, splits,
+                  a_bf16, vec, stream);
 }
 
 // The quantize-out variant: operands as above; q [M, N] int8 and s [M]
@@ -356,10 +330,12 @@ extern "C" int repro_qmatmul_w8a16_q8(const void* a, const void* wt,
                                       int sw_bf16, const void* bias,
                                       int bias_bf16, void* y, void* scratch,
                                       void* q, void* s, int M, int N, int K,
-                                      int a_bf16, int vec, void* stream) {
+                                      int bm, int splits, int a_bf16, int vec,
+                                      void* stream) {
   const Epilogue ep{sw, sw_stride, sw_bf16, bias, bias_bf16};
   unsigned* amax = static_cast<unsigned*>(scratch);
   const repro::q8::Args q8{static_cast<float*>(y), amax, amax + M,
                            static_cast<int8_t*>(q), static_cast<float*>(s)};
-  return dispatch(a, wt, ep, nullptr, q8, M, N, K, a_bf16, vec, stream);
+  return dispatch(a, wt, ep, nullptr, q8, M, N, K, bm, splits, a_bf16, vec,
+                  stream);
 }

@@ -6,7 +6,10 @@ The weight must be stored K-major, as the port's ``QTensor`` keeps every
 int8 weight: ``w_q`` is the [K, N] view of an [N, K] contiguous buffer. The
 scale is read through a pointer and a stride (0 for a per-tensor ``[1]``
 scale) and the bias through a nullable pointer, each float32 or bfloat16 as
-the caller holds it, so a call allocates nothing but its output.
+the caller holds it, so a call allocates nothing but its output. The split
+of K across CTAs comes from ``gemm_plan`` (shared with the W8A8 wrapper);
+the private ``_splits`` keyword forces it, to sweep the reduction on the
+card.
 """
 from __future__ import annotations
 
@@ -15,16 +18,16 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, gemm_plan
 from ..dispatch import count_launch
 from ..qmatmul_w8a8.kernel import q8_workspace
 
-_ARGS = ((ctypes.c_void_p,) * 2 + (ctypes.c_void_p,) + (ctypes.c_int,) * 2
+_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
          + (ctypes.c_void_p,) + (ctypes.c_int,) + (ctypes.c_void_p,)
-         + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
-_ARGS_Q8 = ((ctypes.c_void_p,) * 2 + (ctypes.c_void_p,) + (ctypes.c_int,) * 2
+         + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
+_ARGS_Q8 = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
             + (ctypes.c_void_p,) + (ctypes.c_int,) + (ctypes.c_void_p,) * 4
-            + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+            + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -75,7 +78,8 @@ def _epilogue_args(w_scale, bias, N):
 
 def qmatmul_w8a16_cuda(a: torch.Tensor, w_q: torch.Tensor,
                        w_scale: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       bias: Optional[torch.Tensor] = None, *,
+                       _splits: Optional[int] = None) -> torch.Tensor:
     """a [M, K] float32 | bfloat16, w_q [K, N] int8 (K-major), w_scale [N]
     or [1], bias [N] or None (float32 | bfloat16), all on the card → [M, N]
     in a's dtype."""
@@ -83,11 +87,12 @@ def qmatmul_w8a16_cuda(a: torch.Tensor, w_q: torch.Tensor,
     dev = a.device
     M, K = a.shape
     N = wt.shape[0]
+    plan = gemm_plan.plan(M, N, K, splits=_splits)
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     _build.call(
         "repro_qmatmul_w8a16", _ARGS, a.data_ptr(), wt.data_ptr(),
-        *_epilogue_args(w_scale, bias, N), out.data_ptr(), M, N, K,
-        int(a.dtype == torch.bfloat16), vec,
+        *_epilogue_args(w_scale, bias, N), out.data_ptr(), M, N, K, plan.bm,
+        plan.splits, int(a.dtype == torch.bfloat16), vec,
         torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a16")
     return out
@@ -95,7 +100,8 @@ def qmatmul_w8a16_cuda(a: torch.Tensor, w_q: torch.Tensor,
 
 def qmatmul_w8a16_q8_cuda(a: torch.Tensor, w_q: torch.Tensor,
                           w_scale: torch.Tensor,
-                          bias: Optional[torch.Tensor] = None):
+                          bias: Optional[torch.Tensor] = None, *,
+                          _splits: Optional[int] = None):
     """The GEMM with the quantize-out epilogue, in one launch: operands as
     ``qmatmul_w8a16_cuda`` → (q int8 [M, N], scale float32 [M]), the float32
     result (never rounded to a's dtype) quantized per row by the
@@ -104,13 +110,15 @@ def qmatmul_w8a16_q8_cuda(a: torch.Tensor, w_q: torch.Tensor,
     dev = a.device
     M, K = a.shape
     N = wt.shape[0]
+    plan = gemm_plan.plan(M, N, K, splits=_splits)
     y, scratch = q8_workspace(M, N, dev)
     q = torch.empty((M, N), dtype=torch.int8, device=dev)
     s = torch.empty((M,), dtype=torch.float32, device=dev)
     _build.call(
         "repro_qmatmul_w8a16_q8", _ARGS_Q8, a.data_ptr(), wt.data_ptr(),
         *_epilogue_args(w_scale, bias, N), y.data_ptr(), scratch.data_ptr(),
-        q.data_ptr(), s.data_ptr(), M, N, K, int(a.dtype == torch.bfloat16),
-        vec, torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), s.data_ptr(), M, N, K, plan.bm, plan.splits,
+        int(a.dtype == torch.bfloat16), vec,
+        torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a16_q8")
     return q, s

@@ -5,19 +5,23 @@ Replace ``qmatmul_w8a8_pallas`` and, with the quantize-out epilogue,
 The weight must be stored K-major: ``w_q`` is the [K, N] view of an [N, K]
 contiguous buffer (``w_q.t().is_contiguous()``), which is how the port's
 ``QTensor`` keeps every int8 weight — so the kernel reads each output
-column's K bytes contiguously and no copy is made per call.
+column's K bytes contiguously and no copy is made per call. The split of K
+across CTAs comes from ``gemm_plan`` (shared with the W8A16 wrapper); the
+private ``_splits`` keyword forces it, to sweep the reduction on the card.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, gemm_plan
 from ..dispatch import count_launch
 
-_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
-_ARGS_Q8 = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
+_ARGS_Q8 = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
+            + (ctypes.c_void_p,))
 
 # {(device index, stream): uint32 scratch} for the quantize-out epilogue
 _SCRATCH: dict = {}
@@ -73,7 +77,8 @@ def _checked(a_q, w_q, a_scale, w_scale, bias, who):
 
 def qmatmul_w8a8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
                       a_scale: torch.Tensor, w_scale: torch.Tensor,
-                      bias: torch.Tensor, *, out_dtype=torch.float32):
+                      bias: torch.Tensor, *, out_dtype=torch.float32,
+                      _splits: Optional[int] = None):
     """a_q [M, K] int8, w_q [K, N] int8 (K-major), a_scale [M], w_scale [N],
     bias [N] float32, all on the card → [M, N] ``out_dtype``."""
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -83,18 +88,22 @@ def qmatmul_w8a8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
                             "qmatmul_w8a8_cuda")
     M, K = a_q.shape
     N = wt.shape[0]
-    out = torch.empty((M, N), dtype=out_dtype, device=a_q.device)
+    dev = a_q.device
+    plan = gemm_plan.plan(M, N, K, splits=_splits)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
     _build.call("repro_qmatmul_w8a8", _ARGS, a_q.data_ptr(), wt.data_ptr(),
                 a_scale.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), M, N, K, int(out_dtype == torch.bfloat16),
-                vec, torch.cuda.current_stream(a_q.device).cuda_stream)
+                out.data_ptr(), M, N, K, plan.bm, plan.splits,
+                int(out_dtype == torch.bfloat16), vec,
+                torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a8")
     return out
 
 
 def qmatmul_w8a8_q8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
                          a_scale: torch.Tensor, w_scale: torch.Tensor,
-                         bias: torch.Tensor):
+                         bias: torch.Tensor, *,
+                         _splits: Optional[int] = None):
     """The GEMM with the quantize-out epilogue, in one launch: operands as
     ``qmatmul_w8a8_cuda`` → (q int8 [M, N], scale float32 [M]), the float32
     result quantized per row by the ``quantize_act`` formula."""
@@ -103,13 +112,14 @@ def qmatmul_w8a8_q8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
     M, K = a_q.shape
     N = wt.shape[0]
     dev = a_q.device
+    plan = gemm_plan.plan(M, N, K, splits=_splits)
     y, scratch = q8_workspace(M, N, dev)
     q = torch.empty((M, N), dtype=torch.int8, device=dev)
     s = torch.empty((M,), dtype=torch.float32, device=dev)
     _build.call("repro_qmatmul_w8a8_q8", _ARGS_Q8, a_q.data_ptr(),
                 wt.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
                 bias.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-                q.data_ptr(), s.data_ptr(), M, N, K, vec,
-                torch.cuda.current_stream(dev).cuda_stream)
+                q.data_ptr(), s.data_ptr(), M, N, K, plan.bm, plan.splits,
+                vec, torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a8_q8")
     return q, s

@@ -31,7 +31,10 @@ Tolerances as in chip_smoke.py:
     bit-equal to its plain version and to the W8A8 kernel to float32
     followed by the quantize_act kernel; qmatmul_w8a16's with float32 a
     bit-equal to that pair of its own kernels, with bfloat16 a at most one
-    step off its plain version.
+    step off its plain version;
+  * both GEMMs under forced K splits (the wrappers' private ``_splits``):
+    the same bounds at every split, one launch a call, and two calls the
+    same bits.
 """
 import pytest
 import torch
@@ -56,10 +59,15 @@ def test_quantize_act_kernel_bit_equal(dev):
         assert torch.equal(q, qr) and torch.equal(s, sr)
 
 
+# ragged shapes whose K the planner splits (S > 1): K = 4100 (65 steps of
+# 64, not a multiple of S * 64), M on both sides of the decode tile's 16
+SPLIT_CASES = ((3, 4100, 70), (17, 2100, 100), (8, 1600, 33), (70, 3000, 130))
+
+
 def test_qmatmul_kernel_bit_equal_ragged(dev):
     from repro_torch.kernels.qmatmul_w8a8 import qmatmul_w8a8, qmatmul_w8a8_ref
 
-    for M, K, N in ((1, 16, 8), (5, 33, 17), (40, 96, 72)):
+    for M, K, N in ((1, 16, 8), (5, 33, 17), (40, 96, 72)) + SPLIT_CASES:
         a = torch.randint(-128, 128, (M, K), device=dev, dtype=torch.int8)
         w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8).t()
         sa, sw = torch.rand(M, device=dev), torch.rand(N, device=dev)
@@ -320,7 +328,9 @@ def test_qmatmul_w8a16_kernel_against_plain_ragged(dev, dtype):
     for M, K, N, per_channel, with_bias in (
             (1, 16, 8, True, True), (5, 33, 17, False, True),
             (40, 96, 72, True, False), (8, 896, 128, False, True),
-            (70, 200, 130, True, True)):
+            (70, 200, 130, True, True), (3, 4100, 70, True, True),
+            (17, 2100, 100, False, True), (8, 1600, 33, True, False),
+            (70, 3000, 130, False, True)):
         a = torch.randn((M, K), device=dev).to(dtype)
         w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8).t()
         sw = torch.rand(N if per_channel else 1, device=dev) * 0.01 + 1e-4
@@ -335,6 +345,116 @@ def test_qmatmul_w8a16_kernel_against_plain_ragged(dev, dtype):
         assert bool((diff <= tol).all()), (M, K, N, float(diff.max()))
     with pytest.raises(ValueError, match="out_dtype"):
         qmatmul_w8a16(a, w, sw, bias, out_dtype=torch.float16)
+
+
+def _sweep(K):
+    """The splits the card tests force: 1, 2, the plan's, the largest."""
+    from repro_torch.kernels import gemm_plan
+
+    top = gemm_plan.max_splits(-(-K // gemm_plan.BK))
+    return sorted({1, min(2, top), gemm_plan.plan(8, 1, K).splits, top})
+
+
+@pytest.mark.parametrize("M,K,N", SPLIT_CASES + ((8, 4864, 896),))
+def test_gemm_split_sweep_one_launch_deterministic(dev, M, K, N):
+    """Both GEMMs and both quantize-out variants at every swept K split:
+    W8A8 bit-equal to its plain version, W8A16 within its tolerance, one
+    launch per call, two calls the same bits; the quantize-out variants
+    bit-equal to their plain version (W8A8) and to the kernel pair (W8A16,
+    float32 a)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_q8_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a8.ref import (
+        qmatmul_w8a8_q8_ref,
+        qmatmul_w8a8_ref,
+    )
+    from repro_torch.kernels.qmatmul_w8a16.kernel import (
+        qmatmul_w8a16_cuda,
+        qmatmul_w8a16_q8_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
+                      generator=gen).t()
+    sw = torch.rand(N, device=dev, generator=gen) * 0.01 + 1e-4
+    bias = torch.randn(N, device=dev, generator=gen)
+    a_q = torch.randint(-128, 128, (M, K), device=dev, dtype=torch.int8,
+                        generator=gen)
+    sa = torch.rand(M, device=dev, generator=gen) * 0.05 + 1e-4
+    a32 = torch.randn((M, K), device=dev, generator=gen)
+    want8 = {od: qmatmul_w8a8_ref(a_q, w, sa, sw, bias, od)
+             for od in (torch.float32, torch.bfloat16)}
+    want8_q8 = qmatmul_w8a8_q8_ref(a_q, w, sa, sw, bias)
+
+    def once(fn, op):
+        reset_launch_counts()
+        out = fn()
+        assert launch_counts()[op] == 1
+        assert sum(launch_counts().values()) == 1
+        return out
+
+    for S in _sweep(K):
+        for od, want in want8.items():
+            runs = [once(lambda: qmatmul_w8a8_cuda(
+                a_q, w, sa, sw, bias, out_dtype=od, _splits=S),
+                "qmatmul_w8a8") for _ in range(2)]
+            assert torch.equal(runs[0], want) and torch.equal(runs[1], want)
+        for _ in range(2):
+            q, s = once(lambda: qmatmul_w8a8_q8_cuda(
+                a_q, w, sa, sw, bias, _splits=S), "qmatmul_w8a8_q8")
+            assert torch.equal(q, want8_q8[0]) and torch.equal(s, want8_q8[1])
+        for dtype in (torch.float32, torch.bfloat16):
+            a = a32.to(dtype)
+            ys = [once(lambda: qmatmul_w8a16_cuda(a, w, sw, bias, _splits=S),
+                       "qmatmul_w8a16") for _ in range(2)]
+            assert torch.equal(ys[0], ys[1]), (S, dtype)
+            yr = qmatmul_w8a16_ref(a, w, sw, bias, dtype)
+            diff = (ys[0].float() - yr.float()).abs()
+            assert bool((diff <= _w8a16_tolerance(a, w, sw, bias, yr)).all())
+            qs = [once(lambda: qmatmul_w8a16_q8_cuda(
+                a, w, sw, bias, _splits=S), "qmatmul_w8a16_q8")
+                for _ in range(2)]
+            assert all(torch.equal(x, y) for x, y in zip(*qs)), (S, dtype)
+            if dtype == torch.float32:
+                pair = quantize_act_cuda(ys[0])
+                assert torch.equal(qs[0][0], pair[0])
+                assert torch.equal(qs[0][1], pair[1])
+
+
+def test_q8_scratch_is_zero_after_calls(dev):
+    """The quantize-out epilogue's per-stream scratch (the rows' max and the
+    M tiles' counters) is all zero after calls of both variants, at split
+    and unsplit shapes, on the default stream and on a second one."""
+    from repro_torch.kernels.qmatmul_w8a8 import kernel as w8a8_kernel
+    from repro_torch.kernels.qmatmul_w8a8.kernel import qmatmul_w8a8_q8_cuda
+    from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_q8_cuda
+
+    def calls():
+        for M, K, N in ((8, 896, 256),) + SPLIT_CASES:
+            w = torch.randint(-127, 128, (N, K), device=dev,
+                              dtype=torch.int8).t()
+            sw = torch.rand(N, device=dev) * 0.01 + 1e-4
+            bias = torch.randn(N, device=dev)
+            a_q = torch.randint(-128, 128, (M, K), device=dev,
+                                dtype=torch.int8)
+            qmatmul_w8a8_q8_cuda(a_q, w, torch.rand(M, device=dev) + 1e-3,
+                                 sw, bias)
+            qmatmul_w8a16_q8_cuda(torch.randn((M, K), device=dev), w, sw,
+                                  bias)
+
+    calls()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.synchronize()
+    assert len(w8a8_kernel._SCRATCH) >= 2
+    for buf in w8a8_kernel._SCRATCH.values():
+        assert int(buf.abs().sum()) == 0
 
 
 def test_w8a16_tolerance_rejects_a_tf32_product(dev):
