@@ -19,7 +19,14 @@ Phases, each of which must pass (nothing here catches a failure):
      ragged S, S below the plain version's block, GQA 4 and the JAX bench's
      long context, with and without v_err, a fully masked row exactly 0;
      fused_decode bit-equal to append_quantize + kv_attention (+
-     quantize_act); the quantize-out GEMMs (one launch each) bit-equal to
+     quantize_act); the attention split sweep (both attention kernels under
+     forced S splits at the decode shape and the long context, with rows
+     whose splits are all masked but one: within ``OUT_TOL``, two calls and
+     fused against unfused bit-equal at every split, each split timed); the
+     three calls the CUDA tiers once refused (kv_attention's float32 out
+     from bfloat16 q, fused_decode's shared idx [1] and float32 quantize-out
+     from bfloat16 q, quantize_act at bits < 8), against the torch tier;
+     the quantize-out GEMMs (one launch each) bit-equal to
      the stepwise pair of the port's own kernels (W8A8, and W8A16 with
      float32 a) and to the W8A8 plain version, W8A16 with bfloat16 a within
      one step of its plain version. In float32 the W8A16 check also runs
@@ -33,7 +40,10 @@ Phases, each of which must pass (nothing here catches a failure):
      per-call cost is hidden, and the time of a back-to-back wrapper call,
      host included), its plain version, the stepwise pair a quantize-out GEMM
      replaces and, where one exists, the one PyTorch call computing the same
-     function, all with CUDA events. At M = 8 the GEMMs and their library
+     function, all with CUDA events, and beside the attention rows
+     ``scaled_dot_product_attention`` on a bfloat16 cache of the same shape
+     (GQA heads expanded: a different function, a yardstick only). At M = 8
+     the GEMMs and their library
      calls are also timed cold: rotating over 128 MB of weight copies, so
      each call reads its weight from HBM as the serving path does. One line
      sums the GEMMs' device time over a decode step and a prefill chunk.
@@ -479,7 +489,31 @@ def check_fused_out(torch, out, outr, oq, os_, oqr, osr, what):
         f"{int(((dq > 0) & tie).sum())}){past}")
 
 
+def sdpa_ms(torch, dev, gen, B, S, Hq, Hkv, hd, iters):
+    """Device time of ``torch.nn.functional.scaled_dot_product_attention``
+    for one query token over a bfloat16 K/V cache of the same shape, its
+    GQA heads expanded to Hq (unmasked): a different function — it reads
+    2 * Hq / Hkv times the int8 cache's payload bytes — timed as a
+    yardstick of an unquantized cache's decode attention on this card,
+    never as the library column."""
+    key = (B, S, Hq, Hkv, hd)
+    if key not in _SDPA_MS:
+        F = torch.nn.functional
+        G = Hq // Hkv
+        q = torch.randn((B, Hq, 1, hd), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, Hkv, S, hd), generator=gen, device=dev)
+                .bfloat16().repeat_interleave(G, dim=1) for _ in range(2))
+        _SDPA_MS[key] = device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), iters)
+        del k, v
+    return _SDPA_MS[key]
+
+
+_SDPA_MS: dict = {}
+
+
 def check_fused_decode(torch, dev, gen):
+    from repro_torch.kernels import attention_plan
     from repro_torch.kernels.fused_decode.kernel import fused_decode_cuda
     from repro_torch.kernels.fused_decode.ref import fused_decode_ref
 
@@ -530,6 +564,8 @@ def check_fused_decode(torch, dev, gen):
         run_leaves = [t.clone() for t in (kq, ks, vq, vs)]
         kern = lambda: fused_decode_cuda(q, *run_leaves, kn, vn, idx32, valid,
                                          quantize_out=True)
+        # the W8A16 path's call: no quantize-out
+        no_q8 = lambda: fused_decode_cuda(q, *run_leaves, kn, vn, idx32, valid)
         rows.append({
             "shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} {str(dtype)[6:]}",
             "max_abs_err": err,
@@ -537,7 +573,10 @@ def check_fused_decode(torch, dev, gen):
             "plain_ms": device_ms(lambda: fused_decode_ref(
                 q, *run_leaves, kn[:, None], vn[:, None], idx[:, None],
                 valid=valid, out_dtype=dtype, quantize_out=True), 5),
-            "bound_ms": b, "bound_by": by, "library_ms": None})
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "no_q8_ms": device_ms(no_q8, 50),
+            "sdpa_ms": sdpa_ms(torch, dev, gen, B, S, Hq, Hkv, hd, 50),
+            "splits": attention_plan.plan(B, S, Hq, Hkv, hd).splits})
     return rows
 
 
@@ -568,6 +607,7 @@ def check_kv_attention(torch, dev, gen):
     bfloat16, with and without v_err (zero where the scales are, as the
     decode route passes it), within ``OUT_TOL`` of the plain version; a row
     whose scales are all 0 gives exactly 0."""
+    from repro_torch.kernels import attention_plan
     from repro_torch.kernels.kv_attention.kernel import kv_attention_cuda
     from repro_torch.kernels.kv_attention.ref import kv_attention_ref
 
@@ -626,7 +666,11 @@ def check_kv_attention(torch, dev, gen):
                     # sleep of device_ms: time it back to back instead
                     "plain_ms": (call_ms(plain, 2, warmup=1) if long
                                  else device_ms(plain, 5)),
-                    "bound_ms": b, "bound_by": by, "library_ms": None})
+                    "bound_ms": b, "bound_by": by, "library_ms": None,
+                    "sdpa_ms": sdpa_ms(torch, dev, gen, B, S, Hq, Hkv, hd,
+                                       iters),
+                    "splits": attention_plan.plan(B, S, Hq, Hkv, hd,
+                                                  ve is not None).splits})
     return rows
 
 
@@ -668,6 +712,186 @@ def check_fused_equals_unfused(torch, dev, gen):
         log(f"  fused_decode vs append_quantize + kv_attention + quantize_act, "
             f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} {str(dtype)[6:]}: out, "
             f"quantize-out and the appended cache bit-equal")
+
+
+def _decode_inputs(torch, dev, gen, B, S, Hq, Hkv, hd, dtype, lens):
+    """A decode step's operands: the int8 cache (scales zero past each
+    row's length), the live mask (also each row's new position), q, the
+    new token's K/V and its ring offset (the last live position; 0 in a
+    row of length 0, where the mask hides it)."""
+    leaves, valid = _int8_cache(torch, dev, gen, B, S, Hkv, hd, lens)
+    idx = (lens - 1).clamp_min(0)
+    valid[torch.arange(B, device=dev), idx] |= lens > 0
+    q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(dtype)
+    kn = (torch.randn((B, Hkv, hd), generator=gen, device=dev) * 2).to(dtype)
+    vn = torch.randn((B, Hkv, hd), generator=gen, device=dev).to(dtype)
+    return leaves, valid, q, kn, vn, idx
+
+
+# the attention split sweep's shapes: the serving decode step and the JAX
+# bench's long context (B, Hq, Hkv, hd, S)
+SWEEP_SHAPES = ((8, 14, 2, 64, 512), (8, 32, 8, 128, 32768))
+
+
+def check_attention_sweep(torch, dev, gen):
+    """Both decode attention kernels under forced S splits (the wrappers'
+    private ``_splits``) at the serving decode shape and the long context:
+    splits in {1, 2, 4, 6, the plan's, 8, 12, 16} as far as the tiles
+    allow. Rows:
+    0 full, 1 of length 1 (every split but the first fully masked), 2 of
+    length 65 (all but two), 3 fully masked, the rest random. At every
+    split, in float32 and bfloat16: kv_attention within ``OUT_TOL`` of the
+    plain version, row 3 exactly 0, two calls the same bits; fused_decode
+    (with quantize-out) equal to append_quantize + the kv_attention kernel
+    at the same split + the quantize_act kernel, bit for bit (out,
+    quantize-out, cache). Logs each split's device time (bf16) beside the
+    bound."""
+    from repro_torch.kernels import attention_plan
+    from repro_torch.kernels.fused_decode.kernel import fused_decode_cuda
+    from repro_torch.kernels.kv_attention.kernel import kv_attention_cuda
+    from repro_torch.kernels.kv_attention.ops import append_quantize
+    from repro_torch.kernels.kv_attention.ref import kv_attention_ref
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    for B, Hq, Hkv, hd, S in SWEEP_SHAPES:
+        plan = attention_plan.plan(B, S, Hq, Hkv, hd)
+        top = attention_plan.max_splits(plan.tiles)
+        splits = sorted({s for s in (1, 2, 4, 6, plan.splits, 8, 12, 16)
+                         if s <= top})
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        lens[0], lens[1], lens[2], lens[3] = S, 1, 65, 0
+        long = S > 4096
+        times = []
+        for dtype in (torch.float32, torch.bfloat16):
+            leaves, valid, q, kn, vn, idx = _decode_inputs(
+                torch, dev, gen, B, S, Hq, Hkv, hd, dtype, lens)
+            kq, ks, vq, vs = leaves
+            ref = kv_attention_ref(q, kq, ks, vq, vs, dtype)
+            comp = [t.clone() for t in leaves]
+            append_quantize(*comp, kn[:, None], vn[:, None], idx[:, None])
+            live = valid[..., None]
+            ks_eff = torch.where(live, comp[1], 0.0)
+            vs_eff = torch.where(live, comp[3], 0.0)
+            idx32 = idx.to(torch.int32)
+            name = str(dtype)[6:]
+            for sp in splits:
+                what = f"attention sweep B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} {name} splits={sp}"
+                out = kv_attention_cuda(q, kq, ks, vq, vs, _splits=sp)
+                again = kv_attention_cuda(q, kq, ks, vq, vs, _splits=sp)
+                torch.cuda.synchronize()
+                assert torch.equal(out, again), f"{what}: two calls differ"
+                check_attention_out(torch, out, ref, what)
+                assert float(out[3].float().abs().max()) == 0.0, (
+                    f"{what}: the fully masked row is not 0")
+                fused = [t.clone() for t in leaves]
+                fo, foq, fos = fused_decode_cuda(q, *fused, kn, vn, idx32, valid,
+                                                 quantize_out=True, _splits=sp)
+                uo = kv_attention_cuda(q, comp[0], ks_eff, comp[2], vs_eff,
+                                       _splits=sp)
+                uoq, uos = quantize_act_cuda(uo.reshape(B, -1))
+                torch.cuda.synchronize()
+                for a, b_, leaf in zip(fused, comp, ("k", "k_scale", "v", "v_scale")):
+                    assert torch.equal(a, b_), f"{what}: fused appended {leaf} differs"
+                assert torch.equal(fo, uo), (
+                    f"{what}: fused out differs from unfused at "
+                    f"{int((fo != uo).sum())} values")
+                assert torch.equal(foq, uoq) and torch.equal(fos, uos), (
+                    f"{what}: fused quantize-out differs from unfused")
+                if dtype == torch.bfloat16:
+                    iters = 10 if long else 100
+                    run = [t.clone() for t in leaves]
+                    times.append((sp, device_ms(lambda: kv_attention_cuda(
+                        q, kq, ks, vq, vs, _splits=sp), iters) * 1e3,
+                        device_ms(lambda: fused_decode_cuda(
+                            q, *run, kn, vn, idx32, valid, quantize_out=True,
+                            _splits=sp), iters) * 1e3))
+            del comp, ks_eff, vs_eff
+        n_bytes = B * S * Hkv * (2 * hd + 8)
+        log(f"  attention split sweep B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} "
+            f"({plan.tiles} tiles of {attention_plan.TS}; * the plan's; cache "
+            f"bound {n_bytes / HBM_BYTES_S * 1e6:.2f} us), us kv_attention / "
+            f"fused_decode bf16: " + ", ".join(
+                f"{sp}{'*' if sp == plan.splits else ''} {tk:.2f} / {tf:.2f}"
+                for sp, tk, tf in times))
+    log(f"  attention split sweep: every split within {OUT_TOL['float32']} "
+        f"(+1 bf16 ulp in bf16) of the plain version, fully masked row 0, two "
+        f"calls bit-equal, fused == unfused (out, quantize-out, cache) bit for bit")
+
+
+def check_queue_c(torch, dev, gen):
+    """The three calls the CUDA tiers refused before (ROADMAP Queue C), on
+    the card through the public ops, against the torch tier: kv_attention
+    with bfloat16 q and the default out_dtype=float32 (within OUT_TOL of
+    the plain version; its bf16 cast bit-equal to the kernel's own bfloat16
+    output); fused_decode with one shared ring offset idx [1] (bit-equal to
+    the same call with that offset per slot, its appended cache bit-equal
+    to the plain version's); fused_decode with bfloat16 q, out_dtype=float32
+    and the W8A8 quantize-out (the epilogue bit-equal to quantize_act of the
+    float32 out, out within OUT_TOL); quantize_act at bits 2, 4 and 6
+    (bit-equal to the plain version)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.fused_decode import fused_decode, fused_decode_ref
+    from repro_torch.kernels.kv_attention import kv_attention, kv_attention_ref
+    from repro_torch.kernels.quantize_act import quantize_act, quantize_act_ref
+
+    B, Hq, Hkv, hd, S = 8, 14, 2, 64, 512
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+    lens[3] = 0
+    leaves, valid, q, kn, vn, idx = _decode_inputs(
+        torch, dev, gen, B, S, Hq, Hkv, hd, torch.bfloat16, lens)
+    kq, ks, vq, vs = leaves
+    reset_launch_counts()
+    out = kv_attention(q, kq, ks, vq, vs)              # out_dtype=float32
+    out16 = kv_attention(q, kq, ks, vq, vs, out_dtype=torch.bfloat16)
+    assert launch_counts()["kv_attention"] == 2
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    check_attention_out(torch, out, kv_attention_ref(q, kq, ks, vq, vs), "kv_attention bf16 q -> f32")
+    assert torch.equal(out.bfloat16(), out16), "f32 out cast to bf16 differs"
+    # one shared ring offset against the same offset per slot
+    shared = torch.tensor([S - 1], device=dev)
+    mask = valid.clone()
+    mask[:, S - 1] = True
+    mine = [t.clone() for t in leaves]
+    slot = [t.clone() for t in leaves]
+    plain = [t.clone() for t in leaves]
+    (o1, q1, s1), _ = fused_decode(q, *mine, kn[:, None], vn[:, None], shared,
+                                   valid=mask, quantize_out=True)
+    (o2, q2, s2), _ = fused_decode(q, *slot, kn[:, None], vn[:, None],
+                                   shared.expand(B)[:, None], valid=mask,
+                                   quantize_out=True)
+    (o3, q3, s3), _ = fused_decode_ref(q, *plain, kn[:, None], vn[:, None], shared,
+                                       valid=mask, quantize_out=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(q1, q2) and torch.equal(s1, s2)
+    for a, b_, c in zip(mine, slot, plain):
+        assert torch.equal(a, b_) and torch.equal(a, c), "shared idx: cache differs"
+    check_fused_out(torch, o1, o3, q1, s1, q3, s3, "fused_decode shared idx")
+    # bf16 q, float32 out, quantize-out (the fused W8A8 route's epilogue)
+    mine = [t.clone() for t in leaves]
+    plain = [t.clone() for t in leaves]
+    (o1, q1, s1), _ = fused_decode(q, *mine, kn[:, None], vn[:, None], idx[:, None],
+                                   valid=valid, out_dtype=torch.float32,
+                                   quantize_out=True)
+    (o3, q3, s3), _ = fused_decode_ref(q, *plain, kn[:, None], vn[:, None],
+                                       idx[:, None], valid=valid,
+                                       out_dtype=torch.float32, quantize_out=True)
+    torch.cuda.synchronize()
+    assert o1.dtype == torch.float32
+    assert float(o1[3].abs().max()) == 0.0
+    for a, c in zip(mine, plain):
+        assert torch.equal(a, c), "bf16 q f32 out: cache differs"
+    _, note = check_fused_out(torch, o1, o3, q1, s1, q3, s3,
+                              "fused_decode bf16 q -> f32 quantize-out")
+    for bits in (2, 4, 6):
+        x = torch.randn((8, 896), generator=gen, device=dev) * 3
+        got, want = quantize_act(x, bits=bits), quantize_act_ref(x, bits)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), bits
+    log(f"  Queue C on the card: kv_attention(bf16 q) -> float32 within "
+        f"{OUT_TOL['float32']}, its bf16 cast = the bf16 kernel bit for bit; "
+        f"fused_decode shared idx [1] = per-slot bit for bit, cache = plain; "
+        f"fused_decode bf16 q -> float32 + quantize-out: {note}; quantize_act "
+        f"bits 2/4/6 bit-equal")
 
 
 # every K x N of the serving path: wq and wo, wk and wv, wg and wu, wd
@@ -1203,6 +1427,8 @@ def main() -> int:
               "fused_decode": check_fused_decode(torch, dev, gen),
               "kv_attention": check_kv_attention(torch, dev, gen)}
     check_fused_equals_unfused(torch, dev, gen)
+    check_attention_sweep(torch, dev, gen)
+    check_queue_c(torch, dev, gen)
     tables["qmatmul_w8a8_q8"] = check_qmatmul_w8a8_q8(torch, dev, gen)
     tables["qmatmul_w8a16_q8"] = check_qmatmul_w8a16_q8(torch, dev, gen)
     check_split_sweep(torch, dev, gen)
@@ -1220,7 +1446,11 @@ def main() -> int:
                    else "")
                 + (f" (library {r['library_cold_ms'] * 1e3:.2f})"
                    if "library_cold_ms" in r else "")
-                + (f"  [{r['library']}]" if "library" in r else ""))
+                + (f"  [{r['library']}]" if "library" in r else "")
+                + (f"  without quantize-out {r['no_q8_ms'] * 1e3:.2f} us"
+                   if "no_q8_ms" in r else "")
+                + (f"  splits {r['splits']}, SDPA bf16 (GQA expanded) "
+                   f"{r['sdpa_ms'] * 1e3:.2f} us" if "sdpa_ms" in r else ""))
     log_step_sums(tables)
 
     log("== phase 3: small-input reference")
@@ -1281,7 +1511,8 @@ def main() -> int:
                         "launches": runs[path][1][name],
                         "path": ("none: quantize_out=True only"
                                  if name.endswith("_q8") else path),
-                        **row})
+                        # the plan's split count is not measured: log only
+                        **{k: v for k, v in row.items() if k != "splits"}})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace repro {
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -55,16 +57,34 @@ __device__ __forceinline__ float block_max_nonneg(float v, float* red) {
   return r;
 }
 
-// scale = max(amax, 1e-8) / 127 — 0 stays reserved as the "invalid" marker.
-__device__ __forceinline__ float absmax_scale(float amax) {
-  return __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+// scale = max(amax, 1e-8) / qmax — 0 stays reserved as the "invalid"
+// marker; qmax = 2^(bits-1) - 1, 127 for int8.
+__device__ __forceinline__ float absmax_scale(float amax, float qmax = 127.0f) {
+  return __fdiv_rn(fmaxf(amax, 1e-8f), qmax);
 }
 
-// clip(round_half_even(x / scale), lo, 127): lo is -128 for activations
-// (quantize_act) and -127 for the KV cache (quantize_kv).
-__device__ __forceinline__ int8_t quantize_one(float x, float scale, float lo) {
+// clip(round_half_even(x / scale), lo, hi): [-128, 127] for int8
+// activations (quantize_act; [-qmax - 1, qmax] at fewer bits) and
+// [-127, 127] for the KV cache (quantize_kv).
+__device__ __forceinline__ int8_t quantize_one(float x, float scale, float lo,
+                                               float hi = 127.0f) {
   const float r = rintf(__fdiv_rn(x, scale));
-  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, lo), 127.0f)));
+  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, lo), hi)));
+}
+
+// Set a kernel's attribute once for each device (a driver call costs the
+// host several microseconds, and the serving loop is bound by the host).
+template <auto Kernel>
+inline cudaError_t set_once(cudaFuncAttribute attr, int value) {
+  static std::atomic<unsigned long long> done[2];  // [attr]: device bits, 0 at load
+  const int slot = attr == cudaFuncAttributeMaxDynamicSharedMemorySize ? 0 : 1;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  const unsigned long long bit = 1ull << (device & 63);
+  if (e != cudaSuccess || (done[slot].load() & bit)) return e;
+  e = cudaFuncSetAttribute(Kernel, attr, value);
+  if (e == cudaSuccess) done[slot].fetch_or(bit);
+  return e;
 }
 
 }  // namespace repro

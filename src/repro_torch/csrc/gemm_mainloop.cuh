@@ -41,7 +41,6 @@
 
 #include <cooperative_groups.h>
 
-#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -324,21 +323,6 @@ __device__ __forceinline__ int reduce(T (&acc)[N]) {
   }
   cluster.sync();  // the peers stay resident until rank 0 has read them
   return lead ? (holds ? 2 : 1) : 0;
-}
-
-// Set a kernel's attribute once for each device (a driver call costs the
-// host several microseconds, and the serving loop is bound by the host).
-template <auto Kernel>
-inline cudaError_t set_once(cudaFuncAttribute attr, int value) {
-  static std::atomic<unsigned long long> done[2];  // [attr]: device bits, 0 at load
-  const int slot = attr == cudaFuncAttributeMaxDynamicSharedMemorySize ? 0 : 1;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  const unsigned long long bit = 1ull << (device & 63);
-  if (e != cudaSuccess || (done[slot].load() & bit)) return e;
-  e = cudaFuncSetAttribute(Kernel, attr, value);
-  if (e == cudaSuccess) done[slot].fetch_or(bit);
-  return e;
 }
 
 // Launch `Kernel` (a Tile<BM> kernel) with `smem` bytes of dynamic shared

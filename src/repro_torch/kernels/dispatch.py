@@ -16,6 +16,9 @@ instead of an environment variable:
   * Every kernel wrapper calls ``count_launch(op)`` right where it launches
     its kernel, and nowhere else, so a run can show that its main path went
     through the kernels (``launch_counts`` / ``reset_launch_counts``).
+  * ``stream_scratch`` is the one per-stream zero scratch of the kernels
+    that take a maximum across CTAs (the quantize-out epilogues of both
+    GEMMs and of the fused decode).
 
 Padding is policy here too: ``_pad_to`` is the one helper, and every impl
 declares its pad convention — ``"zero"`` (GEMMs: zero rows/cols contribute
@@ -41,6 +44,8 @@ PAD_CONVENTIONS = ("zero", "zero-scale")
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _PAD: Dict[str, str] = {}
 _LAUNCHES: Dict[str, int] = {}
+# {(device index, stream): uint32 scratch}, left zero by every kernel
+_SCRATCH: Dict[tuple, torch.Tensor] = {}
 
 
 def _pad_to(x: torch.Tensor, m: int, dim: int) -> torch.Tensor:
@@ -134,3 +139,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for op in _LAUNCHES:
         _LAUNCHES[op] = 0
+
+
+def stream_scratch(n: int, device: torch.device) -> torch.Tensor:
+    """A zeroed uint32 buffer (held as int32) of at least ``n`` for the
+    current stream. Every kernel that uses it leaves what it used zero, so
+    one buffer per stream serves every call on it."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
+        _SCRATCH[key] = buf
+    return buf

@@ -51,12 +51,13 @@ def _fd_cuda(q, ck, cks, cv, cvs, k_new, v_new, idx, *, valid, out_dtype,
     # the kernel tiles S by 64 itself; positions past S are masked like
     # zero-scale padding
     B, S, Hkv, hd = ck.shape
-    if out_dtype != q.dtype:
-        raise ValueError(f"fused_decode: the kernel writes q's dtype "
-                         f"({q.dtype}), got out_dtype={out_dtype}")
-    if tuple(idx.shape) != (B, 1):
-        raise ValueError(f"fused_decode appends one token per row at a "
-                         f"per-slot offset: idx must be ({B}, 1), got "
+    if tuple(idx.shape) == (B, 1):                     # per-slot offsets
+        idx_b = idx[:, 0]
+    elif idx.ndim == 1 and idx.numel() == 1:           # one shared offset
+        idx_b = idx.expand(B)
+    else:
+        raise ValueError(f"fused_decode appends one token per row: idx must "
+                         f"be ({B}, 1) per-slot or (1,) shared, got "
                          f"{tuple(idx.shape)}")
     vmask = (torch.ones((B, S), dtype=torch.bool, device=q.device)
              if valid is None else torch.broadcast_to(valid, (B, S)))
@@ -64,8 +65,9 @@ def _fd_cuda(q, ck, cks, cv, cvs, k_new, v_new, idx, *, valid, out_dtype,
         q.contiguous(), ck, cks, cv, cvs,
         k_new.reshape(B, Hkv, hd).contiguous(),
         v_new.reshape(B, Hkv, hd).contiguous(),
-        idx[:, 0].to(torch.int32).contiguous(),
-        vmask.to(torch.bool).contiguous(), quantize_out=quantize_out)
+        idx_b.to(torch.int32).contiguous(),
+        vmask.to(torch.bool).contiguous(), quantize_out=quantize_out,
+        out_dtype=out_dtype)
     return res, (ck, cks, cv, cvs)
 
 
@@ -86,7 +88,7 @@ def fused_decode(q, cache_k, cache_ks, cache_v, cache_vs, k_new, v_new, idx,
 
     q [B, Hq, hd]; cache_k/cache_v [B, S, Hkv, hd] int8, cache_ks/cache_vs
     (and ``cache_verr``) [B, S, Hkv] float32; k_new/v_new [B, 1, Hkv, hd];
-    idx [B, 1] per-slot ring offsets; ``valid`` [B|1, S] marks live
+    idx [B, 1] per-slot ring offsets or [1] one shared offset; ``valid`` [B|1, S] marks live
     positions (including the new token's). Returns ``(out, cache leaves)``
     — the leaves are the given tensors, updated — where ``out`` is the
     triple ``(out, out_q [B, Hq·hd] int8, out_scale [B])`` under

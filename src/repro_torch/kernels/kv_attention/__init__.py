@@ -5,7 +5,8 @@ from .ops import (
     kv_attention_decode,
     quantize_kv,
 )
-from .ref import kv_attention_ref, pad_to_block
+from .ref import kv_attention_ref, kv_attention_split_ref, pad_to_block
 
 __all__ = ["append_quantize", "kv_attention", "kv_attention_decode",
-           "kv_attention_ref", "pad_to_block", "quantize_kv"]
+           "kv_attention_ref", "kv_attention_split_ref",
+           "pad_to_block", "quantize_kv"]

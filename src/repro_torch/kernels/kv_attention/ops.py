@@ -88,13 +88,11 @@ def append_quantize(cache_k, cache_ks, cache_v, cache_vs, k_new, v_new, idx,
 def _kv_cuda(q, k_q, k_s, v_q, v_s, *, blk, out_dtype, v_err):
     # the kernel tiles S by 64 and masks the tail itself; ``blk`` is the
     # plain version's block
-    if out_dtype != q.dtype:
-        raise ValueError(f"kv_attention: the kernel writes q's dtype "
-                         f"({q.dtype}), got out_dtype={out_dtype}")
     return kv_attention_cuda(
         q.contiguous(), k_q.contiguous(), k_s.float().contiguous(),
         v_q.contiguous(), v_s.float().contiguous(),
-        None if v_err is None else v_err.float().contiguous())
+        None if v_err is None else v_err.float().contiguous(),
+        out_dtype=out_dtype)
 
 
 @register_impl("kv_attention", "torch", pad="zero-scale")

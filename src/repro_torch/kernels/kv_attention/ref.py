@@ -8,11 +8,16 @@ composes it. With ``v_err`` (the per-position V error means of the V bias
 correction) the oracle carries ``e = Σ p·v_err`` beside ``acc`` through the
 same rescaling and returns ``(acc - e) / l``, as the CUDA kernel does; the
 JAX package applies the correction in ``kv_attention_xla`` only.
+
+``kv_attention_split_ref`` is the plain version of the CUDA kernel's
+split-S scheme: per split of ``attention_plan``'s tiles a softmax state
+(m, l, acc, e), then the splits combined in rank order.
 """
 from __future__ import annotations
 
 import torch
 
+from ..attention_plan import TS, plan
 from ..dispatch import _pad_to
 
 _NEG = -1e30
@@ -66,3 +71,53 @@ def kv_attention_ref(q, k_q, k_s, v_q, v_s, out_dtype=torch.float32, *,
     if v_err is not None:
         acc = acc - e_acc[..., None]
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(out_dtype)
+
+
+def kv_attention_split_ref(q, k_q, k_s, v_q, v_s, out_dtype=torch.float32, *,
+                           splits=None, v_err=None):
+    """The kernel's split-S scheme in plain PyTorch: S padded to whole tiles
+    of ``TS`` zero-scale (masked) positions, split ``s`` of the plan (or of
+    ``splits``) attends over its tiles alone — its max m, sum l, ``acc`` and,
+    with ``v_err``, ``e = Σ p·v_err`` — and the splits are combined in rank
+    order, each rescaled by ``exp(m_s - max m)``: a split whose positions
+    are all masked (m = -1e30) adds exactly nothing once any split is live.
+    Returns ``(acc - e) / max(l, 1e-30)`` as ``out_dtype`` [B, Hq, hd]."""
+    B, S, Hkv, hd = k_q.shape
+    Hq = q.shape[1]
+    group = Hq // Hkv
+    p = plan(B, S, Hq, Hkv, hd, v_err is not None, splits=splits)
+    k_q, k_s, v_q, v_s = (_pad_to(t, TS, 1) for t in (k_q, k_s, v_q, v_s))
+    if v_err is not None:
+        v_err = _pad_to(v_err.float(), TS, 1)
+    scale = 1.0 / (hd ** 0.5)
+    qg = q.float().reshape(B, Hkv, group, hd)
+    parts = []
+    for s in range(p.splits):
+        first, last = p.split_tiles(s)
+        sl = slice(first * TS, last * TS)
+        ks_b = k_s[:, sl].float()                              # [B, n, Hkv]
+        k = k_q[:, sl].float() * ks_b[..., None]
+        sc = torch.einsum("bngd,bknd->bngk", qg, k) * scale    # [B, Hkv, G, n]
+        live = (ks_b > 0).permute(0, 2, 1)[:, :, None, :]
+        sc = torch.where(live, sc, torch.full_like(sc, _NEG))
+        m = sc.amax(-1)
+        pr = torch.exp(sc - m[..., None])
+        v = v_q[:, sl].float() * v_s[:, sl].float()[..., None]
+        acc = torch.einsum("bngk,bknd->bngd", pr, v)
+        e = (torch.einsum("bngk,bkn->bng", pr, v_err[:, sl])
+             if v_err is not None else None)
+        parts.append((m, pr.sum(-1), acc, e))
+    m_all = torch.stack([part[0] for part in parts]).amax(0)
+    l = torch.zeros_like(m_all)
+    acc = torch.zeros_like(parts[0][2])
+    e_acc = torch.zeros_like(m_all)
+    for m, l_s, acc_s, e_s in parts:                           # rank order
+        f = torch.exp(m - m_all)
+        l = l + l_s * f
+        acc = acc + acc_s * f[..., None]
+        if e_s is not None:
+            e_acc = e_acc + e_s * f
+    if v_err is not None:
+        acc = acc - e_acc[..., None]
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, Hq, hd).to(out_dtype)

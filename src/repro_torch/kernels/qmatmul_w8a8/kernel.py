@@ -17,30 +17,20 @@ from typing import Optional
 import torch
 
 from .. import _build, gemm_plan
-from ..dispatch import count_launch
+from ..dispatch import count_launch, stream_scratch
 
 _ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
 _ARGS_Q8 = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
             + (ctypes.c_void_p,))
-
-# {(device index, stream): uint32 scratch} for the quantize-out epilogue
-_SCRATCH: dict = {}
 
 
 def q8_workspace(M: int, N: int, device: torch.device):
     """The quantize-out epilogue's operands besides the GEMM's own
     (``csrc/q8_epilogue.cuh``): the float32 y workspace [M, N] and the
     uint32 scratch of the rows' max and the M tiles' counters,
-    [M + ceil(M / 16)]. The kernel leaves the scratch zero, so one zeroed
-    buffer per stream serves every call on it."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    key = (device.index, stream)
-    need = M + -(-M // 16)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < need:
-        buf = torch.zeros((max(need, 4096),), dtype=torch.int32, device=device)
-        _SCRATCH[key] = buf
-    return torch.empty((M, N), dtype=torch.float32, device=device), buf
+    [M + ceil(M / 16)]."""
+    return (torch.empty((M, N), dtype=torch.float32, device=device),
+            stream_scratch(M + -(-M // 16), device))
 
 
 def _checked(a_q, w_q, a_scale, w_scale, bias, who):

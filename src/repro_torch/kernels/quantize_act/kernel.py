@@ -2,7 +2,8 @@
 
 Replaces ``quantize_act_pallas`` (``repro/kernels/quantize_act/kernel.py``):
 one block per row, absmax reduction then IEEE divide and round half to even
-— bit-equal to ``ref.quantize_act_ref``.
+— bit-equal to ``ref.quantize_act_ref`` at any ``bits`` from 1 to 8 (the
+clip at [-qmax - 1, qmax], qmax = 2^(bits-1) - 1, as the Pallas kernel).
 """
 from __future__ import annotations
 
@@ -13,24 +14,27 @@ import torch
 from .. import _build
 from ..dispatch import count_launch
 
-_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 
 
-def quantize_act_cuda(x: torch.Tensor):
+def quantize_act_cuda(x: torch.Tensor, bits: int = 8):
     """x [M, K] float32 | bfloat16 on the card → (q int8 [M, K], scale
-    float32 [M])."""
+    float32 [M]); ``bits`` from 1 to 8 (the payload is int8)."""
     if x.device.type != "cuda":
         raise ValueError(f"quantize_act_cuda needs a CUDA tensor, got {x.device}")
     if x.ndim != 2 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"quantize_act_cuda takes [M, K] float32/bfloat16, "
                          f"got {tuple(x.shape)} {x.dtype}")
+    if not 1 <= bits <= 8:
+        raise ValueError(f"quantize_act_cuda writes int8: bits must lie in "
+                         f"[1, 8], got {bits}")
     x = x.contiguous()
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     s = torch.empty((M,), dtype=torch.float32, device=x.device)
     _build.call("repro_quantize_act", _ARGS, x.data_ptr(), q.data_ptr(),
-                s.data_ptr(), M, K, int(x.dtype == torch.bfloat16),
+                s.data_ptr(), M, K, 2 ** (bits - 1) - 1,
+                int(x.dtype == torch.bfloat16),
                 torch.cuda.current_stream(x.device).cuda_stream)
     count_launch("quantize_act")
     return q, s

@@ -10,10 +10,7 @@ from .ref import quantize_act_ref
 
 @register_impl("quantize_act", "cuda")
 def _qact_cuda(x, *, bits):
-    if bits != 8:
-        raise NotImplementedError(f"the quantize_act kernel is int8-only, "
-                                  f"got bits={bits}")
-    return quantize_act_cuda(x)
+    return quantize_act_cuda(x, bits)
 
 
 @register_impl("quantize_act", "torch")

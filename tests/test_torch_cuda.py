@@ -34,7 +34,16 @@ Tolerances as in chip_smoke.py:
     step off its plain version;
   * both GEMMs under forced K splits (the wrappers' private ``_splits``):
     the same bounds at every split, one launch a call, and two calls the
-    same bits.
+    same bits;
+  * both decode attention kernels under forced S splits: kv_attention
+    within fused_decode's bound at every split, two calls the same bits,
+    fused_decode bit-equal to the composition at the same split;
+  * the calls the CUDA tiers once refused, against the torch tier:
+    kv_attention's float32 out from bfloat16 q within the bound (its bf16
+    cast bit-equal to the kernel's bf16 out), fused_decode's shared idx [1]
+    bit-equal to the same offset per slot, fused_decode's float32
+    quantize-out from bfloat16 q bit-equal to quantize_act of its out, and
+    quantize_act at fewer than 8 bits bit-equal.
 """
 import pytest
 import torch
@@ -78,42 +87,124 @@ def test_qmatmul_kernel_bit_equal_ragged(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_decode_kernel_against_plain(dev, dtype):
+    """The appended cache bit-equal, the fully masked row exactly 0 and the
+    quantize-out bit-equal to quantize_act of the kernel's own out in every
+    draw. Cache scales at the serving range (x 0.02): out within its bound
+    of the plain version, the quantize-out off it only at a rounding tie.
+    Cache scales U(0, 1): scores reach ~100, where one float32 ulp of a
+    score moves its softmax weight by ~1e-5, so the float32 plain version
+    itself leaves that bound around the exact value in many draws, and a
+    kernel that sums in another order can only be held to the rounding
+    error such a call may make. There the kernel and the plain version are
+    both held to a float64 evaluation of the same function, within E, the
+    first-order size of float32 rounding (``_fused_decode_float64``), plus
+    one bf16 ulp in bfloat16; the quantize-out off the float64 one only
+    where a rounding tie lies between the two. A control must fail that
+    bound: in float32, the plain version with q rounded to bfloat16 does in
+    at least 10 of the 12 draws."""
     from repro_torch.kernels.fused_decode import fused_decode, fused_decode_ref
     from repro_torch.kernels.quantize_act import quantize_act_ref
 
     B, Hq, Hkv, hd, S = 3, 4, 2, 16, 33
-    leaves = [torch.randint(-127, 128, (B, S, Hkv, hd), device=dev,
-                            dtype=torch.int8), torch.rand(B, S, Hkv, device=dev),
-              torch.randint(-127, 128, (B, S, Hkv, hd), device=dev,
-                            dtype=torch.int8), torch.rand(B, S, Hkv, device=dev)]
-    q = torch.randn(B, Hq, hd, device=dev).to(dtype)
-    kn = torch.randn(B, 1, Hkv, hd, device=dev).to(dtype)
-    vn = torch.randn(B, 1, Hkv, hd, device=dev).to(dtype)
-    idx = torch.tensor([[S - 1], [4], [0]], device=dev)
-    valid = torch.arange(S, device=dev)[None] <= idx
-    valid[2] = False
-    mine = [t.clone() for t in leaves]
-    ref = [t.clone() for t in leaves]
-    (out, oq, os_), _ = fused_decode(q, *mine, kn, vn, idx, valid=valid,
-                                     out_dtype=dtype, quantize_out=True)
-    (outr, oqr, osr), _ = fused_decode_ref(q, *ref, kn, vn, idx, valid=valid,
-                                           out_dtype=dtype, quantize_out=True)
-    for a, b in zip(mine, ref):
-        assert torch.equal(a, b)
-    o, r = out.float().reshape(B, -1), outr.float().reshape(B, -1)
-    diff = (o - r).abs()
-    tol = 1e-6 + 1e-5 * r.abs()
-    if dtype == torch.bfloat16:
-        _, e = torch.frexp((r.abs() + tol).clamp_min(2.0 ** -126))
-        tol = tol + torch.ldexp(torch.ones_like(r), e - 8)
-    assert bool((diff <= tol).all())
-    assert float(out[2].abs().max()) == 0.0
-    qs, ss = quantize_act_ref(o)                 # the epilogue's own formula
-    assert torch.equal(oq, qs) and torch.equal(os_, ss)
-    dq = (oq.int() - oqr.int()).abs()
-    tie = ((r / osr[:, None]).abs() % 1.0 - 0.5).abs() < 1e-3
-    allowed = tie | (diff > 0) if dtype == torch.bfloat16 else tie
-    assert int(dq.max()) <= 1 and not bool(((dq > 0) & ~allowed).any())
+    gen = torch.Generator(device=dev).manual_seed(16)
+    control_fails = 0
+    for scale in (0.02,) * 2 + (1.0,) * 12:
+        leaves = []
+        for _ in range(2):
+            leaves.append(torch.randint(-127, 128, (B, S, Hkv, hd),
+                                        device=dev, dtype=torch.int8,
+                                        generator=gen))
+            leaves.append(torch.rand((B, S, Hkv), device=dev, generator=gen)
+                          * scale)
+        q, kn, vn = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+                     for shape in ((B, Hq, hd), (B, 1, Hkv, hd),
+                                   (B, 1, Hkv, hd)))
+        idx = torch.tensor([[S - 1], [4], [0]], device=dev)
+        valid = torch.arange(S, device=dev)[None] <= idx
+        valid[2] = False
+        mine = [t.clone() for t in leaves]
+        ref = [t.clone() for t in leaves]
+        (out, oq, os_), _ = fused_decode(q, *mine, kn, vn, idx, valid=valid,
+                                         out_dtype=dtype, quantize_out=True)
+        (outr, oqr, osr), _ = fused_decode_ref(q, *ref, kn, vn, idx,
+                                               valid=valid, out_dtype=dtype,
+                                               quantize_out=True)
+        for a, b in zip(mine, ref):
+            assert torch.equal(a, b)
+        assert float(out[2].abs().max()) == 0.0
+        o, r = out.float().reshape(B, -1), outr.float().reshape(B, -1)
+        qs, ss = quantize_act_ref(o)             # the epilogue's own formula
+        assert torch.equal(oq, qs) and torch.equal(os_, ss)
+        if scale < 1.0:
+            diff = (o - r).abs()
+            assert bool((diff <= _out_tolerance(r, dtype)).all())
+            dq = (oq.int() - oqr.int()).abs()
+            tie = ((r / osr[:, None]).abs() % 1.0 - 0.5).abs() < 1e-3
+            allowed = tie | (diff > 0) if dtype == torch.bfloat16 else tie
+            assert int(dq.max()) <= 1 and not bool(((dq > 0) & ~allowed).any())
+            continue
+        o64, err = (t[:2].reshape(2, -1)
+                    for t in _fused_decode_float64(q, ref, valid, Hkv))
+        if dtype == torch.bfloat16:
+            _, e = torch.frexp((o64.abs() + err).clamp_min(2.0 ** -126))
+            err = err + torch.ldexp(torch.ones_like(err), e - 8)
+        for name, x in (("kernel", o), ("plain", r)):
+            worst = float(((x[:2].double() - o64).abs() / err).max())
+            assert worst <= 1.0, (name, worst)
+        if dtype == torch.float32:
+            (oc, _, _), _ = fused_decode_ref(
+                q.bfloat16().float(), *[t.clone() for t in leaves], kn, vn,
+                idx, valid=valid, out_dtype=dtype, quantize_out=True)
+            oc = oc.reshape(B, -1)[:2].double()
+            control_fails += float(((oc - o64).abs() / err).max()) > 1.0
+        s64 = o64.abs().amax(-1).clamp_min(1e-8) / 127
+        x64 = o64 / s64[:, None]
+        x = o[:2].double() / os_[:2, None].double()
+        dq = (oq[:2].double() - torch.round(x64).clamp(-128, 127)).abs()
+        tie = ((x64.abs() % 1.0) - 0.5).abs() <= (x - x64).abs() + 1e-3
+        assert int(dq.max()) <= 1 and not bool(((dq > 0) & ~tie).any())
+    assert control_fails >= 10 or dtype == torch.bfloat16, control_fails
+
+
+def _fused_decode_float64(q, cache, valid, Hkv):
+    """fused_decode's out [B, Hq, hd] in float64 over the cache after the
+    append (a position whose effective K scale, the stored one where
+    ``valid`` and else 0, is 0 is masked; V scale 0 adds nothing), and E,
+    the first-order size of the rounding a float32 evaluation in any sum
+    order may make, u = 2⁻²⁴:
+
+        E = Σ_t p_t ε_t |v_t − out| + (S + 16) u (Σ_t p_t |v_t| + |out|),
+        ε_t = hd u Σ_d |q_d k_td| ks_t / sqrt(hd) + u (4 |s_t| + 4 max|s| + 16)
+
+    the score's dot product, its scaling, the softmax's max, exponent and
+    rescales moving p_t by at most ε_t relative, and the sums of l and acc
+    and the division at most (S + 16) u relative; plus (S + 16) 2⁻¹⁴⁹
+    (1 + max|v|) for the weights and products that fall below float32's
+    normal range (a weight of e⁻¹⁰⁰ is one, at scores ~100)."""
+    u = 2.0 ** -24
+    B, Hq, hd = q.shape
+    S = cache[0].shape[1]
+    kq, ks, vq, vs = (t.double() for t in cache)
+    live = valid[..., None]
+    ks, vs = ks * live, vs * live
+    qg = q.double().reshape(B, Hkv, Hq // Hkv, hd)
+    k, v = kq * ks[..., None], vq * vs[..., None]          # [B, S, Hkv, hd]
+    sc = torch.einsum("bngd,bknd->bngk", qg, k) / hd ** 0.5
+    dot = torch.einsum("bngd,bknd->bngk", qg.abs(), k.abs()) / hd ** 0.5
+    mask = (ks > 0).permute(0, 2, 1)[:, :, None, :]
+    sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+    p = torch.softmax(sc, -1)
+    out = torch.einsum("bngk,bknd->bngd", p, v)
+    s_abs = torch.where(mask, sc.abs(), torch.zeros_like(sc))
+    eps = hd * u * dot + u * (4 * s_abs + 4 * s_abs.amax(-1, keepdim=True)
+                              + 16)
+    spread = (v.permute(0, 2, 1, 3)[:, :, None] - out[:, :, :, None]).abs()
+    v_max = v.abs().amax((1, 3))[:, :, None, None]          # [B, Hkv, 1, 1]
+    err = (torch.einsum("bngk,bngkd->bngd", p * eps, spread)
+           + (S + 16) * u * (torch.einsum("bngk,bknd->bngd", p, v.abs())
+                             + out.abs())
+           + (S + 16) * 2.0 ** -149 * (1 + v_max))
+    return out.reshape(B, Hq, hd), err.reshape(B, Hq, hd)
 
 
 def _out_tolerance(r, dtype):
@@ -427,14 +518,22 @@ def test_gemm_split_sweep_one_launch_deterministic(dev, M, K, N):
 
 
 def test_q8_scratch_is_zero_after_calls(dev):
-    """The quantize-out epilogue's per-stream scratch (the rows' max and the
-    M tiles' counters) is all zero after calls of both variants, at split
-    and unsplit shapes, on the default stream and on a second one."""
-    from repro_torch.kernels.qmatmul_w8a8 import kernel as w8a8_kernel
+    """The quantize-out epilogues' per-stream scratch (the rows' max and the
+    M tiles' or kv heads' counters) is all zero after calls of both GEMM
+    variants, at split and unsplit shapes, and of fused_decode's
+    quantize-out, on the default stream and on a second one."""
+    from repro_torch.kernels.fused_decode.kernel import fused_decode_cuda
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.qmatmul_w8a8.kernel import qmatmul_w8a8_q8_cuda
     from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_q8_cuda
 
     def calls():
+        gen = torch.Generator(device=dev).manual_seed(8)
+        lens = torch.tensor([100, 1, 37], device=dev)
+        leaves, valid, q, kn, vn, idx = _decode_operands(
+            dev, gen, 3, 100, 8, 2, 32, torch.bfloat16, lens)
+        fused_decode_cuda(q, *leaves, kn[:, 0], vn[:, 0], idx[:, 0].int(),
+                          valid, quantize_out=True)
         for M, K, N in ((8, 896, 256),) + SPLIT_CASES:
             w = torch.randint(-127, 128, (N, K), device=dev,
                               dtype=torch.int8).t()
@@ -452,8 +551,8 @@ def test_q8_scratch_is_zero_after_calls(dev):
     with torch.cuda.stream(side):
         calls()
     torch.cuda.synchronize()
-    assert len(w8a8_kernel._SCRATCH) >= 2
-    for buf in w8a8_kernel._SCRATCH.values():
+    assert len(dispatch._SCRATCH) >= 2
+    for buf in dispatch._SCRATCH.values():
         assert int(buf.abs().sum()) == 0
 
 
@@ -574,3 +673,177 @@ def test_quantize_on_the_card_matches_the_cpu(dev, recipe):
             for q in (cpu, card)]
     for site, db in pack[0]["sqnr_db"].items():
         assert abs(db - pack[1]["sqnr_db"][site]) <= 1e-4, site
+
+
+def _decode_operands(dev, gen, B, S, Hq, Hkv, hd, dtype, lens):
+    """The cache (scales zero past each row's length), the live mask, q,
+    the new token's K/V [B, 1, Hkv, hd] and its offset [B, 1] (the last
+    live position; 0 in an empty row, which the mask hides)."""
+    kq, ks, vq, vs = _cache(dev, B, S, Hkv, hd, gen)
+    valid = torch.arange(S, device=dev)[None] < lens[:, None]
+    ks, vs = ks * valid[..., None], vs * valid[..., None]
+    q = torch.randn((B, Hq, hd), device=dev, generator=gen).to(dtype)
+    kn = torch.randn((B, 1, Hkv, hd), device=dev, generator=gen).to(dtype)
+    vn = torch.randn((B, 1, Hkv, hd), device=dev, generator=gen).to(dtype)
+    return [kq, ks, vq, vs], valid, q, kn, vn, (lens - 1).clamp_min(0)[:, None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_split_sweep(dev, dtype):
+    """Every split count the planner allows at S = 300 (5 tiles) and 512
+    (8 tiles), rows of length S, 1 (all splits masked but the first), 65 and
+    0: kv_attention within the bound of its plain version, the empty row
+    exactly 0, two calls the same bits, one launch each; fused_decode
+    (quantize-out) bit-equal to append_quantize + the kv_attention kernel
+    at the same split + the quantize_act kernel."""
+    from repro_torch.kernels import attention_plan, launch_counts
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.fused_decode.kernel import fused_decode_cuda
+    from repro_torch.kernels.kv_attention import append_quantize
+    from repro_torch.kernels.kv_attention.kernel import kv_attention_cuda
+    from repro_torch.kernels.kv_attention.ref import kv_attention_ref
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for B, Hq, Hkv, hd, S in ((4, 8, 2, 32, 300), (4, 14, 2, 64, 512)):
+        lens = torch.tensor([S, 1, 65, 0], device=dev)
+        leaves, valid, q, kn, vn, idx = _decode_operands(
+            dev, gen, B, S, Hq, Hkv, hd, dtype, lens)
+        kq, ks, vq, vs = leaves
+        ref = kv_attention_ref(q, kq, ks, vq, vs, dtype)
+        comp = [t.clone() for t in leaves]
+        append_quantize(*comp, kn, vn, idx)
+        ks_eff = torch.where(valid[..., None], comp[1], 0.0)
+        vs_eff = torch.where(valid[..., None], comp[3], 0.0)
+        top = attention_plan.max_splits(attention_plan.plan(
+            B, S, Hq, Hkv, hd).tiles)
+        for sp in range(1, top + 1):
+            reset_launch_counts()
+            runs = [kv_attention_cuda(q, kq, ks, vq, vs, _splits=sp)
+                    for _ in range(2)]
+            assert launch_counts()["kv_attention"] == 2
+            assert torch.equal(runs[0], runs[1]), sp
+            diff = (runs[0].float() - ref.float()).abs()
+            assert bool((diff <= _out_tolerance(ref.float(), dtype)).all()), sp
+            assert float(runs[0][3].float().abs().max()) == 0.0
+            fused = [t.clone() for t in leaves]
+            out, oq, os_ = fused_decode_cuda(
+                q, *fused, kn[:, 0], vn[:, 0], idx[:, 0].int(), valid,
+                quantize_out=True, _splits=sp)
+            uo = kv_attention_cuda(q, comp[0], ks_eff, comp[2], vs_eff,
+                                   _splits=sp)
+            uoq, uos = quantize_act_cuda(uo.reshape(B, -1))
+            for a, b in zip(fused, comp):
+                assert torch.equal(a, b), sp
+            assert torch.equal(out, uo), sp
+            assert torch.equal(oq, uoq) and torch.equal(os_, uos), sp
+
+
+def test_kv_attention_float32_out_from_bf16_q(dev):
+    """kv_attention(q_bf16, ...) with the default out_dtype=float32 runs
+    the kernel (it used to raise): within the bound of the plain version,
+    and its bf16 cast bit-equal to the kernel's own bf16 output."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.kv_attention import kv_attention, kv_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, Hq, Hkv, hd, S = 3, 8, 2, 32, 100
+    lens = torch.tensor([S, 7, 0], device=dev)
+    (kq, ks, vq, vs), _, q, _, _, _ = _decode_operands(
+        dev, gen, B, S, Hq, Hkv, hd, torch.bfloat16, lens)
+    reset_launch_counts()
+    out = kv_attention(q, kq, ks, vq, vs)
+    out16 = kv_attention(q, kq, ks, vq, vs, out_dtype=torch.bfloat16)
+    assert launch_counts()["kv_attention"] == 2
+    assert out.dtype == torch.float32 and out16.dtype == torch.bfloat16
+    ref = kv_attention_ref(q, kq, ks, vq, vs)
+    assert bool(((out - ref).abs() <= _out_tolerance(ref, torch.float32)).all())
+    assert torch.equal(out.bfloat16(), out16)
+    assert float(out[2].abs().max()) == 0.0
+
+
+def test_fused_decode_shared_idx(dev):
+    """A shared idx of shape [1] (the JAX op broadcasts it; the kernel's
+    wrapper used to refuse it): out, quantize-out and cache bit-equal to the
+    same offset given per slot, the cache bit-equal to the plain version's
+    and out within its bound."""
+    from repro_torch.kernels.fused_decode import fused_decode, fused_decode_ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, Hq, Hkv, hd, S = 4, 8, 2, 32, 100
+    lens = torch.tensor([S, 30, 1, 64], device=dev)
+    leaves, valid, q, kn, vn, _ = _decode_operands(
+        dev, gen, B, S, Hq, Hkv, hd, torch.float32, lens)
+    shared = torch.tensor([40], device=dev)
+    valid[:, 40] = True
+    runs = []
+    for idx in (shared, shared.expand(B)[:, None]):
+        mine = [t.clone() for t in leaves]
+        runs.append((fused_decode(q, *mine, kn, vn, idx, valid=valid,
+                                  quantize_out=True)[0], mine))
+    (a, ca), (b, cb) = runs
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(ca, cb))
+    plain = [t.clone() for t in leaves]
+    (r, _, _), _ = fused_decode_ref(q, *plain, kn, vn, shared, valid=valid,
+                                    quantize_out=True)
+    assert all(torch.equal(x, y) for x, y in zip(ca, plain))
+    assert bool(((a[0] - r).abs() <= _out_tolerance(r, torch.float32)).all())
+
+
+def test_fused_decode_float32_quantize_out_from_bf16_q(dev):
+    """The fused W8A8 route's quantize-out with bfloat16 q and
+    out_dtype=float32: the epilogue bit-equal to quantize_act of the
+    float32 out, out within the bound of the plain version, the cache
+    bit-equal to the plain version's, the empty row exactly 0."""
+    from repro_torch.kernels.fused_decode import fused_decode, fused_decode_ref
+    from repro_torch.kernels.quantize_act import quantize_act_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, Hq, Hkv, hd, S = 4, 14, 2, 64, 512
+    lens = torch.tensor([S, 1, 200, 0], device=dev)
+    leaves, valid, q, kn, vn, idx = _decode_operands(
+        dev, gen, B, S, Hq, Hkv, hd, torch.bfloat16, lens)
+    mine = [t.clone() for t in leaves]
+    plain = [t.clone() for t in leaves]
+    (out, oq, os_), _ = fused_decode(q, *mine, kn, vn, idx, valid=valid,
+                                     out_dtype=torch.float32,
+                                     quantize_out=True)
+    (r, _, _), _ = fused_decode_ref(q, *plain, kn, vn, idx, valid=valid,
+                                    out_dtype=torch.float32, quantize_out=True)
+    assert out.dtype == torch.float32
+    qs, ss = quantize_act_ref(out.reshape(B, -1))
+    assert torch.equal(oq, qs) and torch.equal(os_, ss)
+    assert all(torch.equal(x, y) for x, y in zip(mine, plain))
+    assert bool(((out - r).abs() <= _out_tolerance(r, torch.float32)).all())
+    assert float(out[3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 6, 8])
+def test_quantize_act_bits(dev, bits):
+    """quantize_act at any bits (it was int8-only on the card): bit-equal
+    to the plain version, the clip at [-qmax - 1, qmax]."""
+    from repro_torch.kernels.quantize_act import quantize_act, quantize_act_ref
+
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((9, 300), device=dev, generator=gen) * 3).to(dtype)
+        q, s = quantize_act(x, bits=bits)
+        qr, sr = quantize_act_ref(x, bits)
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+        qmax = 2 ** (bits - 1) - 1
+        assert int(q.max()) <= qmax and int(q.min()) >= -qmax - 1
+
+
+def test_attention_wrappers_refuse_shapes_the_kernel_does_not_take(dev):
+    from repro_torch.kernels.kv_attention.kernel import kv_attention_cuda
+
+    q = torch.zeros((1, 2, 40), device=dev)
+    kv = torch.zeros((1, 8, 1, 40), device=dev, dtype=torch.int8)
+    s = torch.zeros((1, 8, 1), device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kv_attention_cuda(q, kv, s, kv, s)
+    q = torch.zeros((1, 128, 256), device=dev)
+    kv = torch.zeros((1, 8, 1, 256), device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kv_attention_cuda(q, kv, s, kv, s)
