@@ -10,7 +10,10 @@ Phases, each of which must pass (nothing here catches a failure):
      registers/spills ptxas reports, and the card's name and power limit.
   2. kernels — call each of the seven kernels' wrappers on the card at the
      shapes the serving paths give it and hold it against its plain PyTorch
-     version on the same inputs: quantize_act and qmatmul_w8a8 bit-equal;
+     version on the same inputs: quantize_act (also at bits 2, 4 and 6, on
+     .5 ties and near-ties, ragged K and a row past its registers, timed
+     beside a one-element launch, the launch floor) and qmatmul_w8a8
+     bit-equal;
      qmatmul_w8a16 within ``W8A16_TOL`` (it applies the scale after the sum,
      the plain version before it); fused_decode's appended cache bit-equal,
      its output within ``OUT_TOL``, and its quantize-out bit-equal to
@@ -35,7 +38,14 @@ Phases, each of which must pass (nothing here catches a failure):
      under forced K splits (1, 2, the planner's, the largest it allows):
      W8A8 bit-equal in both output types at M = 8, 64 and 256, W8A16 within
      ``W8A16_TOL`` in bf16 and f32, and two calls of each GEMM and each
-     quantize-out variant bit-equal; it logs each split's time. Times each
+     quantize-out variant bit-equal; it logs each split's time. The
+     quantize-in W8A8 GEMM (qmatmul_w8a8_qin: quantize_act folded into its
+     prologue) bit-equal to quantize_act + qmatmul_w8a8, and the int8 x it
+     hands out to quantize_act's, at every path K x N and a ragged K, M 1-256,
+     bf16/f32 x and out, every split whose slice fits, .5 ties, near-ties, a
+     zero row and a row whose only large value lies in the last split;
+     timed beside the pair, the GEMM alone and torch._int_mm, warm and (M =
+     8) cold. Times each
      kernel (device time, queued behind a sleep kernel so the host's
      per-call cost is hidden, and the time of a back-to-back wrapper call,
      host included), its plain version, the stepwise pair a quantize-out GEMM
@@ -46,7 +56,9 @@ Phases, each of which must pass (nothing here catches a failure):
      the GEMMs and their library
      calls are also timed cold: rotating over 128 MB of weight copies, so
      each call reads its weight from HBM as the serving path does. One line
-     sums the GEMMs' device time over a decode step and a prefill chunk.
+     sums the GEMMs' device time over a decode step and a prefill chunk, two
+     more a W8A8 decode step's GEMMs + activation quantization, pair
+     against fold.
   3. reference — for each serving recipe, ``repro_torch.quantize`` of a
      smoke-size qwen2 (seeded weights that need every rewrite) on the card
      against the same call on the CPU: payloads, scales and float leaves
@@ -66,7 +78,8 @@ Phases, each of which must pass (nothing here catches a failure):
      request must finish with 32 tokens and finite logits. The launch
      counts are reset just before each run and read just after, and each
      kernel must have launched exactly as often as the path's layers and
-     steps give (``expected_launches``), every other kernel never.
+     steps give (``expected_launches``, as ``gemm_plan`` folds: no
+     quantize_act at a W8A8 decode step), every other kernel never.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -223,20 +236,36 @@ def cold_ms(torch, call, w, iters: int = 50) -> float:
 
 # --------------------------------------------------------------- phase 2
 def check_quantize_act(torch, dev, gen):
+    """The standalone kernel at the serving shapes (timed), a ragged K (the
+    element-wise loader) and a row too long for the registers (the re-read
+    loop), with .5 ties and a row of near-ties: bit-equal to the plain
+    version at 8 bits and at bits 2, 4 and 6.
+    Each timed row carries the launch floor: the device time of a
+    one-element ``fill_`` in the same phase."""
     from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
     from repro_torch.kernels.quantize_act.ref import quantize_act_ref
 
+    one = torch.zeros((1,), device=dev)
+    floor = device_ms(lambda: one.fill_(1.0), 100)
+    timed = ((8, 896), (8, 4864), (64, 896), (256, 896), (256, 4864))
     rows = []
-    for M, K in ((8, 896), (8, 4864), (64, 896), (256, 896), (256, 4864)):
+    for M, K in timed + ((13, 77), (8, 4100), (2, 40000)):
         for dtype in (torch.bfloat16, torch.float32):
-            x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(dtype)
+            x = torch.randn((M, K), generator=gen, device=dev) * 3
             x[0, :7] = torch.tensor([0.5, 1.5, -2.5, 0, 0, 0, 0])  # ties
-            q, s = quantize_act_cuda(x)
-            qr, sr = quantize_act_ref(x)
-            torch.cuda.synchronize()
-            assert torch.equal(q, qr) and torch.equal(s, sr), (
-                f"quantize_act {M}x{K} {dtype}: not bit-equal to the plain "
-                f"version ({int((q != qr).sum())} payload mismatches)")
+            x[1] = near_ties(torch, gen, dev, K)            # at scale 1
+            x[1, 0] = 127.0
+            x = x.to(dtype)
+            for bits in (8, 2, 4, 6):
+                q, s = quantize_act_cuda(x, bits)
+                qr, sr = quantize_act_ref(x, bits)
+                torch.cuda.synchronize()
+                assert torch.equal(q, qr) and torch.equal(s, sr), (
+                    f"quantize_act {M}x{K} {dtype} bits={bits}: not bit-equal "
+                    f"to the plain version ({int((q != qr).sum())} payload "
+                    f"mismatches)")
+            if (M, K) not in timed:
+                continue
             e = x.element_size()
             b, by = bound_ms(M * K * e + M * K + 4 * M, 5 * M * K, F32_OPS_S)
             rows.append({
@@ -244,7 +273,11 @@ def check_quantize_act(torch, dev, gen):
                 "ms": device_ms(lambda: quantize_act_cuda(x), 100),
                 "call_ms": call_ms(lambda: quantize_act_cuda(x), 100),
                 "plain_ms": device_ms(lambda: quantize_act_ref(x), 20),
-                "bound_ms": b, "bound_by": by, "library_ms": None})
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "floor_ms": floor})
+    log(f"  quantize_act at 8 shapes x bf16/f32 x bits 8/2/4/6 (ragged K=77 "
+        f"and 4100, K=40000 past the registers): bit-equal to the plain "
+        f"version; launch floor (one-element fill_) {floor * 1e3:.2f} us")
     return rows
 
 
@@ -898,6 +931,172 @@ def check_queue_c(torch, dev, gen):
 PATH_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896))
 
 
+def near_ties(torch, gen, dev, n):
+    """n values k/2 + within 1e-5 relative of it, |k/2| < 127: at scale 1
+    some lie inside quantize16's 2^-13 band around a half-integer (the
+    IEEE division decides them) and some outside (the reciprocal's integer
+    must be the division's)."""
+    k = torch.randint(-253, 254, (n,), generator=gen, device=dev).float() / 2
+    return k * (1 + (torch.rand((n,), generator=gen, device=dev) - 0.5) * 2e-5)
+
+
+def _qin_input(torch, gen, dev, M, K, dtype):
+    """x [M, K] for the quantize-in GEMM: randn * 3; row 0 holds .5 ties
+    (0.5, 1.5, -2.5, 2.5, -0.5) and its only large value, 127 (so its
+    scale is exactly 1), in its last element — the last split's K range,
+    which only the cluster's max carries to the other splits; row 1 all
+    zero (the 1e-8 floor); row 2 near-ties at scale 1 (its max, 127, in
+    its first element)."""
+    x = torch.randn((M, K), generator=gen, device=dev) * 3
+    x[0, :5] = torch.tensor([0.5, 1.5, -2.5, 2.5, -0.5])
+    x[0, K - 1] = 127.0
+    if M > 1:
+        x[1] = 0.0
+    if M > 2:
+        x[2] = near_ties(torch, gen, dev, K)
+        x[2, 0] = 127.0
+    return x.to(dtype)
+
+
+def check_qmatmul_w8a8_qin(torch, dev, gen):
+    """The quantize-in W8A8 GEMM (quantize_act folded into the GEMM, one
+    launch) bit-equal to the pair of the port's own kernels
+    (``quantize_act_cuda`` then ``qmatmul_w8a8_cuda``) and to the plain
+    version, and the quantized x it hands out bit-equal to quantize_act's:
+    every path K x N and a ragged K (K % 16 != 0: the element-wise
+    loaders; K = 4100 split), the decode tile's M in {1, 8, 16} (ragged
+    5, 8, 13), bf16 and f32 x, bf16 and f32 out, at every split the
+    planner allows (forced by ``_splits``; splits whose int8 slice does
+    not fit are refused by the wrapper, and counted). A 64-row tile (M in
+    {64, 256}; ragged 70), which the plan never folds, is refused. Timed at
+    the path shapes on the bf16 x it checked (bf16 out): the fold, the
+    pair (timed together), the GEMM alone on pre-quantized A,
+    ``torch._int_mm`` on that A (M padded to 32), beside the bound (W
+    bytes + A bytes in x's type + out)."""
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_qin_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a8.ref import qmatmul_w8a8_qin_ref
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    cases = [(K, N, (1, 8, 16), (64, 256)) for K, N in PATH_KN]
+    cases += [(900, 130, (5, 8, 13), (70,)), (4100, 70, (5, 8, 13), (70,))]
+    rows, checked, refused, tiles_refused = [], 0, 0, 0
+    for K, N, Ms, wide in cases:
+        w = _kmajor_int8(torch, gen, dev, K, N)
+        sw = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
+        bias = torch.randn((N,), generator=gen, device=dev)
+        for M in wide:
+            assert not gemm_plan.plan(M, N, K).fold
+            try:
+                qmatmul_w8a8_qin_cuda(_qin_input(torch, gen, dev, M, K,
+                                                 torch.bfloat16), w, sw, bias)
+            except ValueError as e:
+                assert "decode tile" in str(e), e
+                tiles_refused += 1
+            else:
+                raise AssertionError(f"qmatmul_w8a8_qin M={M} K={K} N={N}: "
+                                     f"a {gemm_plan.plan(M, N, K).bm}-row "
+                                     f"tile launched")
+        for M in Ms:
+            p = gemm_plan.plan(M, N, K)
+            assert p.fold, f"M={M} K={K} N={N}: the plan does not fold"
+            top = gemm_plan.max_splits(p.k_steps)
+            for xdt in (torch.bfloat16, torch.float32):
+                x = _qin_input(torch, gen, dev, M, K, xdt)
+                if xdt == torch.bfloat16:
+                    x_timed = x  # checked below, then timed
+                a_q, a_s = quantize_act_cuda(x)
+                for od in (torch.bfloat16, torch.float32):
+                    what = (f"qmatmul_w8a8_qin M={M} K={K} N={N} "
+                            f"{str(xdt)[6:]} -> {str(od)[6:]}")
+                    pair = qmatmul_w8a8_cuda(a_q, w, a_s, sw, bias, out_dtype=od)
+                    plain = qmatmul_w8a8_qin_ref(x, w, sw, bias, od)
+                    torch.cuda.synchronize()
+                    assert torch.equal(pair, plain), f"{what}: pair != plain"
+                    for S in range(1, top + 1):
+                        if not gemm_plan.plan(M, N, K, splits=S).fold:
+                            refused += 1
+                            continue
+                        y, xq, xs = qmatmul_w8a8_qin_cuda(
+                            x, w, sw, bias, out_dtype=od, quantized=True,
+                            _splits=S)
+                        torch.cuda.synchronize()
+                        assert torch.equal(y, pair), (
+                            f"{what} S={S}: not bit-equal to quantize_act + "
+                            f"qmatmul_w8a8 ({int((y != pair).sum())} values, "
+                            f"max |diff| "
+                            f"{float((y.float() - pair.float()).abs().max())})")
+                        assert torch.equal(xq, a_q) and torch.equal(xs, a_s), (
+                            f"{what} S={S}: the quantized x it hands out is "
+                            f"not quantize_act's")
+                        assert bool(torch.isfinite(y).all()), f"{what} S={S}"
+                        checked += 1
+            if (K, N) not in PATH_KN:
+                continue
+            x = x_timed
+            a_q, a_s = quantize_act_cuda(x)
+            fold = lambda: qmatmul_w8a8_qin_cuda(x, w, sw, bias,
+                                                 out_dtype=torch.bfloat16)
+
+            def pair():
+                aq, asc = quantize_act_cuda(x)
+                return qmatmul_w8a8_cuda(aq, w, asc, sw, bias,
+                                         out_dtype=torch.bfloat16)
+
+            gemm = lambda: qmatmul_w8a8_cuda(a_q, w, a_s, sw, bias,
+                                             out_dtype=torch.bfloat16)
+            a_lib = torch.cat([a_q, a_q.new_zeros((32 - M, K))])
+            b, by = bound_ms(K * N + 2 * M * K + 8 * N + 2 * M * N,
+                             2 * M * K * N, INT8_OPS_S)
+            err = float((fold().float() - pair().float()).abs().max())
+            assert err == 0.0, f"M={M} K={K} N={N}: the timed fold is off the pair by {err}"
+            row = {
+                "shape": f"M={M} K={K} N={N} bf16 -> bf16", "mkn": [M, K, N],
+                "max_abs_err": err, "splits": p.splits, "share": p.share,
+                "ms": device_ms(fold, 50), "call_ms": call_ms(fold, 50),
+                "pair_ms": device_ms(pair, 50), "gemm_ms": device_ms(gemm, 50),
+                "plain_ms": device_ms(lambda: qmatmul_w8a8_qin_ref(
+                    x, w, sw, bias, torch.bfloat16), 10),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": device_ms(lambda: torch._int_mm(a_lib, w), 50),
+                "library": (f"torch._int_mm on quantize_act's A, M "
+                            f"zero-padded {M}->32")}
+            if M == 8:
+                # each call's weight from HBM, as on the serving path
+
+                def pair_on(wc):
+                    aq, asc = quantize_act_cuda(x)
+                    return qmatmul_w8a8_cuda(aq, wc, asc, sw, bias,
+                                             out_dtype=torch.bfloat16)
+
+                row["cold_ms"] = cold_ms(torch, lambda wc: qmatmul_w8a8_qin_cuda(
+                    x, wc, sw, bias, out_dtype=torch.bfloat16), w)
+                row["pair_cold_ms"] = cold_ms(torch, pair_on, w)
+                row["gemm_cold_ms"] = cold_ms(torch, lambda wc: qmatmul_w8a8_cuda(
+                    a_q, wc, a_s, sw, bias, out_dtype=torch.bfloat16), w)
+            rows.append(row)
+    log(f"  qmatmul_w8a8_qin: {checked} results (path K x N and ragged K, "
+        f"M 1-16, bf16/f32 x, bf16/f32 out, every split that fits) bit-equal "
+        f"to quantize_act + qmatmul_w8a8, with the quantized x they hand out "
+        f"equal to quantize_act's, and the pair to the plain version; "
+        f"{refused} forced splits refused (int8 slice over "
+        f"{gemm_plan.QIN_SMEM_MAX} bytes); {tiles_refused} calls at M 64-256 "
+        f"(64-row tiles) refused")
+    for r in rows:
+        log(f"  qmatmul_w8a8_qin {r['shape']:30s} fold {r['ms'] * 1e3:7.2f} us"
+            f"  pair {r['pair_ms'] * 1e3:7.2f}  GEMM alone "
+            f"{r['gemm_ms'] * 1e3:7.2f}  _int_mm {r['library_ms'] * 1e3:7.2f}"
+            f"  bound {r['bound_ms'] * 1e3:6.3f}"
+            + (f"  cold: fold {r['cold_ms'] * 1e3:.2f}, pair "
+               f"{r['pair_cold_ms'] * 1e3:.2f}, GEMM alone "
+               f"{r['gemm_cold_ms'] * 1e3:.2f}" if "cold_ms" in r else "")
+            + f"  (S={r['splits']}, share {r['share']})")
+    return rows
+
+
 def check_qmatmul_w8a8_q8(torch, dev, gen):
     """qmatmul_w8a8 with the quantize-out epilogue, one launch: payload and
     scale bit-equal to the plain version and to the stepwise pair of the
@@ -1129,11 +1328,33 @@ def log_step_sums(tables):
     """One line with the device time of one decode step's GEMMs (24 layers x
     the seven projections at M = 8, warm and cold) and of one prefill
     chunk's (M = 256), each beside the bound's sum and, for W8A8,
-    ``torch._int_mm``'s."""
+    ``torch._int_mm``'s; two lines (GEMMs warm, cold) with the W8A8 decode
+    step's GEMMs plus activation quantization on the fused route: the pair —
+    quantize_act of the qkv, gate/up and down inputs and the seven int8
+    GEMMs — against the fold — q, gate and down quantize-in GEMMs, and k, v,
+    up (on the fold's quantized input) and wo (on fused_decode's
+    quantize-out) int8 GEMMs."""
     def total(name, M, key, suffix=""):
         rows = {tuple(r["mkn"][1:]): r for r in tables[name]
                 if r["mkn"][0] == M and r["shape"].endswith(suffix)}
         return 24 * sum(n * rows[kn][key] for kn, n in LAYER_GEMMS)
+
+    qa = {r["shape"]: r["ms"] for r in tables["quantize_act"]}
+    quant = 24 * (2 * qa["x[8,896] bfloat16"] + qa["x[8,4864] bfloat16"])
+    def at(name, K, N, key):
+        return next(r[key] for r in tables[name] if r["mkn"] == [8, K, N])
+
+    for temp, key in (("warm", "ms"), ("cold", "cold_ms")):
+        gemms = total("qmatmul_w8a8", 8, key)
+        fold = 24 * sum(at("qmatmul_w8a8_qin", K, N, key)
+                        for K, N in ((896, 896), (896, 4864), (4864, 896)))
+        int8 = 24 * sum(at("qmatmul_w8a8", K, N, key) for K, N in
+                        ((896, 128), (896, 128), (896, 896), (896, 4864)))
+        log(f"  W8A8 device ms per decode step, GEMMs + activation "
+            f"quantization (24 layers, M=8, GEMMs {temp}): pair "
+            f"{gemms + quant:.4f} (GEMMs {gemms:.4f} + quantize_act 72 x = "
+            f"{quant:.4f}); fold {fold + int8:.4f} (72 qmatmul_w8a8_qin "
+            f"{fold:.4f} + 96 qmatmul_w8a8 {int8:.4f})")
 
     w16, w8 = "qmatmul_w8a16", "qmatmul_w8a8"
     log(f"  GEMM device ms per decode step (24 layers x 7 projections, M=8): "
@@ -1279,18 +1500,46 @@ SERVE = dict(arch="qwen2-0.5b", seed=0, device="cuda", slots=8, max_len=512,
              prompt_len=256, gen_min=32, gen_len=32)
 
 
+# the W8A8 inputs of a layer, each (K, the N of every projection reading
+# it): qkv, wo, gate/up, down
+LAYER_INPUTS = ((896, (896, 128, 128)), (896, (896,)), (896, (4864, 4864)),
+                (4864, (896,)))
+# a W8A8 decode step's launches a layer, fixed here and not read from the
+# planner: no quantize_act; quantize-in GEMMs for q, gate and down (and wo
+# on the unfused route), each handing its int8 rows to k, v and up; wo at a
+# fused step an int8 GEMM on the fused kernel's quantize-out
+W8A8_DECODE = {True: {"qmatmul_w8a8_qin": 3, "qmatmul_w8a8": 4},
+               False: {"qmatmul_w8a8_qin": 4, "qmatmul_w8a8": 3}}
+
+
 def expected_launches(quantize, fused, steps, chunks):
-    """{kernel: launches} of one serve run: per decode step and per prefill
-    chunk, 24 layers of 7 projections; the fused decode once a layer per
-    decode step, or kv_attention on the unfused route; one quantize_act per
-    W8A8 input (qkv, wo, gate/up, down) but wo's at a fused decode step,
-    which reads the fused kernel's quantize-out."""
+    """{kernel: launches} of one serve run: per decode step (M = slots) and
+    per prefill chunk (M = slots x chunk), 24 layers of 7 projections; the
+    fused decode once a layer per decode step, or kv_attention on the
+    unfused route. W8A8 decode steps as ``W8A8_DECODE`` says (0
+    quantize_act); a W8A8 prefill chunk as ``gemm_plan`` says for each
+    input of a layer: where the plan folds for every projection reading it,
+    the first is one qmatmul_w8a8_qin, which hands its quantized input to
+    the others (an int8 GEMM each); elsewhere one quantize_act and an int8
+    GEMM each."""
+    from repro_torch.kernels import gemm_plan
+
     L = 24
-    gemm = "qmatmul_w8a8" if quantize == "w8a8" else "qmatmul_w8a16"
-    want = {gemm: 7 * L * (steps + chunks),
-            "fused_decode" if fused else "kv_attention": L * steps}
-    if quantize == "w8a8":
-        want["quantize_act"] = 4 * L * chunks + (3 if fused else 4) * L * steps
+    want = {"fused_decode" if fused else "kv_attention": L * steps}
+    if quantize != "w8a8":
+        want["qmatmul_w8a16"] = 7 * L * (steps + chunks)
+        return want
+    want.update(quantize_act=0, qmatmul_w8a8=0, qmatmul_w8a8_qin=0)
+    for name, n in W8A8_DECODE[fused].items():
+        want[name] += n * L * steps
+    M = SERVE["slots"] * SERVE["prefill_chunk"]
+    for K, Ns in LAYER_INPUTS:
+        if all(gemm_plan.plan(M, N, K).fold for N in Ns):
+            want["qmatmul_w8a8_qin"] += L * chunks
+            want["qmatmul_w8a8"] += (len(Ns) - 1) * L * chunks
+        else:
+            want["quantize_act"] += L * chunks
+            want["qmatmul_w8a8"] += len(Ns) * L * chunks
     return want
 
 
@@ -1416,7 +1665,8 @@ def main() -> int:
     lib = _build.build()
     log(f"  built {lib.path.name} in {lib.seconds:.1f} s")
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or line.startswith("==")
+                or "Function properties for" in line):
             log("  " + line.strip())
 
     log("== phase 2: kernels against their plain versions")
@@ -1431,8 +1681,11 @@ def main() -> int:
     check_queue_c(torch, dev, gen)
     tables["qmatmul_w8a8_q8"] = check_qmatmul_w8a8_q8(torch, dev, gen)
     tables["qmatmul_w8a16_q8"] = check_qmatmul_w8a16_q8(torch, dev, gen)
+    tables["qmatmul_w8a8_qin"] = check_qmatmul_w8a8_qin(torch, dev, gen)
     check_split_sweep(torch, dev, gen)
     for name, rows in tables.items():
+        if name == "qmatmul_w8a8_qin":
+            continue  # logged by its check, fold beside pair
         for r in rows:
             lib_ms = ("-" if r["library_ms"] is None
                       else f"{r['library_ms'] * 1e3:.2f}")
@@ -1450,7 +1703,9 @@ def main() -> int:
                 + (f"  without quantize-out {r['no_q8_ms'] * 1e3:.2f} us"
                    if "no_q8_ms" in r else "")
                 + (f"  splits {r['splits']}, SDPA bf16 (GQA expanded) "
-                   f"{r['sdpa_ms'] * 1e3:.2f} us" if "sdpa_ms" in r else ""))
+                   f"{r['sdpa_ms'] * 1e3:.2f} us" if "sdpa_ms" in r else "")
+                + (f"  launch floor {r['floor_ms'] * 1e3:.2f} us"
+                   if "floor_ms" in r else ""))
     log_step_sums(tables)
 
     log("== phase 3: small-input reference")
@@ -1480,8 +1735,11 @@ def main() -> int:
     # each kernel's launches come from the run of the path it serves; the
     # fused decode from the default (w8a16) path, kv_attention from the
     # default recipe's unfused route; the quantize-out GEMMs are on no
-    # serving path (quantize_out=True only), so the w8a8 run counts them 0
+    # serving path (quantize_out=True only), so the w8a8 run counts them 0;
+    # quantize_act's are the w8a8 prefill chunks' (decode folds it into
+    # qmatmul_w8a8: the qmatmul_w8a8_qin entry)
     main = {"quantize_act": ("x[8,896] bfloat16", "w8a8"),
+            "qmatmul_w8a8_qin": ("M=8 K=896 N=4864 bf16 -> bf16", "w8a8"),
             "qmatmul_w8a8": ("M=8 K=896 N=4864 -> bf16", "w8a8"),
             "qmatmul_w8a16": ("M=8 K=896 N=4864 bfloat16", "w8a16"),
             "fused_decode": ("B=8 Hq=14 Hkv=2 hd=64 S=512 bfloat16", "w8a16"),
@@ -1500,7 +1758,14 @@ def main() -> int:
                "qmatmul_w8a8_q8": ("qmatmul_w8a8.cu",
                                    "qmatmul_w8a8/kernel.py:143"),
                "qmatmul_w8a16_q8": ("qmatmul_w8a16.cu",
-                                    "qmatmul_w8a16/kernel.py:127")}
+                                    "qmatmul_w8a16/kernel.py:127"),
+               "qmatmul_w8a8_qin": ("qmatmul_w8a8.cu",
+                                    "quantize_act/kernel.py:27")}
+    notes = {"quantize_act": {"decode": "folded into qmatmul_w8a8 "
+                              "(qmatmul_w8a8_qin) wherever gemm_plan folds: "
+                              "0 launches a decode step; launches are the "
+                              "prefill chunks'"},
+             "qmatmul_w8a8_qin": {"fuses": tpu + "qmatmul_w8a8/kernel.py:72"}}
     kernels = []
     for name, rows in tables.items():
         shape, path = main[name]
@@ -1511,8 +1776,11 @@ def main() -> int:
                         "launches": runs[path][1][name],
                         "path": ("none: quantize_out=True only"
                                  if name.endswith("_q8") else path),
-                        # the plan's split count is not measured: log only
-                        **{k: v for k, v in row.items() if k != "splits"}})
+                        **notes.get(name, {}),
+                        # the plan's split and share counts are not
+                        # measured: log only
+                        **{k: v for k, v in row.items()
+                           if k not in ("splits", "share")}})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

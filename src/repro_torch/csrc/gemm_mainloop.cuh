@@ -18,11 +18,18 @@
 //    are zero-filled by the copy's source-size operand. When rows are not
 //    16-byte aligned (vec == 0: K % 16 != 0 or an unaligned base) the same
 //    rings are filled by a synchronous byte loader.
+//  * The ring may carry W only: the quantize-in W8A8 GEMM (qmatmul_w8a8.cu,
+//    wherever kernels/gemm_plan.py folds quantize_act into it — every decode
+//    tile) quantizes its split's slice of the float activation once, in a
+//    prologue that runs while the first weight stages are in flight, into a
+//    shared-memory buffer laid out as the ring's A tiles, one a K step; each
+//    step then reads its A tile there (Ring<BM, 0, ...>).
 //  * Split-K: the grid is N-tiles x M-tiles x S, split z walks K steps
 //    [z * steps / S, (z + 1) * steps / S), and the S splits of a tile are one
-//    thread block cluster (1, 1, S), S <= MAX_SPLITS. BM and S come from
-//    the Python planner (kernels/gemm_plan.py, which also holds BN, BK and
-//    the rule).
+//    thread block cluster (1, 1, S), S <= MAX_SPLITS — (share, 1, S) in the
+//    quantize-in GEMM, whose `share` neighbouring N tiles divide the
+//    quantizing. BM, S and share come from the Python planner
+//    (kernels/gemm_plan.py, which also holds BN, BK and the rule).
 //  * The reduction, deterministic and in the same launch: the groups add
 //    their partials in shared memory in group order; then each split stores
 //    its tile's sum to its own shared memory and, after a cluster barrier,
@@ -155,12 +162,14 @@ __device__ __forceinline__ char* ring_smem() {
 // The rings of one kernel: A elements of EA bytes in rows of LDA bytes, the
 // int8 weight in rows of LDB bytes (LDA, LDB >= the step's bytes; padding
 // where a kernel's fragment reads would otherwise conflict); one ring for
-// each group of the tile.
+// each group of the tile. EA = 0: A is resident, not in the ring — an int8
+// buffer of one [BM, LDA] tile a K step of the split, from K step k0 on.
 template <int BM, int EA, int LDA, int LDB>
 struct Ring {
   using T = Tile<BM>;
-  static constexpr int STAGES = EA == 1 ? T::STAGES : T::STAGES_WIDE;
-  static constexpr int A_BYTES = BM * LDA;
+  static constexpr int STAGES = EA <= 1 ? T::STAGES : T::STAGES_WIDE;
+  static constexpr int A_TILE = BM * LDA;                // one step's A tile
+  static constexpr int A_BYTES = EA == 0 ? 0 : A_TILE;   // ... in a stage
   static constexpr int STAGE = A_BYTES + T::BN * LDB;
   static constexpr int SMEM = T::GROUPS * STAGES * STAGE;
 
@@ -180,13 +189,17 @@ struct Ring {
   }
 
   // Walk the group's share of this split's K steps, calling
-  // consume(a_stage, b_stage) once per step in K order with the stage's
-  // tiles complete in shared memory. Every thread of the CTA must call it.
-  template <typename Consume>
+  // consume(a_tile, b_stage) once per step in K order with the step's
+  // tiles complete in shared memory. prologue() runs once, by every thread,
+  // after the first STAGES - 1 stages are issued and before the first is
+  // consumed (with EA = 0 it writes the resident A, `A`). Every thread of
+  // the CTA must call it.
+  template <typename Consume, typename Prologue>
   static __device__ __forceinline__ void run(const void* A, const int8_t* Bt,
                                              int M, int N, int K, int m0,
                                              int n0, bool vec,
-                                             Consume&& consume) {
+                                             Consume&& consume,
+                                             Prologue&& prologue) {
     constexpr int S = STAGES, GT = T::GROUP_THREADS;
     const int group = threadIdx.x / GT, tid = threadIdx.x % GT;
     char* smem = ring_smem() + group * S * STAGE;
@@ -200,7 +213,8 @@ struct Ring {
     const int kt1 = static_cast<int>(k0 + (k1 - k0) * (group + 1) / T::GROUPS);
     const auto load = [&](int stage, int kt) {
       char* st = smem + stage * STAGE;
-      load_tile<BM, BK * EA, LDA, GT>(st, a, m0, M, kt * BK * EA, K * EA, vec, tid);
+      if constexpr (EA > 0)
+        load_tile<BM, BK * EA, LDA, GT>(st, a, m0, M, kt * BK * EA, K * EA, vec, tid);
       load_tile<T::BN, BK, LDB, GT>(st + A_BYTES, b, n0, N, kt * BK, K, vec, tid);
     };
 #pragma unroll
@@ -208,6 +222,7 @@ struct Ring {
       if (kt0 + s < kt1) load(s, kt0 + s);
       cp_async_commit();
     }
+    prologue();
     int stage = 0;
     for (int kt = kt0; kt < kt1; ++kt) {
       cp_async_wait<S - 2>();  // step kt has landed (this thread's copies)
@@ -215,11 +230,19 @@ struct Ring {
       if (kt + S - 1 < kt1) load((stage + S - 1) % S, kt + S - 1);
       cp_async_commit();
       const char* st = smem + stage * STAGE;
-      consume(st, st + A_BYTES);
+      consume(EA == 0 ? a + (kt - k0) * A_TILE : st, st + A_BYTES);
       stage = (stage + 1) % S;
     }
     cp_async_wait<0>();
     __syncthreads();  // every group is done with its ring
+  }
+
+  template <typename Consume>
+  static __device__ __forceinline__ void run(const void* A, const int8_t* Bt,
+                                             int M, int N, int K, int m0,
+                                             int n0, bool vec,
+                                             Consume&& consume) {
+    run(A, Bt, M, N, K, m0, n0, vec, consume, [] {});
   }
 };
 
@@ -312,11 +335,13 @@ __device__ __forceinline__ int reduce(T (&acc)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) buf[i * GT + tid] = acc[i];
   cluster.sync();
-  const bool lead = cluster.block_rank() == 0;
+  // the splits of this tile: the cluster's CTAs at this x (a cluster may
+  // also span x: the quantize-in kernel's CTAs that share A)
+  const dim3 at = cluster.block_index(), dims = cluster.dim_blocks();
+  const bool lead = at.z == 0;
   if (lead && holds) {
-    const unsigned ranks = cluster.num_blocks();
-    for (unsigned r = 1; r < ranks; ++r) {
-      const T* peer = cluster.map_shared_rank(buf, r);
+    for (unsigned z = 1; z < dims.z; ++z) {
+      const T* peer = cluster.map_shared_rank(buf, at.x + dims.x * dims.y * z);
 #pragma unroll
       for (int i = 0; i < N; ++i) acc[i] = add(acc[i], peer[i * GT + tid]);
     }
@@ -327,18 +352,23 @@ __device__ __forceinline__ int reduce(T (&acc)[N]) {
 
 // Launch `Kernel` (a Tile<BM> kernel) with `smem` bytes of dynamic shared
 // memory (opting in past the default 48 KB, which also holds the static
-// shared memory) on the split grid, each tile's splits one cluster; returns
-// the launch's CUDA error.
+// shared memory, to `smem_max`: a kernel whose smem varies by call opts in
+// once to the most it may take) on the split grid, each tile's splits one
+// cluster — with `share` > 1, `share` neighbouring tiles along N and their
+// splits (grid.x a multiple of it); returns the launch's CUDA error.
 template <int BM, auto Kernel, typename... Args>
-inline int launch(int smem, dim3 grid, cudaStream_t st, Args... args) {
-  if (grid.z > MAX_SPLITS) return static_cast<int>(cudaErrorInvalidValue);
+inline int launch_upto(int smem, int smem_max, int share, dim3 grid,
+                       cudaStream_t st, Args... args) {
+  const unsigned size = grid.z * share;
+  if (size > MAX_SPLITS || smem > smem_max || grid.x % share != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSuccess;
   if (smem > 40 * 1024)
-    e = set_once<Kernel>(cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && grid.z > 8)
+    e = set_once<Kernel>(cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+  if (e == cudaSuccess && size > 8)
     e = set_once<Kernel>(cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (grid.z == 1) {
+  if (size == 1) {
     Kernel<<<grid, Tile<BM>::THREADS, smem, st>>>(args...);
     return static_cast<int>(cudaGetLastError());
   }
@@ -349,12 +379,17 @@ inline int launch(int smem, dim3 grid, cudaStream_t st, Args... args) {
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.x = share;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = grid.z;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(&cfg, Kernel, args...));
+}
+
+template <int BM, auto Kernel, typename... Args>
+inline int launch(int smem, dim3 grid, cudaStream_t st, Args... args) {
+  return launch_upto<BM, Kernel>(smem, smem, 1, grid, st, args...);
 }
 
 }  // namespace gemm

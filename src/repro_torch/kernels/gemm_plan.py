@@ -20,6 +20,38 @@ set S: the cluster's reduction costs about what a CTA of 8 warps takes to
 walk 24 steps (chip_smoke.py's split sweep times every path shape at
 several S). At the path's shapes this splits only the down projection
 (K = 4864), in 4.
+
+The W8A8 GEMM may also quantize its own activation (``fold``: the
+quantize-in kernel of ``csrc/qmatmul_w8a8.cu``, one launch in place of
+``quantize_act`` + the int8 GEMM, the same bits). Each CTA keeps its
+split's slice of A resident in shared memory as int8 — ``bm`` x the
+split's K steps x ``BK`` bytes beside a ring that then carries W only
+(``qin_smem``) — so the fold is possible only where that fits
+``QIN_SMEM_MAX`` (``qin_fits``; the wrapper refuses a call that does not).
+Every CTA of an M tile needs the same slice, so ``share`` neighbouring N
+tiles (a cluster with the K splits, at most ``MAX_SPLITS`` CTAs) divide the
+quantizing: each reads and quantizes 1/share of the split's K steps and
+writes its int8 into every peer's slice through distributed shared memory.
+``share`` is the largest power of two up to ``MAX_SHARE`` that keeps a K
+step a part and the cluster within ``MAX_SPLITS``.
+
+The plan folds where it fits and the tile is a decode tile, ``bm in
+FOLD_BM``, where the fold beats the pair it replaces: chip_smoke.py's
+``qmatmul_w8a8_qin`` lines, NVIDIA H100 80GB HBM3 at 700 W, bf16 x and out,
+fold / quantize_act + GEMM / the GEMM alone in µs, warm L2: M = 8 q/o
+6.54 / 7.22 / 4.05, k/v 6.54 / 7.24 / 4.00, gate/up 8.06 / 8.50 / 5.25,
+down 10.71 / 11.71 / 6.94 (weights from HBM: 6.72 / 7.95, 6.58 / 7.57,
+8.56 / 9.78, 11.37 / 12.79). The fold's prologue is a chain of dependent
+steps (load, max, exchange, quantize, copy) that the weight's latency
+hides only in part, so a folded GEMM costs ~2.5-3.8 µs more than the GEMM
+alone; the model folds only the first GEMM that reads an activation and
+hands its int8 rows to the others. In a prefill chunk's 64-row tiles the
+pair won everywhere — M = 256: q/o 14.98 / 11.35, gate/up 39.49 / 20.92,
+down 49.87 / 25.10; M = 64: q/o 12.47 / 10.78 (the same lines, when the
+kernel still had 64-row tiles) — since each CTA quantizes 64 rows of its
+part (gate/up: 608 CTAs) against one quantize_act launch. So the kernel is
+built for the decode tile alone, and its wrapper refuses any call the plan
+does not fold.
 """
 from __future__ import annotations
 
@@ -28,11 +60,16 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 TILES = {16: 16, 64: 32, 128: 64}  # BM: BN (gemm_mainloop.cuh: Tile<BM>)
+GROUPS = {16: 8, 64: 2, 128: 1}    # BM: warp groups, a ring each (Tile<BM>)
+STAGES = {16: 3, 64: 4, 128: 4}    # BM: stages of an int8 ring (Tile<BM>)
 BK = 64           # K elements per ring step (gemm::BK)
 MAX_STEPS = 24    # K steps a CTA walks at most, where K allows more splits
 MIN_STEPS = 2     # K steps every split keeps at least
 MAX_SPLITS = 16   # CTAs in a cluster (gemm::MAX_SPLITS; H100, non-portable)
 MAX_CTAS = 4 * 132  # a split stops filling the H100's 132 SMs past this
+QIN_SMEM_MAX = 217 * 1024  # the quantize-in GEMM's dynamic shared memory cap
+FOLD_BM = (16,)     # the tiles whose GEMM quantizes its own activation
+MAX_SHARE = 8       # N tiles that divide the quantizing of their A
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -62,6 +99,37 @@ class GemmPlan:
     @property
     def ctas(self) -> int:
         return self.tiles * self.splits
+
+    @property
+    def qin_smem(self) -> int:
+        """Dynamic shared memory of the quantize-in kernel: its W-only ring
+        and the int8 A slice of the longest split."""
+        ring = GROUPS[self.bm] * STAGES[self.bm] * TILES[self.bm] * BK
+        return ring + self.bm * _cdiv(self.k_steps, self.splits) * BK
+
+    @property
+    def qin_fits(self) -> bool:
+        return self.qin_smem <= QIN_SMEM_MAX
+
+    @property
+    def share(self) -> int:
+        """N tiles whose CTAs divide the quantizing of their A (the
+        quantize-in kernel's cluster is share x splits CTAs): the largest
+        power of two up to MAX_SHARE and the N tiles with a K step for
+        each part of the shortest split and at most MAX_SPLITS CTAs a
+        cluster."""
+        steps = self.k_steps // self.splits
+        share = 1
+        while (share * 2 <= min(MAX_SHARE, steps, self.n_tiles)
+               and share * 2 * self.splits <= MAX_SPLITS):
+            share *= 2
+        return share
+
+    @property
+    def fold(self) -> bool:
+        """Whether the W8A8 GEMM quantizes its own activation (the wrappers'
+        and the model's one rule)."""
+        return self.bm in FOLD_BM and self.qin_fits
 
     def split_steps(self, s: int) -> Tuple[int, int]:
         """The K steps [first, last) split ``s`` walks (as the kernel)."""

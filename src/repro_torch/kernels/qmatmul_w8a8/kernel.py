@@ -1,7 +1,10 @@
 """Launch wrappers of the CUDA W8A8 GEMM (``csrc/qmatmul_w8a8.cu``).
 
 Replace ``qmatmul_w8a8_pallas`` and, with the quantize-out epilogue,
-``qmatmul_w8a8_q8_pallas`` (``repro/kernels/qmatmul_w8a8/kernel.py``).
+``qmatmul_w8a8_q8_pallas`` (``repro/kernels/qmatmul_w8a8/kernel.py``); the
+quantize-in variant (``qmatmul_w8a8_qin_cuda``) also takes the place of
+``quantize_act_pallas`` before it, in the same launch, wherever
+``gemm_plan`` folds.
 The weight must be stored K-major: ``w_q`` is the [K, N] view of an [N, K]
 contiguous buffer (``w_q.t().is_contiguous()``), which is how the port's
 ``QTensor`` keeps every int8 weight — so the kernel reads each output
@@ -22,6 +25,8 @@ from ..dispatch import count_launch, stream_scratch
 _ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
 _ARGS_Q8 = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
             + (ctypes.c_void_p,))
+_ARGS_QIN = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 9
+             + (ctypes.c_void_p,))
 
 
 def q8_workspace(M: int, N: int, device: torch.device):
@@ -33,20 +38,21 @@ def q8_workspace(M: int, N: int, device: torch.device):
             stream_scratch(M + -(-M // 16), device))
 
 
-def _checked(a_q, w_q, a_scale, w_scale, bias, who):
-    """Check the operands; return (a_q contiguous, the [N, K] weight, vec)."""
-    tensors = {"a_q": a_q, "w_q": w_q, "a_scale": a_scale,
+def _checked(a, w_q, a_scale, w_scale, bias, who, a_dtypes=(torch.int8,)):
+    """Check the operands (``a_scale`` None for the quantize-in variant,
+    whose ``a`` is float); return (a contiguous, the [N, K] weight, vec)."""
+    tensors = {"a": a, "w_q": w_q, "a_scale": a_scale,
                "w_scale": w_scale, "bias": bias}
     for name, t in tensors.items():
-        if t.device.type != "cuda" or t.device != a_q.device:
+        if t is not None and (t.device.type != "cuda" or t.device != a.device):
             raise ValueError(f"{who}: {name} is on {t.device}, expected "
-                             f"{a_q.device}")
-    if a_q.dtype != torch.int8 or w_q.dtype != torch.int8 or a_q.ndim != 2 \
-            or w_q.ndim != 2 or a_q.shape[1] != w_q.shape[0]:
-        raise ValueError(f"{who}: want int8 a [M, K] and w [K, N], got "
-                         f"{tuple(a_q.shape)} {a_q.dtype} and "
+                             f"{a.device}")
+    if a.dtype not in a_dtypes or w_q.dtype != torch.int8 or a.ndim != 2 \
+            or w_q.ndim != 2 or a.shape[1] != w_q.shape[0]:
+        raise ValueError(f"{who}: want a [M, K] of {a_dtypes} and int8 w "
+                         f"[K, N], got {tuple(a.shape)} {a.dtype} and "
                          f"{tuple(w_q.shape)} {w_q.dtype}")
-    M, K = a_q.shape
+    M, K = a.shape
     N = w_q.shape[1]
     wt = w_q.t()
     if not wt.is_contiguous():
@@ -55,14 +61,16 @@ def _checked(a_q, w_q, a_scale, w_scale, bias, who):
                          f"layout)")
     for name, t, n in (("a_scale", a_scale, M), ("w_scale", w_scale, N),
                        ("bias", bias, N)):
+        if t is None:
+            continue
         if t.dtype != torch.float32 or tuple(t.shape) != (n,) \
                 or not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous float32 "
                              f"[{n}], got {tuple(t.shape)} {t.dtype}")
-    a_q = a_q.contiguous()
-    vec = int(K % 16 == 0 and a_q.data_ptr() % 16 == 0
+    a = a.contiguous()
+    vec = int(K % 16 == 0 and a.data_ptr() % 16 == 0
               and wt.data_ptr() % 16 == 0)
-    return a_q, wt, vec
+    return a, wt, vec
 
 
 def qmatmul_w8a8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
@@ -113,3 +121,52 @@ def qmatmul_w8a8_q8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
                 vec, torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a8_q8")
     return q, s
+
+
+def qmatmul_w8a8_qin_cuda(x: torch.Tensor, w_q: torch.Tensor,
+                          w_scale: torch.Tensor, bias: torch.Tensor, *,
+                          out_dtype=torch.float32, quantized: bool = False,
+                          _splits: Optional[int] = None):
+    """The GEMM quantizing its own activation, in one launch: x [M, K]
+    float32 | bfloat16, the other operands as ``qmatmul_w8a8_cuda`` →
+    [M, N] ``out_dtype``, bit-equal to ``quantize_act_cuda(x)`` followed by
+    ``qmatmul_w8a8_cuda``; ``quantized=True`` returns (y, x_q int8 [M, K],
+    x_scale float32 [M]), the launch also writing out the quantized
+    activation (``quantize_act_cuda(x)``'s) for other GEMMs that read x.
+    Raises where the plan does not fold (``gemm_plan.GemmPlan.fold``): a
+    tile other than the decode tile (M > 16), or an int8 slice of x over
+    the kernel's shared memory."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"qmatmul_w8a8_qin_cuda: out_dtype {out_dtype} not "
+                         f"supported (float32 | bfloat16)")
+    x, wt, vec = _checked(x, w_q, None, w_scale, bias, "qmatmul_w8a8_qin_cuda",
+                          (torch.float32, torch.bfloat16))
+    M, K = x.shape
+    N = wt.shape[0]
+    plan = gemm_plan.plan(M, N, K, splits=_splits)
+    if plan.bm not in gemm_plan.FOLD_BM:
+        raise ValueError(f"qmatmul_w8a8_qin_cuda: M={M} takes {plan.bm}-row "
+                         f"tiles; the GEMM quantizes its own activation only "
+                         f"at the decode tile (M <= 16): quantize_act, then "
+                         f"qmatmul_w8a8")
+    if not plan.qin_fits:
+        raise ValueError(f"qmatmul_w8a8_qin_cuda: M={M} N={N} K={K} in "
+                         f"{plan.splits} split(s) needs {plan.qin_smem} bytes "
+                         f"of shared memory, more than "
+                         f"{gemm_plan.QIN_SMEM_MAX}: quantize_act, then "
+                         f"qmatmul_w8a8")
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    a_q = a_s = None
+    if quantized:
+        a_q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        a_s = torch.empty((M,), dtype=torch.float32, device=x.device)
+        vec &= int(a_q.data_ptr() % 16 == 0)
+    _build.call("repro_qmatmul_w8a8_qin", _ARGS_QIN, x.data_ptr(),
+                wt.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), None if a_q is None else a_q.data_ptr(),
+                None if a_s is None else a_s.data_ptr(), M, N, K, plan.bm,
+                plan.splits, plan.share, int(x.dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), vec,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    count_launch("qmatmul_w8a8_qin")
+    return (out, a_q, a_s) if quantized else out

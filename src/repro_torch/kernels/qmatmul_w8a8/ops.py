@@ -6,6 +6,14 @@ one launch — the exact ``quantize_act`` formula applied to the float32
 result, so the stepwise GEMM → ``quantize_act`` pair collapses into one
 launch bit-identically. The JAX op's ``a_zero_point`` branch is off the
 serving path and not ported yet.
+
+``qmatmul_w8a8_qin`` takes the float activation instead and quantizes it
+per row first (``quantize_act``), as the JAX package's ``quantize_input``
+→ ``qmatmul_w8a8`` does: on the card one launch of the quantize-in kernel
+(its own counter, ``qmatmul_w8a8_qin``), on the CPU the plain composition.
+The model calls it wherever ``gemm_plan`` folds (``GemmPlan.fold``), for
+the first projection that reads an activation, which also hands the
+quantized activation to the others (``quantized=True``).
 """
 from __future__ import annotations
 
@@ -14,8 +22,12 @@ from typing import Optional
 import torch
 
 from ..dispatch import register_impl, resolve
-from .kernel import qmatmul_w8a8_cuda, qmatmul_w8a8_q8_cuda
-from .ref import qmatmul_w8a8_q8_ref, qmatmul_w8a8_ref
+from .kernel import (
+    qmatmul_w8a8_cuda,
+    qmatmul_w8a8_q8_cuda,
+    qmatmul_w8a8_qin_cuda,
+)
+from .ref import qmatmul_w8a8_q8_ref, qmatmul_w8a8_qin_ref, qmatmul_w8a8_ref
 
 
 @register_impl("qmatmul_w8a8", "cuda", pad="zero")
@@ -40,6 +52,42 @@ def _w8a8_q8_torch(a_q, w_q, a_scale, w_scale, bias):
     return qmatmul_w8a8_q8_ref(a_q, w_q, a_scale, w_scale, bias)
 
 
+@register_impl("qmatmul_w8a8_qin", "cuda", pad="zero")
+def _w8a8_qin_cuda(x, w_q, w_scale, bias, *, out_dtype, quantized):
+    return qmatmul_w8a8_qin_cuda(x, w_q, w_scale, bias, out_dtype=out_dtype,
+                                 quantized=quantized)
+
+
+@register_impl("qmatmul_w8a8_qin", "torch", pad="zero")
+def _w8a8_qin_torch(x, w_q, w_scale, bias, *, out_dtype, quantized):
+    return qmatmul_w8a8_qin_ref(x, w_q, w_scale, bias, out_dtype, quantized)
+
+
+def _scale_bias(w_scale, bias, N: int, dev):
+    """w_scale broadcast to float32 [N]; bias float32 [N], zeros if None."""
+    w_scale = torch.broadcast_to(
+        torch.as_tensor(w_scale, dtype=torch.float32, device=dev), (N,)
+    ).contiguous()
+    bias = (torch.zeros((N,), dtype=torch.float32, device=dev) if bias is None
+            else bias.to(torch.float32).contiguous())
+    return w_scale, bias
+
+
+def qmatmul_w8a8_qin(x: torch.Tensor, w_q: torch.Tensor, w_scale,
+                     bias: Optional[torch.Tensor] = None, *,
+                     out_dtype: torch.dtype = torch.float32,
+                     quantized: bool = False):
+    """y = quantize_act(x) @ dequant(w_q) + bias, x [M, K] float32 |
+    bfloat16, w_q [K, N] int8, w_scale [N] | [1], bias [N]: the same bits as
+    ``quantize_act`` followed by ``qmatmul_w8a8``. ``quantized=True``
+    returns (y, x_q, x_scale), ``quantize_act(x)`` for the other W8A8
+    projections that read x (on the card, from the same launch)."""
+    w_scale, bias = _scale_bias(w_scale, bias, w_q.shape[1], x.device)
+    return resolve("qmatmul_w8a8_qin", x)(x, w_q, w_scale, bias,
+                                          out_dtype=out_dtype,
+                                          quantized=quantized)
+
+
 def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,
                  bias: Optional[torch.Tensor] = None, *,
                  out_dtype: torch.dtype = torch.float32,
@@ -55,11 +103,7 @@ def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,
     a_scale = torch.broadcast_to(
         torch.as_tensor(a_scale, dtype=torch.float32, device=dev), (M,)
     ).contiguous()
-    w_scale = torch.broadcast_to(
-        torch.as_tensor(w_scale, dtype=torch.float32, device=dev), (N,)
-    ).contiguous()
-    bias = (torch.zeros((N,), dtype=torch.float32, device=dev) if bias is None
-            else bias.to(torch.float32).contiguous())
+    w_scale, bias = _scale_bias(w_scale, bias, N, dev)
     if quantize_out:
         return resolve("qmatmul_w8a8_q8", a_q)(a_q, w_q, a_scale, w_scale,
                                                bias)

@@ -42,3 +42,17 @@ def qmatmul_w8a8_q8_ref(a_q, w_q, a_scale, w_scale, bias=None, bits: int = 8):
 
     return quantize_act_ref(
         qmatmul_w8a8_ref(a_q, w_q, a_scale, w_scale, bias, torch.float32), bits)
+
+
+def qmatmul_w8a8_qin_ref(x, w_q, w_scale, bias=None,
+                         out_dtype: torch.dtype = torch.float32,
+                         quantized: bool = False):
+    """The quantize-in plain version: ``quantize_act_ref`` of the float
+    activation x [M, K], then the W8A8 GEMM — the JAX package's
+    ``quantize_input`` → ``qmatmul_w8a8``; ``quantized=True`` returns
+    (y, x_q, x_scale)."""
+    from ..quantize_act.ref import quantize_act_ref
+
+    a_q, a_s = quantize_act_ref(x)
+    y = qmatmul_w8a8_ref(a_q, w_q, a_s, w_scale, bias, out_dtype)
+    return (y, a_q, a_s) if quantized else y

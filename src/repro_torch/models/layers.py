@@ -24,11 +24,13 @@ import torch
 
 from ..kernels.fused_decode.ops import fused_decode, fusion_enabled
 from ..kernels.kv_attention.ops import append_quantize, kv_attention_decode
+from ..kernels.qmatmul_w8a8.ops import qmatmul_w8a8_qin
 from ..quantized.qtensor import (
     QTensor,
     qtensor_matmul,
     qtensor_matmul_prequant,
     quantize_input,
+    quantizes_in_gemm,
 )
 
 NEG_INF = -1e30
@@ -49,9 +51,21 @@ def _all_w8a8(*ws) -> bool:
 
 
 def _shared_linears(x, wbs):
-    """Several W8A8 projections reading the SAME activation share one
-    ``quantize_act`` launch; per-row quantization depends only on the row, so
-    each output is bitwise what its own ``linear`` would give."""
+    """Several W8A8 projections reading the SAME activation quantize it
+    once. Where the plan folds (a decode step) the first GEMM quantizes x in
+    its own launch and hands the int8 rows and scales to the others; else (a
+    prefill chunk) one ``quantize_act`` launch feeds them all. Per-row
+    quantization depends only on the row, so each output is bitwise what
+    its own ``linear`` would give."""
+    (w0, b0), rest = wbs[0], wbs[1:]
+    if quantizes_in_gemm(x, *(w for w, _ in wbs)):
+        y0, a_q, a_s = qmatmul_w8a8_qin(x.reshape(-1, x.shape[-1]), w0.q,
+                                        w0.scale, b0, out_dtype=x.dtype,
+                                        quantized=True)
+        lead = tuple(x.shape[:-1])
+        return [y0.reshape(*lead, w0.q.shape[-1])] + [
+            qtensor_matmul_prequant(a_q, a_s, w, b, lead, out_dtype=x.dtype)
+            for w, b in rest]
     a_q, a_s, lead = quantize_input(x)
     return [qtensor_matmul_prequant(a_q, a_s, w, b, lead, out_dtype=x.dtype)
             for w, b in wbs]
@@ -211,7 +225,8 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
         else:
             # the stepwise route (REPRO_FUSED_DECODE=0, or a cache with the
             # V bias correction): append-quantize, mask, the kv_attention
-            # kernel; a W8A8 wo quantizes its input itself
+            # kernel; a W8A8 wo quantizes its input itself (in its GEMM,
+            # where the plan folds)
             out, _ = kv_attention_decode(
                 q[:, 0], cache["k"], cache["k_scale"], cache["v"],
                 cache["v_scale"], k, v, slots.idx, valid=valid,

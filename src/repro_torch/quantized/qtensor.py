@@ -7,6 +7,13 @@ activation through a ``QTensor`` weight by its mode:
     y = w8a8(q(x), W)  (QTensor, mode="w8a8": dynamic act quant + int8 GEMM)
     y = w8a16(x, W)    (QTensor, mode="w8a16": int8 weight, fp activation)
 
+A W8A8 weight takes ``q(x)`` inside the GEMM wherever ``gemm_plan`` folds
+(``GemmPlan.fold``: every decode tile, M <= 16) — the quantize-in op
+``qmatmul_w8a8_qin``, one launch, the same bits — whose launch also hands
+``q(x)`` to the other projections reading x (the qkv trio, the gate/up
+pair); elsewhere (a prefill chunk) one ``quantize_act`` launch is shared by
+every projection reading x.
+
 Layout: ``q`` is the public [..., K, N] view, as in the JAX package, but its
 storage is K-major — a contiguous [..., N, K] buffer, transposed — which is
 the B operand layout both GEMM kernels read. The constructor normalizes any
@@ -70,8 +77,9 @@ def quantize_param(w: torch.Tensor, *, per_channel: bool = True,
 
 def quantize_input(x: torch.Tensor):
     """Dynamic-quantize an activation once for every W8A8 projection that
-    reads it (the qkv trio, the GLU gate/up pair): returns (x_q int8 [M, K],
-    x_scale float32 [M], lead shape)."""
+    reads it (the qkv trio, the GLU gate/up pair) where their GEMMs do not
+    quantize it themselves: returns (x_q int8 [M, K], x_scale float32 [M],
+    lead shape)."""
     from ..kernels.quantize_act.ops import quantize_act
 
     lead = tuple(x.shape[:-1])
@@ -79,14 +87,28 @@ def quantize_input(x: torch.Tensor):
     return a_q, a_s, lead
 
 
+def quantizes_in_gemm(x: torch.Tensor, *ws: QTensor) -> bool:
+    """Whether the W8A8 GEMMs of ``ws`` on the activation x [..., K] take
+    x in float, the first quantizing it: the plan folds for every one."""
+    from ..kernels import gemm_plan
+
+    M, K = x.numel() // x.shape[-1], x.shape[-1]
+    return all(gemm_plan.plan(M, w.q.shape[-1], K).fold for w in ws)
+
+
 def qtensor_matmul(x: torch.Tensor, w: QTensor,
                    bias: Optional[torch.Tensor]) -> torch.Tensor:
     """Route an activation [..., K] through a quantized weight."""
+    from ..kernels.qmatmul_w8a8.ops import qmatmul_w8a8_qin
     from ..kernels.qmatmul_w8a16.ops import qmatmul_w8a16
 
     if w.q.ndim != 2:
         raise ValueError("stacked QTensors must be sliced per layer before use")
     if w.mode == "w8a8":
+        if quantizes_in_gemm(x, w):
+            y = qmatmul_w8a8_qin(x.reshape(-1, x.shape[-1]), w.q, w.scale,
+                                 bias, out_dtype=x.dtype)
+            return y.reshape(*x.shape[:-1], w.q.shape[-1])
         a_q, a_s, lead = quantize_input(x)
         return qtensor_matmul_prequant(a_q, a_s, w, bias, lead,
                                        out_dtype=x.dtype)

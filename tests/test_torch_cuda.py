@@ -38,6 +38,11 @@ Tolerances as in chip_smoke.py:
   * both decode attention kernels under forced S splits: kv_attention
     within fused_decode's bound at every split, two calls the same bits,
     fused_decode bit-equal to the composition at the same split;
+  * the quantize-in W8A8 GEMM (quantize_act folded into the GEMM, one
+    launch) bit-equal to quantize_act followed by qmatmul_w8a8 at every
+    split that fits, in bfloat16 and float32, on ragged shapes, .5 ties
+    and an all-zero row; the wrapper refuses CPU tensors and a slice that
+    does not fit its shared memory;
   * the calls the CUDA tiers once refused, against the torch tier:
     kv_attention's float32 out from bfloat16 q within the bound (its bf16
     cast bit-equal to the kernel's bf16 out), fused_decode's shared idx [1]
@@ -578,7 +583,11 @@ def test_w8a16_tolerance_rejects_a_tf32_product(dev):
 
 
 def test_serving_on_the_card_launches_every_kernel(dev):
-    """serve-w8a8-kv8 runs quantize_act, qmatmul_w8a8 and fused_decode."""
+    """serve-w8a8-kv8 runs qmatmul_w8a8_qin, qmatmul_w8a8 and fused_decode.
+    Every GEMM of this run has at most 2 x 4 rows, a decode tile, so the
+    plan folds quantize_act into every one whose activation is not the
+    fused decode's quantize-out (wo at decode: qmatmul_w8a8), and
+    quantize_act itself never launches."""
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
@@ -588,9 +597,87 @@ def test_serving_on_the_card_launches_every_kernel(dev):
         gen_len=6, prefill_chunk=4))
     assert all(r.status == "ok" for r in run.results.values())
     counts = launch_counts()
-    assert min(counts[k] for k in ("quantize_act", "qmatmul_w8a8",
+    assert min(counts[k] for k in ("qmatmul_w8a8_qin", "qmatmul_w8a8",
                                    "fused_decode")) > 0
-    assert counts["qmatmul_w8a16"] == 0
+    assert counts["quantize_act"] == 0 and counts["qmatmul_w8a16"] == 0
+
+
+# the decode tile (M <= 16) only: the kernel quantizes its own activation
+# nowhere else; SPLIT_CASES' K and N with their M cut to a decode tile
+QIN_CASES = ((8, 896, 896), (8, 4864, 896), (16, 896, 4864), (1, 896, 128),
+             (3, 4100, 70), (16, 2100, 100), (8, 1600, 33), (13, 3000, 130),
+             (5, 900, 130))
+
+
+@pytest.mark.parametrize("M,K,N", QIN_CASES)
+def test_qin_kernel_bit_equal_to_the_pair_at_forced_splits(dev, M, K, N):
+    """qmatmul_w8a8_qin against quantize_act + qmatmul_w8a8 (the port's own
+    kernels), bit for bit, at every split the planner allows whose slice
+    fits, bf16 and f32 x and out: row 0 .5 ties with its only large value
+    in the last K step (the last split's), row 1 zero. The quantized
+    activation it hands out is quantize_act's. One launch a call, no
+    quantize_act."""
+    from repro_torch.kernels import gemm_plan, launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_qin_cuda,
+    )
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
+                      generator=gen).t()
+    sw = torch.rand(N, device=dev, generator=gen) * 0.01 + 1e-4
+    bias = torch.randn(N, device=dev, generator=gen)
+    top = gemm_plan.max_splits(-(-K // gemm_plan.BK))
+    for xdt in (torch.bfloat16, torch.float32):
+        x = torch.randn((M, K), device=dev, generator=gen) * 3
+        x[0, :5] = torch.tensor([0.5, 1.5, -2.5, 2.5, -0.5])
+        x[0, K - 1] = 127.0
+        if M > 1:
+            x[1] = 0.0
+        x = x.to(xdt)
+        a_q, a_s = quantize_act_cuda(x)
+        for od in (torch.bfloat16, torch.float32):
+            want = qmatmul_w8a8_cuda(a_q, w, a_s, sw, bias, out_dtype=od)
+            for S in range(1, top + 1):
+                if not gemm_plan.plan(M, N, K, splits=S).fold:
+                    continue
+                reset_launch_counts()
+                y, q, s = qmatmul_w8a8_qin_cuda(x, w, sw, bias, out_dtype=od,
+                                                quantized=True, _splits=S)
+                counts = launch_counts()
+                assert counts["qmatmul_w8a8_qin"] == 1
+                assert counts["quantize_act"] == 0
+                assert torch.equal(y, want), (xdt, od, S)
+                assert torch.equal(q, a_q) and torch.equal(s, a_s), (xdt, S)
+
+
+def test_qin_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    """A CPU activation, a tile other than the decode tile (M = 17, 64 and
+    256: 64-row tiles, fit or not), and a decode tile whose slice is over
+    the shared memory cap (K = 2^18 in 16 splits) raise before any launch."""
+    from repro_torch.kernels import gemm_plan, launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8.kernel import qmatmul_w8a8_qin_cuda
+
+    w = torch.zeros((896, 4864), device=dev, dtype=torch.int8).t()
+    sw, bias = torch.ones(896, device=dev), torch.zeros(896, device=dev)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="cpu"):
+        qmatmul_w8a8_qin_cuda(torch.zeros((8, 4864)), w, sw, bias)
+    for M in (17, 64, 256):
+        assert gemm_plan.plan(M, 896, 4864).bm == 64
+        with pytest.raises(ValueError, match="decode tile"):
+            qmatmul_w8a8_qin_cuda(torch.zeros((M, 4864), device=dev), w, sw,
+                                  bias)
+    K = 1 << 18
+    assert gemm_plan.plan(8, 8, K).bm == 16
+    assert not gemm_plan.plan(8, 8, K).qin_fits
+    w = torch.zeros((8, K), device=dev, dtype=torch.int8).t()
+    with pytest.raises(ValueError, match="shared memory"):
+        qmatmul_w8a8_qin_cuda(torch.zeros((8, K), device=dev), w, sw[:8],
+                              bias[:8])
+    assert launch_counts().get("qmatmul_w8a8_qin", 0) == 0
 
 
 def test_w8a16_serving_launches_its_kernels_only(dev):

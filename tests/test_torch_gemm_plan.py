@@ -108,3 +108,80 @@ def test_constants_match_the_kernel_header():
         m = re.search(r"struct Tile<%d> \{\s*static constexpr int BN = (\d+),"
                       % bm, text)
         assert m is not None and int(m[1]) == bn, bm
+
+
+# ------------------------------------------------- the quantize-in fold
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("K,N", PATH_KN)
+def test_fold_at_every_decode_path_shape(M, K, N):
+    """Every decode tile of the serving path quantizes its own A: the slice
+    fits beside the ring, and a W8A8 decode step launches no quantize_act."""
+    p = gemm_plan.plan(M, N, K)
+    assert p.bm == 16 and p.qin_fits and p.fold
+
+
+@pytest.mark.parametrize("K,N", PATH_KN)
+def test_no_fold_at_a_prefill_chunk(K, N):
+    """A prefill chunk (8 slots x 32 = 256 rows, 64-row tiles) keeps one
+    quantize_act launch for the GEMMs that read its activation, though the
+    fold would fit."""
+    p = gemm_plan.plan(256, N, K)
+    assert p.bm == 64 and p.qin_fits and not p.fold
+
+
+def test_fold_refused_where_shared_memory_runs_out():
+    """The slice is bm x the longest split's K steps x BK bytes beside the
+    W ring: over QIN_SMEM_MAX the plan refuses the fold (the wrapper then
+    raises rather than launch)."""
+    p = gemm_plan.plan(64, 896, 4864, splits=1)         # 64 x 4864 bytes
+    assert p.qin_smem == 2 * 4 * 32 * 64 + 64 * 76 * 64 > gemm_plan.QIN_SMEM_MAX
+    assert not p.qin_fits and not p.fold
+    p = gemm_plan.plan(8, 8, 1 << 18)                   # 16 splits still too long
+    assert p.splits == gemm_plan.MAX_SPLITS and not p.qin_fits and not p.fold
+    assert gemm_plan.plan(8, 4864, 896).qin_smem == 8 * 3 * 16 * 64 + 16 * 14 * 64
+    assert gemm_plan.plan(8, 896, 4864).qin_smem == 8 * 3 * 16 * 64 + 16 * 19 * 64
+
+
+@pytest.mark.parametrize("K,N", PATH_KN + RAGGED_KN)
+def test_forced_splits_keep_the_fold_valid(K, N):
+    """At the decode tile every forced split still fits and folds; the
+    slice shrinks as the splits grow, and the cluster (share N tiles x the
+    splits) never outgrows MAX_SPLITS, each part keeping a K step."""
+    top = gemm_plan.max_splits(-(-K // gemm_plan.BK))
+    smem = []
+    for s in range(1, top + 1):
+        p = gemm_plan.plan(8, N, K, splits=s)
+        assert p.fold and p.qin_fits
+        assert p.share * p.splits <= gemm_plan.MAX_SPLITS
+        assert 1 <= p.share <= min(gemm_plan.MAX_SHARE, p.n_tiles)
+        assert p.share & (p.share - 1) == 0
+        assert p.share <= p.k_steps // p.splits or p.share == 1
+        smem.append(p.qin_smem)
+    assert smem == sorted(smem, reverse=True)
+
+
+def test_share_at_the_path_shapes():
+    """q/o, k/v and gate/up: eight N tiles share the quantizing of A; the
+    down projection's 4 splits leave room for 4 (16-CTA clusters)."""
+    for K, N in PATH_KN:
+        p = gemm_plan.plan(8, N, K)
+        assert (p.share, p.share * p.splits) == ((4, 16) if K == 4864 else (8, 8))
+
+
+def test_qin_constants_match_the_kernel_sources():
+    """The planner's ring geometry (GROUPS, STAGES) is gemm_mainloop.cuh's
+    Tile<BM>, and QIN_SMEM_MAX is qmatmul_w8a8.cu's: the wrapper refuses
+    exactly the calls the kernel would."""
+    text = _header()
+    for bm in gemm_plan.TILES:
+        m = re.search(r"struct Tile<%d> \{\s*static constexpr int BN = \d+, "
+                      r"WM = \d+, WN = \d+, GROUPS = (\d+);\s*static "
+                      r"constexpr int STAGES = (\d+)," % bm, text)
+        assert m is not None, bm
+        assert (int(m[1]), int(m[2])) == (gemm_plan.GROUPS[bm],
+                                          gemm_plan.STAGES[bm])
+    src = (Path(gemm_plan.__file__).resolve().parents[1] / "csrc"
+           / "qmatmul_w8a8.cu").read_text()
+    m = re.search(r"constexpr int QIN_SMEM_MAX = (\d+) \* 1024;", src)
+    assert int(m[1]) * 1024 == gemm_plan.QIN_SMEM_MAX
