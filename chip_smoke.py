@@ -32,7 +32,13 @@ Phases, each of which must pass (nothing here catches a failure):
      the quantize-out GEMMs (one launch each) bit-equal to
      the stepwise pair of the port's own kernels (W8A8, and W8A16 with
      float32 a) and to the W8A8 plain version, W8A16 with bfloat16 a within
-     one step of its plain version. In float32 the W8A16 check also runs
+     one step of its plain version, at every path shape, the JAX benches'
+     shapes and qwen2's vocabulary (N = 151936, the workspace route), on
+     the route ``gemm_plan.q8_plan`` takes, at bits 4 and 8 and on the
+     forced workspace route at one decode and one prefill shape, two calls
+     of each bit-equal; each shape's route, tile, tickets and waiters are
+     logged beside the q8 kernel, the pair and the GEMM alone (warm, and
+     cold at M = 8). In float32 the W8A16 check also runs
      two controls that must fall outside its tolerance (TF32, and ``a``
      rounded to bf16). The split sweep runs both GEMMs at every path shape
      under forced K splits (1, 2, the planner's, the largest it allows):
@@ -1097,21 +1103,101 @@ def check_qmatmul_w8a8_qin(torch, dev, gen):
     return rows
 
 
+# the quantize-out GEMMs' shapes: every path K x N at a decode step and a
+# prefill chunk, then qwen2's vocabulary at a decode step (9,496 N tiles:
+# more than the card keeps resident, so the workspace route)
+Q8_PATH = [(M, K, N) for K, N in PATH_KN for M in (8, 256)]
+Q8_VOCAB = (8, 896, 151936)
+# the shapes where each q8 kernel also runs at bits 4 and under the forced
+# workspace route (one decode, one prefill)
+Q8_BITS_SHAPES = ((8, 896, 4864), (256, 896, 4864))
+
+
+def check_q8(torch, what, plan, kern, pair, gemm, plain, equal, w, big):
+    """One quantize-out GEMM at one shape: ``kern(bits, route, w)`` (route
+    None: the plan's) against ``pair(bits, w)`` (the port's GEMM to float32,
+    then quantize_act) and ``plain(bits)`` by ``equal(q8, pair, plain,
+    bits)``, which asserts and returns the largest payload step off the
+    plain version; two calls of each route bit-equal. At ``Q8_BITS_SHAPES``
+    also bits 4, and the workspace route forced (bits 4 and 8). Returns the
+    row: the plan's route and tickets, the kernel, the pair and the GEMM
+    alone (``gemm(w)``) timed warm and, at M = 8, cold; the forced
+    workspace route's time where it ran, and where the plan takes the
+    workspace route but an M tile's N tiles fit the card, the resident route
+    by ticket (forced), checked and timed."""
+    def twice(bits, route):
+        first, second = kern(bits, route, w), kern(bits, route, w)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1]), (
+            f"{what} bits={bits} route={route or plan.q8_route}: two calls "
+            f"gave different bits")
+        return first
+
+    bits_shape = (plan.M, plan.K, plan.N) in Q8_BITS_SHAPES
+    runs = [(8, None)]
+    if bits_shape:
+        runs += [(4, None), (8, "workspace"), (4, "workspace")]
+    err = 0.0
+    for bits, route in runs:
+        err = max(err, equal(twice(bits, route), pair(bits, w), plain(bits), bits))
+    iters = 10 if big else 50
+    row = {"q8_route": plan.q8_route, "bm": plan.bm, "residency": plan.residency,
+           "tickets": plan.tiles if plan.q8_ticketed else 0,
+           "waiters": plan.q8_waiters,
+           "max_abs_err": err,
+           "ms": device_ms(lambda: kern(8, None, w), iters),
+           "call_ms": call_ms(lambda: kern(8, None, w), iters),
+           "stepwise_ms": device_ms(lambda: pair(8, w), iters),
+           "gemm_ms": device_ms(lambda: gemm(w), iters),
+           "plain_ms": device_ms(lambda: plain(8), 3 if big else 10)}
+    if bits_shape:
+        row["workspace_ms"] = device_ms(lambda: kern(8, "workspace", w), iters)
+    if plan.q8_route == "workspace" and plan.n_tiles <= plan.residency:
+        # the resident route by ticket, which the plan declines here
+        equal(twice(8, "resident"), pair(8, w), plain(8), 8)
+        row["resident_ms"] = device_ms(lambda: kern(8, "resident", w), iters)
+    if plan.M == 8:
+        # each call's weight from HBM, as a serving path would read it
+        row["cold_ms"] = cold_ms(torch, lambda wc: kern(8, None, wc), w)
+        row["stepwise_cold_ms"] = cold_ms(torch, lambda wc: pair(8, wc), w)
+        row["gemm_cold_ms"] = cold_ms(torch, gemm, w)
+    return row
+
+
+def log_q8(name, r):
+    log(f"  {name} {r['shape']:32s} {r['q8_route']:9s} bm {r['bm']:3d} residency "
+        f"{r['residency']:4d} tickets {r['tickets']:5d} waiters {r['waiters']:4d}"
+        f"  q8 {r['ms'] * 1e3:8.2f} us"
+        f"  pair {r['stepwise_ms'] * 1e3:8.2f}  "
+        f"GEMM alone {r['gemm_ms'] * 1e3:8.2f}"
+        + (f"  forced workspace {r['workspace_ms'] * 1e3:.2f}"
+           if "workspace_ms" in r else "")
+        + (f"  forced resident (tickets) {r['resident_ms'] * 1e3:.2f}"
+           if "resident_ms" in r else "")
+        + (f"  cold: q8 {r['cold_ms'] * 1e3:.2f}, pair "
+           f"{r['stepwise_cold_ms'] * 1e3:.2f}, GEMM alone "
+           f"{r['gemm_cold_ms'] * 1e3:.2f}" if "cold_ms" in r else ""))
+
+
 def check_qmatmul_w8a8_q8(torch, dev, gen):
     """qmatmul_w8a8 with the quantize-out epilogue, one launch: payload and
     scale bit-equal to the plain version and to the stepwise pair of the
-    port's own kernels (the W8A8 GEMM to float32, then quantize_act)."""
+    port's own kernels (the W8A8 GEMM to float32, then quantize_act), at
+    every path shape, the JAX bench's 4096^3 and the vocabulary (the
+    workspace route); at ``Q8_BITS_SHAPES`` also at bits 4 and on the
+    forced workspace route; two calls bit-equal at each."""
     from repro_torch.kernels.qmatmul_w8a8.kernel import (
         qmatmul_w8a8_cuda,
         qmatmul_w8a8_q8_cuda,
+        qmatmul_w8a8_q8_plan,
     )
     from repro_torch.kernels.qmatmul_w8a8.ref import qmatmul_w8a8_q8_ref
     from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
 
-    shapes = [(M, K, N) for K, N in PATH_KN for M in (8, 256)]
-    shapes.append((4096, 4096, 4096))               # the JAX bench's shape
+    shapes = Q8_PATH + [(4096, 4096, 4096), Q8_VOCAB]  # 4096^3: the JAX bench's
     rows = []
     for M, K, N in shapes:
+        what = f"qmatmul_w8a8 q8 M={M} K={K} N={N}"
         big = M * K * N > 1e10
         w = _kmajor_int8(torch, gen, dev, K, N)
         sw = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
@@ -1119,28 +1205,36 @@ def check_qmatmul_w8a8_q8(torch, dev, gen):
         a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
                           dtype=torch.int8)
         sa = torch.rand((M,), generator=gen, device=dev) * 0.05 + 1e-4
-        kern = lambda: qmatmul_w8a8_q8_cuda(a, w, sa, sw, bias)
-        pair = lambda: quantize_act_cuda(qmatmul_w8a8_cuda(a, w, sa, sw, bias))
-        plain = lambda: qmatmul_w8a8_q8_ref(a, w, sa, sw, bias)
-        (q, s), (qp, sp), (qr, sr) = kern(), pair(), plain()
-        torch.cuda.synchronize()
-        for name, (qo, so) in (("the plain version", (qr, sr)),
-                               ("the stepwise pair", (qp, sp))):
-            assert torch.equal(q, qo) and torch.equal(s, so), (
-                f"qmatmul_w8a8 q8 M={M} K={K} N={N}: not bit-equal to {name} "
-                f"({int((q != qo).sum())} payloads, "
-                f"{int((s != so).sum())} scales)")
+
+        def equal(got, pair_out, plain_out, bits):
+            q, s = got
+            for name, (qo, so) in (("the plain version", plain_out),
+                                   ("the stepwise pair", pair_out)):
+                assert torch.equal(q, qo) and torch.equal(s, so), (
+                    f"{what} bits={bits}: not bit-equal to {name} "
+                    f"({int((q != qo).sum())} payloads, "
+                    f"{int((s != so).sum())} scales)")
+            return 0.0
+
+        row = check_q8(
+            torch, what, qmatmul_w8a8_q8_plan(M, N, K, dev),
+            lambda bits, route, wc: qmatmul_w8a8_q8_cuda(
+                a, wc, sa, sw, bias, bits=bits, _route=route),
+            lambda bits, wc: quantize_act_cuda(
+                qmatmul_w8a8_cuda(a, wc, sa, sw, bias), bits),
+            lambda wc: qmatmul_w8a8_cuda(a, wc, sa, sw, bias),
+            lambda bits: qmatmul_w8a8_q8_ref(a, w, sa, sw, bias, bits),
+            equal, w, big)
         b, by = bound_ms(M * K + K * N + 4 * M + 8 * N + M * N + 4 * M,
                          2 * M * K * N, INT8_OPS_S)
-        iters = 10 if big else 50
-        rows.append({
-            "shape": f"M={M} K={K} N={N}", "max_abs_err": 0.0,
-            "ms": device_ms(kern, iters), "call_ms": call_ms(kern, iters),
-            "stepwise_ms": device_ms(pair, iters),
-            "plain_ms": device_ms(plain, 3 if big else 10),
-            "bound_ms": b, "bound_by": by, "library_ms": None})
+        rows.append({"shape": f"M={M} K={K} N={N}", "mkn": [M, K, N], **row,
+                     "bound_ms": b, "bound_by": by, "library_ms": None})
+        log_q8("qmatmul_w8a8_q8", rows[-1])
+        del w
     log(f"  qmatmul_w8a8 q8 at {len(shapes)} shapes: payload and scale "
-        f"bit-equal to the plain version and to the stepwise pair")
+        f"bit-equal to the plain version and to the stepwise pair, two calls "
+        f"bit-equal; bits 4 and the forced workspace route at "
+        f"{len(Q8_BITS_SHAPES)} shapes")
     return rows
 
 
@@ -1150,11 +1244,14 @@ def check_qmatmul_w8a16_q8(torch, dev, gen):
     kernels (the W8A16 GEMM to float32, then quantize_act). bfloat16 a:
     against the plain version (float32 sums in another order), no payload
     more than one step apart (the count of one-step payloads printed), the
-    scale within E/127 + one float32 ulp, E the float32 ``W8A16_TOL`` bound
-    at the row's largest value."""
+    scale within E/qmax + one float32 ulp, E the float32 ``W8A16_TOL``
+    bound at the row's largest value. Shapes, bits and routes as the W8A8
+    check, with the JAX bench's decode (M=8 K=N=8192) in place of 4096^3;
+    two calls bit-equal at each."""
     from repro_torch.kernels.qmatmul_w8a16.kernel import (
         qmatmul_w8a16_cuda,
         qmatmul_w8a16_q8_cuda,
+        qmatmul_w8a16_q8_plan,
     )
     from repro_torch.kernels.qmatmul_w8a16.ref import (
         qmatmul_w8a16_q8_ref,
@@ -1162,58 +1259,68 @@ def check_qmatmul_w8a16_q8(torch, dev, gen):
     )
     from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
 
-    shapes = [(M, K, N) for K, N in PATH_KN for M in (8, 256)]
-    shapes.append((8, 8192, 8192))                  # the JAX bench's decode
-    rows, one_step = [], []
+    shapes = Q8_PATH + [(8, 8192, 8192), Q8_VOCAB]  # the JAX bench's decode
+    rows, one_step = [], {}
     for M, K, N in shapes:
         w = _kmajor_int8(torch, gen, dev, K, N)
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype)[6:]
+            what = f"qmatmul_w8a16 q8 M={M} K={K} N={N} {name}"
             a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
             sw = (torch.rand((1,), generator=gen, device=dev) * 0.01
                   + 1e-4).to(dtype)
             bias = torch.randn((N,), generator=gen, device=dev).to(dtype)
-            kern = lambda: qmatmul_w8a16_q8_cuda(a, w, sw, bias)
-            pair = lambda: quantize_act_cuda(qmatmul_w8a16_cuda(a, w, sw, bias))
-            plain = lambda: qmatmul_w8a16_q8_ref(a, w, sw, bias)
-            (q, s), (qr, sr) = kern(), plain()
-            torch.cuda.synchronize()
-            what = f"qmatmul_w8a16 q8 M={M} K={K} N={N} {name}"
-            if dtype == torch.float32:
-                qp, sp = pair()
-                assert torch.equal(q, qp) and torch.equal(s, sp), (
-                    f"{what}: not bit-equal to the stepwise pair "
-                    f"({int((q != qp).sum())} payloads, "
-                    f"{int((s != sp).sum())} scales)")
-            steps = (q.int() - qr.int()).abs()
             y32 = qmatmul_w8a16_ref(a, w, sw, bias, torch.float32)
             e_row = w8a16_tolerance(torch, a, w, sw, bias, y32).amax(1)
-            s_tol = e_row / 127 + sr * 2.0 ** -23
-            assert int(steps.max()) <= 1, (
-                f"{what}: a payload {int(steps.max())} steps off the plain "
-                f"version")
-            assert bool(((s - sr).abs() <= s_tol).all()), (
-                f"{what}: scale off the plain version by "
-                f"{float((s - sr).abs().max())} (bound "
-                f"{float(s_tol.min())})")
-            n1 = int((steps > 0).sum())
-            if dtype == torch.bfloat16:
-                one_step.append(f"M={M} K={K} N={N}: {n1} of {q.numel()}")
+            del y32
+
+            def equal(got, pair_out, plain_out, bits):
+                q, s = got
+                if dtype == torch.float32:
+                    qp, sp = pair_out
+                    assert torch.equal(q, qp) and torch.equal(s, sp), (
+                        f"{what} bits={bits}: not bit-equal to the stepwise "
+                        f"pair ({int((q != qp).sum())} payloads, "
+                        f"{int((s != sp).sum())} scales)")
+                qr, sr = plain_out
+                steps = (q.int() - qr.int()).abs()
+                s_tol = e_row / (2 ** (bits - 1) - 1) + sr * 2.0 ** -23
+                assert int(steps.max()) <= 1, (
+                    f"{what} bits={bits}: a payload {int(steps.max())} steps "
+                    f"off the plain version")
+                assert bool(((s - sr).abs() <= s_tol).all()), (
+                    f"{what} bits={bits}: scale off the plain version by "
+                    f"{float((s - sr).abs().max())} (bound "
+                    f"{float(s_tol.min())})")
+                if dtype == torch.bfloat16 and bits == 8:
+                    one_step.setdefault((M, K, N), f"M={M} K={K} N={N}: "
+                                        f"{int((steps > 0).sum())} of {q.numel()}")
+                return float(steps.max())
+
+            row = check_q8(
+                torch, what, qmatmul_w8a16_q8_plan(M, N, K, dtype, dev),
+                lambda bits, route, wc: qmatmul_w8a16_q8_cuda(
+                    a, wc, sw, bias, bits=bits, _route=route),
+                lambda bits, wc: quantize_act_cuda(
+                    qmatmul_w8a16_cuda(a, wc, sw, bias), bits),
+                lambda wc: qmatmul_w8a16_cuda(a, wc, sw, bias),
+                lambda bits: qmatmul_w8a16_q8_ref(a, w, sw, bias, bits),
+                equal, w, False)
             e = a.element_size()
             b, by = bound_ms(M * K * e + K * N + e + N * e + M * N + 4 * M,
                              2 * M * K * N,
                              BF16_OPS_S if dtype == torch.bfloat16
                              else F32_OPS_S)
-            rows.append({
-                "shape": f"M={M} K={K} N={N} {name}",
-                "max_abs_err": float(steps.max()),
-                "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
-                "stepwise_ms": device_ms(pair, 50),
-                "plain_ms": device_ms(plain, 10),
-                "bound_ms": b, "bound_by": by, "library_ms": None})
+            rows.append({"shape": f"M={M} K={K} N={N} {name}",
+                         "mkn": [M, K, N], **row, "bound_ms": b,
+                         "bound_by": by, "library_ms": None})
+            log_q8("qmatmul_w8a16_q8", rows[-1])
+        del w
     log(f"  qmatmul_w8a16 q8 at {len(shapes)} shapes: float32 a bit-equal to "
-        f"the stepwise pair; bfloat16 a within one step and E/127 of the "
-        f"plain version; payloads one step apart (bf16): " + "; ".join(one_step))
+        f"the stepwise pair; bfloat16 a within one step and E/qmax of the "
+        f"plain version; two calls bit-equal; bits 4 and the forced "
+        f"workspace route at {len(Q8_BITS_SHAPES)} shapes; payloads one step "
+        f"apart (bf16, bits 8): " + "; ".join(one_step.values()))
     return rows
 
 
@@ -1770,17 +1877,20 @@ def main() -> int:
     for name, rows in tables.items():
         shape, path = main[name]
         row = next(r for r in rows if r["shape"] == shape)
-        kernels.append({"name": name, "route": "cuda",
-                        "source": csrc + sources[name][0],
-                        "replaces": tpu + sources[name][1],
-                        "launches": runs[path][1][name],
-                        "path": ("none: quantize_out=True only"
-                                 if name.endswith("_q8") else path),
-                        **notes.get(name, {}),
-                        # the plan's split and share counts are not
-                        # measured: log only
-                        **{k: v for k, v in row.items()
-                           if k not in ("splits", "share")}})
+        kernels.append({
+            # the plan's split, share, tile, ticket, waiter and residency
+            # counts are not measured: log only
+            **{k: v for k, v in row.items()
+               if k not in ("splits", "share", "tickets", "bm", "waiters",
+                            "residency")},
+            **notes.get(name, {}),
+            # the contract's keys, last so that no row key replaces them
+            "name": name, "route": "cuda",
+            "source": csrc + sources[name][0],
+            "replaces": tpu + sources[name][1],
+            "launches": runs[path][1][name],
+            "path": ("none: quantize_out=True only"
+                     if name.endswith("_q8") else path)})
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -37,11 +37,12 @@
 // Quantize-out variant (replaces qmatmul_w8a16_q8_pallas,
 // src/repro/kernels/qmatmul_w8a16/kernel.py:127): the same mainloops and
 // the same float32 y = acc * sw + bias (never rounded to a's type), then
-// q8_epilogue.cuh in the same launch — the CTA that reduces a tile (rank 0
-// of its cluster) writes its float32 tile to a workspace and raises the
-// rows' max with atomicMax, the last such CTA of each M tile (found by a
-// counter after __threadfence()) quantizing the rows. For float32 a,
-// bit-equal to this GEMM to float32 followed by quantize_act.
+// q8_epilogue.cuh in the same launch, at any bits from 1 to 8: on the
+// RESIDENT route the CTA that reduces a tile quantizes its own y from
+// registers once its M tile's rows' max is known; on the WORKSPACE route y
+// goes to a float32 workspace and the last CTAs of each M tile to finish
+// divide its rows. Always at the plain GEMM's tile and splits, so for
+// float32 a bit-equal to this GEMM to float32 followed by quantize_act.
 #include "common.cuh"
 #include "gemm_mainloop.cuh"
 #include "q8_epilogue.cuh"
@@ -112,19 +113,23 @@ struct Epilogue {
   }
 };
 
-// Q8 (both kernels): write q8 (the quantize-out epilogue) instead of C.
-template <int BM, bool Q8>
+// ROUTE (both kernels; q8_epilogue.cuh): NONE writes C; RESIDENT and
+// WORKSPACE write the quantize-out epilogue's int8 and scales instead.
+template <int BM, int ROUTE>
 __global__ void __launch_bounds__(repro::gemm::Tile<BM>::THREADS)
 w8a16_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                   const int8_t* __restrict__ Bt, Epilogue ep,
                   __nv_bfloat16* __restrict__ C, repro::q8::Args q8, int M,
                   int N, int K, int vec) {
+  namespace q8r = repro::q8;
   using W = repro::gemm::WarpTile<BM>;
   __shared__ unsigned smax[BM];
   const W w;
   constexpr int BN = repro::gemm::Tile<BM>::BN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if constexpr (Q8)
+  int mt = blockIdx.y, nt = blockIdx.x;
+  if constexpr (ROUTE != q8r::NONE) q8r::take_tile(q8, gridDim.x, mt, nt);
+  const int m0 = mt * BM, n0 = nt * BN;
+  if constexpr (ROUTE != q8r::NONE)
     for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
   float col_s[W::NT][2], col_b[W::NT][2];
 #pragma unroll
@@ -174,32 +179,73 @@ w8a16_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 
   const int role = repro::gemm::reduce<BM>(acc);
   if (role == 0) return;
+  // y, kept in registers (meaningful in the threads of role 2)
+  float o[W::MT][2][W::NT][2];
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          o[i][h][j][e] = ep(acc[(i * W::NT + j) * 4 + 2 * h + e], col_s[j][e], col_b[j][e]);
   if (role == 2)
 #pragma unroll
     for (int i = 0; i < W::MT; ++i)
 #pragma unroll
-      for (int j = 0; j < W::NT; ++j)
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + w.row(i, h);
+        unsigned m = 0u;  // the row's max |y| as bits (a NaN wins, as in amax)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + w.row(i, h), col = n0 + w.col(j, 0);
+        for (int j = 0; j < W::NT; ++j) {
+          const int col = n0 + w.col(j, 0);
           if (row >= M || col >= N) continue;
-          const float o0 = ep(acc[(i * W::NT + j) * 4 + 2 * h], col_s[j][0], col_b[j][0]);
-          const float o1 = ep(acc[(i * W::NT + j) * 4 + 2 * h + 1], col_s[j][1], col_b[j][1]);
-          if constexpr (Q8) {
-            repro::q8::keep(q8, smax, row, m0, col, N, o0);
-            if (col + 1 < N) repro::q8::keep(q8, smax, row, m0, col + 1, N, o1);
+          if constexpr (ROUTE == q8r::NONE) {
+            repro::gemm::store_pair(C, row, col, N, o[i][h][j][0], o[i][h][j][1]);
           } else {
-            repro::gemm::store_pair(C, row, col, N, o0, o1);
+            if constexpr (ROUTE == q8r::WORKSPACE)
+              repro::gemm::store_pair(q8.y, row, col, N, o[i][h][j][0], o[i][h][j][1]);
+            m = max(m, __float_as_uint(fabsf(o[i][h][j][0])));
+            if (col + 1 < N) m = max(m, __float_as_uint(fabsf(o[i][h][j][1])));
           }
         }
-  if constexpr (Q8) repro::q8::finish_tile<BM>(q8, smax, m0, M, N);
+        if constexpr (ROUTE != q8r::NONE) {
+          // the quad's four lanes hold the row's columns: one atomic a row
+          m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          if (w.t == 0 && row < M) atomicMax(&smax[w.row(i, h)], m);
+        }
+      }
+  if constexpr (ROUTE == q8r::WORKSPACE) q8r::workspace_finish<BM>(q8, smax, mt, M, N);
+  if constexpr (ROUTE == q8r::RESIDENT) {
+    const unsigned order = q8r::arrive<BM>(q8, smax, mt, M);
+    const float* scale = q8r::scales<BM>(q8, mt, M, order, nt == 0);
+    if (role == 2)
+#pragma unroll
+      for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + w.row(i, h);
+          if (row >= M) continue;
+#pragma unroll
+          for (int j = 0; j < W::NT; ++j) {
+            const int col = n0 + w.col(j, 0);
+            if (col < N)
+              q8r::store_q_pair(q8, row, col, N, o[i][h][j][0], o[i][h][j][1],
+                                scale[w.row(i, h)]);
+          }
+        }
+    q8r::depart(q8, M);
+  }
 }
 
-template <int BM, bool Q8>
+template <int BM, int ROUTE>
 __global__ void __launch_bounds__(repro::gemm::Tile<BM>::THREADS)
 w8a16_f32_kernel(const float* __restrict__ A, const int8_t* __restrict__ Bt,
                  Epilogue ep, float* __restrict__ C, repro::q8::Args q8, int M,
                  int N, int K, int vec) {
+  namespace q8r = repro::q8;
   // in each group, thread (rg, col_l) owns column col_l and rows rg,
   // rg + RG, ...; each warp holds one rg, so its A reads are broadcasts
   constexpr int BN = repro::gemm::Tile<BM>::BN;
@@ -208,8 +254,10 @@ w8a16_f32_kernel(const float* __restrict__ A, const int8_t* __restrict__ Bt,
   __shared__ unsigned smax[BM];
   const int tid = threadIdx.x % repro::gemm::Tile<BM>::GROUP_THREADS;
   const int col_l = tid % BN, rg = tid / BN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, col = n0 + col_l;
-  if constexpr (Q8)
+  int mt = blockIdx.y, nt = blockIdx.x;
+  if constexpr (ROUTE != q8r::NONE) q8r::take_tile(q8, gridDim.x, mt, nt);
+  const int m0 = mt * BM, n0 = nt * BN, col = n0 + col_l;
+  if constexpr (ROUTE != q8r::NONE)
     for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
   float col_s, col_b;
   ep.load(col, N, col_s, col_b);
@@ -244,52 +292,77 @@ w8a16_f32_kernel(const float* __restrict__ A, const int8_t* __restrict__ Bt,
 
   const int role = repro::gemm::reduce<BM>(acc);
   if (role == 0) return;
-  if (role == 2 && col < N) {
+  float o[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) o[i] = ep(acc[i], col_s, col_b);
+  if (role == 2)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int row = m0 + rg + RG * i;
-      if (row >= M) continue;
-      const float o = ep(acc[i], col_s, col_b);
-      if constexpr (Q8)
-        repro::q8::keep(q8, smax, row, m0, col, N, o);
-      else
-        C[static_cast<size_t>(row) * N + col] = o;
+      const bool live = row < M && col < N;
+      if constexpr (ROUTE == q8r::NONE) {
+        if (live) C[static_cast<size_t>(row) * N + col] = o[i];
+      } else {
+        if (ROUTE == q8r::WORKSPACE && live) q8.y[static_cast<size_t>(row) * N + col] = o[i];
+        // the row's max |y| as bits (a NaN wins, as in amax) over the
+        // lanes that hold its columns (BN of them, or the whole warp)
+        unsigned m = live ? __float_as_uint(fabsf(o[i])) : 0u;
+#pragma unroll
+        for (int off = (BN < 32 ? BN : 32) / 2; off > 0; off >>= 1)
+          m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if (col_l % 32 == 0 && row < M) atomicMax(&smax[rg + RG * i], m);
+      }
     }
+  if constexpr (ROUTE == q8r::WORKSPACE) q8r::workspace_finish<BM>(q8, smax, mt, M, N);
+  if constexpr (ROUTE == q8r::RESIDENT) {
+    const unsigned order = q8r::arrive<BM>(q8, smax, mt, M);
+    const float* scale = q8r::scales<BM>(q8, mt, M, order, nt == 0);
+    if (role == 2 && col < N)
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int row = m0 + rg + RG * i;
+        if (row < M)
+          q8.q[static_cast<size_t>(row) * N + col] =
+              repro::quantize_one(o[i], scale[rg + RG * i], -q8.qmax - 1.f, q8.qmax);
+      }
+    q8r::depart(q8, M);
   }
-  if constexpr (Q8) repro::q8::finish_tile<BM>(q8, smax, m0, M, N);
 }
 
 template <int BM>
 int launch_tiles(const void* a, const void* wt, Epilogue ep, void* c,
-                 const repro::q8::Args& q8, int M, int N, int K, int splits,
+                 const repro::q8::Call& q8, int M, int N, int K, int splits,
                  int a_bf16, int vec, cudaStream_t st) {
+  namespace q8r = repro::q8;
   constexpr int BN = repro::gemm::Tile<BM>::BN;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   const int8_t* Bt = static_cast<const int8_t*>(wt);
-  const bool q_out = q8.q != nullptr;
+  const q8r::Args args = q8.args(M, BM);
   using repro::gemm::launch;
   if (a_bf16) {
     const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(a);
     __nv_bfloat16* C = static_cast<__nv_bfloat16*>(c);
     constexpr int smem = RingBf16<BM>::SMEM;
-    if (q_out)
-      return launch<BM, w8a16_bf16_kernel<BM, true>>(smem, grid, st, A, Bt, ep,
-                                                     C, q8, M, N, K, vec);
-    return launch<BM, w8a16_bf16_kernel<BM, false>>(smem, grid, st, A, Bt, ep,
-                                                    C, q8, M, N, K, vec);
+    if (q8.route != q8r::NONE)
+      return q8r::launch<BM, w8a16_bf16_kernel<BM, q8r::RESIDENT>,
+                         w8a16_bf16_kernel<BM, q8r::WORKSPACE>>(
+          q8, smem, grid, st, A, Bt, ep, C, args, M, N, K, vec);
+    return launch<BM, w8a16_bf16_kernel<BM, q8r::NONE>>(smem, grid, st, A, Bt,
+                                                         ep, C, args, M, N, K, vec);
   }
   const float* A = static_cast<const float*>(a);
   float* C = static_cast<float*>(c);
   constexpr int smem = RingF32<BM>::SMEM;
-  if (q_out)
-    return launch<BM, w8a16_f32_kernel<BM, true>>(smem, grid, st, A, Bt, ep, C,
-                                                  q8, M, N, K, vec);
-  return launch<BM, w8a16_f32_kernel<BM, false>>(smem, grid, st, A, Bt, ep, C,
-                                                 q8, M, N, K, vec);
+  if (q8.route != q8r::NONE)
+    return q8r::launch<BM, w8a16_f32_kernel<BM, q8r::RESIDENT>,
+                       w8a16_f32_kernel<BM, q8r::WORKSPACE>>(
+        q8, smem, grid, st, A, Bt, ep, C, args, M, N, K, vec);
+  return launch<BM, w8a16_f32_kernel<BM, q8r::NONE>>(smem, grid, st, A, Bt, ep,
+                                                      C, args, M, N, K, vec);
 }
 
 int dispatch(const void* a, const void* wt, Epilogue ep, void* c,
-             const repro::q8::Args& q8, int M, int N, int K, int bm,
+             const repro::q8::Call& q8, int M, int N, int K, int bm,
              int splits, int a_bf16, int vec, void* stream) {
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -301,6 +374,17 @@ int dispatch(const void* a, const void* wt, Epilogue ep, void* c,
     return launch_tiles<128>(a, wt, ep, c, q8, M, N, K, splits, a_bf16, vec,
                              st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int BM>
+int resident(int splits, int a_bf16, int* out) {
+  namespace q8r = repro::q8;
+  if (a_bf16)
+    return q8r::residency<BM, w8a16_bf16_kernel<BM, q8r::RESIDENT>,
+                          w8a16_bf16_kernel<BM, q8r::WORKSPACE>>(RingBf16<BM>::SMEM, splits,
+                                                                 out);
+  return q8r::residency<BM, w8a16_f32_kernel<BM, q8r::RESIDENT>,
+                        w8a16_f32_kernel<BM, q8r::WORKSPACE>>(RingF32<BM>::SMEM, splits, out);
 }
 
 }  // namespace
@@ -317,25 +401,49 @@ extern "C" int repro_qmatmul_w8a16(const void* a, const void* wt,
                                    int M, int N, int K, int bm, int splits,
                                    int a_bf16, int vec, void* stream) {
   const Epilogue ep{sw, sw_stride, sw_bf16, bias, bias_bf16};
-  return dispatch(a, wt, ep, c, repro::q8::Args{}, M, N, K, bm, splits,
+  return dispatch(a, wt, ep, c, repro::q8::Call{}, M, N, K, bm, splits,
                   a_bf16, vec, stream);
 }
 
 // The quantize-out variant: operands as above; q [M, N] int8 and s [M]
-// float32 out; y [M, N] float32 workspace; scratch [M + ceil(M / 16)]
-// uint32, zero on entry and left zero (the rows' max, then one counter per
-// M tile).
+// float32 out, at qmax = 2^(bits-1) - 1; scratch [M + ceil(M / bm) + 2]
+// uint32, zero on entry and left zero (q8_epilogue.cuh). route 1
+// (RESIDENT): every CTA quantizes its own tile, y unused; route 2
+// (WORKSPACE): y [M, N] float32 is the workspace, and the last `waiters`
+// CTAs of an M tile to arrive quantize it; `ticketed`: tiles by ticket, M
+// tile by M tile. The route, waiters and ticketed come from
+// kernels/gemm_plan.py (GemmPlan.q8_route).
 extern "C" int repro_qmatmul_w8a16_q8(const void* a, const void* wt,
                                       const void* sw, int sw_stride,
                                       int sw_bf16, const void* bias,
                                       int bias_bf16, void* y, void* scratch,
                                       void* q, void* s, int M, int N, int K,
-                                      int bm, int splits, int a_bf16, int vec,
-                                      void* stream) {
+                                      int bm, int splits, int route, int waiters,
+                                      int qmax, int ticketed, int a_bf16,
+                                      int vec, void* stream) {
   const Epilogue ep{sw, sw_stride, sw_bf16, bias, bias_bf16};
-  unsigned* amax = static_cast<unsigned*>(scratch);
-  const repro::q8::Args q8{static_cast<float*>(y), amax, amax + M,
-                           static_cast<int8_t*>(q), static_cast<float*>(s)};
+  repro::q8::Call q8;
+  q8.route = route;
+  q8.waiters = waiters;
+  q8.qmax = qmax;
+  q8.ticketed = ticketed;
+  q8.y = y;
+  q8.scratch = scratch;
+  q8.q = q;
+  q8.s = s;
+  if (route == repro::q8::NONE || qmax < 0 || qmax > 127)
+    return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(a, wt, ep, nullptr, q8, M, N, K, bm, splits, a_bf16, vec,
                   stream);
+}
+
+// The clusters of `splits` CTAs (CTAs at splits = 1) of the quantize-out
+// kernels for a's type at bm-row tiles that the card keeps resident at
+// once, into *out: gemm_plan's residency. Returns the CUDA error.
+extern "C" int repro_qmatmul_w8a16_q8_residency(int bm, int splits,
+                                                int a_bf16, int* out) {
+  if (bm == 16) return resident<16>(splits, a_bf16, out);
+  if (bm == 64) return resident<64>(splits, a_bf16, out);
+  if (bm == 128) return resident<128>(splits, a_bf16, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -53,12 +53,14 @@
 //
 // Quantize-out variant (replaces qmatmul_w8a8_q8_pallas,
 // src/repro/kernels/qmatmul_w8a8/kernel.py:143): the same mainloop and the
-// same y, then q8_epilogue.cuh in the same launch — the CTA that reduces a
-// tile (rank 0 of its cluster) writes its float32 tile to a workspace and
-// raises the rows' max with atomicMax, the last such CTA of each M tile
-// (found by a counter after __threadfence()) quantizing the rows. Payload
-// and scale are bit-equal to the float32 GEMM followed by quantize_act, and
-// to the plain version.
+// same y, then q8_epilogue.cuh in the same launch, at any bits from 1 to 8.
+// Where the card keeps the launch's tiles resident at once (gemm_plan's
+// RESIDENT route) the CTA that reduces a tile keeps y in registers, shares
+// its rows' max through the scratch, waits for its M tile's other N tiles
+// and quantizes its own tile; elsewhere (WORKSPACE) y goes to a float32
+// workspace and the last CTAs of each M tile to finish divide its rows.
+// Payload and scale are bit-equal to the float32 GEMM followed by
+// quantize_act, and to the plain version.
 #include "common.cuh"
 #include "gemm_mainloop.cuh"
 #include "q8_epilogue.cuh"
@@ -88,19 +90,23 @@ __device__ __forceinline__ void mma_s8(int* d, uint32_t a0, uint32_t a1,
 template <int BM>
 using Ring = repro::gemm::Ring<BM, 1, LDS, LDS>;
 
-// Q8: write q8 (the quantize-out epilogue) instead of C.
-template <int BM, typename OutT, bool Q8>
+// ROUTE (q8_epilogue.cuh): NONE writes C; RESIDENT and WORKSPACE write the
+// quantize-out epilogue's int8 and scales instead.
+template <int BM, typename OutT, int ROUTE>
 __global__ void __launch_bounds__(repro::gemm::Tile<BM>::THREADS)
 qmatmul_w8a8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
                     const float* __restrict__ sa, const float* __restrict__ sw,
                     const float* __restrict__ bias, OutT* __restrict__ C,
                     repro::q8::Args q8, int M, int N, int K, int vec) {
+  namespace q8r = repro::q8;
   using W = repro::gemm::WarpTile<BM>;
   __shared__ unsigned smax[BM];
   const W w;
   constexpr int BN = repro::gemm::Tile<BM>::BN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  if constexpr (Q8)
+  int mt = blockIdx.y, nt = blockIdx.x;
+  if constexpr (ROUTE != q8r::NONE) q8r::take_tile(q8, gridDim.x, mt, nt);
+  const int m0 = mt * BM, n0 = nt * BN;
+  if constexpr (ROUTE != q8r::NONE)
     for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
   // the epilogue's operands, loaded now so their latency hides under the
   // mainloop (0 past M or N)
@@ -150,31 +156,69 @@ qmatmul_w8a8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
 
   const int role = repro::gemm::reduce<BM>(acc);
   if (role == 0) return;
+  // y, kept in registers (meaningful in the threads of role 2)
+  float o[W::MT][2][W::NT][2];
+#pragma unroll
+  for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          o[i][h][j][e] = __fadd_rn(
+              __fmul_rn(__fmul_rn(__int2float_rn(acc[(i * W::NT + j) * 4 + 2 * h + e]),
+                                  row_s[i][h]),
+                        col_s[j][e]),
+              col_b[j][e]);
   if (role == 2)
 #pragma unroll
     for (int i = 0; i < W::MT; ++i)
 #pragma unroll
-      for (int j = 0; j < W::NT; ++j)
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + w.row(i, h);
+        unsigned m = 0u;  // the row's max |y| as bits (a NaN wins, as in amax)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + w.row(i, h), col = n0 + w.col(j, 0);
+        for (int j = 0; j < W::NT; ++j) {
+          const int col = n0 + w.col(j, 0);
           if (row >= M || col >= N) continue;
-          float o[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            o[e] = __fadd_rn(
-                __fmul_rn(__fmul_rn(__int2float_rn(acc[(i * W::NT + j) * 4 + 2 * h + e]),
-                                    row_s[i][h]),
-                          col_s[j][e]),
-                col_b[j][e]);
-          if constexpr (Q8) {
-            repro::q8::keep(q8, smax, row, m0, col, N, o[0]);
-            if (col + 1 < N) repro::q8::keep(q8, smax, row, m0, col + 1, N, o[1]);
+          if constexpr (ROUTE == q8r::NONE) {
+            repro::gemm::store_pair(C, row, col, N, o[i][h][j][0], o[i][h][j][1]);
           } else {
-            repro::gemm::store_pair(C, row, col, N, o[0], o[1]);
+            if constexpr (ROUTE == q8r::WORKSPACE)
+              repro::gemm::store_pair(q8.y, row, col, N, o[i][h][j][0], o[i][h][j][1]);
+            m = max(m, __float_as_uint(fabsf(o[i][h][j][0])));
+            if (col + 1 < N) m = max(m, __float_as_uint(fabsf(o[i][h][j][1])));
           }
         }
-  if constexpr (Q8) repro::q8::finish_tile<BM>(q8, smax, m0, M, N);
+        if constexpr (ROUTE != q8r::NONE) {
+          // the quad's four lanes hold the row's columns: one atomic a row
+          m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          if (w.t == 0 && row < M) atomicMax(&smax[w.row(i, h)], m);
+        }
+      }
+  if constexpr (ROUTE == q8r::WORKSPACE) q8r::workspace_finish<BM>(q8, smax, mt, M, N);
+  if constexpr (ROUTE == q8r::RESIDENT) {
+    const unsigned order = q8r::arrive<BM>(q8, smax, mt, M);
+    const float* scale = q8r::scales<BM>(q8, mt, M, order, nt == 0);
+    if (role == 2)
+#pragma unroll
+      for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + w.row(i, h);
+          if (row >= M) continue;
+#pragma unroll
+          for (int j = 0; j < W::NT; ++j) {
+            const int col = n0 + w.col(j, 0);
+            if (col < N)
+              q8r::store_q_pair(q8, row, col, N, o[i][h][j][0], o[i][h][j][1],
+                                scale[w.row(i, h)]);
+          }
+        }
+    q8r::depart(q8, M);
+  }
 }
 
 // The quantize-in GEMM runs at the decode tile only (gemm_plan.FOLD_BM: a
@@ -536,9 +580,10 @@ int launch_qin(const void* x, const void* wt, const void* sw, const void* bias,
 
 template <int BM>
 int launch_tiles(const void* a, const void* wt, const void* sa, const void* sw,
-                 const void* bias, void* c, const repro::q8::Args& q8, int M,
+                 const void* bias, void* c, const repro::q8::Call& q8, int M,
                  int N, int K, int splits, int out_bf16, int vec,
                  cudaStream_t st) {
+  namespace q8r = repro::q8;
   constexpr int BN = repro::gemm::Tile<BM>::BN;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   const int8_t* A = static_cast<const int8_t*>(a);
@@ -546,23 +591,25 @@ int launch_tiles(const void* a, const void* wt, const void* sa, const void* sw,
   const float* SA = static_cast<const float*>(sa);
   const float* SW = static_cast<const float*>(sw);
   const float* BI = static_cast<const float*>(bias);
+  const q8r::Args args = q8.args(M, BM);
   constexpr int smem = Ring<BM>::SMEM;
   using repro::gemm::launch;
-  if (q8.q != nullptr)
-    return launch<BM, qmatmul_w8a8_kernel<BM, float, true>>(
-        smem, grid, st, A, Bt, SA, SW, BI, static_cast<float*>(nullptr), q8, M,
-        N, K, vec);
+  if (q8.route != q8r::NONE)
+    return q8r::launch<BM, qmatmul_w8a8_kernel<BM, float, q8r::RESIDENT>,
+                       qmatmul_w8a8_kernel<BM, float, q8r::WORKSPACE>>(
+        q8, smem, grid, st, A, Bt, SA, SW, BI, static_cast<float*>(nullptr),
+        args, M, N, K, vec);
   if (out_bf16)
-    return launch<BM, qmatmul_w8a8_kernel<BM, __nv_bfloat16, false>>(
-        smem, grid, st, A, Bt, SA, SW, BI, static_cast<__nv_bfloat16*>(c), q8,
-        M, N, K, vec);
-  return launch<BM, qmatmul_w8a8_kernel<BM, float, false>>(
-      smem, grid, st, A, Bt, SA, SW, BI, static_cast<float*>(c), q8, M, N, K,
-      vec);
+    return launch<BM, qmatmul_w8a8_kernel<BM, __nv_bfloat16, q8r::NONE>>(
+        smem, grid, st, A, Bt, SA, SW, BI, static_cast<__nv_bfloat16*>(c),
+        args, M, N, K, vec);
+  return launch<BM, qmatmul_w8a8_kernel<BM, float, q8r::NONE>>(
+      smem, grid, st, A, Bt, SA, SW, BI, static_cast<float*>(c), args, M, N,
+      K, vec);
 }
 
 int dispatch(const void* a, const void* wt, const void* sa, const void* sw,
-             const void* bias, void* c, const repro::q8::Args& q8, int M,
+             const void* bias, void* c, const repro::q8::Call& q8, int M,
              int N, int K, int bm, int splits, int out_bf16, int vec,
              void* stream) {
   if (M == 0 || N == 0) return 0;
@@ -579,6 +626,14 @@ int dispatch(const void* a, const void* wt, const void* sa, const void* sw,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int BM>
+int resident(int splits, int* out) {
+  namespace q8r = repro::q8;
+  return q8r::residency<BM, qmatmul_w8a8_kernel<BM, float, q8r::RESIDENT>,
+                        qmatmul_w8a8_kernel<BM, float, q8r::WORKSPACE>>(Ring<BM>::SMEM,
+                                                                        splits, out);
+}
+
 }  // namespace
 
 // a [M, K] int8, wt [N, K] int8 (the K-major weight), sa [M], sw [N],
@@ -590,7 +645,7 @@ extern "C" int repro_qmatmul_w8a8(const void* a, const void* wt, const void* sa,
                                   const void* sw, const void* bias, void* c,
                                   int M, int N, int K, int bm, int splits,
                                   int out_bf16, int vec, void* stream) {
-  return dispatch(a, wt, sa, sw, bias, c, repro::q8::Args{}, M, N, K, bm,
+  return dispatch(a, wt, sa, sw, bias, c, repro::q8::Call{}, M, N, K, bm,
                   splits, out_bf16, vec, stream);
 }
 
@@ -619,18 +674,40 @@ extern "C" int repro_qmatmul_w8a8_qin(const void* x, const void* wt,
                            share, out_bf16, vec, st);
 }
 
-// The quantize-out variant: q [M, N] int8 and s [M] float32 out; y [M, N]
-// float32 workspace; scratch [M + ceil(M / 16)] uint32, zero on entry and
-// left zero (the rows' max, then one counter per M tile).
+// The quantize-out variant: q [M, N] int8 and s [M] float32 out, at
+// qmax = 2^(bits-1) - 1; scratch [M + ceil(M / bm) + 2] uint32, zero on
+// entry and left zero (q8_epilogue.cuh). route 1 (RESIDENT) every CTA
+// quantizes its own tile, y unused; route 2 (WORKSPACE) y [M, N] float32
+// is the workspace, and the last `waiters` CTAs of an M tile to arrive
+// quantize it; `ticketed`: tiles by ticket, M tile by M tile. The route,
+// waiters and ticketed come from kernels/gemm_plan.py (GemmPlan.q8_route).
 extern "C" int repro_qmatmul_w8a8_q8(const void* a, const void* wt,
                                      const void* sa, const void* sw,
                                      const void* bias, void* y, void* scratch,
                                      void* q, void* s, int M, int N, int K,
-                                     int bm, int splits, int vec,
-                                     void* stream) {
-  unsigned* amax = static_cast<unsigned*>(scratch);
-  const repro::q8::Args q8{static_cast<float*>(y), amax, amax + M,
-                           static_cast<int8_t*>(q), static_cast<float*>(s)};
+                                     int bm, int splits, int route, int waiters,
+                                     int qmax, int ticketed, int vec, void* stream) {
+  repro::q8::Call q8;
+  q8.route = route;
+  q8.waiters = waiters;
+  q8.qmax = qmax;
+  q8.ticketed = ticketed;
+  q8.y = y;
+  q8.scratch = scratch;
+  q8.q = q;
+  q8.s = s;
+  if (route == repro::q8::NONE || qmax < 0 || qmax > 127)
+    return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(a, wt, sa, sw, bias, nullptr, q8, M, N, K, bm, splits, 0,
                   vec, stream);
+}
+
+// The clusters of `splits` CTAs (CTAs at splits = 1) of the quantize-out
+// kernels at bm-row tiles the card keeps resident at once, into *out:
+// gemm_plan's residency. Returns the CUDA error.
+extern "C" int repro_qmatmul_w8a8_q8_residency(int bm, int splits, int* out) {
+  if (bm == 16) return resident<16>(splits, out);
+  if (bm == 64) return resident<64>(splits, out);
+  if (bm == 128) return resident<128>(splits, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

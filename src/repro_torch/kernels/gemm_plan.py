@@ -52,12 +52,28 @@ kernel still had 64-row tiles) — since each CTA quantizes 64 rows of its
 part (gate/up: 608 CTAs) against one quantize_act launch. So the kernel is
 built for the decode tile alone, and its wrapper refuses any call the plan
 does not fold.
+
+The quantize-out GEMMs (``csrc/q8_epilogue.cuh``) take one of two routes,
+``GemmPlan.q8_route``, chosen from the shape and the card's ``residency``:
+the clusters of the kernel (CTAs where ``splits == 1``) the card keeps
+resident at once, which the wrappers read from the card once per kernel
+instantiation. ``"resident"`` where every tile of the launch is resident at
+once (``tiles <= residency``; ``q8_plan`` may take a wider tile for that):
+every CTA waits for its M tile's rows' max and quantizes its own tile from
+its registers. ``"workspace"`` elsewhere (qwen2's vocabulary, N = 151936:
+9,496 N tiles at the decode tile; the JAX bench's 4096^3): y goes to a
+float32 workspace and the last ``q8_waiters`` CTAs of each M tile to finish
+quantize its rows, the tiles going out by ticket, M tile by M tile, where
+there is more than one M tile (``q8_ticketed``). The resident route may
+also be forced where only an M tile's N tiles fit; its tiles then go out by
+ticket too. ``plan(M, N, K, residency=R)`` prints the route; the choice is
+never made on an error.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 TILES = {16: 16, 64: 32, 128: 64}  # BM: BN (gemm_mainloop.cuh: Tile<BM>)
 GROUPS = {16: 8, 64: 2, 128: 1}    # BM: warp groups, a ring each (Tile<BM>)
@@ -70,6 +86,8 @@ MAX_CTAS = 4 * 132  # a split stops filling the H100's 132 SMs past this
 QIN_SMEM_MAX = 217 * 1024  # the quantize-in GEMM's dynamic shared memory cap
 FOLD_BM = (16,)     # the tiles whose GEMM quantizes its own activation
 MAX_SHARE = 8       # N tiles that divide the quantizing of their A
+Q8_ROUTES = ("resident", "workspace")  # the quantize-out epilogue's routes
+Q8_WAITERS = 32     # workspace route: the CTAs of an M tile that quantize it
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -91,6 +109,10 @@ class GemmPlan:
     n_tiles: int
     k_steps: int
     splits: int     # S, the CTAs of a cluster
+    # the quantize-out kernel's resident clusters (CTAs where splits == 1)
+    # on the card, as the wrappers read it; None where not given
+    residency: Optional[int] = None
+    q8_route: Optional[str] = None  # Q8_ROUTES[i], or None without residency
 
     @property
     def tiles(self) -> int:
@@ -131,6 +153,28 @@ class GemmPlan:
         and the model's one rule)."""
         return self.bm in FOLD_BM and self.qin_fits
 
+    @property
+    def q8_ticketed(self) -> bool:
+        """Whether the quantize-out kernel hands its tiles out by ticket, M
+        tile by M tile, so that every CTA waited on is resident or holds no
+        ticket yet: where the launch has more tiles (clusters) than the card
+        keeps resident and more than one M tile, or (the forced resident
+        route) more tiles than that. Else every CTA keeps its blockIdx's
+        tile."""
+        if self.q8_route == "resident":
+            return self.tiles > self.residency
+        return self.q8_route == "workspace" and self.m_tiles > 1
+
+    @property
+    def q8_waiters(self) -> int:
+        """The CTAs of an M tile that wait for its rows' max and quantize
+        it: all its N tiles on the resident route; on the workspace route
+        its last Q8_WAITERS arrivals (fewer than the card keeps resident,
+        so the wait cannot hang)."""
+        if self.q8_route == "workspace":
+            return min(self.n_tiles, Q8_WAITERS, self.residency)
+        return self.n_tiles
+
     def split_steps(self, s: int) -> Tuple[int, int]:
         """The K steps [first, last) split ``s`` walks (as the kernel)."""
         return (s * self.k_steps // self.splits,
@@ -138,12 +182,22 @@ class GemmPlan:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(M: int, N: int, K: int, *, splits: Optional[int] = None) -> GemmPlan:
+def plan(M: int, N: int, K: int, *, splits: Optional[int] = None,
+         residency: Optional[int] = None,
+         route: Optional[str] = None, bm: Optional[int] = None) -> GemmPlan:
     """The tiles and splits of one GEMM call (cached: the wrappers plan
     every call, and the serving loop is bound by the host). ``splits``
     forces S (the wrappers' private ``_splits``, to sweep the reduction); it
-    must lie in [1, max_splits]."""
-    bm = 16 if M <= 16 else 64 if M <= 256 else 128
+    must lie in [1, max_splits]. ``residency`` (the quantize-out kernel's
+    resident clusters at this tile and S) sets ``q8_route``; ``route``
+    forces it (the wrappers' private ``_route``): ``"workspace"`` always
+    may be taken, ``"resident"`` only where the residency allows it.
+    ``bm`` forces the tile (``TILES``; the quantize-out plan's choice,
+    ``q8_plan``)."""
+    if bm is None:
+        bm = 16 if M <= 16 else 64 if M <= 256 else 128
+    elif bm not in TILES:
+        raise ValueError(f"bm={bm}: the tiles are {tuple(TILES)}")
     m_tiles, n_tiles = _cdiv(M, bm), _cdiv(N, TILES[bm])
     k_steps = _cdiv(K, BK)
     top = max_splits(k_steps)
@@ -154,4 +208,48 @@ def plan(M: int, N: int, K: int, *, splits: Optional[int] = None) -> GemmPlan:
         raise ValueError(f"splits={splits} outside [1, {top}] for K={K} "
                          f"({k_steps} steps of {BK}, at least {MIN_STEPS} a "
                          f"split, at most {MAX_SPLITS} splits)")
-    return GemmPlan(M, N, K, bm, m_tiles, n_tiles, k_steps, splits)
+    q8_route = None
+    if route is not None and route not in Q8_ROUTES:
+        raise ValueError(f"route={route!r}: the routes are {Q8_ROUTES}")
+    if residency is not None:
+        tiles = m_tiles * n_tiles
+        q8_route = route or ("resident" if tiles <= residency else "workspace")
+        if q8_route == "resident" and n_tiles > residency:
+            raise ValueError(
+                f"route='resident' at M={M} N={N} K={K}: {n_tiles} N tiles "
+                f"an M tile, but the card keeps {residency} resident — the "
+                f"wait could hang")
+        if q8_route == "workspace" and residency < 2:
+            raise ValueError(f"residency={residency}: the workspace route "
+                             f"needs two resident clusters")
+    elif route is not None:
+        raise ValueError("route needs the card's residency")
+    return GemmPlan(M, N, K, bm, m_tiles, n_tiles, k_steps, splits,
+                    residency, q8_route)
+
+
+def q8_plan(M: int, N: int, K: int, residency: Callable[[int, int], int], *,
+            splits: Optional[int] = None, route: Optional[str] = None,
+            wider: bool = True) -> GemmPlan:
+    """The quantize-out GEMM's plan, ``residency(bm, splits)`` being the
+    card's resident clusters of its kernel at that tile: the default tile's
+    plan, unless it takes the workspace route and (``wider``) a wider tile's
+    launch is resident at once (a prefill chunk's gate/up: 608 tiles of
+    64 x 32 against 528 resident, 152 of 128 x 64 against 264). Only the
+    W8A8 GEMM widens: its integer sums are exact in any tile, while the
+    W8A16 GEMM's float32 sums follow the tile's warp groups, and its y must
+    be the plain GEMM's. A resident launch by ticket loses more to the slots
+    its waiting CTAs hold than the workspace costs (4096^3 on an H100:
+    chip_smoke.py's qmatmul_w8a8_q8 line times both), so only ``route``
+    forces it."""
+    p = plan(M, N, K, splits=splits)
+    p = plan(M, N, K, splits=p.splits, route=route,
+             residency=residency(p.bm, p.splits))
+    if route is None and wider and p.q8_route == "workspace":
+        for bm in (b for b in TILES if b > p.bm):
+            w = plan(M, N, K, splits=splits, bm=bm)
+            w = plan(M, N, K, splits=w.splits, bm=bm,
+                     residency=residency(bm, w.splits))
+            if w.q8_route == "resident":
+                return w
+    return p

@@ -9,7 +9,9 @@ scale) and the bias through a nullable pointer, each float32 or bfloat16 as
 the caller holds it, so a call allocates nothing but its output. The split
 of K across CTAs comes from ``gemm_plan`` (shared with the W8A8 wrapper);
 the private ``_splits`` keyword forces it, to sweep the reduction on the
-card.
+card. The quantize-out variant takes its route as the W8A8 one does
+(``qmatmul_w8a16_q8_plan``; the private ``_route`` forces a route), always
+at the plain GEMM's tile and splits.
 """
 from __future__ import annotations
 
@@ -20,14 +22,19 @@ import torch
 
 from .. import _build, gemm_plan
 from ..dispatch import count_launch
-from ..qmatmul_w8a8.kernel import q8_workspace
+from ..qmatmul_w8a8.kernel import (
+    Q8_ROUTE_IDS,
+    q8_operands,
+    q8_plan_with,
+    q8_qmax,
+)
 
 _ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
          + (ctypes.c_void_p,) + (ctypes.c_int,) + (ctypes.c_void_p,)
          + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
 _ARGS_Q8 = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
             + (ctypes.c_void_p,) + (ctypes.c_int,) + (ctypes.c_void_p,) * 4
-            + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
+            + (ctypes.c_int,) * 11 + (ctypes.c_void_p,))
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -98,27 +105,46 @@ def qmatmul_w8a16_cuda(a: torch.Tensor, w_q: torch.Tensor,
     return out
 
 
+def qmatmul_w8a16_q8_plan(M: int, N: int, K: int,
+                          a_dtype: torch.dtype = torch.bfloat16,
+                          device: Optional[torch.device] = None, *,
+                          splits: Optional[int] = None,
+                          route: Optional[str] = None):
+    """The plan ``qmatmul_w8a16_q8_cuda`` launches for a [M, K] of
+    ``a_dtype`` x [K, N] on the card (the current one by default), its
+    ``q8_route`` included; always ``qmatmul_w8a16_cuda``'s tile and splits,
+    so that y has its float32 sums."""
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    return q8_plan_with("repro_qmatmul_w8a16_q8_residency", M, N, K, device,
+                        int(a_dtype == torch.bfloat16), splits=splits,
+                        route=route, wider=False)
+
+
 def qmatmul_w8a16_q8_cuda(a: torch.Tensor, w_q: torch.Tensor,
                           w_scale: torch.Tensor,
                           bias: Optional[torch.Tensor] = None, *,
-                          _splits: Optional[int] = None):
+                          bits: int = 8, _splits: Optional[int] = None,
+                          _route: Optional[str] = None):
     """The GEMM with the quantize-out epilogue, in one launch: operands as
     ``qmatmul_w8a16_cuda`` → (q int8 [M, N], scale float32 [M]), the float32
     result (never rounded to a's dtype) quantized per row by the
-    ``quantize_act`` formula."""
+    ``quantize_act`` formula at ``bits`` (1 to 8)."""
+    qmax = q8_qmax(bits, "qmatmul_w8a16_q8_cuda")
     a, wt, vec = _checked(a, w_q, w_scale, bias, "qmatmul_w8a16_q8_cuda")
     dev = a.device
     M, K = a.shape
     N = wt.shape[0]
-    plan = gemm_plan.plan(M, N, K, splits=_splits)
-    y, scratch = q8_workspace(M, N, dev)
+    plan = qmatmul_w8a16_q8_plan(M, N, K, a.dtype, dev, splits=_splits,
+                                 route=_route)
+    y, scratch = q8_operands(plan, dev)
     q = torch.empty((M, N), dtype=torch.int8, device=dev)
     s = torch.empty((M,), dtype=torch.float32, device=dev)
     _build.call(
         "repro_qmatmul_w8a16_q8", _ARGS_Q8, a.data_ptr(), wt.data_ptr(),
-        *_epilogue_args(w_scale, bias, N), y.data_ptr(), scratch.data_ptr(),
-        q.data_ptr(), s.data_ptr(), M, N, K, plan.bm, plan.splits,
-        int(a.dtype == torch.bfloat16), vec,
+        *_epilogue_args(w_scale, bias, N), None if y is None else y.data_ptr(),
+        scratch.data_ptr(), q.data_ptr(), s.data_ptr(), M, N, K, plan.bm,
+        plan.splits, Q8_ROUTE_IDS[plan.q8_route], plan.q8_waiters, qmax,
+        int(plan.q8_ticketed), int(a.dtype == torch.bfloat16), vec,
         torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a16_q8")
     return q, s

@@ -11,11 +11,15 @@ contiguous buffer (``w_q.t().is_contiguous()``), which is how the port's
 column's K bytes contiguously and no copy is made per call. The split of K
 across CTAs comes from ``gemm_plan`` (shared with the W8A16 wrapper); the
 private ``_splits`` keyword forces it, to sweep the reduction on the card.
+The quantize-out variant's route (``GemmPlan.q8_route``) comes from
+``gemm_plan.q8_plan`` and the card's residency, read once per kernel
+instantiation (``q8_residency``); ``qmatmul_w8a8_q8_plan`` gives the plan a
+call launches, and the private ``_route`` keyword forces a route.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -23,19 +27,63 @@ from .. import _build, gemm_plan
 from ..dispatch import count_launch, stream_scratch
 
 _ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
-_ARGS_Q8 = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 6
+_ARGS_Q8 = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 10
             + (ctypes.c_void_p,))
 _ARGS_QIN = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 9
              + (ctypes.c_void_p,))
 
 
-def q8_workspace(M: int, N: int, device: torch.device):
+#: the C interface's ids of gemm_plan.Q8_ROUTES (q8_epilogue.cuh: Route)
+Q8_ROUTE_IDS = {"resident": 1, "workspace": 2}
+# {(device, C function, bm, splits, ...): resident clusters}
+_RESIDENCY: Dict[tuple, int] = {}
+
+
+def q8_residency(fn: str, bm: int, splits: int, device: torch.device,
+                 *extra: int) -> int:
+    """The clusters of ``splits`` CTAs (CTAs at ``splits == 1``) of a
+    quantize-out GEMM's kernels at tile ``bm`` (the fewer of its two
+    routes') the card keeps resident at once, read from the card through
+    ``fn`` (``fn(bm, splits, *extra, int* out)``) once per instantiation."""
+    key = (device.index, fn, bm, splits) + extra
+    n = _RESIDENCY.get(key)
+    if n is None:
+        out = ctypes.c_int(0)
+        _build.call(fn, (ctypes.c_int,) * (2 + len(extra)) + (ctypes.c_void_p,),
+                    bm, splits, *extra, ctypes.addressof(out))
+        n = _RESIDENCY[key] = out.value
+    return n
+
+
+def q8_plan_with(fn: str, M: int, N: int, K: int, device: torch.device,
+                 *extra: int, splits: Optional[int] = None,
+                 route: Optional[str] = None,
+                 wider: bool = True) -> gemm_plan.GemmPlan:
+    """The plan of a quantize-out call (``gemm_plan.q8_plan``), with the
+    card's residency of the kernel behind ``fn`` (``q8_residency``)."""
+    return gemm_plan.q8_plan(
+        M, N, K, lambda bm, s: q8_residency(fn, bm, s, device, *extra),
+        splits=splits, route=route, wider=wider)
+
+
+def q8_operands(p: gemm_plan.GemmPlan, device: torch.device):
     """The quantize-out epilogue's operands besides the GEMM's own
-    (``csrc/q8_epilogue.cuh``): the float32 y workspace [M, N] and the
-    uint32 scratch of the rows' max and the M tiles' counters,
-    [M + ceil(M / 16)]."""
-    return (torch.empty((M, N), dtype=torch.float32, device=device),
-            stream_scratch(M + -(-M // 16), device))
+    (``csrc/q8_epilogue.cuh``): the float32 y workspace [M, N] on the
+    workspace route (None on the resident route), and the stream's uint32
+    scratch of the rows' max, the M tiles' counters and the ticket and
+    departure counters, [M + m_tiles + 2]."""
+    y = (torch.empty((p.M, p.N), dtype=torch.float32, device=device)
+         if p.q8_route == "workspace" else None)
+    return y, stream_scratch(p.M + p.m_tiles + 2, device)
+
+
+def q8_qmax(bits: int, who: str) -> int:
+    """qmax = 2^(bits-1) - 1 for ``bits`` from 1 to 8 (the payload is
+    int8), as the Pallas functions' ``bits``."""
+    if not 1 <= bits <= 8:
+        raise ValueError(f"{who} writes int8: bits must lie in [1, 8], got "
+                         f"{bits}")
+    return 2 ** (bits - 1) - 1
 
 
 def _checked(a, w_q, a_scale, w_scale, bias, who, a_dtypes=(torch.int8,)):
@@ -98,27 +146,43 @@ def qmatmul_w8a8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
     return out
 
 
+def qmatmul_w8a8_q8_plan(M: int, N: int, K: int,
+                         device: Optional[torch.device] = None, *,
+                         splits: Optional[int] = None,
+                         route: Optional[str] = None) -> gemm_plan.GemmPlan:
+    """The plan ``qmatmul_w8a8_q8_cuda`` launches at [M, K] x [K, N] on the
+    card (the current one by default), its ``q8_route`` included."""
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    return q8_plan_with("repro_qmatmul_w8a8_q8_residency", M, N, K, device,
+                        splits=splits, route=route)
+
+
 def qmatmul_w8a8_q8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
                          a_scale: torch.Tensor, w_scale: torch.Tensor,
-                         bias: torch.Tensor, *,
-                         _splits: Optional[int] = None):
+                         bias: torch.Tensor, *, bits: int = 8,
+                         _splits: Optional[int] = None,
+                         _route: Optional[str] = None):
     """The GEMM with the quantize-out epilogue, in one launch: operands as
     ``qmatmul_w8a8_cuda`` → (q int8 [M, N], scale float32 [M]), the float32
-    result quantized per row by the ``quantize_act`` formula."""
+    result quantized per row by the ``quantize_act`` formula at ``bits``
+    (1 to 8: scale = max(amax, 1e-8) / qmax, clip [-qmax - 1, qmax])."""
+    qmax = q8_qmax(bits, "qmatmul_w8a8_q8_cuda")
     a_q, wt, vec = _checked(a_q, w_q, a_scale, w_scale, bias,
                             "qmatmul_w8a8_q8_cuda")
     M, K = a_q.shape
     N = wt.shape[0]
     dev = a_q.device
-    plan = gemm_plan.plan(M, N, K, splits=_splits)
-    y, scratch = q8_workspace(M, N, dev)
+    plan = qmatmul_w8a8_q8_plan(M, N, K, dev, splits=_splits, route=_route)
+    y, scratch = q8_operands(plan, dev)
     q = torch.empty((M, N), dtype=torch.int8, device=dev)
     s = torch.empty((M,), dtype=torch.float32, device=dev)
     _build.call("repro_qmatmul_w8a8_q8", _ARGS_Q8, a_q.data_ptr(),
                 wt.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
-                bias.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-                q.data_ptr(), s.data_ptr(), M, N, K, plan.bm, plan.splits,
-                vec, torch.cuda.current_stream(dev).cuda_stream)
+                bias.data_ptr(), None if y is None else y.data_ptr(),
+                scratch.data_ptr(), q.data_ptr(), s.data_ptr(), M, N, K,
+                plan.bm, plan.splits, Q8_ROUTE_IDS[plan.q8_route],
+                plan.q8_waiters, qmax, int(plan.q8_ticketed), vec,
+                torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a8_q8")
     return q, s
 

@@ -27,11 +27,11 @@ Tolerances as in chip_smoke.py:
     its plain version, a fully masked row exactly 0; fused_decode
     bit-equal to append_quantize + the kv_attention kernel (+ the
     quantize_act kernel);
-  * the quantize-out GEMMs in one launch: qmatmul_w8a8's payload and scale
-    bit-equal to its plain version and to the W8A8 kernel to float32
-    followed by the quantize_act kernel; qmatmul_w8a16's with float32 a
-    bit-equal to that pair of its own kernels, with bfloat16 a at most one
-    step off its plain version;
+  * the quantize-out GEMMs in one launch, on both routes and at bits 4
+    and 8: qmatmul_w8a8's payload and scale bit-equal to its plain version
+    and to the W8A8 kernel to float32 followed by the quantize_act kernel;
+    qmatmul_w8a16's with float32 a bit-equal to that pair of its own
+    kernels, with bfloat16 a at most one step off its plain version;
   * both GEMMs under forced K splits (the wrappers' private ``_splits``):
     the same bounds at every split, one launch a call, and two calls the
     same bits;
@@ -300,27 +300,48 @@ def test_fused_decode_equals_the_composition_bitwise(dev, dtype):
     assert torch.equal(oq, oqc) and torch.equal(os_, osc)
 
 
+# the quantize-out GEMMs' card cases: several M and N tiles, N odd and N %
+# 4 == 2 (the workspace route's scalar path), K splits at the decode tile
+# (4100: 65 steps) and at a 64-row tile (2100)
+Q8_CASES = ((1, 16, 8), (5, 33, 17), (70, 96, 130), (8, 896, 256),
+            (3, 4100, 70), (17, 2100, 102))
+
+
 def test_qmatmul_q8_kernels_one_launch_bit_equal(dev):
     """Both quantize-out GEMMs at ragged shapes (several M and N tiles, N
-    not a multiple of 4), each called twice so the second call finds its
-    scratch left zero: one launch per call; qmatmul_w8a8's payload and
-    scale bit-equal to its plain version and to the kernel pair (float32
-    GEMM, then quantize_act); qmatmul_w8a16's bit-equal to its own pair for
-    float32 a and at most one step off its plain version for bfloat16 a,
-    its scale within rtol 1e-4 there (float32 sums in other orders)."""
+    not a multiple of 4, K splits), each called twice so the second call
+    finds its scratch left zero: one launch per call; qmatmul_w8a8's payload
+    and scale bit-equal to its plain version and to the kernel pair
+    (float32 GEMM, then quantize_act); qmatmul_w8a16's bit-equal to its own
+    pair for float32 a and at most one step off its plain version for
+    bfloat16 a, its scale within rtol 1e-4 there (float32 sums in other
+    orders). Then both routes (the plan's, resident at these shapes, and
+    the workspace route forced by ``_route``) at bits 4 and 8, held the
+    same way with the pair and the plain version at those bits, two calls
+    the same bits."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.qmatmul_w8a8 import (
         qmatmul_w8a8,
         qmatmul_w8a8_q8_ref,
     )
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_q8_cuda,
+        qmatmul_w8a8_q8_plan,
+    )
     from repro_torch.kernels.qmatmul_w8a16 import (
         qmatmul_w8a16,
         qmatmul_w8a16_q8_ref,
     )
+    from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_q8_cuda
     from repro_torch.kernels.quantize_act import quantize_act
 
+    def twice(fn):
+        first, second = fn(), fn()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+        return first
+
     gen = torch.Generator(device=dev).manual_seed(2)
-    for M, K, N in ((1, 16, 8), (5, 33, 17), (70, 96, 130), (8, 896, 256)):
+    for M, K, N in Q8_CASES:
         w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
                           generator=gen).t()
         sw = torch.rand(N, device=dev, generator=gen) * 0.01 + 1e-4
@@ -328,7 +349,9 @@ def test_qmatmul_q8_kernels_one_launch_bit_equal(dev):
         a_q = torch.randint(-128, 128, (M, K), device=dev, dtype=torch.int8,
                             generator=gen)
         sa = torch.rand(M, device=dev, generator=gen) * 0.05 + 1e-4
-        pair = quantize_act(qmatmul_w8a8(a_q, w, sa, sw, bias))
+        assert qmatmul_w8a8_q8_plan(M, N, K).q8_route == "resident"
+        y8 = qmatmul_w8a8(a_q, w, sa, sw, bias)
+        pair = quantize_act(y8)
         want = qmatmul_w8a8_q8_ref(a_q, w, sa, sw, bias)
         for _ in range(2):
             reset_launch_counts()
@@ -337,6 +360,14 @@ def test_qmatmul_q8_kernels_one_launch_bit_equal(dev):
             assert launch_counts()["qmatmul_w8a8"] == 0
             for got in (pair, want):
                 assert torch.equal(q, got[0]) and torch.equal(s, got[1])
+        for route in ("resident", "workspace"):
+            for bits in (4, 8):
+                q, s = twice(lambda: qmatmul_w8a8_q8_cuda(
+                    a_q, w, sa, sw, bias, bits=bits, _route=route))
+                for got in (quantize_act(y8, bits=bits),
+                            qmatmul_w8a8_q8_ref(a_q, w, sa, sw, bias, bits)):
+                    assert torch.equal(q, got[0]) and torch.equal(s, got[1]), (
+                        M, K, N, route, bits)
         for dtype in (torch.float32, torch.bfloat16):
             a = torch.randn((M, K), device=dev, generator=gen).to(dtype)
             for _ in range(2):
@@ -351,6 +382,19 @@ def test_qmatmul_q8_kernels_one_launch_bit_equal(dev):
                     qr, sr = qmatmul_w8a16_q8_ref(a, w, sw, bias)
                     assert int((q.int() - qr.int()).abs().max()) <= 1
                     assert bool(((s - sr).abs() <= 1e-4 * sr).all())
+            y16 = qmatmul_w8a16(a, w, sw, bias) if dtype == torch.float32 else None
+            for route in ("resident", "workspace"):
+                for bits in (4, 8):
+                    q, s = twice(lambda: qmatmul_w8a16_q8_cuda(
+                        a, w, sw, bias, bits=bits, _route=route))
+                    if dtype == torch.float32:
+                        qp, sp = quantize_act(y16, bits=bits)
+                        assert torch.equal(q, qp) and torch.equal(s, sp), (
+                            M, K, N, route, bits)
+                    else:
+                        qr, sr = qmatmul_w8a16_q8_ref(a, w, sw, bias, bits)
+                        assert int((q.int() - qr.int()).abs().max()) <= 1
+                        assert bool(((s - sr).abs() <= 1e-4 * sr).all())
 
 
 @pytest.mark.parametrize("recipe", ["w8a16", "w8a8"])
@@ -523,10 +567,12 @@ def test_gemm_split_sweep_one_launch_deterministic(dev, M, K, N):
 
 
 def test_q8_scratch_is_zero_after_calls(dev):
-    """The quantize-out epilogues' per-stream scratch (the rows' max and the
-    M tiles' or kv heads' counters) is all zero after calls of both GEMM
-    variants, at split and unsplit shapes, and of fused_decode's
-    quantize-out, on the default stream and on a second one."""
+    """The quantize-out epilogues' per-stream scratch (the rows' max, the M
+    tiles' or kv heads' counters, and the resident route's ticket and
+    departure counters) is all zero after calls of both GEMM variants on
+    both routes, at split and unsplit shapes and bits 4 and 8, and of
+    fused_decode's quantize-out, on the default stream and on a second
+    one."""
     from repro_torch.kernels.fused_decode.kernel import fused_decode_cuda
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.qmatmul_w8a8.kernel import qmatmul_w8a8_q8_cuda
@@ -546,10 +592,13 @@ def test_q8_scratch_is_zero_after_calls(dev):
             bias = torch.randn(N, device=dev)
             a_q = torch.randint(-128, 128, (M, K), device=dev,
                                 dtype=torch.int8)
-            qmatmul_w8a8_q8_cuda(a_q, w, torch.rand(M, device=dev) + 1e-3,
-                                 sw, bias)
-            qmatmul_w8a16_q8_cuda(torch.randn((M, K), device=dev), w, sw,
-                                  bias)
+            for route, bits in (("resident", 8), ("workspace", 8),
+                                ("resident", 4), ("workspace", 4)):
+                qmatmul_w8a8_q8_cuda(a_q, w, torch.rand(M, device=dev) + 1e-3,
+                                     sw, bias, bits=bits, _route=route)
+                for dtype in (torch.float32, torch.bfloat16):
+                    qmatmul_w8a16_q8_cuda(torch.randn((M, K), device=dev).to(dtype),
+                                          w, sw, bias, bits=bits, _route=route)
 
     calls()
     side = torch.cuda.Stream(dev)

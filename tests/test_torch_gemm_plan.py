@@ -185,3 +185,101 @@ def test_qin_constants_match_the_kernel_sources():
            / "qmatmul_w8a8.cu").read_text()
     m = re.search(r"constexpr int QIN_SMEM_MAX = (\d+) \* 1024;", src)
     assert int(m[1]) * 1024 == gemm_plan.QIN_SMEM_MAX
+
+
+# ------------------------------------------------- the quantize-out route
+
+def _residency(per_tile):
+    """A card's resident clusters of the quantize-out kernel, given by the
+    test: ``per_tile[bm]`` CTAs at one split, that many over S in clusters
+    of S."""
+    return lambda bm, splits: per_tile[bm] // splits
+
+
+# an H100's W8A8 quantize-out kernels (4, 4 and 2 CTAs an SM on 132 SMs)
+H100ISH = _residency({16: 528, 64: 528, 128: 264})
+
+
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("K,N", PATH_KN)
+def test_q8_route_at_the_path_shapes(M, K, N):
+    """Every path shape takes the resident route with every tile resident
+    at once (no tickets): the default tile, but the prefill chunk's gate/up,
+    whose 608 tiles of 64 x 32 outnumber the residency, takes 128 x 64."""
+    p = gemm_plan.q8_plan(M, N, K, H100ISH)
+    assert p.q8_route == "resident" and not p.q8_ticketed
+    assert p.tiles <= p.residency and p.q8_waiters == p.n_tiles
+    wide = (M, K, N) == (256, 896, 4864)
+    assert p.bm == (128 if wide else gemm_plan.plan(M, N, K).bm)
+    assert p.splits == gemm_plan.plan(M, N, K, bm=p.bm).splits
+
+
+def test_q8_route_at_the_jax_bench_shape():
+    """4096^3: 2,048 tiles of 128 x 64 outnumber every tile's residency, so
+    the workspace route, by ticket (32 M tiles), the last Q8_WAITERS of an
+    M tile's 64 N tiles quantizing it; the resident route by ticket may
+    still be forced."""
+    p = gemm_plan.q8_plan(4096, 4096, 4096, H100ISH)
+    assert (p.bm, p.q8_route, p.q8_ticketed, p.q8_waiters) == \
+        (128, "workspace", True, gemm_plan.Q8_WAITERS)
+    forced = gemm_plan.q8_plan(4096, 4096, 4096, H100ISH, route="resident")
+    assert forced.q8_route == "resident" and forced.q8_ticketed
+
+
+@pytest.mark.parametrize("residency,route,waiters", [
+    (528, "workspace", gemm_plan.Q8_WAITERS), (10_000, "resident", 9496)])
+def test_q8_route_at_the_vocabulary(residency, route, waiters):
+    """qwen2's vocabulary at a decode step: 9,496 N tiles. Above the card's
+    residency the workspace route, its last Q8_WAITERS CTAs quantizing;
+    with a residency given that holds them all, the resident route."""
+    p = gemm_plan.q8_plan(8, 151936, 896, lambda bm, s: residency)
+    assert p.n_tiles == 9496 and p.m_tiles == 1
+    assert (p.q8_route, p.q8_waiters, p.q8_ticketed) == (route, waiters, False)
+    assert f"q8_route='{route}'" in repr(p)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 896, 4864), (256, 896, 4864),
+                                   (4096, 4096, 4096), (8, 896, 151936),
+                                   (70, 96, 130), (3, 4100, 70), (1, 16, 8)])
+@pytest.mark.parametrize("per_tile", [2, 16, 528])
+def test_q8_waiters_never_hang_and_never_alone(M, K, N, per_tile):
+    """Whatever the residency: an M tile's waiting CTAs are fewer than the
+    card keeps resident where the tiles outnumber it (the no-hang bound),
+    and more than one share the M tile's rows wherever it has two N
+    tiles."""
+    p = gemm_plan.q8_plan(M, N, K, lambda bm, s: per_tile)
+    assert 1 <= p.q8_waiters <= p.n_tiles
+    assert p.q8_waiters <= p.residency
+    if p.n_tiles >= 2:
+        assert p.q8_waiters >= 2
+    if p.q8_route == "resident" and p.q8_ticketed:
+        assert p.n_tiles <= p.residency
+
+
+def test_q8_route_forcing_and_refusals():
+    """``route`` forces the route: the workspace route always, the resident
+    route only where an M tile's N tiles fit; a route needs the residency,
+    and the tile must be one of TILES."""
+    p = gemm_plan.plan(8, 4864, 896, residency=528, route="workspace")
+    assert p.q8_route == "workspace" and p.q8_waiters == gemm_plan.Q8_WAITERS
+    assert gemm_plan.plan(8, 4864, 896, residency=528).q8_route == "resident"
+    with pytest.raises(ValueError, match="hang"):
+        gemm_plan.plan(8, 151936, 896, residency=528, route="resident")
+    with pytest.raises(ValueError, match="residency"):
+        gemm_plan.plan(8, 4864, 896, route="workspace")
+    with pytest.raises(ValueError, match="routes"):
+        gemm_plan.plan(8, 4864, 896, residency=528, route="cluster")
+    with pytest.raises(ValueError, match="tiles"):
+        gemm_plan.plan(8, 4864, 896, bm=32)
+    assert gemm_plan.plan(8, 4864, 896).q8_route is None
+
+
+def test_q8_plan_keeps_the_tile_where_sums_are_float():
+    """``wider=False`` (the W8A16 GEMM, whose float32 sums follow the
+    tile's warp groups) keeps the plain GEMM's tile and splits: at the
+    prefill chunk's gate/up the ticketed launch falls to the workspace
+    route instead of the 128 x 64 tile."""
+    p = gemm_plan.q8_plan(256, 4864, 896, H100ISH, wider=False)
+    plain = gemm_plan.plan(256, 4864, 896)
+    assert (p.bm, p.splits) == (plain.bm, plain.splits) == (64, 1)
+    assert p.q8_route == "workspace" and p.q8_ticketed

@@ -14,13 +14,27 @@ made with numpy from a seed. Tolerances:
     most 0.5 % of the values (measured: none of 8,218); the scale within
     rtol 1e-6 (measured max 4.2e-7, at K = 1100). bfloat16 ``a`` is cast to
     float32 by both (the products are exact).
+
+The plain versions also take ``bits`` (qmax = 2^(bits-1) - 1, the clip at
+[-qmax - 1, qmax]) as the Pallas functions do: at bits 4, 6 and 8 they are
+held against ``qmatmul_w8a8_q8_pallas`` and ``qmatmul_w8a16_q8_pallas`` run
+in interpret mode, on shapes those take (M % bm == 0, K % bk == 0), with
+the W8A16 tolerance above (the W8A16 plain version blocked by the Pallas
+bk). In interpret mode XLA computes the Pallas epilogue with its own CPU
+arithmetic (acc·sa·sw + bias contracted, the division by the constant qmax
+rewritten): its W8A8 scales lie up to 2 float32 ulp from the JAX package's
+own ``qmatmul_w8a8_q8_ref`` (measured at these shapes; payloads equal), so
+W8A8 is held bit-equal to that reference at every ``bits`` and to the
+interpret run within the W8A16 tolerance.
 """
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+from repro.kernels.qmatmul_w8a8.kernel import qmatmul_w8a8_q8_pallas
 from repro.kernels.qmatmul_w8a8.ref import qmatmul_w8a8_q8_ref as jax_w8a8_q8
+from repro.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_q8_pallas
 from repro.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_q8_ref as jax_w8a16_q8
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -100,3 +114,61 @@ def test_w8a16_q8_blocks_k_and_takes_a_per_tensor_scale():
     qb, sb = qmatmul_w8a16_q8_ref(a, w, sw, None, bk=256)
     assert int((q.int() - qb.int()).abs().max()) <= 1
     np.testing.assert_allclose(s.numpy(), sb.numpy(), rtol=1e-6)
+
+
+# (M, K, N, bm, bk) the Pallas functions take: M % bm == 0, K % bk == 0;
+# N ragged (the kernels hold the whole row in one block)
+PALLAS_SHAPES = [(8, 256, 72, 8, 128), (16, 384, 130, 8, 128)]
+
+
+def _q8_steps_ok(q, jq, s, js):
+    steps = np.abs(q.numpy().astype(np.int32) - np.asarray(jq).astype(np.int32))
+    assert steps.max() <= 1 and (steps > 0).mean() <= 0.005, int((steps > 0).sum())
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("shape", PALLAS_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:3])))
+def test_w8a8_q8_bits_against_jax_and_the_pallas_kernel(shape, bits):
+    """The port's W8A8 quantize-out plain version at ``bits``: bit-equal to
+    the JAX package's ``qmatmul_w8a8_q8_ref(..., bits)``, and against
+    ``qmatmul_w8a8_q8_pallas(..., bits, interpret=True)`` within the W8A16
+    tolerance (XLA's interpret arithmetic, module docstring); the payload
+    inside [-qmax - 1, qmax]."""
+    M, K, N, bm, bk = shape
+    arrays = _w8a8_inputs(M, K, N, seed=sum(shape) + bits)
+    jq, js = qmatmul_w8a8_q8_pallas(*map(jnp.asarray, arrays), bm=bm, bk=bk,
+                                    bits=bits, interpret=True)
+    rq, rs = jax_w8a8_q8(*map(jnp.asarray, arrays), bits=bits)
+    q, s = qmatmul_w8a8_q8_ref(*[torch.from_numpy(x) for x in arrays], bits)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(rs))
+    _q8_steps_ok(q, jq, s, js)
+    qmax = 2 ** (bits - 1) - 1
+    assert int(q.min()) >= -qmax - 1 and int(q.max()) <= qmax
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("shape", PALLAS_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:3])))
+def test_w8a16_q8_bits_match_the_pallas_kernel(shape, bits, dtype):
+    """The port's W8A16 quantize-out plain version at ``bits`` (blocked by
+    the kernel's bk) against ``qmatmul_w8a16_q8_pallas(..., bits,
+    interpret=True)``, within the file's W8A16 tolerance."""
+    M, K, N, bm, bk = shape
+    rng = np.random.RandomState(sum(shape) + bits + 1)
+    a = rng.randn(M, K).astype(np.float32)
+    w = rng.randint(-127, 128, (K, N)).astype(np.int8)
+    sw = (rng.rand(N) * 0.01 + 1e-4).astype(np.float32)
+    bias = rng.randn(N).astype(np.float32)
+    jq, js = qmatmul_w8a16_q8_pallas(
+        jnp.asarray(a).astype(dtype), jnp.asarray(w), jnp.asarray(sw),
+        jnp.asarray(bias), bm=bm, bk=bk, bits=bits, interpret=True)
+    ta = torch.from_numpy(a).to(getattr(torch, dtype))
+    q, s = qmatmul_w8a16_q8_ref(ta, torch.from_numpy(w), torch.from_numpy(sw),
+                                torch.from_numpy(bias), bits, bk=bk)
+    _q8_steps_ok(q, jq, s, js)
+    qmax = 2 ** (bits - 1) - 1
+    assert int(q.min()) >= -qmax - 1 and int(q.max()) <= qmax
