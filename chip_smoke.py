@@ -73,19 +73,31 @@ Phases, each of which must pass (nothing here catches a failure):
      teacher-forced logits within tolerance.
   4. serve — qwen2-0.5b at full width (24 layers, seeded random weights
      through ``repro_torch.quantize``: norm folding, CLE and bias
-     absorption on the card, then the int8 pack), the stepwise engine with
-     8 slots, max_len 512, prefill chunks of 32, 16 requests of 32-256
-     prompt tokens and 32 new tokens each, five times:
-     ``repro_torch.serve`` under ``serve-w8a16-kv8`` (the default) and
-     ``serve-w8a8-kv8``, both again with ``REPRO_FUSED_DECODE=0`` (which
-     must serve the fused runs' tokens, request by request), and
-     ``serve-w8a8-kv8`` with the V bias correction (``kv_bias_correct``,
-     a ``repro_torch.ServingEngine`` over the replaced config). Every
-     request must finish with 32 tokens and finite logits. The launch
-     counts are reset just before each run and read just after, and each
-     kernel must have launched exactly as often as the path's layers and
-     steps give (``expected_launches``, as ``gemm_plan`` folds: no
-     quantize_act at a W8A8 decode step), every other kernel never.
+     absorption on the card, then the int8 pack), the engine with 8 slots,
+     max_len 512, prefill chunks of 32, 16 requests of 32-256 prompt
+     tokens and 32 new tokens each. The fast path (the default: batched
+     prefill, decode horizons of up to 8 steps, each dispatch a replayed
+     CUDA graph, every graph captured by ``warmup`` before the timed
+     loop) five times: ``repro_torch.serve`` under ``serve-w8a16-kv8``
+     (the default) and ``serve-w8a8-kv8``, both again with
+     ``REPRO_FUSED_DECODE=0`` (which must serve the fused runs' tokens,
+     request by request), and ``serve-w8a8-kv8`` with the V bias
+     correction (``kv_bias_correct``, a ``repro_torch.ServingEngine`` over
+     the replaced config, ``engine.warmup()``). The stepwise path
+     (``reference=True``) once for each recipe and for the V bias
+     correction: each fast run must serve its stepwise run's tokens and
+     finish ticks, request by request. Every request must finish with 32
+     tokens and finite logits. The launch counts are reset just before
+     each run and read just after, and each kernel must have launched
+     exactly as often as the path's layers and forwards give
+     (``expected_launches`` of the run's decode steps and prefill
+     dispatches, its warmup's included: a replay counts the launches its
+     graph holds; as ``gemm_plan`` folds: no quantize_act at a W8A8 decode
+     step), every other kernel never. Each run logs its path, decode
+     dispatches and mean horizon, host syncs a token, and for the fast
+     path the graphs' capture seconds and pool memory; tok/s fast beside
+     stepwise. One more, untimed fast run of the default recipe under
+     ``torch.profiler`` logs the device busy share of the loop.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -1650,6 +1662,15 @@ def expected_launches(quantize, fused, steps, chunks):
     return want
 
 
+def forwards(run):
+    """(decode steps, prefill dispatches) a serve run made on the card: its
+    timed loop's, plus its warmup's (the throwaway traffic and the masked
+    dispatch before each capture), one forward each."""
+    warm = run.warmup or {}
+    return (run.stats["decode_steps"] + warm.get("decode_steps", 0),
+            run.stats["prefill_dispatches"] + warm.get("prefill_dispatches", 0))
+
+
 def check_served(run, counts, label, want):
     """Every request finished with 32 tokens and finite logits; the launch
     counts (reset just before the run, read just after) are ``want``'s, and
@@ -1658,25 +1679,51 @@ def check_served(run, counts, label, want):
     for r in run.results.values():
         assert r.status == "ok", f"{label}: request {r.rid}: {r.status}"
         assert len(r.tokens) == 32, f"{label}: request {r.rid}: {len(r.tokens)} tokens"
+    st = run.stats
+    warm = run.warmup or {}
+    graphs = (f", {warm['graphs']} graphs captured in "
+              f"{warm['capture_seconds']:.2f} s (warmup {warm['seconds']:.2f} s),"
+              f" graph pool {warm['graph_pool_bytes'] / 2**20:.1f} MiB"
+              if "graphs" in warm else "")
     log(f"  {label}: 16/16 requests finished with 32 tokens and finite "
         f"logits, {run.generated_tokens} tokens in {run.seconds:.3f} s = "
-        f"{run.tokens_per_second:.1f} tok/s (stepwise engine, "
-        f"{SERVE['slots']} slots, {run.stats['decode_steps']} decode steps, "
-        f"{run.stats['prefill_chunks']} prefill chunks)")
+        f"{run.tokens_per_second:.1f} tok/s ({run.path} path, "
+        f"{SERVE['slots']} slots, {st['decode_steps']} decode steps in "
+        f"{st['decode_dispatches']} dispatches (mean horizon "
+        f"{st['decode_steps'] / st['decode_dispatches']:.2f}), "
+        f"{st['prefill_chunks']} prefill chunks in "
+        f"{st['prefill_dispatches']} dispatches, "
+        f"{st['host_syncs'] / st['generated_tokens']:.3f} host syncs/token"
+        f"{graphs})")
     log(f"  kernel launches on the {label} path: {json.dumps(counts)}")
     for name, n in counts.items():
         assert n == want.get(name, 0), (
             f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
 
 
-def serve_full_width(torch, quantize, *, fused=True):
+def same_tokens(run, ref, what):
+    """Every request of ``run`` got ``ref``'s tokens and finish tick."""
+    for rid, r in ref.results.items():
+        got = run.results[rid]
+        assert got.tokens == r.tokens, f"{what}: request {rid}: other tokens"
+        assert got.finished_at == r.finished_at, (
+            f"{what}: request {rid}: finished at tick {got.finished_at}, "
+            f"not {r.finished_at}")
+
+
+def serve_full_width(torch, quantize, *, fused=True, reference=False,
+                     profile=False):
     """``repro_torch.serve`` of qwen2-0.5b at full width under
-    ``serve-<quantize>-kv8``; ``fused=False`` sets REPRO_FUSED_DECODE=0 for
-    this run only."""
+    ``serve-<quantize>-kv8``: the fast path with every graph captured by
+    ``warmup`` before the timed loop, or the stepwise path
+    (``reference``); ``fused=False`` sets REPRO_FUSED_DECODE=0 for this
+    run only."""
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    config = repro_torch.ServeConfig(quantize=quantize, **SERVE)
+    config = repro_torch.ServeConfig(quantize=quantize, reference=reference,
+                                     warmup=not reference, profile=profile,
+                                     **SERVE)
     saved = os.environ.get("REPRO_FUSED_DECODE")
     if not fused:
         os.environ["REPRO_FUSED_DECODE"] = "0"
@@ -1689,11 +1736,12 @@ def serve_full_width(torch, quantize, *, fused=True):
             os.environ.pop("REPRO_FUSED_DECODE", None)
         else:
             os.environ["REPRO_FUSED_DECODE"] = saved
-    label = f"serve-{quantize}-kv8" + ("" if fused else " unfused")
-    check_served(run, counts, label, expected_launches(
-        quantize, fused, run.stats["decode_dispatches"],
-        run.stats["prefill_dispatches"]))
-    if fused:
+    label = (f"serve-{quantize}-kv8" + ("" if fused else " unfused")
+             + (" stepwise" if reference else "")
+             + (" profiled" if profile else ""))
+    check_served(run, counts, label,
+                 expected_launches(quantize, fused, *forwards(run)))
+    if fused and not reference and not profile:
         sqnr = next(r for r in run.report
                     if r["stage"] == "pack")["metrics"]["sqnr_db"]
         log("  pack stage per-site weight SQNR (dB): " + ", ".join(
@@ -1704,8 +1752,10 @@ def serve_full_width(torch, quantize, *, fused=True):
 def serve_bias_corrected(torch):
     """The same serve with the V bias correction: the model built from a
     ``kv_bias_correct`` config, quantized by ``repro_torch.quantize`` under
-    ``serve-w8a8-kv8`` and served by the ``ServingEngine``, whose cache then
-    carries the v_err leaf; decode runs kv_attention, never fused_decode."""
+    ``serve-w8a8-kv8`` and served by a fast ``ServingEngine`` (graphs
+    captured by ``engine.warmup()`` before the timed loop), whose cache then
+    carries the v_err leaf; decode runs kv_attention, never fused_decode.
+    A stepwise engine over the same weights must serve the same tokens."""
     import dataclasses
     import time
 
@@ -1719,29 +1769,42 @@ def serve_bias_corrected(torch):
     model = repro_torch.build_model(cfg)
     qm = repro_torch.quantize(model, model.init(SERVE["seed"], device="cuda"),
                               recipe="serve-w8a8-kv8", device="cuda")
-    engine = ServingEngine(model, qm.params, cfg, num_slots=SERVE["slots"],
-                           max_len=SERVE["max_len"],
-                           prefill_chunk=SERVE["prefill_chunk"], device="cuda")
-    assert "v_err" in engine.pool.cache
-    requests = synthetic_trace(
-        SERVE["trace_seed"], SERVE["trace"], vocab_size=cfg.vocab_size,
-        prompt_lens=(SERVE["prompt_min"], SERVE["prompt_len"]),
-        gen_lens=(SERVE["gen_min"], SERVE["gen_len"]), mean_interarrival=1.0)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    results = engine.run(requests)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = launch_counts()
-    run = ServeRun(results=results, stats=dict(engine.stats), seconds=seconds,
-                   generated_tokens=engine.stats["generated_tokens"],
-                   report=qm.report)
-    check_served(run, counts, "serve-w8a8-kv8 kv_bias_correct",
-                 expected_launches("w8a8", False, run.stats["decode_dispatches"],
-                                   run.stats["prefill_dispatches"]))
-    assert float(engine.pool.cache["v_err"].abs().max()) > 0
-    return run, counts
+    runs = {}
+    for fast in (True, False):
+        engine = ServingEngine(model, qm.params, cfg, fast=fast,
+                               num_slots=SERVE["slots"],
+                               max_len=SERVE["max_len"],
+                               prefill_chunk=SERVE["prefill_chunk"],
+                               device="cuda")
+        assert "v_err" in engine.pool.cache
+        requests = synthetic_trace(
+            SERVE["trace_seed"], SERVE["trace"], vocab_size=cfg.vocab_size,
+            prompt_lens=(SERVE["prompt_min"], SERVE["prompt_len"]),
+            gen_lens=(SERVE["gen_min"], SERVE["gen_len"]),
+            mean_interarrival=1.0)
+        reset_launch_counts()
+        warm = engine.warmup() if fast else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run(requests)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        run = ServeRun(results=results, stats=dict(engine.stats),
+                       seconds=seconds,
+                       generated_tokens=engine.stats["generated_tokens"],
+                       report=qm.report, warmup=warm,
+                       path="fast (decode horizon 8)" if fast else "stepwise")
+        label = "serve-w8a8-kv8 kv_bias_correct" + ("" if fast else " stepwise")
+        check_served(run, counts, label,
+                     expected_launches("w8a8", False, *forwards(run)))
+        assert float(engine.pool.cache["v_err"].abs().max()) > 0
+        runs[fast] = run, counts
+    same_tokens(runs[True][0], runs[False][0],
+                "serve-w8a8-kv8 kv_bias_correct fast against stepwise")
+    log("  serve-w8a8-kv8 kv_bias_correct: every request's tokens and finish "
+        "tick equal the stepwise run's")
+    return runs[True], runs[False]
 
 
 # --------------------------------------------------------------- main
@@ -1821,23 +1884,39 @@ def main() -> int:
 
     log("== phase 4: serve qwen2-0.5b (full width) through repro_torch.serve")
     log(f"  {smi}")
-    runs, speeds = {}, []
+    runs, stepwise = {}, {}
     for quantize in ("w8a16", "w8a8"):
+        stepwise[quantize] = serve_full_width(torch, quantize,
+                                              reference=True)[0]
         runs[quantize] = serve_full_width(torch, quantize)
+        same_tokens(runs[quantize][0], stepwise[quantize],
+                    f"serve-{quantize}-kv8 fast against stepwise")
+        log(f"  serve-{quantize}-kv8: every request's tokens and finish tick "
+            f"equal the stepwise run's")
     for quantize in ("w8a16", "w8a8"):
         run, counts = serve_full_width(torch, quantize, fused=False)
-        fused = runs[quantize][0].results
-        for rid, r in run.results.items():
-            assert r.tokens == fused[rid].tokens, (
-                f"serve-{quantize}-kv8: request {rid}: the unfused route "
-                f"served other tokens than the fused one")
+        same_tokens(run, runs[quantize][0],
+                    f"serve-{quantize}-kv8 unfused against fused")
         log(f"  serve-{quantize}-kv8 unfused: every request's tokens equal "
             f"the fused run's")
         runs[quantize + " unfused"] = run, counts
-    runs["w8a8 kv_bias_correct"] = serve_bias_corrected(torch)
-    for label, (run, _) in runs.items():
-        speeds.append(f"{label} {run.tokens_per_second:.1f}")
-    log("  tok/s in run order: " + ", ".join(speeds) + f" ({smi})")
+    runs["w8a8 kv_bias_correct"], bc_stepwise = serve_bias_corrected(torch)
+    stepwise["w8a8 kv_bias_correct"] = bc_stepwise[0]
+    speeds = [f"{label} {run.tokens_per_second:.1f}"
+              for label, (run, _) in runs.items()]
+    log("  fast tok/s in run order: " + ", ".join(speeds) + f" ({smi})")
+    log("  tok/s fast / stepwise: " + ", ".join(
+        f"{label} {runs[label][0].tokens_per_second:.1f} / "
+        f"{run.tokens_per_second:.1f}" for label, run in stepwise.items())
+        + f" ({smi})")
+    # an extra, untimed fast run of the default recipe under torch.profiler:
+    # the device busy share of the serving loop
+    prof_run, _ = serve_full_width(torch, "w8a16", profile=True)
+    busy = prof_run.busy_share
+    log(f"  device busy share of the profiled fast w8a16 loop: "
+        + ("not measured (the profiler recorded no device time)"
+           if busy is None else f"{busy * 100:.1f} %")
+        + f" over {prof_run.seconds:.3f} s ({smi})")
 
     # each kernel's launches come from the run of the path it serves; the
     # fused decode from the default (w8a16) path, kv_attention from the

@@ -15,10 +15,16 @@ instead of an environment variable:
     route through the ops, as in the JAX package, never a tier.
   * Every kernel wrapper calls ``count_launch(op)`` right where it launches
     its kernel, and nowhere else, so a run can show that its main path went
-    through the kernels (``launch_counts`` / ``reset_launch_counts``).
+    through the kernels (``launch_counts`` / ``reset_launch_counts``). The
+    count is a host counter, so a CUDA graph's replay does not tick it: the
+    serving engine's graphs (``serving/graphs.py``) take back what their
+    capture counted (nothing ran) and add it again at every replay through
+    ``add_launches``. So ``launch_counts`` says how many launches of each
+    kernel ran on the card, eagerly or replayed.
   * ``stream_scratch`` is the one per-stream zero scratch of the kernels
     that take a maximum across CTAs (the quantize-out epilogues of both
-    GEMMs and of the fused decode).
+    GEMMs and of the fused decode). A buffer once handed out is never
+    freed, since a captured graph may hold its address.
 
 Padding is policy here too: ``_pad_to`` is the one helper, and every impl
 declares its pad convention — ``"zero"`` (GEMMs: zero rows/cols contribute
@@ -46,6 +52,9 @@ _PAD: Dict[str, str] = {}
 _LAUNCHES: Dict[str, int] = {}
 # {(device index, stream): uint32 scratch}, left zero by every kernel
 _SCRATCH: Dict[tuple, torch.Tensor] = {}
+# the buffers a larger request replaced: kept alive for the graphs that
+# captured them
+_OUTGROWN: list = []
 
 
 def _pad_to(x: torch.Tensor, m: int, dim: int) -> torch.Tensor:
@@ -131,6 +140,13 @@ def count_launch(op: str) -> None:
     _LAUNCHES[op] = _LAUNCHES.get(op, 0) + 1
 
 
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` ({op: launches}) to the counts: a CUDA graph replay
+    adds what its capture counted (a capture takes it back, negated)."""
+    for op, n in delta.items():
+        _LAUNCHES[op] = _LAUNCHES.get(op, 0) + n
+
+
 def launch_counts() -> Dict[str, int]:
     """{op: kernel launches since the last reset}."""
     return dict(_LAUNCHES)
@@ -144,10 +160,15 @@ def reset_launch_counts() -> None:
 def stream_scratch(n: int, device: torch.device) -> torch.Tensor:
     """A zeroed uint32 buffer (held as int32) of at least ``n`` for the
     current stream. Every kernel that uses it leaves what it used zero, so
-    one buffer per stream serves every call on it."""
+    one buffer per stream serves every call on it, in stream order. Call
+    it eagerly before a CUDA graph captures a launch that takes it (the
+    engine's graphs run a masked dispatch on the capture stream first), so
+    that the graph holds a buffer that is allocated and zero."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
         _SCRATCH[key] = buf
     return buf

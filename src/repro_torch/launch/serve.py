@@ -2,7 +2,7 @@
 the continuous-batching engine — on the card unless told otherwise.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --quantize w8a16 \
-        --kv-bits 8 --trace 16 --slots 8 --prefill-chunk 32
+        --kv-bits 8 --trace 16 --slots 8 --prefill-chunk 32 --warmup
 
     import repro_torch
     run = repro_torch.serve(repro_torch.ServeConfig(arch="qwen2-0.5b",
@@ -11,16 +11,20 @@ the continuous-batching engine — on the card unless told otherwise.
 The weights are random (seeded). As in the JAX launcher, they go through
 the ``serve-<quantize>-kv8`` recipe (``repro_torch.quantize``): norm
 folding, cross-layer equalization, bias absorption, the int8 pack
-(per-tensor scales) and the int8 KV cache. ``serve`` returns a ``ServeRun``
-with the results, the engine's stats, the pipeline's stage report and the
-wall time of the serving loop (the JAX launcher returns the results map
-alone).
+(per-tensor scales) and the int8 KV cache. The engine takes the fast path
+(decode horizons of up to ``--decode-horizon`` steps; CUDA graphs on the
+card) unless ``--reference`` asks for the stepwise path; ``--warmup``
+captures every graph before the timed loop. ``serve`` returns a
+``ServeRun`` with the results, the engine's stats, the pipeline's stage
+report, the wall time of the serving loop and what warmup ran (the JAX
+launcher returns the results map alone).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
@@ -45,6 +49,9 @@ class ServeRun:
     seconds: float           # wall time of the serving loop (synchronized)
     generated_tokens: int
     report: list             # the quantization pipeline's stage records
+    path: str = ""           # "fast (decode horizon K)" or "stepwise"
+    warmup: Optional[dict] = None        # ServingEngine.warmup()'s record
+    busy_share: Optional[float] = None   # with --profile, on the card
 
     @property
     def tokens_per_second(self) -> float:
@@ -60,8 +67,9 @@ def _profiler(device):
     return profile(activities=acts)
 
 
-def _report_profile(prof, wall_s: float, top: int = 12) -> None:
-    """Device time by kernel name and the device busy share of the loop.
+def _report_profile(prof, wall_s: float, top: int = 12) -> Optional[float]:
+    """Device time by kernel name and the device busy share of the loop,
+    which it returns (None when the profiler recorded no device time).
     Busy time is the sum of kernel times (kernels on one stream do not
     overlap), so busy share = that sum over the synchronized wall time."""
     rows = [e for e in prof.key_averages()
@@ -71,13 +79,14 @@ def _report_profile(prof, wall_s: float, top: int = 12) -> None:
     busy_us = sum(e.self_device_time_total for e in rows)
     if not rows:
         print("profile: the profiler recorded no device time")
-        return
+        return None
     print(f"profile: device busy {busy_us / 1e3:.1f} ms of {wall_s * 1e3:.1f} "
           f"ms wall ({busy_us / 1e4 / wall_s:.1f} % busy, "
           f"{100 - busy_us / 1e4 / wall_s:.1f} % idle)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:7d} x  "
               f"{e.key[:90]}")
+    return busy_us / 1e6 / wall_s
 
 
 def serve(config: ServeConfig) -> ServeRun:
@@ -107,9 +116,18 @@ def serve(config: ServeConfig) -> ServeRun:
     engine = ServingEngine(model, params, cfg, num_slots=config.slots,
                            max_len=config.max_len or need,
                            prefill_chunk=config.prefill_chunk,
-                           kv_bits=qm.kv_bits, device=device)
+                           decode_horizon=config.decode_horizon,
+                           fast=not config.reference, kv_bits=qm.kv_bits,
+                           device=device)
     print(f"kv cache: int8 ({engine.pool.bytes_per_slot() / 1e3:.1f} kB/slot, "
           f"{config.slots} slots x {engine.max_len} positions) on {device}")
+    warm = engine.warmup() if config.warmup else None
+    if warm is not None and "graphs" in warm:
+        print(f"warmup: captured {warm['graphs']} CUDA graphs in "
+              f"{warm['seconds']:.1f} s (capture {warm['capture_seconds']:.1f}"
+              f" s, graph pool {warm['graph_pool_bytes'] / 2**20:.1f} MiB)")
+    elif warm is not None:
+        print(f"warmup: ran the serving shapes in {warm['seconds']:.1f} s")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof = _profiler(device) if config.profile else contextlib.nullcontext()
@@ -119,16 +137,19 @@ def serve(config: ServeConfig) -> ServeRun:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
-    if config.profile:
-        _report_profile(prof, dt)
+    busy = _report_profile(prof, dt) if config.profile else None
+    path = ("stepwise" if config.reference
+            else f"fast (decode horizon {config.decode_horizon})")
     run = ServeRun(results=results, stats=dict(engine.stats), seconds=dt,
                    generated_tokens=engine.stats["generated_tokens"],
-                   report=qm.report)
+                   report=qm.report, path=path, warmup=warm, busy_share=busy)
     print(f"served {len(results)} requests / {run.generated_tokens} generated "
           f"tokens in {dt * 1e3:.1f} ms ({run.tokens_per_second:.1f} tok/s, "
-          f"stepwise path)")
-    print(f"engine: {engine.stats['decode_steps']} decode steps, "
-          f"{engine.stats['prefill_chunks']} prefill chunks, "
+          f"{path} path)")
+    print(f"engine: {engine.stats['decode_steps']} decode steps in "
+          f"{engine.stats['decode_dispatches']} dispatches, "
+          f"{engine.stats['prefill_chunks']} prefill chunks in "
+          f"{engine.stats['prefill_dispatches']} dispatches, "
           f"{engine.syncs_per_token():.2f} host syncs/token, mean slot "
           f"occupancy {engine.mean_occupancy():.2f}")
     if results:

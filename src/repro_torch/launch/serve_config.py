@@ -1,6 +1,7 @@
 """Typed serving configuration: one dataclass is both the ``serve`` API and
 (through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. Only
-the knobs of the port's serving path so far.
+the knobs of the port's serving path so far: the fast path (default, with
+``decode_horizon``) or the stepwise ``reference``, and ``warmup``.
 
 ``quantize`` picks the weight scheme (``w8a16``, the JAX launcher's default,
 or ``w8a8``); the port serves an int8 KV cache only, so the KV precision is
@@ -42,6 +43,18 @@ class ServeConfig:
     max_len: Optional[int] = _f(
         None, "per-slot KV capacity (default: fits prompt+gen)", type=int)
     prefill_chunk: int = _f(16, None, type=int)
+    decode_horizon: int = _f(
+        8, "max decode steps fused into one device dispatch (the engine "
+        "adapts the actual horizon to budgets and scheduled arrivals)",
+        type=int)
+    reference: bool = _f(
+        False, "use the stepwise fast=False reference path (one dispatch + "
+        "one host sync per token) instead of the device-resident fast path",
+        switch=True)
+    warmup: bool = _f(
+        False, "pre-compile all pow2 prefill/horizon shapes before serving "
+        "(on the card: capture their CUDA graphs; excluded from the timed "
+        "run)", switch=True)
     prompt_len: int = _f(32, "longest prompt", type=int)
     gen_len: int = _f(32, "most new tokens", type=int)
     prompt_min: int = _f(4, "shortest prompt", type=int)
@@ -55,8 +68,8 @@ class ServeConfig:
                        "share", switch=True)
 
     def validate(self) -> "ServeConfig":
-        for name in ("slots", "prefill_chunk", "trace", "prompt_len",
-                     "gen_len", "prompt_min", "gen_min"):
+        for name in ("slots", "prefill_chunk", "decode_horizon", "trace",
+                     "prompt_len", "gen_len", "prompt_min", "gen_min"):
             if getattr(self, name) < 1:
                 raise ServeConfigError(f"{name} must be >= 1")
         if self.quantize not in QUANTIZE_CHOICES:

@@ -141,7 +141,14 @@ def slot_write(kpos: torch.Tensor, positions: torch.Tensor) -> SlotWrite:
 
 
 def _repeat_kv(x, group: int):
-    return x if group == 1 else torch.repeat_interleave(x, group, dim=2)
+    """Each kv head ``group`` times in a row along dim 2 (``jnp.repeat``),
+    by expand and reshape: no output size to read back to the host, so a
+    CUDA graph may capture it."""
+    if group == 1:
+        return x
+    B, T, H, hd = x.shape
+    return x[:, :, :, None, :].expand(B, T, H, group, hd).reshape(
+        B, T, H * group, hd)
 
 
 def attention_scores_softmax(q, k, v, mask):

@@ -59,6 +59,11 @@ class FIFOScheduler:
     def pending(self) -> int:
         return len(self._queue)
 
+    def peek_arrival(self) -> Optional[float]:
+        """Arrival time of the queue head (None when empty): the fast
+        path's decode horizon stops at it."""
+        return self._queue[0].arrival if self._queue else None
+
     def pop_ready(self, now: float) -> Optional[Request]:
         """Admit the head request iff it has arrived."""
         if self._queue and self._queue[0].arrival <= now:

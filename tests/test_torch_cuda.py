@@ -48,8 +48,15 @@ Tolerances as in chip_smoke.py:
     cast bit-equal to the kernel's bf16 out), fused_decode's shared idx [1]
     bit-equal to the same offset per slot, fused_decode's float32
     quantize-out from bfloat16 q bit-equal to quantize_act of its out, and
-    quantize_act at fewer than 8 bits bit-equal.
+    quantize_act at fewer than 8 bits bit-equal;
+  * the serving engine's fast path: each replayed CUDA graph (a decode
+    horizon, the batched prefill) bit-equal to the same dispatch run
+    eagerly on a copy of the pool (tokens, bad flags, every cache leaf),
+    the stream scratch zero after a whole fast run, replays counting what
+    their capture counted, and the fast path serving the stepwise path's
+    tokens and ticks.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -983,3 +990,184 @@ def test_attention_wrappers_refuse_shapes_the_kernel_does_not_take(dev):
     kv = torch.zeros((1, 8, 1, 256), device=dev, dtype=torch.int8)
     with pytest.raises(ValueError, match="shared memory"):
         kv_attention_cuda(q, kv, s, kv, s)
+
+
+# ------------------------------------------- the fast path's CUDA graphs
+
+def _fast_engine(dev, recipe="serve-w8a8-kv8", **kw):
+    """A smoke-size fast engine on the card, every graph captured."""
+    import repro_torch
+
+    qm = repro_torch.quantize("qwen2-0.5b-smoke", recipe=recipe, device=dev)
+    kw = {"num_slots": 3, "max_len": 48, "prefill_chunk": 4, **kw}
+    eng = repro_torch.ServingEngine.from_quantized(qm, device=dev, **kw)
+    eng.warmup()
+    assert len(eng.graphs) == len(eng.warmup_shapes())
+    return eng
+
+
+def _mid_decode(eng):
+    """Serve until every slot decodes (the prompts are in the cache)."""
+    from repro_torch.serving import Request
+
+    for i in range(eng.num_slots):
+        eng.submit(Request(rid=i, prompt=[3 + i] * (5 + 3 * i),
+                           max_new_tokens=30))
+    while any(not fl.prefill_done for fl in eng._inflight.values()) \
+            or eng.scheduler.pending():
+        eng.step()
+
+
+def _cache_copy(eng):
+    return {k: v.clone() for k, v in eng.pool.cache.items()}
+
+
+def _restore(eng, saved):
+    for k, v in eng.pool.cache.items():
+        v.copy_(saved[k])
+
+
+def test_decode_horizon_graph_equals_the_eager_horizon(dev):
+    """A replayed decode-horizon graph against the same horizon run eagerly
+    on a copy of the pool: tokens, bad flags and every cache leaf
+    bit-equal, at each power-of-two horizon."""
+    eng = _fast_engine(dev)
+    _mid_decode(eng)
+    B = eng.num_slots
+    tokens = np.array([[fl.cur_token] for fl in sorted(
+        eng._inflight.values(), key=lambda f: f.slot)], np.int64)
+    for k in (1, 2, 4, 8):
+        remaining = np.full((B,), k, np.int64)
+        remaining[1] = max(1, k // 2)         # a row that freezes mid-horizon
+        saved = _cache_copy(eng)
+        toks, bad = (t.clone() for t in eng._dispatch(
+            "decode_horizon", k, (tokens, remaining)))
+        replayed = _cache_copy(eng)
+        _restore(eng, saved)
+        etoks, ebad = eng._decode_horizon_impl(
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(remaining).to(dev), k=k)
+        assert torch.equal(toks, etoks) and torch.equal(bad, ebad), k
+        for name, leaf in eng.pool.cache.items():
+            assert torch.equal(leaf, replayed[name]), (k, name)
+
+
+def test_prefill_graph_equals_the_eager_prefill(dev):
+    """The replayed batched-prefill graph against the same dispatch run
+    eagerly on a copy of the pool, with a fresh row, a continuing row and a
+    decoding row riding along."""
+    eng = _fast_engine(dev)
+    _mid_decode(eng)
+    B, C = eng.num_slots, eng.prefill_chunk
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, eng.cfg.vocab_size, (B, C)).astype(np.int64)
+    tokens[2] = 0
+    n_valid = np.array([C, 2, 1], np.int64)
+    fresh = np.array([True, False, False])
+    is_real = np.array([True, True, False])
+    saved = _cache_copy(eng)
+    tok, bad = (t.clone() for t in eng._dispatch(
+        "prefill_multi", B, (tokens, n_valid, fresh, is_real)))
+    replayed = _cache_copy(eng)
+    _restore(eng, saved)
+    etok, ebad = eng._prefill_multi_impl(
+        *(torch.from_numpy(a).to(dev) for a in (tokens, n_valid, fresh,
+                                                is_real)))
+    assert torch.equal(tok, etok) and torch.equal(bad, ebad)
+    for name, leaf in eng.pool.cache.items():
+        assert torch.equal(leaf, replayed[name]), name
+    # the ride-along row kept its cache bytes
+    for name in ("k", "v", "k_scale", "v_scale", "kpos", "pos"):
+        leaf = eng.pool.cache[name]
+        row = leaf[2] if name in ("kpos", "pos") else leaf[:, 2]
+        ref = saved[name][2] if name in ("kpos", "pos") else saved[name][:, 2]
+        assert torch.equal(row, ref), name
+
+
+def test_graph_replays_leave_the_scratch_zero(dev):
+    """W8A8 with fused decode takes the stream scratch in every decode step
+    (fused_decode's quantize-out): after a whole fast run, every scratch
+    buffer — the graph stream's included — is zero again."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import synthetic_trace
+
+    eng = _fast_engine(dev)
+    key = (dev.index, eng.graphs.stream.cuda_stream)
+    assert key in dispatch._SCRATCH
+    res = eng.run(synthetic_trace(0, 6, vocab_size=eng.cfg.vocab_size,
+                                  prompt_lens=(3, 12), gen_lens=(4, 12)))
+    assert all(r.status == "ok" for r in res.values())
+    torch.cuda.synchronize()
+    for buf in list(dispatch._SCRATCH.values()) + dispatch._OUTGROWN:
+        assert int(buf.abs().sum()) == 0
+
+
+def test_replays_count_the_captured_launches(dev):
+    """launch_counts() after n replays of a horizon graph is n times what
+    its capture counted, and that is the horizon's kernels: k fused decode
+    launches a layer."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    eng = _fast_engine(dev)
+    B, L = eng.num_slots, eng.cfg.n_layers
+    for k in (1, 4):
+        delta = eng.graphs.launches(("decode_horizon", k))
+        assert delta["fused_decode"] == L * k
+        assert delta.get("quantize_act", 0) == 0
+        reset_launch_counts()
+        for _ in range(3):
+            eng._dispatch("decode_horizon", k, (np.zeros((B, 1), np.int64),
+                                                np.zeros((B,), np.int64)))
+        torch.cuda.synchronize()
+        assert {op: n for op, n in launch_counts().items() if n} == \
+               {op: 3 * n for op, n in delta.items()}
+
+
+@pytest.mark.parametrize("recipe", ["serve-w8a16-kv8", "serve-w8a8-kv8"])
+def test_fast_path_on_the_card_serves_the_stepwise_tokens(dev, recipe):
+    """repro_torch.serve's fast path (graphs replayed) gives the stepwise
+    path's tokens and ticks, request by request, with one host sync a
+    horizon."""
+    import dataclasses
+
+    import repro_torch
+
+    config = repro_torch.ServeConfig(smoke=True, quantize=recipe[6:-4],
+                                     trace=6, slots=3, prompt_len=12,
+                                     gen_len=12, prefill_chunk=4,
+                                     warmup=True)
+    fast = repro_torch.serve(config)
+    slow = repro_torch.serve(dataclasses.replace(config, reference=True))
+    assert fast.warmup["graphs"] == 5 and fast.warmup["graph_pool_bytes"] >= 0
+    for rid, r in slow.results.items():
+        assert fast.results[rid].tokens == r.tokens, rid
+        assert fast.results[rid].finished_at == r.finished_at, rid
+    assert fast.stats["decode_dispatches"] < fast.stats["decode_steps"]
+
+
+def test_warmup_on_the_card_leaves_the_pool_as_it_was(dev):
+    """warmup() on the card — every graph captured, throwaway traffic
+    replayed — restores every cache leaf's bytes at the same address, and
+    the stats, clock and unclaimed results."""
+    import repro_torch
+    from repro_torch.serving import Request
+
+    qm = repro_torch.quantize("qwen2-0.5b-smoke", recipe="serve-w8a8-kv8",
+                              device=dev)
+    eng = repro_torch.ServingEngine.from_quantized(
+        qm, device=dev, num_slots=3, max_len=48, prefill_chunk=4)
+    eng.submit(Request(rid=0, prompt=[5] * 9, max_new_tokens=6))
+    while eng._inflight or eng.scheduler.pending():
+        eng.step()
+    before = _cache_copy(eng)
+    addresses = {k: v.data_ptr() for k, v in eng.pool.cache.items()}
+    stats, clock = dict(eng.stats), eng.clock
+    # the run above captured some horizons already; warmup runs a masked
+    # one-step decode before each capture it makes
+    new = sum(("decode_horizon", k) not in eng.graphs for k in (1, 2, 4, 8))
+    ran = eng.warmup()
+    assert len(eng.graphs) == 5 and ran["decode_steps"] == 15 + new
+    for k, v in eng.pool.cache.items():
+        assert torch.equal(v, before[k]) and v.data_ptr() == addresses[k], k
+    assert eng.stats == stats and eng.clock == clock
+    assert list(eng.results) == [0]

@@ -1,4 +1,5 @@
-"""The port's stepwise serving engine against the JAX ``ServingEngine``.
+"""The port's stepwise serving engine against the JAX ``ServingEngine``
+(the fast path: test_torch_engine_fast.py).
 
 Both engines serve the same ``synthetic_trace`` over
 ``repro.quantize("qwen2-0.5b-smoke", recipe=r)`` weights (carried across
@@ -58,7 +59,7 @@ def served(request):
     cfg = get_config(ARCH)
     model = build_model(cfg)
     params = from_jax_numpy(_numpy(qm.params), cfg, device="cpu")
-    eng = ServingEngine(model, params, cfg, device="cpu", **ENGINE)
+    eng = ServingEngine(model, params, cfg, device="cpu", fast=False, **ENGINE)
     reset_launch_counts()
     results = eng.run(synthetic_trace(0, 10, **TRACE))
     return qm, (model, params, cfg), eng, results
@@ -116,7 +117,7 @@ def test_prefill_leaves_other_slots_untouched(served):
     """A masked prefill chunk restores the ring window it wrote in every
     row but its own: a slot mid-decode keeps its cache bytes."""
     _, (model, params, cfg), _, _ = served
-    eng = ServingEngine(model, params, cfg, device="cpu", **ENGINE)
+    eng = ServingEngine(model, params, cfg, device="cpu", fast=False, **ENGINE)
     eng.submit(Request(rid=0, prompt=list(range(5)), max_new_tokens=4))
     eng.step()
     eng.step()

@@ -325,7 +325,7 @@ def test_engine_matches_jax_engine(recipe, mode, monkeypatch):
     jm, jp, tm, tp = _pair(recipe, bias_correct=mode == "kv_bias_correct")
     jeng = JaxServingEngine(jm, jp, jm.cfg, fast=False, kv_bits=8, **ENGINE)
     jres = jeng.run(jax_synthetic_trace(0, 10, **TRACE))
-    eng = ServingEngine(tm, tp, tm.cfg, device="cpu", **ENGINE)
+    eng = ServingEngine(tm, tp, tm.cfg, device="cpu", fast=False, **ENGINE)
     assert ("v_err" in eng.pool.cache) == (mode == "kv_bias_correct")
     res = eng.run(synthetic_trace(0, 10, **TRACE))
     assert sorted(res) == sorted(jres) == list(range(10))
