@@ -1,20 +1,22 @@
-"""DFQ's function-preserving rewrites as one call — port of the first half
-of ``repro.core.dfq``.
+"""DFQ: the paper's method as one call — port of ``repro.core.dfq``.
 
 Paper Fig. 4: norm folding → cross-layer equalization → high-bias
-absorption → weight quantization → bias correction. ``apply_dfq`` runs the
-function-preserving rewrites (folding, CLE, absorption) over a params tree
-and a ``DFQPlan``; the pipeline's ``fold_norm`` / ``cle`` / ``bias_absorb``
-stages each run one slice of them through ``run_plan_ops``. Weight
-fake-quantization and bias correction (``quantize_weights``,
-``bias_correct``, ``dfq_quantize``) are the next slice of the port.
+absorption → weight quantization → bias correction → activation-range
+setting. ``apply_dfq`` runs the function-preserving rewrites (folding, CLE,
+absorption) over a params tree and a ``DFQPlan``; the pipeline's
+``fold_norm`` / ``cle`` / ``bias_absorb`` stages each run one slice of them
+through ``run_plan_ops``. ``quantize_weights`` and ``bias_correct`` are the
+quantization and correction stage, and ``dfq_quantize`` chains everything
+(the pipeline's ``dfq-int8`` recipe).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
-from . import bias_absorption, cle
+import torch
+
+from . import bias_absorption, bias_correction, cle
 from .graph import (
     DFQPlan,
     DensePairOp,
@@ -24,20 +26,37 @@ from .graph import (
     VBiasAbsorbOp,
     VOPairOp,
 )
+from .quantizer import QuantSpec, fake_quant, sqnr_db
 from .tree import get_path, has_path, set_path
 
 
 @dataclasses.dataclass(frozen=True)
 class DFQConfig:
-    """The options the function-preserving rewrites read (paper §5: every
-    rewrite on). The JAX config's quantizer, bias-correction and
-    activation-range options come with the slice that ports those stages;
-    the pack stage takes its own ``mode`` and ``per_channel``."""
+    """Level-1 defaults: 8-bit asymmetric per-tensor, everything on (paper
+    §5). The JAX config's fields in its order, but ``n_sigma_absorb`` and
+    ``cle_include_approx_pairs``: their readers (high-bias absorption, the
+    plain-GELU pairs) come with the CNN and whisper slices."""
 
+    weight_bits: int = 8
+    act_bits: int = 8
+    weight_symmetric: bool = False
+    act_symmetric: bool = False
+    per_channel: bool = False            # paper's per-channel baseline [18]
     cle: bool = True
     cle_iterations: int = 2              # pairs here are closed-form optimal;
                                          # >1 only matters for shared tensors
     bias_absorb: bool = True
+    bias_correct: str = "empirical"      # "empirical" | "analytic" | "none"
+    act_range_n_sigma: float = 6.0       # paper §5: β ± 6γ
+
+    @property
+    def weight_spec(self) -> QuantSpec:
+        return QuantSpec(bits=self.weight_bits, symmetric=self.weight_symmetric,
+                         per_channel_axis=-1 if self.per_channel else None)
+
+    @property
+    def act_spec(self) -> QuantSpec:
+        return QuantSpec(bits=self.act_bits, symmetric=self.act_symmetric)
 
 
 def _maybe(params, path):
@@ -144,3 +163,67 @@ def apply_dfq(params: Mapping, plan: DFQPlan, config: DFQConfig) -> dict:
     interleaved Fig. 4 schedule over ``run_plan_ops``.
     """
     return run_plan_ops(params, plan, config, iterations=config.cle_iterations)
+
+
+def quantize_weights(params: Mapping, plan: DFQPlan, config: DFQConfig) -> dict:
+    """Fake-quantize every weight site (simulated INT-k inference). The
+    spec reduces over the whole stacked [L, ...] leaf, as the JAX package
+    does: a per-tensor scale is one scale for every layer of a site."""
+    spec = config.weight_spec
+    for site in plan.sites:
+        params = set_path(params, site.w,
+                          fake_quant(get_path(params, site.w), spec))
+    return params
+
+
+def bias_correct(params: Mapping, plan: DFQPlan, config: DFQConfig,
+                 input_means: Mapping[str, torch.Tensor]) -> dict:
+    """Paper §4.2: subtract ε·E[x] from each site's bias.
+
+    ``input_means[stat_key]`` is E[x] for the site's input (analytic or
+    from a calibration run). A site without a bias gets one created — the
+    correction IS the bias (the model reads biases with ``.get``, so the
+    new leaf is served as it is).
+    """
+    spec = config.weight_spec
+    for site in plan.sites:
+        if site.stat_key is None or site.stat_key not in input_means:
+            continue
+        e_x = input_means[site.stat_key]
+        w = get_path(params, site.w)
+        b = _maybe(params, site.b)
+        if site.kind == "dense":
+            b_new = bias_correction.bias_correction_dense(w, b, e_x, spec)
+        else:
+            b_new = bias_correction.bias_correction_conv(
+                w, b, e_x, spec, depthwise=(site.kind == "depthwise"))
+        if site.b is None:
+            raise ValueError(f"site {site.name} has no bias path for correction")
+        params = set_path(params, site.b, b_new)
+    return params
+
+
+def dfq_quantize(params: Mapping, plan: DFQPlan,
+                 config: DFQConfig = DFQConfig(),
+                 input_means_fn: Optional[Callable[[Mapping], Mapping]] = None
+                 ) -> dict:
+    """The paper's end-to-end flow (Fig. 4) as one call.
+
+    ``input_means_fn(params_equalized)`` supplies E[x] per stat_key.
+    Returns fake-quantized params. A thin wrapper over the pipeline's
+    ``dfq-int8`` recipe with the config's switches applied; prefer
+    ``repro_torch.quantize``, which also returns the ``QuantizedModel``
+    with the stage diagnostics.
+    """
+    # deferred: the pipeline's stages wrap this module
+    from ..pipeline.api import run_legacy_dfq
+
+    return run_legacy_dfq(params, plan, config, input_means_fn)
+
+
+def weight_quant_snr(params_fp: Mapping, params_q: Mapping,
+                     plan: DFQPlan) -> dict:
+    """Per-site weight SQNR (dB)."""
+    return {site.name: float(sqnr_db(get_path(params_fp, site.w),
+                                     get_path(params_q, site.w)))
+            for site in plan.sites}

@@ -11,7 +11,9 @@ the continuous-batching engine — on the card unless told otherwise.
 The weights are random (seeded). As in the JAX launcher, they go through
 the ``serve-<quantize>-kv8`` recipe (``repro_torch.quantize``): norm
 folding, cross-layer equalization, bias absorption, the int8 pack
-(per-tensor scales) and the int8 KV cache. The engine takes the fast path
+(per-tensor scales) and the int8 KV cache. ``--load DIR`` serves a saved
+``QuantizedModel`` instead (either package's artifact; its KV precision
+must be the int8 cache's), as it was saved. The engine takes the fast path
 (decode horizons of up to ``--decode-horizon`` steps; CUDA graphs on the
 card) unless ``--reference`` asks for the stepwise path; ``--warmup``
 captures every graph before the timed loop. ``serve`` returns a
@@ -31,7 +33,7 @@ import torch
 from ..configs import get_config
 from ..device import resolve_device
 from ..models import build_model
-from ..pipeline import quantize
+from ..pipeline import QuantizedModel, quantize
 from ..serving import ServingEngine, required_cache_len, synthetic_trace
 from .serve_config import (  # noqa: F401
     KV_BITS,
@@ -93,13 +95,25 @@ def serve(config: ServeConfig) -> ServeRun:
     """Build, quantize and serve per ``config``; prints a short report."""
     config = dataclasses.replace(config).validate()
     device = resolve_device(config.device)
-    cfg = get_config(config.arch, smoke=config.smoke)
-    model = build_model(cfg)
-    params = model.init(config.seed, device=device)
-    qm = quantize(model, params, recipe=f"serve-{config.quantize}-kv8",
-                  device=device)
-    params = qm.params
-    print(f"quantized {cfg.name} with recipe {qm.recipe.name!r} on {device}:")
+    if config.load:
+        qm = QuantizedModel.load(config.load, device=device)
+        config, notes = config.with_artifact(ServeConfig.from_artifact(qm))
+        for note in notes:
+            print(f"note: {note}")
+        if qm.kv_bits != KV_BITS:
+            raise ServeConfigError(
+                f"--load {config.load}: the artifact records a 16-bit KV "
+                f"cache (no kv_cache stage with bits=8 in recipe "
+                f"{qm.recipe.name!r}); the port serves the int8 KV cache "
+                "only — re-quantize with a ('kv_cache', {'bits': 8}) step")
+        how = f"loaded from {config.load}"
+    else:
+        model = build_model(get_config(config.arch, smoke=config.smoke))
+        qm = quantize(model, model.init(config.seed, device=device),
+                      recipe=f"serve-{config.quantize}-kv8", device=device)
+        how = "quantized"
+    cfg, model, params = qm.cfg, qm.model, qm.params
+    print(f"{how} {cfg.name} with recipe {qm.recipe.name!r} on {device}:")
     for rec in qm.report:
         notes = {k: v for k, v in rec["metrics"].items() if k != "sqnr_db"}
         print(f"  {rec['stage']}: {notes} ({rec['seconds'] * 1e3:.1f} ms)")

@@ -1,12 +1,21 @@
 """Typed serving configuration: one dataclass is both the ``serve`` API and
 (through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. Only
 the knobs of the port's serving path so far: the fast path (default, with
-``decode_horizon``) or the stepwise ``reference``, and ``warmup``.
+``decode_horizon``) or the stepwise ``reference``, ``warmup``, and ``load``
+(serve a saved ``QuantizedModel``).
 
 ``quantize`` picks the weight scheme (``w8a16``, the JAX launcher's default,
 or ``w8a8``); the port serves an int8 KV cache only, so the KV precision is
 a constant here, not a field: the CLI still takes ``--kv-bits 8`` as the
-JAX launcher does, and refuses any other value."""
+JAX launcher does, and refuses any other value.
+
+With ``load``, the artifact's record wins, under the JAX launcher's
+precedence contract (``repro.launch.serve_config._ARTIFACT_POLICY``) as far
+as it concerns fields this config has: ``arch``, ``smoke`` and ``quantize``
+are "baked" — the artifact is served as saved and an explicit differing
+value is reported as ignored — and the KV precision is the artifact's, which
+must be the int8 cache.
+"""
 from __future__ import annotations
 
 import argparse
@@ -66,6 +75,9 @@ class ServeConfig:
     profile: bool = _f(False, "trace the serving loop with torch.profiler and "
                        "print device time by kernel and the device busy "
                        "share", switch=True)
+    load: Optional[str] = _f(
+        None, "serve a saved QuantizedModel (skips quantization; its arch, "
+        "weight scheme and KV precision are the artifact's)", metavar="DIR")
 
     def validate(self) -> "ServeConfig":
         for name in ("slots", "prefill_chunk", "decode_horizon", "trace",
@@ -84,6 +96,40 @@ class ServeConfig:
     def from_args(cls, ns: argparse.Namespace) -> "ServeConfig":
         return cls(**{f.name: getattr(ns, f.name)
                       for f in dataclasses.fields(cls)})
+
+    @classmethod
+    def from_artifact(cls, qm) -> "ServeConfig":
+        """The ServeConfig a ``QuantizedModel`` was quantized AS: its arch
+        (and smoke), and its weight scheme — the mode of its int8 weights,
+        or "none" for fp (fake-quantized) ones."""
+        from ..quantized.qtensor import QTensor
+
+        name = qm.cfg.name
+        smoke = name.endswith("-smoke")
+        modes = {w.mode for w in qm.params["blocks"]["attn"].values()
+                 if isinstance(w, QTensor)}
+        return cls(arch=name[: -len("-smoke")] if smoke else name,
+                   smoke=smoke, quantize=modes.pop() if modes else "none")
+
+    def with_artifact(self, art: "ServeConfig"):
+        """Merge this (CLI/API) config with an artifact's record:
+        ``_ARTIFACT_POLICY``'s fields are served as the artifact recorded
+        them. Returns ``(merged, notes)``, a note for each explicit value
+        that was ignored."""
+        merged, notes = {}, []
+        for name in _ARTIFACT_POLICY:
+            cli, rec = getattr(self, name), getattr(art, name)
+            merged[name] = rec
+            if cli != _DEFAULTS[name] and cli != rec:
+                notes.append(f"--{name.replace('_', '-')} {cli} ignored: the "
+                             f"artifact is served as saved ({name}={rec})")
+        return dataclasses.replace(self, **merged), notes
+
+
+#: how a --load artifact's record meets this config (the JAX launcher's
+#: "baked" fields that the port's config has): the artifact wins
+_ARTIFACT_POLICY = ("arch", "smoke", "quantize")
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
 
 
 def build_parser() -> argparse.ArgumentParser:

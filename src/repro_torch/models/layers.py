@@ -185,19 +185,30 @@ def _project_qkv(p: dict, x: torch.Tensor, dims: AttnDims, positions):
     return q, k, v
 
 
-def causal_attention_block(p: dict, x: torch.Tensor,
-                           dims: AttnDims) -> torch.Tensor:
+def _record_mean(capture: Optional[dict], key: str, x: torch.Tensor) -> None:
+    """E[x] over every token, per channel, in x's dtype (as ``jnp.mean``
+    gives it) — bias correction's statistic for the sites reading x."""
+    if capture is not None:
+        capture[key] = x.reshape(-1, x.shape[-1]).mean(dim=0)
+
+
+def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
+                           capture: Optional[dict] = None) -> torch.Tensor:
     """The cache-free causal attention of the eval forward (``LMModel.apply``):
-    fp keys and values, plain softmax."""
+    fp keys and values, plain softmax. ``capture``, a dict, receives the
+    means of the qkv input (``attn_in``) and of the output projection's
+    input (``o_in``)."""
     B, T, _ = x.shape
+    _record_mean(capture, "attn_in", x)
     positions = torch.arange(T, device=x.device)
     q, k, v = _project_qkv(p, x, dims, positions)
     group = dims.n_q // dims.n_kv
     mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
     attn = attention_scores_softmax(q, _repeat_kv(k, group),
                                     _repeat_kv(v, group), mask)
-    return linear(attn.reshape(B, T, dims.n_q * dims.head_dim), p["wo"],
-                  p.get("bo"))
+    attn = attn.reshape(B, T, dims.n_q * dims.head_dim)
+    _record_mean(capture, "o_in", attn)
+    return linear(attn, p["wo"], p.get("bo"))
 
 
 def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
@@ -261,15 +272,21 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
 # MLP
 # --------------------------------------------------------------------------
 
-def mlp_block(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_block(p: dict, x: torch.Tensor, act: str, *,
+              capture: Optional[dict] = None) -> torch.Tensor:
     """The gated MLP ``wd(silu(wg·x) * wu·x)`` — silu_glu, the one
-    activation a ported config uses."""
+    activation a ported config uses. ``capture`` (the eval forward's only;
+    the serving path passes none) receives the means of the gate/up input
+    (``mlp_in``) and of the down projection's input (``down_in``)."""
     if act != "silu_glu":
         raise NotImplementedError(f"mlp activation {act!r} is not ported yet")
+    _record_mean(capture, "mlp_in", x)
     if _all_w8a8(p["wg"], p["wu"]):
         g, u = _shared_linears(x, [(p["wg"], p.get("bg")),
                                    (p["wu"], p.get("bu"))])
     else:
         g = linear(x, p["wg"], p.get("bg"))
         u = linear(x, p["wu"], p.get("bu"))
-    return linear(g * torch.sigmoid(g) * u, p["wd"], p.get("bd"))
+    h = g * torch.sigmoid(g) * u
+    _record_mean(capture, "down_in", h)
+    return linear(h, p["wd"], p.get("bd"))

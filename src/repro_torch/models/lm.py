@@ -190,19 +190,43 @@ class LMModel:
         h = apply_norm(x, p["mlp_norm"], cfg.norm)
         return x + mlp_block(p["mlp"], h, cfg.act)
 
-    def apply(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def apply(self, params, tokens: torch.Tensor, *, capture: bool = False):
         """The eval forward: causal, no cache, fp keys and values. tokens
-        [B, T] → logits [B, T, V] (the JAX ``apply`` also returns aux
-        losses and statistics, which this dense model does not have)."""
+        [B, T] → logits [B, T, V] (the JAX ``apply`` also returns an aux
+        loss, which this dense model does not have).
+
+        ``capture=True`` returns ``(logits, stats)``: per stat key
+        (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``) the per-layer means
+        of each site's input stacked [L, D], plus ``final_h`` [D], the mean
+        of the final norm's output — means in the compute dtype, as the JAX
+        scan gives them.
+        """
         cfg = self.cfg
         p, layers = self.prepare(params)
         x = self._embed(p, tokens)
+        per_layer = []
         for lp in layers:
+            stats = {} if capture else None
             h = apply_norm(x, lp["attn_norm"], cfg.norm)
-            x = x + causal_attention_block(lp["attn"], h, self._attn_dims())
+            x = x + causal_attention_block(lp["attn"], h, self._attn_dims(),
+                                           capture=stats)
             h = apply_norm(x, lp["mlp_norm"], cfg.norm)
-            x = x + mlp_block(lp["mlp"], h, cfg.act)
-        return self._unembed(p, apply_norm(x, p["final_norm"], cfg.norm))
+            x = x + mlp_block(lp["mlp"], h, cfg.act, capture=stats)
+            per_layer.append(stats)
+        h = apply_norm(x, p["final_norm"], cfg.norm)
+        logits = self._unembed(p, h)
+        if not capture:
+            return logits
+        stats = {k: torch.stack([s[k] for s in per_layer])
+                 for k in per_layer[0]}
+        stats["final_h"] = h.reshape(-1, cfg.d_model).mean(dim=0)
+        return logits, stats
+
+    def calibration_stats(self, params, tokens: torch.Tensor) -> dict:
+        """Synthetic-calibration E[x] per stat key (data-free: the tokens
+        are random ids): ``apply(..., capture=True)``'s stats, keyed like
+        ``WeightSite.stat_key``."""
+        return self.apply(params, tokens, capture=True)[1]
 
     def _embed(self, params, tokens):
         return params["embed"][tokens].to(self.cfg.compute_dtype)

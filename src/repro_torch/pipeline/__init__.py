@@ -1,11 +1,14 @@
 """Quantization pipeline: stage registry + recipes + QuantizedModel (port
-of ``repro.pipeline``, the stages the ``serve-*`` recipes need).
+of ``repro.pipeline``; the ``shard`` stage and the ``-tp`` recipes come
+with tensor-parallel serving).
 
-    repro_torch.quantize(arch_or_model, params=None, recipe=..., ...)
-        → QuantizedModel (.params, .report, .site_sqnr_db(), ...)
+    repro_torch.quantize(arch_or_model, params=None, recipe="dfq-int8", ...)
+        → QuantizedModel (.apply/.prefill/.decode_step, .save/.load,
+          .report, .site_sqnr_db(), ...)
 
     Recipe / resolve_recipe / list_recipes — declarative stage sequences
     register_stage / list_stages — pluggable stage registry
+    python -m repro_torch.pipeline.cli — command-line front-end
 """
 from .state import (  # noqa: F401
     PipelineContext,
@@ -31,4 +34,4 @@ from .recipes import (  # noqa: F401
     resolve_recipe,
 )
 from .artifact import QuantizedModel  # noqa: F401
-from .api import quantize, run_recipe  # noqa: F401
+from .api import default_calibration, quantize, run_recipe  # noqa: F401

@@ -2,19 +2,22 @@
 ``repro.pipeline.api``.
 
     import repro_torch
+    qm = repro_torch.quantize("qwen2-0.5b")                   # dfq-int8
     qm = repro_torch.quantize("qwen2-0.5b", recipe="serve-w8a16-kv8")
     run = repro_torch.ServingEngine(qm.model, qm.params, qm.cfg).run(reqs)
 
 ``quantize`` resolves the architecture, runs the recipe's stages over a
 ``PipelineState`` on the card (or on the CPU when the caller passes
-``device="cpu"``), and returns a ``QuantizedModel``. The recipe has no
-default: the JAX package's default, the paper's ``dfq-int8`` flow, needs
-bias correction, a later slice of the port.
+``device="cpu"``), and returns a ``QuantizedModel``. The default recipe is
+the JAX package's, the paper's ``dfq-int8`` flow; its bias correction reads
+E[x] from the default calibration hook, synthetic random tokens through
+``LMModel.calibration_stats`` (data-free), built here.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Callable, Mapping, Optional, Union
 
 import torch
 
@@ -23,7 +26,7 @@ from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..quantized.qtensor import map_leaves
 from .artifact import QuantizedModel
-from .recipes import BUILTIN_RECIPES, Recipe, RecipeLike, resolve_recipe
+from .recipes import Recipe, RecipeLike, RecipeStep, resolve_recipe
 from .registry import get_stage
 from .state import (
     PipelineContext,
@@ -32,12 +35,38 @@ from .state import (
     StageRecord,
 )
 
+# weight_quant stage option → DFQConfig field. The quant spec must be ONE
+# truth for the whole recipe: bias_correct computes ε = fq(W) − W from the
+# config's spec, so a quantizer choice that stayed stage-local would make
+# the correction target a quantizer that never runs.
+_WEIGHT_SPEC_OPTS = {"bits": "weight_bits", "per_channel": "per_channel",
+                     "symmetric": "weight_symmetric"}
+
+
+def _fold_weight_spec_overrides(recipe: Recipe, config: DFQConfig) -> DFQConfig:
+    repl = {}
+    for step in recipe.steps:
+        if step.stage == "weight_quant":
+            for opt, field in _WEIGHT_SPEC_OPTS.items():
+                if step.options.get(opt) is not None:
+                    repl[field] = step.options[opt]
+        elif step.stage == "pack":
+            # the pack quantizer is symmetric int8 absmax (per-channel
+            # optional): mirror it into the config's spec so that a
+            # bias_correct in the same recipe computes ε against the
+            # quantizer that ships
+            repl["weight_bits"] = 8
+            repl["weight_symmetric"] = True
+            repl["per_channel"] = bool(step.options.get("per_channel", False))
+    return dataclasses.replace(config, **repl) if repl else config
+
 
 def run_recipe(recipe: Recipe, state: PipelineState,
                ctx: PipelineContext) -> PipelineState:
     """Validate, then execute a recipe's stages, timing each into the
     report."""
     recipe.validate()
+    state.config = _fold_weight_spec_overrides(recipe, state.config)
     for step in recipe.steps:
         stage = get_stage(step.stage)
         t0 = time.perf_counter()
@@ -50,6 +79,22 @@ def run_recipe(recipe: Recipe, state: PipelineState,
             stage=step.stage, options=dict(step.options),
             seconds=time.perf_counter() - t0, metrics=state.pop_metrics()))
     return state
+
+
+def default_calibration(model, cfg: ModelConfig, *, seed: int = 1,
+                        batch: int = 2, seq: int = 32
+                        ) -> Callable[[Mapping], Mapping]:
+    """The standard data-free calibration hook: synthetic random tokens
+    (``data.calibration_tokens``, on the device of the params it is given)
+    through ``model.calibration_stats``."""
+    from ..data import calibration_tokens
+
+    def calibrate(params):
+        toks = calibration_tokens(seed, batch, seq, cfg.vocab_size,
+                                  device=params["embed"].device)
+        return model.calibration_stats(params, toks)
+
+    return calibrate
 
 
 def _resolve_model(arch_or_model) -> tuple:
@@ -74,11 +119,15 @@ def _resolve_model(arch_or_model) -> tuple:
 def quantize(
     arch_or_model: Union[str, ModelConfig, Any],
     params: Optional[Mapping] = None,
-    recipe: Optional[RecipeLike] = None,
+    recipe: RecipeLike = "dfq-int8",
     *,
     config: Optional[DFQConfig] = None,
+    calibration: Union[str, Callable, None] = "auto",
     stage_options: Optional[Mapping[str, Mapping]] = None,
     init_seed: int = 0,
+    calib_seed: int = 1,
+    calib_batch: int = 2,
+    calib_seq: int = 32,
     device: Optional[Union[str, torch.device]] = "cuda",
 ) -> QuantizedModel:
     """Quantize a model with a named (or custom) recipe.
@@ -87,19 +136,18 @@ def quantize(
         ModelConfig, or a built model.
     params: existing parameters (moved to ``device``); None → the model's
         seeded ``init(init_seed)`` on ``device``.
-    recipe: a built-in name (``serve-w8a16-kv8``, ``serve-w8a8-kv8``, ...),
-        a ``Recipe``, or a list of stage names / (name, options) pairs.
-    config: ``DFQConfig``, the rewrites' switches (the cle stage's
-        default iteration count).
+    recipe: a built-in name (``dfq-int8``, the default; ``naive-int8``,
+        ``cle-only``, ``serve-w8a16-kv8``, ...), a ``Recipe``, or a list of
+        stage names / (name, options) pairs.
+    config: ``DFQConfig`` defaults for every stage (bits, n-sigma, ...).
+    calibration: "auto" → the synthetic-token hook (``default_calibration``
+        with ``calib_seed`` / ``calib_batch`` / ``calib_seq``; run only by
+        the stages that need E[x]); a callable ``params -> {stat_key:
+        E[x]}``; or None to disable.
     stage_options: per-stage overrides, e.g. {"pack": {"per_channel": True}}.
     device: where the stages run — the card unless the caller asks for the
         CPU.
     """
-    if recipe is None:
-        raise PipelineError(
-            f"quantize needs a recipe; the port's built-ins are "
-            f"{', '.join(sorted(BUILTIN_RECIPES))} (the paper's dfq-int8 "
-            "flow is not ported yet)")
     model, cfg = _resolve_model(arch_or_model)
     r = resolve_recipe(recipe)
     if stage_options:
@@ -110,9 +158,39 @@ def quantize(
         params = model.init(init_seed, device=device)
     else:
         params = map_leaves(lambda t: t.to(device), params)
+    if calibration == "auto":
+        calibrate = default_calibration(model, cfg, seed=calib_seed,
+                                        batch=calib_batch, seq=calib_seq)
+    elif calibration is None or callable(calibration):
+        calibrate = calibration
+    else:
+        raise PipelineError(f"calibration must be 'auto', a callable, or "
+                            f"None; got {calibration!r}")
     state = PipelineState(params=params, plan=model.dfq_plan(),
                           config=config or DFQConfig())
-    state = run_recipe(r, state, PipelineContext(model=model, cfg=cfg))
+    state = run_recipe(r, state, PipelineContext(model=model, cfg=cfg,
+                                                 calibrate=calibrate))
     return QuantizedModel(model=model, cfg=cfg, params=state.params,
                           recipe=r, report=state.report,
-                          kv_bits=state.kv_bits)
+                          kv_bits=state.kv_bits,
+                          act_qparams=state.act_qparams)
+
+
+def run_legacy_dfq(params, plan, config: DFQConfig, input_means_fn) -> dict:
+    """Backend of ``repro_torch.core.dfq_quantize``: the ``dfq-int8`` recipe
+    with the config's stage switches applied, returning bare
+    fake-quantized params."""
+    steps = [RecipeStep("fold_norm", {})]
+    if config.cle:
+        steps.append(RecipeStep("cle", {}))
+    if config.bias_absorb:
+        steps.append(RecipeStep("bias_absorb", {}))
+    if config.bias_correct != "none" and input_means_fn is not None:
+        steps.append(RecipeStep("bias_correct", {"method": "empirical"}))
+    steps.append(RecipeStep("weight_quant", {}))
+    recipe = Recipe("dfq-int8/legacy", tuple(steps),
+                    "dfq_quantize compatibility")
+    state = run_recipe(recipe,
+                       PipelineState(params=params, plan=plan, config=config),
+                       PipelineContext(calibrate=input_means_fn))
+    return state.params

@@ -1,18 +1,103 @@
-"""QuantizedModel: the deployable output of the quantization pipeline (the
-in-memory half of ``repro.pipeline.artifact``; save and load are a later
-slice of the port).
+"""QuantizedModel: the deployable output of the quantization pipeline (port
+of ``repro.pipeline.artifact``).
 
-Bundles the model, its (int8-packed) params, the recipe and the per-stage
-report, and serves through the same prefill / decode path as fp params
-(``QTensor`` dispatch in ``models.layers.linear``).
+Bundles the model, its (fake-quantized or int8-packed) params, the recipe
+and the per-stage report, and serves through the same prefill / decode
+path as fp params (``QTensor`` dispatch in ``models.layers.linear``).
+``save`` / ``load`` write and read the JAX package's artifact layout — the
+checkpointer's ``step_0/`` (QTensors encoded as ``{"__qtensor_<mode>__":
+{"q", "scale"}}`` dicts, ``q`` in its logical [..., K, N] layout) and the
+``quantized_model.json`` sidecar — so an artifact saved by either package
+loads in the other.
+
+The config sidecar (hazard read off the reference): the JAX
+``ModelConfig`` has many more fields than the port's. ``load`` takes the
+fields the port has, ignores those that do not change a dense decoder's
+serving forward, and refuses any other whose value differs from the JAX
+default (a sliding window, experts, an encoder, ...). ``save`` writes the
+port's fields plus ``kv_cache_bits`` — 8 after a ``kv_cache`` stage, else
+16 — so that ``repro.QuantizedModel.load`` serves the same KV precision;
+the port keeps it as ``QuantizedModel.kv_bits``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import json
+import os
+from typing import Any, Optional, Union
 
+import torch
+
+from ..device import resolve_device
 from ..models.config import ModelConfig
-from .recipes import Recipe
+from ..quantized.qtensor import QTensor
+from .recipes import Recipe, RecipeStep
+from .state import PipelineError
+
+_META_FILE = "quantized_model.json"
+_QT_PREFIX = "__qtensor_"
+
+# JAX ModelConfig fields the port has no field for, with the JAX default:
+# another value changes what the model computes, and the port refuses it
+_MUST_BE_DEFAULT = {
+    "mlp_bias": False,            # an MLP bias pair in the DFQ plan
+    "sliding_window": None,
+    "n_experts": 0, "top_k": 0, "n_shared_experts": 0,
+    "ssm_state": 0, "hybrid_attn_every": 0,
+    "n_enc_layers": 0, "frontend": "none",
+}
+# JAX ModelConfig fields with no effect on a dense decoder's serving
+# forward (training, cost probes, other families' geometry); kv_cache_bits
+# becomes ``QuantizedModel.kv_bits``
+_IGNORED = frozenset({
+    "attn_out_bias", "attn_causal_segments", "kv_cache_bits", "max_seq",
+    "capacity_factor", "ssm_expand", "ssm_head_dim", "ssm_conv_width",
+    "ssm_chunk", "ssm_n_groups", "hybrid_n_shared_blocks", "enc_seq",
+    "remat", "logit_chunk", "unroll_layers",
+})
+_PORT_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelConfig))
+
+
+def _config_from_sidecar(fields: dict) -> ModelConfig:
+    """The port's ``ModelConfig`` from an artifact's ``config`` record."""
+    unknown = sorted(set(fields) - _PORT_FIELDS - _IGNORED
+                     - set(_MUST_BE_DEFAULT))
+    if unknown:
+        raise PipelineError(
+            f"the artifact's config has fields the port does not know: "
+            f"{', '.join(unknown)}")
+    refused = [f"{k}={fields[k]!r}" for k, default in _MUST_BE_DEFAULT.items()
+               if k in fields and fields[k] != default]
+    if refused:
+        raise PipelineError(
+            f"{fields.get('name')}: {', '.join(refused)} is not ported yet "
+            "(the port serves dense decoders)")
+    return ModelConfig(**{k: v for k, v in fields.items() if k in _PORT_FIELDS})
+
+
+def _encode_qtensors(tree):
+    """QTensor leaves → tagged plain dicts (the mode in the key; inside,
+    ``q`` sorts before ``scale``, the order of their ``arr_i``)."""
+    if isinstance(tree, QTensor):
+        return {f"{_QT_PREFIX}{tree.mode}__": {"q": tree.q,
+                                                "scale": tree.scale}}
+    if isinstance(tree, dict):
+        return {k: _encode_qtensors(v) for k, v in tree.items()}
+    return tree
+
+
+def _decode_qtensors(tree):
+    if isinstance(tree, dict):
+        if len(tree) == 1:
+            key = next(iter(tree))
+            if key.startswith(_QT_PREFIX) and key.endswith("__"):
+                inner = tree[key]
+                return QTensor(inner["q"], inner["scale"],
+                               key[len(_QT_PREFIX):-2])
+        return {k: _decode_qtensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_decode_qtensors(v) for v in tree]
+    return tree
 
 
 @dataclasses.dataclass
@@ -25,10 +110,14 @@ class QuantizedModel:
     recipe: Recipe
     report: list              # StageRecord.to_dict() per executed stage
     kv_bits: Optional[int] = None   # the kv_cache stage's record
+    # {stat_key: QParams} from the act_ranges stage, for static-activation
+    # backends; in memory only (save persists the float ranges in the
+    # report, as the JAX package does)
+    act_qparams: dict = dataclasses.field(default_factory=dict)
 
     # ----------------------------------------------------------- inference
-    def apply(self, tokens):
-        return self.model.apply(self.params, tokens)
+    def apply(self, tokens, **kwargs):
+        return self.model.apply(self.params, tokens, **kwargs)
 
     def init_cache(self, batch: int, seq_len: int, **kwargs):
         if self.kv_bits is not None:
@@ -56,8 +145,70 @@ class QuantizedModel:
         return None
 
     def site_sqnr_db(self) -> dict:
-        """Per-site weight SQNR (dB) from the pack stage."""
-        rec = self.stage_record("pack")
-        if rec and "sqnr_db" in rec.get("metrics", {}):
-            return dict(rec["metrics"]["sqnr_db"])
+        """Per-site weight SQNR (dB) from the quantizing stage (pack or
+        weight_quant)."""
+        for name in ("pack", "weight_quant"):
+            rec = self.stage_record(name)
+            if rec and "sqnr_db" in rec.get("metrics", {}):
+                return dict(rec["metrics"]["sqnr_db"])
         return {}
+
+    # --------------------------------------------------------- persistence
+    def save(self, directory: str) -> str:
+        """Atomic save: the params through the checkpointer, then the JSON
+        sidecar with the config, the recipe and the stage report."""
+        from ..checkpoint import Checkpointer
+
+        Checkpointer(directory, keep=1).save(0, _encode_qtensors(self.params),
+                                             blocking=True)
+        config = dataclasses.asdict(self.cfg)
+        config["kv_cache_bits"] = 8 if self.kv_bits == 8 else 16
+        meta = {
+            "format_version": 1,
+            "config": config,
+            "recipe": {"name": self.recipe.name,
+                       "description": self.recipe.description,
+                       "steps": [{"stage": s.stage, "options": dict(s.options)}
+                                 for s in self.recipe.steps]},
+            "sharding": {},
+            "report": self.report,
+        }
+        tmp = os.path.join(directory, _META_FILE + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=2, default=float)
+        os.replace(tmp, os.path.join(directory, _META_FILE))
+        return directory
+
+    @classmethod
+    def load(cls, directory: str, *,
+             device: Optional[Union[str, torch.device]] = "cuda"
+             ) -> "QuantizedModel":
+        """Load an artifact saved by either package onto ``device`` (the
+        card unless the caller asks for the CPU)."""
+        from ..checkpoint import Checkpointer
+        from ..models import build_model
+
+        meta_path = os.path.join(directory, _META_FILE)
+        if not os.path.exists(meta_path):
+            raise PipelineError(
+                f"{directory!r} is not a QuantizedModel directory "
+                f"(missing {_META_FILE}); save one with QuantizedModel.save()")
+        device = resolve_device(device)
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta.get("sharding"):
+            raise PipelineError(
+                f"{directory!r} records a sharded deployment "
+                f"({meta['sharding']}); tensor-parallel serving is not "
+                "ported yet")
+        cfg = _config_from_sidecar(meta["config"])
+        tree, _ = Checkpointer(directory, keep=1).restore_skeleton(
+            0, device=device)
+        recipe = Recipe(meta["recipe"]["name"],
+                        tuple(RecipeStep(s["stage"], s["options"])
+                              for s in meta["recipe"]["steps"]),
+                        meta["recipe"].get("description", ""))
+        kv_bits = 8 if meta["config"].get("kv_cache_bits") == 8 else None
+        return cls(model=build_model(cfg), cfg=cfg,
+                   params=_decode_qtensors(tree), recipe=recipe,
+                   report=meta.get("report", []), kv_bits=kv_bits)

@@ -1,11 +1,11 @@
 """Declarative recipes: named stage sequences with per-stage options (port
 of ``repro.pipeline.recipes``).
 
-A recipe is data, not code. The built-ins are the JAX package's serving
-deployments that the port can run: norm folding → CLE → bias absorption →
-int8 pack, with or without the int8 KV cache. The paper's ``dfq-int8``
-flow needs bias correction and weight fake-quantization, later slices of
-the port.
+A recipe is data, not code. The built-ins are the JAX package's, but the
+tensor-parallel ``-tp`` deployments (``NOT_PORTED_RECIPES``): the paper's
+Fig. 4 flow (``dfq-int8``) and its two ablations, and the serving
+deployments — norm folding → CLE → bias absorption → int8 pack, with or
+without the int8 KV cache.
 """
 from __future__ import annotations
 
@@ -86,6 +86,18 @@ def _r(name: str, description: str, *steps) -> Recipe:
 BUILTIN_RECIPES: dict = {
     r.name: r
     for r in (
+        _r("dfq-int8",
+           "The paper's Fig. 4 flow: fold → CLE → absorb → bias-correct → "
+           "fake-quant INT8 (near-FP32 simulated inference)",
+           "fold_norm", "cle", "bias_absorb",
+           ("bias_correct", {"method": "empirical"}), "weight_quant"),
+        _r("naive-int8",
+           "Per-tensor INT8 round-to-nearest, no DFQ — the collapse baseline",
+           "weight_quant"),
+        _r("cle-only",
+           "Equalization ablation: fold → CLE → fake-quant (no absorption, "
+           "no bias correction)",
+           "fold_norm", "cle", "weight_quant"),
         _r("serve-w8a16",
            "Deployment: fold → CLE → absorb → pack int8 weights "
            "(dequant-in-kernel matmul)",
@@ -108,8 +120,7 @@ BUILTIN_RECIPES: dict = {
 }
 
 #: built-in recipes of the JAX package that need a stage the port lacks
-NOT_PORTED_RECIPES = ("dfq-int8", "naive-int8", "cle-only", "serve-w8a16-tp",
-                      "serve-w8a8-tp", "serve-w8a16-kv8-tp",
+NOT_PORTED_RECIPES = ("serve-w8a16-tp", "serve-w8a8-tp", "serve-w8a16-kv8-tp",
                       "serve-w8a8-kv8-tp")
 
 RecipeLike = Union[str, Recipe, Sequence]

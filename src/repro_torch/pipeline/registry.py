@@ -19,8 +19,9 @@ from .state import PipelineError, RecipeError
 
 _STAGES: dict = {}
 
-#: stages of the JAX pipeline that are later slices of the port
-NOT_PORTED = ("weight_quant", "bias_correct", "act_ranges", "shard")
+#: stages of the JAX pipeline that are later slices of the port (``shard``
+#: comes with tensor-parallel serving)
+NOT_PORTED = ("shard",)
 
 
 @dataclasses.dataclass(frozen=True)

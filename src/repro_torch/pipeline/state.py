@@ -4,13 +4,13 @@
 A stage is a function ``(state, ctx, **options) -> state`` over a
 ``PipelineState`` carrying the params tree, the architecture's ``DFQPlan``,
 the active ``DFQConfig`` and the per-stage diagnostics. The
-``PipelineContext`` carries what stages may read but not change: the model
-and its config.
+``PipelineContext`` carries what stages may read but not change: the model,
+its config, and the calibration hook supplying E[x] per stat key.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Mapping, Optional
 
 from ..core.dfq import DFQConfig
 from ..core.graph import DFQPlan
@@ -45,6 +45,9 @@ class PipelineContext:
 
     model: Any = None
     cfg: Any = None
+    # calibrate(params) -> {stat_key: E[x]} — the model-side hook (synthetic
+    # tokens keep the flow data-free); None when no calibration is available
+    calibrate: Optional[Callable[[Mapping], Mapping]] = None
 
 
 @dataclasses.dataclass
@@ -52,6 +55,11 @@ class PipelineState:
     params: Any
     plan: DFQPlan
     config: DFQConfig = dataclasses.field(default_factory=DFQConfig)
+    fp_params: Any = None          # pre-quantization snapshot (SQNR reference)
+    input_means: Optional[Mapping] = None
+    act_qparams: dict = dataclasses.field(default_factory=dict)
+    packed: bool = False
+    pack_mode: Optional[str] = None
     kv_bits: Optional[int] = None  # set by the kv_cache stage (8 → int8 KV)
     records: list = dataclasses.field(default_factory=list)
     _pending_metrics: dict = dataclasses.field(default_factory=dict)

@@ -16,7 +16,12 @@ Tolerances as in chip_smoke.py:
     kernel applies the scale after the sum, the plain version before it;
     one ulp alone fails where the sum cancels);
   * ``repro_torch.quantize`` on the card bit-equal to the same call on the
-    CPU, but ``bo`` (a matrix product's rounding bound);
+    CPU, but ``bo`` (a matrix product's rounding bound); under dfq-int8,
+    naive-int8, cle-only and the bias-corrected w8a8 deployment every
+    weight leaf bit-equal, E[x] within 2⁻¹⁶ of its max and each corrected
+    bias within |δ| @ |ε| + 2·D·2⁻²⁴·(|E[x]| @ |ε|) plus one ulp; that
+    deployment saved, loaded bit-equal and served from ``--load``, fast
+    and stepwise giving the same tokens;
   * fused_decode's appended cache bit-equal, its float32 output within
     T = atol 1e-6 + rtol 1e-5 and its bfloat16 output within T plus one
     bf16 ulp (one ulp alone fails near zero), its quantize-out bit-equal to
@@ -816,6 +821,132 @@ def test_quantize_on_the_card_matches_the_cpu(dev, recipe):
             for q in (cpu, card)]
     for site, db in pack[0]["sqnr_db"].items():
         assert abs(db - pack[1]["sqnr_db"][site]) <= 1e-4, site
+
+
+#: the bias-corrected w8a8 deployment (chip_smoke.py's BC_DEPLOY)
+BC_DEPLOY = ["fold_norm", "cle", "bias_absorb", "bias_correct",
+             ("pack", {"mode": "w8a8"}), ("kv_cache", {"bits": 8})]
+
+
+@pytest.mark.parametrize("recipe", ["dfq-int8", "naive-int8", "cle-only",
+                                    "bc-w8a8-kv8"])
+def test_fig4_recipes_on_the_card_match_the_cpu(dev, recipe):
+    """The paper's flow on the card, on the CPU's calibration tokens: every
+    weight leaf (fake-quantized or packed) bit-equal to the CPU's; E[x]
+    within 2⁻¹⁶ of its max (tests/test_torch_bias_correction.py's
+    STAT_TOL); each corrected bias within |δ| @ |ε| + 2·D·2⁻²⁴·(|E[x]| @
+    |ε|) plus one ulp, δ the gap between the two sides' E[x] (``bo`` also
+    within its absorption's bound)."""
+    import repro_torch
+    from repro_torch.core import DFQConfig, weight_quant_error
+    from repro_torch.core.tree import get_path
+    from repro_torch.pipeline import default_calibration
+    from repro_torch.pipeline.api import _fold_weight_spec_overrides
+    from repro_torch.pipeline.recipes import resolve_recipe
+    from repro_torch.quantized import QTensor
+
+    spec = BC_DEPLOY if recipe == "bc-w8a8-kv8" else recipe
+    r = resolve_recipe(spec)
+    model = repro_torch.build_model(repro_torch.get_config("qwen2-0.5b-smoke"))
+    params = _hostile_smoke(model)
+    hook = default_calibration(model, model.cfg)
+    means = {"cpu": {}, "card": {}}
+
+    def rec(side):
+        def calibrate(p):
+            means[side].update(hook(p))
+            return means[side]
+        return calibrate
+
+    cpu = repro_torch.quantize(model, params, recipe=spec, device="cpu",
+                               calibration=rec("cpu"))
+    card = repro_torch.quantize(model, params, recipe=spec, device=dev,
+                                calibration=rec("card"))
+    tol = {}
+    stages = r.stage_names()
+    if "bias_absorb" in stages:
+        attn = repro_torch.quantize(model, params, recipe=["fold_norm", "cle"],
+                                    device="cpu").params["blocks"]["attn"]
+        cfg = model.cfg
+        L, group = attn["bv"].shape[0], cfg.n_heads // cfg.n_kv_heads
+        c = attn["bv"].reshape(L, cfg.n_kv_heads, 1, cfg.head_dim).expand(
+            L, cfg.n_kv_heads, group, cfg.head_dim).reshape(L, -1)
+        tol[("blocks", "attn", "bo")] = c.shape[-1] * 2.0 ** -23 * torch.einsum(
+            "ln,lno->lo", c.abs(), attn["wo"].abs()).double()
+    if "bias_correct" in stages:
+        wspec = _fold_weight_spec_overrides(r, DFQConfig()).weight_spec
+        eq = repro_torch.quantize(
+            model, params, calibration=None, device="cpu",
+            recipe=list(r.steps[:stages.index("bias_correct")])).params
+        for k, e in means["cpu"].items():
+            assert float((means["card"][k].cpu() - e).abs().max()) <= \
+                2.0 ** -16 * float(e.abs().max()), k
+        for site in model.dfq_plan().sites:
+            eps = weight_quant_error(get_path(eq, site.w), wspec).abs().double()
+            e = means["cpu"][site.stat_key].double()
+            delta = (means["card"][site.stat_key].cpu().double() - e).abs()
+            tol[site.b] = tol.get(site.b, 0) + (
+                torch.einsum("...i,...io->...o", delta, eps)
+                + 2 * eps.shape[-2] * 2.0 ** -24
+                * torch.einsum("...i,...io->...o", e.abs(), eps))
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        elif isinstance(tree, QTensor):
+            yield path + ("q",), tree.q
+            yield path + ("scale",), tree.scale
+        else:
+            yield path, tree
+
+    want, got = dict(leaves(cpu.params)), dict(leaves(card.params))
+    assert sorted(want) == sorted(got)
+    for path, t in want.items():
+        g = got[path].cpu()
+        if path in tol:
+            ulp = (torch.nextafter(torch.maximum(t.abs(), g.abs()),
+                                   torch.tensor(float("inf")))
+                   - torch.maximum(t.abs(), g.abs())).double()
+            assert bool(((g - t).abs().double() <= tol[path] + ulp).all()), path
+        else:
+            assert torch.equal(g, t), path
+
+
+def test_bias_corrected_deployment_serves_on_the_card(dev, tmp_path):
+    """The bias-corrected w8a8 deployment — real gate/up biases through the
+    W8A8 GEMMs — saved, loaded bit-equal, and served from the artifact by
+    ``serve(ServeConfig(load=...))``: the fast path's graphs give the
+    stepwise tokens and ticks, through the W8A8 kernels and fused_decode."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.pipeline import QuantizedModel
+
+    qm = repro_torch.quantize("qwen2-0.5b-smoke", recipe=BC_DEPLOY, device=dev)
+    assert float(qm.params["blocks"]["mlp"]["bg"].abs().max()) > 0
+    qm.save(str(tmp_path))
+    loaded = QuantizedModel.load(str(tmp_path), device=dev)
+    assert loaded.kv_bits == 8
+    for site in qm.model.dfq_plan().sites:
+        a = qm.params[site.w[0]][site.w[1]][site.w[2]]
+        b = loaded.params[site.w[0]][site.w[1]][site.w[2]]
+        assert torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+        assert torch.equal(qm.params[site.b[0]][site.b[1]][site.b[2]],
+                           loaded.params[site.b[0]][site.b[1]][site.b[2]])
+    config = repro_torch.ServeConfig(load=str(tmp_path), trace=6, slots=3,
+                                     prompt_len=12, gen_len=12,
+                                     prefill_chunk=4, warmup=True)
+    reset_launch_counts()
+    fast = repro_torch.serve(config)
+    counts = launch_counts()
+    slow = repro_torch.serve(dataclasses.replace(config, reference=True))
+    for rid, r in slow.results.items():
+        assert fast.results[rid].tokens == r.tokens, rid
+        assert fast.results[rid].finished_at == r.finished_at, rid
+    assert counts["qmatmul_w8a8_qin"] > 0 and counts["fused_decode"] > 0
+    assert counts["qmatmul_w8a16"] == 0
 
 
 def _decode_operands(dev, gen, B, S, Hq, Hkv, hd, dtype, lens):
