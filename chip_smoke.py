@@ -5,9 +5,11 @@
 
 Phases, each of which must pass (nothing here catches a failure):
 
-  1. build  — compile every CUDA kernel from ``src/repro_torch/csrc`` (one
-     nvcc per source, in parallel) and print the build time, the
-     registers/spills ptxas reports, and the card's name and power limit.
+  1. build  — refuse to run with ``REPRO_KERNEL_BACKEND`` set (every tier
+     here is picked by explicit argument), compile every CUDA kernel from
+     ``src/repro_torch/csrc`` (one nvcc per source, in parallel) and print
+     the build time, the registers/spills ptxas reports, and the card's
+     name and power limit.
   2. kernels — call each of the seven kernels' wrappers on the card at the
      shapes the serving paths give it and hold it against its plain PyTorch
      version on the same inputs: quantize_act (also at bits 2, 4 and 6, on
@@ -64,7 +66,17 @@ Phases, each of which must pass (nothing here catches a failure):
      each call reads its weight from HBM as the serving path does. One line
      sums the GEMMs' device time over a decode step and a prefill chunk, two
      more a W8A8 decode step's GEMMs + activation quantization, pair
-     against fold.
+     against fold. Then the geometries of the four other dense archs:
+     fused_decode and kv_attention at B=8 S=512 with Hq/Hkv/hd 32/8/128
+     (mistral-nemo-12b), 56/8/128 (yi-34b), 64/8/128 (chameleon-34b) and
+     16/16/256 (gemma-7b), float32 and bfloat16, against their plain
+     versions as above (the plan's splits and shared memory logged); and
+     the three W8A8/W8A16 GEMMs at mistral-nemo-12b's decode projections
+     and gemma-7b's K=24576 down projection, M = 8 and 256: qmatmul_w8a8
+     bit-equal, qmatmul_w8a16 within ``W8A16_TOL``, qmatmul_w8a8_qin
+     bit-equal to the pair where ``gemm_plan`` folds and refused with the
+     plan's reason where it does not; every new row timed in the phase's
+     row format (the kernels JSON line keeps qwen2's rows).
   3. reference — for each serving recipe, the paper's Fig. 4 recipes
      (``dfq-int8``, ``naive-int8``, ``cle-only``) and the bias-corrected
      w8a8 deployment (``BC_DEPLOY``), ``repro_torch.quantize`` of a
@@ -76,7 +88,16 @@ Phases, each of which must pass (nothing here catches a failure):
      that model on the card against the CPU's (plain versions):
      teacher-forced logits within tolerance. Then the JAX integration
      test's gate on the card: on those weights dfq-int8's logits SQNR
-     above naive-int8's by 10 dB, greedy agreement above 0.9.
+     above naive-int8's by 10 dB, greedy agreement above 0.9. Then the fp
+     KV cache: serve-w8a16 and serve-w8a8 the same way over it; and
+     ``repro_torch.serve`` at smoke size, fast (graphs) and stepwise on
+     the card against the CPU, for serve-w8a16 and serve-w8a8 over the fp
+     cache, ``--quantize none`` and each other dense arch under
+     serve-w8a16-kv8 — fast equal to stepwise, launch counts exact, every
+     request's first token the CPU's, and the same quantized weights'
+     teacher-forced prefill and decode logits on the card within tolerance
+     of the CPU's; and ``backend="torch"`` on the
+     card: the CPU's tokens and ticks, no kernel launched.
   4. serve — qwen2-0.5b at full width (24 layers, seeded random weights
      through ``repro_torch.quantize``: norm folding, CLE and bias
      absorption on the card, then the int8 pack), the engine with 8 slots,
@@ -118,6 +139,17 @@ Phases, each of which must pass (nothing here catches a failure):
      ``repro_torch.serve(ServeConfig(load=...))`` on phase 4's trace, fast
      and stepwise: every request finishes, the same tokens and ticks, the
      exact launch counts; its tok/s beside phase 4's serve-w8a8-kv8.
+  6. serve mistral-nemo-12b — at full width (d_model 5120, 32 q / 8 kv
+     heads of 128, d_ff 14336, vocab 131072, bf16), at every layer that
+     leaves 8 GiB of the card free while ``repro_torch.quantize`` runs
+     (the peak measured at 2 and 4 layers, extrapolated; the depth is
+     logged), through ``repro_torch.serve`` on phase 4's trace:
+     serve-w8a16 over the bf16 KV cache (the reference's default
+     deployment) and serve-w8a8-kv8, each stepwise and fast (graphs
+     captured by warmup): fast tokens and ticks equal stepwise, launch
+     counts exact as ``gemm_plan`` plans them, tok/s, quantize and warmup
+     seconds and peak memory logged beside the card's name and power
+     limit, and the phase's wall seconds.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -1511,6 +1543,255 @@ def log_step_sums(tables):
         f"torch._int_mm {total(w8, 256, 'library_ms'):.4f})")
 
 
+# the decode attention geometries of the four dense archs besides qwen2:
+# (arch, Hq, Hkv, hd), each at B = 8 slots and S = 512 positions
+NEW_ATTENTION = (("mistral-nemo-12b", 32, 8, 128), ("yi-34b", 56, 8, 128),
+                 ("chameleon-34b", 64, 8, 128), ("gemma-7b", 16, 16, 256))
+
+
+def check_new_attention(torch, dev, gen):
+    """fused_decode (with its quantize-out) and kv_attention at the decode
+    geometry of each new arch (``NEW_ATTENTION``), float32 and bfloat16,
+    against their plain versions as at qwen2's shape: the appended cache
+    bit-equal, ``out`` within ``OUT_TOL``, the quantize-out as
+    ``check_fused_out`` holds it, a row of length 0 exactly 0; each
+    geometry's plan (splits, shared memory a CTA) logged, and the bf16
+    calls timed beside the plain versions, the bound and SDPA (logged in
+    the rows' format; the kernels JSON line keeps qwen2's rows)."""
+    from repro_torch.kernels import attention_plan
+    from repro_torch.kernels.fused_decode.kernel import fused_decode_cuda
+    from repro_torch.kernels.fused_decode.ref import fused_decode_ref
+    from repro_torch.kernels.kv_attention.kernel import kv_attention_cuda
+    from repro_torch.kernels.kv_attention.ref import kv_attention_ref
+
+    B, S = 8, 512
+    for arch, Hq, Hkv, hd in NEW_ATTENTION:
+        plan = attention_plan.plan(B, S, Hq, Hkv, hd)
+        log(f"  attention plan {arch} B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S}: "
+            f"group {plan.group}, {plan.splits} splits, {plan.ctas} CTAs, "
+            f"{plan.smem} bytes of shared memory a CTA")
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+            lens[0], lens[B - 1] = S, 0
+            leaves, valid, q, kn, vn, idx = _decode_inputs(
+                torch, dev, gen, B, S, Hq, Hkv, hd, dtype, lens)
+            idx32 = idx.to(torch.int32)
+            fused = [t.clone() for t in leaves]
+            out, oq, os_ = fused_decode_cuda(q, *fused, kn, vn, idx32, valid,
+                                             quantize_out=True)
+            ref = [t.clone() for t in leaves]
+            (outr, oqr, osr), _ = fused_decode_ref(
+                q, *ref, kn[:, None], vn[:, None], idx[:, None], valid=valid,
+                out_dtype=dtype, quantize_out=True)
+            torch.cuda.synchronize()
+            what = f"fused_decode {arch} Hq={Hq} Hkv={Hkv} hd={hd} {name}"
+            for a, b_, leaf in zip(fused, ref, ("k", "k_scale", "v",
+                                                "v_scale")):
+                assert torch.equal(a, b_), f"{what}: appended {leaf} differs"
+            err, note = check_fused_out(torch, out, outr, oq, os_, oqr, osr,
+                                        what)
+            assert float(out[B - 1].float().abs().max()) == 0.0, (
+                f"{what}: the row of length 0 is not 0")
+            log(f"  {what}: out max |diff| {err:.3g} ({OUT_TOL[name]}); "
+                f"{note}; appended leaves bit-equal")
+            # the unfused kernel over the appended cache, the stepwise
+            # route's masking (the scales zero where a position is dead)
+            live = valid[..., None]
+            kq, ks, vq, vs = fused
+            ks, vs = ks * live, vs * live
+            kv = kv_attention_cuda(q, kq, ks, vq, vs, None)
+            kvr = kv_attention_ref(q, kq, ks, vq, vs, dtype)
+            torch.cuda.synchronize()
+            kwhat = f"kv_attention {arch} Hq={Hq} Hkv={Hkv} hd={hd} {name}"
+            diff, past = check_attention_out(torch, kv, kvr, kwhat)
+            assert float(kv[B - 1].float().abs().max()) == 0.0
+            log(f"  {kwhat}: max |diff| {float(diff.max()):.3g} "
+                f"({OUT_TOL[name]}){past}")
+            if dtype != torch.bfloat16:
+                continue
+            n_live = int(valid.sum())
+            e = q.element_size()
+            shape = f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} {name} ({arch})"
+            run = [t.clone() for t in leaves]
+            fb, fby = bound_ms(
+                2 * B * Hq * hd * e + n_live * Hkv * (hd + 4) * 2 + B * S
+                + 2 * B * Hkv * hd * (e + 1) + 8 * B * Hkv + B * Hq * hd
+                + 4 * B, 4 * Hq * n_live * hd, F32_OPS_S)
+            kern = lambda: fused_decode_cuda(q, *run, kn, vn, idx32, valid,
+                                             quantize_out=True)
+            log_row("fused_decode", {
+                "shape": shape, "ms": device_ms(kern, 50),
+                "call_ms": call_ms(kern, 50),
+                "plain_ms": device_ms(lambda: fused_decode_ref(
+                    q, *run, kn[:, None], vn[:, None], idx[:, None],
+                    valid=valid, out_dtype=dtype, quantize_out=True), 5),
+                "bound_ms": fb, "bound_by": fby, "library_ms": None,
+                "no_q8_ms": device_ms(lambda: fused_decode_cuda(
+                    q, *run, kn, vn, idx32, valid), 50),
+                "sdpa_ms": sdpa_ms(torch, dev, gen, B, S, Hq, Hkv, hd, 50),
+                "splits": plan.splits})
+            kb, kby = bound_ms(2 * B * Hq * hd * e + B * S * Hkv * 4
+                               + n_live * Hkv * (2 * hd + 4),
+                               4 * Hq * n_live * hd, F32_OPS_S)
+            kern = lambda: kv_attention_cuda(q, kq, ks, vq, vs, None)
+            log_row("kv_attention", {
+                "shape": shape, "ms": device_ms(kern, 50),
+                "call_ms": call_ms(kern, 50),
+                "plain_ms": device_ms(lambda: kv_attention_ref(
+                    q, kq, ks, vq, vs, dtype), 5),
+                "bound_ms": kb, "bound_by": kby, "library_ms": None,
+                "sdpa_ms": sdpa_ms(torch, dev, gen, B, S, Hq, Hkv, hd, 50),
+                "splits": plan.splits})
+
+
+# mistral-nemo-12b's decode projections (K, N) and gemma-7b's down
+# projection, the longest K of the new archs
+NEW_GEMMS = (("nemo q", 5120, 4096), ("nemo k/v", 5120, 1024),
+             ("nemo o", 4096, 5120), ("nemo gate/up", 5120, 14336),
+             ("nemo down", 14336, 5120), ("gemma down", 24576, 3072))
+
+
+def check_new_gemms(torch, dev, gen):
+    """The three GEMMs of the W8A16 and W8A8 paths at ``NEW_GEMMS``, M = 8
+    (a decode step of 8 slots) and 256 (a prefill chunk): qmatmul_w8a8
+    bit-equal to its plain version (bf16 out), qmatmul_w8a16 (bf16) within
+    ``W8A16_TOL``, and qmatmul_w8a8_qin bit-equal to quantize_act +
+    qmatmul_w8a8 (and its int8 x to quantize_act's) where ``gemm_plan``
+    folds, refused with the plan's reason where it does not (the model
+    then takes the pair). Each logged with its plan and timed in the rows'
+    format beside its plain version, the library call and the bound."""
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_qin_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a8.ref import (
+        qmatmul_w8a8_qin_ref,
+        qmatmul_w8a8_ref,
+    )
+    from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_cuda
+    from repro_torch.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    bf16 = torch.bfloat16
+    has_lib = torch._C._dispatch_has_kernel_for_dispatch_key(
+        "aten::_weight_int8pack_mm", "CUDA")
+    folded, refused = 0, 0
+    for label, K, N in NEW_GEMMS:
+        w = _kmajor_int8(torch, gen, dev, K, N)
+        sw = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
+        bias = torch.randn((N,), generator=gen, device=dev)
+        for M in (8, 256):
+            p = gemm_plan.plan(M, N, K)
+            shape = f"M={M} K={K} N={N} ({label})"
+            log(f"  gemm plan {shape}: {p.bm}-row tiles, {p.splits} K "
+                f"split(s), {p.ctas} CTAs, quantize-in "
+                + ("folds" if p.fold else
+                   f"refused ({p.bm}-row tile)" if p.bm not in
+                   gemm_plan.FOLD_BM else
+                   f"refused ({p.qin_smem} bytes of shared memory > "
+                   f"{gemm_plan.QIN_SMEM_MAX})"))
+            # W8A8 (the int8 GEMM on a quantized activation)
+            a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            sa = torch.rand((M,), generator=gen, device=dev) * 0.05 + 1e-4
+            y = qmatmul_w8a8_cuda(a, w, sa, sw, bias, out_dtype=bf16)
+            yr = qmatmul_w8a8_ref(a, w, sa, sw, bias, bf16)
+            torch.cuda.synchronize()
+            assert torch.equal(y, yr), f"qmatmul_w8a8 {shape}: not bit-equal"
+            a_lib = a if M > 16 else torch.cat([a, a.new_zeros((32 - M, K))])
+            b, by = bound_ms(M * K + K * N + 4 * M + 8 * N + 2 * M * N,
+                             2 * M * K * N, INT8_OPS_S)
+            kern = lambda: qmatmul_w8a8_cuda(a, w, sa, sw, bias,
+                                             out_dtype=bf16)
+            log_row("qmatmul_w8a8", {
+                "shape": shape + " -> bf16", "ms": device_ms(kern, 50),
+                "call_ms": call_ms(kern, 50),
+                "plain_ms": device_ms(lambda: qmatmul_w8a8_ref(
+                    a, w, sa, sw, bias, bf16), 10),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": device_ms(lambda: torch._int_mm(a_lib, w), 50),
+                "library": "torch._int_mm" + ("" if M > 16 else
+                                              f", M zero-padded {M}->32")})
+            # W8A16 (bf16 activation, per-tensor bf16 scale, as the path)
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf16)
+            s1 = (torch.rand((1,), generator=gen, device=dev) * 0.01
+                  + 1e-4).to(bf16)
+            b16 = bias.to(bf16)
+            y = qmatmul_w8a16_cuda(x, w, s1, b16)
+            yr = qmatmul_w8a16_ref(x, w, s1, b16, bf16)
+            torch.cuda.synchronize()
+            diff = (y.float() - yr.float()).abs()
+            tol = w8a16_tolerance(torch, x, w, s1, b16, yr)
+            assert bool((diff <= tol).all()), (
+                f"qmatmul_w8a16 {shape}: off the plain version at "
+                f"{int((diff > tol).sum())} values ({W8A16_TOL['bfloat16']})")
+            b, by = bound_ms(M * K * 2 + K * N + 2 + N * 2 + M * N * 2,
+                             2 * M * K * N, BF16_OPS_S)
+            if has_lib:
+                wt, s_n = w.t(), s1.expand(N).contiguous()
+                lib_fn = lambda: torch._weight_int8pack_mm(x, wt, s_n)
+                lib_call = "torch._weight_int8pack_mm"
+            else:
+                w_deq_t = (w.float() * s1.float()).to(bf16).t().contiguous()
+                lib_fn = lambda: torch.nn.functional.linear(x, w_deq_t, b16)
+                lib_call = "F.linear on the pre-dequantized weight"
+            kern = lambda: qmatmul_w8a16_cuda(x, w, s1, b16)
+            log_row("qmatmul_w8a16", {
+                "shape": shape + " bfloat16", "ms": device_ms(kern, 50),
+                "call_ms": call_ms(kern, 50),
+                "plain_ms": device_ms(lambda: qmatmul_w8a16_ref(
+                    x, w, s1, b16, bf16), 10),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": device_ms(lib_fn, 50), "library": lib_call})
+            log(f"  qmatmul_w8a16 {shape} bfloat16: max |diff| "
+                f"{float(diff.max()):.3g}, max |diff|/tol "
+                f"{float((diff / tol).max()):.3g} ({W8A16_TOL['bfloat16']})")
+            # W8A8 quantize-in (the fold), or the plan's refusal
+            xq = _qin_input(torch, gen, dev, M, K, bf16)
+            if not p.fold:
+                try:
+                    qmatmul_w8a8_qin_cuda(xq, w, sw, bias, out_dtype=bf16)
+                except ValueError as e:
+                    refused += 1
+                    log(f"  qmatmul_w8a8_qin {shape}: refused by the plan "
+                        f"({str(e)[:120]}...); the model takes quantize_act "
+                        f"+ qmatmul_w8a8")
+                    continue
+                raise AssertionError(f"qmatmul_w8a8_qin {shape}: launched "
+                                     f"where the plan does not fold")
+            a_q, a_s = quantize_act_cuda(xq)
+            pair = qmatmul_w8a8_cuda(a_q, w, a_s, sw, bias, out_dtype=bf16)
+            y, x_q, x_s = qmatmul_w8a8_qin_cuda(xq, w, sw, bias,
+                                                out_dtype=bf16,
+                                                quantized=True)
+            torch.cuda.synchronize()
+            assert torch.equal(y, pair), (
+                f"qmatmul_w8a8_qin {shape}: not bit-equal to quantize_act + "
+                f"qmatmul_w8a8")
+            assert torch.equal(x_q, a_q) and torch.equal(x_s, a_s)
+            folded += 1
+            b, by = bound_ms(M * K * 2 + K * N + 8 * N + 2 * M * N,
+                             2 * M * K * N, INT8_OPS_S)
+            kern = lambda: qmatmul_w8a8_qin_cuda(xq, w, sw, bias,
+                                                 out_dtype=bf16)
+
+            def pair_call():
+                q_, s_ = quantize_act_cuda(xq)
+                return qmatmul_w8a8_cuda(q_, w, s_, sw, bias, out_dtype=bf16)
+
+            log_row("qmatmul_w8a8_qin", {
+                "shape": shape + " bf16 -> bf16", "ms": device_ms(kern, 50),
+                "call_ms": call_ms(kern, 50),
+                "plain_ms": device_ms(lambda: qmatmul_w8a8_qin_ref(
+                    xq, w, sw, bias, bf16), 10),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "stepwise_ms": device_ms(pair_call, 50)})
+    log(f"  the new shapes: qmatmul_w8a8_qin folded and bit-equal at {folded}, "
+        f"refused by the plan at {refused}")
+
+
 # --------------------------------------------------------------- phase 3
 def hostile_params(torch, model, device="cpu"):
     """Seeded weights that give every rewrite work: log-normal norm gains,
@@ -1690,22 +1971,33 @@ def check_dfq_on_card(torch, dev, model, params, recipe):
     return cpu, card
 
 
-def check_reference(torch, dev, recipe):
+def check_reference(torch, dev, recipe, kv_bits=8):
     """Smoke-size qwen2 under ``recipe``: DFQ on the card against DFQ on
     the CPU, then the model on the card (kernels) against the CPU (plain
-    versions)."""
+    versions), over the int8 KV cache (``kv_bits`` 8) or the fp one."""
     import repro_torch
 
     model = repro_torch.build_model(repro_torch.get_config("qwen2-0.5b-smoke"))
     cpu, card = check_dfq_on_card(torch, dev, model,
                                   hostile_params(torch, model), recipe)
-    cfg = model.cfg
+    teacher_forced(torch, dev, model.cfg, cpu.params, card.params, kv_bits,
+                   f"smoke qwen2 (2 layers, f32) under "
+                   f"{recipe_label(recipe)}")
+
+
+def teacher_forced(torch, dev, cfg, cpu_params, card_params, kv_bits, what):
+    """The model at ``cfg`` on the card (kernels) against the CPU (plain
+    versions), over the int8 KV cache (``kv_bits`` 8) or the fp one: prefill
+    8 tokens, then 16 teacher-forced decode steps, every step's logits
+    within 5 % of the largest |logit| and greedy agreement at least 0.9."""
+    import repro_torch
+
     gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen)
     out = {}
-    for name, d, p in (("cpu", "cpu", cpu.params), ("cuda", dev, card.params)):
+    for name, d, p in (("cpu", "cpu", cpu_params), ("cuda", dev, card_params)):
         m = repro_torch.build_model(cfg)
-        cache = m.init_cache(4, 32, device=d)
+        cache = m.init_cache(4, 32, device=d, kv_bits=kv_bits)
         lg, cache = m.prefill(p, toks[:, :8].to(d), cache)
         steps = [lg]
         for t in range(8, 24):
@@ -1715,10 +2007,10 @@ def check_reference(torch, dev, recipe):
     diff = float((out["cpu"] - out["cuda"]).abs().max())
     scale = float(out["cpu"].abs().max())
     agree = float((out["cpu"].argmax(-1) == out["cuda"].argmax(-1)).float().mean())
-    log(f"  smoke qwen2 (2 layers, f32) under {recipe_label(recipe)}, card vs CPU "
-        f"plain versions, prefill 8 + 16 teacher-forced decode steps: max "
-        f"|logit diff| {diff:.3g} (max |logit| {scale:.3g}), greedy agreement "
-        f"{agree:.3f}")
+    log(f"  {what}, {'int8' if kv_bits == 8 else 'fp'} KV cache, card vs "
+        f"CPU plain versions, prefill 8 + 16 teacher-forced decode steps: "
+        f"max |logit diff| {diff:.3g} (max |logit| {scale:.3g}), greedy "
+        f"agreement {agree:.3f}")
     assert all(torch.isfinite(v).all() for v in out.values())
     assert diff <= 0.05 * scale and agree >= 0.9, "card and CPU disagree"
 
@@ -1759,46 +2051,57 @@ SERVE = dict(arch="qwen2-0.5b", seed=0, device="cuda", slots=8, max_len=512,
              prompt_len=256, gen_min=32, gen_len=32)
 
 
-# the W8A8 inputs of a layer, each (K, the N of every projection reading
-# it): qkv, wo, gate/up, down
-LAYER_INPUTS = ((896, (896, 128, 128)), (896, (896,)), (896, (4864, 4864)),
-                (4864, (896,)))
-# a W8A8 decode step's launches a layer, fixed here and not read from the
-# planner: no quantize_act; quantize-in GEMMs for q, gate and down (and wo
-# on the unfused route), each handing its int8 rows to k, v and up; wo at a
-# fused step an int8 GEMM on the fused kernel's quantize-out
-W8A8_DECODE = {True: {"qmatmul_w8a8_qin": 3, "qmatmul_w8a8": 4},
-               False: {"qmatmul_w8a8_qin": 4, "qmatmul_w8a8": 3}}
+def layer_inputs(cfg):
+    """The inputs of a layer's projections, each (K, the N of every
+    projection reading it): qkv, wo, gate/up (up alone without a gate),
+    down."""
+    D, F, A, KV = cfg.d_model, cfg.d_ff, cfg.attn_dim, cfg.kv_dim
+    return ((D, (A, KV, KV)), (A, (D,)),
+            (D, (F, F) if cfg.act.endswith("_glu") else (F,)), (F, (D,)))
 
 
-def expected_launches(quantize, fused, steps, chunks):
+def expected_launches(quantize, fused, steps, chunks, *, cfg=None,
+                      kv_bits=8, slots=None, chunk=None):
     """{kernel: launches} of one serve run: per decode step (M = slots) and
-    per prefill chunk (M = slots x chunk), 24 layers of 7 projections; the
-    fused decode once a layer per decode step, or kv_attention on the
-    unfused route. W8A8 decode steps as ``W8A8_DECODE`` says (0
-    quantize_act); a W8A8 prefill chunk as ``gemm_plan`` says for each
-    input of a layer: where the plan folds for every projection reading it,
-    the first is one qmatmul_w8a8_qin, which hands its quantized input to
-    the others (an int8 GEMM each); elsewhere one quantize_act and an int8
-    GEMM each."""
+    per prefill chunk (M = slots x chunk), every layer's projections
+    (``layer_inputs``; ``cfg`` defaults to qwen2-0.5b's, the slots and
+    chunk to ``SERVE``'s). Over the int8 cache (``kv_bits`` 8) the fused
+    decode once a layer per decode step, or kv_attention on the unfused
+    route; over the fp cache no attention kernel (plain maths, as in the
+    reference). W8A16: one qmatmul_w8a16 a projection. W8A8, as
+    ``gemm_plan`` says for each input of a layer: where the plan folds for
+    every projection reading it, the first is one qmatmul_w8a8_qin, which
+    hands its quantized input to the others (an int8 GEMM each);
+    elsewhere one quantize_act and an int8 GEMM each; except wo at a fused
+    decode step, an int8 GEMM on the fused kernel's quantize-out.
+    ``quantize="none"``: no GEMM kernel."""
+    import repro_torch
     from repro_torch.kernels import gemm_plan
 
-    L = 24
-    want = {"fused_decode" if fused else "kv_attention": L * steps}
+    cfg = cfg or repro_torch.get_config(SERVE["arch"])
+    slots = slots or SERVE["slots"]
+    chunk = chunk or SERVE["prefill_chunk"]
+    L = cfg.n_layers
+    inputs = layer_inputs(cfg)
+    want = {}
+    if kv_bits == 8:
+        want["fused_decode" if fused else "kv_attention"] = L * steps
+    if quantize == "w8a16":
+        want["qmatmul_w8a16"] = (sum(len(Ns) for _, Ns in inputs) * L
+                                 * (steps + chunks))
     if quantize != "w8a8":
-        want["qmatmul_w8a16"] = 7 * L * (steps + chunks)
         return want
     want.update(quantize_act=0, qmatmul_w8a8=0, qmatmul_w8a8_qin=0)
-    for name, n in W8A8_DECODE[fused].items():
-        want[name] += n * L * steps
-    M = SERVE["slots"] * SERVE["prefill_chunk"]
-    for K, Ns in LAYER_INPUTS:
-        if all(gemm_plan.plan(M, N, K).fold for N in Ns):
-            want["qmatmul_w8a8_qin"] += L * chunks
-            want["qmatmul_w8a8"] += (len(Ns) - 1) * L * chunks
-        else:
-            want["quantize_act"] += L * chunks
-            want["qmatmul_w8a8"] += len(Ns) * L * chunks
+    for M, n, decode in ((slots, steps, True), (slots * chunk, chunks, False)):
+        for i, (K, Ns) in enumerate(inputs):
+            if decode and i == 1 and kv_bits == 8 and fused:
+                want["qmatmul_w8a8"] += L * n
+            elif all(gemm_plan.plan(M, N, K).fold for N in Ns):
+                want["qmatmul_w8a8_qin"] += L * n
+                want["qmatmul_w8a8"] += (len(Ns) - 1) * L * n
+            else:
+                want["quantize_act"] += L * n
+                want["qmatmul_w8a8"] += len(Ns) * L * n
     return want
 
 
@@ -1861,7 +2164,8 @@ def serve_full_width(torch, quantize, *, fused=True, reference=False,
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    config = repro_torch.ServeConfig(quantize=quantize, reference=reference,
+    config = repro_torch.ServeConfig(quantize=quantize, kv_bits=8,
+                                     reference=reference,
                                      warmup=not reference, profile=profile,
                                      **SERVE)
     saved = os.environ.get("REPRO_FUSED_DECODE")
@@ -1911,7 +2215,7 @@ def serve_bias_corrected(torch):
                               recipe="serve-w8a8-kv8", device="cuda")
     runs = {}
     for fast in (True, False):
-        engine = ServingEngine(model, qm.params, cfg, fast=fast,
+        engine = ServingEngine(model, qm.params, cfg, fast=fast, kv_bits=8,
                                num_slots=SERVE["slots"],
                                max_len=SERVE["max_len"],
                                prefill_chunk=SERVE["prefill_chunk"],
@@ -1945,6 +2249,133 @@ def serve_bias_corrected(torch):
     log("  serve-w8a8-kv8 kv_bias_correct: every request's tokens and finish "
         "tick equal the stepwise run's")
     return runs[True], runs[False]
+
+
+# the smoke serving runs of phase 3: 3 slots, 6 requests
+SMOKE_SERVE = dict(smoke=True, seed=0, slots=3, max_len=32, prefill_chunk=8,
+                   trace=6, trace_seed=0, prompt_min=4, prompt_len=20,
+                   gen_min=4, gen_len=8)
+
+
+def _smoke_run(torch, device, **kw):
+    """``repro_torch.serve`` at smoke size on ``device`` (the fast path's
+    graphs captured by warmup on the card); returns (run, launch counts)."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    fast = not kw.get("reference", False)
+    run = repro_torch.serve(repro_torch.ServeConfig(
+        device=device, warmup=fast and device != "cpu",
+        **{**SMOKE_SERVE, **kw}))
+    return run, launch_counts()
+
+
+def _smoke_engine_run(torch, arch, quantize, kv_bits, device, backend=None):
+    """The stepwise engine on ``device`` over a smoke model whose weights
+    are drawn on the host (the same on every device) and quantized there
+    by ``serve-<quantize>[-kv8]`` (``quantize="none"``: as drawn); returns
+    (results, launch counts, (model, params))."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.quantized import map_leaves
+    from repro_torch.serving import ServingEngine, synthetic_trace
+
+    model = repro_torch.build_model(repro_torch.get_config(arch, smoke=True))
+    params = model.init(0, device="cpu")
+    if quantize == "none":
+        params = map_leaves(lambda t: t.to(device), params)
+    else:
+        kv8 = "-kv8" if kv_bits == 8 else ""
+        qm = repro_torch.quantize(model, params, device=device,
+                                  recipe=f"serve-{quantize}{kv8}")
+        model, params = qm.model, qm.params
+    engine = ServingEngine(model, params, model.cfg, fast=False,
+                           kv_bits=kv_bits, device=device, backend=backend,
+                           num_slots=SMOKE_SERVE["slots"],
+                           max_len=SMOKE_SERVE["max_len"],
+                           prefill_chunk=SMOKE_SERVE["prefill_chunk"])
+    reset_launch_counts()
+    results = engine.run(synthetic_trace(
+        0, SMOKE_SERVE["trace"], vocab_size=model.cfg.vocab_size,
+        prompt_lens=(SMOKE_SERVE["prompt_min"], SMOKE_SERVE["prompt_len"]),
+        gen_lens=(SMOKE_SERVE["gen_min"], SMOKE_SERVE["gen_len"]),
+        mean_interarrival=1.0))
+    return results, launch_counts(), (model, params)
+
+
+def check_smoke_serving(torch, arch, quantize, kv_bits):
+    """A smoke model served on the card: ``repro_torch.serve`` fast
+    (graphs) and stepwise — the fast path's tokens and finish ticks equal
+    the stepwise path's, the launch counts exact (``expected_launches`` of
+    the arch, its KV precision and its forwards); then the stepwise
+    engine on the same host-drawn weights, quantized on the card and on
+    the CPU: every request's first token (the one no earlier difference
+    can move) the CPU's, the share of equal tokens logged; and the two
+    quantized models' teacher-forced prefill and decode logits
+    (``teacher_forced``), so the decode path past the first token is held
+    to the CPU's too."""
+    import repro_torch
+
+    label = (f"smoke {arch} --quantize {quantize} --kv-bits "
+             f"{kv_bits or 16}")
+    kw = dict(arch=arch, quantize=quantize, kv_bits=kv_bits)
+    cfg = repro_torch.get_config(arch, smoke=True)
+    for reference in (True, False):
+        run, counts = _smoke_run(torch, "cuda", reference=reference, **kw)
+        steps, chunks = forwards(run)
+        want = expected_launches(quantize, True, steps, chunks, cfg=cfg,
+                                 kv_bits=kv_bits or 16,
+                                 slots=SMOKE_SERVE["slots"],
+                                 chunk=SMOKE_SERVE["prefill_chunk"])
+        for name, n in counts.items():
+            assert n == want.get(name, 0), (
+                f"{label}: {name} launched {n} times, expected "
+                f"{want.get(name, 0)}")
+        if reference:
+            stepwise = run
+            continue
+        same_tokens(run, stepwise, f"{label} fast against stepwise")
+    cpu, _, (model, cpu_params) = _smoke_engine_run(torch, arch, quantize,
+                                                    kv_bits, "cpu")
+    card, _, (_, card_params) = _smoke_engine_run(torch, arch, quantize,
+                                                  kv_bits, "cuda")
+    firsts = sum(card[r].tokens[0] == c.tokens[0] for r, c in cpu.items())
+    equal = sum(a == b for r, c in cpu.items()
+                for a, b in zip(card[r].tokens, c.tokens))
+    total = sum(len(c.tokens) for c in cpu.values())
+    assert firsts == len(cpu), (
+        f"{label}: first tokens equal the CPU's in {firsts} of {len(cpu)} "
+        f"requests")
+    log(f"  {label} (kv cache {'int8' if run.kv_bits == 8 else 'fp'}): "
+        f"repro_torch.serve fast = stepwise, request by request, launches "
+        f"exact ({json.dumps({k: v for k, v in counts.items() if v})}); the "
+        f"engine on the CPU's weights: every first token the CPU's, {equal} "
+        f"of {total} tokens equal")
+    teacher_forced(torch, torch.device("cuda"), model.cfg, cpu_params,
+                   card_params, run.kv_bits, f"{label} ({cfg.n_layers} "
+                   f"layers, {cfg.dtype})")
+
+
+def check_torch_tier_on_card(torch):
+    """``backend="torch"`` (an explicit argument: the engine's tier scope)
+    on the card, over the CPU's weights quantized on the card: the plain
+    versions through the model — the CPU's tokens and ticks, and no
+    kernel launched; the default tier on the same weights launches."""
+    kw = dict(arch="qwen2-0.5b", quantize="w8a8", kv_bits=8)
+    cpu, _, _ = _smoke_engine_run(torch, device="cpu", **kw)
+    card, counts, _ = _smoke_engine_run(torch, device="cuda",
+                                        backend="torch", **kw)
+    assert not any(counts.values()), f"torch tier launched kernels: {counts}"
+    for rid, r in cpu.items():
+        assert card[rid].tokens == r.tokens, f"request {rid}: other tokens"
+        assert card[rid].finished_at == r.finished_at, rid
+    _, kcounts, _ = _smoke_engine_run(torch, device="cuda", **kw)
+    assert all(kcounts[k] for k in ("fused_decode", "qmatmul_w8a8")), kcounts
+    log(f"  backend='torch' on the card (smoke qwen2, serve-w8a8-kv8, "
+        f"stepwise engine): the CPU's tokens and finish ticks, 0 kernel "
+        f"launches (the default tier on the same weights: "
+        f"{sum(kcounts.values())} launches)")
 
 
 # --------------------------------------------------------------- phase 5
@@ -2083,10 +2514,130 @@ def serve_saved_deployment(torch, dev, model, params):
     return runs[False], runs[True]
 
 
+def log_row(name, r):
+    """One kernel row of phase 2: device and call time, the plain version,
+    the library call, the bound and what else the row measured."""
+    lib_ms = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f}"
+    log(f"  {name:16s} {r['shape']:40s} kernel "
+        f"{r['ms'] * 1e3:9.2f} us (call {r['call_ms'] * 1e3:7.2f})  "
+        f"plain {r['plain_ms'] * 1e3:9.2f} us  library {lib_ms:>6s} us"
+        f"  bound {r['bound_ms'] * 1e3:8.3f} us ({r['bound_by']})"
+        + (f"  stepwise pair {r['stepwise_ms'] * 1e3:8.2f} us"
+           if "stepwise_ms" in r else "")
+        + (f"  cold {r['cold_ms'] * 1e3:8.2f} us" if "cold_ms" in r else "")
+        + (f" (library {r['library_cold_ms'] * 1e3:.2f})"
+           if "library_cold_ms" in r else "")
+        + (f"  [{r['library']}]" if "library" in r else "")
+        + (f"  without quantize-out {r['no_q8_ms'] * 1e3:.2f} us"
+           if "no_q8_ms" in r else "")
+        + (f"  splits {r['splits']}, SDPA bf16 (GQA expanded) "
+           f"{r['sdpa_ms'] * 1e3:.2f} us" if "sdpa_ms" in r else "")
+        + (f"  launch floor {r['floor_ms'] * 1e3:.2f} us"
+           if "floor_ms" in r else ""))
+
+
+# --------------------------------------------------------------- phase 6
+# the serving runs of phase 6: phase 4's trace at mistral-nemo-12b's width
+NEMO = dict(SERVE, arch="mistral-nemo-12b")
+# device memory quantize must leave free (of the card's total)
+FREE_BYTES = 8 << 30
+
+
+def nemo_depth(torch, dev):
+    """The depth phase 6 serves mistral-nemo-12b at: all its layers if
+    ``repro_torch.quantize``'s peak (``torch.cuda.max_memory_allocated``,
+    serve-w8a16: the float32 weights and the copies the flow makes) leaves
+    ``FREE_BYTES`` of the card free, else the deepest that does. The peak
+    is linear in the depth (the embedding and the head, then the same
+    blocks a layer): measured at 2 and 4 layers and extrapolated; each
+    run checks its own peak."""
+    import dataclasses
+    import gc
+
+    import repro_torch
+
+    cfg = repro_torch.get_config(NEMO["arch"])
+    peaks = {}
+    for L in (2, 4):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        qm = repro_torch.quantize(
+            repro_torch.build_model(dataclasses.replace(cfg, n_layers=L)),
+            None, recipe="serve-w8a16", device=dev)
+        torch.cuda.synchronize(dev)
+        peaks[L] = torch.cuda.max_memory_allocated(dev) - base
+        del qm
+    per_layer = (peaks[4] - peaks[2]) / 2
+    fixed = peaks[2] - 2 * per_layer
+    total = torch.cuda.get_device_properties(dev).total_memory
+    room = total - FREE_BYTES - torch.cuda.memory_allocated(dev)
+    fits = int((room - fixed) // per_layer)
+    depth = max(1, min(cfg.n_layers, fits))
+    log(f"  quantize peak of serve-w8a16 at 2 / 4 layers: "
+        f"{peaks[2] / 2**30:.2f} / {peaks[4] / 2**30:.2f} GiB -> "
+        f"{per_layer / 2**30:.3f} GiB a layer + {fixed / 2**30:.2f} GiB; the "
+        f"card holds {total / 2**30:.2f} GiB: {fits} layers leave "
+        f"{FREE_BYTES / 2**30:.0f} GiB free -> serving "
+        f"{depth} of {cfg.n_layers} layers")
+    return depth
+
+
+def serve_nemo(torch, depth, quantize, kv_bits, *, reference):
+    """``repro_torch.serve`` of mistral-nemo-12b (full width, ``depth``
+    layers) on phase 4's trace: the fast path with every graph captured by
+    warmup, or the stepwise path; checked as phase 4's runs, the launch
+    counts from the plan."""
+    import dataclasses
+    import gc
+
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = repro_torch.ServeConfig(
+        quantize=quantize, kv_bits=kv_bits, layers=depth,
+        reference=reference, warmup=not reference, **NEMO)
+    reset_launch_counts()
+    run = repro_torch.serve(config)
+    counts = launch_counts()
+    cfg = dataclasses.replace(repro_torch.get_config(NEMO["arch"]),
+                              n_layers=depth)
+    kv = kv_bits or 16
+    label = (f"mistral-nemo-12b ({depth} layers) serve-{quantize}"
+             + ("-kv8" if kv == 8 else " (bf16 KV cache)")
+             + (" stepwise" if reference else ""))
+    check_served(run, counts, label,
+                 expected_launches(quantize, True, *forwards(run), cfg=cfg,
+                                   kv_bits=kv))
+    total = torch.cuda.get_device_properties(0).total_memory
+    free = total - run.quantize_peak_bytes
+    log(f"  {label}: {run.tokens_per_second:.1f} tok/s; quantize "
+        f"{run.quantize_seconds:.2f} s (peak {run.quantize_peak_bytes / 2**30:.2f}"
+        f" GiB, {free / 2**30:.2f} GiB of {total / 2**30:.2f} free)"
+        + (f", warmup {run.warmup['seconds']:.2f} s" if run.warmup else "")
+        + f"; peak from then to the loop's end {run.peak_bytes / 2**30:.2f} "
+          f"GiB ({smi_line()})")
+    assert free >= FREE_BYTES, (
+        f"{label}: quantize left {free / 2**30:.2f} GiB free")
+    return run
+
+
 # --------------------------------------------------------------- main
 def main() -> int:
+    import time
+
     import torch
 
+    t_script = time.perf_counter()
+    if os.environ.get("REPRO_KERNEL_BACKEND"):
+        print("chip_smoke: REPRO_KERNEL_BACKEND is set "
+              f"({os.environ['REPRO_KERNEL_BACKEND']!r}); this script picks "
+              "every kernel tier by explicit argument — unset it",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device — this script drives the "
               "port on an NVIDIA GPU", file=sys.stderr)
@@ -2133,32 +2684,27 @@ def main() -> int:
         if name == "qmatmul_w8a8_qin":
             continue  # logged by its check, fold beside pair
         for r in rows:
-            lib_ms = ("-" if r["library_ms"] is None
-                      else f"{r['library_ms'] * 1e3:.2f}")
-            log(f"  {name:16s} {r['shape']:40s} kernel "
-                f"{r['ms'] * 1e3:9.2f} us (call {r['call_ms'] * 1e3:7.2f})  "
-                f"plain {r['plain_ms'] * 1e3:9.2f} us  library {lib_ms:>6s} us"
-                f"  bound {r['bound_ms'] * 1e3:8.3f} us ({r['bound_by']})"
-                + (f"  stepwise pair {r['stepwise_ms'] * 1e3:8.2f} us"
-                   if "stepwise_ms" in r else "")
-                + (f"  cold {r['cold_ms'] * 1e3:8.2f} us" if "cold_ms" in r
-                   else "")
-                + (f" (library {r['library_cold_ms'] * 1e3:.2f})"
-                   if "library_cold_ms" in r else "")
-                + (f"  [{r['library']}]" if "library" in r else "")
-                + (f"  without quantize-out {r['no_q8_ms'] * 1e3:.2f} us"
-                   if "no_q8_ms" in r else "")
-                + (f"  splits {r['splits']}, SDPA bf16 (GQA expanded) "
-                   f"{r['sdpa_ms'] * 1e3:.2f} us" if "sdpa_ms" in r else "")
-                + (f"  launch floor {r['floor_ms'] * 1e3:.2f} us"
-                   if "floor_ms" in r else ""))
+            log_row(name, r)
     log_step_sums(tables)
+    check_new_attention(torch, dev, gen)
+    check_new_gemms(torch, dev, gen)
 
     log("== phase 3: small-input reference")
     for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8", "dfq-int8",
                    "naive-int8", "cle-only", BC_DEPLOY):
         check_reference(torch, dev, recipe)
     check_hostile_gate(torch, dev)
+    # the fp KV cache (the reference's default deployment), the
+    # unquantized model, every new arch through serve-w8a16-kv8, and the
+    # plain tier on the card by explicit argument
+    for recipe in ("serve-w8a16", "serve-w8a8"):
+        check_reference(torch, dev, recipe, kv_bits=16)
+    check_smoke_serving(torch, "qwen2-0.5b", "w8a16", None)
+    check_smoke_serving(torch, "qwen2-0.5b", "w8a8", None)
+    check_smoke_serving(torch, "qwen2-0.5b", "none", None)
+    for arch in ("yi-34b", "mistral-nemo-12b", "gemma-7b", "chameleon-34b"):
+        check_smoke_serving(torch, arch, "w8a16", 8)
+    check_torch_tier_on_card(torch)
 
     log("== phase 4: serve qwen2-0.5b (full width) through repro_torch.serve")
     log(f"  {smi}")
@@ -2206,6 +2752,27 @@ def main() -> int:
         f"{bc_fast.tokens_per_second:.1f} / {bc_stepwise.tokens_per_second:.1f}"
         f", phase 4's serve-w8a8-kv8 {runs['w8a8'][0].tokens_per_second:.1f} / "
         f"{stepwise['w8a8'].tokens_per_second:.1f} ({smi})")
+
+    log("== phase 6: serve mistral-nemo-12b (full width) through "
+        "repro_torch.serve")
+    log(f"  {smi}")
+    t6 = time.perf_counter()
+    depth = nemo_depth(torch, dev)
+    nemo = {}
+    for quantize, kv_bits in (("w8a16", None), ("w8a8", 8)):
+        step = serve_nemo(torch, depth, quantize, kv_bits, reference=True)
+        fast = serve_nemo(torch, depth, quantize, kv_bits, reference=False)
+        label = f"serve-{quantize}" + ("-kv8" if kv_bits else " (bf16 KV)")
+        same_tokens(fast, step, f"mistral-nemo-12b {label} fast against "
+                                f"stepwise")
+        nemo[label] = fast, step
+        log(f"  mistral-nemo-12b {label}: every request's tokens and finish "
+            f"tick equal the stepwise run's")
+    log("  mistral-nemo-12b tok/s fast / stepwise: " + ", ".join(
+        f"{label} {f.tokens_per_second:.1f} / {s.tokens_per_second:.1f}"
+        for label, (f, s) in nemo.items())
+        + f" ({depth} layers; {smi})")
+    log(f"  phase 6 took {time.perf_counter() - t6:.1f} s")
 
     # each kernel's launches come from the run of the path it serves; the
     # fused decode from the default (w8a16) path, kv_attention from the
@@ -2259,6 +2826,7 @@ def main() -> int:
             "launches": runs[path][1][name],
             "path": ("none: quantize_out=True only"
                      if name.endswith("_q8") else path)})
+    log(f"  the script took {time.perf_counter() - t_script:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -16,4 +16,5 @@ CONFIG = ModelConfig(
     qkv_bias=True,
     rope_theta=1e6,
     tie_embeddings=True,
+    max_seq=131072,
 )

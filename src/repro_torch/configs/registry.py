@@ -1,11 +1,21 @@
-"""Architecture registry: ``--arch <id>`` resolution. Only the archs the
-port serves so far are listed."""
+"""Architecture registry: ``--arch <id>`` resolution. The dense decoders of
+the JAX package's registry (chameleon-34b is family ``vlm``, an early-fusion
+decoder on the dense path); its MoE, SSM, hybrid, encoder-decoder and CNN
+archs are not ported yet."""
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import qwen2_0_5b
+from . import (
+    chameleon_34b,
+    gemma_7b,
+    mistral_nemo_12b,
+    qwen2_0_5b,
+    yi_34b,
+)
 
-ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (qwen2_0_5b,)}
+ARCHS: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (qwen2_0_5b, yi_34b, mistral_nemo_12b, gemma_7b, chameleon_34b)}
 
 
 def list_archs() -> list[str]:

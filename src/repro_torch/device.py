@@ -3,7 +3,8 @@
 Every entry point (``serve``, ``ServingEngine``, ``LMModel.init``) runs on
 the card unless the caller passes ``device="cpu"``: on a host without CUDA
 a default or explicit CUDA device raises here instead of quietly running
-the plain PyTorch versions on the CPU.
+the plain PyTorch versions on the CPU. ``meta`` builds shapes without
+memory (``models.cache_specs``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = "cuda"
             "repro_torch runs on an NVIDIA GPU by default, but torch sees no "
             "CUDA device; pass device='cpu' to run the plain PyTorch "
             "versions of the kernels on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}: cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: cuda or cpu (meta for "
+                         f"shape specs)")
     return dev

@@ -1,18 +1,29 @@
 """The kernel registry every serving op of the port resolves through.
 
-Counterpart of ``repro.kernels.dispatch``, keyed on the tensor's device
-instead of an environment variable:
+Counterpart of ``repro.kernels.dispatch``:
 
   * ``@register_impl(op, tier, pad=...)`` registers one implementation of
     ``op`` at one tier — ``cuda`` (the hand-written Hopper kernel) or
     ``torch`` (the plain PyTorch version, arithmetic in the JAX ``ref.py``
-    order).
-  * ``resolve(op, like)`` picks the tier from ``like.device``: a CUDA tensor
-    gets the kernel, a CPU tensor the plain version. Nothing else selects a
-    tier — no environment variable, no global switch — and the CUDA tier
-    never falls back: if its kernel cannot build or launch, the call raises.
+    order); ``backends(op)`` lists an op's tiers.
+  * ``resolve(op, like, backend=None)`` picks the tier as the JAX registry
+    does: an explicit ``backend`` argument wins, then the tier a caller set
+    for a block of calls (``tier_scope``: the serving engine's ``backend=``
+    argument), then the ``REPRO_KERNEL_BACKEND`` environment variable
+    (``cuda`` | ``torch``), then the tensor's device — the kernel for a
+    CUDA tensor, the plain version for a CPU tensor. The JAX package reads
+    the same variable; its own tier names (``pallas``, ``xla``,
+    ``interpret``, ``ref``) are not tiers here and read as unset, so a
+    setting meant for the JAX package never moves the port off its kernels.
+    Any other value raises. ``cuda`` for a CPU tensor raises, as does a tier
+    no impl of the op registered. Nothing falls back: if the CUDA kernel
+    cannot build or launch, the call raises. ``active_tier`` says which
+    tier a call would take (the launcher prints it).
     ``REPRO_FUSED_DECODE`` (``fused_decode.ops.fusion_enabled``) picks a
     route through the ops, as in the JAX package, never a tier.
+  * ``@register_spec(op)`` registers the op's smoke-shape argument builder;
+    ``iter_specs`` (through ``kernels.serving_kernel_specs``) enumerates
+    them.
   * Every kernel wrapper calls ``count_launch(op)`` right where it launches
     its kernel, and nowhere else, so a run can show that its main path went
     through the kernels (``launch_counts`` / ``reset_launch_counts``). The
@@ -36,19 +47,29 @@ plain tiers and any later padded kernel keep to.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import contextlib
+import os
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+ENV_VAR = "REPRO_KERNEL_BACKEND"
+
 #: implementation tiers, in display order
 TIERS = ("cuda", "torch")
+#: the JAX package's tier names: ``REPRO_KERNEL_BACKEND`` set to one of
+#: them is meant for that package and reads as unset here
+JAX_TIER_NAMES = ("pallas", "xla", "interpret", "ref")
 
 #: pad/mask conventions an impl may declare (None = op never pads)
 PAD_CONVENTIONS = ("zero", "zero-scale")
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _PAD: Dict[str, str] = {}
+_SPECS: Dict[str, Callable] = {}
+# the tier of the innermost tier_scope (None: none is open)
+_SCOPE: list = [None]
 _LAUNCHES: Dict[str, int] = {}
 # {(device index, stream): uint32 scratch}, left zero by every kernel
 _SCRATCH: Dict[tuple, torch.Tensor] = {}
@@ -82,7 +103,8 @@ def register_impl(op: str, tier: str, *, pad: Optional[str] = None):
         impls = _REGISTRY.setdefault(op, {})
         if tier in impls and impls[tier] is not fn:
             raise ValueError(f"register_impl: {op!r} already has a {tier!r} "
-                             f"impl ({impls[tier].__name__})")
+                             f"impl ({impls[tier].__name__}); refusing to "
+                             f"shadow it with {fn.__name__}")
         if pad is not None:
             prev = _PAD.get(op)
             if prev is not None and prev != pad:
@@ -116,6 +138,12 @@ def _registered(op: str) -> Dict[str, Callable]:
                        f"{', '.join(sorted(_REGISTRY)) or '(none)'}") from None
 
 
+def backends(op: str) -> tuple:
+    """The tiers ``op`` has implementations for, in tier order."""
+    impls = _registered(op)
+    return tuple(t for t in TIERS if t in impls)
+
+
 def tier_for(like: torch.Tensor) -> str:
     """``cuda`` for a CUDA tensor, ``torch`` for a CPU tensor."""
     if like.device.type == "cuda":
@@ -125,14 +153,70 @@ def tier_for(like: torch.Tensor) -> str:
     raise ValueError(f"no kernel tier for device {like.device}")
 
 
-def resolve(op: str, like: torch.Tensor) -> Callable:
-    """``op``'s implementation for the device ``like`` lives on."""
-    impls = _registered(op)
-    tier = tier_for(like)
+@contextlib.contextmanager
+def tier_scope(backend: Optional[str]):
+    """Resolve every op called inside the block at ``backend`` (None: no
+    change), unless a call names its own. The serving engine opens one for
+    its ``backend=`` argument."""
+    if backend is not None and backend not in TIERS:
+        raise ValueError(f"unknown kernel tier {backend!r}; tiers are "
+                         f"{', '.join(TIERS)}")
+    _SCOPE.append(backend if backend is not None else _SCOPE[-1])
     try:
-        return impls[tier]
-    except KeyError:
-        raise ValueError(f"op {op!r} has no {tier!r} implementation") from None
+        yield
+    finally:
+        _SCOPE.pop()
+
+
+def _env_tier() -> Optional[str]:
+    """The tier ``REPRO_KERNEL_BACKEND`` names, or None (unset, or one of
+    the JAX package's tier names)."""
+    env = os.environ.get(ENV_VAR) or None
+    if env is None or env in TIERS:
+        return env
+    if env in JAX_TIER_NAMES:
+        return None
+    raise ValueError(f"{ENV_VAR}={env!r} is not a kernel tier; tiers are "
+                     f"{', '.join(TIERS)}")
+
+
+def active_tier(like: torch.Tensor, backend: Optional[str] = None) -> str:
+    """The tier a call on ``like`` takes: an explicit ``backend`` > the open
+    ``tier_scope`` > ``REPRO_KERNEL_BACKEND`` > the device ``like`` lives
+    on."""
+    return backend or _SCOPE[-1] or _env_tier() or tier_for(like)
+
+
+def resolve(op: str, like: torch.Tensor,
+            backend: Optional[str] = None) -> Callable:
+    """``op``'s implementation at ``active_tier(like, backend)``."""
+    impls = _registered(op)
+    tier = active_tier(like, backend)
+    if tier not in impls:
+        raise ValueError(f"op {op!r} has no {tier!r} implementation; "
+                         f"registered tiers: {', '.join(backends(op))}")
+    if tier == "cuda" and like.device.type != "cuda":
+        raise ValueError(f"op {op!r}: the {tier!r} tier runs on a CUDA "
+                         f"tensor, got one on {like.device}")
+    return impls[tier]
+
+
+def register_spec(op: str):
+    """Decorator: register ``op``'s smoke-shape spec builder, a callable
+    ``(*, device, **shape_kw) -> (fn, args, kwargs)``."""
+
+    def deco(build: Callable) -> Callable:
+        if op in _SPECS and _SPECS[op] is not build:
+            raise ValueError(f"register_spec: {op!r} already has a spec")
+        _SPECS[op] = build
+        return build
+
+    return deco
+
+
+def iter_specs(**shape_kw) -> Dict[str, Any]:
+    """{op: (fn, args, kwargs)} over every registered spec builder."""
+    return {op: _SPECS[op](**shape_kw) for op in sorted(_SPECS)}
 
 
 def count_launch(op: str) -> None:

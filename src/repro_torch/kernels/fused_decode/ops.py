@@ -15,11 +15,12 @@ composition (``ref.py``). As in the JAX package:
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
-from ..dispatch import register_impl, resolve
-from ..kv_attention.ops import kv_attention_decode
+from ..dispatch import register_impl, register_spec, resolve
+from ..kv_attention.ops import _decode_spec_args, kv_attention_decode
 from ..quantize_act.ops import quantize_act
 from .kernel import fused_decode_cuda
 from .ref import fused_decode_ref
@@ -33,14 +34,14 @@ def fusion_enabled() -> bool:
 
 
 def _compose(q, ck, cks, cv, cvs, k_new, v_new, idx, *, valid, out_dtype,
-             blk, quantize_out, cache_verr=None):
+             blk, quantize_out, cache_verr=None, backend=None):
     """The stepwise composition: ``kv_attention_decode`` (+ ``quantize_act``
     of the output row under ``quantize_out``)."""
     out, updated = kv_attention_decode(
         q, ck, cks, cv, cvs, k_new, v_new, idx, valid=valid,
-        out_dtype=out_dtype, blk=blk, cache_verr=cache_verr)
+        out_dtype=out_dtype, blk=blk, cache_verr=cache_verr, backend=backend)
     if quantize_out:
-        oq, os_ = quantize_act(out.reshape(out.shape[0], -1))
+        oq, os_ = quantize_act(out.reshape(out.shape[0], -1), backend=backend)
         return (out, oq, os_), updated
     return out, updated
 
@@ -81,7 +82,8 @@ def _fd_torch(q, ck, cks, cv, cvs, k_new, v_new, idx, *, valid, out_dtype,
 
 def fused_decode(q, cache_k, cache_ks, cache_v, cache_vs, k_new, v_new, idx,
                  *, valid=None, out_dtype=torch.float32, blk: int = 512,
-                 cache_verr=None, quantize_out: bool = False):
+                 cache_verr=None, quantize_out: bool = False,
+                 backend: Optional[str] = None):
     """Fused decode step: append-quantize the new token into the int8 cache
     IN PLACE, attend, and optionally re-quantize the output row for the W8A8
     wo projection.
@@ -97,7 +99,19 @@ def fused_decode(q, cache_k, cache_ks, cache_v, cache_vs, k_new, v_new, idx,
     if cache_verr is not None:
         return _compose(q, cache_k, cache_ks, cache_v, cache_vs, k_new,
                         v_new, idx, valid=valid, out_dtype=out_dtype, blk=blk,
-                        quantize_out=quantize_out, cache_verr=cache_verr)
-    return resolve("fused_decode", q)(
+                        quantize_out=quantize_out, cache_verr=cache_verr,
+                        backend=backend)
+    return resolve("fused_decode", q, backend)(
         q, cache_k, cache_ks, cache_v, cache_vs, k_new, v_new, idx,
         valid=valid, out_dtype=out_dtype, blk=blk, quantize_out=quantize_out)
+
+
+@register_spec("fused_decode")
+def _spec(*, device, head_dim: int = 16, n_kv_heads: int = 2,
+          n_q_heads: int = 4, seq: int = 32, batch: int = 2, **_):
+    return (fused_decode,
+            _decode_spec_args(device, batch, seq, n_q_heads, n_kv_heads,
+                              head_dim),
+            {"valid": torch.ones((batch, seq), dtype=torch.bool,
+                                 device=device),
+             "quantize_out": True})

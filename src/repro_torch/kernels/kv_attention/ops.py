@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from ..dispatch import register_impl, resolve
+from ..dispatch import register_impl, register_spec, resolve
 from .kernel import kv_attention_cuda
 from .ref import kv_attention_ref
 
@@ -103,7 +103,8 @@ def _kv_torch(q, k_q, k_s, v_q, v_s, *, blk, out_dtype, v_err):
 
 def kv_attention(q, k_q, k_s, v_q, v_s, *, blk: int = 512,
                  out_dtype=torch.float32,
-                 v_err: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 v_err: Optional[torch.Tensor] = None,
+                 backend: Optional[str] = None) -> torch.Tensor:
     """Single-token decode attention over an int8 cache.
 
     q [B, Hq, hd]; k_q/v_q [B, S, Hkv, hd] int8; k_s/v_s [B, S, Hkv], Hq a
@@ -114,13 +115,14 @@ def kv_attention(q, k_q, k_s, v_q, v_s, *, blk: int = 512,
     the scales are zero, as ``kv_attention_decode`` does, or a fully masked
     row (every weight equal) is not 0.
     """
-    return resolve("kv_attention", q)(q, k_q, k_s, v_q, v_s, blk=blk,
-                                      out_dtype=out_dtype, v_err=v_err)
+    return resolve("kv_attention", q, backend)(
+        q, k_q, k_s, v_q, v_s, blk=blk, out_dtype=out_dtype, v_err=v_err)
 
 
 def kv_attention_decode(q, cache_k, cache_ks, cache_v, cache_vs, k_new, v_new,
                         idx, *, valid=None, out_dtype=torch.float32,
-                        blk: int = 512, cache_verr=None):
+                        blk: int = 512, cache_verr=None,
+                        backend: Optional[str] = None):
     """The unfused decode step: append-quantize the new token IN PLACE, zero
     the scales (and V error means) where ``valid`` [B|1, S] is False, then
     ``kv_attention``. Returns ``(out [B, Hq, hd], updated leaves)``; the
@@ -136,5 +138,27 @@ def kv_attention_decode(q, cache_k, cache_ks, cache_v, cache_vs, k_new, v_new,
         if verr is not None:
             verr = torch.where(live, verr, torch.zeros_like(verr))
     out = kv_attention(q, ck, ks, cv, vs, blk=blk, out_dtype=out_dtype,
-                       v_err=verr)
+                       v_err=verr, backend=backend)
     return out, updated
+
+
+def _decode_spec_args(device, batch, seq, n_q_heads, n_kv_heads, head_dim):
+    B, S, Hq, Hkv, hd = batch, seq, n_q_heads, n_kv_heads, head_dim
+    return (torch.zeros((B, Hq, hd), device=device),                 # q
+            torch.zeros((B, S, Hkv, hd), dtype=torch.int8, device=device),
+            torch.ones((B, S, Hkv), device=device),                  # k scale
+            torch.zeros((B, S, Hkv, hd), dtype=torch.int8, device=device),
+            torch.ones((B, S, Hkv), device=device),                  # v scale
+            torch.zeros((B, 1, Hkv, hd), device=device),             # k_new
+            torch.zeros((B, 1, Hkv, hd), device=device),             # v_new
+            torch.zeros((B, 1), dtype=torch.int64, device=device))   # idx
+
+
+@register_spec("kv_attention_decode")
+def _spec(*, device, head_dim: int = 16, n_kv_heads: int = 2,
+          n_q_heads: int = 4, seq: int = 32, batch: int = 2, **_):
+    return (kv_attention_decode,
+            _decode_spec_args(device, batch, seq, n_q_heads, n_kv_heads,
+                              head_dim),
+            {"valid": torch.ones((batch, seq), dtype=torch.bool,
+                                 device=device)})

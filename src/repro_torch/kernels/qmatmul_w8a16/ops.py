@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..dispatch import register_impl, resolve
+from ..dispatch import register_impl, register_spec, resolve
 from .kernel import qmatmul_w8a16_cuda, qmatmul_w8a16_q8_cuda
 from .ref import qmatmul_w8a16_q8_ref, qmatmul_w8a16_ref
 
@@ -44,15 +44,25 @@ def _w8a16_q8_torch(a, w_q, w_scale, bias):
 def qmatmul_w8a16(a: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *,
                   out_dtype: Optional[torch.dtype] = None,
-                  quantize_out: bool = False):
+                  quantize_out: bool = False, backend: Optional[str] = None):
     """y = a @ dequant(w_q) + bias. a [M, K] float32 | bfloat16, w_q [K, N]
     int8, w_scale [N] | [1], bias [N] or None; ``out_dtype`` defaults to
     a's dtype, the one the kernel writes. ``quantize_out=True`` returns
     (y_q int8 [M, N], y_scale float32 [M]) from the fused epilogue
     instead."""
     if quantize_out:
-        return resolve("qmatmul_w8a16_q8", a)(a, w_q,
-                                              torch.atleast_1d(w_scale), bias)
-    return resolve("qmatmul_w8a16", a)(
+        return resolve("qmatmul_w8a16_q8", a, backend)(
+            a, w_q, torch.atleast_1d(w_scale), bias)
+    return resolve("qmatmul_w8a16", a, backend)(
         a, w_q, torch.atleast_1d(w_scale), bias,
         out_dtype=a.dtype if out_dtype is None else out_dtype)
+
+
+@register_spec("qmatmul_w8a16")
+def _spec(*, device, d_in: int = 64, d_out: int = 128, **_):
+    M, K, N = 8, d_in, d_out
+    return (qmatmul_w8a16,
+            (torch.zeros((M, K), device=device),
+             torch.zeros((K, N), dtype=torch.int8, device=device),
+             torch.ones((N,), device=device)),
+            {"out_dtype": torch.float32})

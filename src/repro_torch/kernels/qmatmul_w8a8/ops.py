@@ -4,8 +4,13 @@
 counter, ``qmatmul_w8a8_q8``): the GEMM emits (int8 out, per-row scale) in
 one launch — the exact ``quantize_act`` formula applied to the float32
 result, so the stepwise GEMM → ``quantize_act`` pair collapses into one
-launch bit-identically. The JAX op's ``a_zero_point`` branch is off the
-serving path and not ported yet.
+launch bit-identically.
+
+Asymmetric activations, as in the JAX op: with a = (a_q − zp)·s_a,
+y = s_a s_w (Σ a_q w_q − zp Σ_k w_q[k, :]) + bias, so ``a_zero_point``
+[M] | scalar applies the rank-1 term ``zp·colsum(w_q)·s_a·s_w`` after the
+GEMM, in plain torch, as the reference applies it outside its Pallas
+kernel; it cannot combine with ``quantize_out``.
 
 ``qmatmul_w8a8_qin`` takes the float activation instead and quantizes it
 per row first (``quantize_act``), as the JAX package's ``quantize_input``
@@ -21,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from ..dispatch import register_impl, resolve
+from ..dispatch import register_impl, register_spec, resolve
 from .kernel import (
     qmatmul_w8a8_cuda,
     qmatmul_w8a8_q8_cuda,
@@ -76,24 +81,26 @@ def _scale_bias(w_scale, bias, N: int, dev):
 def qmatmul_w8a8_qin(x: torch.Tensor, w_q: torch.Tensor, w_scale,
                      bias: Optional[torch.Tensor] = None, *,
                      out_dtype: torch.dtype = torch.float32,
-                     quantized: bool = False):
+                     quantized: bool = False, backend: Optional[str] = None):
     """y = quantize_act(x) @ dequant(w_q) + bias, x [M, K] float32 |
     bfloat16, w_q [K, N] int8, w_scale [N] | [1], bias [N]: the same bits as
     ``quantize_act`` followed by ``qmatmul_w8a8``. ``quantized=True``
     returns (y, x_q, x_scale), ``quantize_act(x)`` for the other W8A8
     projections that read x (on the card, from the same launch)."""
     w_scale, bias = _scale_bias(w_scale, bias, w_q.shape[1], x.device)
-    return resolve("qmatmul_w8a8_qin", x)(x, w_q, w_scale, bias,
+    return resolve("qmatmul_w8a8_qin", x, backend)(x, w_q, w_scale, bias,
                                           out_dtype=out_dtype,
                                           quantized=quantized)
 
 
 def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,
-                 bias: Optional[torch.Tensor] = None, *,
+                 bias: Optional[torch.Tensor] = None,
+                 a_zero_point=None, *,
                  out_dtype: torch.dtype = torch.float32,
-                 quantize_out: bool = False):
+                 quantize_out: bool = False, backend: Optional[str] = None):
     """y = dequant(a_q) @ dequant(w_q) + bias. a_q [M, K] int8, w_q [K, N]
-    int8, a_scale [M] | [1], w_scale [N] | [1], bias [N].
+    int8, a_scale [M] | [1], w_scale [N] | [1], bias [N]; ``a_zero_point``
+    [M] | scalar for asymmetric activations (see the module docstring).
 
     ``quantize_out=True`` returns (y_q int8 [M, N], y_scale float32 [M])
     instead — the fused GEMM + quantize epilogue feeding a W8A8 layer."""
@@ -104,8 +111,34 @@ def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,
         torch.as_tensor(a_scale, dtype=torch.float32, device=dev), (M,)
     ).contiguous()
     w_scale, bias = _scale_bias(w_scale, bias, N, dev)
+    if a_zero_point is not None:
+        if quantize_out:
+            raise ValueError(
+                "qmatmul_w8a8: quantize_out folds the epilogue into the "
+                "kernel, but the zero-point correction is applied post-GEMM "
+                "— drop a_zero_point (symmetric activations) or quantize_out")
+        # zp per row, colsum per column: a rank-1 term after the GEMM, in
+        # the reference's order of products
+        colsum = w_q.to(torch.int32).sum(dim=0).to(torch.float32)
+        zp = torch.broadcast_to(torch.as_tensor(
+            a_zero_point, dtype=torch.float32, device=dev), (M,))
+        zp_term = (zp[:, None] * colsum[None, :] * a_scale[:, None]
+                   * w_scale[None, :])
     if quantize_out:
-        return resolve("qmatmul_w8a8_q8", a_q)(a_q, w_q, a_scale, w_scale,
-                                               bias)
-    return resolve("qmatmul_w8a8", a_q)(a_q, w_q, a_scale, w_scale, bias,
-                                        out_dtype=out_dtype)
+        return resolve("qmatmul_w8a8_q8", a_q, backend)(a_q, w_q, a_scale,
+                                                        w_scale, bias)
+    out = resolve("qmatmul_w8a8", a_q, backend)(a_q, w_q, a_scale, w_scale,
+                                                bias, out_dtype=out_dtype)
+    if a_zero_point is not None:
+        out = (out.to(torch.float32) - zp_term).to(out_dtype)
+    return out
+
+
+@register_spec("qmatmul_w8a8")
+def _spec(*, device, d_in: int = 64, d_out: int = 128, **_):
+    M, K, N = 8, d_in, d_out
+    return (qmatmul_w8a8,
+            (torch.zeros((M, K), dtype=torch.int8, device=device),
+             torch.zeros((K, N), dtype=torch.int8, device=device),
+             torch.ones((M,), device=device), torch.ones((N,), device=device)),
+            {})

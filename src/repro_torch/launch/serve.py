@@ -1,19 +1,20 @@
 """Serving launcher: build a model, quantize it data-free and serve it with
 the continuous-batching engine — on the card unless told otherwise.
 
-    python -m repro_torch.launch.serve --arch qwen2-0.5b --quantize w8a16 \
-        --kv-bits 8 --trace 16 --slots 8 --prefill-chunk 32 --warmup
+    python -m repro_torch.launch.serve --arch mistral-nemo-12b \
+        --quantize w8a16 --trace 16 --slots 8 --prefill-chunk 32 --warmup
 
     import repro_torch
     run = repro_torch.serve(repro_torch.ServeConfig(arch="qwen2-0.5b",
                                                     trace=16))
 
 The weights are random (seeded). As in the JAX launcher, they go through
-the ``serve-<quantize>-kv8`` recipe (``repro_torch.quantize``): norm
-folding, cross-layer equalization, bias absorption, the int8 pack
-(per-tensor scales) and the int8 KV cache. ``--load DIR`` serves a saved
-``QuantizedModel`` instead (either package's artifact; its KV precision
-must be the int8 cache's), as it was saved. The engine takes the fast path
+the ``serve-<quantize>`` recipe (``repro_torch.quantize``: norm folding,
+cross-layer equalization, bias absorption, the int8 pack with per-tensor
+scales) over the fp KV cache, or with ``--kv-bits 8`` the
+``serve-<quantize>-kv8`` recipe and the int8 KV cache; ``--quantize none``
+serves the fp32 weights as drawn. ``--load DIR`` serves a saved
+``QuantizedModel`` instead (either package's artifact), as it was saved. The engine takes the fast path
 (decode horizons of up to ``--decode-horizon`` steps; CUDA graphs on the
 card) unless ``--reference`` asks for the stepwise path; ``--warmup``
 captures every graph before the timed loop. ``serve`` returns a
@@ -32,11 +33,11 @@ import torch
 
 from ..configs import get_config
 from ..device import resolve_device
+from ..kernels.dispatch import active_tier
 from ..models import build_model
 from ..pipeline import QuantizedModel, quantize
 from ..serving import ServingEngine, required_cache_len, synthetic_trace
 from .serve_config import (  # noqa: F401
-    KV_BITS,
     QUANTIZE_CHOICES,
     ServeConfig,
     ServeConfigError,
@@ -54,6 +55,12 @@ class ServeRun:
     path: str = ""           # "fast (decode horizon K)" or "stepwise"
     warmup: Optional[dict] = None        # ServingEngine.warmup()'s record
     busy_share: Optional[float] = None   # with --profile, on the card
+    quantize_seconds: float = 0.0        # model build + quantize (or load)
+    kv_bits: int = 16                    # the served KV cache's precision
+    # on the card: peak device memory allocated up to the end of quantize
+    # (or load), and from there to the end of the serving loop
+    quantize_peak_bytes: Optional[int] = None
+    peak_bytes: Optional[int] = None
 
     @property
     def tokens_per_second(self) -> float:
@@ -95,31 +102,55 @@ def serve(config: ServeConfig) -> ServeRun:
     """Build, quantize and serve per ``config``; prints a short report."""
     config = dataclasses.replace(config).validate()
     device = resolve_device(config.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t_start = time.perf_counter()
     if config.load:
         qm = QuantizedModel.load(config.load, device=device)
         config, notes = config.with_artifact(ServeConfig.from_artifact(qm))
         for note in notes:
             print(f"note: {note}")
-        if qm.kv_bits != KV_BITS:
-            raise ServeConfigError(
-                f"--load {config.load}: the artifact records a 16-bit KV "
-                f"cache (no kv_cache stage with bits=8 in recipe "
-                f"{qm.recipe.name!r}); the port serves the int8 KV cache "
-                "only — re-quantize with a ('kv_cache', {'bits': 8}) step")
         how = f"loaded from {config.load}"
     else:
-        model = build_model(get_config(config.arch, smoke=config.smoke))
-        qm = quantize(model, model.init(config.seed, device=device),
-                      recipe=f"serve-{config.quantize}-kv8", device=device)
+        cfg = get_config(config.arch, smoke=config.smoke)
+        if config.layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=config.layers)
+        if config.quantize == "none":
+            qm = None
+            if config.kv_bits is not None:
+                cfg = dataclasses.replace(cfg, kv_cache_bits=config.kv_bits)
+            model = build_model(cfg)
+            params = model.init(config.seed, device=device)
+        else:
+            kv8 = "-kv8" if config.kv_bits == 8 else ""
+            # quantize draws the weights itself: no reference here keeps
+            # the float32 tree alive once the pipeline has replaced it
+            qm = quantize(build_model(cfg), None, init_seed=config.seed,
+                          device=device,
+                          recipe=f"serve-{config.quantize}{kv8}")
         how = "quantized"
-    cfg, model, params = qm.cfg, qm.model, qm.params
-    print(f"{how} {cfg.name} with recipe {qm.recipe.name!r} on {device}:")
-    for rec in qm.report:
-        notes = {k: v for k, v in rec["metrics"].items() if k != "sqnr_db"}
-        print(f"  {rec['stage']}: {notes} ({rec['seconds'] * 1e3:.1f} ms)")
-    sqnr = qm.site_sqnr_db()
-    print("  per-site weight SQNR (dB): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in sqnr.items()))
+    quantize_peak = None
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        quantize_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    quantize_s = time.perf_counter() - t_start
+    if qm is not None:
+        cfg, model, params = qm.cfg, qm.model, qm.params
+        peak = ("" if quantize_peak is None else
+                f", peak device memory {quantize_peak / 2**30:.2f} GiB")
+        print(f"{how} {cfg.name} ({cfg.n_layers} layers) with recipe "
+              f"{qm.recipe.name!r} on {device} in {quantize_s:.1f} s{peak}:")
+        for rec in qm.report:
+            notes = {k: v for k, v in rec["metrics"].items()
+                     if k != "sqnr_db"}
+            print(f"  {rec['stage']}: {notes} ({rec['seconds'] * 1e3:.1f} ms)")
+        sqnr = qm.site_sqnr_db()
+        print("  per-site weight SQNR (dB): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sqnr.items()))
+    else:
+        print(f"serving {cfg.name} unquantized ({cfg.param_dtype} weights, "
+              f"{cfg.dtype} compute) on {device}")
 
     requests = synthetic_trace(
         config.trace_seed, config.trace, vocab_size=cfg.vocab_size,
@@ -131,10 +162,14 @@ def serve(config: ServeConfig) -> ServeRun:
                            max_len=config.max_len or need,
                            prefill_chunk=config.prefill_chunk,
                            decode_horizon=config.decode_horizon,
-                           fast=not config.reference, kv_bits=qm.kv_bits,
-                           device=device)
-    print(f"kv cache: int8 ({engine.pool.bytes_per_slot() / 1e3:.1f} kB/slot, "
+                           fast=not config.reference,
+                           kv_bits=config.kv_bits, device=device)
+    print(f"kv cache: {'int8' if engine.kv_bits == 8 else 'fp'} "
+          f"({engine.pool.bytes_per_slot() / 1e3:.1f} kB/slot, "
           f"{config.slots} slots x {engine.max_len} positions) on {device}")
+    tier = active_tier(torch.empty(0, device=device))
+    print(f"kernel tier: {tier} (" + ("the hand-written CUDA kernels"
+          if tier == "cuda" else "the plain PyTorch versions") + ")")
     warm = engine.warmup() if config.warmup else None
     if warm is not None and "graphs" in warm:
         print(f"warmup: captured {warm['graphs']} CUDA graphs in "
@@ -156,7 +191,11 @@ def serve(config: ServeConfig) -> ServeRun:
             else f"fast (decode horizon {config.decode_horizon})")
     run = ServeRun(results=results, stats=dict(engine.stats), seconds=dt,
                    generated_tokens=engine.stats["generated_tokens"],
-                   report=qm.report, path=path, warmup=warm, busy_share=busy)
+                   report=[] if qm is None else qm.report, path=path,
+                   warmup=warm, busy_share=busy, quantize_seconds=quantize_s,
+                   quantize_peak_bytes=quantize_peak, kv_bits=engine.kv_bits,
+                   peak_bytes=(torch.cuda.max_memory_allocated(device)
+                               if device.type == "cuda" else None))
     print(f"served {len(results)} requests / {run.generated_tokens} generated "
           f"tokens in {dt * 1e3:.1f} ms ({run.tokens_per_second:.1f} tok/s, "
           f"{path} path)")

@@ -1,10 +1,7 @@
 """Decoder-only dense LM in PyTorch (port of ``repro.models``)."""
-from .config import ModelConfig
+from .config import SHAPE_BY_NAME, SHAPES, ModelConfig, ShapeConfig, shape_applicable
 from .lm import LMModel
+from .model import build_model, cache_specs, input_specs
 
-
-def build_model(cfg: ModelConfig) -> LMModel:
-    return LMModel(cfg)
-
-
-__all__ = ["LMModel", "ModelConfig", "build_model"]
+__all__ = ["LMModel", "ModelConfig", "SHAPES", "SHAPE_BY_NAME", "ShapeConfig",
+           "build_model", "cache_specs", "input_specs", "shape_applicable"]

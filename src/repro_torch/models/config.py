@@ -1,9 +1,10 @@
 """Architecture configuration: the dense-transformer fields of
-``repro.models.config.ModelConfig`` and its ``smoke()`` reduction."""
+``repro.models.config.ModelConfig``, its ``smoke()`` reduction, and the
+input-shape cells (``ShapeConfig``, ``SHAPES``) of the JAX package."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -11,7 +12,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | vlm (early fusion: the dense path)
     n_layers: int
     d_model: int
     n_heads: int
@@ -19,15 +20,21 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None           # default d_model // n_heads
-    act: str = "silu_glu"                     # silu_glu (the one ported)
+    act: str = "silu_glu"                     # silu_glu | gelu_glu | gelu | relu
     norm: str = "rms"                         # rms
     qkv_bias: bool = False
     rope: bool = True
     rope_theta: float = 10000.0
-    qk_norm: bool = False
+    qk_norm: bool = False                     # chameleon
+    kv_cache_bits: int = 16                   # 8 → int8 KV cache (per-token,
+                                              # per-head absmax scales)
     tie_embeddings: bool = True
+    max_seq: int = 131072
+    frontend: str = "none"                    # none | vision_stub (vlm:
+                                              # image tokens share the vocab)
     dtype: str = "bfloat16"                   # activation compute dtype
     param_dtype: str = "float32"
+    logit_chunk: int = 1024                   # the loss's sequence chunking
     kv_bias_correct: bool = False             # int8 KV only: store per-token
                                               # V error means (v_err) and
                                               # subtract Σ p·v_err (§4.2)
@@ -57,7 +64,7 @@ class ModelConfig:
         d, f = self.d_model, self.d_ff
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         attn = d * self.attn_dim + 2 * d * self.kv_dim + self.attn_dim * d
-        mlp = 3 * d * f                               # gated: wg, wu, wd
+        mlp = (3 if self.act.endswith("_glu") else 2) * d * f
         return n + self.n_layers * (attn + mlp)
 
     def smoke(self) -> "ModelConfig":
@@ -72,6 +79,37 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab_size=256,
+            max_seq=128,
             dtype="float32",
             param_dtype="float32",
+            logit_chunk=32,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
+    """(applies, why not): long_500k needs sub-quadratic attention, which
+    no dense decoder the port serves has."""
+    if shape.name == "long_500k":
+        return False, ("pure full-attention arch — quadratic 500k decode "
+                       "skipped (DESIGN.md §7)")
+    return True, ""

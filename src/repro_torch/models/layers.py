@@ -5,14 +5,22 @@ linear weights are ``[d_in, d_out]`` applied as ``y = x @ w + b``, attention
 projections are flat ``[D, n_heads*head_dim]`` (head-major), and a
 ``QTensor`` weight routes through the int8 kernels.
 
-Attention is the serving path — a per-slot int8 KV cache, the single-token
-decode through the fused decode kernel (with the quantize-out epilogue
-feeding a W8A8 ``wo``) or, with ``REPRO_FUSED_DECODE=0`` or the V bias
-correction's ``v_err`` leaf, through ``kv_attention_decode``, and the
-chunked prefill (append-quantize, then plain softmax attention over the
-dequantized cache) — plus the cache-free causal attention of the eval
-forward. The cache tensors are updated IN PLACE; the JAX layers return
-updated copies.
+Attention is the serving path over a per-slot (continuous batching) or a
+whole-batch ring cache, int8 or fp:
+
+  * an int8 cache (``k_scale`` among its leaves): the single-token decode
+    through the fused decode kernel (with the quantize-out epilogue feeding
+    a W8A8 ``wo``) or, with ``REPRO_FUSED_DECODE=0`` or the V bias
+    correction's ``v_err`` leaf, through ``kv_attention_decode``, and the
+    chunked prefill (append-quantize, then plain softmax attention over the
+    dequantized cache);
+  * an fp cache (the JAX package's default, ``kv_cache_bits=16``): the new
+    K/V written into the cache rows, then plain softmax attention over the
+    cache, decode and prefill alike — plain maths in the reference too,
+    outside any Pallas kernel;
+
+plus the cache-free causal attention of the eval forward. The cache tensors
+are updated IN PLACE; the JAX layers return updated copies.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.fused_decode.ops import fused_decode, fusion_enabled
 from ..kernels.kv_attention.ops import append_quantize, kv_attention_decode
@@ -116,6 +125,7 @@ class AttnDims:
     n_q: int
     n_kv: int
     head_dim: int
+    qk_norm: bool = False
     rope: bool = True
     rope_theta: float = 10000.0
 
@@ -123,18 +133,37 @@ class AttnDims:
 class SlotWrite(NamedTuple):
     """Where a forward's T new tokens land in a per-slot ring cache, and what
     each of them may attend to. Every layer shares it (the JAX layers each
-    recompute it from the same pre-write bookkeeping)."""
-    idx: torch.Tensor     # [B, T] ring write offsets
+    recompute it from the same pre-write bookkeeping). A whole-batch cache
+    (``per_slot=False``) drops the batch dim of idx, kpos and mask."""
+    idx: torch.Tensor     # [B, T] ring write offsets ([T] whole-batch)
     kpos: torch.Tensor    # [B, S] absolute positions after the write (-1 = empty)
-    mask: torch.Tensor    # [B, T, S] bool, True = attend
+    mask: torch.Tensor    # [B, T, S] bool, True = attend ([T, S] whole-batch)
+
+    @property
+    def where(self) -> tuple:
+        """The index of the new tokens' cache rows in a [B, S, ...] leaf."""
+        if self.idx.ndim == 1:
+            return (slice(None), self.idx)
+        row = torch.arange(self.idx.shape[0], device=self.idx.device)[:, None]
+        return (row, self.idx)
+
+    @property
+    def valid(self) -> torch.Tensor:
+        """[B|1, S]: the positions a single new token attends to."""
+        return self.mask[:, 0, :] if self.mask.ndim == 3 else self.mask[:1]
 
 
 def slot_write(kpos: torch.Tensor, positions: torch.Tensor) -> SlotWrite:
-    """kpos [B, S] before the write; positions [B, T] of the new tokens."""
-    B, S = kpos.shape
+    """kpos [B, S] before the write and positions [B, T] of the new tokens
+    (per-slot), or kpos [S] and positions [T] (whole-batch)."""
+    S = kpos.shape[-1]
     idx = positions % S
-    row = torch.arange(B, device=kpos.device)[:, None]
     kpos = kpos.clone()
+    if kpos.ndim == 1:
+        kpos[idx] = positions
+        mask = (kpos >= 0)[None, :] & (kpos[None, :] <= positions[:, None])
+        return SlotWrite(idx, kpos, mask)
+    row = torch.arange(kpos.shape[0], device=kpos.device)[:, None]
     kpos[row, idx] = positions
     mask = (kpos >= 0)[:, None, :] & (kpos[:, None, :] <= positions[..., None])
     return SlotWrite(idx, kpos, mask)
@@ -178,6 +207,9 @@ def _project_qkv(p: dict, x: torch.Tensor, dims: AttnDims, positions):
     q = q.reshape(B, T, dims.n_q, dims.head_dim)
     k = k.reshape(B, T, dims.n_kv, dims.head_dim)
     v = v.reshape(B, T, dims.n_kv, dims.head_dim)
+    if dims.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     if dims.rope:
         cos, sin = rope_angles(positions, dims.head_dim, dims.rope_theta)
         q = apply_rope(q, cos, sin)
@@ -214,20 +246,31 @@ def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
 def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
                     positions: torch.Tensor, cache: dict,
                     slots: SlotWrite) -> torch.Tensor:
-    """qkv projection → rope → int8-cache attention → output projection.
+    """qkv projection → rope → cached attention → output projection.
 
     cache: this layer's {"k", "v" [B, S, Hkv, hd] int8, "k_scale",
     "v_scale" [B, S, Hkv] float32, and with the V bias correction "v_err"
-    [B, S, Hkv] float32}, written in place. T == 1 is the decode hot path,
-    T > 1 a prefill chunk.
+    [B, S, Hkv] float32}, or an fp cache's {"k", "v"} alone, written in
+    place. T == 1 is the decode hot path, T > 1 a prefill chunk.
     """
     B, T, D = x.shape
     nq, nkv, hd = dims.n_q, dims.n_kv, dims.head_dim
     q, k, v = _project_qkv(p, x, dims, positions)
+    group = nq // nkv
+    if "k_scale" not in cache:
+        # the fp cache: write the new rows, then attend over the whole
+        # cache in the compute dtype, as the reference's plain maths
+        ck, cv = cache["k"], cache["v"]
+        ck[slots.where] = k.to(ck.dtype)
+        cv[slots.where] = v.to(cv.dtype)
+        attn = attention_scores_softmax(q, _repeat_kv(ck.to(x.dtype), group),
+                                        _repeat_kv(cv.to(x.dtype), group),
+                                        slots.mask)
+        return linear(attn.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
     verr = cache.get("v_err")
 
     if T == 1:
-        valid = slots.mask[:, 0, :]
+        valid = slots.valid
         if fusion_enabled() and verr is None:
             # ONE launch from roped q/k/v to the attention output; a W8A8
             # wo reads the kernel's quantize-out epilogue (int8 + scale)
@@ -262,7 +305,6 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
     if verr is not None:
         # Σ p (ṽ − e) == Σ p ṽ − Σ p e: the decode route's correction
         vd = vd - verr.to(x.dtype)[..., None]
-    group = nq // nkv
     attn = attention_scores_softmax(q, _repeat_kv(kd, group),
                                     _repeat_kv(vd, group), slots.mask)
     return linear(attn.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
@@ -272,21 +314,35 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
 # MLP
 # --------------------------------------------------------------------------
 
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The reference's activations: silu, gelu (``jax.nn.gelu``'s default,
+    the tanh form) and relu."""
+    if name == "silu":
+        return x * torch.sigmoid(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu(x)
+    raise NotImplementedError(f"mlp activation {name!r}: silu, gelu or relu")
+
+
 def mlp_block(p: dict, x: torch.Tensor, act: str, *,
               capture: Optional[dict] = None) -> torch.Tensor:
-    """The gated MLP ``wd(silu(wg·x) * wu·x)`` — silu_glu, the one
-    activation a ported config uses. ``capture`` (the eval forward's only;
-    the serving path passes none) receives the means of the gate/up input
-    (``mlp_in``) and of the down projection's input (``down_in``)."""
-    if act != "silu_glu":
-        raise NotImplementedError(f"mlp activation {act!r} is not ported yet")
+    """The MLP, act ∈ {silu_glu, gelu_glu, gelu, relu}: gated
+    ``wd(act(wg·x) * wu·x)`` or plain ``wd(act(wu·x))``. ``capture`` (the
+    eval forward's only; the serving path passes none) receives the means
+    of the gate/up input (``mlp_in``) and of the down projection's input
+    (``down_in``)."""
     _record_mean(capture, "mlp_in", x)
-    if _all_w8a8(p["wg"], p["wu"]):
-        g, u = _shared_linears(x, [(p["wg"], p.get("bg")),
-                                   (p["wu"], p.get("bu"))])
+    if act.endswith("_glu"):
+        if _all_w8a8(p["wg"], p["wu"]):
+            g, u = _shared_linears(x, [(p["wg"], p.get("bg")),
+                                       (p["wu"], p.get("bu"))])
+        else:
+            g = linear(x, p["wg"], p.get("bg"))
+            u = linear(x, p["wu"], p.get("bu"))
+        h = _act(act[:-4], g) * u
     else:
-        g = linear(x, p["wg"], p.get("bg"))
-        u = linear(x, p["wu"], p.get("bu"))
-    h = g * torch.sigmoid(g) * u
+        h = _act(act, linear(x, p["wu"], p.get("bu")))
     _record_mean(capture, "down_in", h)
     return linear(h, p["wd"], p.get("bd"))

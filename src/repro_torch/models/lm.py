@@ -1,6 +1,9 @@
-"""Decoder-only dense LM: init, per-slot int8 KV cache, prefill, decode.
+"""Decoder-only dense LM: init, the eval forward and its loss, the KV cache
+(int8 or fp, per-slot or whole-batch), prefill, decode.
 
-Port of the dense branch of ``repro.models.lm.LMModel``. Parameters keep the
+Port of the dense branch of ``repro.models.lm.LMModel`` (family ``dense``,
+and ``vlm`` with the ``vision_stub`` frontend: early fusion, image tokens
+share the vocab, so the same path). Parameters keep the
 JAX package's layout — nested dicts with every block leaf stacked ``[L, ...]``
 — so weights carry across unchanged (``repro_torch.weights``). Layers run as
 a Python loop over per-layer views of the stacked leaves. The KV cache is
@@ -36,9 +39,11 @@ from .layers import (
     slot_write,
 )
 
-#: the cache's per-layer leaves, each [L, B, S, ...] ("v_err" only with
-#: ``kv_bias_correct``)
+#: the cache's per-layer leaves, each [L, B, S, ...] (the scales only in an
+#: int8 cache, "v_err" only with ``kv_bias_correct`` as well)
 KV_KEYS = ("k", "v", "k_scale", "v_scale", "v_err")
+#: the MLP activations of ``layers.mlp_block``
+ACTS = ("silu_glu", "gelu_glu", "gelu", "relu")
 
 
 def _layer(tree, i: int):
@@ -51,9 +56,11 @@ class LMModel:
     def __init__(self, cfg: ModelConfig):
         unsupported = [
             what for what, bad in (
-                (f"family {cfg.family!r}", cfg.family != "dense"),
+                (f"family {cfg.family!r}", cfg.family not in ("dense", "vlm")),
+                (f"frontend {cfg.frontend!r}",
+                 cfg.frontend not in ("none", "vision_stub")),
                 (f"norm {cfg.norm!r}", cfg.norm != "rms"),
-                ("qk_norm", cfg.qk_norm),
+                (f"act {cfg.act!r}", cfg.act not in ACTS),
             ) if bad]
         if unsupported:
             raise NotImplementedError(
@@ -99,8 +106,12 @@ class LMModel:
         if cfg.qkv_bias:
             attn.update(bq=zeros(L, cfg.attn_dim), bk=zeros(L, cfg.kv_dim),
                         bv=zeros(L, cfg.kv_dim))
-        mlp = {"wu": lin(D, F), "wd": lin(F, D), "bd": zeros(L, D),
-               "wg": lin(D, F)}
+        if cfg.qk_norm:
+            attn.update(q_norm=ones(L, cfg.head_dim),
+                        k_norm=ones(L, cfg.head_dim))
+        mlp = {"wu": lin(D, F), "wd": lin(F, D), "bd": zeros(L, D)}
+        if cfg.act.endswith("_glu"):
+            mlp["wg"] = lin(D, F)
         params = {
             "embed": normal((cfg.vocab_size, D), 0.02),
             "final_norm": {"w": ones(D)},
@@ -120,6 +131,7 @@ class LMModel:
         def P(*rest):
             return ("blocks",) + rest
 
+        glu = cfg.act.endswith("_glu")
         attn_bias = ((P("attn", "bq"), P("attn", "bk"), P("attn", "bv"))
                      if cfg.qkv_bias else (None, None, None))
         ops: list = [
@@ -128,8 +140,9 @@ class LMModel:
                                   P("attn", "wv")],
                        consumer_biases=list(attn_bias)),
             NormFoldOp(norm_w=P("mlp_norm", "w"),
-                       consumers=[P("mlp", "wg"), P("mlp", "wu")],
-                       consumer_biases=[None, None]),
+                       consumers=([P("mlp", "wg")] if glu else [])
+                       + [P("mlp", "wu")],
+                       consumer_biases=[None, None] if glu else [None]),
             VOPairOp(wv=P("attn", "wv"), wo=P("attn", "wo"),
                      bv=P("attn", "bv") if cfg.qkv_bias else None,
                      n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -144,7 +157,7 @@ class LMModel:
                 rope=cfg.rope))
         ops.append(DensePairOp(
             w1=P("mlp", "wu"), w2=P("mlp", "wd"),
-            exact=cfg.act.endswith("_glu") or cfg.act == "relu"))
+            exact=glu or cfg.act == "relu"))
         if cfg.qkv_bias:
             ops.append(VBiasAbsorbOp(
                 bv=P("attn", "bv"), wo=P("attn", "wo"), bo=P("attn", "bo"),
@@ -156,16 +169,16 @@ class LMModel:
             WeightSite("wo", P("attn", "wo"), P("attn", "bo"), "dense", "o_in"),
             WeightSite("wu", P("mlp", "wu"), P("mlp", "bu"), "dense", "mlp_in"),
             WeightSite("wd", P("mlp", "wd"), P("mlp", "bd"), "dense", "down_in"),
-            WeightSite("wg", P("mlp", "wg"), P("mlp", "bg"), "dense", "mlp_in"),
-        )
+        ) + ((WeightSite("wg", P("mlp", "wg"), P("mlp", "bg"), "dense",
+                         "mlp_in"),) if glu else ())
         return DFQPlan(tuple(ops), sites, cfg.name)
 
     # ------------------------------------------------------------- forward
     def _attn_dims(self) -> AttnDims:
         cfg = self.cfg
         return AttnDims(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                        head_dim=cfg.head_dim, rope=cfg.rope,
-                        rope_theta=cfg.rope_theta)
+                        head_dim=cfg.head_dim, qk_norm=cfg.qk_norm,
+                        rope=cfg.rope, rope_theta=cfg.rope_theta)
 
     def prepare(self, params: dict):
         """The params cast to the compute dtype (every float32 leaf,
@@ -190,10 +203,12 @@ class LMModel:
         h = apply_norm(x, p["mlp_norm"], cfg.norm)
         return x + mlp_block(p["mlp"], h, cfg.act)
 
-    def apply(self, params, tokens: torch.Tensor, *, capture: bool = False):
+    def apply(self, params, tokens: torch.Tensor, *, capture: bool = False,
+              return_hidden: bool = False):
         """The eval forward: causal, no cache, fp keys and values. tokens
         [B, T] → logits [B, T, V] (the JAX ``apply`` also returns an aux
-        loss, which this dense model does not have).
+        loss, which this dense model does not have); ``return_hidden``
+        returns the final norm's output [B, T, D] instead.
 
         ``capture=True`` returns ``(logits, stats)``: per stat key
         (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``) the per-layer means
@@ -214,13 +229,38 @@ class LMModel:
             x = x + mlp_block(lp["mlp"], h, cfg.act, capture=stats)
             per_layer.append(stats)
         h = apply_norm(x, p["final_norm"], cfg.norm)
-        logits = self._unembed(p, h)
+        logits = h if return_hidden else self._unembed(p, h)
         if not capture:
             return logits
         stats = {k: torch.stack([s[k] for s in per_layer])
                  for k in per_layer[0]}
         stats["final_h"] = h.reshape(-1, cfg.d_model).mean(dim=0)
         return logits, stats
+
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross entropy over ``batch["tokens"]`` /
+        ``batch["labels"]`` [B, T], the logits taken ``logit_chunk``
+        positions at a time in float32 (``jax.nn.logsumexp`` minus the
+        gold logit), as the JAX ``loss``. ``T`` must be a multiple of the
+        chunk, as the JAX ``loss``'s reshape requires. The forward only:
+        gradients and the optimizer are not ported yet."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, T = tokens.shape
+        C = min(cfg.logit_chunk, T)
+        if T % C:
+            raise ValueError(f"loss: sequence length {T} is not a multiple "
+                             f"of logit_chunk {C}")
+        h = self.apply(params, tokens, return_hidden=True)
+        p, _ = self.prepare(params)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(T // C):
+            logits = self._unembed(p, h[:, c * C:(c + 1) * C]).float()
+            gold = torch.gather(logits, -1,
+                                labels[:, c * C:(c + 1) * C, None].long())
+            total = total + (torch.logsumexp(logits, -1)
+                             - gold[..., 0]).sum()
+        return total / (B * T)
 
     def calibration_stats(self, params, tokens: torch.Tensor) -> dict:
         """Synthetic-calibration E[x] per stat key (data-free: the tokens
@@ -240,40 +280,54 @@ class LMModel:
     # ---------------------------------------------------------------- cache
     def init_cache(self, batch: int, seq_len: int, *,
                    device: Optional[Union[str, torch.device]] = "cuda",
-                   per_slot: bool = True, kv_bits: int = 8) -> dict:
-        """The continuous-batching cache: every batch row is a serving slot
-        with its own write offset (``pos`` [B]) and absolute slot positions
-        (``kpos`` [B, S], -1 = empty). int8 payload with per-token, per-head
-        float32 scales; scale 0 marks an unwritten position. With
-        ``kv_bias_correct`` a ``v_err`` leaf [L, B, S, Hkv] float32 holds
-        each token's V error mean."""
+                   per_slot: bool = True, kv_bits: Optional[int] = None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+        """The KV cache. ``per_slot=True`` (the serving engine's) makes every
+        batch row a serving slot with its own write offset (``pos`` [B]) and
+        absolute slot positions (``kpos`` [B, S], -1 = empty);
+        ``per_slot=False`` the whole-batch form, every row at one offset
+        (``pos`` scalar, ``kpos`` [S]). ``kv_bits`` (default
+        ``cfg.kv_cache_bits``, 16 unless a ``kv_cache`` stage recorded 8):
+        8 → int8 payload with per-token, per-head float32 scales, scale 0
+        marking an unwritten position, and with ``kv_bias_correct`` a
+        ``v_err`` leaf [L, B, S, Hkv] float32 holding each token's V error
+        mean; 16 → the payload in ``dtype`` (default the compute dtype) and
+        no other leaf."""
         cfg = self.cfg
-        if kv_bits != 8 or not per_slot:
-            raise NotImplementedError(
-                f"the port serves a per-slot int8 KV cache (kv_bits=8, "
-                f"per_slot=True); got kv_bits={kv_bits}, per_slot={per_slot}")
+        kv_bits = cfg.kv_cache_bits if kv_bits is None else int(kv_bits)
+        if kv_bits not in (8, 16):
+            raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
         device = resolve_device(device)
         L, S, H, hd = cfg.n_layers, seq_len, cfg.n_kv_heads, cfg.head_dim
+        kv_dtype = (torch.int8 if kv_bits == 8
+                    else dtype or cfg.compute_dtype)
         cache = {
-            "k": torch.zeros((L, batch, S, H, hd), dtype=torch.int8, device=device),
-            "v": torch.zeros((L, batch, S, H, hd), dtype=torch.int8, device=device),
-            "k_scale": torch.zeros((L, batch, S, H), dtype=torch.float32, device=device),
-            "v_scale": torch.zeros((L, batch, S, H), dtype=torch.float32, device=device),
-            "kpos": torch.full((batch, S), -1, dtype=torch.int64, device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int64, device=device),
+            "k": torch.zeros((L, batch, S, H, hd), dtype=kv_dtype, device=device),
+            "v": torch.zeros((L, batch, S, H, hd), dtype=kv_dtype, device=device),
+            "kpos": torch.full((batch, S) if per_slot else (S,), -1,
+                               dtype=torch.int64, device=device),
+            "pos": torch.zeros((batch,) if per_slot else (), dtype=torch.int64,
+                               device=device),
         }
-        if cfg.kv_bias_correct:
-            cache["v_err"] = torch.zeros((L, batch, S, H), dtype=torch.float32,
-                                         device=device)
+        if kv_bits == 8:
+            cache["k_scale"] = torch.zeros((L, batch, S, H), dtype=torch.float32,
+                                           device=device)
+            cache["v_scale"] = torch.zeros((L, batch, S, H), dtype=torch.float32,
+                                           device=device)
+            if cfg.kv_bias_correct:
+                cache["v_err"] = torch.zeros((L, batch, S, H),
+                                             dtype=torch.float32, device=device)
         return cache
 
     def _forward_cached(self, params, tokens, cache, *, logits_at=None):
-        """Run T tokens from each row's ``cache["pos"]``; ``logits_at`` [B]
-        picks each row's logits position (default: the last)."""
+        """Run T tokens from ``cache["pos"]`` (each row's, or the batch's);
+        ``logits_at`` [B] picks each row's logits position, a scalar the
+        batch's (default: the last)."""
         p, layers = self.prepare(params)
         B, T = tokens.shape
         pos = cache["pos"]
-        positions = pos[:, None] + torch.arange(T, device=pos.device)[None, :]
+        steps = torch.arange(T, device=pos.device)
+        positions = pos[:, None] + steps[None, :] if pos.ndim else pos + steps
         slots = slot_write(cache["kpos"], positions)
         x = self._embed(p, tokens)
         for i, lp in enumerate(layers):
@@ -284,8 +338,10 @@ class LMModel:
         if logits_at is None:
             h_last = x[:, -1:, :]
         else:
-            at = logits_at.to(torch.int64)[:, None, None].expand(B, 1, x.shape[-1])
-            h_last = torch.gather(x, 1, at)
+            at = torch.as_tensor(logits_at, device=x.device).to(torch.int64)
+            at = torch.broadcast_to(at.reshape(-1), (B,))
+            h_last = torch.gather(x, 1, at[:, None, None].expand(
+                B, 1, x.shape[-1]))
         logits = self._unembed(p, h_last)[:, 0]
         return logits, {**cache, "kpos": slots.kpos, "pos": pos + T}
 

@@ -168,11 +168,23 @@ def quantize(
                             f"None; got {calibration!r}")
     state = PipelineState(params=params, plan=model.dfq_plan(),
                           config=config or DFQConfig())
+    # the state holds the tree from here: a stage's replaced leaves are
+    # freed as it returns (unless the caller holds the tree it passed)
+    del params
     state = run_recipe(r, state, PipelineContext(model=model, cfg=cfg,
                                                  calibrate=calibrate))
+    if state.kv_bits is not None and state.kv_bits != cfg.kv_cache_bits:
+        # the kv_cache stage is weight-free: fold the KV precision into the
+        # artifact's config (and rebuild the model over it) so init_cache,
+        # the serving engine and save / load all see it, as the JAX package
+        import dataclasses
+
+        from ..models import build_model
+
+        cfg = dataclasses.replace(cfg, kv_cache_bits=state.kv_bits)
+        model = build_model(cfg)
     return QuantizedModel(model=model, cfg=cfg, params=state.params,
                           recipe=r, report=state.report,
-                          kv_bits=state.kv_bits,
                           act_qparams=state.act_qparams)
 
 

@@ -14,10 +14,10 @@ The config sidecar (hazard read off the reference): the JAX
 ``ModelConfig`` has many more fields than the port's. ``load`` takes the
 fields the port has, ignores those that do not change a dense decoder's
 serving forward, and refuses any other whose value differs from the JAX
-default (a sliding window, experts, an encoder, ...). ``save`` writes the
-port's fields plus ``kv_cache_bits`` — 8 after a ``kv_cache`` stage, else
-16 — so that ``repro.QuantizedModel.load`` serves the same KV precision;
-the port keeps it as ``QuantizedModel.kv_bits``.
+default (a sliding window, experts, an encoder, ...). ``kv_cache_bits`` is
+a field of both configs — 8 after a ``kv_cache`` stage with bits=8, else
+16 (the fp cache) — so either package's ``load`` serves the precision the
+other saved; ``QuantizedModel.kv_bits`` reads it.
 """
 from __future__ import annotations
 
@@ -44,16 +44,15 @@ _MUST_BE_DEFAULT = {
     "sliding_window": None,
     "n_experts": 0, "top_k": 0, "n_shared_experts": 0,
     "ssm_state": 0, "hybrid_attn_every": 0,
-    "n_enc_layers": 0, "frontend": "none",
+    "n_enc_layers": 0,
 }
 # JAX ModelConfig fields with no effect on a dense decoder's serving
-# forward (training, cost probes, other families' geometry); kv_cache_bits
-# becomes ``QuantizedModel.kv_bits``
+# forward (training, cost probes, other families' geometry)
 _IGNORED = frozenset({
-    "attn_out_bias", "attn_causal_segments", "kv_cache_bits", "max_seq",
+    "attn_out_bias", "attn_causal_segments",
     "capacity_factor", "ssm_expand", "ssm_head_dim", "ssm_conv_width",
     "ssm_chunk", "ssm_n_groups", "hybrid_n_shared_blocks", "enc_seq",
-    "remat", "logit_chunk", "unroll_layers",
+    "remat", "unroll_layers",
 })
 _PORT_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelConfig))
 
@@ -109,19 +108,22 @@ class QuantizedModel:
     params: Any
     recipe: Recipe
     report: list              # StageRecord.to_dict() per executed stage
-    kv_bits: Optional[int] = None   # the kv_cache stage's record
     # {stat_key: QParams} from the act_ranges stage, for static-activation
     # backends; in memory only (save persists the float ranges in the
     # report, as the JAX package does)
     act_qparams: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def kv_bits(self) -> int:
+        """The serving KV precision: 8 after a ``kv_cache`` stage with
+        bits=8, else 16 (the fp cache)."""
+        return self.cfg.kv_cache_bits
 
     # ----------------------------------------------------------- inference
     def apply(self, tokens, **kwargs):
         return self.model.apply(self.params, tokens, **kwargs)
 
     def init_cache(self, batch: int, seq_len: int, **kwargs):
-        if self.kv_bits is not None:
-            kwargs.setdefault("kv_bits", self.kv_bits)
         return self.model.init_cache(batch, seq_len, **kwargs)
 
     def prefill(self, tokens, cache, **kwargs):
@@ -162,7 +164,6 @@ class QuantizedModel:
         Checkpointer(directory, keep=1).save(0, _encode_qtensors(self.params),
                                              blocking=True)
         config = dataclasses.asdict(self.cfg)
-        config["kv_cache_bits"] = 8 if self.kv_bits == 8 else 16
         meta = {
             "format_version": 1,
             "config": config,
@@ -208,7 +209,6 @@ class QuantizedModel:
                         tuple(RecipeStep(s["stage"], s["options"])
                               for s in meta["recipe"]["steps"]),
                         meta["recipe"].get("description", ""))
-        kv_bits = 8 if meta["config"].get("kv_cache_bits") == 8 else None
         return cls(model=build_model(cfg), cfg=cfg,
                    params=_decode_qtensors(tree), recipe=recipe,
-                   report=meta.get("report", []), kv_bits=kv_bits)
+                   report=meta.get("report", []))

@@ -183,14 +183,11 @@ def kv_cache_stage(state, ctx, *, bits):
 
     bits=8 applies the paper's symmetric per-token/per-head quantizer to the
     KV stream: caches built for the resulting QuantizedModel hold int8
-    payload + float32 scales. A weight-free stage. The port serves the int8
-    cache only: bits=16 (the JAX package's fp cache) is refused here.
+    payload + float32 scales; bits=16 keeps the fp cache. A weight-free
+    stage: ``quantize`` folds the bits into the artifact's config
+    (``kv_cache_bits``), as the JAX package does.
     """
-    if bits == 16:
-        raise PipelineError("kv_cache: bits=16 (the fp KV cache) is not "
-                            "ported yet; the port serves the int8 cache "
-                            "(bits=8)")
-    if bits != 8:
+    if bits not in (8, 16):
         raise PipelineError(f"kv_cache: bits must be 8 or 16, got {bits!r}")
     state.kv_bits = int(bits)
     state.note(bits=int(bits))

@@ -1,8 +1,9 @@
 """Slot-based KV-cache pool for continuous batching — the contiguous layout.
 
 Port of the contiguous half of ``repro.serving.cache_pool``: the pool owns
-ONE per-slot cache (``LMModel.init_cache``): every batch row is a serving
-slot with its own write offset (``pos[i]``) and absolute positions
+ONE per-slot cache (``LMModel.init_cache``), int8 (payload, scales and the
+V error means) or fp (the payload in the compute dtype): every batch row is
+a serving slot with its own write offset (``pos[i]``) and absolute positions
 (``kpos[i]``). Allocation hands out the lowest free slot and resets only the
 slot's bookkeeping (kpos → -1, pos → 0), in place: stale K/V payload stays,
 since every masked key contributes an exact 0, so recycled slots behave
@@ -14,22 +15,26 @@ layout is a later slice.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 from .errors import PoolExhausted
 
-#: bookkeeping leaves (everything else is int8 payload, its scales or the
-#: V error means)
+#: bookkeeping leaves (everything else is K/V payload, its scales or the V
+#: error means)
 KNOWN_BOOKKEEPING = frozenset({"kpos", "pos"})
 
 
 class CachePool:
     def __init__(self, model, num_slots: int, max_len: int, *, device,
-                 kv_bits: int = 8):
+                 kv_bits: Optional[int] = None):
+        """``kv_bits``: 8 (int8) or 16 (fp); None follows the model's
+        ``cfg.kv_cache_bits``."""
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.num_slots = num_slots
         self.cache: dict = model.init_cache(num_slots, max_len, device=device,
                                             per_slot=True, kv_bits=kv_bits)
-        self.kv_bits = kv_bits
+        self.kv_bits = 8 if "k_scale" in self.cache else 16
         self.max_len = int(self.cache["kpos"].shape[-1])
         self._free = set(range(num_slots))
         self._allocated: set = set()

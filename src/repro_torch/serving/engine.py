@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine over a contiguous int8-KV pool (port of
-``repro.serving.engine.ServingEngine``).
+"""Continuous-batching serving engine over a contiguous KV pool, int8 or fp
+(port of ``repro.serving.engine.ServingEngine``).
 
 One engine step runs three phases over the slot-based KV-cache pool:
 
@@ -42,7 +42,7 @@ the next host sync.
 
 Unlike the JAX engine, which donates the cache to each jitted step, the
 port updates ``pool.cache`` IN PLACE and never rebinds a leaf: the model
-writes the int8 K/V payload into the pool's own tensors, and the engine
+writes the K/V payload into the pool's own tensors, and the engine
 copies the ``kpos`` / ``pos`` bookkeeping into them. A captured graph holds
 those addresses. The JAX engine's paged pool, deadlines, cancellation,
 preemption and streaming callbacks are later slices of the port.
@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.dispatch import TIERS, tier_scope
 from ..runtime.fault_tolerance import StragglerMonitor
 from .cache_pool import KNOWN_BOOKKEEPING, CachePool
 from .errors import QueueFull, RequestTooLarge
@@ -135,8 +136,11 @@ class ServingEngine:
     one dispatch of the fast path; each power of two up to it is one shape
     (one CUDA graph on the card). fast: the fast path (default);
     ``fast=False`` is the stepwise reference, the same tokens and ticks
-    with one host sync a token. kv_bits: 8 (the int8 cache is the only one
-    ported). max_queue: bound on the admission queue (``submit`` beyond it
+    with one host sync a token. kv_bits: 8 (the int8 cache) or 16 (the fp
+    cache); None follows ``cfg.kv_cache_bits`` (so a ``*-kv8`` recipe's
+    model gets the int8 cache). backend: the kernel tier every op of the
+    engine's forwards resolves at (``cuda`` | ``torch``; None: the
+    registry's rule, ``REPRO_KERNEL_BACKEND`` then the device). max_queue: bound on the admission queue (``submit`` beyond it
     raises the retryable ``QueueFull``). straggler: a ``StragglerMonitor``
     observing each engine step's wall time (``stats["straggler_steps"]``);
     None = defaults. device: where the pool lives and the params must
@@ -153,12 +157,17 @@ class ServingEngine:
     def __init__(self, model, params, cfg, *, num_slots: int = 4,
                  max_len: int = 128, prefill_chunk: int = 16,
                  decode_horizon: int = 8, fast: bool = True,
-                 kv_bits: int = 8, max_queue: Optional[int] = None,
+                 kv_bits: Optional[int] = None,
+                 max_queue: Optional[int] = None,
                  straggler: Optional[StragglerMonitor] = None,
-                 device="cuda"):
+                 device="cuda", backend: Optional[str] = None):
         if decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, got {decode_horizon}")
         self.device = resolve_device(device)
+        if backend is not None and backend not in TIERS:
+            raise ValueError(f"unknown kernel tier {backend!r}; tiers are "
+                             f"{', '.join(TIERS)}")
+        self.backend = backend
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine serves on {self.device}")
@@ -567,6 +576,16 @@ class ServingEngine:
         On the fast path a decode horizon advances the clock by K ticks
         (one a generated-token step, as on the stepwise path)."""
         t0 = time.monotonic()
+        with tier_scope(self.backend):
+            ticks = self._step()
+        self.stats["engine_steps"] += ticks
+        self.clock += float(ticks)
+        if self.straggler.observe(self.stats["engine_steps"],
+                                  time.monotonic() - t0):
+            self.stats["straggler_steps"] += 1
+
+    def _step(self) -> int:
+        """The phases of one ``step``; returns the ticks it advanced."""
         self._admit()
         occ_pre = len(self._inflight) / self.num_slots
         if self.fast:
@@ -583,11 +602,7 @@ class ServingEngine:
             self._decode_phase()
             ticks = 1
             self.stats["occupancy_sum"] += occ_pre
-        self.stats["engine_steps"] += ticks
-        self.clock += float(ticks)
-        if self.straggler.observe(self.stats["engine_steps"],
-                                  time.monotonic() - t0):
-            self.stats["straggler_steps"] += 1
+        return ticks
 
     def run(self, requests: Optional[Sequence[Request]] = None
             ) -> dict[int, RequestResult]:

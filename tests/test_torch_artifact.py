@@ -94,9 +94,10 @@ def test_jax_artifact_loads_in_the_port(jax_init, tmp_path, recipe):
         (s.stage, dict(s.options)) for s in jq.recipe.steps]
     assert json.dumps(qm.report, default=float) == json.dumps(
         jq.report, default=float)
-    assert qm.kv_bits == (8 if recipe.endswith("kv8") else None)
+    assert qm.kv_bits == (8 if recipe.endswith("kv8") else 16)
     assert jq.cfg.kv_cache_bits == (8 if recipe.endswith("kv8") else 16)
-    assert qm.cfg == get_config(ARCH)
+    assert qm.cfg == dataclasses.replace(get_config(ARCH),
+                                         kv_cache_bits=qm.kv_bits)
     assert qm.site_sqnr_db() == jq.site_sqnr_db()
 
 
@@ -142,8 +143,8 @@ def test_port_artifact_loads_in_jax(jax_init, tmp_path, recipe):
     assert jq.recipe.name == qm.recipe.name
     assert [r["stage"] for r in jq.report] == [r["stage"] for r in qm.report]
     assert jq.cfg.kv_cache_bits == (16 if recipe == "dfq-int8" else 8)
-    for f in dataclasses.fields(cfg):
-        assert getattr(jq.cfg, f.name) == getattr(cfg, f.name), f.name
+    for f in dataclasses.fields(qm.cfg):
+        assert getattr(jq.cfg, f.name) == getattr(qm.cfg, f.name), f.name
     toks = np.random.RandomState(0).randint(0, 256, (2, 12)).astype(np.int32)
     if recipe == "dfq-int8":
         lj, _ = jq.apply(jnp.asarray(toks))
@@ -189,8 +190,10 @@ def test_save_load_serve_gives_the_unsaved_tokens(tmp_path):
 
 def test_serve_load_precedence_and_refusals(tmp_path, capsys):
     """``--load`` serves the artifact as saved: an explicit differing
-    arch, smoke or quantize is reported as ignored; an artifact without the
-    int8 KV cache is refused."""
+    arch, smoke or quantize is reported as ignored; an explicit --kv-bits
+    other than the artifact's KV precision is refused (the JAX launcher's
+    "must-match"); an artifact without a kv_cache stage serves the fp
+    cache."""
     from repro_torch.launch.serve_config import ServeConfigError
 
     kv8, fp = str(tmp_path / "kv8"), str(tmp_path / "fp")
@@ -204,11 +207,18 @@ def test_serve_load_precedence_and_refusals(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "--quantize w8a8 ignored" in out and "quantize=w8a16" in out
     assert "--arch" not in out and "--smoke" not in out
-    with pytest.raises(ServeConfigError, match="16-bit KV cache"):
-        repro_torch.serve(repro_torch.ServeConfig(load=fp, device="cpu"))
+    assert run.kv_bits == 8 and "kv cache: int8" in out
+    with pytest.raises(ServeConfigError, match="kv_cache_bits=16"):
+        repro_torch.serve(repro_torch.ServeConfig(load=fp, device="cpu",
+                                                  kv_bits=8))
+    run = repro_torch.serve(repro_torch.ServeConfig(
+        load=fp, device="cpu", trace=2, prompt_len=8, gen_len=4))
+    assert len(run.results) == 2 and run.kv_bits == 16
+    assert "kv cache: fp" in capsys.readouterr().out
     art = repro_torch.ServeConfig.from_artifact(
         QuantizedModel.load(kv8, device="cpu"))
-    assert (art.arch, art.smoke, art.quantize) == ("qwen2-0.5b", True, "w8a16")
+    assert (art.arch, art.smoke, art.quantize, art.kv_bits) == (
+        "qwen2-0.5b", True, "w8a16", 8)
 
 
 def test_load_missing_dir_actionable_error(tmp_path):

@@ -342,17 +342,18 @@ def test_calibration_stats_keep_the_compute_dtype():
     cfg = dataclasses.replace(get_config(f"{ARCH}-smoke"), dtype="bfloat16")
     m = build_model(cfg)
     stats = m.calibration_stats(m.init(0, device="cpu"),
-                                calibration_tokens(1, 2, 8, cfg.vocab_size))
+                                calibration_tokens(1, 2, 8, cfg.vocab_size,
+                                                   device="cpu"))
     assert all(v.dtype == torch.bfloat16 for v in stats.values())
     assert stats["down_in"].shape == (cfg.n_layers, cfg.d_ff)
     assert stats["final_h"].shape == (cfg.d_model,)
 
 
 def test_calibration_tokens_seeded_and_in_range():
-    a = calibration_tokens(1, 2, 32, 256)
+    a = calibration_tokens(1, 2, 32, 256, device="cpu")
     assert a.shape == (2, 32) and a.dtype == torch.int64
-    assert torch.equal(a, calibration_tokens(1, 2, 32, 256))
-    assert not torch.equal(a, calibration_tokens(2, 2, 32, 256))
+    assert torch.equal(a, calibration_tokens(1, 2, 32, 256, device="cpu"))
+    assert not torch.equal(a, calibration_tokens(2, 2, 32, 256, device="cpu"))
     assert int(a.min()) >= 0 and int(a.max()) < 256
 
 

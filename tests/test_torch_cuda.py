@@ -418,7 +418,7 @@ def test_unfused_serving_on_the_card_matches_fused(dev, recipe, monkeypatch):
 
     config = repro_torch.ServeConfig(smoke=True, quantize=recipe, trace=4,
                                      slots=2, prompt_len=12, gen_len=6,
-                                     prefill_chunk=4)
+                                     prefill_chunk=4, kv_bits=8)
     fused = repro_torch.serve(config)
     monkeypatch.setenv("REPRO_FUSED_DECODE", "0")
     reset_launch_counts()
@@ -444,7 +444,7 @@ def test_v_bias_corrected_serving_on_the_card(dev):
     qm = repro_torch.quantize(model, model.init(0, device=dev),
                               recipe="serve-w8a8-kv8", device=dev)
     eng = ServingEngine(model, qm.params, cfg, num_slots=2, max_len=32,
-                        prefill_chunk=4, device=dev)
+                        prefill_chunk=4, device=dev, kv_bits=8)
     assert "v_err" in eng.pool.cache
     reset_launch_counts()
     res = eng.run(synthetic_trace(0, 4, vocab_size=cfg.vocab_size,
@@ -655,7 +655,7 @@ def test_serving_on_the_card_launches_every_kernel(dev):
     reset_launch_counts()
     run = repro_torch.serve(repro_torch.ServeConfig(
         smoke=True, quantize="w8a8", trace=4, slots=2, prompt_len=12,
-        gen_len=6, prefill_chunk=4))
+        gen_len=6, prefill_chunk=4, kv_bits=8))
     assert all(r.status == "ok" for r in run.results.values())
     counts = launch_counts()
     assert min(counts[k] for k in ("qmatmul_w8a8_qin", "qmatmul_w8a8",
@@ -742,15 +742,15 @@ def test_qin_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 
 def test_w8a16_serving_launches_its_kernels_only(dev):
-    """serve-w8a16-kv8, the default, runs qmatmul_w8a16 and fused_decode,
-    and no quantize_act or qmatmul_w8a8."""
+    """serve-w8a16-kv8 (the default scheme over the int8 cache) runs
+    qmatmul_w8a16 and fused_decode, and no quantize_act or qmatmul_w8a8."""
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     reset_launch_counts()
     run = repro_torch.serve(repro_torch.ServeConfig(
         smoke=True, trace=4, slots=2, prompt_len=12, gen_len=6,
-        prefill_chunk=4))
+        prefill_chunk=4, kv_bits=8))
     assert all(r.status == "ok" for r in run.results.values())
     counts = launch_counts()
     assert counts["qmatmul_w8a16"] > 0 and counts["fused_decode"] > 0
@@ -1266,7 +1266,7 @@ def test_fast_path_on_the_card_serves_the_stepwise_tokens(dev, recipe):
     config = repro_torch.ServeConfig(smoke=True, quantize=recipe[6:-4],
                                      trace=6, slots=3, prompt_len=12,
                                      gen_len=12, prefill_chunk=4,
-                                     warmup=True)
+                                     warmup=True, kv_bits=8)
     fast = repro_torch.serve(config)
     slow = repro_torch.serve(dataclasses.replace(config, reference=True))
     assert fast.warmup["graphs"] == 5 and fast.warmup["graph_pool_bytes"] >= 0

@@ -59,7 +59,8 @@ def served(request):
     cfg = get_config(ARCH)
     model = build_model(cfg)
     params = from_jax_numpy(_numpy(qm.params), cfg, device="cpu")
-    eng = ServingEngine(model, params, cfg, device="cpu", fast=False, **ENGINE)
+    eng = ServingEngine(model, params, cfg, device="cpu", fast=False, kv_bits=8,
+                        **ENGINE)
     reset_launch_counts()
     results = eng.run(synthetic_trace(0, 10, **TRACE))
     return qm, (model, params, cfg), eng, results
@@ -106,7 +107,7 @@ def test_batch_invariance(served):
     """A request's tokens are the same served alone or in a mixed batch:
     masked keys contribute exact zeros, so recycled slots are exact."""
     _, (model, params, cfg), _, mixed = served
-    solo = ServingEngine(model, params, cfg, device="cpu", **ENGINE)
+    solo = ServingEngine(model, params, cfg, device="cpu", kv_bits=8, **ENGINE)
     for r in synthetic_trace(0, 10, **TRACE)[:4]:
         out = solo.run([dataclasses.replace(r, arrival=0.0)])
         assert out[r.rid].tokens == mixed[r.rid].tokens
@@ -117,7 +118,8 @@ def test_prefill_leaves_other_slots_untouched(served):
     """A masked prefill chunk restores the ring window it wrote in every
     row but its own: a slot mid-decode keeps its cache bytes."""
     _, (model, params, cfg), _, _ = served
-    eng = ServingEngine(model, params, cfg, device="cpu", fast=False, **ENGINE)
+    eng = ServingEngine(model, params, cfg, device="cpu", fast=False, kv_bits=8,
+                        **ENGINE)
     eng.submit(Request(rid=0, prompt=list(range(5)), max_new_tokens=4))
     eng.step()
     eng.step()
@@ -135,7 +137,7 @@ def test_prefill_leaves_other_slots_untouched(served):
 def test_admission_errors(served):
     _, (model, params, cfg), _, _ = served
     eng = ServingEngine(model, params, cfg, device="cpu", num_slots=1,
-                        max_len=16, prefill_chunk=8, max_queue=1)
+                        max_len=16, prefill_chunk=8, max_queue=1, kv_bits=8)
     with pytest.raises(RequestTooLarge):
         eng.submit(Request(rid=0, prompt=[1] * 12, max_new_tokens=8))
     with pytest.raises(NotImplementedError, match="deadline"):
@@ -149,7 +151,7 @@ def test_admission_errors(served):
 
 def test_cache_pool_lifecycle(served):
     _, (model, _, _), _, _ = served
-    pool = CachePool(model, 2, 8, device="cpu")
+    pool = CachePool(model, 2, 8, device="cpu", kv_bits=8)
     assert pool.bytes_per_slot() == 2 * 2 * 8 * 2 * (16 + 4)
     a, b = pool.allocate(), pool.allocate()
     assert (a, b) == (0, 1) and pool.n_free == 0
@@ -171,12 +173,13 @@ def test_serve_entry_point_on_cpu(capsys):
     assert run.generated_tokens == sum(len(r.tokens)
                                        for r in run.results.values())
     out = capsys.readouterr().out
-    assert "with recipe 'serve-w8a16-kv8'" in out     # the default scheme
-    for stage in ("fold_norm", "cle", "bias_absorb", "pack", "kv_cache"):
+    # the default deployment, the JAX launcher's: W8A16 over the fp cache
+    assert "with recipe 'serve-w8a16'" in out and "kv cache: fp" in out
+    for stage in ("fold_norm", "cle", "bias_absorb", "pack"):
         assert f"  {stage}: " in out
     assert "per-site weight SQNR (dB): wq" in out
     assert [r["stage"] for r in run.report] == [
-        "fold_norm", "cle", "bias_absorb", "pack", "kv_cache"]
+        "fold_norm", "cle", "bias_absorb", "pack"]
     assert "profile: the profiler recorded no device time" in out  # CPU
 
 
@@ -192,11 +195,16 @@ def test_serve_parser_is_derived_from_the_config():
     assert ServeConfig.from_args(build_parser().parse_args([])) == ServeConfig()
     assert ServeConfig().quantize == "w8a16"
     ns = build_parser().parse_args(["--quantize", "w8a8", "--kv-bits", "8"])
-    assert ServeConfig.from_args(ns).quantize == "w8a8"
+    assert (ServeConfig.from_args(ns).quantize,
+            ServeConfig.from_args(ns).kv_bits) == ("w8a8", 8)
+    ns = build_parser().parse_args(["--quantize", "none", "--kv-bits", "16"])
+    assert (ServeConfig.from_args(ns).quantize,
+            ServeConfig.from_args(ns).kv_bits) == ("none", 16)
+    assert ServeConfig().kv_bits is None
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["--quantize", "none"])
+        build_parser().parse_args(["--quantize", "w4a16"])
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["--kv-bits", "16"])
+        build_parser().parse_args(["--kv-bits", "4"])
     with pytest.raises(repro_torch.ServeConfigError):
         ServeConfig(slots=0).validate()
     with pytest.raises(repro_torch.ServeConfigError, match="quantize"):

@@ -82,7 +82,8 @@ def fp32():
 
 
 def _engine(model, params, cfg, **kw):
-    return ServingEngine(model, params, cfg, device="cpu", **kw)
+    return ServingEngine(model, params, cfg, device="cpu",
+                         **{"kv_bits": 8, **kw})
 
 
 def _assert_same_run(res, eng, jres, jeng):
@@ -321,7 +322,7 @@ def test_cache_pool_deferred_reset(fp32):
     """allocate(reset=False) leaves the stale bookkeeping and tracks the
     pending reset; a release before it commits repairs the slot in place."""
     _, _, model, _, _ = fp32
-    pool = CachePool(model, 2, 8, device="cpu")
+    pool = CachePool(model, 2, 8, device="cpu", kv_bits=8)
     kpos = pool.cache["kpos"]
     slot = pool.allocate()
     pool.cache["pos"][slot] = 5

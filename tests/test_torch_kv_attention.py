@@ -202,7 +202,7 @@ def _pair(recipe, bias_correct=False):
 
 
 def _roll_torch(tm, tp, toks, prefill=8):
-    tc = tm.init_cache(toks.shape[0], 32, device="cpu")
+    tc = tm.init_cache(toks.shape[0], 32, device="cpu", kv_bits=8)
     tl, tc = tm.prefill(tp, torch.from_numpy(toks[:, :prefill]).long(), tc)
     out = [tl]
     for t in range(prefill, toks.shape[1]):
@@ -300,7 +300,7 @@ def test_bias_corrected_decode_stays_near_the_float_forward():
     toks = torch.tensor(np.asarray(jax.random.randint(
         jax.random.PRNGKey(1), (2, 12), 0, cfg.vocab_size)), dtype=torch.long)
     full = tm.apply(tp, toks)
-    cache = tm.init_cache(2, 24, device="cpu")
+    cache = tm.init_cache(2, 24, device="cpu", kv_bits=8)
     assert "v_err" in cache
     _, cache = tm.prefill(tp, toks[:, :-1], cache)
     ld, _ = tm.decode_step(tp, toks[:, -1:], cache)
@@ -325,7 +325,8 @@ def test_engine_matches_jax_engine(recipe, mode, monkeypatch):
     jm, jp, tm, tp = _pair(recipe, bias_correct=mode == "kv_bias_correct")
     jeng = JaxServingEngine(jm, jp, jm.cfg, fast=False, kv_bits=8, **ENGINE)
     jres = jeng.run(jax_synthetic_trace(0, 10, **TRACE))
-    eng = ServingEngine(tm, tp, tm.cfg, device="cpu", fast=False, **ENGINE)
+    eng = ServingEngine(tm, tp, tm.cfg, device="cpu", fast=False, kv_bits=8,
+                        **ENGINE)
     assert ("v_err" in eng.pool.cache) == (mode == "kv_bias_correct")
     res = eng.run(synthetic_trace(0, 10, **TRACE))
     assert sorted(res) == sorted(jres) == list(range(10))

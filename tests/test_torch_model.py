@@ -81,7 +81,7 @@ def _roll(jm, jp, tm, tp, seed, steps=16, prefill=8):
     toks = np.random.RandomState(seed).randint(
         0, 256, (B, prefill + steps)).astype(np.int32)
     jc = jm.init_cache(B, 32, dtype=jnp.float32, per_slot=True, kv_bits=8)
-    tc = tm.init_cache(B, 32, device="cpu")
+    tc = tm.init_cache(B, 32, device="cpu", kv_bits=8)
     jl, jc = jm.prefill(jp, jnp.asarray(toks[:, :prefill]), jc)
     tl, tc = tm.prefill(tp, torch.from_numpy(toks[:, :prefill]).long(), tc)
     lj, lt = [np.asarray(jl)], [tl.numpy()]
@@ -183,7 +183,7 @@ def test_bf16_compute_casts_params_once():
     m = build_model(cfg)
     p = quantize_for_serving(m.init(0, device="cpu"), m.dfq_plan(),
                              mode="w8a8")
-    cache = m.init_cache(2, 16, device="cpu")
+    cache = m.init_cache(2, 16, device="cpu", kv_bits=8)
     lg, cache = m.prefill(p, torch.zeros((2, 4), dtype=torch.long), cache)
     prepared = m._prepared
     lg2, _ = m.decode_step(p, lg.argmax(-1)[:, None], cache)
@@ -212,8 +212,8 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="family"):
         build_model(dataclasses.replace(cfg, family="moe"))
     m = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        m.init_cache(1, 8, device="cpu", kv_bits=16)
+    with pytest.raises(ValueError, match="kv_bits must be 8 or 16"):
+        m.init_cache(1, 8, device="cpu", kv_bits=4)
     from repro_torch.kernels.qmatmul_w8a16 import (
         qmatmul_w8a16,
         qmatmul_w8a16_q8_ref,
@@ -225,7 +225,8 @@ def test_unported_features_raise():
     assert torch.equal(q, qr) and torch.equal(s, sr)
     from repro_torch.models.layers import mlp_block
     with pytest.raises(NotImplementedError, match="activation"):
-        mlp_block({}, torch.zeros((1, 4)), "gelu")
+        mlp_block({"wu": torch.eye(4), "wd": torch.eye(4)},
+                  torch.zeros((1, 4)), "tanh")
 
 
 @pytest.mark.parametrize("mode", ["w8a16", "w8a8"])
@@ -244,7 +245,7 @@ def test_decode_asks_quantize_out_only_for_a_w8a8_wo(mode, monkeypatch):
     monkeypatch.setattr(layers, "fused_decode", spy)
     m = build_model(get_config(f"{ARCH}-smoke"))
     p = quantize_for_serving(m.init(0, device="cpu"), m.dfq_plan(), mode=mode)
-    cache = m.init_cache(2, 8, device="cpu")
+    cache = m.init_cache(2, 8, device="cpu", kv_bits=8)
     lg, cache = m.prefill(p, torch.zeros((2, 3), dtype=torch.long), cache)
     m.decode_step(p, lg.argmax(-1)[:, None], cache)
     assert seen == [mode == "w8a8"] * m.cfg.n_layers

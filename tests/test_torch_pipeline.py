@@ -117,14 +117,16 @@ def test_builtin_recipes_validate_and_match_jax():
 
 
 def test_kv_cache_refuses_the_unported_fp_cache():
-    """bits=16 is the JAX package's fp KV cache, which the port does not
-    serve: the stage refuses it instead of recording it."""
-    with pytest.raises(PipelineError, match="bits=16.*not ported yet"):
-        repro_torch.quantize(ARCH, recipe=[("kv_cache", {"bits": 16})],
+    """bits=16 is the JAX package's fp KV cache, which the port now serves:
+    the stage records it as it records 8, and refuses any other width, as
+    the JAX stage does."""
+    with pytest.raises(PipelineError, match="bits must be 8 or 16"):
+        repro_torch.quantize(ARCH, recipe=[("kv_cache", {"bits": 4})],
                              device="cpu")
-    qm = repro_torch.quantize(ARCH, recipe=[("kv_cache", {"bits": 8})],
-                              device="cpu")
-    assert qm.kv_bits == 8
+    for bits in (16, 8):
+        qm = repro_torch.quantize(ARCH, recipe=[("kv_cache", {"bits": bits})],
+                                  device="cpu")
+        assert qm.kv_bits == qm.cfg.kv_cache_bits == bits
 
 
 def test_config_and_cle_stage_take_only_options_the_port_reads():
@@ -402,7 +404,7 @@ def test_fig4_recipes_match_jax(hostile, calib, recipe):
         assert sorted(st) == sorted(sj)
         assert all(abs(st[k] - sj[k]) < 1e-4 for k in st)
     assert sorted(tq.site_sqnr_db()) == sorted(jq.site_sqnr_db())
-    assert tq.kv_bits == (8 if recipe == "bc-w8a8-kv8" else None)
+    assert tq.kv_bits == (8 if recipe == "bc-w8a8-kv8" else 16)
 
 
 def test_weight_quant_override_reaches_bias_correct_epsilon(calib):
@@ -544,12 +546,13 @@ def test_hostile_model_gate():
     tm = repro_torch.build_model(cfg)
     params = from_jax_numpy(jax_to_numpy(jp), cfg, device="cpu")
     plan = tm.dfq_plan()
-    toks = calibration_tokens(0, 2, 16, cfg.vocab_size)
+    toks = calibration_tokens(0, 2, 16, cfg.vocab_size, device="cpu")
     y_fp = tm.apply(params, toks)
     naive = quantize_weights(params, plan, DFQConfig(cle=False,
                                                      bias_absorb=False))
     q = dfq_quantize(params, plan, DFQConfig(), input_means_fn=lambda p:
-                     tm.calibration_stats(p, calibration_tokens(1, 2, 32, 256)))
+                     tm.calibration_stats(p, calibration_tokens(1, 2, 32, 256,
+                                                       device="cpu")))
     snr_naive = float(sqnr_db(y_fp, tm.apply(naive, toks)))
     y_dfq = tm.apply(q, toks)
     snr_dfq = float(sqnr_db(y_fp, y_dfq))
