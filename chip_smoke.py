@@ -150,6 +150,31 @@ Phases, each of which must pass (nothing here catches a failure):
      counts exact as ``gemm_plan`` plans them, tok/s, quantize and warmup
      seconds and peak memory logged beside the card's name and power
      limit, and the phase's wall seconds.
+  7. the paper's CNN flow — no Pallas kernel lies on it, so no kernel row.
+     7a: the JAX reference's recipe (``benchmarks/_cnn_pipeline.py``) on
+     the repo's mobilenet_v2 config: ``MobileNetCNN.init(0)``, 300 AdamW
+     steps at batch 128 on ``synthetic_image_batch`` (drawn on the host by
+     4 threads), fold, the hostile rescale; then the rows of the paper's
+     Tables 1 and 2 (``benchmarks.tables``: original, ReLU6 → ReLU, CLE,
+     + absorption, per-channel, bias correction alone, clip@15 with and
+     without it, full DFQ), 8-bit weights and data-free 8-bit activations
+     on 6 held-out batches of 256, each beside the JAX reference's CPU
+     number. Gates: the loss finite and falling, CLE's fp32 top-1 within
+     0.2 points of the ReLU model's, full DFQ int8 at least the ReLU fp32
+     top-1 − 5 and the original int8 + 30. 7b: MobileNetV2's published
+     widths at 224 (``MOBILENET_V2_224``: no 1280 conv, ReLU), random
+     weights with log-normal BN γ and normal β, running statistics from 30
+     train-mode forwards at batch 32, folded and made hostile; fold, CLE,
+     absorption, 8-bit weights and analytic correction on the card equal
+     to the CPU's leaf by leaf (bit-equal, sums within ``CNN_SUM_TOL``);
+     fp32 logits card against CPU within ``CNN_FWD_TOL`` and a TF32
+     forward outside it; the fp32 logits after CLE within ``CNN_CLE_TOL``
+     and after absorption within ``CNN_ABSORB_TOL`` of the hostile
+     model's; full DFQ's logits SQNR above original int8's. Logged: the
+     SQNRs, Fig. 2's depthwise range spread, each stage's seconds,
+     images/s of the folded forward at batch 64 and 256 with and without
+     activation fake-quant, and peak memory, beside the card's name and
+     power limit.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -161,6 +186,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 and bf16
 # tensor-core operations/s, float32 (CUDA-core) operations/s.
@@ -2625,10 +2651,501 @@ def serve_nemo(torch, depth, quantize, kv_bits, *, reference):
     return run
 
 
+# --------------------------------------------------------------- phase 7
+# the reference's top-1 (%) on the same recipe: the JAX package on the CPU
+# (jax 0.9.0, benchmarks.tables.table1_cle and table2_bias_correction, 1536
+# held-out images); the card's rows are logged beside them, and the gates
+# are relative to the card's own rows
+CNN_REFERENCE_CPU = {
+    "original_fp32": 55.1, "original_int8": 18.9, "replace_relu6_fp32": 73.7,
+    "replace_relu6_int8": 20.2, "cle_int8": 74.5, "cle_absorb_int8": 74.5,
+    "per_channel_int8": 49.7, "bias_corr_int8": 17.3, "clip15_int8": 18.2,
+    "clip15_bias_corr_int8": 12.2, "full_dfq_int8": 74.7}
+# the reference recipe (benchmarks/_cnn_pipeline.py): 8 classes of 32x32
+# gratings, 300 AdamW steps at batch 128, lr 3e-3, weight decay 1e-4; the
+# evaluation: 6 held-out batches of 256 (seed 99, steps 10000+)
+CNN_TRAIN = dict(steps=300, batch=128, seed=0, lr=3e-3, weight_decay=1e-4)
+CNN_CLASSES, CNN_IMG = 8, 32
+CNN_EVAL = dict(seed=99, batches=6, batch=256)
+# MobileNetV2 1.0 at 224 (Sandler et al. 2018, Table 2): the stem of 32,
+# then each (t, c, n, s) row of the table as n blocks, the first at stride
+# s; CNNConfig has no field for the 1280-wide last 1x1 conv, so it is left
+# out and the classifier reads the 320 channels. The activation is ReLU:
+# the paper swaps ReLU6 for ReLU before CLE (§5.1.1), and here the swap
+# comes before the BN statistics are set — with random BN moments many
+# pre-activations pass 6, and statistics taken under ReLU6 do not describe
+# the ReLU model (its logits reached ~1e9 at 224 px in a chip probe)
+MOBILENET_V2_224 = dict(
+    name="mobilenet_v2-1.0-224 (no 1280 conv)", in_channels=3,
+    num_classes=1000, width=32,
+    blocks=((1, 16, 1), (6, 24, 2), (6, 24, 1), (6, 32, 2), (6, 32, 1),
+            (6, 32, 1), (6, 64, 2), (6, 64, 1), (6, 64, 1), (6, 64, 1),
+            (6, 96, 1), (6, 96, 1), (6, 96, 1), (6, 160, 2), (6, 160, 1),
+            (6, 160, 1), (6, 320, 1)),
+    img_size=224, act_clip=None)
+# fp32 logits, card against CPU on the same folded weights and images:
+# float32 convolutions summing in other orders, through every layer —
+# within CNN_FWD_TOL of the largest |logit|; a TF32 forward (inputs of
+# every product rounded to 10 mantissa bits, ~2^-11 relative) must fall
+# outside it
+CNN_FWD_TOL = 1e-4
+# the transforms' leaves, card against CPU: bit-equal where the arithmetic
+# is elementwise (fold, CLE, weight quantization); where a leaf is a sum
+# (absorption's shifted biases, bias correction's), within CNN_SUM_TOL of
+# the leaf's largest magnitude
+CNN_SUM_TOL = 1e-6
+# fp32 logits after a function-preserving rewrite against before it, on
+# the card, relative to the largest |logit|. CLE rescales whole channels:
+# only rounding through 1.5 decades of hostile scales. High-bias absorption
+# assumes each absorbed channel's pre-activation stays above c = β − 3γ,
+# which the BN moments of random weights describe only roughly, and a 3x3
+# window at the padding border sums fewer taps of c: CPU rehearsals at
+# 64-128 px moved the logits by 3-7 % of the largest |logit|, the chip run
+# at 224 px by 11.3 %
+CNN_CLE_TOL = 1e-3
+CNN_ABSORB_TOL = 0.15
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    return fn(tree)
+
+
+def _tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, path + (i,))
+    elif hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _tree_leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def merge_bn(trained, with_stats):
+    """benchmarks/_cnn_pipeline.py's ``_merge_bn``: the running mean and
+    var from the forward's tree, everything else from AdamW's."""
+    if isinstance(trained, dict):
+        if set(trained) == {"gamma", "beta", "mean", "var"}:
+            return {"gamma": trained["gamma"], "beta": trained["beta"],
+                    "mean": with_stats["mean"], "var": with_stats["var"]}
+        return {k: merge_bn(trained[k], with_stats[k]) for k in trained}
+    if isinstance(trained, list):
+        return [merge_bn(a, b) for a, b in zip(trained, with_stats)]
+    return trained
+
+
+def cnn_train_step(torch, model, params, opt, batch, lr, weight_decay):
+    """One step of the reference recipe: the loss's gradients (zeros for
+    the running statistics, which the loss does not read — JAX's gradient
+    there), AdamW, then the forward's running statistics merged in."""
+    from repro_torch.models.cnn import fp32
+    from repro_torch.optim import adamw_update
+
+    live = _tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = [t for _, t in _tree_leaves(live)]
+    with fp32():
+        loss, new_params = model.loss(live, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_leaf = {id(t): torch.zeros_like(t) if g is None else g
+               for t, g in zip(leaves, grads)}
+    upd, opt, _ = adamw_update(_tree_map(lambda t: by_leaf[id(t)], live), opt,
+                               params, lr=lr, weight_decay=weight_decay)
+    return merge_bn(upd, new_params), opt, loss.detach()
+
+
+def image_batches(torch, dev, seed, steps, batch, size, classes, workers=4):
+    """``synthetic_image_batch(seed, step, ...)`` for each step, drawn on
+    the host by ``workers`` threads ahead of the consumer (numpy releases
+    the interpreter lock) and moved to ``dev`` in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.data import synthetic_image_batch
+
+    def draw(step):
+        return synthetic_image_batch(seed, step, batch, size, 3, classes,
+                                     device="cpu")
+
+    with ThreadPoolExecutor(workers) as pool:
+        for b in pool.map(draw, steps):
+            yield {k: v.to(dev) for k, v in b.items()}
+
+
+def adversarial_rescale(torch, folded, seed=0, decades=1.5):
+    """benchmarks/_cnn_pipeline.py's hostile-ranges injector: a
+    function-preserving log-normal per-channel rescale over each inverted
+    residual's expand → dw and dw → project interfaces, with the JAX
+    package's draws for the seed (``prng.normal``, within 4 ulp)."""
+    import numpy as np
+
+    from repro_torch.core.cle import ConvLayer, _scale_in, _scale_out
+    from repro_torch.data import prng
+
+    folded = _tree_map(lambda t: t, folded)
+    key = prng.PRNGKey(seed)
+    for blk in folded["blocks"]:
+        for src, dst, dst_kind in (("expand", "dw", "depthwise"),
+                                   ("dw", "project", "conv")):
+            key, k = prng.split(key)
+            n = prng.normal(k, (blk[src].w.shape[-1],))
+            s = torch.from_numpy(np.exp(n * np.float32(decades))).to(
+                blk[src].w.device)
+            l1s = _scale_out(ConvLayer(blk[src].w, blk[src].b,
+                                       "depthwise" if src == "dw" else "conv"),
+                             s)
+            l2s = _scale_in(ConvLayer(blk[dst].w, blk[dst].b, dst_kind), s)
+            blk[src] = blk[src]._replace(w=l1s.w, b=l1s.b,
+                                         act_mean=blk[src].act_mean / s,
+                                         act_std=blk[src].act_std / s)
+            blk[dst] = blk[dst]._replace(w=l2s.w)
+    return folded
+
+
+def clip_weights(torch, folded, clip=15.0):
+    """The paper's §5.1.2 weight-clipping baseline (every conv, not the
+    head)."""
+    q = _tree_map(lambda t: t, folded)
+    q["stem"] = q["stem"]._replace(w=torch.clamp(q["stem"].w, -clip, clip))
+    for blk in q["blocks"]:
+        for k in ("expand", "dw", "project"):
+            blk[k] = blk[k]._replace(w=torch.clamp(blk[k].w, -clip, clip))
+    return q
+
+
+def act_quantizer(torch, act_clip, bits=8, n_sigma=6.0):
+    """benchmarks' data-free activation fake-quant: the range max(β ± 6γ)
+    over the layer's channels, its low end clamped to 0 (post-ReLU) and the
+    high end capped at the clip."""
+    from repro_torch.core import (QuantSpec, fake_quant_with_qparams,
+                                  qparams_from_range)
+
+    spec = QuantSpec(bits=bits, symmetric=False)
+
+    def act_quant(h, name, mean, std):
+        lo = torch.clamp_min(torch.clamp_max(
+            torch.min(mean - n_sigma * std), 0.0), 0.0)
+        hi = torch.max(mean + n_sigma * std)
+        if act_clip is not None:
+            hi = torch.clamp_max(hi, act_clip)
+        return fake_quant_with_qparams(h, qparams_from_range(lo, hi, spec))
+
+    return act_quant
+
+
+def cnn_accuracy(torch, model, folded, batches, act_clip=None, w_bits=None,
+                 per_channel=False, bias_correct=False, act_bits=None):
+    """Top-1 (%) over the held-out batches — benchmarks' ``eval_accuracy``
+    on the tree ``_acc`` makes: weights fake-quantized to ``w_bits`` (and
+    bias-corrected), activations to ``act_bits`` with data-free ranges."""
+    from repro_torch.core import QuantSpec
+
+    q = folded
+    if w_bits:
+        spec = QuantSpec(bits=w_bits, per_channel_axis=-1 if per_channel
+                         else None)
+        q = model.quantize_weights(folded, spec)
+        if bias_correct:
+            q = model.bias_correct_analytic(folded, q, spec, act_clip=act_clip)
+    act_quant = act_quantizer(torch, act_clip) if act_bits else None
+    correct = total = 0
+    for b in batches:
+        logits = model.apply_folded(q, b["x"], act_clip=act_clip,
+                                    act_quant=act_quant)
+        correct = correct + (logits.argmax(-1) == b["y"]).sum()
+        total += b["y"].numel()
+    return 100.0 * float(correct) / total
+
+
+def timed(torch, secs, name, fn):
+    """``fn()``, its seconds on the card (synchronized) put in ``secs``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs[name] = time.perf_counter() - t0
+    return out
+
+
+def cnn_rows(torch, model, hostile, batches, secs):
+    """The rows of tables.table1_cle and table2_bias_correction, on the
+    hostile model; each transform's seconds go in ``secs``."""
+    eq = timed(torch, secs, "equalize", lambda: model.equalize(hostile))
+    ab = timed(torch, secs, "absorb_high_bias",
+               lambda: model.absorb_high_bias(eq))
+    clipped = clip_weights(torch, hostile, 15.0)
+
+    def acc(tree, act_clip, **kw):
+        if kw:
+            kw.setdefault("act_bits", 8)
+        return cnn_accuracy(torch, model, tree, batches, act_clip=act_clip,
+                            **kw)
+
+    rows = {
+        "original_fp32": acc(hostile, 6.0),
+        "original_int8": acc(hostile, 6.0, w_bits=8),
+        "replace_relu6_fp32": acc(hostile, None),
+        "replace_relu6_int8": acc(hostile, None, w_bits=8),
+        "cle_fp32": acc(eq, None),
+        "cle_int8": acc(eq, None, w_bits=8),
+        "cle_absorb_fp32": acc(ab, None),
+        "cle_absorb_int8": acc(ab, None, w_bits=8),
+        "per_channel_int8": acc(hostile, 6.0, w_bits=8, per_channel=True),
+        "bias_corr_int8": acc(hostile, 6.0, w_bits=8, bias_correct=True),
+        "clip15_fp32": acc(clipped, 6.0),
+        "clip15_int8": acc(clipped, 6.0, w_bits=8),
+        "clip15_bias_corr_int8": acc(clipped, 6.0, w_bits=8,
+                                     bias_correct=True),
+        "full_dfq_int8": acc(ab, None, w_bits=8, bias_correct=True),
+    }
+    return rows
+
+
+def cnn_paper_tables(torch, dev, smi):
+    """Phase 7a: the reference's recipe on the repo's mobilenet_v2 config,
+    trained and quantized on the card; the rows of the paper's Tables 1
+    and 2 beside the reference's."""
+    import math
+
+    from repro_torch.configs.mobilenet_v2 import CONFIG
+    from repro_torch.models import MobileNetCNN
+    from repro_torch.optim import adamw_init
+
+    tr, cfg = CNN_TRAIN, CONFIG
+    assert (cfg.num_classes, cfg.img_size) == (CNN_CLASSES, CNN_IMG)
+    model = MobileNetCNN(cfg)
+    params = model.init(tr["seed"], device=dev)
+    opt = adamw_init(params)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # cuDNN's deterministic algorithms: the same trained weights every run,
+    # so that the rows below (the collapsed int8 ones moved 12.6 → 31.8 %
+    # between two runs without it) are reproducible
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for b in image_batches(torch, dev, tr["seed"], range(tr["steps"]),
+                               tr["batch"], CNN_IMG, CNN_CLASSES):
+            params, opt, loss = cnn_train_step(torch, model, params, opt, b,
+                                               tr["lr"], tr["weight_decay"])
+            losses.append(loss)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    train_s = time.perf_counter() - t0
+    log(f"  7a {cfg.name} (width {cfg.width}, {len(cfg.blocks)} blocks, "
+        f"{CNN_IMG}x{CNN_IMG}, {CNN_CLASSES} classes): {tr['steps']} AdamW "
+        f"steps at batch {tr['batch']} in {train_s:.2f} s, "
+        f"{tr['steps'] / train_s:.1f} steps/s (host drawing included); "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} ({smi})")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+
+    secs = {}
+    hostile = timed(torch, secs, "fold + hostile rescale",
+                    lambda: adversarial_rescale(torch, model.fold(params)))
+    ev = CNN_EVAL
+    batches = list(image_batches(
+        torch, dev, ev["seed"], range(10_000, 10_000 + ev["batches"]),
+        ev["batch"], CNN_IMG, CNN_CLASSES))
+    rows = timed(torch, secs, "rows",
+                 lambda: cnn_rows(torch, model, hostile, batches, secs))
+    for name, top1 in rows.items():
+        ref = CNN_REFERENCE_CPU.get(name)
+        log(f"  7a {name:24s} top-1 {top1:6.2f} %  (reference, JAX on the "
+            f"CPU: " + ("none given" if ref is None else f"{ref:.1f} %")
+            + ")")
+    log("  7a seconds on the card: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()) + f" ({smi})")
+    assert abs(rows["cle_fp32"] - rows["replace_relu6_fp32"]) <= 0.2, rows
+    assert rows["full_dfq_int8"] >= rows["replace_relu6_fp32"] - 5.0, rows
+    assert rows["full_dfq_int8"] >= rows["original_int8"] + 30.0, rows
+
+
+def _max_rel(torch, a, b):
+    return float((a.double().cpu() - b.double().cpu()).abs().max()
+                 / b.double().abs().max())
+
+
+def check_leaves_card_cpu(torch, name, card, cpu, summed):
+    """A transform's tree on the card against the same transform's on the
+    CPU: every leaf bit-equal, or for the leaves ``summed(path)`` marks
+    within CNN_SUM_TOL of the leaf's largest magnitude."""
+    worst, n = 0.0, 0
+    cpu_leaves = dict(_tree_leaves(cpu))
+    for path, t in _tree_leaves(card):
+        want = cpu_leaves[path]
+        if isinstance(t, int):
+            assert t == want, (name, path)
+            continue
+        n += 1
+        if summed(path):
+            rel = _max_rel(torch, t, want)
+            worst = max(worst, rel)
+            assert rel <= CNN_SUM_TOL, (name, path, rel)
+        else:
+            assert torch.equal(t.cpu(), want), (name, path)
+    return n, worst
+
+
+def _blocks_b(*parts):
+    def summed(path):
+        return path[0] == "blocks" and path[2] in parts and path[3] == "b"
+    return summed
+
+
+def fig2_spread(torch, folded):
+    """Fig. 2's per-channel range spread of the depthwise kernels: max over
+    median of each block's channel ranges, averaged over the blocks."""
+    from repro_torch.core import channel_ranges
+
+    vals = []
+    for blk in folded["blocks"]:
+        r = torch.clamp_min(channel_ranges(blk["dw"].w, -1), 1e-9)
+        vals.append(float(r.max() / torch.quantile(r, 0.5)))
+    return sum(vals) / len(vals)
+
+
+def mobilenet_v2_published(torch, dev, smi):
+    """Phase 7b: MobileNetV2's published widths at 224x224 (random
+    weights from the seed, BN γ log-normal and β normal, running statistics
+    from train-mode forwards), folded, made hostile and taken through CLE,
+    absorption, 8-bit weights and analytic bias correction on the card."""
+    import numpy as np
+
+    from repro_torch.core import QuantSpec, sqnr_db
+    from repro_torch.data import prng
+    from repro_torch.models import CNNConfig, MobileNetCNN
+
+    cfg = CNNConfig(**MOBILENET_V2_224)
+    model = MobileNetCNN(cfg)
+    secs = {}
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  7b {cfg.name}: width {cfg.width}, {len(cfg.blocks)} blocks, "
+        f"{cfg.img_size}x{cfg.img_size}, {cfg.num_classes} classes; the "
+        f"1280-wide last 1x1 conv of the published model is left out "
+        f"(CNNConfig has no field for it)")
+    params = timed(torch, secs, "init", lambda: model.init(0, device=dev))
+    keys = iter(prng.split(prng.fold_in(prng.PRNGKey(0), 1),
+                           2 * (1 + 3 * len(cfg.blocks))))
+
+    def random_bn(bn):
+        c = bn["gamma"].shape[0]
+        gamma = np.exp(prng.normal(next(keys), (c,)) * np.float32(0.5))
+        beta = prng.normal(next(keys), (c,))
+        return dict(bn, gamma=torch.from_numpy(gamma).to(dev),
+                    beta=torch.from_numpy(beta).to(dev))
+
+    params["stem"]["bn"] = random_bn(params["stem"]["bn"])
+    for blk in params["blocks"]:
+        for k in ("expand", "dw", "project"):
+            blk[k]["bn"] = random_bn(blk[k]["bn"])
+    images = list(image_batches(torch, dev, 0, range(30), 32, cfg.img_size,
+                                cfg.num_classes, workers=8))
+
+    def stats(p):
+        with torch.no_grad():
+            for b in images:
+                _, p = model.apply_train(p, b["x"])
+        return p
+
+    params = timed(torch, secs, "bn_stats", lambda: stats(params))
+    folded = timed(torch, secs, "fold", lambda: model.fold(params))
+    hostile = timed(torch, secs, "hostile",
+                    lambda: adversarial_rescale(torch, folded))
+    eq = timed(torch, secs, "equalize", lambda: model.equalize(hostile))
+    ab = timed(torch, secs, "absorb_high_bias",
+               lambda: model.absorb_high_bias(eq))
+    spec = QuantSpec(bits=8)
+    q = timed(torch, secs, "quantize_weights",
+              lambda: model.quantize_weights(ab, spec))
+    bc = timed(torch, secs, "bias_correct_analytic",
+               lambda: model.bias_correct_analytic(ab, q, spec))
+    log("  7b seconds on the card: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()) + f" ({smi})")
+
+    # the same transforms on the CPU, from the card's params moved across
+    cpu = _tree_map(lambda t: t.cpu() if torch.is_tensor(t) else t, params)
+    c_fold = model.fold(cpu)
+    c_host = adversarial_rescale(torch, c_fold)
+    c_eq = model.equalize(c_host)
+    c_ab = model.absorb_high_bias(c_eq)
+    c_q = model.quantize_weights(c_ab, spec)
+    c_bc = model.bias_correct_analytic(c_ab, c_q, spec)
+    none = _blocks_b()
+    report = []
+    for name, card, host, summed in (
+            ("fold", folded, c_fold, none), ("hostile", hostile, c_host, none),
+            ("equalize", eq, c_eq, none),
+            ("absorb_high_bias", ab, c_ab, _blocks_b("dw", "project")),
+            ("quantize_weights", q, c_q, _blocks_b("dw", "project")),
+            ("bias_correct_analytic", bc, c_bc,
+             _blocks_b("expand", "dw", "project"))):
+        n, worst = check_leaves_card_cpu(torch, name, card, host, summed)
+        report.append(f"{name} {n} leaves" + (
+            f" (sums within {worst:.2g})" if worst else ""))
+    log("  7b card = CPU, leaf by leaf: " + "; ".join(report))
+
+    x = images[0]["x"][:8]
+    y_fp = model.apply_folded(hostile, x)
+    y_cpu = model.apply_folded(c_host, x.cpu())
+    y_tf32 = model.apply_folded(hostile, x, allow_tf32=True)
+    fp_err, tf32_err = (_max_rel(torch, y_fp, y_cpu),
+                        _max_rel(torch, y_tf32, y_cpu))
+    log(f"  7b fp32 logits card against CPU: max |diff| {fp_err:.3g} of max "
+        f"|logit| (tolerance {CNN_FWD_TOL:g}); a TF32 forward on the card: "
+        f"{tf32_err:.3g}, outside it")
+    assert fp_err <= CNN_FWD_TOL, fp_err
+    assert tf32_err > CNN_FWD_TOL, tf32_err
+
+    cle_err = _max_rel(torch, model.apply_folded(eq, x), y_fp)
+    ab_err = _max_rel(torch, model.apply_folded(ab, x), y_fp)
+    log(f"  7b fp32 logits against the hostile model's: after CLE "
+        f"{cle_err:.3g} (tolerance {CNN_CLE_TOL:g}), after CLE + absorption "
+        f"{ab_err:.3g} (tolerance {CNN_ABSORB_TOL:g}: exact only above c "
+        f"and away from the padding borders)")
+    assert cle_err <= CNN_CLE_TOL, cle_err
+    assert ab_err <= CNN_ABSORB_TOL, ab_err
+
+    aq = act_quantizer(torch, None)
+    snr = {name: float(sqnr_db(y_fp, model.apply_folded(tree, x,
+                                                         act_quant=aq)))
+           for name, tree in (
+               ("original int8", model.quantize_weights(hostile, spec)),
+               ("CLE + BA int8", q), ("full DFQ int8", bc))}
+    log("  7b logits SQNR against fp32 (8-bit weights and activations): "
+        + ", ".join(f"{k} {v:.2f} dB" for k, v in snr.items()))
+    assert snr["full DFQ int8"] > snr["original int8"], snr
+    log(f"  7b Fig. 2 depthwise range spread (max/median, mean over blocks): "
+        f"hostile {fig2_spread(torch, hostile):.2f}, after CLE "
+        f"{fig2_spread(torch, eq):.2f}")
+
+    pool = torch.cat([b["x"] for b in images])
+    for n in (64, 256):
+        xb = pool[:n]
+        for label, tree, kw in (("fp32", hostile, {}),
+                                ("int8 fake-quant", bc, {"act_quant": aq})):
+            def fwd():
+                with torch.no_grad():
+                    return model.apply_folded(tree, xb, **kw)
+
+            ms = call_ms(fwd, 10, warmup=2)
+            log(f"  7b folded forward at batch {n} ({label}): {ms:.2f} ms, "
+                f"{n / ms * 1e3:.0f} images/s ({smi})")
+    log(f"  7b peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+
+
 # --------------------------------------------------------------- main
 def main() -> int:
-    import time
-
     import torch
 
     t_script = time.perf_counter()
@@ -2773,6 +3290,14 @@ def main() -> int:
         for label, (f, s) in nemo.items())
         + f" ({depth} layers; {smi})")
     log(f"  phase 6 took {time.perf_counter() - t6:.1f} s")
+
+    log("== phase 7: the paper's CNN flow (BN folding, CLE, high-bias "
+        "absorption, bias correction) trained and quantized on the card")
+    log(f"  {smi}")
+    t7 = time.perf_counter()
+    cnn_paper_tables(torch, dev, smi)
+    mobilenet_v2_published(torch, dev, smi)
+    log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
 
     # each kernel's launches come from the run of the path it serves; the
     # fused decode from the default (w8a16) path, kv_attention from the

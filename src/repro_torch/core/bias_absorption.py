@@ -1,6 +1,5 @@
 """High-bias absorption (paper §4.1.3) and exact value-bias absorption —
-port of ``repro.core.bias_absorption`` (the conv variant waits for the CNN
-slice).
+port of ``repro.core.bias_absorption``.
 
 After CLE, channels with s_i < 1 get inflated biases b⁽¹⁾, which inflates
 the activation range. The paper absorbs c = max(0, β − 3γ) from layer 1
@@ -37,6 +36,22 @@ def absorb_dense(b1: torch.Tensor, w2: torch.Tensor,
     w2: [..., n, d_out]; b1, c: [..., n]."""
     b1_new = b1 - c
     shift = torch.einsum("...n,...no->...o", c, w2)
+    b2_new = shift if b2 is None else b2 + shift
+    return AbsorbResult(b1_new, b2_new, c)
+
+
+def absorb_conv(b1: torch.Tensor, w2: torch.Tensor,
+                b2: Optional[torch.Tensor], c: torch.Tensor,
+                depthwise: bool = False) -> AbsorbResult:
+    """Conv variant: the absorbed constant is spatially uniform, so it folds
+    through the kernel's spatial sum — exact away from the padding borders,
+    the approximation the paper makes (a window that overlaps the zero
+    padding sums fewer taps of c). w2 HWIO."""
+    b1_new = b1 - c
+    if depthwise:
+        shift = c * w2[..., 0, :].sum(dim=(0, 1))
+    else:
+        shift = torch.einsum("i,hwio->o", c, w2)
     b2_new = shift if b2 is None else b2 + shift
     return AbsorbResult(b1_new, b2_new, c)
 

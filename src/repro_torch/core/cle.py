@@ -1,6 +1,5 @@
 """Cross-layer range equalization (paper §4.1, appendix A) — port of
-``repro.core.cle`` (the transformer half; the CNN chain waits for the CNN
-slice of the port).
+``repro.core.cle``: the transformer pairs and the CNN's conv chains.
 
 For two weight tensors connected through a positive-scaling-equivariant
 map, the optimal diagonal rescaling S (paper eq. 9) is the closed form of
@@ -13,6 +12,7 @@ preserved exactly: W1 ← S⁻¹ W1, b1 ← S⁻¹ b1, W2 ← W2 S.
 
 Dense weights are ``[..., d_in, d_out]`` (applied as ``y = x @ W + b``);
 leading dims (layer-stacked ``[L, ...]``) broadcast through every function.
+Conv kernels are HWIO, as the JAX package keeps them.
 Each function is the JAX one's arithmetic in the same order — abs, max,
 sqrt, multiply and divide, each correctly rounded — so the results are
 bit-equal to the JAX package's on the same inputs.
@@ -168,3 +168,88 @@ def fold_norm(norm_w: torch.Tensor, consumers: Sequence[torch.Tensor],
     ones = torch.ones_like(norm_w)
     zeros = None if norm_b is None else torch.zeros_like(norm_b)
     return ones, zeros, new_ws, new_bs
+
+
+# ----------------------------------------------------------------------------
+# CNN chain equalization (the paper's own experimental setting).
+# ----------------------------------------------------------------------------
+
+class ConvLayer(NamedTuple):
+    """HWIO conv kernel + bias + structural kind.
+
+    kind: "conv" (dense conv / 1x1), "depthwise" ([kh,kw,1,C], groups = C),
+    or "dense" ([in,out]).
+    """
+
+    w: torch.Tensor
+    b: Optional[torch.Tensor]
+    kind: str = "conv"
+
+
+def _out_ranges(layer: ConvLayer) -> torch.Tensor:
+    if layer.kind == "dense":
+        return layer.w.abs().amax(dim=-2)
+    return layer.w.abs().amax(dim=(0, 1, 2))        # HWIO → per O
+
+
+def _in_ranges(layer: ConvLayer) -> torch.Tensor:
+    if layer.kind == "dense":
+        return layer.w.abs().amax(dim=-1)
+    if layer.kind == "depthwise":
+        return layer.w.abs().amax(dim=(0, 1, 2))    # channel == O axis
+    return layer.w.abs().amax(dim=(0, 1, 3))        # per I
+
+
+def _scale_out(layer: ConvLayer, s: torch.Tensor) -> ConvLayer:
+    """Divide output channels by s (and bias)."""
+    if layer.kind == "dense":
+        w = layer.w / s[None, :]
+    else:
+        w = layer.w / s[None, None, None, :]
+    b = None if layer.b is None else layer.b / s
+    return layer._replace(w=w, b=b)
+
+
+def _scale_in(layer: ConvLayer, s: torch.Tensor) -> ConvLayer:
+    """Multiply input channels by s (compensating an upstream 1/s)."""
+    if layer.kind == "dense":
+        w = layer.w * s[:, None]
+    elif layer.kind == "depthwise":
+        w = layer.w * s[None, None, None, :]
+    else:
+        w = layer.w * s[None, None, :, None]
+    return layer._replace(w=w)
+
+
+class ChainResult(NamedTuple):
+    layers: list
+    cum: list        # per interface: the product of its scales over passes
+    passes: int      # passes run before the early stop (or ``iterations``)
+
+
+def equalize_conv_chain(layers: Sequence[ConvLayer], iterations: int = 20,
+                        tol: float = 1e-4) -> ChainResult:
+    """Iterate pairwise equalization over a chain of layers connected
+    without splits (paper §4.1.2: "we iterate this process for pairs of
+    layers ... until convergence"), stopping after the first pass whose
+    largest |log s| is below ``tol``. Returns the new layers, the
+    cumulative per-interface scales and the number of passes run (the JAX
+    function returns the first two). The stop test takes the log in
+    float64, so the card and the CPU run the same passes."""
+    layers = list(layers)
+    n_if = len(layers) - 1
+    cum = [torch.ones_like(_out_ranges(layers[i])) for i in range(n_if)]
+    passes = 0
+    for _ in range(iterations):
+        passes += 1
+        max_log_change = []
+        for i in range(n_if):
+            s = equalization_scales(_out_ranges(layers[i]),
+                                    _in_ranges(layers[i + 1]))
+            layers[i] = _scale_out(layers[i], s)
+            layers[i + 1] = _scale_in(layers[i + 1], s)
+            cum[i] = cum[i] * s
+            max_log_change.append(s.double().log().abs().max())
+        if not max_log_change or float(torch.stack(max_log_change).max()) < tol:
+            break
+    return ChainResult(layers, cum, passes)

@@ -33,9 +33,7 @@ from .tree import get_path, has_path, set_path
 @dataclasses.dataclass(frozen=True)
 class DFQConfig:
     """Level-1 defaults: 8-bit asymmetric per-tensor, everything on (paper
-    §5). The JAX config's fields in its order, but ``n_sigma_absorb`` and
-    ``cle_include_approx_pairs``: their readers (high-bias absorption, the
-    plain-GELU pairs) come with the CNN and whisper slices."""
+    §5). The JAX config's fields, in its order."""
 
     weight_bits: int = 8
     act_bits: int = 8
@@ -47,7 +45,9 @@ class DFQConfig:
                                          # >1 only matters for shared tensors
     bias_absorb: bool = True
     bias_correct: str = "empirical"      # "empirical" | "analytic" | "none"
+    n_sigma_absorb: float = 3.0          # paper: 3γ ⇒ 99.865 %
     act_range_n_sigma: float = 6.0       # paper §5: β ± 6γ
+    cle_include_approx_pairs: bool = False  # plain-GELU pairs (whisper MLP)
 
     @property
     def weight_spec(self) -> QuantSpec:
@@ -107,9 +107,9 @@ def run_plan_ops(params: Mapping, plan: DFQPlan, config: DFQConfig, *,
             if isinstance(op, NormFoldOp):
                 params = _fold(params, op)
             elif isinstance(op, DensePairOp):
-                # approximate (plain-GELU) pairs are left alone, as the
-                # JAX package does by default; no port model emits one
-                if not config.cle or not op.exact:
+                if not config.cle:
+                    continue
+                if not op.exact and not config.cle_include_approx_pairs:
                     continue
                 res = cle.equalize_dense_pair(get_path(params, op.w1),
                                               _maybe(params, op.b1),
@@ -147,9 +147,16 @@ def run_plan_ops(params: Mapping, plan: DFQPlan, config: DFQConfig, *,
                 params = set_path(params, op.bv, res.b1)
                 params = set_path(params, op.bo, res.b2)
             elif isinstance(op, HighBiasAbsorbOp):
-                raise NotImplementedError(
-                    "high-bias absorption (HighBiasAbsorbOp) is not ported "
-                    "yet: it comes with the CNN slice, whose plans emit it")
+                if not config.bias_absorb:
+                    continue
+                c = bias_absorption.absorption_amount(
+                    get_path(params, op.beta), get_path(params, op.gamma),
+                    config.n_sigma_absorb)
+                res = bias_absorption.absorb_dense(
+                    get_path(params, op.b1), get_path(params, op.w2),
+                    _maybe(params, op.b2), c)
+                params = set_path(params, op.b1, res.b1)
+                params = set_path(params, op.b2, res.b2)
             else:
                 raise TypeError(f"unknown plan op {op!r}")
     return params

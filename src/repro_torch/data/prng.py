@@ -1,15 +1,18 @@
 """JAX's default PRNG (threefry2x32) in numpy ``uint32`` arithmetic.
 
-The port draws its synthetic calibration ids exactly as the JAX package
-does, with no JAX import: ``PRNGKey``, ``fold_in``, ``split``,
-``random_bits`` and ``randint`` below reproduce ``jax.random``'s results
-bit for bit under jax's defaults (the ``threefry2x32`` implementation,
+The port draws its synthetic calibration ids, its synthetic images and the
+CNN's initial weights as the JAX package does, with no JAX import:
+``PRNGKey``, ``fold_in``, ``split``, ``random_bits`` and ``randint`` below
+reproduce ``jax.random``'s results bit for bit under jax's defaults (the ``threefry2x32`` implementation,
 ``jax_threefry_partitionable=True``, 32-bit integers). Every step is an
 exact integer operation on ``uint32`` words, wrapping modulo 2**32.
 
 A key is a ``uint32`` array of shape (2,), as ``jax.random.key_data``
-gives it. ``uniform`` and ``normal`` are not here: they are not on the
-calibration path, and ``normal``'s ``erf_inv`` would not be bit-equal.
+gives it. ``uniform`` is ``jax.random.uniform``'s float32 result bit for
+bit (the bits as a mantissa, then one fused multiply-add). ``normal`` is
+``jax.random.normal``'s float32 result within 4 ulp: √2 · erf⁻¹(u) with
+XLA's float32 ``erf_inv`` evaluated in numpy float32, whose ``log1p`` and
+``sqrt`` may round other than XLA's.
 """
 from __future__ import annotations
 
@@ -109,3 +112,55 @@ def randint(key: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
         else:                     # span 2**32 wrapped to 0: rem is a no-op
             off = higher * mult + lower
     return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
+
+
+def uniform(key: np.ndarray, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` as the
+    JAX package computes it on the CPU: 23 random bits as the mantissa of a
+    float in [1, 2), minus 1, scaled to the span and clamped below at
+    ``minval`` (``jax._src.random._uniform``)."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    bits = random_bits(key, shape)
+    one = np.array(1.0, np.float32).view(_U32)
+    floats = ((bits >> _U32(32 - 23)) | one).view(np.float32) - np.float32(1)
+    # XLA's CPU backend contracts the scale and shift into one fused
+    # multiply-add: the float64 product of two float32 values is exact, so
+    # one rounding of the float64 sum to float32 is the fused result
+    scaled = floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
+    return np.maximum(lo, scaled.astype(np.float32))
+
+
+# XLA's float32 erf_inv (Giles, "Approximating the erfinv function"): the
+# coefficients of the polynomials in w - 2.5 (w < 5) and sqrt(w) - 3
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``erf_inv`` (its chlo decomposition), in numpy float32:
+    w = -log1p(-x²), a degree-8 polynomial in w - 2.5 or sqrt(w) - 3, times
+    x; ±inf at |x| = 1."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = -np.log1p(x * -x)
+        lt = w < np.float32(5)
+        w = np.where(lt, w - np.float32(2.5),
+                     np.sqrt(w) - np.float32(3)).astype(np.float32)
+        p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+        for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+            p = np.where(lt, np.float32(a), np.float32(b)) + p * w
+        return np.where(np.abs(x) < np.float32(1), p * x,
+                        x * np.float32(np.inf)).astype(np.float32)
+
+
+def normal(key: np.ndarray, shape) -> np.ndarray:
+    """``jax.random.normal(key, shape)`` within 4 ulp: √2 · erf⁻¹(u), u
+    uniform on (nextafter(-1, 0), 1) (``jax._src.random._normal_real``)."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = uniform(key, shape, lo, 1.0)
+    return (np.float32(np.sqrt(2)) * erf_inv(u)).astype(np.float32)

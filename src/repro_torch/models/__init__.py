@@ -1,7 +1,10 @@
-"""Decoder-only dense LM in PyTorch (port of ``repro.models``)."""
+"""Decoder-only dense LM in PyTorch (port of ``repro.models``), and the
+paper's MobileNetV2-style CNN (``repro.models.cnn``)."""
+from .cnn import CNNConfig, MobileNetCNN
 from .config import SHAPE_BY_NAME, SHAPES, ModelConfig, ShapeConfig, shape_applicable
 from .lm import LMModel
 from .model import build_model, cache_specs, input_specs
 
-__all__ = ["LMModel", "ModelConfig", "SHAPES", "SHAPE_BY_NAME", "ShapeConfig",
-           "build_model", "cache_specs", "input_specs", "shape_applicable"]
+__all__ = ["CNNConfig", "LMModel", "MobileNetCNN", "ModelConfig", "SHAPES",
+           "SHAPE_BY_NAME", "ShapeConfig", "build_model", "cache_specs",
+           "input_specs", "shape_applicable"]

@@ -49,10 +49,14 @@ def fold_norm_stage(state, ctx):
     return state
 
 
-@register_stage("cle", iterations=None)
-def cle_stage(state, ctx, *, iterations):
+@register_stage("cle", iterations=None, include_approx_pairs=None)
+def cle_stage(state, ctx, *, iterations, include_approx_pairs):
     """Cross-layer equalization over the plan's exact pairs (paper §4.1)."""
-    cfg = dataclasses.replace(state.config, cle=True)
+    cfg = dataclasses.replace(
+        state.config, cle=True,
+        cle_include_approx_pairs=(
+            state.config.cle_include_approx_pairs
+            if include_approx_pairs is None else include_approx_pairs))
     it = iterations if iterations is not None else cfg.cle_iterations
     state.params = run_plan_ops(state.params, state.plan, cfg,
                                 kinds=_CLE_KINDS, iterations=it)
@@ -62,9 +66,7 @@ def cle_stage(state, ctx, *, iterations):
 
 @register_stage("bias_absorb")
 def bias_absorb_stage(state, ctx):
-    """The exact value-bias absorption through attention into the output
-    bias. (High-bias absorption, paper §4.1.3, comes with the CNN slice:
-    ``run_plan_ops`` refuses its op.)"""
+    """High-bias absorption into the following layer (paper §4.1.3)."""
     cfg = dataclasses.replace(state.config, bias_absorb=True)
     state.params = run_plan_ops(state.params, state.plan, cfg,
                                 kinds=_ABSORB_KINDS, iterations=1)

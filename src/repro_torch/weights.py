@@ -3,8 +3,10 @@
 ``from_jax_numpy`` takes the JAX parameter tree converted to nested dicts of
 numpy arrays — each ``QTensor`` given as ``{"q", "scale", "mode"}``, block
 leaves stacked ``[L, ...]`` — and returns the port's tree in the same layout,
-on ``device``. The conversion on the JAX side belongs to the caller (the
-tests); this module imports no JAX.
+on ``device``. ``cnn_from_jax_numpy`` does the same for the CNN's params or
+folded tree (lists of blocks, ``FoldedLayer`` leaves, ``stride`` ints). The
+conversion on the JAX side belongs to the caller (the tests); this module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .core.bn_folding import FoldedLayer
+from .models.cnn import CNNConfig
 from .models.config import ModelConfig
 from .quantized.qtensor import QTensor
 
@@ -50,3 +54,38 @@ def from_jax_numpy(params_np: Mapping, cfg: ModelConfig,
     if L != cfg.n_layers:
         raise ValueError(f"{L} stacked blocks, {cfg.name} has {cfg.n_layers}")
     return params
+
+
+def cnn_from_jax_numpy(tree_np, cfg: CNNConfig,
+                       device: Optional[Union[str, torch.device]] = "cuda"):
+    """The port's CNN params or folded tree for ``cfg`` from a numpy copy of
+    the JAX one (``jax.device_get`` of it: numpy leaves, the JAX package's
+    ``FoldedLayer`` named tuples, ``stride`` ints). Checks the stem, the
+    block count and the head against ``cfg``."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if getattr(node, "_fields", None) == FoldedLayer._fields:
+            return FoldedLayer(*(walk(v) for v in node))
+        if isinstance(node, Mapping):
+            return {k: int(v) if k == "stride" else walk(v)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _tensor(node, device)
+
+    tree = walk(tree_np)
+    stem = tree["stem"]
+    stem_w = stem.w if isinstance(stem, FoldedLayer) else stem["w"]
+    want = (3, 3, cfg.in_channels, cfg.width)
+    if tuple(stem_w.shape) != want:
+        raise ValueError(f"stem kernel {tuple(stem_w.shape)} does not match "
+                         f"{cfg.name} {want}")
+    if len(tree["blocks"]) != len(cfg.blocks):
+        raise ValueError(f"{len(tree['blocks'])} blocks, {cfg.name} has "
+                         f"{len(cfg.blocks)}")
+    head = tuple(tree["head"]["w"].shape)
+    if head != (cfg.blocks[-1][1], cfg.num_classes):
+        raise ValueError(f"head {head} does not match {cfg.name} "
+                         f"({cfg.blocks[-1][1]}, {cfg.num_classes})")
+    return tree

@@ -411,19 +411,6 @@ def test_run_plan_ops_matches_jax(hostile, interleaved):
     assert len(changed) >= 12, changed      # the transforms did real work
 
 
-def test_high_bias_absorb_op_is_refused():
-    """No port plan emits HighBiasAbsorbOp yet (it comes with the CNN
-    slice); a plan that holds one is refused, not skipped."""
-    from repro_torch.core import DFQPlan, HighBiasAbsorbOp
-
-    op = HighBiasAbsorbOp(b1=("b1",), w2=("w2",), b2=("b2",),
-                          beta=("beta",), gamma=("gamma",))
-    params = {k: torch.ones(4) for k in ("b1", "b2", "beta", "gamma")}
-    params["w2"] = torch.ones(4, 4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_plan_ops(params, DFQPlan(ops=(op,), sites=()), DFQConfig())
-
-
 def test_apply_dfq_preserves_the_smoke_model(hostile):
     """The port's fp32 eval forward before and after ``apply_dfq``: the
     same logits within atol 2e-4 (relative to max |logit| ~ 1: float32

@@ -130,22 +130,19 @@ def test_kv_cache_refuses_the_unported_fp_cache():
 
 
 def test_config_and_cle_stage_take_only_options_the_port_reads():
-    """``DFQConfig`` holds the JAX config's fields in its order but the two
-    whose readers are not ported (high-bias absorption's n-sigma, the
-    plain-GELU pairs), with the JAX defaults and quantizer specs; the cle
-    stage has no approximate-pair option. Passing either raises, where it
-    would otherwise be ignored."""
+    """``DFQConfig`` holds the JAX config's fields in its order, with the
+    JAX defaults and quantizer specs — high-bias absorption's n-sigma and
+    the plain-GELU pairs included, since ``run_plan_ops`` reads both now —
+    and the cle stage takes the approximate-pair option as JAX's does. A
+    field the JAX config lacks still raises."""
     from repro.core import DFQConfig as JaxDFQConfig
 
     from repro_torch.core import DFQConfig
 
     names = [f.name for f in dataclasses.fields(DFQConfig)]
-    assert names == ["weight_bits", "act_bits", "weight_symmetric",
-                     "act_symmetric", "per_channel", "cle", "cle_iterations",
-                     "bias_absorb", "bias_correct", "act_range_n_sigma"]
+    assert names == [f.name for f in dataclasses.fields(JaxDFQConfig)]
+    assert "n_sigma_absorb" in names and "cle_include_approx_pairs" in names
     jax_cfg = JaxDFQConfig()
-    assert [n for n in (f.name for f in dataclasses.fields(JaxDFQConfig))
-            if n in names] == names
     for name in names:
         assert getattr(DFQConfig(), name) == getattr(jax_cfg, name), name
     cfg = DFQConfig(weight_bits=4, weight_symmetric=True, per_channel=True,
@@ -156,12 +153,12 @@ def test_config_and_cle_stage_take_only_options_the_port_reads():
         mine, theirs = getattr(cfg, spec), getattr(jcfg, spec)
         assert (mine.bits, mine.symmetric, mine.per_channel_axis) == (
             theirs.bits, theirs.symmetric, theirs.per_channel_axis)
-    for field in ("n_sigma_absorb", "cle_include_approx_pairs"):
-        with pytest.raises(TypeError, match=field):
-            DFQConfig(**{field: 4})
-    with pytest.raises(RecipeError, match="include_approx_pairs"):
-        Recipe("r", (RecipeStep("cle", {"include_approx_pairs": True}),)
-               ).validate()
+    with pytest.raises(TypeError, match="n_sigma"):
+        DFQConfig(n_sigma=4)
+    Recipe("r", (RecipeStep("cle", {"include_approx_pairs": True}),)
+           ).validate()
+    with pytest.raises(RecipeError, match="include_approx"):
+        Recipe("r", (RecipeStep("cle", {"include_approx": True}),)).validate()
 
 
 @pytest.mark.parametrize("stage", NOT_PORTED)

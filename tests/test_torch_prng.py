@@ -2,7 +2,12 @@
 ``jax.random``, and the default calibration it feeds.
 
 Every word is an exact integer operation, so keys, bits and ids are held
-bit for bit. The default-argument ``repro_torch.quantize`` then calibrates
+bit for bit, and so are ``uniform``'s floats (a mantissa and one fused
+multiply-add, as XLA's CPU backend contracts it). ``normal`` evaluates
+XLA's float32 ``erf_inv`` in numpy float32, whose ``log1p`` and ``sqrt``
+may round otherwise: within 4 ulp of ``jax.random.normal``. The CNN's
+images (``synthetic_image_batch``) then have JAX's labels bit for bit and
+its pixels within 1e-6 (numpy's float32 ``sin`` / ``cos`` against XLA's). The default-argument ``repro_torch.quantize`` then calibrates
 on the JAX package's ids: its corrected biases are held against
 ``repro.quantize``'s within the bound of ``test_torch_pipeline.py``'s
 Fig. 4 parity test (the E[x] difference through |ε|, plus two float32 sums
@@ -17,12 +22,13 @@ import jax.numpy as jnp
 import repro
 from _torch_port import hostile_jax_params, jax_to_numpy
 from repro.data.synthetic import calibration_tokens as jax_calibration_tokens
+from repro.data.synthetic import synthetic_image_batch as jax_image_batch
 
 import torch
 
 import repro_torch
 from repro_torch.configs import get_config
-from repro_torch.data import calibration_tokens, prng
+from repro_torch.data import calibration_tokens, prng, synthetic_image_batch
 from repro_torch.quantized import QTensor
 from repro_torch.weights import from_jax_numpy
 
@@ -79,6 +85,68 @@ def test_calibration_tokens_default_to_the_card():
         pytest.skip("this host has a CUDA device: the default is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calibration_tokens(1, 2, 8, 256)
+
+
+def _ulps(a, b):
+    """The distance in float32 steps between same-signed values."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    assert (np.sign(a) == np.sign(b)).all()
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-3.0, 7.5), (1e-6, 1.0),
+                                   (float(np.nextafter(np.float32(-1),
+                                                       np.float32(0))), 1.0),
+                                   (-0.3, 0.2)])
+@pytest.mark.parametrize("shape", [(5,), (64, 33)])
+def test_uniform_bit_equal(lo, hi, shape):
+    jk = jax.random.PRNGKey(17)
+    want = np.asarray(jax.random.uniform(jk, shape, minval=lo, maxval=hi))
+    got = prng.uniform(prng.PRNGKey(17), shape, lo, hi)
+    assert got.dtype == np.float32 and got.shape == shape
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed,shape", [(0, (100_000,)), (5, (3, 3, 8, 16)),
+                                        (-2, (7,))])
+def test_normal_within_4_ulp(seed, shape):
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+    got = prng.normal(prng.PRNGKey(seed), shape)
+    assert got.dtype == np.float32 and got.shape == shape
+    assert _ulps(got, want).max() <= 4
+    if got.size > 1000:
+        assert (got == want).mean() > 0.9        # most draws bit-equal
+
+
+def test_erf_inv_within_4_ulp_and_infinite_at_one():
+    u = np.concatenate([np.linspace(-1, 1, 20001, dtype=np.float32)[1:-1],
+                        np.float32([1e-30, -1e-7, 0.9999999, -0.9999999])])
+    got = prng.erf_inv(u)
+    assert _ulps(got, np.asarray(jax.lax.erf_inv(jnp.asarray(u)))).max() <= 4
+    np.testing.assert_array_equal(prng.erf_inv(np.float32([1, -1])),
+                                  np.float32([np.inf, -np.inf]))
+
+
+@pytest.mark.parametrize("seed,step,batch,size,classes", [
+    (0, 3, 16, 32, 8), (99, 10_000, 8, 16, 8), (1, 0, 2, 224, 1000),
+    (7, 5, 4, 15, 3)])
+def test_synthetic_image_batch_matches_jax(seed, step, batch, size, classes):
+    got = synthetic_image_batch(seed, step, batch, size, 3, classes,
+                                device="cpu")
+    want = jax_image_batch(seed, step, batch, size, 3, classes)
+    assert got["x"].dtype == torch.float32 and got["y"].dtype == torch.int64
+    assert tuple(got["x"].shape) == (batch, size, size, 3)
+    np.testing.assert_array_equal(got["y"].numpy(), np.asarray(want["y"]))
+    np.testing.assert_allclose(got["x"].numpy(), np.asarray(want["x"]),
+                               rtol=0, atol=1e-6)
+
+
+def test_synthetic_image_batch_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device: the default is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic_image_batch(0, 0, 2, 8, 3, 4)
 
 
 def test_seed_out_of_32_bits_refused():
