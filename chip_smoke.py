@@ -175,6 +175,31 @@ Phases, each of which must pass (nothing here catches a failure):
      images/s of the folded forward at batch 64 and 256 with and without
      activation fake-quant, and peak memory, beside the card's name and
      power limit.
+  8. the paged pool — qwen2-0.5b at full width on phase 4's settings with
+     pages of 32 positions (``PAGED``). 8a: ``repro_torch.serve`` under
+     serve-w8a16 over the bf16 KV cache (the default deployment) and
+     serve-w8a8-kv8, each fast after warmup four times in turns
+     (contiguous, paged, paged, contiguous) and paged stepwise, and
+     serve-w8a8-kv8 paged fast with REPRO_FUSED_DECODE=0 (kv_attention
+     over the dense view): every request's tokens and finish tick the
+     contiguous runs' (and phase 4's for serve-w8a8-kv8), launches exact;
+     tok/s paged beside contiguous from the turns, the page pool's and the
+     dense view's bytes. Then ``ServingEngine``s over
+     one serve-w8a16 model: 8b a trace of 16 requests sharing a 192-token
+     prefix, reuse on and off — the same tokens, no request later with
+     reuse on, prefix hits, fewer prefill chunks, ``cow_copies`` logged;
+     8c a pool of half the full capacity under two priority classes —
+     preemptions, each resumed, every request ok with the full pool's
+     tokens; 8e phase 4's trace with deadlines — fast and stepwise expire
+     the same requests at the same ticks with the same tokens; each run's
+     launches exact. 8d ``run_chaos`` under ``FaultPlan.seeded`` at the
+     chaos CLI's settings (a smoke model under serve-w8a16, weights drawn
+     on the host) on the card and on the CPU: the pool audited after
+     every step, 0 leaked pages, the unfaulted requests the card's
+     fault-free tokens, outcomes, counts and steps the CPU's, launches
+     exact. Last, the dense view's memory and the device time of the
+     gather and of a horizon's commit (each in a CUDA graph) for both
+     caches beside the bytes bound, and the phase's wall seconds.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -2180,6 +2205,27 @@ def same_tokens(run, ref, what):
             f"not {r.finished_at}")
 
 
+def counted_serve(config, fused=True):
+    """``repro_torch.serve(config)`` with the launch counts reset just
+    before and read just after; ``fused=False`` sets REPRO_FUSED_DECODE=0
+    for this run only. Returns (run, counts)."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    saved = os.environ.get("REPRO_FUSED_DECODE")
+    if not fused:
+        os.environ["REPRO_FUSED_DECODE"] = "0"
+    try:
+        reset_launch_counts()
+        run = repro_torch.serve(config)
+        return run, launch_counts()
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_FUSED_DECODE", None)
+        else:
+            os.environ["REPRO_FUSED_DECODE"] = saved
+
+
 def serve_full_width(torch, quantize, *, fused=True, reference=False,
                      profile=False):
     """``repro_torch.serve`` of qwen2-0.5b at full width under
@@ -2188,24 +2234,12 @@ def serve_full_width(torch, quantize, *, fused=True, reference=False,
     (``reference``); ``fused=False`` sets REPRO_FUSED_DECODE=0 for this
     run only."""
     import repro_torch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     config = repro_torch.ServeConfig(quantize=quantize, kv_bits=8,
                                      reference=reference,
                                      warmup=not reference, profile=profile,
                                      **SERVE)
-    saved = os.environ.get("REPRO_FUSED_DECODE")
-    if not fused:
-        os.environ["REPRO_FUSED_DECODE"] = "0"
-    try:
-        reset_launch_counts()
-        run = repro_torch.serve(config)
-        counts = launch_counts()
-    finally:
-        if saved is None:
-            os.environ.pop("REPRO_FUSED_DECODE", None)
-        else:
-            os.environ["REPRO_FUSED_DECODE"] = saved
+    run, counts = counted_serve(config, fused)
     label = (f"serve-{quantize}-kv8" + ("" if fused else " unfused")
              + (" stepwise" if reference else "")
              + (" profiled" if profile else ""))
@@ -3145,6 +3179,344 @@ def mobilenet_v2_published(torch, dev, smi):
 
 
 # --------------------------------------------------------------- main
+# --------------------------------------------------------------- phase 8
+# the paged runs of phase 8: phase 4's settings, pages of 32 positions (the
+# prefill chunk)
+PAGED = dict(SERVE, page_size=32)
+# phase 4's engine from the paged runs' ServingEngine
+ENGINE = dict(num_slots=SERVE["slots"], max_len=SERVE["max_len"],
+              prefill_chunk=SERVE["prefill_chunk"], decode_horizon=8,
+              page_size=PAGED["page_size"], device="cuda")
+# 8b: 16 requests sharing a 192-token prompt prefix (6 pages), each with
+# 8-64 tokens of its own; the first at tick 0, the others from tick 7 on,
+# when its prefix is published
+SHARED_PREFIX = 192
+# 8c: half the full page capacity (8 slots x 16 pages), and a trace of
+# long prompts in two priority classes that overflows it
+STARVED_PAGES = 64
+STARVED_TRACE = dict(seed=2, n=16, prompt_lens=(224, 256), gen_lens=(32, 32),
+                     mean_interarrival=1.0, priority_levels=2)
+# 8e: phase 4's trace with a deadline 16-64 ticks after each arrival
+DEADLINE_SLACK = (16.0, 64.0)
+# 8d: the chaos CLI's engine (repro_torch.serving.chaos), its starved pool
+# and its seeded plan
+CHAOS = dict(num_slots=4, max_len=48, prefill_chunk=8, decode_horizon=4,
+             page_size=8)
+CHAOS_PAGES = 2 * (48 // 8)
+
+
+def serve_paged(torch, quantize, kv_bits, *, fused=True, reference=False,
+                **kw):
+    """``repro_torch.serve`` of qwen2-0.5b at full width on phase 4's
+    trace from the paged pool (``PAGED``; ``page_size=None`` the contiguous
+    pool), fast after warmup or stepwise, checked as phase 4's runs (every
+    request ok with 32 tokens, launches exact); ``fused=False`` sets
+    REPRO_FUSED_DECODE=0 for this run only. Returns (run, counts)."""
+    import repro_torch
+
+    config = repro_torch.ServeConfig(quantize=quantize, kv_bits=kv_bits,
+                                     reference=reference,
+                                     warmup=not reference, **{**PAGED, **kw})
+    run, counts = counted_serve(config, fused)
+    label = (f"serve-{quantize}" + ("-kv8" if kv_bits == 8 else " (bf16 KV)")
+             + (f" paged (page {config.page_size})" if config.page_size
+                else " contiguous")
+             + ("" if fused else " unfused") + (" stepwise" if reference
+                                                else ""))
+    check_served(run, counts, label,
+                 expected_launches(quantize, fused, *forwards(run),
+                                   kv_bits=kv_bits or 16))
+    return run, counts
+
+
+def check_paged_serving(torch, runs, stepwise):
+    """8a: serve-w8a16 over the bf16 KV cache (the default deployment) and
+    serve-w8a8-kv8, each fast four times in turns — contiguous, paged,
+    paged, contiguous, so that the tok/s compare within one stretch of the
+    card's time — then paged stepwise; serve-w8a8-kv8 paged fast once more
+    with REPRO_FUSED_DECODE=0 (kv_attention over the dense view). Every
+    request's tokens and finish tick equal the first contiguous run's, and
+    for serve-w8a8-kv8 phase 4's fast and stepwise runs'; launches exact."""
+    pg = PAGED["page_size"]
+    for quantize, kv_bits in (("w8a16", None), ("w8a8", 8)):
+        label = f"serve-{quantize}" + ("-kv8" if kv_bits else " (bf16 KV)")
+        turns = [serve_paged(torch, quantize, kv_bits, page_size=size)[0]
+                 for size in (None, pg, pg, None)]
+        for run in turns[1:]:
+            same_tokens(run, turns[0], f"{label} against its first "
+                                       f"contiguous run")
+        step = serve_paged(torch, quantize, kv_bits, reference=True)[0]
+        same_tokens(step, turns[0], f"{label} paged stepwise against fast")
+        if kv_bits:
+            same_tokens(turns[0], runs[quantize][0],
+                        f"{label} against phase 4's run")
+            same_tokens(step, stepwise[quantize],
+                        f"{label} paged stepwise against phase 4's")
+            unfused = serve_paged(torch, quantize, kv_bits, fused=False)[0]
+            same_tokens(unfused, turns[1], f"{label} paged unfused against "
+                                           f"fused")
+        tps = [run.tokens_per_second for run in turns]
+        flat, paged = (tps[0] + tps[3]) / 2, (tps[1] + tps[2]) / 2
+        log(f"  8a {label}: every paged request's tokens and finish tick "
+            f"equal the contiguous runs'; tok/s in turns (contiguous, paged,"
+            f" paged, contiguous) " + ", ".join(f"{t:.1f}" for t in tps)
+            + f": paged {paged:.1f} / contiguous {flat:.1f} "
+            f"({(paged / flat - 1) * 100:+.1f} %); paged stepwise "
+            f"{step.tokens_per_second:.1f}"
+            + (f", paged unfused {unfused.tokens_per_second:.1f}"
+               if kv_bits else "")
+            + f"; page pool {turns[1].pool_bytes / 2**20:.2f} MiB (the "
+            f"contiguous pool's bytes), dense view "
+            f"{turns[1].view_bytes / 2**20:.2f} MiB ({smi_line()})")
+
+
+def served_engine(torch, engine, requests, label, *, warm=True):
+    """Run ``requests`` through ``engine`` (its graphs captured by warmup
+    first when ``warm``), launches reset before and read after and held to
+    ``expected_launches`` of serve-w8a16 over the fp cache; returns
+    (results, seconds)."""
+    import time
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    warmup = engine.warmup() if warm else {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run(requests)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = engine.stats["decode_steps"] + warmup.get("decode_steps", 0)
+    chunks = (engine.stats["prefill_dispatches"]
+              + warmup.get("prefill_dispatches", 0))
+    want = expected_launches("w8a16", True, steps, chunks, kv_bits=16)
+    for name, n in counts.items():
+        assert n == want.get(name, 0), (
+            f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
+    return results, seconds
+
+
+def shared_prefix_trace(vocab):
+    """8b's trace (see ``SHARED_PREFIX``)."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, vocab, size=SHARED_PREFIX)
+    out = []
+    for i in range(SERVE["trace"]):
+        own = rng.randint(0, vocab, size=int(rng.randint(8, 65)))
+        out.append(Request(rid=i, prompt=np.concatenate([base, own]),
+                           max_new_tokens=SERVE["gen_len"],
+                           arrival=0.0 if i == 0 else 6.0 + i))
+    return out
+
+
+def check_prefix_reuse(torch, model, params, cfg):
+    """8b: the shared-prefix trace with reuse on and off (serve-w8a16,
+    bf16 KV, fast after warmup): the same tokens, no request later with
+    reuse on, prefix hits, fewer prefill chunks; cow_copies logged."""
+    from repro_torch.serving import ServingEngine
+
+    out = {}
+    for reuse in (True, False):
+        engine = ServingEngine(model, params, cfg, prefix_reuse=reuse,
+                               **ENGINE)
+        label = f"8b reuse {'on' if reuse else 'off'}"
+        res, secs = served_engine(torch, engine, shared_prefix_trace(
+            cfg.vocab_size), label)
+        assert all(r.status == "ok" and len(r.tokens) == SERVE["gen_len"]
+                   for r in res.values()), label
+        out[reuse] = engine, res, secs
+    (on, res_on, s_on), (off, res_off, s_off) = out[True], out[False]
+    for rid, r in res_off.items():
+        assert res_on[rid].tokens == r.tokens, f"8b: request {rid}: tokens"
+        assert res_on[rid].finished_at <= r.finished_at, (
+            f"8b: request {rid} finished later with reuse on")
+    hits = on.prefix_index.hits
+    assert hits > 0, "8b: no prefix hit"
+    assert on.stats["prefill_chunks"] < off.stats["prefill_chunks"], (
+        "8b: reuse saved no prefill chunk")
+    gen = sum(len(r.tokens) for r in res_on.values())
+    log(f"  8b shared {SHARED_PREFIX}-token prefix, 16 requests: the same "
+        f"tokens with reuse on and off; prefix hits {hits}, prefill chunks "
+        f"{on.stats['prefill_chunks']} / {off.stats['prefill_chunks']} "
+        f"(on / off), engine ticks {on.stats['engine_steps']} / "
+        f"{off.stats['engine_steps']}, cow_copies {on.pool.cow_copies}, "
+        f"{gen / s_on:.1f} / {gen / s_off:.1f} tok/s ({smi_line()})")
+    return on
+
+
+def check_starved_pool(torch, model, params, cfg):
+    """8c: a pool of ``STARVED_PAGES`` pages against the full one on a
+    trace of long prompts in two priority classes: preemptions, every one
+    resumed, every request ok with the full pool's tokens."""
+    from repro_torch.serving import ServingEngine, synthetic_trace
+
+    tr = dict(STARVED_TRACE)
+    trace = lambda: synthetic_trace(tr["seed"], tr["n"],
+                                    vocab_size=cfg.vocab_size,
+                                    **{k: v for k, v in tr.items()
+                                       if k not in ("seed", "n")})
+    full = ServingEngine(model, params, cfg, **ENGINE)
+    res_full, _ = served_engine(torch, full, trace(), "8c full pool")
+    starved = ServingEngine(model, params, cfg, num_pages=STARVED_PAGES,
+                            **ENGINE)
+    res, secs = served_engine(torch, starved, trace(), "8c starved pool")
+    st = starved.stats
+    assert st["preempted"] > 0, "8c: nothing was preempted"
+    assert st["resumed"] == st["preempted"], (
+        f"8c: {st['resumed']} of {st['preempted']} preempted resumed")
+    for rid, r in res_full.items():
+        assert res[rid].status == "ok", f"8c: request {rid}: {res[rid].status}"
+        assert res[rid].tokens == r.tokens, f"8c: request {rid}: tokens"
+    starved.check_invariants()
+    log(f"  8c starved pool ({STARVED_PAGES} of {full.pool.num_pages} pages): "
+        f"{st['preempted']} preempted, {st['resumed']} resumed, 16/16 ok "
+        f"with the full pool's tokens; engine ticks {st['engine_steps']} / "
+        f"{full.stats['engine_steps']} (starved / full), "
+        f"{st['generated_tokens'] / secs:.1f} tok/s")
+
+
+def check_deadlines(torch, model, params, cfg):
+    """8e: phase 4's trace with deadlines, fast and stepwise: the same
+    requests expire at the same ticks with the same tokens."""
+    from repro_torch.serving import ServingEngine, synthetic_trace
+
+    out = {}
+    for fast in (True, False):
+        engine = ServingEngine(model, params, cfg, fast=fast, **ENGINE)
+        trace = synthetic_trace(
+            SERVE["trace_seed"], SERVE["trace"], vocab_size=cfg.vocab_size,
+            prompt_lens=(SERVE["prompt_min"], SERVE["prompt_len"]),
+            gen_lens=(SERVE["gen_min"], SERVE["gen_len"]),
+            mean_interarrival=1.0, deadline_slack=DEADLINE_SLACK)
+        out[fast] = served_engine(torch, engine, trace,
+                                  f"8e fast={fast}", warm=fast)[0]
+    for rid, r in out[False].items():
+        got = out[True][rid]
+        assert (got.status, got.finished_at, got.tokens) == (
+            r.status, r.finished_at, r.tokens), f"8e: request {rid}"
+    expired = sorted(rid for rid, r in out[True].items()
+                     if r.status == "expired")
+    assert expired, "8e: no request expired"
+    log(f"  8e deadlines {DEADLINE_SLACK[0]:g}-{DEADLINE_SLACK[1]:g} ticks "
+        f"after arrival: fast and stepwise expire the same {len(expired)} "
+        f"requests ({expired}) at the same ticks with the same tokens")
+
+
+def check_chaos(torch):
+    """8d: ``run_chaos`` under ``FaultPlan.seeded`` at the chaos CLI's
+    settings (serve-w8a16 over the smoke model's weights drawn on the
+    host), on the card and on the CPU: invariants checked after every step,
+    0 leaked pages, the unfaulted requests the card's fault-free tokens,
+    and outcomes, counters and steps the CPU's; launches exact."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (FaultPlan, ServingEngine,
+                                     assert_unfaulted_parity, run_chaos,
+                                     synthetic_trace)
+
+    cfg = dataclasses.replace(repro_torch.get_config("qwen2-0.5b", smoke=True),
+                              name="qwen2-chaos-smoke")
+    model = repro_torch.build_model(cfg)
+    params = model.init(0, device="cpu")
+    trace = synthetic_trace(0, 24, vocab_size=cfg.vocab_size,
+                            prompt_lens=(4, 16), gen_lens=(4, 16),
+                            mean_interarrival=1.0, priority_levels=2)
+    plan = lambda: FaultPlan.seeded(0, [r.rid for r in trace], n_steps=40)
+    reports = {}
+    for device in ("cpu", "cuda"):
+        qm = repro_torch.quantize(model, params, device=device,
+                                  recipe="serve-w8a16")
+        kw = dict(CHAOS, device=device)
+        clean = ServingEngine(qm.model, qm.params, qm.cfg, **kw).run(
+            [dataclasses.replace(r) for r in trace])
+        engine = ServingEngine(qm.model, qm.params, qm.cfg,
+                               num_pages=CHAOS_PAGES, **kw)
+        reset_launch_counts()
+        report = run_chaos(engine, [dataclasses.replace(r) for r in trace],
+                           plan())
+        counts = launch_counts()
+        compared = assert_unfaulted_parity(report, clean,
+                                           plan().faulted_rids())
+        assert report.leaked_pages == 0, f"8d {device}: pages leaked"
+        reports[device] = report
+        if device == "cuda":
+            masked = engine._masked_forwards
+            want = expected_launches(
+                "w8a16", True, engine.stats["decode_steps"]
+                + masked["decode_steps"], engine.stats["prefill_dispatches"]
+                + masked["prefill_dispatches"], cfg=cfg, kv_bits=16,
+                slots=CHAOS["num_slots"], chunk=CHAOS["prefill_chunk"])
+            for name, n in counts.items():
+                assert n == want.get(name, 0), (
+                    f"8d: {name} launched {n} times, expected "
+                    f"{want.get(name, 0)}")
+            assert counts["qmatmul_w8a16"] > 0
+    card, cpu = reports["cuda"], reports["cpu"]
+    drop = lambda c: {k: v for k, v in c.items() if k != "straggler_steps"}
+    assert card.outcomes == cpu.outcomes, "8d: outcomes differ from the CPU's"
+    assert drop(card.counts) == drop(cpu.counts), (
+        f"8d: counts {card.counts} against the CPU's {cpu.counts}")
+    assert card.steps == cpu.steps, "8d: steps differ from the CPU's"
+    log(f"  8d chaos (the CLI's settings, {CHAOS_PAGES}-page pool, "
+        f"FaultPlan.seeded(0)): {card.steps} steps, invariants held every "
+        f"step, {compared} unfaulted requests with the fault-free tokens, "
+        f"0 leaked pages; outcomes, counts and steps the CPU's: "
+        f"{json.dumps(drop(card.counts))}")
+
+
+def graph_ms(torch, fn, iters: int = 50) -> float:
+    """Device time of ``fn`` captured in a CUDA graph, as the fast path
+    runs it (one replay a call: the host enqueues ahead of the card)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return device_ms(graph.replay, iters)
+
+
+def time_gather(torch):
+    """The dense view's memory and the device time of the gather and of a
+    horizon's commit at phase 4's shape (8 slots x 512 positions, 24
+    layers, pages of 32), each captured in a graph as the fast path runs
+    it, for the bf16 and the int8 cache, beside the bytes bound (the view
+    read from the pages and written once)."""
+    import repro_torch
+    from repro_torch.serving import CachePool
+    from repro_torch.serving.engine import _paged_commit, _paged_view
+
+    model = repro_torch.build_model(repro_torch.get_config(SERVE["arch"]))
+    B, S, pg = SERVE["slots"], SERVE["max_len"], PAGED["page_size"]
+    for kv_bits in (16, 8):
+        pool = CachePool(model, B, S, device="cuda", kv_bits=kv_bits,
+                         page_size=pg)
+        for slot in range(B):
+            pool.allocate_pages(S)
+        dense = {n: torch.empty((s.shape[0], B, S) + tuple(s.shape[3:]),
+                                dtype=s.dtype, device="cuda")
+                 for n, s in pool.storage.items()}
+        view = sum(t.numel() * t.element_size() for t in dense.values())
+        gather = graph_ms(torch, lambda: _paged_view(pool, dense))
+        rows = torch.arange(8, device="cuda").repeat(B, 1)
+        commit = graph_ms(torch, lambda: _paged_commit(pool, dense, rows))
+        bound = 2 * view / HBM_BYTES_S * 1e3
+        log(f"  paged gather, {'bf16' if kv_bits == 16 else 'int8'} cache: "
+            f"dense view {view / 2**20:.2f} MiB (pool "
+            f"{pool.cache_bytes() / 2**20:.2f} MiB), gather {gather * 1e3:.1f}"
+            f" us [bound {bound * 1e3:.1f} us, bytes], a horizon's commit "
+            f"(8 x 8 positions) {commit * 1e3:.1f} us ({smi_line()})")
+
+
 def main() -> int:
     import torch
 
@@ -3298,6 +3670,24 @@ def main() -> int:
     cnn_paper_tables(torch, dev, smi)
     mobilenet_v2_published(torch, dev, smi)
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
+
+    log("== phase 8: serve qwen2-0.5b (full width) from the paged pool: "
+        "prefix reuse, preemption, chaos, deadlines")
+    log(f"  {smi}")
+    t8 = time.perf_counter()
+    check_paged_serving(torch, runs, stepwise)
+    import repro_torch
+
+    qm = repro_torch.quantize(repro_torch.build_model(
+        repro_torch.get_config(SERVE["arch"])), None, init_seed=SERVE["seed"],
+        device="cuda", recipe="serve-w8a16")
+    check_prefix_reuse(torch, qm.model, qm.params, qm.cfg)
+    check_starved_pool(torch, qm.model, qm.params, qm.cfg)
+    check_deadlines(torch, qm.model, qm.params, qm.cfg)
+    del qm
+    check_chaos(torch)
+    time_gather(torch)
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s ({smi})")
 
     # each kernel's launches come from the run of the path it serves; the
     # fused decode from the default (w8a16) path, kv_attention from the

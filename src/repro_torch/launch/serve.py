@@ -14,10 +14,14 @@ cross-layer equalization, bias absorption, the int8 pack with per-tensor
 scales) over the fp KV cache, or with ``--kv-bits 8`` the
 ``serve-<quantize>-kv8`` recipe and the int8 KV cache; ``--quantize none``
 serves the fp32 weights as drawn. ``--load DIR`` serves a saved
-``QuantizedModel`` instead (either package's artifact), as it was saved. The engine takes the fast path
-(decode horizons of up to ``--decode-horizon`` steps; CUDA graphs on the
-card) unless ``--reference`` asks for the stepwise path; ``--warmup``
-captures every graph before the timed loop. ``serve`` returns a
+``QuantizedModel`` instead (either package's artifact), as it was saved.
+The engine takes the fast path (decode horizons of up to
+``--decode-horizon`` steps; CUDA graphs on the card) unless
+``--reference`` asks for the stepwise path; ``--warmup`` captures every
+graph before the timed loop. ``--page-size`` serves from the paged pool
+(``--num-pages``, ``--no-prefix-reuse``), ``--deadline T`` gives every
+request a deadline T ticks after its arrival, and the report then lists
+the fault counters and the results by status. ``serve`` returns a
 ``ServeRun`` with the results, the engine's stats, the pipeline's stage
 report, the wall time of the serving loop and what warmup ran (the JAX
 launcher returns the results map alone).
@@ -36,6 +40,7 @@ from ..device import resolve_device
 from ..kernels.dispatch import active_tier
 from ..models import build_model
 from ..pipeline import QuantizedModel, quantize
+from ..runtime import StragglerMonitor
 from ..serving import ServingEngine, required_cache_len, synthetic_trace
 from .serve_config import (  # noqa: F401
     QUANTIZE_CHOICES,
@@ -61,6 +66,9 @@ class ServeRun:
     # (or load), and from there to the end of the serving loop
     quantize_peak_bytes: Optional[int] = None
     peak_bytes: Optional[int] = None
+    # the KV pool's payload bytes, and (paged) the engine's dense view's
+    pool_bytes: int = 0
+    view_bytes: int = 0
 
     @property
     def tokens_per_second(self) -> float:
@@ -156,17 +164,31 @@ def serve(config: ServeConfig) -> ServeRun:
         config.trace_seed, config.trace, vocab_size=cfg.vocab_size,
         prompt_lens=(config.prompt_min, config.prompt_len),
         gen_lens=(config.gen_min, config.gen_len), mean_interarrival=1.0)
+    if config.deadline is not None:
+        requests = [dataclasses.replace(r, deadline=r.arrival + config.deadline)
+                    for r in requests]
     need = max(required_cache_len(len(r.prompt), r.max_new_tokens,
                                   config.prefill_chunk) for r in requests)
+    straggler = (None if config.straggler_threshold is None
+                 else StragglerMonitor(threshold=config.straggler_threshold))
     engine = ServingEngine(model, params, cfg, num_slots=config.slots,
                            max_len=config.max_len or need,
                            prefill_chunk=config.prefill_chunk,
                            decode_horizon=config.decode_horizon,
                            fast=not config.reference,
-                           kv_bits=config.kv_bits, device=device)
+                           kv_bits=config.kv_bits,
+                           page_size=config.page_size,
+                           num_pages=config.num_pages,
+                           prefix_reuse=config.prefix_reuse,
+                           straggler=straggler, device=device)
+    layout = (f"paged ({engine.pool.num_pages} pages x {engine.page_size} "
+              f"positions, prefix reuse "
+              f"{'on' if engine.prefix_index is not None else 'off'})"
+              if engine.paged
+              else f"{config.slots} slots x {engine.max_len} positions")
     print(f"kv cache: {'int8' if engine.kv_bits == 8 else 'fp'} "
-          f"({engine.pool.bytes_per_slot() / 1e3:.1f} kB/slot, "
-          f"{config.slots} slots x {engine.max_len} positions) on {device}")
+          f"({engine.pool.bytes_per_slot() / 1e3:.1f} kB/slot, {layout}) "
+          f"on {device}")
     tier = active_tier(torch.empty(0, device=device))
     print(f"kernel tier: {tier} (" + ("the hand-written CUDA kernels"
           if tier == "cuda" else "the plain PyTorch versions") + ")")
@@ -195,7 +217,9 @@ def serve(config: ServeConfig) -> ServeRun:
                    warmup=warm, busy_share=busy, quantize_seconds=quantize_s,
                    quantize_peak_bytes=quantize_peak, kv_bits=engine.kv_bits,
                    peak_bytes=(torch.cuda.max_memory_allocated(device)
-                               if device.type == "cuda" else None))
+                               if device.type == "cuda" else None),
+                   pool_bytes=engine.pool.cache_bytes(),
+                   view_bytes=engine.view_bytes())
     print(f"served {len(results)} requests / {run.generated_tokens} generated "
           f"tokens in {dt * 1e3:.1f} ms ({run.tokens_per_second:.1f} tok/s, "
           f"{path} path)")
@@ -205,6 +229,18 @@ def serve(config: ServeConfig) -> ServeRun:
           f"{engine.stats['prefill_dispatches']} dispatches, "
           f"{engine.syncs_per_token():.2f} host syncs/token, mean slot "
           f"occupancy {engine.mean_occupancy():.2f}")
+    faults = {k: engine.stats[k] for k in
+              ("shed", "preempted", "resumed", "cancelled", "expired",
+               "quarantined", "straggler_steps")}
+    by_status: dict = {}
+    for res in results.values():
+        by_status[res.status] = by_status.get(res.status, 0) + 1
+    if any(faults.values()) or set(by_status) - {"ok"}:
+        print("faults: " + ", ".join(f"{k}={v}" for k, v in faults.items())
+              + f" (straggler threshold "
+                f"{engine.stats['straggler_threshold']:g}x step EMA)")
+        print("results by status: " +
+              ", ".join(f"{k}={v}" for k, v in sorted(by_status.items())))
     if results:
         first = results[min(results)]
         print(f"sample token ids (rid {first.rid}):", first.tokens[:12])

@@ -2,7 +2,9 @@
 (through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. Only
 the knobs of the port's serving path so far: the fast path (default, with
 ``decode_horizon``) or the stepwise ``reference``, ``warmup``, ``load``
-(serve a saved ``QuantizedModel``), and one the JAX launcher lacks:
+(serve a saved ``QuantizedModel``), the paged pool (``page_size``,
+``num_pages``, ``prefix_reuse``), ``deadline`` and ``straggler_threshold``
+with the JAX launcher's validation, and one the JAX launcher lacks:
 ``layers`` (the arch cut to its first N layers, widths kept, for a card
 that cannot hold the full depth). The kernel tier is the device's unless
 ``REPRO_KERNEL_BACKEND`` names one (``kernels.dispatch``).
@@ -65,6 +67,19 @@ class ServeConfig:
     max_len: Optional[int] = _f(
         None, "per-slot KV capacity (default: fits prompt+gen)", type=int)
     prefill_chunk: int = _f(16, None, type=int)
+    page_size: Optional[int] = _f(
+        None, "switch the KV pool to the paged layout: fixed PG-position "
+        "pages + per-slot page tables, with refcounted copy-on-write "
+        "shared-prefix reuse (requests sharing a prompt prefix share its "
+        "pages physically). Tokens are bit-identical to the contiguous "
+        "pool. Default: contiguous", type=int, metavar="PG")
+    num_pages: Optional[int] = _f(
+        None, "page-pool size (with --page-size); default gives every slot "
+        "a full ring — smaller pools admit by page demand and lean on "
+        "prefix sharing and preemption", type=int)
+    prefix_reuse: bool = _f(
+        True, "with --page-size: disable the scheduler's prefix index "
+        "(pages without sharing)", flag="--no-prefix-reuse", invert=True)
     decode_horizon: int = _f(
         8, "max decode steps fused into one device dispatch (the engine "
         "adapts the actual horizon to budgets and scheduled arrivals)",
@@ -85,6 +100,15 @@ class ServeConfig:
                     "(log-uniform lengths, Poisson arrivals)", type=int,
                     metavar="N")
     trace_seed: int = _f(0, None, type=int)
+    deadline: Optional[float] = _f(
+        None, "give every request a deadline of T engine ticks after its "
+        "arrival; expired requests are shed (queued) or cut short (in "
+        "flight) at the next step boundary and report status 'expired'",
+        type=float, metavar="T")
+    straggler_threshold: Optional[float] = _f(
+        None, "flag an engine step as a straggler when its wall time "
+        "exceeds X times the EMA of recent steps (reported with the fault "
+        "counters). Default: the monitor's 2.0", type=float, metavar="X")
     profile: bool = _f(False, "trace the serving loop with torch.profiler and "
                        "print device time by kernel and the device busy "
                        "share", switch=True)
@@ -108,6 +132,16 @@ class ServeConfig:
         if self.kv_bits not in (None, 8, 16):
             raise ServeConfigError(f"kv_bits must be 8 or 16, "
                                    f"got {self.kv_bits!r}")
+        if self.num_pages is not None and self.page_size is None:
+            raise ServeConfigError("--num-pages needs --page-size")
+        if not self.prefix_reuse and self.page_size is None:
+            raise ServeConfigError("--no-prefix-reuse needs --page-size")
+        if self.deadline is not None and self.deadline <= 0:
+            raise ServeConfigError("--deadline must be > 0 engine ticks")
+        if (self.straggler_threshold is not None
+                and self.straggler_threshold <= 1):
+            raise ServeConfigError(
+                "--straggler-threshold must be > 1 (a slowdown multiplier)")
         if self.prompt_min > self.prompt_len or self.gen_min > self.gen_len:
             raise ServeConfigError("--prompt-min/--gen-min exceed "
                                    "--prompt-len/--gen-len")
@@ -176,8 +210,11 @@ def build_parser() -> argparse.ArgumentParser:
     for f in dataclasses.fields(ServeConfig):
         md = dict(f.metadata)
         help_ = md.pop("help", None)
-        flag = "--" + f.name.replace("_", "-")
-        if md.pop("switch", False):
+        flag = md.pop("flag", "--" + f.name.replace("_", "-"))
+        if md.pop("invert", False):
+            ap.add_argument(flag, dest=f.name, action="store_false",
+                            default=f.default, help=help_)
+        elif md.pop("switch", False):
             ap.add_argument(flag, dest=f.name, action="store_true",
                             default=f.default, help=help_)
         else:

@@ -18,6 +18,12 @@ What a graph relies on, and how this module keeps it:
     the host's arrays (through pinned twins, copied on the graph's stream)
     before each replay. Its outputs are static tensors the engine reads
     once, right after the replay.
+  * **Paged pools.** A paged dispatch is one graph holding the gather of
+    the page pool into the engine's dense view, the forward on the view,
+    and the commit of the written window back into the pages; it reads the
+    page table at replay. Admission's page-table row and bookkeeping seed,
+    and the copy-on-write page copies, are eager in-place writes on the
+    caller's stream, which every replay waits for.
   * **No host work inside.** The impls read nothing back to the host; what
     the host decides while capturing (the decode route, the GEMM and
     attention plans) is frozen into the graph, which belongs to its engine.

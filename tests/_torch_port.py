@@ -41,3 +41,25 @@ def hostile_jax_params(arch="qwen2-0.5b", seed=0):
         params = set_path(params, ("blocks", "attn", k), jnp.asarray(
             (rng.randn(*shape) * 0.5).astype(np.float32)))
     return jm, params
+
+
+def serving_pair(variant):
+    """((JAX model, params, cfg), (port model, params, cfg), kv_bits) of the
+    qwen2 smoke model as the JAX serving tests build it (``PRNGKey(0)``),
+    ``variant`` "fp32" or a recipe it goes through ("serve-w8a16",
+    "serve-w8a8-kv8"), the weights carried across to the CPU."""
+    import repro
+    from repro_torch import get_config as torch_get_config
+    from repro_torch.models import build_model as torch_build_model
+    from repro_torch.weights import from_jax_numpy
+
+    jcfg = get_config("qwen2-0.5b", smoke=True)
+    jm = build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    if variant != "fp32":
+        qm = repro.quantize(jm, params=jp, recipe=variant)
+        jm, jp, jcfg = qm.model, qm.params, qm.cfg
+    cfg = torch_get_config("qwen2-0.5b-smoke")
+    params = from_jax_numpy(jax_to_numpy(jp), cfg, device="cpu")
+    kv_bits = 8 if variant.endswith("-kv8") else 16
+    return (jm, jp, jcfg), (torch_build_model(cfg), params, cfg), kv_bits

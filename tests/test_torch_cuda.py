@@ -59,6 +59,13 @@ Tolerances as in chip_smoke.py:
     eagerly on a copy of the pool (tokens, bad flags, every cache leaf),
     the stream scratch zero after a whole fast run, replays counting what
     their capture counted, and the fast path serving the stepwise path's
+    tokens and ticks;
+  * the paged pool: each replayed paged graph (the gather into the dense
+    view, the forward, the commit) bit-equal to the same dispatch run
+    eagerly, every page and the bookkeeping included; the gather and the
+    commit on the card bit-equal to the CPU's, the dropped writes in the
+    sink page and nowhere else; copy-on-write on the card the CPU's pages;
+    paged serving (reuse off and on, warmup included) the contiguous
     tokens and ticks.
 """
 import numpy as np
@@ -1176,7 +1183,7 @@ def test_decode_horizon_graph_equals_the_eager_horizon(dev):
         replayed = _cache_copy(eng)
         _restore(eng, saved)
         etoks, ebad = eng._decode_horizon_impl(
-            torch.from_numpy(tokens).to(dev),
+            eng.pool.cache, torch.from_numpy(tokens).to(dev),
             torch.from_numpy(remaining).to(dev), k=k)
         assert torch.equal(toks, etoks) and torch.equal(bad, ebad), k
         for name, leaf in eng.pool.cache.items():
@@ -1201,9 +1208,9 @@ def test_prefill_graph_equals_the_eager_prefill(dev):
         "prefill_multi", B, (tokens, n_valid, fresh, is_real)))
     replayed = _cache_copy(eng)
     _restore(eng, saved)
-    etok, ebad = eng._prefill_multi_impl(
-        *(torch.from_numpy(a).to(dev) for a in (tokens, n_valid, fresh,
-                                                is_real)))
+    etok, ebad = eng._prefill_masked(
+        eng.pool.cache, *(torch.from_numpy(a).to(dev)
+                          for a in (tokens, n_valid, fresh, is_real)))
     assert torch.equal(tok, etok) and torch.equal(bad, ebad)
     for name, leaf in eng.pool.cache.items():
         assert torch.equal(leaf, replayed[name]), name
@@ -1302,3 +1309,172 @@ def test_warmup_on_the_card_leaves_the_pool_as_it_was(dev):
         assert torch.equal(v, before[k]) and v.data_ptr() == addresses[k], k
     assert eng.stats == stats and eng.clock == clock
     assert list(eng.results) == [0]
+
+
+# ------------------------------------------------------------- paged pool
+
+def _paged_engine(dev, **kw):
+    return _fast_engine(dev, page_size=8, **kw)
+
+
+def test_paged_decode_horizon_graph_equals_the_eager_horizon(dev):
+    """A replayed paged decode-horizon graph (gather, k steps on the dense
+    view, commit) against the same dispatch run eagerly: tokens, bad flags,
+    every page and the bookkeeping bit-equal, at each horizon."""
+    eng = _paged_engine(dev)
+    _mid_decode(eng)
+    B = eng.num_slots
+    tokens = np.array([[fl.cur_token] for fl in sorted(
+        eng._inflight.values(), key=lambda f: f.slot)], np.int64)
+    for k in (1, 2, 4, 8):
+        remaining = np.full((B,), k, np.int64)
+        remaining[1] = max(1, k // 2)         # a row that freezes mid-horizon
+        saved = _cache_copy(eng)
+        toks, bad = (t.clone() for t in eng._dispatch(
+            "decode_horizon", k, (tokens, remaining)))
+        replayed = _cache_copy(eng)
+        _restore(eng, saved)
+        etoks, ebad = eng._decode_horizon(
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(remaining).to(dev), k=k)
+        assert torch.equal(toks, etoks) and torch.equal(bad, ebad), k
+        for name, leaf in eng.pool.cache.items():
+            assert torch.equal(leaf, replayed[name]), (k, name)
+
+
+def test_paged_prefill_graph_equals_the_eager_prefill(dev):
+    """The replayed paged prefill graph against the same dispatch run
+    eagerly, a decoding row riding along: outputs and every page
+    bit-equal, the ride-along slot's pages untouched."""
+    eng = _paged_engine(dev)
+    _mid_decode(eng)
+    B, C = eng.num_slots, eng.prefill_chunk
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, eng.cfg.vocab_size, (B, C)).astype(np.int64)
+    tokens[2] = 0
+    n_valid = np.array([C, 2, 1], np.int64)
+    fresh = np.zeros((B,), bool)
+    is_real = np.array([True, True, False])
+    saved = _cache_copy(eng)
+    tok, bad = (t.clone() for t in eng._dispatch(
+        "prefill_multi", B, (tokens, n_valid, fresh, is_real)))
+    replayed = _cache_copy(eng)
+    _restore(eng, saved)
+    etok, ebad = eng._prefill(*(torch.from_numpy(a).to(dev)
+                                for a in (tokens, n_valid, fresh, is_real)))
+    assert torch.equal(tok, etok) and torch.equal(bad, ebad)
+    for name, leaf in eng.pool.cache.items():
+        assert torch.equal(leaf, replayed[name]), name
+    for p in eng.pool.slot_pages(2):
+        for name in ("k", "v", "k_scale", "v_scale"):
+            assert torch.equal(replayed[name][:, p], saved[name][:, p]), name
+
+
+def test_paged_gather_commit_and_sink_on_the_card(dev):
+    """The gather and the commit on the card bit-equal to the CPU's on the
+    same pool; the writes a commit drops land in the sink page, outside
+    ``pool.cache``, and no mapped page they do not address changes."""
+    from repro_torch import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import CachePool
+    from repro_torch.serving.engine import _paged_commit, _paged_view
+
+    model = build_model(get_config("qwen2-0.5b-smoke"))
+    pools, denses = [], []
+    rng = np.random.RandomState(1)
+    table = np.full((3, 3), -1, np.int64)
+    table[0], table[1, :2], table[2, :1] = [4, 0, 7], [2, 9], [5]
+    vals = None
+    for device in ("cpu", dev):
+        pool = CachePool(model, 3, 24, device=device, kv_bits=8,
+                         page_size=8, num_pages=12)
+        if vals is None:
+            vals = {n: (rng.randint(-127, 128, size=tuple(s.shape)).astype(np.int8)
+                        if s.dtype == torch.int8 else
+                        rng.randn(*s.shape).astype(np.float32))
+                    for n, s in pool.storage.items()}
+        for n, s in pool.storage.items():
+            s.copy_(torch.from_numpy(vals[n]))
+        pool.cache["page_table"].copy_(torch.from_numpy(table))
+        dense = {n: torch.zeros((s.shape[0], 3, 24) + tuple(s.shape[3:]),
+                                dtype=s.dtype, device=device)
+                 for n, s in pool.storage.items()}
+        _paged_view(pool, dense)
+        pools.append(pool)
+        denses.append(dense)
+    for n in denses[0]:
+        assert torch.equal(denses[1][n].cpu(), denses[0][n]), n
+        denses[1][n].copy_(torch.flip(denses[0][n], dims=(2,)).to(dev))
+        denses[0][n].copy_(torch.flip(denses[0][n], dims=(2,)))
+    rows = torch.tensor([[6, 7, 8, 9], [14, 15, 16, 17], [-1, -1, -1, -1]])
+    for pool, dense in zip(pools, denses):
+        _paged_commit(pool, dense, rows.to(pool.cache["kpos"].device))
+    torch.cuda.synchronize()
+    written = {4, 0, 9}
+    for n, s in pools[1].storage.items():
+        assert torch.equal(pools[1].cache[n].cpu(), pools[0].cache[n]), n
+        for p in set(range(12)) - written:
+            assert torch.equal(s[:, p].cpu(), torch.from_numpy(vals[n][:, p])), (n, p)
+        assert not torch.equal(s[:, pools[1].sink_page].cpu(),
+                               torch.from_numpy(vals[n][:, 12])), n
+
+
+def test_copy_on_write_on_the_card_matches_the_cpu(dev):
+    """Admission over a shared page split by the reuse length copies it on
+    the card: the same page ids, table, refcounts and page bytes as the
+    CPU pool."""
+    from repro_torch import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import CachePool
+
+    model = build_model(get_config("qwen2-0.5b-smoke"))
+    out = []
+    for device in ("cpu", dev):
+        pool = CachePool(model, 3, 32, device=device, kv_bits=8, page_size=8)
+        gen = torch.Generator().manual_seed(0)
+        for s in pool.storage.values():
+            s.copy_(torch.randint(-127, 128, s.shape, generator=gen)
+                    .to(s.dtype) if s.dtype == torch.int8
+                    else torch.randn(s.shape, generator=gen))
+        a = pool.allocate_pages(20)
+        pool.ref_page(pool.slot_page(a, 0))
+        pool.ref_page(pool.slot_page(a, 1))
+        b = pool.allocate_pages(24, shared=pool.slot_pages(a)[:2],
+                                reuse_len=12)
+        assert pool.cow_copies == 1
+        src, dst = pool.slot_page(a, 1), pool.slot_page(b, 1)
+        for s in pool.storage.values():
+            assert torch.equal(s[:, dst], s[:, src])
+        out.append((pool.slot_pages(b), pool._page_ref, list(pool._free_pages),
+                    pool.cache["page_table"].cpu(), pool.cache["kpos"].cpu(),
+                    {n: v.cpu() for n, v in pool.cache.items()}))
+    assert out[0][:3] == out[1][:3]
+    for x, y in zip(out[0][3:5], out[1][3:5]):
+        assert torch.equal(x, y)
+    for n in out[0][5]:
+        assert torch.equal(out[0][5][n], out[1][5][n]), n
+
+
+@pytest.mark.parametrize("recipe", ["serve-w8a16", "serve-w8a8-kv8"])
+def test_paged_serving_on_the_card_serves_the_contiguous_tokens(dev, recipe):
+    """repro_torch.serve from the paged pool on the card (graphs captured by
+    warmup; reuse off, fast and stepwise, then on) gives the contiguous
+    pool's tokens, and with reuse off its ticks."""
+    import dataclasses
+
+    import repro_torch
+
+    kv = {"kv_bits": 8} if recipe.endswith("-kv8") else {}
+    config = repro_torch.ServeConfig(smoke=True, quantize=recipe.split("-")[1],
+                                     trace=6, slots=3, prompt_len=12,
+                                     gen_len=12, prefill_chunk=4,
+                                     warmup=True, **kv)
+    flat = repro_torch.serve(config)
+    for kw in (dict(page_size=8, prefix_reuse=False),
+               dict(page_size=8, prefix_reuse=False, reference=True),
+               dict(page_size=4)):
+        run = repro_torch.serve(dataclasses.replace(config, **kw))
+        for rid, r in flat.results.items():
+            assert run.results[rid].tokens == r.tokens, (kw, rid)
+            if kw.get("prefix_reuse", True) is False:
+                assert run.results[rid].finished_at == r.finished_at, (kw, rid)
