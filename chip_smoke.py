@@ -76,7 +76,18 @@ Phases, each of which must pass (nothing here catches a failure):
      bit-equal, qmatmul_w8a16 within ``W8A16_TOL``, qmatmul_w8a8_qin
      bit-equal to the pair where ``gemm_plan`` folds and refused with the
      plan's reason where it does not; every new row timed in the phase's
-     row format (the kernels JSON line keeps qwen2's rows).
+     row format (the kernels JSON line keeps qwen2's rows). Then the MoE
+     archs: the decode attention kernels at 48/8/128 (mixtral-8x22b) and
+     40/8/128 (llama4-scout-17b-a16e), and the expert-batched GEMMs
+     (``check_expert_gemms``, one launch a projection, the expert index
+     in the grid): mixtral's E = 8 at M = 8 and 80 (8 slots x capacity
+     10), 6144 x 16384 and 16384 x 6144, llama4's E = 16 at M = 8 and 16,
+     5120 x 8192 and 8192 x 5120, and the routers (N = 8, 16) at M = 8
+     and 256 — W8A8 and the quantize-in fold bit-equal to their plain
+     versions, W8A16 within ``W8A16_TOL``, each timed beside its bound, a
+     loop over the experts (the plain version) and a yardstick that is
+     not the same function (a loop of ``torch._int_mm``; ``torch.bmm``
+     over the bf16-dequantized weights).
   3. reference — for each serving recipe, the paper's Fig. 4 recipes
      (``dfq-int8``, ``naive-int8``, ``cle-only``) and the bias-corrected
      w8a8 deployment (``BC_DEPLOY``), ``repro_torch.quantize`` of a
@@ -97,7 +108,15 @@ Phases, each of which must pass (nothing here catches a failure):
      request's first token the CPU's, and the same quantized weights'
      teacher-forced prefill and decode logits on the card within tolerance
      of the CPU's; and ``backend="torch"`` on the
-     card: the CPU's tokens and ticks, no kernel launched.
+     card: the CPU's tokens and ticks, no kernel launched. Then the MoE
+     archs at smoke size (``check_moe_smoke``: mixtral with its 16-position
+     window, llama4 with its shared expert): quantize on the card
+     bit-equal to the CPU's under serve-w8a16-kv8 and serve-w8a8-kv8, each
+     model teacher-forced past the window on both decode routes
+     (fused_decode, kv_attention) within tolerance of the CPU, and served
+     (serve-w8a16 over the fp cache, serve-w8a8-kv8) fast = stepwise,
+     launch counts exact (the router and one launch an expert
+     projection), every token the CPU's.
   4. serve — qwen2-0.5b at full width (24 layers, seeded random weights
      through ``repro_torch.quantize``: norm folding, CLE and bias
      absorption on the card, then the int8 pack), the engine with 8 slots,
@@ -200,6 +219,19 @@ Phases, each of which must pass (nothing here catches a failure):
      exact. Last, the dense view's memory and the device time of the
      gather and of a horizon's commit (each in a CUDA graph) for both
      caches beside the bytes bound, and the phase's wall seconds.
+  9. serve mixtral-8x22b — at full width (d_model 6144, 48 q / 8 kv heads
+     of 128, d_ff 16384, 8 experts top-2 at capacity factor 1.25, window
+     4096, vocab 32768, bf16) at every layer that leaves 8 GiB free while
+     ``repro_torch.quantize`` runs (the peak measured at 1 and 2 layers,
+     extrapolated; the depth is logged), through ``repro_torch.serve`` on
+     phase 4's trace under serve-w8a16 over the bf16 KV cache and
+     serve-w8a8-kv8, each stepwise and fast: fast tokens and ticks equal
+     stepwise, every request finished, launch counts exact (each expert
+     projection one expert-batched launch); tok/s, quantize and warmup
+     seconds, peak memory, the expert choices dropped for capacity at
+     prefill (the prompts replayed one by one), the card's name and power
+     limit and the phase's wall seconds. Its fast runs give the kernels
+     JSON line's expert-batched rows their launches.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -1594,10 +1626,13 @@ def log_step_sums(tables):
         f"torch._int_mm {total(w8, 256, 'library_ms'):.4f})")
 
 
-# the decode attention geometries of the four dense archs besides qwen2:
-# (arch, Hq, Hkv, hd), each at B = 8 slots and S = 512 positions
+# the decode attention geometries of the other archs besides qwen2 (the four
+# dense ones, then the two MoE ones, group 6 and 5): (arch, Hq, Hkv, hd),
+# each at B = 8 slots and S = 512 positions
 NEW_ATTENTION = (("mistral-nemo-12b", 32, 8, 128), ("yi-34b", 56, 8, 128),
-                 ("chameleon-34b", 64, 8, 128), ("gemma-7b", 16, 16, 256))
+                 ("chameleon-34b", 64, 8, 128), ("gemma-7b", 16, 16, 256),
+                 ("mixtral-8x22b", 48, 8, 128),
+                 ("llama4-scout-17b-a16e", 40, 8, 128))
 
 
 def check_new_attention(torch, dev, gen):
@@ -1843,6 +1878,199 @@ def check_new_gemms(torch, dev, gen):
         f"refused by the plan at {refused}")
 
 
+# the expert-batched GEMMs of the MoE archs (one launch a projection, E
+# experts' rows in its grid): (arch, E, the expert rows M at a decode step
+# and a prefill chunk — 8 slots x the capacity C — then the expert
+# projections (label, K, N) and the router's (K, N = E), whose rows are the
+# tokens': 8 a decode step, 256 a prefill chunk of 32)
+EXPERT_GEMMS = (
+    ("mixtral-8x22b", 8, (8, 80), (("gate/up", 6144, 16384),
+                                   ("down", 16384, 6144)), (6144, 8)),
+    ("llama4-scout-17b-a16e", 16, (8, 16), (("gate/up", 5120, 8192),
+                                            ("down", 8192, 5120)), (5120, 16)),
+)
+
+
+def _experts_w(torch, gen, dev, E, K, N):
+    """E K-major int8 weights [E, K, N] (storage [E, N, K])."""
+    w = torch.randint(-127, 128, (E, N, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    return w.transpose(1, 2)
+
+
+def check_expert_gemms(torch, dev, gen):
+    """The three GEMMs of the MoE path, expert-batched (``EXPERT_GEMMS``),
+    each ONE launch: qmatmul_w8a8 bit-equal to its plain version expert by
+    expert (bf16 out), qmatmul_w8a8_qin bit-equal to quantize_act +
+    qmatmul_w8a8 where ``gemm_plan`` folds (every expert's int8 rows those
+    of the flat quantize_act), qmatmul_w8a16 (bf16, the per-tensor [E, 1]
+    scale the pack gives) within ``W8A16_TOL`` of each expert's plain
+    version; the routers (N = 8, 16: one BN = 16 tile, its columns past N
+    masked) as plain GEMMs at M = 8 and 256. Each timed beside its bound,
+    the plain version (a loop over the experts) and a yardstick that is
+    not the same function (no one PyTorch call is: ``library_ms`` None): a
+    loop of ``torch._int_mm`` over the experts (W8A8, rows zero-padded to
+    32 where M <= 16) or ``torch.bmm`` over the bf16-dequantized weights
+    (W8A16). Returns the rows (the kernels JSON line takes mixtral's
+    gate/up rows)."""
+    from repro_torch.kernels import gemm_plan, launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_qin_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a8.ref import (
+        qmatmul_w8a8_qin_ref,
+        qmatmul_w8a8_ref,
+    )
+    from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_cuda
+    from repro_torch.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+
+    bf16 = torch.bfloat16
+    rows = {"qmatmul_w8a8": [], "qmatmul_w8a8_qin": [], "qmatmul_w8a16": []}
+
+    def one_launch(name, fn):
+        reset_launch_counts()
+        out = fn()
+        assert launch_counts()[name] == 1, (
+            f"{name}: {launch_counts()[name]} launches, not one")
+        return out
+
+    for arch, E, Ms, projs, (rK, rN) in EXPERT_GEMMS:
+        cases = [(label, E, M, K, N) for label, K, N in projs for M in Ms]
+        cases += [("router", 1, M, rK, rN) for M in (8, 256)]
+        for label, e, M, K, N in cases:
+            p = gemm_plan.plan(M, N, K, experts=e)
+            shape = (f"E={e} M={M} K={K} N={N} ({arch} {label})" if e > 1
+                     else f"M={M} K={K} N={N} ({arch} {label})")
+            log(f"  gemm plan {shape}: {p.bm}-row tiles, {p.splits} K "
+                f"split(s), {p.ctas} CTAs, quantize-in "
+                + ("folds" if p.fold else "refused"))
+            w = _experts_w(torch, gen, dev, e, K, N)
+            if e == 1:
+                w = w[0]
+            lead = (e,) if e > 1 else ()
+            sw = (torch.rand(lead + (1,), generator=gen, device=dev) * 0.01
+                  + 1e-4)
+            sw_n = sw.expand(lead + (N,)).contiguous()
+            zero = torch.zeros(lead + (N,), device=dev)
+            per = [slice(None)] if e == 1 else range(e)
+            # W8A8
+            a = torch.randint(-128, 128, lead + (M, K), generator=gen,
+                              device=dev, dtype=torch.int8)
+            sa = torch.rand(lead + (M,), generator=gen, device=dev) * 0.05 + 1e-4
+            y = one_launch("qmatmul_w8a8", lambda: qmatmul_w8a8_cuda(
+                a, w, sa, sw_n, zero, out_dtype=bf16))
+
+            def plain8():
+                return [qmatmul_w8a8_ref(a[i], w[i], sa[i], sw_n[i], zero[i],
+                                         bf16) for i in per]
+            torch.cuda.synchronize()
+            for i, yr in zip(per, plain8()):
+                assert torch.equal(y[i], yr), (
+                    f"qmatmul_w8a8 {shape}: expert {i} not bit-equal")
+            # torch._int_mm takes M > 16 only: rows zero-padded to 32
+            a_lib = a if M > 16 else torch.cat(
+                [a, a.new_zeros(lead + (32 - M, K))], -2)
+            lib8 = (lambda: [torch._int_mm(a_lib[i], w[i]) for i in per])
+            b, by = bound_ms(e * (M * K + K * N + 4 * M + 8 * N + 2 * M * N),
+                             2 * e * M * K * N, INT8_OPS_S)
+            kern = lambda: qmatmul_w8a8_cuda(a, w, sa, sw_n, zero,
+                                             out_dtype=bf16)
+            row = {"shape": shape + " -> bf16", "mkn": [M, K, N],
+                   "experts": e, "max_abs_err": 0.0,
+                   "ms": device_ms(kern, 20), "call_ms": call_ms(kern, 20),
+                   "plain_ms": device_ms(plain8, 3),
+                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   "yardstick_ms": device_ms(lib8, 20),
+                   "yardstick": ("a loop of torch._int_mm over the experts"
+                                 if e > 1 else "torch._int_mm")
+                   + ("" if M > 16 else f", M zero-padded {M}->32")}
+            log_row("qmatmul_w8a8", row)
+            rows["qmatmul_w8a8"].append(row)
+            # W8A16 (bf16 x, the pack's per-tensor scale cast to bf16)
+            x = torch.randn(lead + (M, K), generator=gen, device=dev).to(bf16)
+            s16 = sw.to(bf16)
+            y = one_launch("qmatmul_w8a16",
+                           lambda: qmatmul_w8a16_cuda(x, w, s16, None))
+            torch.cuda.synchronize()
+            worst = 0.0
+            for i in per:
+                yr = qmatmul_w8a16_ref(x[i], w[i], s16[i], None, bf16)
+                diff = (y[i].float() - yr.float()).abs()
+                tol = w8a16_tolerance(torch, x[i], w[i], s16[i], None, yr)
+                assert bool((diff <= tol).all()), (
+                    f"qmatmul_w8a16 {shape}: expert {i} off the plain version "
+                    f"at {int((diff > tol).sum())} values "
+                    f"({W8A16_TOL['bfloat16']})")
+                worst = max(worst, float(diff.max()))
+                del yr, diff, tol
+            w_deq = (w.float() * s16.float()[..., None, :]).to(bf16)
+            lib16 = ((lambda: torch.bmm(x, w_deq)) if e > 1
+                     else (lambda: x @ w_deq))
+            b, by = bound_ms(e * (2 * M * K + K * N + 2 + 2 * M * N),
+                             2 * e * M * K * N, BF16_OPS_S)
+            kern = lambda: qmatmul_w8a16_cuda(x, w, s16, None)
+            row = {"shape": shape + " bfloat16", "mkn": [M, K, N],
+                   "experts": e, "max_abs_err": worst,
+                   "ms": device_ms(kern, 20), "call_ms": call_ms(kern, 20),
+                   "plain_ms": device_ms(lambda: [qmatmul_w8a16_ref(
+                       x[i], w[i], s16[i], None, bf16) for i in per], 3),
+                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   "yardstick_ms": device_ms(lib16, 20),
+                   "yardstick": ("torch.bmm" if e > 1 else "matmul")
+                   + " over the bf16-dequantized weights"}
+            del w_deq
+            log_row("qmatmul_w8a16", row)
+            rows["qmatmul_w8a16"].append(row)
+            # the quantize-in W8A8 GEMM, where the plan folds
+            if not p.fold:
+                continue
+            xq = torch.stack([_qin_input(torch, gen, dev, M, K, bf16)
+                              for _ in range(e)]) if e > 1 else \
+                _qin_input(torch, gen, dev, M, K, bf16)
+            a_q, a_s = quantize_act_cuda(xq.reshape(-1, K))
+            a_q, a_s = a_q.reshape(xq.shape), a_s.reshape(xq.shape[:-1])
+            pair = qmatmul_w8a8_cuda(a_q, w, a_s, sw_n, zero, out_dtype=bf16)
+            y, x_q, x_s = one_launch(
+                "qmatmul_w8a8_qin", lambda: qmatmul_w8a8_qin_cuda(
+                    xq, w, sw_n, zero, out_dtype=bf16, quantized=True))
+            torch.cuda.synchronize()
+            assert torch.equal(y, pair), (
+                f"qmatmul_w8a8_qin {shape}: not bit-equal to quantize_act + "
+                f"qmatmul_w8a8")
+            assert torch.equal(x_q, a_q) and torch.equal(x_s, a_s)
+            for i in per:
+                assert torch.equal(y[i], qmatmul_w8a8_qin_ref(
+                    xq[i], w[i], sw_n[i], zero[i], bf16)), (
+                    f"qmatmul_w8a8_qin {shape}: expert {i} off its plain "
+                    f"version")
+            b, by = bound_ms(e * (2 * M * K + K * N + 8 * N + 2 * M * N),
+                             2 * e * M * K * N, INT8_OPS_S)
+            kern = lambda: qmatmul_w8a8_qin_cuda(xq, w, sw_n, zero,
+                                                 out_dtype=bf16)
+
+            def pair_call():
+                q_, s_ = quantize_act_cuda(xq.reshape(-1, K))
+                return qmatmul_w8a8_cuda(q_.reshape(xq.shape), w,
+                                         s_.reshape(xq.shape[:-1]), sw_n,
+                                         zero, out_dtype=bf16)
+
+            row = {"shape": shape + " bf16 -> bf16", "mkn": [M, K, N],
+                   "experts": e, "max_abs_err": 0.0,
+                   "ms": device_ms(kern, 20), "call_ms": call_ms(kern, 20),
+                   "plain_ms": device_ms(lambda: [qmatmul_w8a8_qin_ref(
+                       xq[i], w[i], sw_n[i], zero[i], bf16) for i in per], 3),
+                   "bound_ms": b, "bound_by": by, "library_ms": None,
+                   "stepwise_ms": device_ms(pair_call, 20)}
+            log_row("qmatmul_w8a8_qin", row)
+            rows["qmatmul_w8a8_qin"].append(row)
+    log("  the expert-batched GEMMs: one launch a projection, W8A8 and the "
+        "quantize-in fold bit-equal, W8A16 within its tolerance, at every "
+        "expert shape and both routers")
+    return rows
+
+
 # --------------------------------------------------------------- phase 3
 def hostile_params(torch, model, device="cpu"):
     """Seeded weights that give every rewrite work: log-normal norm gains,
@@ -1960,7 +2188,7 @@ def check_dfq_on_card(torch, dev, model, params, recipe):
     name = recipe_label(recipe)
     stages = resolve_recipe(recipe).stage_names()
     tol = {}
-    if "bias_absorb" in stages:
+    if "bias_absorb" in stages and cfg.qkv_bias:
         attn = repro_torch.quantize(model, params, recipe=["fold_norm", "cle"],
                                     device="cpu").params["blocks"]["attn"]
         group = cfg.n_heads // cfg.n_kv_heads
@@ -2102,21 +2330,32 @@ SERVE = dict(arch="qwen2-0.5b", seed=0, device="cuda", slots=8, max_len=512,
              prompt_len=256, gen_min=32, gen_len=32)
 
 
-def layer_inputs(cfg):
-    """The inputs of a layer's projections, each (K, the N of every
-    projection reading it): qkv, wo, gate/up (up alone without a gate),
-    down."""
+def layer_inputs(cfg, T):
+    """The inputs of a layer's projections at T tokens a batch row, each
+    (K, the N of every projection reading it, the experts E of its launch,
+    its rows a batch row): qkv, wo, then gate/up (up alone without a gate)
+    and down — an MoE layer's as the router (its E columns, every token)
+    and the experts' projections, each one expert-batched launch over the
+    capacity C = max(1, int(T·top_k/E·capacity_factor)) rows a batch row
+    of every expert (the shared expert is not a weight site: float, no
+    kernel)."""
     D, F, A, KV = cfg.d_model, cfg.d_ff, cfg.attn_dim, cfg.kv_dim
-    return ((D, (A, KV, KV)), (A, (D,)),
-            (D, (F, F) if cfg.act.endswith("_glu") else (F,)), (F, (D,)))
+    gate = (F, F) if cfg.act.endswith("_glu") else (F,)
+    ins = [(D, (A, KV, KV), 1, T), (A, (D,), 1, T)]
+    if not cfg.n_experts:
+        return ins + [(D, gate, 1, T), (F, (D,), 1, T)]
+    E = cfg.n_experts
+    C = max(1, int(T * cfg.top_k / E * cfg.capacity_factor))
+    return ins + [(D, (E,), 1, T), (D, gate, E, C), (F, (D,), E, C)]
 
 
 def expected_launches(quantize, fused, steps, chunks, *, cfg=None,
                       kv_bits=8, slots=None, chunk=None):
-    """{kernel: launches} of one serve run: per decode step (M = slots) and
-    per prefill chunk (M = slots x chunk), every layer's projections
-    (``layer_inputs``; ``cfg`` defaults to qwen2-0.5b's, the slots and
-    chunk to ``SERVE``'s). Over the int8 cache (``kv_bits`` 8) the fused
+    """{kernel: launches} of one serve run: per decode step (one token a
+    slot) and per prefill chunk (``chunk`` tokens a slot), every layer's
+    projections (``layer_inputs``: M = slots x its rows a batch row; an
+    expert projection one launch for all its experts; ``cfg`` defaults to
+    qwen2-0.5b's, the slots and chunk to ``SERVE``'s). Over the int8 cache (``kv_bits`` 8) the fused
     decode once a layer per decode step, or kv_attention on the unfused
     route; over the fp cache no attention kernel (plain maths, as in the
     reference). W8A16: one qmatmul_w8a16 a projection. W8A8, as
@@ -2133,21 +2372,22 @@ def expected_launches(quantize, fused, steps, chunks, *, cfg=None,
     slots = slots or SERVE["slots"]
     chunk = chunk or SERVE["prefill_chunk"]
     L = cfg.n_layers
-    inputs = layer_inputs(cfg)
     want = {}
     if kv_bits == 8:
         want["fused_decode" if fused else "kv_attention"] = L * steps
     if quantize == "w8a16":
-        want["qmatmul_w8a16"] = (sum(len(Ns) for _, Ns in inputs) * L
+        want["qmatmul_w8a16"] = (sum(len(Ns) for _, Ns, _, _ in
+                                     layer_inputs(cfg, 1)) * L
                                  * (steps + chunks))
     if quantize != "w8a8":
         return want
     want.update(quantize_act=0, qmatmul_w8a8=0, qmatmul_w8a8_qin=0)
-    for M, n, decode in ((slots, steps, True), (slots * chunk, chunks, False)):
-        for i, (K, Ns) in enumerate(inputs):
+    for T, n, decode in ((1, steps, True), (chunk, chunks, False)):
+        for i, (K, Ns, E, rows) in enumerate(layer_inputs(cfg, T)):
+            M = slots * rows
             if decode and i == 1 and kv_bits == 8 and fused:
                 want["qmatmul_w8a8"] += L * n
-            elif all(gemm_plan.plan(M, N, K).fold for N in Ns):
+            elif all(gemm_plan.plan(M, N, K, experts=E).fold for N in Ns):
                 want["qmatmul_w8a8_qin"] += L * n
                 want["qmatmul_w8a8"] += (len(Ns) - 1) * L * n
             else:
@@ -2205,6 +2445,25 @@ def same_tokens(run, ref, what):
             f"not {r.finished_at}")
 
 
+class fused_route:
+    """``with fused_route(False):`` sets REPRO_FUSED_DECODE=0 for the block
+    (the unfused decode route), and restores it after."""
+
+    def __init__(self, fused: bool):
+        self.fused = fused
+
+    def __enter__(self):
+        self.saved = os.environ.get("REPRO_FUSED_DECODE")
+        if not self.fused:
+            os.environ["REPRO_FUSED_DECODE"] = "0"
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("REPRO_FUSED_DECODE", None)
+        else:
+            os.environ["REPRO_FUSED_DECODE"] = self.saved
+
+
 def counted_serve(config, fused=True):
     """``repro_torch.serve(config)`` with the launch counts reset just
     before and read just after; ``fused=False`` sets REPRO_FUSED_DECODE=0
@@ -2212,18 +2471,10 @@ def counted_serve(config, fused=True):
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    saved = os.environ.get("REPRO_FUSED_DECODE")
-    if not fused:
-        os.environ["REPRO_FUSED_DECODE"] = "0"
-    try:
+    with fused_route(fused):
         reset_launch_counts()
         run = repro_torch.serve(config)
         return run, launch_counts()
-    finally:
-        if saved is None:
-            os.environ.pop("REPRO_FUSED_DECODE", None)
-        else:
-            os.environ["REPRO_FUSED_DECODE"] = saved
 
 
 def serve_full_width(torch, quantize, *, fused=True, reference=False,
@@ -2315,27 +2566,33 @@ def serve_bias_corrected(torch):
 SMOKE_SERVE = dict(smoke=True, seed=0, slots=3, max_len=32, prefill_chunk=8,
                    trace=6, trace_seed=0, prompt_min=4, prompt_len=20,
                    gen_min=4, gen_len=8)
+# the MoE archs' smoke runs: mixtral's 16-position window rings the cache,
+# so a request needs at most 15 positions (prompts up to 10 in chunks of 4,
+# up to 6 new tokens)
+MOE_SMOKE_SERVE = dict(SMOKE_SERVE, prompt_len=10, gen_len=6, prefill_chunk=4)
 
 
-def _smoke_run(torch, device, **kw):
+def _smoke_run(torch, device, sv=SMOKE_SERVE, **kw):
     """``repro_torch.serve`` at smoke size on ``device`` (the fast path's
-    graphs captured by warmup on the card); returns (run, launch counts)."""
+    graphs captured by warmup on the card) with the settings ``sv``;
+    returns (run, launch counts)."""
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     reset_launch_counts()
     fast = not kw.get("reference", False)
     run = repro_torch.serve(repro_torch.ServeConfig(
-        device=device, warmup=fast and device != "cpu",
-        **{**SMOKE_SERVE, **kw}))
+        device=device, warmup=fast and device != "cpu", **{**sv, **kw}))
     return run, launch_counts()
 
 
-def _smoke_engine_run(torch, arch, quantize, kv_bits, device, backend=None):
+def _smoke_engine_run(torch, arch, quantize, kv_bits, device, backend=None,
+                      sv=SMOKE_SERVE):
     """The stepwise engine on ``device`` over a smoke model whose weights
     are drawn on the host (the same on every device) and quantized there
-    by ``serve-<quantize>[-kv8]`` (``quantize="none"``: as drawn); returns
-    (results, launch counts, (model, params))."""
+    by ``serve-<quantize>[-kv8]`` (``quantize="none"``: as drawn), on the
+    trace of the settings ``sv``; returns (results, launch counts, (model,
+    params))."""
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.quantized import map_leaves
@@ -2352,19 +2609,18 @@ def _smoke_engine_run(torch, arch, quantize, kv_bits, device, backend=None):
         model, params = qm.model, qm.params
     engine = ServingEngine(model, params, model.cfg, fast=False,
                            kv_bits=kv_bits, device=device, backend=backend,
-                           num_slots=SMOKE_SERVE["slots"],
-                           max_len=SMOKE_SERVE["max_len"],
-                           prefill_chunk=SMOKE_SERVE["prefill_chunk"])
+                           num_slots=sv["slots"], max_len=sv["max_len"],
+                           prefill_chunk=sv["prefill_chunk"])
     reset_launch_counts()
     results = engine.run(synthetic_trace(
-        0, SMOKE_SERVE["trace"], vocab_size=model.cfg.vocab_size,
-        prompt_lens=(SMOKE_SERVE["prompt_min"], SMOKE_SERVE["prompt_len"]),
-        gen_lens=(SMOKE_SERVE["gen_min"], SMOKE_SERVE["gen_len"]),
-        mean_interarrival=1.0))
+        0, sv["trace"], vocab_size=model.cfg.vocab_size,
+        prompt_lens=(sv["prompt_min"], sv["prompt_len"]),
+        gen_lens=(sv["gen_min"], sv["gen_len"]), mean_interarrival=1.0))
     return results, launch_counts(), (model, params)
 
 
-def check_smoke_serving(torch, arch, quantize, kv_bits):
+def check_smoke_serving(torch, arch, quantize, kv_bits, sv=SMOKE_SERVE,
+                        every_token=False):
     """A smoke model served on the card: ``repro_torch.serve`` fast
     (graphs) and stepwise — the fast path's tokens and finish ticks equal
     the stepwise path's, the launch counts exact (``expected_launches`` of
@@ -2374,7 +2630,8 @@ def check_smoke_serving(torch, arch, quantize, kv_bits):
     can move) the CPU's, the share of equal tokens logged; and the two
     quantized models' teacher-forced prefill and decode logits
     (``teacher_forced``), so the decode path past the first token is held
-    to the CPU's too."""
+    to the CPU's too. ``every_token``: every token of every request the
+    CPU's (the MoE archs)."""
     import repro_torch
 
     label = (f"smoke {arch} --quantize {quantize} --kv-bits "
@@ -2382,12 +2639,11 @@ def check_smoke_serving(torch, arch, quantize, kv_bits):
     kw = dict(arch=arch, quantize=quantize, kv_bits=kv_bits)
     cfg = repro_torch.get_config(arch, smoke=True)
     for reference in (True, False):
-        run, counts = _smoke_run(torch, "cuda", reference=reference, **kw)
+        run, counts = _smoke_run(torch, "cuda", sv, reference=reference, **kw)
         steps, chunks = forwards(run)
         want = expected_launches(quantize, True, steps, chunks, cfg=cfg,
-                                 kv_bits=kv_bits or 16,
-                                 slots=SMOKE_SERVE["slots"],
-                                 chunk=SMOKE_SERVE["prefill_chunk"])
+                                 kv_bits=kv_bits or 16, slots=sv["slots"],
+                                 chunk=sv["prefill_chunk"])
         for name, n in counts.items():
             assert n == want.get(name, 0), (
                 f"{label}: {name} launched {n} times, expected "
@@ -2397,9 +2653,9 @@ def check_smoke_serving(torch, arch, quantize, kv_bits):
             continue
         same_tokens(run, stepwise, f"{label} fast against stepwise")
     cpu, _, (model, cpu_params) = _smoke_engine_run(torch, arch, quantize,
-                                                    kv_bits, "cpu")
+                                                    kv_bits, "cpu", sv=sv)
     card, _, (_, card_params) = _smoke_engine_run(torch, arch, quantize,
-                                                  kv_bits, "cuda")
+                                                  kv_bits, "cuda", sv=sv)
     firsts = sum(card[r].tokens[0] == c.tokens[0] for r, c in cpu.items())
     equal = sum(a == b for r, c in cpu.items()
                 for a, b in zip(card[r].tokens, c.tokens))
@@ -2407,6 +2663,8 @@ def check_smoke_serving(torch, arch, quantize, kv_bits):
     assert firsts == len(cpu), (
         f"{label}: first tokens equal the CPU's in {firsts} of {len(cpu)} "
         f"requests")
+    assert not every_token or equal == total, (
+        f"{label}: {equal} of {total} tokens equal the CPU's")
     log(f"  {label} (kv cache {'int8' if run.kv_bits == 8 else 'fp'}): "
         f"repro_torch.serve fast = stepwise, request by request, launches "
         f"exact ({json.dumps({k: v for k, v in counts.items() if v})}); the "
@@ -2415,6 +2673,41 @@ def check_smoke_serving(torch, arch, quantize, kv_bits):
     teacher_forced(torch, torch.device("cuda"), model.cfg, cpu_params,
                    card_params, run.kv_bits, f"{label} ({cfg.n_layers} "
                    f"layers, {cfg.dtype})")
+
+
+def check_moe_smoke(torch, dev):
+    """The MoE archs at smoke size (mixtral: 4 of 8 experts top-2, the
+    16-position window; llama4: 4 of 16 experts top-1 and a shared expert)
+    on the card against the CPU. Per arch: ``repro_torch.quantize`` under
+    serve-w8a16-kv8 and serve-w8a8-kv8 on the card bit-equal to the CPU's
+    (``check_dfq_on_card``: every payload, scale and float leaf), and each
+    quantized model teacher-forced past the window (prefill 8, then 16
+    decode steps over a 32-position request: mixtral's 16-position ring
+    wraps) on the fused route (fused_decode) and the unfused one
+    (REPRO_FUSED_DECODE=0: kv_attention), within ``teacher_forced``'s bound
+    of the CPU; then ``repro_torch.serve`` of the reference's default
+    deployment (serve-w8a16 over the fp cache) and of serve-w8a8-kv8, fast
+    = stepwise, launch counts exact (the router and one expert-batched
+    launch an expert projection), and every token of the stepwise engine
+    on the host-drawn weights the CPU's."""
+    import repro_torch
+
+    for arch in ("mixtral-8x22b", "llama4-scout-17b-a16e"):
+        model = repro_torch.build_model(repro_torch.get_config(arch,
+                                                               smoke=True))
+        params = model.init(0, device="cpu")
+        for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8"):
+            cpu, card = check_dfq_on_card(torch, dev, model, params, recipe)
+            for fused in (True, False):
+                with fused_route(fused):
+                    teacher_forced(
+                        torch, dev, cpu.cfg, cpu.params, card.params, 8,
+                        f"smoke {arch} (2 layers, f32) under {recipe}, "
+                        + ("fused_decode" if fused else "kv_attention"))
+        check_smoke_serving(torch, arch, "w8a16", None, MOE_SMOKE_SERVE,
+                            every_token=True)
+        check_smoke_serving(torch, arch, "w8a8", 8, MOE_SMOKE_SERVE,
+                            every_token=True)
 
 
 def check_torch_tier_on_card(torch):
@@ -2588,6 +2881,8 @@ def log_row(name, r):
         + (f" (library {r['library_cold_ms'] * 1e3:.2f})"
            if "library_cold_ms" in r else "")
         + (f"  [{r['library']}]" if "library" in r else "")
+        + (f"  yardstick {r['yardstick_ms'] * 1e3:.2f} us [{r['yardstick']}]"
+           if "yardstick_ms" in r else "")
         + (f"  without quantize-out {r['no_q8_ms'] * 1e3:.2f} us"
            if "no_q8_ms" in r else "")
         + (f"  splits {r['splits']}, SDPA bf16 (GQA expanded) "
@@ -2603,22 +2898,23 @@ NEMO = dict(SERVE, arch="mistral-nemo-12b")
 FREE_BYTES = 8 << 30
 
 
-def nemo_depth(torch, dev):
-    """The depth phase 6 serves mistral-nemo-12b at: all its layers if
+def cut_depth(torch, dev, arch, probe):
+    """The depth a phase serves ``arch`` at: all its layers if
     ``repro_torch.quantize``'s peak (``torch.cuda.max_memory_allocated``,
     serve-w8a16: the float32 weights and the copies the flow makes) leaves
     ``FREE_BYTES`` of the card free, else the deepest that does. The peak
     is linear in the depth (the embedding and the head, then the same
-    blocks a layer): measured at 2 and 4 layers and extrapolated; each
-    run checks its own peak."""
+    blocks a layer): measured at the two depths ``probe`` and
+    extrapolated; each run checks its own peak."""
     import dataclasses
     import gc
 
     import repro_torch
 
-    cfg = repro_torch.get_config(NEMO["arch"])
+    cfg = repro_torch.get_config(arch)
+    lo, hi = probe
     peaks = {}
-    for L in (2, 4):
+    for L in probe:
         gc.collect()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
@@ -2629,14 +2925,14 @@ def nemo_depth(torch, dev):
         torch.cuda.synchronize(dev)
         peaks[L] = torch.cuda.max_memory_allocated(dev) - base
         del qm
-    per_layer = (peaks[4] - peaks[2]) / 2
-    fixed = peaks[2] - 2 * per_layer
+    per_layer = (peaks[hi] - peaks[lo]) / (hi - lo)
+    fixed = peaks[lo] - lo * per_layer
     total = torch.cuda.get_device_properties(dev).total_memory
     room = total - FREE_BYTES - torch.cuda.memory_allocated(dev)
     fits = int((room - fixed) // per_layer)
     depth = max(1, min(cfg.n_layers, fits))
-    log(f"  quantize peak of serve-w8a16 at 2 / 4 layers: "
-        f"{peaks[2] / 2**30:.2f} / {peaks[4] / 2**30:.2f} GiB -> "
+    log(f"  {arch}: quantize peak of serve-w8a16 at {lo} / {hi} layers: "
+        f"{peaks[lo] / 2**30:.2f} / {peaks[hi] / 2**30:.2f} GiB -> "
         f"{per_layer / 2**30:.3f} GiB a layer + {fixed / 2**30:.2f} GiB; the "
         f"card holds {total / 2**30:.2f} GiB: {fits} layers leave "
         f"{FREE_BYTES / 2**30:.0f} GiB free -> serving "
@@ -2644,11 +2940,11 @@ def nemo_depth(torch, dev):
     return depth
 
 
-def serve_nemo(torch, depth, quantize, kv_bits, *, reference):
-    """``repro_torch.serve`` of mistral-nemo-12b (full width, ``depth``
+def serve_cut(torch, settings, depth, quantize, kv_bits, *, reference):
+    """``repro_torch.serve`` of ``settings``' arch (full width, ``depth``
     layers) on phase 4's trace: the fast path with every graph captured by
     warmup, or the stepwise path; checked as phase 4's runs, the launch
-    counts from the plan."""
+    counts from the plan. Returns (run, launch counts)."""
     import dataclasses
     import gc
 
@@ -2659,14 +2955,14 @@ def serve_nemo(torch, depth, quantize, kv_bits, *, reference):
     torch.cuda.empty_cache()
     config = repro_torch.ServeConfig(
         quantize=quantize, kv_bits=kv_bits, layers=depth,
-        reference=reference, warmup=not reference, **NEMO)
+        reference=reference, warmup=not reference, **settings)
     reset_launch_counts()
     run = repro_torch.serve(config)
     counts = launch_counts()
-    cfg = dataclasses.replace(repro_torch.get_config(NEMO["arch"]),
+    cfg = dataclasses.replace(repro_torch.get_config(settings["arch"]),
                               n_layers=depth)
     kv = kv_bits or 16
-    label = (f"mistral-nemo-12b ({depth} layers) serve-{quantize}"
+    label = (f"{cfg.name} ({depth} layers) serve-{quantize}"
              + ("-kv8" if kv == 8 else " (bf16 KV cache)")
              + (" stepwise" if reference else ""))
     check_served(run, counts, label,
@@ -2682,7 +2978,7 @@ def serve_nemo(torch, depth, quantize, kv_bits, *, reference):
           f"GiB ({smi_line()})")
     assert free >= FREE_BYTES, (
         f"{label}: quantize left {free / 2**30:.2f} GiB free")
-    return run
+    return run, counts
 
 
 # --------------------------------------------------------------- phase 7
@@ -3178,6 +3474,50 @@ def mobilenet_v2_published(torch, dev, smi):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
 
 
+# --------------------------------------------------------------- phase 9
+# the serving runs of phase 9: phase 4's trace at mixtral-8x22b's width
+# (every width as published; the depth cut to what quantize leaves 8 GiB of
+# the card free at)
+MIXTRAL = dict(SERVE, arch="mixtral-8x22b")
+
+
+def prefill_drops(torch, depth):
+    """The choices mixtral's MoE blocks drop for capacity at prefill, out of
+    those routed, on the weights phase 9 serves (``repro_torch.quantize``
+    under serve-w8a16 from the same seed): every prompt of phase 4's trace
+    prefilled alone in the engine's chunks of 32 (its last chunk
+    zero-padded, the pad positions routed too, as in the engine), through
+    the model's ``drop_log``. Capacity is per batch row, so a row's drops do
+    not depend on the other slots. Returns (dropped, routed)."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.serving import synthetic_trace
+
+    cfg = dataclasses.replace(repro_torch.get_config(MIXTRAL["arch"]),
+                              n_layers=depth)
+    qm = repro_torch.quantize(repro_torch.build_model(cfg), None,
+                              init_seed=MIXTRAL["seed"], device="cuda",
+                              recipe="serve-w8a16")
+    C = MIXTRAL["prefill_chunk"]
+    requests = synthetic_trace(
+        MIXTRAL["trace_seed"], MIXTRAL["trace"], vocab_size=cfg.vocab_size,
+        prompt_lens=(MIXTRAL["prompt_min"], MIXTRAL["prompt_len"]),
+        gen_lens=(MIXTRAL["gen_min"], MIXTRAL["gen_len"]),
+        mean_interarrival=1.0)
+    qm.model.drop_log = []
+    routed = 0
+    for r in requests:
+        n = -(-len(r.prompt) // C) * C
+        toks = torch.zeros((1, n), dtype=torch.int64)
+        toks[0, :len(r.prompt)] = torch.as_tensor(r.prompt)
+        cache = qm.model.init_cache(1, MIXTRAL["max_len"], device="cuda")
+        for c in range(0, n, C):
+            _, cache = qm.prefill(toks[:, c:c + C].cuda(), cache)
+        routed += n * cfg.top_k * depth
+    return int(sum(int(d.sum()) for d in qm.model.drop_log)), routed
+
+
 # --------------------------------------------------------------- main
 # --------------------------------------------------------------- phase 8
 # the paged runs of phase 8: phase 4's settings, pages of 32 positions (the
@@ -3577,6 +3917,7 @@ def main() -> int:
     log_step_sums(tables)
     check_new_attention(torch, dev, gen)
     check_new_gemms(torch, dev, gen)
+    expert_rows = check_expert_gemms(torch, dev, gen)
 
     log("== phase 3: small-input reference")
     for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8", "dfq-int8",
@@ -3594,6 +3935,7 @@ def main() -> int:
     for arch in ("yi-34b", "mistral-nemo-12b", "gemma-7b", "chameleon-34b"):
         check_smoke_serving(torch, arch, "w8a16", 8)
     check_torch_tier_on_card(torch)
+    check_moe_smoke(torch, dev)
 
     log("== phase 4: serve qwen2-0.5b (full width) through repro_torch.serve")
     log(f"  {smi}")
@@ -3646,11 +3988,13 @@ def main() -> int:
         "repro_torch.serve")
     log(f"  {smi}")
     t6 = time.perf_counter()
-    depth = nemo_depth(torch, dev)
+    depth = cut_depth(torch, dev, NEMO["arch"], (2, 4))
     nemo = {}
     for quantize, kv_bits in (("w8a16", None), ("w8a8", 8)):
-        step = serve_nemo(torch, depth, quantize, kv_bits, reference=True)
-        fast = serve_nemo(torch, depth, quantize, kv_bits, reference=False)
+        step = serve_cut(torch, NEMO, depth, quantize, kv_bits,
+                         reference=True)[0]
+        fast = serve_cut(torch, NEMO, depth, quantize, kv_bits,
+                         reference=False)[0]
         label = f"serve-{quantize}" + ("-kv8" if kv_bits else " (bf16 KV)")
         same_tokens(fast, step, f"mistral-nemo-12b {label} fast against "
                                 f"stepwise")
@@ -3688,6 +4032,34 @@ def main() -> int:
     check_chaos(torch)
     time_gather(torch)
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s ({smi})")
+
+    log("== phase 9: serve mixtral-8x22b (full width, its MoE blocks through "
+        "the expert-batched GEMMs) through repro_torch.serve")
+    log(f"  {smi}")
+    t9 = time.perf_counter()
+    depth9 = cut_depth(torch, dev, MIXTRAL["arch"], (1, 2))
+    mixtral = {}
+    for quantize, kv_bits in (("w8a16", None), ("w8a8", 8)):
+        step, _ = serve_cut(torch, MIXTRAL, depth9, quantize, kv_bits,
+                            reference=True)
+        fast, counts = serve_cut(torch, MIXTRAL, depth9, quantize, kv_bits,
+                                 reference=False)
+        label = f"serve-{quantize}" + ("-kv8" if kv_bits else " (bf16 KV)")
+        same_tokens(fast, step, f"mixtral-8x22b {label} fast against "
+                                f"stepwise")
+        mixtral[label] = fast, step, counts
+        log(f"  mixtral-8x22b {label}: every request's tokens and finish "
+            f"tick equal the stepwise run's")
+    log("  mixtral-8x22b tok/s fast / stepwise: " + ", ".join(
+        f"{label} {f.tokens_per_second:.1f} / {s_.tokens_per_second:.1f}"
+        for label, (f, s_, _) in mixtral.items())
+        + f" ({depth9} layers; {smi})")
+    dropped, routed = prefill_drops(torch, depth9)
+    log(f"  mixtral-8x22b at prefill (capacity_factor 1.25, C = 10 slots an "
+        f"expert a chunk of 32): {dropped} of {routed} expert choices dropped "
+        f"({100 * dropped / routed:.2f} %), the trace's prompts one by one, "
+        f"pad positions included")
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s ({smi})")
 
     # each kernel's launches come from the run of the path it serves; the
     # fused decode from the default (w8a16) path, kv_attention from the
@@ -3741,6 +4113,27 @@ def main() -> int:
             "launches": runs[path][1][name],
             "path": ("none: quantize_out=True only"
                      if name.endswith("_q8") else path)})
+    # the expert-batched launches (phase 9's fast runs, mixtral's decode
+    # gate/up rows of phase 2): the same kernels with the expert axis
+    w8a16_run, w8a8_run = (mixtral["serve-w8a16 (bf16 KV)"][2],
+                           mixtral["serve-w8a8-kv8"][2])
+    for name, counted, shape in (
+            ("qmatmul_w8a16", w8a16_run, "E=8 M=8 K=6144 N=16384 (mixtral-8x22b "
+             "gate/up) bfloat16"),
+            ("qmatmul_w8a8", w8a8_run, "E=8 M=80 K=6144 N=16384 (mixtral-8x22b "
+             "gate/up) -> bf16"),
+            ("qmatmul_w8a8_qin", w8a8_run, "E=8 M=8 K=6144 N=16384 "
+             "(mixtral-8x22b gate/up) bf16 -> bf16")):
+        row = next(r for r in expert_rows[name] if r["shape"] == shape)
+        kernels.append({
+            **{k: v for k, v in row.items() if k != "stepwise_ms"},
+            "name": name + " (expert-batched)", "route": "cuda",
+            "source": csrc + sources[name][0],
+            "replaces": tpu + sources[name][1],
+            "launches": counted[name],
+            "path": "phase 9: mixtral-8x22b " + (
+                "serve-w8a16 (bf16 KV)" if counted is w8a16_run
+                else "serve-w8a8-kv8")})
     log(f"  the script took {time.perf_counter() - t_script:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -21,7 +21,9 @@ from .tree import get_path, set_path
 def hostile_rescale(params, plan: DFQPlan, *, seed: int = 0,
                     decades: float = 1.5):
     """Randomly rescale every exact DensePair (up↔down) in the plan:
-    log-normal scales spanning ~``decades`` orders of magnitude. The scales
+    log-normal scales spanning ~``decades`` orders of magnitude, one a
+    channel of every leading index (each layer's, and each expert's of an
+    MoE block's stacked ``[L, E, ...]`` pairs). The scales
     are the JAX package's draws for the seed (``prng.normal``, within 4
     ulp), exponentiated in numpy float32 on the host."""
     key = prng.PRNGKey(seed)

@@ -30,6 +30,12 @@
 //    quantize-in GEMM, whose `share` neighbouring N tiles divide the
 //    quantizing. BM, S and share come from the Python planner
 //    (kernels/gemm_plan.py, which also holds BN, BK and the rule).
+//  * Experts: an expert-batched launch (the MoE block's projections: E
+//    experts' [M, K] x [K, N], the operands of each back to back) puts E x
+//    m_tiles M tiles on the grid's y axis, expert y / m_tiles, M tile
+//    y % m_tiles (expert_tile). No cluster spans y, so a tile's splits and
+//    quantize-in neighbours are always one expert's; each CTA offsets its
+//    operands to its expert's before anything else.
 //  * The reduction, deterministic and in the same launch: the groups add
 //    their partials in shared memory in group order; then each split stores
 //    its tile's sum to its own shared memory and, after a cluster barrier,
@@ -90,6 +96,27 @@ struct Tile<128> {
   static constexpr int STAGES = 4, STAGES_WIDE = 3;
   static constexpr int GROUP_THREADS = 32 * WM * WN, THREADS = GROUP_THREADS * GROUPS;
 };
+
+// The expert-batched grid: blockIdx.y = expert * m_tiles + M tile, where
+// M (the rows an expert) takes m_tiles tiles of BM. Returns the expert and
+// sets mt to its M tile; with one expert (gridDim.y == m_tiles) the expert
+// is 0 and mt blockIdx.y.
+template <int BM>
+__device__ __forceinline__ int expert_tile(int M, int& mt) {
+  const int m_tiles = (M + BM - 1) / BM;
+  const int e = static_cast<int>(blockIdx.y) / m_tiles;
+  mt = static_cast<int>(blockIdx.y) - e * m_tiles;
+  return e;
+}
+
+// The grid of E experts' BM x BN tiles of [M, N] with S splits each; an
+// invalid grid (y past the hardware's 65535) has y = 0.
+template <int BM>
+inline dim3 expert_grid(int M, int N, int E, int splits) {
+  const long long y = static_cast<long long>(E) * ((M + BM - 1) / BM);
+  return dim3((N + Tile<BM>::BN - 1) / Tile<BM>::BN, y <= 65535 ? static_cast<unsigned>(y) : 0u,
+              splits);
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -365,7 +392,7 @@ template <int BM, auto Kernel, typename... Args>
 inline int launch_upto(int smem, int smem_max, int share, dim3 grid,
                        cudaStream_t st, Args... args) {
   const unsigned size = grid.z * share;
-  if (size > MAX_SPLITS || smem > smem_max || grid.x % share != 0)
+  if (size > MAX_SPLITS || smem > smem_max || grid.x % share != 0 || grid.y == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSuccess;
   if (smem > 40 * 1024)

@@ -34,6 +34,16 @@
 //    and bias were loaded before the mainloop.
 //  * The epilogue uses __fmul_rn / __fadd_rn, never contracted into an FMA.
 //
+// Expert-batched (the MoE block's projections, which the reference runs as
+// jax.vmap of linear() over the expert axis: one pallas_call with the
+// expert index in its grid): E experts' operands back to back in one
+// launch, E x m_tiles M tiles on the grid's y axis (gemm_mainloop.cuh
+// expert_tile), each CTA offsetting A, the weight, the scales, the bias and
+// C to its expert's; the clusters span x and z only, so a tile's K splits
+// (and the quantize-in cluster) are one expert's. gemm_plan.plan(...,
+// experts=E) counts the E experts' tiles against MAX_CTAS. The
+// quantize-out variant takes one expert.
+//
 // Quantize-out variant (replaces qmatmul_w8a16_q8_pallas,
 // src/repro/kernels/qmatmul_w8a16/kernel.py:127): the same mainloops and
 // the same float32 y = acc * sw + bias (never rounded to a's type), then
@@ -111,6 +121,12 @@ struct Epilogue {
     const float o = __fmul_rn(acc, s);
     return bias != nullptr ? __fadd_rn(o, b) : o;
   }
+  // expert e's scale ([E, N], or [E, 1] per-tensor) and bias ([E, N])
+  __device__ __forceinline__ void to_expert(size_t e, int N) {
+    const size_t width = (sw_bf16 ? 2 : 4), bwidth = (bias_bf16 ? 2 : 4);
+    sw = static_cast<const char*>(sw) + e * (ss ? N : 1) * width;
+    if (bias != nullptr) bias = static_cast<const char*>(bias) + e * N * bwidth;
+  }
 };
 
 // ROUTE (both kernels; q8_epilogue.cuh): NONE writes C; RESIDENT and
@@ -126,7 +142,13 @@ w8a16_bf16_kernel(const __nv_bfloat16* __restrict__ A,
   __shared__ unsigned smax[BM];
   const W w;
   constexpr int BN = repro::gemm::Tile<BM>::BN;
-  int mt = blockIdx.y, nt = blockIdx.x;
+  int mt, nt = blockIdx.x;
+  // this CTA's expert's operands (expert 0 on the quantize-out routes)
+  const size_t e = repro::gemm::expert_tile<BM>(M, mt);
+  A += e * M * K;
+  Bt += e * N * K;
+  ep.to_expert(e, N);
+  if constexpr (ROUTE == q8r::NONE) C += e * M * N;
   if constexpr (ROUTE != q8r::NONE) q8r::take_tile(q8, gridDim.x, mt, nt);
   const int m0 = mt * BM, n0 = nt * BN;
   if constexpr (ROUTE != q8r::NONE)
@@ -254,7 +276,12 @@ w8a16_f32_kernel(const float* __restrict__ A, const int8_t* __restrict__ Bt,
   __shared__ unsigned smax[BM];
   const int tid = threadIdx.x % repro::gemm::Tile<BM>::GROUP_THREADS;
   const int col_l = tid % BN, rg = tid / BN;
-  int mt = blockIdx.y, nt = blockIdx.x;
+  int mt, nt = blockIdx.x;
+  const size_t e = repro::gemm::expert_tile<BM>(M, mt);
+  A += e * M * K;
+  Bt += e * N * K;
+  ep.to_expert(e, N);
+  if constexpr (ROUTE == q8r::NONE) C += e * M * N;
   if constexpr (ROUTE != q8r::NONE) q8r::take_tile(q8, gridDim.x, mt, nt);
   const int m0 = mt * BM, n0 = nt * BN, col = n0 + col_l;
   if constexpr (ROUTE != q8r::NONE)
@@ -331,11 +358,10 @@ w8a16_f32_kernel(const float* __restrict__ A, const int8_t* __restrict__ Bt,
 
 template <int BM>
 int launch_tiles(const void* a, const void* wt, Epilogue ep, void* c,
-                 const repro::q8::Call& q8, int M, int N, int K, int splits,
-                 int a_bf16, int vec, cudaStream_t st) {
+                 const repro::q8::Call& q8, int M, int N, int K, int E,
+                 int splits, int a_bf16, int vec, cudaStream_t st) {
   namespace q8r = repro::q8;
-  constexpr int BN = repro::gemm::Tile<BM>::BN;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  const dim3 grid = repro::gemm::expert_grid<BM>(M, N, E, splits);
   const int8_t* Bt = static_cast<const int8_t*>(wt);
   const q8r::Args args = q8.args(M, BM);
   using repro::gemm::launch;
@@ -362,16 +388,18 @@ int launch_tiles(const void* a, const void* wt, Epilogue ep, void* c,
 }
 
 int dispatch(const void* a, const void* wt, Epilogue ep, void* c,
-             const repro::q8::Call& q8, int M, int N, int K, int bm,
+             const repro::q8::Call& q8, int M, int N, int K, int E, int bm,
              int splits, int a_bf16, int vec, void* stream) {
+  if (E < 1 || (E > 1 && q8.route != repro::q8::NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == 16)
-    return launch_tiles<16>(a, wt, ep, c, q8, M, N, K, splits, a_bf16, vec, st);
+    return launch_tiles<16>(a, wt, ep, c, q8, M, N, K, E, splits, a_bf16, vec, st);
   if (bm == 64)
-    return launch_tiles<64>(a, wt, ep, c, q8, M, N, K, splits, a_bf16, vec, st);
+    return launch_tiles<64>(a, wt, ep, c, q8, M, N, K, E, splits, a_bf16, vec, st);
   if (bm == 128)
-    return launch_tiles<128>(a, wt, ep, c, q8, M, N, K, splits, a_bf16, vec,
+    return launch_tiles<128>(a, wt, ep, c, q8, M, N, K, E, splits, a_bf16, vec,
                              st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -394,14 +422,17 @@ int resident(int splits, int a_bf16, int* out) {
 // float32 or bf16 (bias_bf16) or NULL; c [M, N] in a's type — all
 // contiguous. bm (16, 64 or 128) and splits (1 ... 16, the K splits of a tile)
 // come from kernels/gemm_plan.py. `vec` = 1 when K % 16 == 0 and a and wt
-// are 16-byte aligned.
+// are 16-byte aligned. E > 1 experts in one launch: each operand E of those
+// back to back (a [E, M, K], wt [E, N, K], sw [E, N] or [E, 1], bias
+// [E, N], c [E, M, N]).
 extern "C" int repro_qmatmul_w8a16(const void* a, const void* wt,
                                    const void* sw, int sw_stride, int sw_bf16,
                                    const void* bias, int bias_bf16, void* c,
-                                   int M, int N, int K, int bm, int splits,
-                                   int a_bf16, int vec, void* stream) {
+                                   int M, int N, int K, int E, int bm,
+                                   int splits, int a_bf16, int vec,
+                                   void* stream) {
   const Epilogue ep{sw, sw_stride, sw_bf16, bias, bias_bf16};
-  return dispatch(a, wt, ep, c, repro::q8::Call{}, M, N, K, bm, splits,
+  return dispatch(a, wt, ep, c, repro::q8::Call{}, M, N, K, E, bm, splits,
                   a_bf16, vec, stream);
 }
 
@@ -433,7 +464,7 @@ extern "C" int repro_qmatmul_w8a16_q8(const void* a, const void* wt,
   q8.s = s;
   if (route == repro::q8::NONE || qmax < 0 || qmax > 127)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(a, wt, ep, nullptr, q8, M, N, K, bm, splits, a_bf16, vec,
+  return dispatch(a, wt, ep, nullptr, q8, M, N, K, 1, bm, splits, a_bf16, vec,
                   stream);
 }
 

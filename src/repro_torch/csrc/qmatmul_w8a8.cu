@@ -27,6 +27,16 @@
 // The epilogue uses __fmul_rn / __fadd_rn so it is never contracted into an
 // FMA: for float32 output the result is bit-equal to the plain version.
 //
+// Expert-batched (the MoE block's projections, which the reference runs as
+// jax.vmap of linear() over the expert axis: one pallas_call with the
+// expert index in its grid): E experts' operands back to back in one
+// launch, E x m_tiles M tiles on the grid's y axis (gemm_mainloop.cuh
+// expert_tile), each CTA offsetting A, the weight, the scales, the bias and
+// C to its expert's; the clusters span x and z only, so a tile's K splits
+// (and the quantize-in cluster) are one expert's. gemm_plan.plan(...,
+// experts=E) counts the E experts' tiles against MAX_CTAS. The
+// quantize-out variant takes one expert.
+//
 // Quantize-in variant (qmatmul_w8a8_qin: quantize_act folded into this
 // GEMM, wherever kernels/gemm_plan.py folds — every decode tile, M <= 16):
 // A is the float activation (bfloat16 or float32), not int8 + sa. Every CTA
@@ -103,7 +113,15 @@ qmatmul_w8a8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
   __shared__ unsigned smax[BM];
   const W w;
   constexpr int BN = repro::gemm::Tile<BM>::BN;
-  int mt = blockIdx.y, nt = blockIdx.x;
+  int mt, nt = blockIdx.x;
+  // this CTA's expert's operands (expert 0 on the quantize-out routes)
+  const size_t e = repro::gemm::expert_tile<BM>(M, mt);
+  A += e * M * K;
+  Bt += e * N * K;
+  sa += e * M;
+  sw += e * N;
+  bias += e * N;
+  if constexpr (ROUTE == q8r::NONE) C += e * M * N;
   if constexpr (ROUTE != q8r::NONE) q8r::take_tile(q8, gridDim.x, mt, nt);
   const int m0 = mt * BM, n0 = nt * BN;
   if constexpr (ROUTE != q8r::NONE)
@@ -477,7 +495,18 @@ qmatmul_w8a8_qin_kernel(const XT* __restrict__ X, const int8_t* __restrict__ Bt,
   __shared__ uint64_t bar[2];
   const W w;
   constexpr int BN = repro::gemm::Tile<BM>::BN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  int mt;
+  const size_t e = repro::gemm::expert_tile<BM>(M, mt);
+  X += e * M * K;
+  Bt += e * N * K;
+  sw += e * N;
+  bias += e * N;
+  C += e * M * N;
+  if (AQ != nullptr) {
+    AQ += e * M * K;
+    AS += e * M;
+  }
+  const int m0 = mt * BM, n0 = blockIdx.x * BN;
   float col_s[W::NT][2], col_b[W::NT][2];
 #pragma unroll
   for (int j = 0; j < W::NT; ++j)
@@ -548,13 +577,13 @@ qmatmul_w8a8_qin_kernel(const XT* __restrict__ X, const int8_t* __restrict__ Bt,
 
 template <typename XT>
 int launch_qin(const void* x, const void* wt, const void* sw, const void* bias,
-               void* c, void* aq, void* as, int M, int N, int K, int bm,
+               void* c, void* aq, void* as, int M, int N, int K, int E, int bm,
                int splits, int share, int out_bf16, int vec, cudaStream_t st) {
-  constexpr int BM = QBM, BN = repro::gemm::Tile<BM>::BN;
+  constexpr int BM = QBM;
   if (bm != BM || share < 1) return static_cast<int>(cudaErrorInvalidValue);
   // N tiles rounded up to whole clusters; the CTAs past N only quantize
-  const int n_tiles = (N + BN - 1) / BN;
-  const dim3 grid((n_tiles + share - 1) / share * share, (M + BM - 1) / BM, splits);
+  dim3 grid = repro::gemm::expert_grid<BM>(M, N, E, splits);
+  grid.x = (grid.x + share - 1) / share * share;
   const long long steps = (K + BK - 1) / BK;
   const long long longest = (steps + splits - 1) / splits;  // a split's steps
   // the reduction reuses the ring's shared memory, which holds its partials
@@ -581,11 +610,10 @@ int launch_qin(const void* x, const void* wt, const void* sw, const void* bias,
 template <int BM>
 int launch_tiles(const void* a, const void* wt, const void* sa, const void* sw,
                  const void* bias, void* c, const repro::q8::Call& q8, int M,
-                 int N, int K, int splits, int out_bf16, int vec,
+                 int N, int K, int E, int splits, int out_bf16, int vec,
                  cudaStream_t st) {
   namespace q8r = repro::q8;
-  constexpr int BN = repro::gemm::Tile<BM>::BN;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  const dim3 grid = repro::gemm::expert_grid<BM>(M, N, E, splits);
   const int8_t* A = static_cast<const int8_t*>(a);
   const int8_t* Bt = static_cast<const int8_t*>(wt);
   const float* SA = static_cast<const float*>(sa);
@@ -610,18 +638,20 @@ int launch_tiles(const void* a, const void* wt, const void* sa, const void* sw,
 
 int dispatch(const void* a, const void* wt, const void* sa, const void* sw,
              const void* bias, void* c, const repro::q8::Call& q8, int M,
-             int N, int K, int bm, int splits, int out_bf16, int vec,
+             int N, int K, int E, int bm, int splits, int out_bf16, int vec,
              void* stream) {
+  if (E < 1 || (E > 1 && q8.route != repro::q8::NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == 16)
-    return launch_tiles<16>(a, wt, sa, sw, bias, c, q8, M, N, K, splits,
+    return launch_tiles<16>(a, wt, sa, sw, bias, c, q8, M, N, K, E, splits,
                             out_bf16, vec, st);
   if (bm == 64)
-    return launch_tiles<64>(a, wt, sa, sw, bias, c, q8, M, N, K, splits,
+    return launch_tiles<64>(a, wt, sa, sw, bias, c, q8, M, N, K, E, splits,
                             out_bf16, vec, st);
   if (bm == 128)
-    return launch_tiles<128>(a, wt, sa, sw, bias, c, q8, M, N, K, splits,
+    return launch_tiles<128>(a, wt, sa, sw, bias, c, q8, M, N, K, E, splits,
                              out_bf16, vec, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -637,15 +667,17 @@ int resident(int splits, int* out) {
 }  // namespace
 
 // a [M, K] int8, wt [N, K] int8 (the K-major weight), sa [M], sw [N],
-// bias [N] float32, c [M, N] float32 or bfloat16 — all contiguous. bm (16, 64
-// or 128) and splits (1 ... 16, the K splits of a tile) come from
-// kernels/gemm_plan.py. `vec` = 1 when K % 16 == 0 and both int8 bases are
-// 16-byte aligned.
+// bias [N] float32, c [M, N] float32 or bfloat16 — all contiguous; E > 1
+// experts in one launch: each operand E of those back to back ([E, M, K],
+// [E, N, K], [E, M], [E, N], [E, N], [E, M, N]). bm (16, 64 or 128) and
+// splits (1 ... 16, the K splits of a tile) come from kernels/gemm_plan.py.
+// `vec` = 1 when K % 16 == 0 and both int8 bases are 16-byte aligned.
 extern "C" int repro_qmatmul_w8a8(const void* a, const void* wt, const void* sa,
                                   const void* sw, const void* bias, void* c,
-                                  int M, int N, int K, int bm, int splits,
-                                  int out_bf16, int vec, void* stream) {
-  return dispatch(a, wt, sa, sw, bias, c, repro::q8::Call{}, M, N, K, bm,
+                                  int M, int N, int K, int E, int bm,
+                                  int splits, int out_bf16, int vec,
+                                  void* stream) {
+  return dispatch(a, wt, sa, sw, bias, c, repro::q8::Call{}, M, N, K, E, bm,
                   splits, out_bf16, vec, stream);
 }
 
@@ -656,21 +688,24 @@ extern "C" int repro_qmatmul_w8a8(const void* a, const void* wt, const void* sa,
 // float32 (else both null) the launch also writes the quantized activation
 // out — quantize_act's output — for the other GEMMs that read x. `vec` = 1
 // when K % 16 == 0 and the bases of x, wt and aq are 16-byte aligned.
+// E > 1 experts in one launch, each operand back to back as
+// repro_qmatmul_w8a8's (x and aq [E, M, K], as [E, M]).
 // Returns cudaErrorInvalidValue at a tile other than the decode tile (bm
 // 16) and where the resident int8 slice does not fit (QIN_SMEM_MAX;
 // gemm_plan.GemmPlan.fold).
 extern "C" int repro_qmatmul_w8a8_qin(const void* x, const void* wt,
                                       const void* sw, const void* bias,
                                       void* c, void* aq, void* as, int M,
-                                      int N, int K, int bm, int splits,
+                                      int N, int K, int E, int bm, int splits,
                                       int share, int x_bf16, int out_bf16,
                                       int vec, void* stream) {
+  if (E < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return launch_qin<__nv_bfloat16>(x, wt, sw, bias, c, aq, as, M, N, K, bm,
-                                     splits, share, out_bf16, vec, st);
-  return launch_qin<float>(x, wt, sw, bias, c, aq, as, M, N, K, bm, splits,
+    return launch_qin<__nv_bfloat16>(x, wt, sw, bias, c, aq, as, M, N, K, E,
+                                     bm, splits, share, out_bf16, vec, st);
+  return launch_qin<float>(x, wt, sw, bias, c, aq, as, M, N, K, E, bm, splits,
                            share, out_bf16, vec, st);
 }
 
@@ -698,7 +733,7 @@ extern "C" int repro_qmatmul_w8a8_q8(const void* a, const void* wt,
   q8.s = s;
   if (route == repro::q8::NONE || qmax < 0 || qmax > 127)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(a, wt, sa, sw, bias, nullptr, q8, M, N, K, bm, splits, 0,
+  return dispatch(a, wt, sa, sw, bias, nullptr, q8, M, N, K, 1, bm, splits, 0,
                   vec, stream);
 }
 

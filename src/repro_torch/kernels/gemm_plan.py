@@ -21,6 +21,14 @@ walk 24 steps (chip_smoke.py's split sweep times every path shape at
 several S). At the path's shapes this splits only the down projection
 (K = 4864), in 4.
 
+An expert-batched GEMM (the MoE block's: E experts' [M, K] x [K, N] in one
+launch) puts its E x m_tiles M tiles on the grid's second axis — expert
+``y // m_tiles``, M tile ``y % m_tiles`` — which no cluster spans, so a
+tile's splits and its quantize-in neighbours are one expert's. ``plan(M,
+N, K, experts=E)`` counts the E experts' tiles against ``MAX_CTAS``: at a
+mixtral decode step the gate/up projections' 8 x 1024 tiles fill the card
+without a split.
+
 The W8A8 GEMM may also quantize its own activation (``fold``: the
 quantize-in kernel of ``csrc/qmatmul_w8a8.cu``, one launch in place of
 ``quantize_act`` + the int8 GEMM, the same bits). Each CTA keeps its
@@ -113,14 +121,16 @@ class GemmPlan:
     # on the card, as the wrappers read it; None where not given
     residency: Optional[int] = None
     q8_route: Optional[str] = None  # Q8_ROUTES[i], or None without residency
+    experts: int = 1  # E, the experts of an expert-batched launch
 
     @property
     def tiles(self) -> int:
+        """An expert's output tiles."""
         return self.m_tiles * self.n_tiles
 
     @property
     def ctas(self) -> int:
-        return self.tiles * self.splits
+        return self.experts * self.tiles * self.splits
 
     @property
     def qin_smem(self) -> int:
@@ -184,9 +194,11 @@ class GemmPlan:
 @functools.lru_cache(maxsize=1024)
 def plan(M: int, N: int, K: int, *, splits: Optional[int] = None,
          residency: Optional[int] = None,
-         route: Optional[str] = None, bm: Optional[int] = None) -> GemmPlan:
+         route: Optional[str] = None, bm: Optional[int] = None,
+         experts: int = 1) -> GemmPlan:
     """The tiles and splits of one GEMM call (cached: the wrappers plan
-    every call, and the serving loop is bound by the host). ``splits``
+    every call, and the serving loop is bound by the host); ``experts`` E
+    for an expert-batched call, M rows an expert. ``splits``
     forces S (the wrappers' private ``_splits``, to sweep the reduction); it
     must lie in [1, max_splits]. ``residency`` (the quantize-out kernel's
     resident clusters at this tile and S) sets ``q8_route``; ``route``
@@ -194,6 +206,9 @@ def plan(M: int, N: int, K: int, *, splits: Optional[int] = None,
     may be taken, ``"resident"`` only where the residency allows it.
     ``bm`` forces the tile (``TILES``; the quantize-out plan's choice,
     ``q8_plan``)."""
+    if experts < 1 or (experts > 1 and residency is not None):
+        raise ValueError(f"experts={experts}: an expert-batched GEMM is 1 or "
+                         f"more experts, and has no quantize-out route")
     if bm is None:
         bm = 16 if M <= 16 else 64 if M <= 256 else 128
     elif bm not in TILES:
@@ -203,7 +218,7 @@ def plan(M: int, N: int, K: int, *, splits: Optional[int] = None,
     top = max_splits(k_steps)
     if splits is None:
         splits = min(_cdiv(k_steps, MAX_STEPS), top,
-                     max(1, MAX_CTAS // (m_tiles * n_tiles)))
+                     max(1, MAX_CTAS // (experts * m_tiles * n_tiles)))
     elif not 1 <= splits <= top:
         raise ValueError(f"splits={splits} outside [1, {top}] for K={K} "
                          f"({k_steps} steps of {BK}, at least {MIN_STEPS} a "
@@ -225,7 +240,7 @@ def plan(M: int, N: int, K: int, *, splits: Optional[int] = None,
     elif route is not None:
         raise ValueError("route needs the card's residency")
     return GemmPlan(M, N, K, bm, m_tiles, n_tiles, k_steps, splits,
-                    residency, q8_route)
+                    residency, q8_route, experts)
 
 
 def q8_plan(M: int, N: int, K: int, residency: Callable[[int, int], int], *,

@@ -5,6 +5,10 @@ counter, ``qmatmul_w8a16_q8``): the GEMM emits (int8 out, per-row scale) in
 one launch, the ``quantize_act`` formula applied to the float32 result. It
 is checked against the blocked ``qmatmul_w8a16_q8_ref`` (float32
 accumulation order matters here, unlike the exact W8A8 case).
+
+A leading expert axis on every operand (the MoE block's projections) is
+one expert-batched launch on the card; the plain version loops over the
+experts.
 """
 from __future__ import annotations
 
@@ -28,6 +32,11 @@ def _w8a16_cuda(a, w_q, w_scale, bias, *, out_dtype):
 
 @register_impl("qmatmul_w8a16", "torch", pad="zero")
 def _w8a16_torch(a, w_q, w_scale, bias, *, out_dtype):
+    if a.ndim == 3:
+        return torch.stack([
+            qmatmul_w8a16_ref(a[e], w_q[e], w_scale[e],
+                              None if bias is None else bias[e], out_dtype)
+            for e in range(a.shape[0])])
     return qmatmul_w8a16_ref(a, w_q, w_scale, bias, out_dtype)
 
 
@@ -49,7 +58,15 @@ def qmatmul_w8a16(a: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     int8, w_scale [N] | [1], bias [N] or None; ``out_dtype`` defaults to
     a's dtype, the one the kernel writes. ``quantize_out=True`` returns
     (y_q int8 [M, N], y_scale float32 [M]) from the fused epilogue
-    instead."""
+    instead. E experts at once: a [E, M, K], w_q [E, K, N], w_scale [E, N]
+    | [E, 1], bias [E, N] → [E, M, N] (no ``quantize_out``)."""
+    if a.ndim == 3:
+        if quantize_out:
+            raise ValueError("qmatmul_w8a16: the quantize-out epilogue takes "
+                             "no expert axis")
+        return resolve("qmatmul_w8a16", a, backend)(
+            a, w_q, w_scale, bias,
+            out_dtype=a.dtype if out_dtype is None else out_dtype)
     if quantize_out:
         return resolve("qmatmul_w8a16_q8", a, backend)(
             a, w_q, torch.atleast_1d(w_scale), bias)

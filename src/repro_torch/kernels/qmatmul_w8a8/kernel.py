@@ -15,6 +15,13 @@ The quantize-out variant's route (``GemmPlan.q8_route``) comes from
 ``gemm_plan.q8_plan`` and the card's residency, read once per kernel
 instantiation (``q8_residency``); ``qmatmul_w8a8_q8_plan`` gives the plan a
 call launches, and the private ``_route`` keyword forces a route.
+
+Expert-batched (the MoE block's projections): the GEMM and its quantize-in
+variant take every operand with a leading expert axis — a_q or x
+[E, M, K], w_q [E, K, N] (each expert's K-major), a_scale [E, M],
+w_scale and bias [E, N] → [E, M, N] — in ONE launch, the expert index in
+the grid (``gemm_plan.plan(..., experts=E)``); the quantize-out variant
+takes no expert axis.
 """
 from __future__ import annotations
 
@@ -26,10 +33,10 @@ import torch
 from .. import _build, gemm_plan
 from ..dispatch import count_launch, stream_scratch
 
-_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,))
+_ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,))
 _ARGS_Q8 = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 10
             + (ctypes.c_void_p,))
-_ARGS_QIN = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 9
+_ARGS_QIN = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 10
              + (ctypes.c_void_p,))
 
 
@@ -86,23 +93,29 @@ def q8_qmax(bits: int, who: str) -> int:
     return 2 ** (bits - 1) - 1
 
 
-def _checked(a, w_q, a_scale, w_scale, bias, who, a_dtypes=(torch.int8,)):
+def _checked(a, w_q, a_scale, w_scale, bias, who, a_dtypes=(torch.int8,),
+             experts=False):
     """Check the operands (``a_scale`` None for the quantize-in variant,
-    whose ``a`` is float); return (a contiguous, the [N, K] weight, vec)."""
+    whose ``a`` is float; ``experts``: each with a leading expert axis);
+    return (a contiguous, the [N, K] weight, vec)."""
     tensors = {"a": a, "w_q": w_q, "a_scale": a_scale,
                "w_scale": w_scale, "bias": bias}
     for name, t in tensors.items():
         if t is not None and (t.device.type != "cuda" or t.device != a.device):
             raise ValueError(f"{who}: {name} is on {t.device}, expected "
                              f"{a.device}")
-    if a.dtype not in a_dtypes or w_q.dtype != torch.int8 or a.ndim != 2 \
-            or w_q.ndim != 2 or a.shape[1] != w_q.shape[0]:
-        raise ValueError(f"{who}: want a [M, K] of {a_dtypes} and int8 w "
-                         f"[K, N], got {tuple(a.shape)} {a.dtype} and "
+    lead = tuple(a.shape[:1]) if experts else ()
+    nd = 3 if experts else 2
+    if a.dtype not in a_dtypes or w_q.dtype != torch.int8 or a.ndim != nd \
+            or w_q.ndim != nd or a.shape[-1] != w_q.shape[-2] \
+            or tuple(w_q.shape[:-2]) != lead:
+        e = "E, " if experts else ""
+        raise ValueError(f"{who}: want a [{e}M, K] of {a_dtypes} and int8 w "
+                         f"[{e}K, N], got {tuple(a.shape)} {a.dtype} and "
                          f"{tuple(w_q.shape)} {w_q.dtype}")
-    M, K = a.shape
-    N = w_q.shape[1]
-    wt = w_q.t()
+    M, K = a.shape[-2:]
+    N = w_q.shape[-1]
+    wt = w_q.transpose(-1, -2)
     if not wt.is_contiguous():
         raise ValueError(f"{who}: w_q must be the [K, N] view of a "
                          f"contiguous [N, K] buffer (QTensor's K-major "
@@ -111,10 +124,11 @@ def _checked(a, w_q, a_scale, w_scale, bias, who, a_dtypes=(torch.int8,)):
                        ("bias", bias, N)):
         if t is None:
             continue
-        if t.dtype != torch.float32 or tuple(t.shape) != (n,) \
+        if t.dtype != torch.float32 or tuple(t.shape) != lead + (n,) \
                 or not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous float32 "
-                             f"[{n}], got {tuple(t.shape)} {t.dtype}")
+                             f"{list(lead) + [n]}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
     a = a.contiguous()
     vec = int(K % 16 == 0 and a.data_ptr() % 16 == 0
               and wt.data_ptr() % 16 == 0)
@@ -126,20 +140,23 @@ def qmatmul_w8a8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
                       bias: torch.Tensor, *, out_dtype=torch.float32,
                       _splits: Optional[int] = None):
     """a_q [M, K] int8, w_q [K, N] int8 (K-major), a_scale [M], w_scale [N],
-    bias [N] float32, all on the card → [M, N] ``out_dtype``."""
+    bias [N] float32, all on the card → [M, N] ``out_dtype``; or E experts'
+    in one launch, each operand with a leading expert axis."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"qmatmul_w8a8_cuda: out_dtype {out_dtype} not "
                          f"supported (float32 | bfloat16)")
+    experts = a_q.ndim == 3
     a_q, wt, vec = _checked(a_q, w_q, a_scale, w_scale, bias,
-                            "qmatmul_w8a8_cuda")
-    M, K = a_q.shape
-    N = wt.shape[0]
+                            "qmatmul_w8a8_cuda", experts=experts)
+    E = a_q.shape[0] if experts else 1
+    M, K = a_q.shape[-2:]
+    N = wt.shape[-2]
     dev = a_q.device
-    plan = gemm_plan.plan(M, N, K, splits=_splits)
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    plan = gemm_plan.plan(M, N, K, splits=_splits, experts=E)
+    out = torch.empty(a_q.shape[:-1] + (N,), dtype=out_dtype, device=dev)
     _build.call("repro_qmatmul_w8a8", _ARGS, a_q.data_ptr(), wt.data_ptr(),
                 a_scale.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), M, N, K, plan.bm, plan.splits,
+                out.data_ptr(), M, N, K, E, plan.bm, plan.splits,
                 int(out_dtype == torch.bfloat16), vec,
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a8")
@@ -197,17 +214,21 @@ def qmatmul_w8a8_qin_cuda(x: torch.Tensor, w_q: torch.Tensor,
     ``qmatmul_w8a8_cuda``; ``quantized=True`` returns (y, x_q int8 [M, K],
     x_scale float32 [M]), the launch also writing out the quantized
     activation (``quantize_act_cuda(x)``'s) for other GEMMs that read x.
+    E experts' in one launch: every operand with a leading expert axis (x
+    [E, M, K] → y [E, M, N], x_q [E, M, K], x_scale [E, M]).
     Raises where the plan does not fold (``gemm_plan.GemmPlan.fold``): a
     tile other than the decode tile (M > 16), or an int8 slice of x over
     the kernel's shared memory."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"qmatmul_w8a8_qin_cuda: out_dtype {out_dtype} not "
                          f"supported (float32 | bfloat16)")
+    experts = x.ndim == 3
     x, wt, vec = _checked(x, w_q, None, w_scale, bias, "qmatmul_w8a8_qin_cuda",
-                          (torch.float32, torch.bfloat16))
-    M, K = x.shape
-    N = wt.shape[0]
-    plan = gemm_plan.plan(M, N, K, splits=_splits)
+                          (torch.float32, torch.bfloat16), experts)
+    E = x.shape[0] if experts else 1
+    M, K = x.shape[-2:]
+    N = wt.shape[-2]
+    plan = gemm_plan.plan(M, N, K, splits=_splits, experts=E)
     if plan.bm not in gemm_plan.FOLD_BM:
         raise ValueError(f"qmatmul_w8a8_qin_cuda: M={M} takes {plan.bm}-row "
                          f"tiles; the GEMM quantizes its own activation only "
@@ -219,16 +240,17 @@ def qmatmul_w8a8_qin_cuda(x: torch.Tensor, w_q: torch.Tensor,
                          f"of shared memory, more than "
                          f"{gemm_plan.QIN_SMEM_MAX}: quantize_act, then "
                          f"qmatmul_w8a8")
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    lead = x.shape[:-1]
+    out = torch.empty(lead + (N,), dtype=out_dtype, device=x.device)
     a_q = a_s = None
     if quantized:
-        a_q = torch.empty((M, K), dtype=torch.int8, device=x.device)
-        a_s = torch.empty((M,), dtype=torch.float32, device=x.device)
+        a_q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        a_s = torch.empty(lead, dtype=torch.float32, device=x.device)
         vec &= int(a_q.data_ptr() % 16 == 0)
     _build.call("repro_qmatmul_w8a8_qin", _ARGS_QIN, x.data_ptr(),
                 wt.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), None if a_q is None else a_q.data_ptr(),
-                None if a_s is None else a_s.data_ptr(), M, N, K, plan.bm,
+                None if a_s is None else a_s.data_ptr(), M, N, K, E, plan.bm,
                 plan.splits, plan.share, int(x.dtype == torch.bfloat16),
                 int(out_dtype == torch.bfloat16), vec,
                 torch.cuda.current_stream(x.device).cuda_stream)

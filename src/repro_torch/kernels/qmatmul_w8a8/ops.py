@@ -19,6 +19,10 @@ per row first (``quantize_act``), as the JAX package's ``quantize_input``
 The model calls it wherever ``gemm_plan`` folds (``GemmPlan.fold``), for
 the first projection that reads an activation, which also hands the
 quantized activation to the others (``quantized=True``).
+
+A leading expert axis on every operand (the MoE block's projections) is
+one expert-batched launch of the GEMM or its quantize-in variant on the
+card; the plain versions loop over the experts.
 """
 from __future__ import annotations
 
@@ -42,8 +46,21 @@ def _w8a8_cuda(a_q, w_q, a_scale, w_scale, bias, *, out_dtype):
                              out_dtype=out_dtype)
 
 
+def _per_expert(fn, *args, **kw):
+    """``fn`` over each expert's slice of every tensor argument, stacked
+    (a tuple result stacked item by item)."""
+    outs = [fn(*(a[e] if isinstance(a, torch.Tensor) else a for a in args),
+               **kw) for e in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 @register_impl("qmatmul_w8a8", "torch", pad="zero")
 def _w8a8_torch(a_q, w_q, a_scale, w_scale, bias, *, out_dtype):
+    if a_q.ndim == 3:
+        return _per_expert(qmatmul_w8a8_ref, a_q, w_q, a_scale, w_scale,
+                           bias, out_dtype)
     return qmatmul_w8a8_ref(a_q, w_q, a_scale, w_scale, bias, out_dtype)
 
 
@@ -65,16 +82,21 @@ def _w8a8_qin_cuda(x, w_q, w_scale, bias, *, out_dtype, quantized):
 
 @register_impl("qmatmul_w8a8_qin", "torch", pad="zero")
 def _w8a8_qin_torch(x, w_q, w_scale, bias, *, out_dtype, quantized):
+    if x.ndim == 3:
+        return _per_expert(qmatmul_w8a8_qin_ref, x, w_q, w_scale, bias,
+                           out_dtype, quantized)
     return qmatmul_w8a8_qin_ref(x, w_q, w_scale, bias, out_dtype, quantized)
 
 
-def _scale_bias(w_scale, bias, N: int, dev):
-    """w_scale broadcast to float32 [N]; bias float32 [N], zeros if None."""
-    w_scale = torch.broadcast_to(
-        torch.as_tensor(w_scale, dtype=torch.float32, device=dev), (N,)
-    ).contiguous()
-    bias = (torch.zeros((N,), dtype=torch.float32, device=dev) if bias is None
-            else bias.to(torch.float32).contiguous())
+def _scale_bias(w_scale, bias, lead: tuple, N: int, dev):
+    """w_scale broadcast to float32 [*lead, N]; bias float32 [*lead, N],
+    zeros if None (``lead`` (E,) for expert-stacked operands, else ())."""
+    w_scale = torch.as_tensor(w_scale, dtype=torch.float32, device=dev)
+    if lead and w_scale.ndim == 1:
+        w_scale = w_scale[:, None]
+    w_scale = torch.broadcast_to(w_scale, lead + (N,)).contiguous()
+    bias = (torch.zeros(lead + (N,), dtype=torch.float32, device=dev)
+            if bias is None else bias.to(torch.float32).contiguous())
     return w_scale, bias
 
 
@@ -86,8 +108,11 @@ def qmatmul_w8a8_qin(x: torch.Tensor, w_q: torch.Tensor, w_scale,
     bfloat16, w_q [K, N] int8, w_scale [N] | [1], bias [N]: the same bits as
     ``quantize_act`` followed by ``qmatmul_w8a8``. ``quantized=True``
     returns (y, x_q, x_scale), ``quantize_act(x)`` for the other W8A8
-    projections that read x (on the card, from the same launch)."""
-    w_scale, bias = _scale_bias(w_scale, bias, w_q.shape[1], x.device)
+    projections that read x (on the card, from the same launch). E experts
+    at once: x [E, M, K], w_q [E, K, N], w_scale [E, N] | [E, 1], bias
+    [E, N] → [E, M, N] (x_q [E, M, K], x_scale [E, M])."""
+    w_scale, bias = _scale_bias(w_scale, bias, tuple(x.shape[:-2]),
+                                w_q.shape[-1], x.device)
     return resolve("qmatmul_w8a8_qin", x, backend)(x, w_q, w_scale, bias,
                                           out_dtype=out_dtype,
                                           quantized=quantized)
@@ -103,14 +128,22 @@ def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,
     [M] | scalar for asymmetric activations (see the module docstring).
 
     ``quantize_out=True`` returns (y_q int8 [M, N], y_scale float32 [M])
-    instead — the fused GEMM + quantize epilogue feeding a W8A8 layer."""
-    M = a_q.shape[0]
-    N = w_q.shape[1]
+    instead — the fused GEMM + quantize epilogue feeding a W8A8 layer.
+
+    E experts at once: a_q [E, M, K], w_q [E, K, N], a_scale [E, M],
+    w_scale [E, N] | [E, 1], bias [E, N] → [E, M, N] (symmetric, no
+    ``quantize_out``)."""
+    lead = tuple(a_q.shape[:-2])
+    M = a_q.shape[-2]
+    N = w_q.shape[-1]
     dev = a_q.device
+    if lead and (a_zero_point is not None or quantize_out):
+        raise ValueError("qmatmul_w8a8: an expert axis takes symmetric "
+                         "activations and no quantize-out epilogue")
     a_scale = torch.broadcast_to(
-        torch.as_tensor(a_scale, dtype=torch.float32, device=dev), (M,)
+        torch.as_tensor(a_scale, dtype=torch.float32, device=dev), lead + (M,)
     ).contiguous()
-    w_scale, bias = _scale_bias(w_scale, bias, N, dev)
+    w_scale, bias = _scale_bias(w_scale, bias, lead, N, dev)
     if a_zero_point is not None:
         if quantize_out:
             raise ValueError(

@@ -75,6 +75,24 @@ class ServeRun:
         return self.generated_tokens / max(self.seconds, 1e-9)
 
 
+#: the families the reference's engine refuses: attention-free or hybrid
+#: SSMs, and its encoder-decoder (whisper, family "audio")
+UNSERVABLE_FAMILIES = ("ssm", "hybrid", "audio")
+
+
+def _check_servable(cfg, what):
+    """The reference launcher's refusal, with its message: the
+    continuous-batching engine serves attention-family decoder-only
+    models."""
+    if cfg.family in UNSERVABLE_FAMILIES:
+        raise ServeConfigError(
+            f"{what}: the continuous-batching engine serves "
+            f"attention-family decoder-only models; quantize "
+            f"{cfg.family!r} archs via repro.pipeline.cli and run them "
+            f"through model.prefill/decode_step directly"
+        )
+
+
 def _profiler(device):
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,12 +133,14 @@ def serve(config: ServeConfig) -> ServeRun:
     t_start = time.perf_counter()
     if config.load:
         qm = QuantizedModel.load(config.load, device=device)
+        _check_servable(qm.cfg, f"--load {config.load} (arch {qm.cfg.name})")
         config, notes = config.with_artifact(ServeConfig.from_artifact(qm))
         for note in notes:
             print(f"note: {note}")
         how = f"loaded from {config.load}"
     else:
         cfg = get_config(config.arch, smoke=config.smoke)
+        _check_servable(cfg, f"--arch {config.arch}")
         if config.layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=config.layers)
         if config.quantize == "none":

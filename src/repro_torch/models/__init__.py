@@ -1,5 +1,5 @@
-"""Decoder-only dense LM in PyTorch (port of ``repro.models``), and the
-paper's MobileNetV2-style CNN (``repro.models.cnn``)."""
+"""Decoder-only LM (dense and MoE) in PyTorch (port of ``repro.models``),
+and the paper's MobileNetV2-style CNN (``repro.models.cnn``)."""
 from .cnn import CNNConfig, MobileNetCNN
 from .config import SHAPE_BY_NAME, SHAPES, ModelConfig, ShapeConfig, shape_applicable
 from .lm import LMModel

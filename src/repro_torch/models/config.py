@@ -1,6 +1,7 @@
-"""Architecture configuration: the dense-transformer fields of
-``repro.models.config.ModelConfig``, its ``smoke()`` reduction, and the
-input-shape cells (``ShapeConfig``, ``SHAPES``) of the JAX package."""
+"""Architecture configuration: the decoder fields of
+``repro.models.config.ModelConfig`` (dense, early-fusion and MoE decoders,
+sliding-window attention), its ``smoke()`` reduction, and the input-shape
+cells (``ShapeConfig``, ``SHAPES``) of the JAX package."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +13,8 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | vlm (early fusion: the dense path)
+    family: str                    # dense | vlm (early fusion: the dense
+                                   # path) | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,7 +31,15 @@ class ModelConfig:
     kv_cache_bits: int = 16                   # 8 → int8 KV cache (per-token,
                                               # per-head absmax scales)
     tie_embeddings: bool = True
+    sliding_window: Optional[int] = None      # mixtral SWA
     max_seq: int = 131072
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0                 # llama4 shared expert
+    capacity_factor: float = 1.25
+
     frontend: str = "none"                    # none | vision_stub (vlm:
                                               # image tokens share the vocab)
     dtype: str = "bfloat16"                   # activation compute dtype
@@ -52,6 +62,11 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     @property
+    def supports_long_context(self) -> bool:
+        """Bounded-KV decode at 500k+ tokens: a sliding window."""
+        return self.sliding_window is not None
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -60,12 +75,28 @@ class ModelConfig:
         return getattr(torch, self.param_dtype)
 
     def param_count(self) -> int:
-        """Parameter count: embedding (tied head) + dense blocks."""
+        """Parameter count: embedding (and untied head) + blocks, as the JAX
+        config counts them (an MoE block: its experts, router and shared
+        experts)."""
         d, f = self.d_model, self.d_ff
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         attn = d * self.attn_dim + 2 * d * self.kv_dim + self.attn_dim * d
-        mlp = (3 if self.act.endswith("_glu") else 2) * d * f
+        if self.n_experts:
+            mlp = self.n_experts * 3 * d * f + d * self.n_experts
+            mlp += self.n_shared_experts * 3 * d * f
+        else:
+            mlp = (3 if self.act.endswith("_glu") else 2) * d * f
         return n + self.n_layers * (attn + mlp)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE top-k counting)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_moe = self.n_experts * 3 * d * f
+        active_moe = (self.top_k + self.n_shared_experts) * 3 * d * f
+        return self.param_count() - self.n_layers * (
+            dense_moe - active_moe - d * self.n_experts)
 
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU tests (as the JAX package's)."""
@@ -79,6 +110,10 @@ class ModelConfig:
             head_dim=16,
             d_ff=128,
             vocab_size=256,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            capacity_factor=4.0,   # drop-free in smoke: cache-parity testable
+            sliding_window=16 if self.sliding_window else None,
             max_seq=128,
             dtype="float32",
             param_dtype="float32",
@@ -107,9 +142,9 @@ SHAPE_BY_NAME = {s.name: s for s in SHAPES}
 
 
 def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
-    """(applies, why not): long_500k needs sub-quadratic attention, which
-    no dense decoder the port serves has."""
-    if shape.name == "long_500k":
+    """(applies, why not): long_500k needs bounded-KV attention (a sliding
+    window)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
         return False, ("pure full-attention arch — quadratic 500k decode "
                        "skipped (DESIGN.md §7)")
     return True, ""

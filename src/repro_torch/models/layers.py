@@ -1,9 +1,10 @@
 """Transformer building blocks — plain functions over parameter dicts.
 
-The dense subset of ``repro.models.layers``, with the same conventions:
+The decoder subset of ``repro.models.layers``, with the same conventions:
 linear weights are ``[d_in, d_out]`` applied as ``y = x @ w + b``, attention
 projections are flat ``[D, n_heads*head_dim]`` (head-major), and a
-``QTensor`` weight routes through the int8 kernels.
+``QTensor`` weight routes through the int8 kernels — an expert-stacked one
+(``[E, d_in, d_out]``, the MoE block's) through one expert-batched launch.
 
 Attention is the serving path over a per-slot (continuous batching) or a
 whole-batch ring cache, int8 or fp:
@@ -19,8 +20,16 @@ whole-batch ring cache, int8 or fp:
     cache, decode and prefill alike — plain maths in the reference too,
     outside any Pallas kernel;
 
-plus the cache-free causal attention of the eval forward. The cache tensors
-are updated IN PLACE; the JAX layers return updated copies.
+plus the cache-free causal attention of the eval forward. A sliding window
+(``AttnDims.window``) masks keys more than ``window - 1`` positions back,
+in the eval forward and over the cache's ring alike. The cache tensors are
+updated IN PLACE; the JAX layers return updated copies.
+
+``moe_block`` is the reference's top-k token-choice MoE with capacity
+(``_moe_block_local``): the float32 router softmax, the slot → token index
+map that drops overflow tokens in its order, the expert FFNs as one
+expert-batched GEMM a projection, the slot-by-slot combine in the
+activation dtype, the shared expert, and the Switch aux loss.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from ..kernels.kv_attention.ops import append_quantize, kv_attention_decode
 from ..kernels.qmatmul_w8a8.ops import qmatmul_w8a8_qin
 from ..quantized.qtensor import (
     QTensor,
+    gemm_rows,
     qtensor_matmul,
     qtensor_matmul_prequant,
     quantize_input,
@@ -65,12 +75,12 @@ def _shared_linears(x, wbs):
     its own launch and hands the int8 rows and scales to the others; else (a
     prefill chunk) one ``quantize_act`` launch feeds them all. Per-row
     quantization depends only on the row, so each output is bitwise what
-    its own ``linear`` would give."""
+    its own ``linear`` would give. Expert-stacked weights take x
+    ``[E, ..., K]``, every expert's rows in one launch."""
     (w0, b0), rest = wbs[0], wbs[1:]
     if quantizes_in_gemm(x, *(w for w, _ in wbs)):
-        y0, a_q, a_s = qmatmul_w8a8_qin(x.reshape(-1, x.shape[-1]), w0.q,
-                                        w0.scale, b0, out_dtype=x.dtype,
-                                        quantized=True)
+        y0, a_q, a_s = qmatmul_w8a8_qin(gemm_rows(x, w0), w0.q, w0.scale, b0,
+                                        out_dtype=x.dtype, quantized=True)
         lead = tuple(x.shape[:-1])
         return [y0.reshape(*lead, w0.q.shape[-1])] + [
             qtensor_matmul_prequant(a_q, a_s, w, b, lead, out_dtype=x.dtype)
@@ -128,6 +138,7 @@ class AttnDims:
     qk_norm: bool = False
     rope: bool = True
     rope_theta: float = 10000.0
+    window: Optional[int] = None
 
 
 class SlotWrite(NamedTuple):
@@ -153,19 +164,25 @@ class SlotWrite(NamedTuple):
         return self.mask[:, 0, :] if self.mask.ndim == 3 else self.mask[:1]
 
 
-def slot_write(kpos: torch.Tensor, positions: torch.Tensor) -> SlotWrite:
+def slot_write(kpos: torch.Tensor, positions: torch.Tensor,
+               window: Optional[int] = None) -> SlotWrite:
     """kpos [B, S] before the write and positions [B, T] of the new tokens
-    (per-slot), or kpos [S] and positions [T] (whole-batch)."""
+    (per-slot), or kpos [S] and positions [T] (whole-batch). With a sliding
+    ``window`` a token attends to the keys of its last ``window``
+    positions only (the reference's mask over ``kpos``)."""
     S = kpos.shape[-1]
     idx = positions % S
     kpos = kpos.clone()
     if kpos.ndim == 1:
         kpos[idx] = positions
-        mask = (kpos >= 0)[None, :] & (kpos[None, :] <= positions[:, None])
-        return SlotWrite(idx, kpos, mask)
-    row = torch.arange(kpos.shape[0], device=kpos.device)[:, None]
-    kpos[row, idx] = positions
-    mask = (kpos >= 0)[:, None, :] & (kpos[:, None, :] <= positions[..., None])
+        k, q = kpos[None, :], positions[:, None]
+    else:
+        row = torch.arange(kpos.shape[0], device=kpos.device)[:, None]
+        kpos[row, idx] = positions
+        k, q = kpos[:, None, :], positions[..., None]
+    mask = (k >= 0) & (k <= q)
+    if window is not None:
+        mask = mask & (k > q - window)
     return SlotWrite(idx, kpos, mask)
 
 
@@ -236,6 +253,8 @@ def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
     q, k, v = _project_qkv(p, x, dims, positions)
     group = dims.n_q // dims.n_kv
     mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    if dims.window is not None:
+        mask = mask.triu(1 - dims.window)
     attn = attention_scores_softmax(q, _repeat_kv(k, group),
                                     _repeat_kv(v, group), mask)
     attn = attn.reshape(B, T, dims.n_q * dims.head_dim)
@@ -334,6 +353,15 @@ def mlp_block(p: dict, x: torch.Tensor, act: str, *,
     of the gate/up input (``mlp_in``) and of the down projection's input
     (``down_in``)."""
     _record_mean(capture, "mlp_in", x)
+    h = _mlp_hidden(p, x, act)
+    _record_mean(capture, "down_in", h)
+    return linear(h, p["wd"], p.get("bd"))
+
+
+def _mlp_hidden(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The down projection's input: ``act(wg·x) * wu·x`` or ``act(wu·x)``.
+    With the MoE block's expert-stacked weights x is [E, M, D] and each
+    projection one expert-batched launch."""
     if act.endswith("_glu"):
         if _all_w8a8(p["wg"], p["wu"]):
             g, u = _shared_linears(x, [(p["wg"], p.get("bg")),
@@ -341,8 +369,94 @@ def mlp_block(p: dict, x: torch.Tensor, act: str, *,
         else:
             g = linear(x, p["wg"], p.get("bg"))
             u = linear(x, p["wu"], p.get("bu"))
-        h = _act(act[:-4], g) * u
-    else:
-        h = _act(act, linear(x, p["wu"], p.get("bu")))
-    _record_mean(capture, "down_in", h)
-    return linear(h, p["wd"], p.get("bd"))
+        return _act(act[:-4], g) * u
+    return _act(act, linear(x, p["wu"], p.get("bu")))
+
+
+# --------------------------------------------------------------------------
+# MoE
+# --------------------------------------------------------------------------
+
+def top_k(probs: torch.Tensor, k: int):
+    """The k largest along the last dim, ties to the lower index first, as
+    ``jax.lax.top_k`` (``torch.topk`` leaves the order of ties open): a
+    stable descending sort. Returns (values, indices)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(p: dict, x: torch.Tensor, cfg, *,
+              capture: Optional[dict] = None, drops: Optional[list] = None):
+    """Top-k token-choice MoE with capacity (the reference's
+    ``_moe_block_local``); expert params are stacked on a leading E axis.
+    x [B, T, D] → (y [B, T, D], the Switch load-balancing aux loss).
+
+    Each batch row gives every expert C = max(1, int(T·K/E·capacity_factor))
+    slots, filled in token order, every token's first choice before any
+    second choice; a choice past C is dropped (gate 0). The slot → token map
+    sends a dropped choice to bin C, sliced off before the gather, so no
+    result rests on which of several writes to one index wins. The combine
+    adds each choice's gated expert output slot by slot in x's dtype, then
+    the shared expert. ``capture`` receives ``mlp_in`` [D], ``down_in_moe``
+    [E, F] (each expert's mean down-projection input over its slots) and
+    ``router_probs`` [E]; ``drops``, a list, the choices each batch row
+    dropped for capacity ([B] int64 on x's device, no host sync)."""
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = max(1, int(T * K / E * cfg.capacity_factor))
+    dev = x.device
+    _record_mean(capture, "mlp_in", x)
+
+    logits = linear(x, p["router"], p.get("router_b")).float()   # [B, T, E]
+    ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = ex / ex.sum(dim=-1, keepdim=True)
+    gate_vals, gate_idx = top_k(probs, K)                         # [B, T, K]
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+
+    # the slot → token map, T the sentinel (a zero row); dropped choices
+    # land in bin C
+    slot_token = torch.full((B, E, C + 1), T, dtype=torch.int64, device=dev)
+    used = torch.zeros((B, E), dtype=torch.int64, device=dev)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, T)
+    toks = torch.arange(T, device=dev)[None, :].expand(B, T)
+    experts = torch.arange(E, device=dev)
+    choices = []
+    for slot in range(K):
+        e = gate_idx[..., slot]                                   # [B, T]
+        onehot = (e[..., None] == experts).to(torch.int64)        # [B, T, E]
+        pos = onehot.cumsum(dim=1) - 1 + used[:, None, :]
+        pos_sel = pos.gather(-1, e[..., None])[..., 0]
+        keep = pos_sel < C
+        write_pos = torch.where(keep, pos_sel, C)
+        slot_token[rows, e, write_pos] = toks
+        choices.append((e, write_pos, keep))
+        used = used + (onehot * (pos < C)).sum(dim=1)
+
+    if drops is not None:
+        drops.append(sum((~keep).sum(dim=1) for _, _, keep in choices))
+    slot_token = slot_token[..., :C].reshape(B, E * C)
+    x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    ex_in = torch.gather(x_pad, 1, slot_token[..., None].expand(B, E * C, D))
+    # every expert's B·C rows, in (row, slot) order, as the vmapped linear
+    xin = ex_in.reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    h = _mlp_hidden(p["experts"], xin, cfg.act)
+    out = linear(h, p["experts"]["wd"]).reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+
+    y = torch.zeros_like(x)
+    for slot, (e, write_pos, keep) in enumerate(choices):
+        flat = e * C + torch.clamp_max(write_pos, C - 1)          # [B, T]
+        picked = torch.gather(out, 1, flat[..., None].expand(B, T, D))
+        w_k = torch.where(keep, gate_vals[..., slot],
+                          torch.zeros_like(gate_vals[..., slot])).to(x.dtype)
+        y = y + picked * w_k[..., None]
+    if cfg.n_shared_experts:
+        y = y + mlp_block(p["shared"], x, cfg.act)
+
+    probs_flat = probs.reshape(-1, E)
+    if capture is not None:
+        capture["down_in_moe"] = h.mean(dim=1)                   # [E, F]
+        capture["router_probs"] = probs_flat.mean(dim=0)
+    me = probs_flat.mean(dim=0)
+    ce = (gate_idx[..., 0].reshape(-1, 1) == experts).float().mean(dim=0)
+    return y, E * (me * ce).sum()

@@ -1,9 +1,12 @@
-"""Decoder-only dense LM: init, the eval forward and its loss, the KV cache
-(int8 or fp, per-slot or whole-batch), prefill, decode.
+"""Decoder-only LM: init, the eval forward and its loss, the KV cache (int8
+or fp, per-slot or whole-batch), prefill, decode.
 
-Port of the dense branch of ``repro.models.lm.LMModel`` (family ``dense``,
-and ``vlm`` with the ``vision_stub`` frontend: early fusion, image tokens
-share the vocab, so the same path). Parameters keep the
+Port of the attention branch of ``repro.models.lm.LMModel``: family
+``dense``, ``vlm`` with the ``vision_stub`` frontend (early fusion, image
+tokens share the vocab, so the same path) and ``moe`` (every block's MLP a
+top-k MoE, ``layers.moe_block``, whose Switch aux loss ``loss`` adds;
+experts stacked ``[L, E, ...]``). A sliding window bounds the cache's ring
+at ``cache_len`` and masks the eval forward alike. Parameters keep the
 JAX package's layout — nested dicts with every block leaf stacked ``[L, ...]``
 — so weights carry across unchanged (``repro_torch.weights``). Layers run as
 a Python loop over per-layer views of the stacked leaves. The KV cache is
@@ -36,6 +39,7 @@ from .layers import (
     attention_block,
     causal_attention_block,
     mlp_block,
+    moe_block,
     slot_write,
 )
 
@@ -56,7 +60,10 @@ class LMModel:
     def __init__(self, cfg: ModelConfig):
         unsupported = [
             what for what, bad in (
-                (f"family {cfg.family!r}", cfg.family not in ("dense", "vlm")),
+                (f"family {cfg.family!r}",
+                 cfg.family not in ("dense", "vlm", "moe")),
+                ("experts outside family 'moe'",
+                 bool(cfg.n_experts) != (cfg.family == "moe")),
                 (f"frontend {cfg.frontend!r}",
                  cfg.frontend not in ("none", "vision_stub")),
                 (f"norm {cfg.norm!r}", cfg.norm != "rms"),
@@ -65,11 +72,15 @@ class LMModel:
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unsupported)} not ported yet (the "
-                f"port serves dense RMSNorm decoders)")
+                f"port serves dense and MoE RMSNorm decoders)")
         self.cfg = cfg
         # (params object, its compute-dtype copy, per-layer views) — see
         # prepare; the serving loop reuses one params tree every step
         self._prepared = None
+        #: a diagnostic: set to a list, and every MoE block a forward runs
+        #: appends the choices each batch row dropped for capacity
+        #: (``moe_block``'s ``drops``); None records nothing
+        self.drop_log: Optional[list] = None
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Union[int, torch.Generator] = 0, *,
@@ -109,9 +120,27 @@ class LMModel:
         if cfg.qk_norm:
             attn.update(q_norm=ones(L, cfg.head_dim),
                         k_norm=ones(L, cfg.head_dim))
-        mlp = {"wu": lin(D, F), "wd": lin(F, D), "bd": zeros(L, D)}
-        if cfg.act.endswith("_glu"):
-            mlp["wg"] = lin(D, F)
+        glu = cfg.act.endswith("_glu")
+
+        def dense_mlp(f):
+            mlp = {"wu": lin(D, f), "wd": lin(f, D), "bd": zeros(L, D)}
+            if glu:
+                mlp["wg"] = lin(D, f)
+            return mlp
+
+        if cfg.n_experts:
+            # the JAX _init_moe: experts [L, E, ...], the router, and the
+            # shared experts' MLP d_ff x n_shared_experts wide
+            E = cfg.n_experts
+            experts = {"wu": normal((L, E, D, F), D ** -0.5),
+                       "wd": normal((L, E, F, D), F ** -0.5)}
+            if glu:
+                experts["wg"] = normal((L, E, D, F), D ** -0.5)
+            mlp = {"router": lin(D, E), "experts": experts}
+            if cfg.n_shared_experts:
+                mlp["shared"] = dense_mlp(F * cfg.n_shared_experts)
+        else:
+            mlp = dense_mlp(F)
         params = {
             "embed": normal((cfg.vocab_size, D), 0.02),
             "final_norm": {"w": ones(D)},
@@ -124,8 +153,12 @@ class LMModel:
 
     def dfq_plan(self) -> DFQPlan:
         """Where DFQ's rewrites apply in this model's params, and its weight
-        sites — the dense branch of the JAX ``LMModel.dfq_plan``, op for op
-        and site for site."""
+        sites — the attention branch of the JAX ``LMModel.dfq_plan``, op for
+        op and site for site. An MoE block keeps its ``mlp_norm`` gain (the
+        reference folds no norm into experts), equalizes each expert's
+        up/down pair and the shared experts', and quantizes the router and
+        the stacked expert weights; the expert sites have no statistic, so
+        bias correction passes them by."""
         cfg = self.cfg
 
         def P(*rest):
@@ -138,16 +171,16 @@ class LMModel:
             NormFoldOp(norm_w=P("attn_norm", "w"),
                        consumers=[P("attn", "wq"), P("attn", "wk"),
                                   P("attn", "wv")],
-                       consumer_biases=list(attn_bias)),
-            NormFoldOp(norm_w=P("mlp_norm", "w"),
-                       consumers=([P("mlp", "wg")] if glu else [])
-                       + [P("mlp", "wu")],
-                       consumer_biases=[None, None] if glu else [None]),
-            VOPairOp(wv=P("attn", "wv"), wo=P("attn", "wo"),
-                     bv=P("attn", "bv") if cfg.qkv_bias else None,
-                     n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                     head_dim=cfg.head_dim),
-        ]
+                       consumer_biases=list(attn_bias))]
+        if not cfg.n_experts:
+            ops.append(NormFoldOp(
+                norm_w=P("mlp_norm", "w"),
+                consumers=([P("mlp", "wg")] if glu else []) + [P("mlp", "wu")],
+                consumer_biases=[None, None] if glu else [None]))
+        ops.append(VOPairOp(wv=P("attn", "wv"), wo=P("attn", "wo"),
+                            bv=P("attn", "bv") if cfg.qkv_bias else None,
+                            n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                            head_dim=cfg.head_dim))
         if not cfg.qk_norm:
             ops.append(QKPairOp(
                 wq=P("attn", "wq"), wk=P("attn", "wk"),
@@ -155,30 +188,56 @@ class LMModel:
                 bk=P("attn", "bk") if cfg.qkv_bias else None,
                 n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
                 rope=cfg.rope))
-        ops.append(DensePairOp(
-            w1=P("mlp", "wu"), w2=P("mlp", "wd"),
-            exact=glu or cfg.act == "relu"))
+        if cfg.n_experts:
+            ops.append(DensePairOp(w1=P("mlp", "experts", "wu"),
+                                   w2=P("mlp", "experts", "wd"), exact=glu))
+            if cfg.n_shared_experts:
+                ops.append(DensePairOp(w1=P("mlp", "shared", "wu"),
+                                       w2=P("mlp", "shared", "wd"),
+                                       exact=glu))
+        else:
+            ops.append(DensePairOp(
+                w1=P("mlp", "wu"), w2=P("mlp", "wd"),
+                exact=glu or cfg.act == "relu"))
         if cfg.qkv_bias:
             ops.append(VBiasAbsorbOp(
                 bv=P("attn", "bv"), wo=P("attn", "wo"), bo=P("attn", "bo"),
                 n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim))
-        sites = (
+        sites = [
             WeightSite("wq", P("attn", "wq"), P("attn", "bq"), "dense", "attn_in"),
             WeightSite("wk", P("attn", "wk"), P("attn", "bk"), "dense", "attn_in"),
             WeightSite("wv", P("attn", "wv"), P("attn", "bv"), "dense", "attn_in"),
             WeightSite("wo", P("attn", "wo"), P("attn", "bo"), "dense", "o_in"),
-            WeightSite("wu", P("mlp", "wu"), P("mlp", "bu"), "dense", "mlp_in"),
-            WeightSite("wd", P("mlp", "wd"), P("mlp", "bd"), "dense", "down_in"),
-        ) + ((WeightSite("wg", P("mlp", "wg"), P("mlp", "bg"), "dense",
-                         "mlp_in"),) if glu else ())
-        return DFQPlan(tuple(ops), sites, cfg.name)
+        ]
+        if cfg.n_experts:
+            sites += [
+                WeightSite("router", P("mlp", "router"), P("mlp", "router_b"),
+                           "dense", "mlp_in"),
+                WeightSite("experts_wu", P("mlp", "experts", "wu"), None,
+                           "dense", None),
+                WeightSite("experts_wd", P("mlp", "experts", "wd"), None,
+                           "dense", None),
+            ]
+            if glu:
+                sites.append(WeightSite("experts_wg", P("mlp", "experts", "wg"),
+                                        None, "dense", None))
+        else:
+            sites += [
+                WeightSite("wu", P("mlp", "wu"), P("mlp", "bu"), "dense", "mlp_in"),
+                WeightSite("wd", P("mlp", "wd"), P("mlp", "bd"), "dense", "down_in"),
+            ]
+            if glu:
+                sites.append(WeightSite("wg", P("mlp", "wg"), P("mlp", "bg"),
+                                        "dense", "mlp_in"))
+        return DFQPlan(tuple(ops), tuple(sites), cfg.name)
 
     # ------------------------------------------------------------- forward
     def _attn_dims(self) -> AttnDims:
         cfg = self.cfg
         return AttnDims(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
                         head_dim=cfg.head_dim, qk_norm=cfg.qk_norm,
-                        rope=cfg.rope, rope_theta=cfg.rope_theta)
+                        rope=cfg.rope, rope_theta=cfg.rope_theta,
+                        window=cfg.sliding_window)
 
     def prepare(self, params: dict):
         """The params cast to the compute dtype (every float32 leaf,
@@ -195,41 +254,56 @@ class LMModel:
         self._prepared = (params, p, layers)
         return p, layers
 
+    def _mlp(self, p, h, capture=None):
+        """The block's MLP (an MoE block's with its aux loss, else 0)."""
+        if self.cfg.n_experts:
+            return moe_block(p, h, self.cfg, capture=capture,
+                             drops=self.drop_log)
+        return mlp_block(p, h, self.cfg.act, capture=capture), 0.0
+
     def _transformer_block(self, p, x, *, positions, cache, slots):
         cfg = self.cfg
         h = apply_norm(x, p["attn_norm"], cfg.norm)
         x = x + attention_block(p["attn"], h, self._attn_dims(),
                                 positions=positions, cache=cache, slots=slots)
         h = apply_norm(x, p["mlp_norm"], cfg.norm)
-        return x + mlp_block(p["mlp"], h, cfg.act)
+        return x + self._mlp(p["mlp"], h)[0]
 
     def apply(self, params, tokens: torch.Tensor, *, capture: bool = False,
-              return_hidden: bool = False):
-        """The eval forward: causal, no cache, fp keys and values. tokens
-        [B, T] → logits [B, T, V] (the JAX ``apply`` also returns an aux
-        loss, which this dense model does not have); ``return_hidden``
-        returns the final norm's output [B, T, D] instead.
+              return_hidden: bool = False, return_aux: bool = False):
+        """The eval forward: causal (within the sliding window, if any), no
+        cache, fp keys and values. tokens [B, T] → logits [B, T, V];
+        ``return_hidden`` returns the final norm's output [B, T, D] instead.
 
         ``capture=True`` returns ``(logits, stats)``: per stat key
-        (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``) the per-layer means
-        of each site's input stacked [L, D], plus ``final_h`` [D], the mean
-        of the final norm's output — means in the compute dtype, as the JAX
-        scan gives them.
+        (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``; an MoE block's
+        ``down_in_moe`` [L, E, F] and ``router_probs`` [L, E] in place of
+        ``down_in``) the per-layer means of each site's input stacked
+        [L, D], plus ``final_h`` [D], the mean of the final norm's output —
+        means in the compute dtype, as the JAX scan gives them.
+        ``return_aux=True`` returns ``(logits, aux)`` instead, aux the MoE
+        blocks' summed load-balancing loss (0.0 for a dense model) — the
+        two halves of the JAX ``apply``'s result.
         """
         cfg = self.cfg
         p, layers = self.prepare(params)
         x = self._embed(p, tokens)
         per_layer = []
+        aux = 0.0
         for lp in layers:
             stats = {} if capture else None
             h = apply_norm(x, lp["attn_norm"], cfg.norm)
             x = x + causal_attention_block(lp["attn"], h, self._attn_dims(),
                                            capture=stats)
             h = apply_norm(x, lp["mlp_norm"], cfg.norm)
-            x = x + mlp_block(lp["mlp"], h, cfg.act, capture=stats)
+            out, a = self._mlp(lp["mlp"], h, capture=stats)
+            x = x + out
+            aux = aux + a
             per_layer.append(stats)
         h = apply_norm(x, p["final_norm"], cfg.norm)
         logits = h if return_hidden else self._unembed(p, h)
+        if return_aux:
+            return logits, aux
         if not capture:
             return logits
         stats = {k: torch.stack([s[k] for s in per_layer])
@@ -241,7 +315,8 @@ class LMModel:
         """Mean next-token cross entropy over ``batch["tokens"]`` /
         ``batch["labels"]`` [B, T], the logits taken ``logit_chunk``
         positions at a time in float32 (``jax.nn.logsumexp`` minus the
-        gold logit), as the JAX ``loss``. ``T`` must be a multiple of the
+        gold logit), plus 0.01 x the MoE blocks' aux loss, as the JAX
+        ``loss``. ``T`` must be a multiple of the
         chunk, as the JAX ``loss``'s reshape requires. The forward only:
         gradients and the optimizer are not ported yet."""
         cfg = self.cfg
@@ -251,7 +326,8 @@ class LMModel:
         if T % C:
             raise ValueError(f"loss: sequence length {T} is not a multiple "
                              f"of logit_chunk {C}")
-        h = self.apply(params, tokens, return_hidden=True)
+        h, aux = self.apply(params, tokens, return_hidden=True,
+                            return_aux=True)
         p, _ = self.prepare(params)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for c in range(T // C):
@@ -260,7 +336,10 @@ class LMModel:
                                 labels[:, c * C:(c + 1) * C, None].long())
             total = total + (torch.logsumexp(logits, -1)
                              - gold[..., 0]).sum()
-        return total / (B * T)
+        loss = total / (B * T)
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux
+        return loss
 
     def calibration_stats(self, params, tokens: torch.Tensor) -> dict:
         """Synthetic-calibration E[x] per stat key (data-free: the tokens
@@ -278,6 +357,13 @@ class LMModel:
         return h @ w.to(h.dtype)
 
     # ---------------------------------------------------------------- cache
+    def cache_len(self, seq_len: int) -> int:
+        """The ring a cache for ``seq_len`` positions holds: the sliding
+        window, where it is shorter."""
+        if self.cfg.sliding_window is not None:
+            return min(seq_len, self.cfg.sliding_window)
+        return seq_len
+
     def init_cache(self, batch: int, seq_len: int, *,
                    device: Optional[Union[str, torch.device]] = "cuda",
                    per_slot: bool = True, kv_bits: Optional[int] = None,
@@ -292,13 +378,14 @@ class LMModel:
         marking an unwritten position, and with ``kv_bias_correct`` a
         ``v_err`` leaf [L, B, S, Hkv] float32 holding each token's V error
         mean; 16 → the payload in ``dtype`` (default the compute dtype) and
-        no other leaf."""
+        no other leaf. The ring holds ``cache_len(seq_len)`` positions."""
         cfg = self.cfg
         kv_bits = cfg.kv_cache_bits if kv_bits is None else int(kv_bits)
         if kv_bits not in (8, 16):
             raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
         device = resolve_device(device)
-        L, S, H, hd = cfg.n_layers, seq_len, cfg.n_kv_heads, cfg.head_dim
+        L, S, H, hd = (cfg.n_layers, self.cache_len(seq_len), cfg.n_kv_heads,
+                       cfg.head_dim)
         kv_dtype = (torch.int8 if kv_bits == 8
                     else dtype or cfg.compute_dtype)
         cache = {
@@ -328,7 +415,7 @@ class LMModel:
         pos = cache["pos"]
         steps = torch.arange(T, device=pos.device)
         positions = pos[:, None] + steps[None, :] if pos.ndim else pos + steps
-        slots = slot_write(cache["kpos"], positions)
+        slots = slot_write(cache["kpos"], positions, self.cfg.sliding_window)
         x = self._embed(p, tokens)
         for i, lp in enumerate(layers):
             x = self._transformer_block(

@@ -12,9 +12,10 @@ loads in the other.
 
 The config sidecar (hazard read off the reference): the JAX
 ``ModelConfig`` has many more fields than the port's. ``load`` takes the
-fields the port has, ignores those that do not change a dense decoder's
-serving forward, and refuses any other whose value differs from the JAX
-default (a sliding window, experts, an encoder, ...). ``kv_cache_bits`` is
+fields the port has, ignores those that do not change a decoder's serving
+forward, and refuses any other whose value differs from the JAX default (an
+MLP bias, an SSM, an encoder, ...). The MoE fields and the sliding window
+are the port's own since the MoE family was ported. ``kv_cache_bits`` is
 a field of both configs — 8 after a ``kv_cache`` stage with bits=8, else
 16 (the fp cache) — so either package's ``load`` serves the precision the
 other saved; ``QuantizedModel.kv_bits`` reads it.
@@ -41,16 +42,14 @@ _QT_PREFIX = "__qtensor_"
 # another value changes what the model computes, and the port refuses it
 _MUST_BE_DEFAULT = {
     "mlp_bias": False,            # an MLP bias pair in the DFQ plan
-    "sliding_window": None,
-    "n_experts": 0, "top_k": 0, "n_shared_experts": 0,
     "ssm_state": 0, "hybrid_attn_every": 0,
     "n_enc_layers": 0,
 }
-# JAX ModelConfig fields with no effect on a dense decoder's serving
-# forward (training, cost probes, other families' geometry)
+# JAX ModelConfig fields with no effect on a decoder's serving forward
+# (training, cost probes, other families' geometry)
 _IGNORED = frozenset({
     "attn_out_bias", "attn_causal_segments",
-    "capacity_factor", "ssm_expand", "ssm_head_dim", "ssm_conv_width",
+    "ssm_expand", "ssm_head_dim", "ssm_conv_width",
     "ssm_chunk", "ssm_n_groups", "hybrid_n_shared_blocks", "enc_seq",
     "remat", "unroll_layers",
 })
@@ -70,7 +69,7 @@ def _config_from_sidecar(fields: dict) -> ModelConfig:
     if refused:
         raise PipelineError(
             f"{fields.get('name')}: {', '.join(refused)} is not ported yet "
-            "(the port serves dense decoders)")
+            "(the port serves dense and MoE decoders)")
     return ModelConfig(**{k: v for k, v in fields.items() if k in _PORT_FIELDS})
 
 

@@ -14,6 +14,13 @@ A W8A8 weight takes ``q(x)`` inside the GEMM wherever ``gemm_plan`` folds
 pair); elsewhere (a prefill chunk) one ``quantize_act`` launch is shared by
 every projection reading x.
 
+An expert-stacked weight (the MoE block's, ``q`` [E, K, N] and ``scale``
+[E, N] or [E, 1] once the layer is sliced) takes an activation [E, ..., K]
+and routes every expert's rows through ONE launch of the same kernels,
+the expert index in the grid — what the reference's ``jax.vmap`` of
+``linear`` over the expert axis computes. Rows are quantized one by one,
+so the W8A8 route's int8 rows are bitwise the flat ``quantize_act``'s.
+
 Layout: ``q`` is the public [..., K, N] view, as in the JAX package, but its
 storage is K-major — a contiguous [..., N, K] buffer, transposed — which is
 the B operand layout both GEMM kernels read. The constructor normalizes any
@@ -75,6 +82,14 @@ def quantize_param(w: torch.Tensor, *, per_channel: bool = True,
     return QTensor(q.to(torch.int8), scale.to(torch.float32), mode)
 
 
+def gemm_rows(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [..., K] as the GEMM's A: [M, K], or [E, M, K] for an
+    expert-stacked ``w`` (x's leading dim the expert's)."""
+    if w.q.ndim == 3:
+        return x.reshape(w.q.shape[0], -1, x.shape[-1])
+    return x.reshape(-1, x.shape[-1])
+
+
 def quantize_input(x: torch.Tensor):
     """Dynamic-quantize an activation once for every W8A8 projection that
     reads it (the qkv trio, the GLU gate/up pair) where their GEMMs do not
@@ -92,8 +107,10 @@ def quantizes_in_gemm(x: torch.Tensor, *ws: QTensor) -> bool:
     x in float, the first quantizing it: the plan folds for every one."""
     from ..kernels import gemm_plan
 
-    M, K = x.numel() // x.shape[-1], x.shape[-1]
-    return all(gemm_plan.plan(M, w.q.shape[-1], K).fold for w in ws)
+    E = ws[0].q.shape[0] if ws[0].q.ndim == 3 else 1
+    M, K = x.numel() // x.shape[-1] // E, x.shape[-1]
+    return all(gemm_plan.plan(M, w.q.shape[-1], K, experts=E).fold
+               for w in ws)
 
 
 def qtensor_matmul(x: torch.Tensor, w: QTensor,
@@ -102,19 +119,19 @@ def qtensor_matmul(x: torch.Tensor, w: QTensor,
     from ..kernels.qmatmul_w8a8.ops import qmatmul_w8a8_qin
     from ..kernels.qmatmul_w8a16.ops import qmatmul_w8a16
 
-    if w.q.ndim != 2:
+    if w.q.ndim not in (2, 3):
         raise ValueError("stacked QTensors must be sliced per layer before use")
     if w.mode == "w8a8":
         if quantizes_in_gemm(x, w):
-            y = qmatmul_w8a8_qin(x.reshape(-1, x.shape[-1]), w.q, w.scale,
-                                 bias, out_dtype=x.dtype)
+            y = qmatmul_w8a8_qin(gemm_rows(x, w), w.q, w.scale, bias,
+                                 out_dtype=x.dtype)
             return y.reshape(*x.shape[:-1], w.q.shape[-1])
         a_q, a_s, lead = quantize_input(x)
         return qtensor_matmul_prequant(a_q, a_s, w, bias, lead,
                                        out_dtype=x.dtype)
     if w.mode != "w8a16":
         raise ValueError(f"QTensor mode {w.mode!r}: w8a16 or w8a8")
-    y = qmatmul_w8a16(x.reshape(-1, x.shape[-1]), w.q, w.scale, bias,
+    y = qmatmul_w8a16(gemm_rows(x, w), w.q, w.scale, bias,
                       out_dtype=x.dtype)
     return y.reshape(*x.shape[:-1], w.q.shape[-1])
 
@@ -123,10 +140,15 @@ def qtensor_matmul_prequant(a_q: torch.Tensor, a_s: torch.Tensor, w: QTensor,
                             bias: Optional[torch.Tensor], lead: tuple, *,
                             out_dtype: torch.dtype = torch.float32):
     """W8A8 matmul over an already-quantized activation (from
-    ``quantize_input`` or the fused decode's quantize-out epilogue)."""
+    ``quantize_input``, a quantize-in GEMM or the fused decode's
+    quantize-out epilogue): a_q [M, K] and a_s [M], their rows the
+    experts' in turn for an expert-stacked ``w``."""
     from ..kernels.qmatmul_w8a8.ops import qmatmul_w8a8
 
     if w.mode != "w8a8":
         raise ValueError("prequantized inputs feed W8A8 weights")
+    if w.q.ndim == 3:
+        E = w.q.shape[0]
+        a_q, a_s = a_q.reshape(E, -1, a_q.shape[-1]), a_s.reshape(E, -1)
     y = qmatmul_w8a8(a_q, w.q, a_s, w.scale, bias, out_dtype=out_dtype)
     return y.reshape(*lead, w.q.shape[-1])

@@ -264,6 +264,10 @@ class ServingEngine:
                  max_queue: Optional[int] = None,
                  straggler: Optional[StragglerMonitor] = None,
                  device="cuda", backend: Optional[str] = None):
+        if cfg.family in ("ssm", "hybrid", "audio"):
+            raise ValueError(
+                f"the serving engine supports attention-family decoder-only "
+                f"models (got {cfg.name!r}, family {cfg.family!r})")
         if decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, got {decode_horizon}")
         self.device = resolve_device(device)

@@ -2,8 +2,9 @@
 
 ``from_jax_numpy`` takes the JAX parameter tree converted to nested dicts of
 numpy arrays — each ``QTensor`` given as ``{"q", "scale", "mode"}``, block
-leaves stacked ``[L, ...]`` — and returns the port's tree in the same layout,
-on ``device``. ``cnn_from_jax_numpy`` does the same for the CNN's params or
+leaves stacked ``[L, ...]``, an MoE block's experts ``[L, E, ...]`` beside
+its router and shared expert — and returns the port's tree in the same
+layout, on ``device``. ``cnn_from_jax_numpy`` does the same for the CNN's params or
 folded tree (lists of blocks, ``FoldedLayer`` leaves, ``stride`` ints). The
 conversion on the JAX side belongs to the caller (the tests); this module
 imports no JAX.
@@ -34,7 +35,8 @@ def _tensor(a, device) -> torch.Tensor:
 def from_jax_numpy(params_np: Mapping, cfg: ModelConfig,
                    device: Optional[Union[str, torch.device]] = "cuda") -> dict:
     """The port's parameter tree for ``cfg`` from a numpy copy of the JAX
-    tree. Checks the embedding and the layer count against ``cfg``."""
+    tree. Checks the embedding, the layer count and (MoE) the expert count
+    against ``cfg``."""
     device = resolve_device(device)
 
     def walk(node, path):
@@ -53,6 +55,17 @@ def from_jax_numpy(params_np: Mapping, cfg: ModelConfig,
     L = params["blocks"]["attn_norm"]["w"].shape[0]
     if L != cfg.n_layers:
         raise ValueError(f"{L} stacked blocks, {cfg.name} has {cfg.n_layers}")
+    experts = params["blocks"]["mlp"].get("experts")
+    if (experts is not None) != bool(cfg.n_experts):
+        raise ValueError(f"{cfg.name} has {cfg.n_experts} experts; the tree "
+                         + ("stacks experts" if experts is not None
+                            else "has none"))
+    if experts is not None:
+        wd = experts["wd"]
+        E = (wd.q if isinstance(wd, QTensor) else wd).shape[1]
+        if E != cfg.n_experts:
+            raise ValueError(f"{E} stacked experts, {cfg.name} has "
+                             f"{cfg.n_experts}")
     return params
 
 

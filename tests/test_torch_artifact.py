@@ -108,8 +108,9 @@ def _jax_roll(jm, jp, toks, kv_bits):
                           kv_bits=kv_bits)
     lg, cache = jm.prefill(jp, jnp.asarray(toks[:, :8]), cache)
     out = [np.asarray(lg)]
+    decode = jax.jit(jm.decode_step)
     for t in range(8, toks.shape[1]):
-        lg, cache = jm.decode_step(jp, jnp.asarray(toks[:, t:t + 1]), cache)
+        lg, cache = decode(jp, jnp.asarray(toks[:, t:t + 1]), cache)
         out.append(np.asarray(lg))
     return np.stack(out)
 
@@ -227,15 +228,15 @@ def test_load_missing_dir_actionable_error(tmp_path):
 
 
 @pytest.mark.parametrize("edit,match", [
-    ({"sliding_window": 16}, "sliding_window=16 is not ported yet"),
-    ({"n_experts": 4}, "n_experts=4 is not ported yet"),
+    ({"ssm_state": 16}, "ssm_state=16 is not ported yet"),
+    ({"n_enc_layers": 2}, "n_enc_layers=2 is not ported yet"),
     ({"rotary_scaling": 2.0}, "fields the port does not know: rotary_scaling"),
     ({"max_seq": 128, "remat": False, "logit_chunk": 32}, None),
 ])
 def test_config_sidecar_fields(tmp_path, edit, match):
     """The port takes its own fields, ignores the JAX fields that do not
-    change a dense decoder's serving forward, and refuses any other that
-    differs from the JAX default, or that it does not know."""
+    change a decoder's serving forward, and refuses any other that differs
+    from the JAX default (an SSM, an encoder), or that it does not know."""
     d = str(tmp_path)
     repro_torch.quantize(ARCH, recipe="naive-int8", calibration=None,
                          device="cpu").save(d)
@@ -250,6 +251,34 @@ def test_config_sidecar_fields(tmp_path, edit, match):
     else:
         with pytest.raises(PipelineError, match=match):
             QuantizedModel.load(d, device="cpu")
+
+
+def test_mixtral_artifact_round_trips_through_both_packages(tmp_path):
+    """A smoke mixtral (experts [L, E, ...], the router, the 16-position
+    window, capacity_factor) quantized by each package loads in the other:
+    every leaf and the config equal, and the loaded model decodes past the
+    window to the saver's logits."""
+    jm = jax_build_model(jax_get_config("mixtral-8x22b", smoke=True))
+    jp = jm.init(jax.random.PRNGKey(0))
+    cfg = get_config("mixtral-8x22b-smoke")
+    jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jq = repro.quantize(jm, params=jp, recipe="serve-w8a8-kv8")
+    jq.save(jax_dir)
+    qm = QuantizedModel.load(jax_dir, device="cpu")
+    _assert_same_leaves(qm.params, jax_to_numpy(jq.params))
+    assert qm.cfg == dataclasses.replace(cfg, kv_cache_bits=8)
+    tq = repro_torch.quantize(cfg, from_jax_numpy(jax_to_numpy(jp), cfg,
+                                                  device="cpu"),
+                              recipe="serve-w8a8-kv8", device="cpu")
+    tq.save(port_dir)
+    back = repro.QuantizedModel.load(port_dir)
+    _assert_same_leaves(tq.params, jax_to_numpy(back.params))
+    assert (back.cfg.n_experts, back.cfg.top_k, back.cfg.sliding_window,
+            back.cfg.capacity_factor) == (4, 2, 16, 4.0)
+    toks = np.random.RandomState(3).randint(0, 256, (2, 24)).astype(np.int32)
+    np.testing.assert_allclose(_port_roll(qm, toks),
+                               _jax_roll(back.model, back.params, toks, 8),
+                               rtol=0, atol=1e-3)
 
 
 def test_sharded_artifact_is_refused(tmp_path):

@@ -67,7 +67,12 @@ def _pair(arch, act=None, seed=0):
 
 
 def test_registry_lists_the_five_dense_archs():
-    assert list_archs() == sorted(ARCHS)
+    """The five dense archs, beside the two MoE archs
+    (tests/test_torch_moe.py)."""
+    assert list_archs() == sorted(ARCHS + ["mixtral-8x22b",
+                                           "llama4-scout-17b-a16e"])
+    assert [a for a in list_archs()
+            if get_config(a).family != "moe"] == sorted(ARCHS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -1478,3 +1478,103 @@ def test_paged_serving_on_the_card_serves_the_contiguous_tokens(dev, recipe):
             assert run.results[rid].tokens == r.tokens, (kw, rid)
             if kw.get("prefix_reuse", True) is False:
                 assert run.results[rid].finished_at == r.finished_at, (kw, rid)
+
+
+# expert-batched shapes: (E, M, K, N) — ragged M, N and K, a split K, the
+# routers' N = 8 and 16 (one BN = 16 tile, columns past N masked), decode
+# tiles and 64-row tiles
+EXPERT_CASES = ((4, 8, 96, 40), (3, 5, 4100, 70), (8, 80, 256, 136),
+                (2, 17, 2100, 100), (1, 8, 512, 8), (1, 256, 320, 16),
+                (16, 16, 640, 24))
+
+
+@pytest.mark.parametrize("E,M,K,N", EXPERT_CASES)
+def test_expert_batched_gemms_one_launch_against_plain(dev, E, M, K, N):
+    """Each expert-batched GEMM in ONE launch: qmatmul_w8a8 bit-equal to
+    its plain version expert by expert, qmatmul_w8a8_qin (where the plan
+    folds) bit-equal to quantize_act + qmatmul_w8a8 with the flat
+    quantize_act's int8 rows, qmatmul_w8a16 within its tolerance of each
+    expert's plain version (per-tensor and per-channel scales, with and
+    without a bias, bf16 and float32); two calls the same bits."""
+    from repro_torch.kernels import gemm_plan, launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8 import (
+        qmatmul_w8a8,
+        qmatmul_w8a8_qin,
+        qmatmul_w8a8_ref,
+    )
+    from repro_torch.kernels.qmatmul_w8a16 import (
+        qmatmul_w8a16,
+        qmatmul_w8a16_ref,
+    )
+    from repro_torch.kernels.quantize_act import quantize_act
+
+    g = torch.Generator(device=dev).manual_seed(E * M + K)
+    w = torch.randint(-127, 128, (E, N, K), device=dev, dtype=torch.int8,
+                      generator=g).transpose(1, 2)
+    sw = torch.rand((E, N), device=dev, generator=g) * 0.01 + 1e-4
+    bias = torch.randn((E, N), device=dev, generator=g)
+    a = torch.randint(-128, 128, (E, M, K), device=dev, dtype=torch.int8,
+                      generator=g)
+    sa = torch.rand((E, M), device=dev, generator=g) + 1e-3
+    reset_launch_counts()
+    y = qmatmul_w8a8(a, w, sa, sw, bias, out_dtype=torch.bfloat16)
+    assert launch_counts()["qmatmul_w8a8"] == 1
+    assert torch.equal(y, qmatmul_w8a8(a, w, sa, sw, bias,
+                                       out_dtype=torch.bfloat16))
+    for e in range(E):
+        assert torch.equal(y[e], qmatmul_w8a8_ref(a[e], w[e], sa[e], sw[e],
+                                                  bias[e], torch.bfloat16)), e
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn((E, M, K), device=dev, generator=g) * 3).to(dtype)
+        if gemm_plan.plan(M, N, K, experts=E).fold:
+            reset_launch_counts()
+            y, x_q, x_s = qmatmul_w8a8_qin(x, w, sw, bias, out_dtype=dtype,
+                                           quantized=True)
+            assert launch_counts()["qmatmul_w8a8_qin"] == 1
+            q, s = quantize_act(x.reshape(-1, K))
+            assert torch.equal(x_q.reshape(-1, K), q)
+            assert torch.equal(x_s.reshape(-1), s)
+            assert torch.equal(y, qmatmul_w8a8(x_q, w, x_s, sw, bias,
+                                               out_dtype=dtype))
+        for scale, b in ((sw[:, :1].contiguous(), None), (sw, bias)):
+            s_, b_ = scale.to(dtype), None if b is None else b.to(dtype)
+            reset_launch_counts()
+            y = qmatmul_w8a16(x, w, s_, b_)
+            assert launch_counts()["qmatmul_w8a16"] == 1
+            assert torch.equal(y, qmatmul_w8a16(x, w, s_, b_))
+            for e in range(E):
+                yr = qmatmul_w8a16_ref(x[e], w[e], s_[e],
+                                       None if b_ is None else b_[e], dtype)
+                diff = (y[e].float() - yr.float()).abs()
+                tol = _w8a16_tolerance(x[e], w[e], s_[e], b_ if b_ is None
+                                       else b_[e], yr)
+                assert bool((diff <= tol).all()), (e, float(diff.max()))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_smoke_serving_on_the_card_serves_the_cpu_tokens(dev, arch):
+    """A smoke MoE model on the host-drawn weights under serve-w8a8-kv8,
+    quantized and served on the card and on the CPU (stepwise): every
+    token equal, and on the card one expert-batched launch per expert
+    projection (gate/up: one quantize-in GEMM or quantize_act, then an
+    int8 GEMM each; down: one)."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServingEngine, synthetic_trace
+
+    model = repro_torch.build_model(repro_torch.get_config(arch, smoke=True))
+    params = model.init(0, device="cpu")
+    out = {}
+    for d in ("cpu", dev):
+        qm = repro_torch.quantize(model, params, device=d,
+                                  recipe="serve-w8a8-kv8")
+        eng = ServingEngine(qm.model, qm.params, qm.cfg, fast=False,
+                            num_slots=3, max_len=16, prefill_chunk=4,
+                            device=d)
+        reset_launch_counts()
+        out[str(d)] = eng.run(synthetic_trace(
+            0, 6, vocab_size=256, prompt_lens=(4, 10), gen_lens=(4, 6)))
+    counts = launch_counts()
+    assert counts["qmatmul_w8a8"] > 0 and counts["fused_decode"] > 0
+    for rid, r in out["cpu"].items():
+        assert out[str(dev)][rid].tokens == r.tokens, rid

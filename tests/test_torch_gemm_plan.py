@@ -283,3 +283,37 @@ def test_q8_plan_keeps_the_tile_where_sums_are_float():
     plain = gemm_plan.plan(256, 4864, 896)
     assert (p.bm, p.splits) == (plain.bm, plain.splits) == (64, 1)
     assert p.q8_route == "workspace" and p.q8_ticketed
+
+
+# the MoE archs' expert-batched projections (E, M, K, N): mixtral's decode
+# and prefill gate/up and down, llama4's, and a small ragged one
+EXPERT_KN = [(8, 8, 6144, 16384), (8, 80, 6144, 16384), (8, 8, 16384, 6144),
+             (8, 80, 16384, 6144), (16, 8, 5120, 8192), (16, 16, 8192, 5120),
+             (4, 5, 4100, 70)]
+
+
+@pytest.mark.parametrize("E,M,K,N", EXPERT_KN)
+def test_experts_count_against_the_grid(E, M, K, N):
+    """An expert-batched plan is one expert's tiles, E of them on the grid:
+    K splits only while E x the tiles leave room under MAX_CTAS (at a
+    mixtral decode step the gate/up's 8 x 1024 tiles fill the card
+    unsplit), and the fold is the single plan's rule at that split."""
+    p = gemm_plan.plan(M, N, K, experts=E)
+    one = gemm_plan.plan(M, N, K)
+    assert (p.bm, p.m_tiles, p.n_tiles, p.k_steps) == (
+        one.bm, one.m_tiles, one.n_tiles, one.k_steps)
+    assert p.experts == E and p.ctas == E * p.tiles * p.splits
+    assert p.splits == 1 or p.ctas <= gemm_plan.MAX_CTAS
+    assert p.splits == min(-(-p.k_steps // gemm_plan.MAX_STEPS),
+                           gemm_plan.max_splits(p.k_steps),
+                           max(1, gemm_plan.MAX_CTAS // (E * p.tiles)))
+    assert p.fold == (p.bm in gemm_plan.FOLD_BM and p.qin_fits)
+    with pytest.raises(ValueError, match="experts"):
+        gemm_plan.plan(M, N, K, experts=0)
+
+
+def test_mixtral_decode_gate_up_takes_no_split_and_folds():
+    p = gemm_plan.plan(8, 16384, 6144, experts=8)
+    assert (p.splits, p.ctas, p.fold) == (1, 8 * 1024, True)
+    down = gemm_plan.plan(8, 6144, 16384, experts=8)
+    assert down.splits == 1 and not down.fold     # a 256 KiB int8 slice
