@@ -87,7 +87,16 @@ Phases, each of which must pass (nothing here catches a failure):
      versions, W8A16 within ``W8A16_TOL``, each timed beside its bound, a
      loop over the experts (the plain version) and a yardstick that is
      not the same function (a loop of ``torch._int_mm``; ``torch.bmm``
-     over the bf16-dequantized weights).
+     over the bf16-dequantized weights). Then every GEMM of phase 11's
+     path (``family_gemms``, derived from the layers phase 11 runs):
+     mamba2's in_proj (N = 10576, a partial last N tile) and out_proj,
+     zamba2's in_proj (N = 10448) and its shared block's q/k/v/o, gate/up
+     and down at M = 8 and 1024, whisper's projections at M = 8 and 1024
+     (decoder) and 12,000 (encoder, K = 384 and 1536), as the new shapes
+     above (W8A8 and the fold bit-equal, the fold's refusals logged, W8A16
+     within ``W8A16_TOL``), and quantize_act at every input phase 11
+     quantizes with it (``family_quantize``, up to 12,000 rows)
+     bit-equal; each timed in the rows' format.
   3. reference — for each serving recipe, the paper's Fig. 4 recipes
      (``dfq-int8``, ``naive-int8``, ``cle-only``) and the bias-corrected
      w8a8 deployment (``BC_DEPLOY``), ``repro_torch.quantize`` of a
@@ -232,6 +241,45 @@ Phases, each of which must pass (nothing here catches a failure):
      prefill (the prompts replayed one by one), the card's name and power
      limit and the phase's wall seconds. Its fast runs give the kernels
      JSON line's expert-batched rows their launches.
+  10. the async front-end — ``repro_torch.serving.AsyncServer`` (circuit
+     breaker, shedding ladder), ``AsyncClient`` (retries with seeded
+     jittered backoff) and ``run_open_loop`` over qwen2-0.5b at full width
+     on phase 4's engine settings (serve-w8a16 over the bf16 KV cache,
+     the fast path, every graph captured by warmup). 10a: 16 requests in
+     two priority classes offered at 0.25 a tick, no queue bound, against
+     ``engine.run`` of the same requests: every outcome ok, each rid's
+     tokens equal, token ticks in order; tok/s of both. 10b:
+     ``repro_torch.serve(ServeConfig(serve_async=True, ...))`` — 48
+     requests at 2.0 a tick from the paged pool (pages of 32) behind a
+     4-deep queue, a 48-tick client timeout, shedding from queue pressure
+     0.5: requests shed and the breaker opened, every outcome terminal, no
+     page leaked; goodput, TTFT and per-token p50/p99 in ticks, mean
+     attempts and the wall seconds logged. 10c: 10b again, every outcome
+     (status, tokens, attempts, token ticks), the server's counters and the
+     SLO summary identical. Each run's launches exact
+     (``expected_launches``, warmup's included).
+  11. the SSM, hybrid and encoder-decoder families — first each at smoke
+     size on host-drawn weights (``check_family_smoke``): under serve-w8a16
+     and serve-w8a8 ``repro_torch.quantize`` on the card equal to the
+     CPU's leaf by leaf (a LayerNorm shift folded through a weight and an
+     absorbed value bias within ``FAMILY_SUM_TOL``), prefill 8 + 16 decode
+     steps within ``teacher_forced``'s bound of the CPU. Then at every
+     published width: mamba2-2.7b and zamba2-2.7b at the depth
+     ``cut_depth`` allows (all 64 and 54 layers fit), whisper-tiny whole
+     (4 + 4 layers, 1500 frames from ``prng.normal``), each quantized on
+     the card under serve-w8a16 and serve-w8a8 and run through
+     ``warm_cache`` (whisper), ``model.prefill`` of 8 x 128 tokens and 32
+     greedy ``decode_step``s: launches exact (``family_launches`` of the
+     layers: in_proj / out_proj, the shared blocks, the encoder and the
+     cross keys and values), the decode logits no farther from the float32
+     teacher-forced forward than ``FAMILY_TF_FACTOR`` times the bf16 one;
+     then the same prefill and decode steps at ``backend="torch"`` fed the
+     kernel run's tokens: no launch, and the kernels' logits bit for bit
+     under W8A8, within ``FAMILY_TF_FACTOR`` times the bf16 forward's
+     distance under W8A16. Logged: quantize seconds and
+     peak memory, warm_cache and prefill ms, decode tok/s. No decode
+     attention kernel runs: zamba2's shared attention (head_dim 80) and
+     whisper's self attention read fp caches, as in the reference.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -1738,15 +1786,32 @@ NEW_GEMMS = (("nemo q", 5120, 4096), ("nemo k/v", 5120, 1024),
              ("nemo down", 14336, 5120), ("gemma down", 24576, 3072))
 
 
-def check_new_gemms(torch, dev, gen):
-    """The three GEMMs of the W8A16 and W8A8 paths at ``NEW_GEMMS``, M = 8
-    (a decode step of 8 slots) and 256 (a prefill chunk): qmatmul_w8a8
-    bit-equal to its plain version (bf16 out), qmatmul_w8a16 (bf16) within
-    ``W8A16_TOL``, and qmatmul_w8a8_qin bit-equal to quantize_act +
-    qmatmul_w8a8 (and its int8 x to quantize_act's) where ``gemm_plan``
-    folds, refused with the plan's reason where it does not (the model
-    then takes the pair). Each logged with its plan and timed in the rows'
-    format beside its plain version, the library call and the bound."""
+def family_gemms():
+    """``check_new_gemms``' entries for phase 11: (label, K, N, the Ms
+    ascending), one a (K, N) of ``family_path_gemms`` over the three archs
+    in the order the path first reaches them, labelled by the first
+    projection that reaches it (whisper's q/k/v stands for every 384 x 384
+    projection, mamba2's out_proj for zamba2's too)."""
+    groups: dict = {}
+    for arch in FAMILY_PROBES:
+        for name, K, N, M in family_path_gemms(arch):
+            label, ms = groups.setdefault(
+                (K, N), (f"{arch.split('-')[0]} {name}", set()))
+            ms.add(M)
+    return tuple((label, K, N, tuple(sorted(ms)))
+                 for (K, N), (label, ms) in groups.items())
+
+
+def check_new_gemms(torch, dev, gen, gemms=NEW_GEMMS, what="the new shapes"):
+    """The three GEMMs of the W8A16 and W8A8 paths at ``gemms`` (label, K,
+    N, and optionally the Ms; default M = 8, a decode step of 8 slots, and
+    256, a prefill chunk): qmatmul_w8a8 bit-equal to its plain version
+    (bf16 out), qmatmul_w8a16 (bf16) within ``W8A16_TOL``, and
+    qmatmul_w8a8_qin bit-equal to quantize_act + qmatmul_w8a8 (and its
+    int8 x to quantize_act's) where ``gemm_plan`` folds, refused with the
+    plan's reason where it does not (the model then takes the pair). Each
+    logged with its plan and timed in the rows' format beside its plain
+    version, the library call and the bound; returns the rows by kernel."""
     from repro_torch.kernels import gemm_plan
     from repro_torch.kernels.qmatmul_w8a8.kernel import (
         qmatmul_w8a8_cuda,
@@ -1764,11 +1829,17 @@ def check_new_gemms(torch, dev, gen):
     has_lib = torch._C._dispatch_has_kernel_for_dispatch_key(
         "aten::_weight_int8pack_mm", "CUDA")
     folded, refused = 0, 0
-    for label, K, N in NEW_GEMMS:
+    rows = {"qmatmul_w8a8": [], "qmatmul_w8a16": [], "qmatmul_w8a8_qin": []}
+
+    def row(name, r):
+        log_row(name, r)
+        rows[name].append({**r, "gemm": (M, K, N)})
+
+    for label, K, N, *ms in gemms:
         w = _kmajor_int8(torch, gen, dev, K, N)
         sw = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
         bias = torch.randn((N,), generator=gen, device=dev)
-        for M in (8, 256):
+        for M in (ms[0] if ms else (8, 256)):
             p = gemm_plan.plan(M, N, K)
             shape = f"M={M} K={K} N={N} ({label})"
             log(f"  gemm plan {shape}: {p.bm}-row tiles, {p.splits} K "
@@ -1791,8 +1862,9 @@ def check_new_gemms(torch, dev, gen):
                              2 * M * K * N, INT8_OPS_S)
             kern = lambda: qmatmul_w8a8_cuda(a, w, sa, sw, bias,
                                              out_dtype=bf16)
-            log_row("qmatmul_w8a8", {
-                "shape": shape + " -> bf16", "ms": device_ms(kern, 50),
+            row("qmatmul_w8a8", {
+                "shape": shape + " -> bf16", "max_abs_err": 0.0,
+                "ms": device_ms(kern, 50),
                 "call_ms": call_ms(kern, 50),
                 "plain_ms": device_ms(lambda: qmatmul_w8a8_ref(
                     a, w, sa, sw, bias, bf16), 10),
@@ -1824,8 +1896,9 @@ def check_new_gemms(torch, dev, gen):
                 lib_fn = lambda: torch.nn.functional.linear(x, w_deq_t, b16)
                 lib_call = "F.linear on the pre-dequantized weight"
             kern = lambda: qmatmul_w8a16_cuda(x, w, s1, b16)
-            log_row("qmatmul_w8a16", {
-                "shape": shape + " bfloat16", "ms": device_ms(kern, 50),
+            row("qmatmul_w8a16", {
+                "shape": shape + " bfloat16",
+                "max_abs_err": float(diff.max()), "ms": device_ms(kern, 50),
                 "call_ms": call_ms(kern, 50),
                 "plain_ms": device_ms(lambda: qmatmul_w8a16_ref(
                     x, w, s1, b16, bf16), 10),
@@ -1867,15 +1940,55 @@ def check_new_gemms(torch, dev, gen):
                 q_, s_ = quantize_act_cuda(xq)
                 return qmatmul_w8a8_cuda(q_, w, s_, sw, bias, out_dtype=bf16)
 
-            log_row("qmatmul_w8a8_qin", {
-                "shape": shape + " bf16 -> bf16", "ms": device_ms(kern, 50),
+            row("qmatmul_w8a8_qin", {
+                "shape": shape + " bf16 -> bf16", "max_abs_err": 0.0,
+                "ms": device_ms(kern, 50),
                 "call_ms": call_ms(kern, 50),
                 "plain_ms": device_ms(lambda: qmatmul_w8a8_qin_ref(
                     xq, w, sw, bias, bf16), 10),
                 "bound_ms": b, "bound_by": by, "library_ms": None,
                 "stepwise_ms": device_ms(pair_call, 50)})
-    log(f"  the new shapes: qmatmul_w8a8_qin folded and bit-equal at {folded}, "
+    log(f"  {what}: qmatmul_w8a8_qin folded and bit-equal at {folded}, "
         f"refused by the plan at {refused}")
+    return rows
+
+
+def family_quantize():
+    """(M, K) of every quantize_act launch on phase 11's serve-w8a8 path,
+    over the three archs (``family_quantize_inputs``), once each in path
+    order."""
+    return tuple(dict.fromkeys(
+        mk for arch in FAMILY_PROBES for mk in family_quantize_inputs(arch)))
+
+
+def check_family_quantize_act(torch, dev, gen):
+    """quantize_act at ``family_quantize()``, bfloat16 (the serving dtype),
+    with .5 ties and near-ties: bit-equal to the plain version; timed in
+    the rows' format. Returns the rows."""
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+    from repro_torch.kernels.quantize_act.ref import quantize_act_ref
+
+    rows = []
+    for M, K in family_quantize():
+        x = torch.randn((M, K), generator=gen, device=dev) * 3
+        x[0, :7] = torch.tensor([0.5, 1.5, -2.5, 0, 0, 0, 0])
+        x[1] = near_ties(torch, gen, dev, K)
+        x[1, 0] = 127.0
+        x = x.to(torch.bfloat16)
+        q, sc = quantize_act_cuda(x)
+        qr, sr = quantize_act_ref(x)
+        torch.cuda.synchronize()
+        assert torch.equal(q, qr) and torch.equal(sc, sr), (
+            f"quantize_act {M}x{K}: not bit-equal to the plain version")
+        b, by = bound_ms(M * K * 2 + M * K + 4 * M, 5 * M * K, F32_OPS_S)
+        r = {"shape": f"x[{M},{K}] bfloat16", "max_abs_err": 0.0,
+             "ms": device_ms(lambda: quantize_act_cuda(x), 50),
+             "call_ms": call_ms(lambda: quantize_act_cuda(x), 50),
+             "plain_ms": device_ms(lambda: quantize_act_ref(x), 10),
+             "bound_ms": b, "bound_by": by, "library_ms": None}
+        log_row("quantize_act", r)
+        rows.append({**r, "gemm": (M, K)})
+    return rows
 
 
 # the expert-batched GEMMs of the MoE archs (one launch a projection, E
@@ -3857,6 +3970,513 @@ def time_gather(torch):
             f"(8 x 8 positions) {commit * 1e3:.1f} us ({smi_line()})")
 
 
+# --------------------------------------------------------------- phase 10
+# the async front-end on phase 4's engine settings (8 slots, max_len 512,
+# prefill chunks of 32, serve-w8a16 over the bf16 KV cache, the fast path
+# with every graph captured by warmup) and phase 4's request lengths in two
+# priority classes: 10a 16 requests offered at 0.25 a tick, no queue bound;
+# 10b 48 at 2.0 a tick from the paged pool (pages of 32) behind a 4-deep
+# queue, a client timeout of 48 ticks, shedding from queue pressure 0.5
+UNDERLOAD = dict(n=16, qps=0.25)
+OVERLOAD = dict(SERVE, trace=48, qps=2.0, max_queue=4, timeout=48.0,
+                shed_pressure=0.5, page_size=32, serve_async=True,
+                warmup=True, quantize="w8a16")
+# the statuses a client outcome ends in
+TERMINAL = {"ok", "expired", "cancelled", "quarantined", "shed", "rejected"}
+
+
+def async_underload(torch, qm):
+    """10a: ``UNDERLOAD``'s open-loop trace through ``AsyncServer`` /
+    ``AsyncClient`` over an engine (graphs captured by warmup) against
+    ``engine.run`` of the same requests over another: every outcome ok,
+    each rid's tokens ``engine.run``'s (the JAX test
+    ``test_streaming_matches_batch_engine``), token ticks in order; both
+    runs' launches exact. Returns the async run's launch counts."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (
+        AsyncClient,
+        AsyncServer,
+        RetryPolicy,
+        ServingEngine,
+        open_loop_trace,
+        run_open_loop,
+    )
+
+    trace = open_loop_trace(
+        SERVE["trace_seed"], UNDERLOAD["n"], UNDERLOAD["qps"],
+        vocab_size=qm.cfg.vocab_size,
+        prompt_lens=(SERVE["prompt_min"], SERVE["prompt_len"]),
+        gen_lens=(SERVE["gen_min"], SERVE["gen_len"]), priority_levels=2)
+    engine = dict(ENGINE, page_size=None)
+    ref, ref_s = served_engine(torch, ServingEngine(
+        qm.model, qm.params, qm.cfg, **engine),
+        [dataclasses.replace(r) for r in trace], "10a engine.run")
+    eng = ServingEngine(qm.model, qm.params, qm.cfg, **engine)
+    reset_launch_counts()
+    warm = eng.warmup()
+    server = AsyncServer(eng)
+    client = AsyncClient(server, RetryPolicy(), seed=SERVE["trace_seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outcomes = asyncio.run(run_open_loop(
+        server, client, [dataclasses.replace(r) for r in trace]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    want = expected_launches(
+        "w8a16", True, eng.stats["decode_steps"] + warm["decode_steps"],
+        eng.stats["prefill_dispatches"] + warm["prefill_dispatches"],
+        kv_bits=16)
+    for name, n in counts.items():
+        assert n == want.get(name, 0), (
+            f"10a async: {name} launched {n} times, expected "
+            f"{want.get(name, 0)}")
+    assert len(outcomes) == UNDERLOAD["n"]
+    for o in outcomes:
+        assert o.ok, f"10a: request {o.rid}: {o.status}"
+        assert o.tokens == ref[o.rid].tokens, f"10a: request {o.rid}: tokens"
+        assert o.token_ticks == sorted(o.token_ticks), o.rid
+    gen = sum(len(o.tokens) for o in outcomes)
+    log(f"  10a underload ({UNDERLOAD['n']} requests at {UNDERLOAD['qps']} a "
+        f"tick): every outcome ok, each rid's tokens engine.run's; "
+        f"{gen / secs:.1f} tok/s through the front-end against "
+        f"{gen / ref_s:.1f} tok/s engine.run ({secs:.3f} / {ref_s:.3f} s, "
+        f"{server.steps} server steps; {smi_line()})")
+    log(f"  kernel launches on the 10a async path: {json.dumps(counts)}")
+    return counts
+
+
+def async_overload(torch, label):
+    """10b / 10c: ``repro_torch.serve`` of ``OVERLOAD`` (the user's
+    --serve-async path): shed and breaker counters above 0, every outcome
+    terminal, no page leaked, launches exact. Returns (run, counts)."""
+    import repro_torch
+
+    run, counts = counted_serve(repro_torch.ServeConfig(**OVERLOAD))
+    want = expected_launches("w8a16", True, *forwards(run), kv_bits=16)
+    for name, n in counts.items():
+        assert n == want.get(name, 0), (
+            f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
+    st, s = run.server_stats, run.async_summary
+    shed = st["shed_breaker"] + st["shed_priority"] + st["shed_refused"] \
+        + st["shed_queue"]
+    assert shed > 0 and st["breaker_opens"] > 0, (
+        f"{label}: the overload shed {shed} and opened the breaker "
+        f"{st['breaker_opens']} times")
+    assert len(run.outcomes) == OVERLOAD["trace"]
+    bad = [o.rid for o in run.outcomes if o.status not in TERMINAL]
+    assert not bad, f"{label}: outcomes not terminal: {bad}"
+    assert run.leaked_pages == 0, f"{label}: {run.leaked_pages} pages leaked"
+    log(f"  {label} overload ({OVERLOAD['trace']} requests at "
+        f"{OVERLOAD['qps']} a tick, max_queue {OVERLOAD['max_queue']}, timeout "
+        f"{OVERLOAD['timeout']:g}, paged): statuses {s['statuses']}; goodput "
+        f"{s['goodput_qps']:.4f} req/tick ({s['goodput_fraction']:.0%}); TTFT "
+        f"p50/p99 {s['ttft_p50']:.2f}/{s['ttft_p99']:.2f} ticks, per-token "
+        f"p50/p99 {s['per_token_p50']:.2f}/{s['per_token_p99']:.2f} ticks, "
+        f"mean attempts {s['mean_attempts']:.3f}; admission "
+        + ", ".join(f"{k}={st[k]}" for k in (
+            "submitted", "accepted", "shed_breaker", "shed_priority",
+            "shed_refused", "shed_queue", "deadlines_tightened",
+            "breaker_opens"))
+        + f"; 0 pages leaked; {run.seconds:.3f} s wall, "
+        f"{run.tokens_per_second:.1f} tok/s ({smi_line()})")
+    log(f"  kernel launches on the {label} async path: {json.dumps(counts)}")
+    return run, counts
+
+
+def check_async_front_end(torch):
+    """Phase 10: 10a, then 10b, then 10c (10b again: its outcomes — status,
+    tokens, attempts, token ticks — and the server's counters identical,
+    determinism on the card). Returns the 10b launch counts."""
+    import repro_torch
+
+    qm = repro_torch.quantize(repro_torch.build_model(
+        repro_torch.get_config(SERVE["arch"])), None, init_seed=SERVE["seed"],
+        device="cuda", recipe="serve-w8a16")
+    async_underload(torch, qm)
+    del qm
+    b, counts = async_overload(torch, "10b")
+    c, _ = async_overload(torch, "10c")
+
+    def key(run):
+        return ([(o.rid, o.status, o.attempts, o.tokens, o.token_ticks)
+                 for o in run.outcomes], run.server_stats, run.async_summary)
+
+    assert key(b) == key(c), "10c: the rerun's outcomes or counters differ"
+    log("  10c rerun: every outcome (status, tokens, attempts, token ticks), "
+        "the server's counters and the SLO summary identical to 10b's")
+    return counts
+
+
+# --------------------------------------------------------------- phase 11
+# the new families at full width: 8 sequences of a 128-token prompt, then
+# 32 greedy decode steps; whisper's encoder over 1500 frames each
+FAMILY = dict(batch=8, prompt=128, steps=32)
+# the depths cut_depth probes the quantize peak at (zamba2: segments of 6
+# mamba layers, each followed by a shared block); whisper-tiny runs whole
+FAMILY_PROBES = {"mamba2-2.7b": (1, 2), "zamba2-2.7b": (6, 12),
+                 "whisper-tiny": None}
+# the smoke models' quantize on the card against the CPU's: a bias a
+# rewrite computes by a sum (a LayerNorm shift folded through a weight, an
+# absorbed value bias) sums in another order on the card — within
+# FAMILY_SUM_TOL of its largest |value| (tests/_torch_port.py's BIAS_TOL
+# for the port against the JAX package); every other leaf bit-equal
+FAMILY_SUM_TOL = 1e-5
+# decode logits (prefill + greedy decode_steps over the cache, bf16 at full
+# width) against the float32 teacher-forced forward of the same quantized
+# weights over the same tokens: no farther from it than FAMILY_TF_FACTOR
+# times the bf16 teacher-forced forward is. Both bf16 paths round at every
+# layer, in other places (the chunked scan against the recurrence, the
+# cached attention against the causal forward, GEMMs of other row counts),
+# so their distance from each other is bf16 noise of the size of either's
+# distance from float32 — up to 6 % of the largest |logit| over mamba2's
+# 64 layers (chip run) — and an absolute bound would not say which path
+# strayed
+FAMILY_TF_FACTOR = 2.0
+
+
+def family_inputs(cfg, M):
+    """(projection, K, the Ns of the projections reading one input, M
+    rows) of every linear input of one forward of the decoder at M rows: a
+    Mamba2 layer's in_proj and out_proj, a shared (zamba2) or decoder
+    (whisper) block's q/k/v trio, o, the MLP's gate/up (up alone without a
+    gate) and down; and whisper's cross attention's q and o."""
+    from repro_torch.models.mamba import ssm_dims
+
+    D, A, KV, F = cfg.d_model, cfg.attn_dim, cfg.kv_dim, cfg.d_ff
+    attn = [("q/k/v", D, (A, KV, KV), M), ("o", A, (D,), M)]
+    mlp = [("gate/up", D, (F, F), M) if cfg.act.endswith("_glu")
+           else ("up", D, (F,), M), ("down", F, (D,), M)]
+    if cfg.is_encdec:
+        return (attn + [("cross q", D, (A,), M), ("cross o", A, (D,), M)]
+                + mlp) * cfg.n_layers
+    din, _, _, _, d_proj, _ = ssm_dims(cfg)
+    out = [("in_proj", D, (d_proj,), M),
+           ("out_proj", din, (D,), M)] * cfg.n_layers
+    if cfg.family == "hybrid":
+        out += (attn + mlp) * (cfg.n_layers // cfg.hybrid_attn_every)
+    return out
+
+
+def warm_inputs(cfg, M):
+    """``EncDecModel.warm_cache``'s linear inputs at M encoder rows: each
+    encoder layer's q/k/v trio, o, up and down, then each decoder layer's
+    cross keys and values (two projections, each on its own)."""
+    D, A, KV, F = cfg.d_model, cfg.attn_dim, cfg.kv_dim, cfg.d_ff
+    return ([("enc q/k/v", D, (A, KV, KV), M), ("enc o", A, (D,), M),
+             ("enc up", D, (F,), M), ("enc down", F, (D,), M)]
+            * cfg.n_enc_layers
+            + [("cross k", D, (KV,), M), ("cross v", D, (KV,), M)]
+            * cfg.n_layers)
+
+
+def family_path_inputs(arch):
+    """The linear inputs of phase 11's path through ``arch`` at full
+    width, as ``family_inputs`` gives them, once each in the order the path
+    first reaches them: the prefill's (FAMILY's batch x prompt rows), a
+    decode step's (the batch), and whisper's ``warm_inputs`` (batch x
+    enc_seq encoder rows). The depth does not change them."""
+    import repro_torch
+
+    cfg = repro_torch.get_config(arch)
+    B, P = FAMILY["batch"], FAMILY["prompt"]
+    inputs = family_inputs(cfg, B * P) + family_inputs(cfg, B)
+    if cfg.is_encdec:
+        inputs += warm_inputs(cfg, B * cfg.enc_seq)
+    return list(dict.fromkeys(inputs))
+
+
+def family_path_gemms(arch):
+    """(projection, K, N, M) of every GEMM on phase 11's path through
+    ``arch``, once each, in path order."""
+    out: dict = {}
+    for name, K, Ns, M in family_path_inputs(arch):
+        for N in Ns:
+            out.setdefault((K, N, M), name)
+    return [(name, K, N, M) for (K, N, M), name in out.items()]
+
+
+def family_quantize_inputs(arch):
+    """(M, K) of every input that serve-w8a8 quantizes with quantize_act
+    on phase 11's path through ``arch`` (where ``gemm_plan`` does not fold
+    for every projection reading it; ``family_launches``' rule), once
+    each, in path order."""
+    from repro_torch.kernels import gemm_plan
+
+    return list(dict.fromkeys(
+        (M, K) for _, K, Ns, M in family_path_inputs(arch)
+        if not all(gemm_plan.plan(M, N, K).fold for N in Ns)))
+
+
+def family_launches(quantize, inputs):
+    """{kernel: launches} of ``inputs``: W8A16 one qmatmul_w8a16 a
+    projection; W8A8 as ``gemm_plan`` says for each input — where it folds
+    for every projection reading it, one qmatmul_w8a8_qin (which hands its
+    quantized input to the others, an int8 GEMM each), else one
+    quantize_act and an int8 GEMM each."""
+    from repro_torch.kernels import gemm_plan
+
+    want: dict = {}
+
+    def add(k, n):
+        want[k] = want.get(k, 0) + n
+
+    for _, K, Ns, M in inputs:
+        if quantize == "w8a16":
+            add("qmatmul_w8a16", len(Ns))
+        elif all(gemm_plan.plan(M, N, K).fold for N in Ns):
+            add("qmatmul_w8a8_qin", 1)
+            add("qmatmul_w8a8", len(Ns) - 1)
+        else:
+            add("quantize_act", 1)
+            add("qmatmul_w8a8", len(Ns))
+    return want
+
+
+def family_generate(torch, model, params, toks, frames, steps, dev,
+                    forced=None):
+    """Prefill ``toks`` [B, P] (whisper: after ``warm_cache`` on
+    ``frames``) into a cache of P + ``FAMILY["steps"]`` positions, then
+    ``steps`` greedy decode steps (or, given ``forced`` [B, P+steps], steps
+    fed its tokens), the card synchronized around each phase.
+    Returns (logits of every step [steps+1, B, V], the tokens fed [B,
+    P+steps], warm ms, prefill ms, decode seconds)."""
+    B, P = toks.shape
+    cache = model.init_cache(B, P + FAMILY["steps"], device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    if frames is not None:
+        cache = model.warm_cache(params, frames, cache)
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    lg, cache = model.prefill(params, toks, cache)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    out, seq = [lg], [toks]
+    for i in range(steps):
+        nxt = (lg.argmax(-1, keepdim=True) if forced is None
+               else forced[:, P + i:P + i + 1])
+        seq.append(nxt)
+        lg, cache = model.decode_step(params, nxt, cache)
+        out.append(lg)
+    torch.cuda.synchronize(dev)
+    t3 = time.perf_counter()
+    return (torch.stack(out).float(), torch.cat(seq, 1),
+            (t1 - t0) * 1e3, (t2 - t1) * 1e3, t3 - t2)
+
+
+def family_full_width(torch, dev, arch, depth, recipe):
+    """One arch of phase 11 under ``recipe``: ``repro_torch.quantize`` at
+    full width (``depth`` layers) on the card, ``FAMILY``'s prefill and
+    greedy decode, launches reset just before and read just after and held
+    to ``family_launches`` of its layers, the decode logits against the
+    float32 teacher-forced forward within ``FAMILY_TF_FACTOR`` times the
+    bf16 forward's distance from it; then the prefill and the decode steps
+    again at ``backend="torch"`` (the tier scope, the plain versions), fed
+    the kernel run's tokens: no launch, and its logits the kernels' bit for
+    bit under W8A8 and within ``FAMILY_TF_FACTOR`` times the bf16
+    forward's distance under W8A16 (the one check of the logits that runs
+    no hand-written kernel: the float32 forward launches qmatmul_w8a16
+    too). Returns the launch counts."""
+    import dataclasses
+    import gc
+
+    import repro_torch
+    from repro_torch.data import calibration_tokens, prng
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.dispatch import tier_scope
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(repro_torch.get_config(arch), n_layers=depth)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    qm = repro_torch.quantize(repro_torch.build_model(cfg), None,
+                              recipe=recipe, device=dev)
+    torch.cuda.synchronize(dev)
+    q_s = time.perf_counter() - t0
+    q_peak = torch.cuda.max_memory_allocated(dev) - base
+    model, params = qm.model, qm.params
+    B, P, S = FAMILY["batch"], FAMILY["prompt"], FAMILY["steps"]
+    toks = calibration_tokens(5, B, P, cfg.vocab_size, device=dev)
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.from_numpy(prng.normal(
+            prng.PRNGKey(5), (B, cfg.enc_seq, cfg.d_model))).to(dev)
+    reset_launch_counts()
+    steps, seq, warm_ms, prefill_ms, decode_s = family_generate(
+        torch, model, params, toks, frames, S, dev)
+    counts = launch_counts()
+    quantize = recipe.split("-")[1]
+    inputs = family_inputs(cfg, B * P) + family_inputs(cfg, B) * S
+    if cfg.is_encdec:
+        inputs += warm_inputs(cfg, B * cfg.enc_seq)
+    want = family_launches(quantize, inputs)
+    label = f"{arch} ({depth} layers) {recipe}"
+    for name, n in counts.items():
+        assert n == want.get(name, 0), (
+            f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
+    def forced(m):
+        """m's teacher-forced logits at the decode positions [S+1, B, V]."""
+        full = m.apply(params, seq, frames) if cfg.is_encdec else m.apply(
+            params, seq)
+        return full.float()[:, P - 1:].transpose(0, 1)
+
+    tf = forced(model)
+    ref = forced(repro_torch.build_model(dataclasses.replace(
+        cfg, dtype="float32")))
+    assert all(torch.isfinite(t).all() for t in (steps, tf, ref)), label
+    err_dec = float((steps - ref).abs().max())
+    err_tf = float((tf - ref).abs().max())
+    diff = float((steps - tf).abs().max())
+    scale = float(ref.abs().max())
+    agree = float((steps.argmax(-1) == tf.argmax(-1)).float().mean())
+    assert err_dec <= FAMILY_TF_FACTOR * err_tf, (
+        f"{label}: decode logits {err_dec:.4g} off the float32 forward, the "
+        f"bf16 teacher-forced forward {err_tf:.4g}")
+    reset_launch_counts()
+    with tier_scope("torch"):
+        plain = family_generate(torch, model, params, toks, frames, S, dev,
+                                forced=seq)[0]
+    plain_counts = launch_counts()
+    assert not any(plain_counts.values()), (
+        f"{label}: backend='torch' launched {plain_counts}")
+    plain_diff = float((plain - steps).abs().max())
+    plain_prefill = float((plain[0] - steps[0]).abs().max())
+    assert torch.isfinite(plain).all(), label
+    # W8A8's plain versions are the kernels' bits (integer products, the
+    # same float epilogue); W8A16's apply the scale before the sum, in
+    # float32, where the kernel applies it after: bf16 noise of the size
+    # of the kernel path's own distance from float32
+    if quantize == "w8a8":
+        assert plain_diff == 0.0, (
+            f"{label}: backend='torch' logits {plain_diff} off the kernels'")
+    else:
+        assert plain_diff <= FAMILY_TF_FACTOR * err_tf, (
+            f"{label}: backend='torch' logits {plain_diff:.4g} off the "
+            f"kernels' on the same tokens, the bf16 teacher-forced forward "
+            f"{err_tf:.4g} off float32")
+    log(f"  {label}: quantize {q_s:.2f} s (peak {q_peak / 2**30:.2f} GiB)"
+        + (f", warm_cache (encoder over {cfg.enc_seq} frames) {warm_ms:.2f} ms"
+           if frames is not None else "")
+        + f", prefill {B}x{P} {prefill_ms:.2f} ms, {S} greedy decode steps "
+        f"{B * S / decode_s:.1f} tok/s ({decode_s * 1e3 / S:.2f} ms a step); "
+        f"off the float32 teacher-forced forward (max |logit| {scale:.4g}): "
+        f"decode {err_dec:.4g}, bf16 forward {err_tf:.4g}; decode vs bf16 "
+        f"forward max |diff| {diff:.4g}, greedy agreement {agree:.3f}; "
+        f"backend='torch' on the same tokens 0 launches, its logits within "
+        f"{plain_diff:.4g} of the kernels' (prefill {plain_prefill:.4g}) "
+        f"({smi_line()})")
+    log(f"  kernel launches on the {label} path: {json.dumps(counts)}")
+    del qm, model, params
+    return counts
+
+
+def summed_biases(plan):
+    """The bias paths a plan's rewrites compute by a sum: the consumer
+    biases of a LayerNorm fold and the absorbing biases."""
+    from repro_torch.core.graph import NormFoldOp, VBiasAbsorbOp
+
+    out = set()
+    for op in plan.ops:
+        if isinstance(op, NormFoldOp) and op.norm_b is not None:
+            out |= {b for b in op.consumer_biases or () if b is not None}
+        elif isinstance(op, VBiasAbsorbOp):
+            out.add(op.bo)
+    return out
+
+
+def check_family_smoke(torch, dev, arch):
+    """``arch`` at smoke size, weights drawn on the host: for serve-w8a16
+    and serve-w8a8, ``repro_torch.quantize`` on the card against the CPU's
+    leaf by leaf (payloads, scales and weights bit-equal, ``summed_biases``
+    within ``FAMILY_SUM_TOL``); then prefill 8 + 16 teacher-forced decode
+    steps of the card's model (kernels) against the CPU's (plain versions),
+    every step within 5 % of the largest |logit| and greedy agreement at
+    least 0.9 (``teacher_forced``'s bound)."""
+    import repro_torch
+    from repro_torch.data import prng
+
+    model = repro_torch.build_model(repro_torch.get_config(arch, smoke=True))
+    cfg = model.cfg
+    params = model.init(0, device="cpu")
+    summed = summed_biases(model.dfq_plan())
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen)
+    frames = (torch.from_numpy(prng.normal(prng.PRNGKey(2), (
+        4, cfg.enc_seq, cfg.d_model))) if cfg.is_encdec else None)
+    for recipe in ("serve-w8a16", "serve-w8a8"):
+        cpu = repro_torch.quantize(model, params, recipe=recipe, device="cpu")
+        card = repro_torch.quantize(model, params, recipe=recipe, device=dev)
+        want, got = dict(_leaves(cpu.params)), dict(_leaves(card.params))
+        assert sorted(want) == sorted(got), f"{arch} {recipe}: tree differs"
+        worst = 0.0
+        for path, t in want.items():
+            g = got[path].cpu()
+            assert g.dtype == t.dtype and g.shape == t.shape, path
+            if path in summed:
+                err = float((g - t).abs().max())
+                assert err <= FAMILY_SUM_TOL * max(float(t.abs().max()), 1.0), (
+                    f"{arch} {recipe}: {'/'.join(path)} off the CPU's by {err}")
+                worst = max(worst, err)
+            else:
+                assert torch.equal(g, t), (
+                    f"{arch} {recipe}: {'/'.join(path)} on the card differs "
+                    f"from the CPU's")
+        out = {}
+        for name, d, p in (("cpu", "cpu", cpu.params),
+                           ("cuda", dev, card.params)):
+            cache = model.init_cache(4, 32, device=d)
+            if frames is not None:
+                cache = model.warm_cache(p, frames.to(d), cache)
+            lg, cache = model.prefill(p, toks[:, :8].to(d), cache)
+            steps = [lg]
+            for t in range(8, 24):
+                lg, cache = model.decode_step(p, toks[:, t:t + 1].to(d), cache)
+                steps.append(lg)
+            out[name] = torch.stack(steps).float().cpu()
+        diff = float((out["cpu"] - out["cuda"]).abs().max())
+        scale = float(out["cpu"].abs().max())
+        agree = float((out["cpu"].argmax(-1)
+                       == out["cuda"].argmax(-1)).float().mean())
+        assert all(torch.isfinite(v).all() for v in out.values())
+        assert diff <= 0.05 * scale and agree >= 0.9, (
+            f"{arch} {recipe}: card and CPU disagree ({diff} of {scale}, "
+            f"agreement {agree})")
+        log(f"  smoke {arch} {recipe}: quantize on the card = the CPU's "
+            f"({len(want) - len(summed & set(want))} leaves bit-equal"
+            + (f", summed biases within {worst:.3g}" if worst else "")
+            + f"); prefill 8 + 16 decode steps card vs CPU: max |logit diff| "
+            f"{diff:.3g} (max |logit| {scale:.3g}), greedy agreement "
+            f"{agree:.3f}")
+
+
+def check_families(torch, dev):
+    """Phase 11: each new family at smoke size card against CPU, then at
+    full width (mamba2-2.7b and zamba2-2.7b at the depth ``cut_depth``
+    allows, whisper-tiny whole) under serve-w8a16 and serve-w8a8. Returns
+    {(arch, recipe): launch counts}."""
+    counts = {}
+    for arch, probe in FAMILY_PROBES.items():
+        check_family_smoke(torch, dev, arch)
+        depth = None
+        if probe is not None:
+            depth = cut_depth(torch, dev, arch, probe)
+            every = probe[0] if arch.startswith("zamba2") else 1
+            depth = max(every, depth // every * every)
+        import repro_torch
+
+        depth = depth or repro_torch.get_config(arch).n_layers
+        for recipe in ("serve-w8a16", "serve-w8a8"):
+            counts[arch, recipe] = family_full_width(torch, dev, arch, depth,
+                                                     recipe)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3918,6 +4538,9 @@ def main() -> int:
     check_new_attention(torch, dev, gen)
     check_new_gemms(torch, dev, gen)
     expert_rows = check_expert_gemms(torch, dev, gen)
+    family_rows = check_new_gemms(torch, dev, gen, family_gemms(),
+                                  "the new families' shapes")
+    family_rows["quantize_act"] = check_family_quantize_act(torch, dev, gen)
 
     log("== phase 3: small-input reference")
     for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8", "dfq-int8",
@@ -4061,6 +4684,21 @@ def main() -> int:
         f"pad positions included")
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s ({smi})")
 
+    log("== phase 10: the async front-end (circuit breaker, shedding ladder, "
+        "client retries) serving qwen2-0.5b (full width)")
+    log(f"  {smi}")
+    t10 = time.perf_counter()
+    async_counts = check_async_front_end(torch)
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s ({smi})")
+
+    log("== phase 11: the SSM, hybrid and encoder-decoder families "
+        "(mamba2-2.7b, zamba2-2.7b, whisper-tiny) at full width through "
+        "repro_torch.quantize, prefill and greedy decode")
+    log(f"  {smi}")
+    t11 = time.perf_counter()
+    family_counts = check_families(torch, dev)
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s ({smi})")
+
     # each kernel's launches come from the run of the path it serves; the
     # fused decode from the default (w8a16) path, kv_attention from the
     # default recipe's unfused route; the quantize-out GEMMs are on no
@@ -4134,6 +4772,41 @@ def main() -> int:
             "path": "phase 9: mixtral-8x22b " + (
                 "serve-w8a16 (bf16 KV)" if counted is w8a16_run
                 else "serve-w8a8-kv8")})
+    # phase 10's overload run (10b) serves through qmatmul_w8a16 (the bf16
+    # KV cache launches no attention kernel); its row is phase 2's at the
+    # decode shape
+    row = next(r for r in tables["qmatmul_w8a16"]
+               if r["shape"] == main["qmatmul_w8a16"][0])
+    kernels.append({
+        **row, "name": "qmatmul_w8a16 (async front-end)", "route": "cuda",
+        "source": csrc + sources["qmatmul_w8a16"][0],
+        "replaces": tpu + sources["qmatmul_w8a16"][1],
+        "launches": async_counts["qmatmul_w8a16"],
+        "path": "phase 10b: qwen2-0.5b --serve-async overload, serve-w8a16 "
+                "(bf16 KV), paged"})
+    # phase 11's launches, each beside the phase-2 row of the same kernel
+    # at the first shape of the arch's path that phase 2 ran it at (the
+    # quantize-in fold has rows only where gemm_plan folds)
+    recipes = {"qmatmul_w8a16": "serve-w8a16", "qmatmul_w8a8": "serve-w8a8",
+               "qmatmul_w8a8_qin": "serve-w8a8", "quantize_act": "serve-w8a8"}
+    for arch in FAMILY_PROBES:
+        keys = [(M, K, N) for _, K, N, M in family_path_gemms(arch)]
+        for name, recipe in recipes.items():
+            n = family_counts[arch, recipe].get(name, 0)
+            if n == 0 and name == "qmatmul_w8a8_qin":
+                continue          # the plan folds at none of its inputs
+            assert n > 0, f"phase 11 {arch} {recipe}: {name} never launched"
+            want = (family_quantize_inputs(arch) if name == "quantize_act"
+                    else keys)
+            row = next(r for key in want for r in family_rows[name]
+                       if r["gemm"] == key)
+            kernels.append({
+                **{k: v for k, v in row.items()
+                   if k not in ("stepwise_ms", "gemm")},
+                "name": f"{name} ({arch})", "route": "cuda",
+                "source": csrc + sources[name][0],
+                "replaces": tpu + sources[name][1], "launches": n,
+                "path": f"phase 11: {arch} {recipe} prefill + decode"})
     log(f"  the script took {time.perf_counter() - t_script:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -3,6 +3,10 @@ the continuous-batching engine — on the card unless told otherwise.
 
     python -m repro_torch.launch.serve --arch mistral-nemo-12b \
         --quantize w8a16 --trace 16 --slots 8 --prefill-chunk 32 --warmup
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --recipe \
+        serve-w8a8 --verbose --save /path/to/artifact
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --serve-async \
+        --trace 48 --qps 2.0 --timeout 48 --max-queue 4
 
     import repro_torch
     run = repro_torch.serve(repro_torch.ServeConfig(arch="qwen2-0.5b",
@@ -21,27 +25,49 @@ The engine takes the fast path (decode horizons of up to
 graph before the timed loop. ``--page-size`` serves from the paged pool
 (``--num-pages``, ``--no-prefix-reuse``), ``--deadline T`` gives every
 request a deadline T ticks after its arrival, and the report then lists
-the fault counters and the results by status. ``serve`` returns a
-``ServeRun`` with the results, the engine's stats, the pipeline's stage
-report, the wall time of the serving loop and what warmup ran (the JAX
+the fault counters and the results by status. ``--recipe`` quantizes with
+any pipeline recipe (an explicit ``--kv-bits`` is folded into the
+artifact's config, as the JAX launcher does), ``--save`` persists the
+``QuantizedModel`` and ``--verbose`` prints the per-site weight SQNR.
+Without ``--trace`` the launcher serves ``--batch`` uniform requests on the
+JAX package's calibration ids; ``--max-queue`` bounds the admission queue
+(a request it refuses is shed, and the rest are served); SIGTERM drains
+(admission closes, in-flight and parked requests finish); and
+``--serve-async`` serves the trace open-loop through the async front-end
+(``serving.AsyncServer`` behind a circuit breaker and the shedding ladder,
+``AsyncClient`` with retry and jittered backoff) and reports the SLO view.
+``serve`` returns a ``ServeRun`` with the results, the engine's stats, the
+pipeline's stage report, the wall time of the serving loop, what warmup ran
+and, on the async path, the SLO summary and the server's counters (the JAX
 launcher returns the results map alone).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import signal
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..configs import get_config
+from ..data import calibration_tokens
 from ..device import resolve_device
 from ..kernels.dispatch import active_tier
 from ..models import build_model
 from ..pipeline import QuantizedModel, quantize
 from ..runtime import StragglerMonitor
-from ..serving import ServingEngine, required_cache_len, synthetic_trace
+from ..serving import (
+    QueueFull,
+    Request,
+    ServingEngine,
+    count_leaked_pages,
+    open_loop_trace,
+    required_cache_len,
+    synthetic_trace,
+)
 from .serve_config import (  # noqa: F401
     QUANTIZE_CHOICES,
     ServeConfig,
@@ -69,6 +95,19 @@ class ServeRun:
     # the KV pool's payload bytes, and (paged) the engine's dense view's
     pool_bytes: int = 0
     view_bytes: int = 0
+    # the synchronous path: the rids the bounded queue refused (QueueFull)
+    shed: list = dataclasses.field(default_factory=list)
+    # the async path (--serve-async): loadgen.summarize's SLO view, the
+    # server's admission counters (breaker opens among them) and the
+    # clients' outcomes in rid order; None otherwise
+    async_summary: Optional[dict] = None
+    server_stats: Optional[dict] = None
+    outcomes: Optional[list] = None
+    # whether SIGTERM drained the serving loop
+    drained: bool = False
+    # the paged pool: pages still referenced after the loop that no live
+    # slot maps and no prefix index pins (a refcount leak; must be 0)
+    leaked_pages: Optional[int] = None
 
     @property
     def tokens_per_second(self) -> float:
@@ -88,7 +127,7 @@ def _check_servable(cfg, what):
         raise ServeConfigError(
             f"{what}: the continuous-batching engine serves "
             f"attention-family decoder-only models; quantize "
-            f"{cfg.family!r} archs via repro.pipeline.cli and run them "
+            f"{cfg.family!r} archs via repro_torch.pipeline.cli and run them "
             f"through model.prefill/decode_step directly"
         )
 
@@ -124,6 +163,124 @@ def _report_profile(prof, wall_s: float, top: int = 12) -> Optional[float]:
     return busy_us / 1e6 / wall_s
 
 
+def _requests(config: ServeConfig, vocab_size: int) -> list:
+    """The workload: ``trace`` synthetic arrivals (open-loop with two
+    priority classes under ``serve_async``), else ``batch`` uniform
+    requests on the JAX package's calibration ids; each with ``deadline``
+    ticks after its arrival."""
+    if not config.trace:
+        prompts = calibration_tokens(0, config.batch, config.prompt_len,
+                                     vocab_size, device="cpu").numpy()
+        prompts = prompts.astype(np.int32)
+        return [Request(rid=i, prompt=prompts[i],
+                        max_new_tokens=config.gen_len,
+                        deadline=config.deadline)
+                for i in range(config.batch)]
+    lens = dict(vocab_size=vocab_size,
+                prompt_lens=(config.prompt_min, config.prompt_len),
+                gen_lens=(config.gen_min, config.gen_len))
+    if config.serve_async:
+        # two priority classes so the shedder's lowest-class rung has a
+        # victim population (class 1 survives rung 1)
+        requests = open_loop_trace(config.trace_seed, config.trace,
+                                   config.qps, priority_levels=2, **lens)
+    else:
+        requests = synthetic_trace(config.trace_seed, config.trace,
+                                   mean_interarrival=1.0, **lens)
+    if config.deadline is not None:
+        requests = [dataclasses.replace(r, deadline=r.arrival + config.deadline)
+                    for r in requests]
+    return requests
+
+
+def _serve_async(config: ServeConfig, engine: ServingEngine, requests,
+                 sigterm: list):
+    """The trace through the async front-end, open-loop: returns
+    (summary, server stats). SIGTERM drains the server."""
+    import asyncio
+
+    from ..serving import (
+        SLO,
+        AsyncClient,
+        AsyncServer,
+        CircuitBreaker,
+        RetryPolicy,
+        ShedPolicy,
+        run_open_loop,
+        summarize,
+    )
+
+    sp = config.shed_pressure
+    server = AsyncServer(
+        engine, breaker=CircuitBreaker(cooldown=config.breaker_cooldown),
+        shed=ShedPolicy(shed_pressure=sp, tighten_pressure=min(1.0, 1.5 * sp),
+                        refuse_pressure=min(1.0, 2.0 * sp)))
+    client = AsyncClient(
+        server, RetryPolicy(max_attempts=config.retry_attempts),
+        seed=config.trace_seed)
+    prev = signal.signal(signal.SIGTERM,
+                         lambda *_: (sigterm.append(1), server.drain()))
+    try:
+        outcomes = asyncio.run(run_open_loop(server, client, requests,
+                                             timeout=config.timeout))
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    stats = {k: (dict(v) if k == "results" else v)
+             for k, v in server.stats.items()}
+    stats["breaker_opens"] = server.breaker.opens
+    return summarize(outcomes, slo=SLO()), stats, outcomes
+
+
+def _report_async(summary: dict, stats: dict) -> None:
+    """The JAX launcher's SLO, admission and breaker lines."""
+    from ..serving import SLO
+
+    slo = SLO()
+    print(f"async front-end: offered {summary['offered_qps']:.3f} "
+          f"req/tick, goodput {summary['goodput_qps']:.3f} req/tick "
+          f"({summary['goodput_fraction']:.0%} of offered; SLO: ttft <= "
+          f"{slo.ttft:g}, per-token <= {slo.per_token:g} ticks)")
+    print(f"  ttft p50/p99 {summary['ttft_p50']:.1f}/"
+          f"{summary['ttft_p99']:.1f} ticks, per-token p50/p99 "
+          f"{summary['per_token_p50']:.2f}/"
+          f"{summary['per_token_p99']:.2f} ticks, "
+          f"mean attempts {summary['mean_attempts']:.2f}")
+    print("  admission: " + ", ".join(
+        f"{k}={stats[k]}" for k in
+        ("submitted", "accepted", "shed_breaker", "shed_priority",
+         "shed_refused", "shed_queue", "deadlines_tightened"))
+        + f"; breaker opens={stats['breaker_opens']}")
+
+
+def _quantize(config: ServeConfig, device):
+    """Build the config's model and quantize it (``None`` for
+    ``--quantize none`` without ``--recipe``); returns (qm, cfg, model,
+    params)."""
+    cfg = get_config(config.arch, smoke=config.smoke)
+    _check_servable(cfg, f"--arch {config.arch}")
+    if config.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=config.layers)
+    if not config.recipe and config.quantize == "none":
+        if config.kv_bits is not None:
+            cfg = dataclasses.replace(cfg, kv_cache_bits=config.kv_bits)
+        model = build_model(cfg)
+        return None, cfg, model, model.init(config.seed, device=device)
+    recipe = config.recipe or (f"serve-{config.quantize}-kv8"
+                               if config.kv_bits == 8
+                               else f"serve-{config.quantize}")
+    # quantize draws the weights itself: no reference here keeps the
+    # float32 tree alive once the pipeline has replaced it
+    qm = quantize(build_model(cfg), None, init_seed=config.seed,
+                  device=device, recipe=recipe)
+    if config.kv_bits is not None and qm.cfg.kv_cache_bits != config.kv_bits:
+        # an explicit --recipe may not carry a kv_cache stage: fold the
+        # requested KV precision into the artifact so that a --save /
+        # --load round trip serves the cache of this run
+        qm.cfg = dataclasses.replace(qm.cfg, kv_cache_bits=config.kv_bits)
+        qm.model = build_model(qm.cfg)
+    return qm, qm.cfg, qm.model, qm.params
+
+
 def serve(config: ServeConfig) -> ServeRun:
     """Build, quantize and serve per ``config``; prints a short report."""
     config = dataclasses.replace(config).validate()
@@ -139,23 +296,7 @@ def serve(config: ServeConfig) -> ServeRun:
             print(f"note: {note}")
         how = f"loaded from {config.load}"
     else:
-        cfg = get_config(config.arch, smoke=config.smoke)
-        _check_servable(cfg, f"--arch {config.arch}")
-        if config.layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=config.layers)
-        if config.quantize == "none":
-            qm = None
-            if config.kv_bits is not None:
-                cfg = dataclasses.replace(cfg, kv_cache_bits=config.kv_bits)
-            model = build_model(cfg)
-            params = model.init(config.seed, device=device)
-        else:
-            kv8 = "-kv8" if config.kv_bits == 8 else ""
-            # quantize draws the weights itself: no reference here keeps
-            # the float32 tree alive once the pipeline has replaced it
-            qm = quantize(build_model(cfg), None, init_seed=config.seed,
-                          device=device,
-                          recipe=f"serve-{config.quantize}{kv8}")
+        qm, cfg, model, params = _quantize(config, device)
         how = "quantized"
     quantize_peak = None
     if device.type == "cuda":
@@ -176,17 +317,23 @@ def serve(config: ServeConfig) -> ServeRun:
         sqnr = qm.site_sqnr_db()
         print("  per-site weight SQNR (dB): " + ", ".join(
             f"{k} {v:.2f}" for k, v in sqnr.items()))
+        if config.verbose:
+            from ..pipeline.cli import print_site_sqnr
+
+            print_site_sqnr(qm)
+        if config.save:
+            qm.save(config.save)
+            print(f"saved QuantizedModel to {config.save}")
     else:
         print(f"serving {cfg.name} unquantized ({cfg.param_dtype} weights, "
               f"{cfg.dtype} compute) on {device}")
 
-    requests = synthetic_trace(
-        config.trace_seed, config.trace, vocab_size=cfg.vocab_size,
-        prompt_lens=(config.prompt_min, config.prompt_len),
-        gen_lens=(config.gen_min, config.gen_len), mean_interarrival=1.0)
-    if config.deadline is not None:
-        requests = [dataclasses.replace(r, deadline=r.arrival + config.deadline)
-                    for r in requests]
+    requests = _requests(config, cfg.vocab_size)
+    if config.trace:
+        rate = f" at {config.qps:g} req/tick" if config.serve_async else ""
+        print(f"trace: {len(requests)} requests, prompt {config.prompt_min}.."
+              f"{config.prompt_len}, gen {config.gen_min}..{config.gen_len}, "
+              f"Poisson arrivals{rate}")
     need = max(required_cache_len(len(r.prompt), r.max_new_tokens,
                                   config.prefill_chunk) for r in requests)
     straggler = (None if config.straggler_threshold is None
@@ -200,6 +347,7 @@ def serve(config: ServeConfig) -> ServeRun:
                            page_size=config.page_size,
                            num_pages=config.num_pages,
                            prefix_reuse=config.prefix_reuse,
+                           max_queue=config.max_queue,
                            straggler=straggler, device=device)
     layout = (f"paged ({engine.pool.num_pages} pages x {engine.page_size} "
               f"positions, prefix reuse "
@@ -221,14 +369,40 @@ def serve(config: ServeConfig) -> ServeRun:
         print(f"warmup: ran the serving shapes in {warm['seconds']:.1f} s")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    # SIGTERM → graceful drain: stop admitting, finish in-flight and parked
+    # requests, report (the JAX launcher's contract)
+    sigterm: list = []
+    summary = server_stats = outcomes = None
+    shed: list = []
     prof = _profiler(device) if config.profile else contextlib.nullcontext()
     with prof:
         t0 = time.perf_counter()
-        results = engine.run(requests)
+        if config.serve_async:
+            summary, server_stats, outcomes = _serve_async(
+                config, engine, requests, sigterm)
+            results = engine.results
+        else:
+            prev = signal.signal(
+                signal.SIGTERM,
+                lambda *_: (sigterm.append(1), engine.request_drain()))
+            try:
+                for r in requests:
+                    try:
+                        engine.submit(r)
+                    except QueueFull:
+                        shed.append(r.rid)
+                results = engine.run()
+            finally:
+                signal.signal(signal.SIGTERM, prev)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
     busy = _report_profile(prof, dt) if config.profile else None
+    if summary is not None:
+        _report_async(summary, server_stats)
+    if sigterm:
+        print(f"drain: SIGTERM received — admission stopped, "
+              f"{engine.scheduler.pending()} queued requests unserved")
     path = ("stepwise" if config.reference
             else f"fast (decode horizon {config.decode_horizon})")
     run = ServeRun(results=results, stats=dict(engine.stats), seconds=dt,
@@ -239,7 +413,11 @@ def serve(config: ServeConfig) -> ServeRun:
                    peak_bytes=(torch.cuda.max_memory_allocated(device)
                                if device.type == "cuda" else None),
                    pool_bytes=engine.pool.cache_bytes(),
-                   view_bytes=engine.view_bytes())
+                   view_bytes=engine.view_bytes(), shed=shed,
+                   async_summary=summary, server_stats=server_stats,
+                   outcomes=outcomes, drained=bool(sigterm),
+                   leaked_pages=(count_leaked_pages(engine) if engine.paged
+                                 else None))
     print(f"served {len(results)} requests / {run.generated_tokens} generated "
           f"tokens in {dt * 1e3:.1f} ms ({run.tokens_per_second:.1f} tok/s, "
           f"{path} path)")

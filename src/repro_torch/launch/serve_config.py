@@ -1,12 +1,16 @@
 """Typed serving configuration: one dataclass is both the ``serve`` API and
-(through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. Only
-the knobs of the port's serving path so far: the fast path (default, with
-``decode_horizon``) or the stepwise ``reference``, ``warmup``, ``load``
-(serve a saved ``QuantizedModel``), the paged pool (``page_size``,
-``num_pages``, ``prefix_reuse``), ``deadline`` and ``straggler_threshold``
-with the JAX launcher's validation, and one the JAX launcher lacks:
-``layers`` (the arch cut to its first N layers, widths kept, for a card
-that cannot hold the full depth). The kernel tier is the device's unless
+(through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. It
+has every field of the JAX ``ServeConfig`` with the same flag, type,
+default and validation, except two that come with later work:
+``mesh`` (tensor-parallel serving over several cards) and ``lint`` (the
+QuantLint graph linter, to be re-based on torch graphs). They are absent,
+not fields that can only raise.
+
+Besides the JAX fields, the port's own: ``layers`` (the arch cut to its
+first N layers, widths kept, for a card that cannot hold the full depth),
+``seed`` (of the random weights), ``device``, ``profile``, and
+``prompt_min`` / ``gen_min`` (the trace's shortest prompt and generation;
+the JAX launcher fixes both at 4). The kernel tier is the device's unless
 ``REPRO_KERNEL_BACKEND`` names one (``kernels.dispatch``).
 
 ``quantize`` picks the weight scheme (``w8a16``, the JAX launcher's default,
@@ -14,15 +18,19 @@ that cannot hold the full depth). The kernel tier is the device's unless
 KV-cache precision (8: int8; 16: fp; None: what the recipe or artifact
 recorded — the fp cache unless a ``kv_cache`` stage said 8), with the JAX
 launcher's recipe choice: ``serve-<quantize>-kv8`` for ``kv_bits=8``, else
-``serve-<quantize>``. The default deployment is therefore the reference's:
-W8A16 weights over a bf16 KV cache.
+``serve-<quantize>``; ``recipe`` names any other pipeline recipe and
+overrides ``quantize``. The default deployment is therefore the
+reference's: W8A16 weights over a bf16 KV cache. ``trace=0`` (the default)
+serves ``batch`` uniform requests, as in JAX; ``trace=N`` a synthetic
+arrival schedule of N requests, through the async front-end with
+``serve_async``.
 
 With ``load``, the artifact's record meets this config under the JAX
-launcher's precedence contract (``repro.launch.serve_config.
-_ARTIFACT_POLICY``) as far as it concerns fields this config has: ``arch``,
-``smoke`` and ``quantize`` are "baked" — the artifact is served as saved and
-an explicit differing value is reported as ignored — and ``kv_bits`` is
-"must-match": an explicit value other than the artifact's raises.
+launcher's precedence contract (``_ARTIFACT_POLICY``) for the fields this
+config has: ``arch``, ``smoke``, ``quantize`` and ``recipe`` are "baked" —
+the artifact is served as saved and an explicit differing value is
+reported as ignored — and ``kv_bits`` is "must-match": an explicit value
+other than the artifact's raises.
 """
 from __future__ import annotations
 
@@ -56,6 +64,8 @@ class ServeConfig:
                        "activations (w8a8), or none (fp32); serves the "
                        "serve-<scheme>[-kv8] recipe",
                        choices=list(QUANTIZE_CHOICES))
+    recipe: Optional[str] = _f(
+        None, "pipeline recipe name (overrides --quantize)")
     kv_bits: Optional[int] = _f(
         None, "KV-cache precision: 8 = int8 payload + per-token/per-head "
         "scales (decode attends through the fused_decode kernel), 16 = fp. "
@@ -63,6 +73,13 @@ class ServeConfig:
         "the serve-<quantize>-kv8 recipe)", type=int, choices=[8, 16])
     device: str = _f("cuda", "cuda (default) or cpu (the plain PyTorch "
                      "versions of the kernels)")
+    save: Optional[str] = _f(
+        None, "persist the QuantizedModel after quantization",
+        metavar="DIR")
+    verbose: bool = _f(False, "print per-site weight SQNR diagnostics",
+                       switch=True)
+    batch: int = _f(4, "without --trace: number of uniform requests",
+                    type=int)
     slots: int = _f(4, "engine cache-pool size (decode batch width)", type=int)
     max_len: Optional[int] = _f(
         None, "per-slot KV capacity (default: fits prompt+gen)", type=int)
@@ -94,12 +111,41 @@ class ServeConfig:
         "run)", switch=True)
     prompt_len: int = _f(32, "longest prompt", type=int)
     gen_len: int = _f(32, "most new tokens", type=int)
-    prompt_min: int = _f(4, "shortest prompt", type=int)
-    gen_min: int = _f(4, "fewest new tokens", type=int)
-    trace: int = _f(4, "serve a synthetic arrival schedule of N requests "
-                    "(log-uniform lengths, Poisson arrivals)", type=int,
-                    metavar="N")
+    prompt_min: int = _f(4, "with --trace: shortest prompt", type=int)
+    gen_min: int = _f(4, "with --trace: fewest new tokens", type=int)
+    trace: int = _f(
+        0, "replay a synthetic arrival schedule of N requests (mixed "
+        "log-uniform lengths, Poisson arrivals)", type=int, metavar="N")
     trace_seed: int = _f(0, None, type=int)
+    max_queue: Optional[int] = _f(
+        None, "bound the admission queue: submissions beyond Q shed with "
+        "the retryable QueueFull error (back-pressure). Default: unbounded",
+        type=int, metavar="Q")
+    serve_async: bool = _f(
+        False, "serve the --trace through the overload-safe async front-end "
+        "(serving.AsyncServer): per-request token streaming, client retry "
+        "with backoff + jitter on the retryable taxonomy, circuit breaker, "
+        "and priority-aware load shedding; reports the SLO view (TTFT / "
+        "per-token percentiles, goodput)", switch=True)
+    qps: float = _f(
+        0.5, "with --serve-async: offered Poisson arrival rate in requests "
+        "per engine tick (open loop)", type=float, metavar="R")
+    timeout: Optional[float] = _f(
+        None, "with --serve-async: per-request client timeout in engine "
+        "ticks, enforced as the engine deadline (tighter of this and "
+        "--deadline wins)", type=float, metavar="T")
+    retry_attempts: int = _f(
+        4, "with --serve-async: max submission attempts per request "
+        "(retryable rejections back off with exponential backoff + full "
+        "jitter)", type=int)
+    breaker_cooldown: float = _f(
+        16.0, "with --serve-async: circuit-breaker cooldown in engine ticks "
+        "before a half-open probe", type=float)
+    shed_pressure: float = _f(
+        0.5, "with --serve-async: queue pressure (depth/bound) at which the "
+        "lowest priority class is shed; deadlines tighten at 1.5x this "
+        "value and all requests are refused at 2x (capped at 1.0)",
+        type=float)
     deadline: Optional[float] = _f(
         None, "give every request a deadline of T engine ticks after its "
         "arrival; expired requests are shed (queued) or cut short (in "
@@ -117,10 +163,13 @@ class ServeConfig:
         "weight scheme and KV precision are the artifact's)", metavar="DIR")
 
     def validate(self) -> "ServeConfig":
-        for name in ("slots", "prefill_chunk", "decode_horizon", "trace",
+        for name in ("slots", "prefill_chunk", "decode_horizon", "batch",
                      "prompt_len", "gen_len", "prompt_min", "gen_min"):
             if getattr(self, name) < 1:
                 raise ServeConfigError(f"{name} must be >= 1")
+        if self.trace < 0:
+            raise ServeConfigError("trace must be >= 0 (0: --batch uniform "
+                                   "requests)")
         if self.layers is not None and self.layers < 1:
             raise ServeConfigError("layers must be >= 1")
         if self.layers is not None and self.load:
@@ -134,15 +183,27 @@ class ServeConfig:
                                    f"got {self.kv_bits!r}")
         if self.num_pages is not None and self.page_size is None:
             raise ServeConfigError("--num-pages needs --page-size")
-        if not self.prefix_reuse and self.page_size is None:
-            raise ServeConfigError("--no-prefix-reuse needs --page-size")
+        if self.max_queue is not None and self.max_queue < 1:
+            raise ServeConfigError("--max-queue must be >= 1")
         if self.deadline is not None and self.deadline <= 0:
             raise ServeConfigError("--deadline must be > 0 engine ticks")
+        if not self.prefix_reuse and self.page_size is None:
+            raise ServeConfigError("--no-prefix-reuse needs --page-size")
+        if self.serve_async and not self.trace:
+            raise ServeConfigError(
+                "--serve-async needs --trace N (open-loop arrivals)")
+        if self.serve_async and self.qps <= 0:
+            raise ServeConfigError("--qps must be > 0 requests/tick")
+        if self.serve_async and self.retry_attempts < 1:
+            raise ServeConfigError("--retry-attempts must be >= 1")
+        if not 0.0 < self.shed_pressure <= 1.0:
+            raise ServeConfigError("--shed-pressure must be in (0, 1]")
         if (self.straggler_threshold is not None
                 and self.straggler_threshold <= 1):
             raise ServeConfigError(
                 "--straggler-threshold must be > 1 (a slowdown multiplier)")
-        if self.prompt_min > self.prompt_len or self.gen_min > self.gen_len:
+        if self.trace and (self.prompt_min > self.prompt_len
+                           or self.gen_min > self.gen_len):
             raise ServeConfigError("--prompt-min/--gen-min exceed "
                                    "--prompt-len/--gen-len")
         return self
@@ -155,17 +216,24 @@ class ServeConfig:
     @classmethod
     def from_artifact(cls, qm) -> "ServeConfig":
         """The ServeConfig a ``QuantizedModel`` was quantized AS: its arch
-        (and smoke), its weight scheme — the mode of its int8 weights, or
-        "none" for fp (fake-quantized) ones — and its KV precision."""
+        (and smoke), its recipe, its weight scheme — the mode of its int8
+        weights, or "none" for fp (fake-quantized) ones — and its KV
+        precision."""
         from ..quantized.qtensor import QTensor
+
+        def modes(node):
+            if isinstance(node, QTensor):
+                return {node.mode}
+            if isinstance(node, dict):
+                return set().union(*map(modes, node.values()))
+            return set()
 
         name = qm.cfg.name
         smoke = name.endswith("-smoke")
-        modes = {w.mode for w in qm.params["blocks"]["attn"].values()
-                 if isinstance(w, QTensor)}
+        found = modes(qm.params)
         return cls(arch=name[: -len("-smoke")] if smoke else name,
-                   smoke=smoke, quantize=modes.pop() if modes else "none",
-                   kv_bits=qm.cfg.kv_cache_bits)
+                   smoke=smoke, quantize=found.pop() if found else "none",
+                   recipe=qm.recipe.name, kv_bits=qm.cfg.kv_cache_bits)
 
     def with_artifact(self, art: "ServeConfig"):
         """Merge this (CLI/API) config with an artifact's record:
@@ -196,7 +264,7 @@ class ServeConfig:
 #: are this value, the artifact wins; "must-match" — the calibration is
 #: bound to the recorded value, a differing explicit one raises
 _ARTIFACT_POLICY = {"arch": "baked", "smoke": "baked", "quantize": "baked",
-                    "kv_bits": "must-match"}
+                    "recipe": "baked", "kv_bits": "must-match"}
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
 
 

@@ -1,7 +1,9 @@
-"""Architecture configuration: the decoder fields of
-``repro.models.config.ModelConfig`` (dense, early-fusion and MoE decoders,
-sliding-window attention), its ``smoke()`` reduction, and the input-shape
-cells (``ShapeConfig``, ``SHAPES``) of the JAX package."""
+"""Architecture configuration: the fields of
+``repro.models.config.ModelConfig`` that change what a model computes —
+dense, early-fusion and MoE decoders, sliding-window attention, the Mamba2
+SSM and the zamba2 hybrid, and the whisper encoder-decoder — its
+``smoke()`` reduction, and the input-shape cells (``ShapeConfig``,
+``SHAPES``) of the JAX package."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +16,7 @@ import torch
 class ModelConfig:
     name: str
     family: str                    # dense | vlm (early fusion: the dense
-                                   # path) | moe
+                                   # path) | moe | ssm | hybrid | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,7 +25,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None           # default d_model // n_heads
     act: str = "silu_glu"                     # silu_glu | gelu_glu | gelu | relu
-    norm: str = "rms"                         # rms
+    norm: str = "rms"                         # rms | ln
     qkv_bias: bool = False
     rope: bool = True
     rope_theta: float = 10000.0
@@ -40,8 +42,26 @@ class ModelConfig:
     n_shared_experts: int = 0                 # llama4 shared expert
     capacity_factor: float = 1.25
 
+    # SSM (mamba2 / zamba2 mamba blocks)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+    ssm_n_groups: int = 1
+
+    # hybrid (zamba2): a shared attention+MLP block applied every k SSM layers
+    hybrid_attn_every: int = 0                # 0 → not hybrid
+    hybrid_n_shared_blocks: int = 2
+
+    # encoder-decoder (whisper)
+    n_enc_layers: int = 0                     # 0 → decoder-only
+    enc_seq: int = 1500                       # whisper 30 s → 1500 frames
+
     frontend: str = "none"                    # none | vision_stub (vlm:
-                                              # image tokens share the vocab)
+                                              # image tokens share the
+                                              # vocab) | audio_stub (whisper:
+                                              # the caller gives the frames)
     dtype: str = "bfloat16"                   # activation compute dtype
     param_dtype: str = "float32"
     logit_chunk: int = 1024                   # the loss's sequence chunking
@@ -62,9 +82,27 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
+
+    @property
     def supports_long_context(self) -> bool:
-        """Bounded-KV decode at 500k+ tokens: a sliding window."""
-        return self.sliding_window is not None
+        """Sub-quadratic (or bounded-KV) decode at 500k+ tokens: an SSM
+        backbone or a sliding window."""
+        return (self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -74,19 +112,38 @@ class ModelConfig:
     def params_dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    def _ssm_proj(self) -> int:
+        """Width of a Mamba2 block's in_proj output: z, x, B, C, dt."""
+        return (2 * self.d_inner + 2 * self.ssm_n_groups * self.ssm_state
+                + self.ssm_heads)
+
     def param_count(self) -> int:
-        """Parameter count: embedding (and untied head) + blocks, as the JAX
-        config counts them (an MoE block: its experts, router and shared
-        experts)."""
+        """Approximate parameter count: embedding (and untied head) + blocks,
+        as the JAX config counts them (an MoE block: its experts, router and
+        shared experts; an SSM layer: in/out projections and the conv; the
+        hybrid: its SSM layers and shared blocks; an encoder-decoder: both
+        stacks and the decoder's cross attention)."""
         d, f = self.d_model, self.d_ff
         n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            din = self.d_inner
+            per_layer = d * self._ssm_proj() + din * d + self.ssm_conv_width * (
+                din + 2 * self.ssm_n_groups * self.ssm_state)
+            return n + self.n_layers * per_layer
         attn = d * self.attn_dim + 2 * d * self.kv_dim + self.attn_dim * d
         if self.n_experts:
             mlp = self.n_experts * 3 * d * f + d * self.n_experts
             mlp += self.n_shared_experts * 3 * d * f
         else:
             mlp = (3 if self.act.endswith("_glu") else 2) * d * f
-        return n + self.n_layers * (attn + mlp)
+        if self.family == "hybrid":
+            ssm = d * self._ssm_proj() + self.d_inner * d
+            return (n + self.n_layers * ssm
+                    + self.hybrid_n_shared_blocks * (attn + mlp))
+        n += (self.n_layers + self.n_enc_layers) * (attn + mlp)
+        if self.is_encdec:
+            n += self.n_layers * attn
+        return n
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE top-k counting)."""
@@ -113,6 +170,12 @@ class ModelConfig:
             n_experts=min(self.n_experts, 4) if self.n_experts else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
             capacity_factor=4.0,   # drop-free in smoke: cache-parity testable
+            ssm_state=16 if self.ssm_state else 0,
+            ssm_head_dim=16,
+            ssm_chunk=8,
+            n_enc_layers=2 if self.n_enc_layers else 0,
+            enc_seq=16,
+            hybrid_attn_every=2 if self.hybrid_attn_every else 0,
             sliding_window=16 if self.sliding_window else None,
             max_seq=128,
             dtype="float32",
@@ -142,8 +205,8 @@ SHAPE_BY_NAME = {s.name: s for s in SHAPES}
 
 
 def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
-    """(applies, why not): long_500k needs bounded-KV attention (a sliding
-    window)."""
+    """(applies, why not): long_500k needs sub-quadratic decode (an SSM
+    backbone) or bounded-KV attention (a sliding window)."""
     if shape.name == "long_500k" and not cfg.supports_long_context:
         return False, ("pure full-attention arch — quadratic 500k decode "
                        "skipped (DESIGN.md §7)")

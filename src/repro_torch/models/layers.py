@@ -20,7 +20,10 @@ whole-batch ring cache, int8 or fp:
     cache, decode and prefill alike — plain maths in the reference too,
     outside any Pallas kernel;
 
-plus the cache-free causal attention of the eval forward. A sliding window
+plus the cache-free attention of the eval forward (causal, or over every
+position for an encoder) and the encoder-decoder's cross attention (keys
+and values from the encoder output, or from the cross cache that
+``EncDecModel.warm_cache`` fills). A sliding window
 (``AttnDims.window``) masks keys more than ``window - 1`` positions back,
 in the eval forward and over the cache's ring alike. The cache tensors are
 updated IN PLACE; the JAX layers return updated copies.
@@ -101,10 +104,23 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return x * inv * weight.to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm with the population variance, statistics in float32 and
+    the data path in the compute dtype (the reference's ``layer_norm``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return ((x - mu.to(x.dtype)) * inv * weight.to(x.dtype)
+            + bias.to(x.dtype))
+
+
 def apply_norm(x, p, kind: str):
-    if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rms_norm(x, p["w"])
+    if kind == "rms":
+        return rms_norm(x, p["w"])
+    if kind == "ln":
+        return layer_norm(x, p["w"], p["b"])
+    raise NotImplementedError(f"norm {kind!r}: rms or ln")
 
 
 def rope_angles(positions, head_dim: int, theta: float):
@@ -242,21 +258,56 @@ def _record_mean(capture: Optional[dict], key: str, x: torch.Tensor) -> None:
 
 
 def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
-                           capture: Optional[dict] = None) -> torch.Tensor:
-    """The cache-free causal attention of the eval forward (``LMModel.apply``):
-    fp keys and values, plain softmax. ``capture``, a dict, receives the
-    means of the qkv input (``attn_in``) and of the output projection's
-    input (``o_in``)."""
+                           capture: Optional[dict] = None,
+                           causal: bool = True) -> torch.Tensor:
+    """The cache-free attention of the eval forward (``LMModel.apply``, the
+    encoder-decoder's stacks): fp keys and values, plain softmax, causal
+    unless ``causal=False`` (an encoder attends to every position).
+    ``capture``, a dict, receives the means of the qkv input (``attn_in``)
+    and of the output projection's input (``o_in``)."""
     B, T, _ = x.shape
     _record_mean(capture, "attn_in", x)
     positions = torch.arange(T, device=x.device)
     q, k, v = _project_qkv(p, x, dims, positions)
     group = dims.n_q // dims.n_kv
-    mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
-    if dims.window is not None:
-        mask = mask.triu(1 - dims.window)
+    mask = None
+    if causal:
+        mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+        if dims.window is not None:
+            mask = mask.triu(1 - dims.window)
     attn = attention_scores_softmax(q, _repeat_kv(k, group),
                                     _repeat_kv(v, group), mask)
+    attn = attn.reshape(B, T, dims.n_q * dims.head_dim)
+    _record_mean(capture, "o_in", attn)
+    return linear(attn, p["wo"], p.get("bo"))
+
+
+def cross_kv(p: dict, src: torch.Tensor, dims: AttnDims):
+    """The cross attention's keys and values [B, S, Hkv, hd] from the
+    encoder output ``src`` [B, S, D] (two separate projections, as the
+    reference's ``kv_input`` route)."""
+    B, S, _ = src.shape
+    k = linear(src, p["wk"], p.get("bk")).reshape(B, S, dims.n_kv,
+                                                  dims.head_dim)
+    v = linear(src, p["wv"], p.get("bv")).reshape(B, S, dims.n_kv,
+                                                  dims.head_dim)
+    return k, v
+
+
+def cross_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
+                          kv: tuple,
+                          capture: Optional[dict] = None) -> torch.Tensor:
+    """Attention from the decoder's x [B, T, D] to every encoder position:
+    ``kv`` the keys and values [B, S, Hkv, hd] (``cross_kv`` of the encoder
+    output, or the cross cache), no mask, no rope. ``capture`` as
+    ``causal_attention_block``'s (``attn_in`` the mean of x)."""
+    B, T, _ = x.shape
+    _record_mean(capture, "attn_in", x)
+    q = linear(x, p["wq"], p.get("bq")).reshape(B, T, dims.n_q, dims.head_dim)
+    group = dims.n_q // dims.n_kv
+    k, v = (t.to(x.dtype) for t in kv)
+    attn = attention_scores_softmax(q, _repeat_kv(k, group),
+                                    _repeat_kv(v, group), None)
     attn = attn.reshape(B, T, dims.n_q * dims.head_dim)
     _record_mean(capture, "o_in", attn)
     return linear(attn, p["wo"], p.get("bo"))

@@ -1,12 +1,19 @@
 """Decoder-only LM: init, the eval forward and its loss, the KV cache (int8
 or fp, per-slot or whole-batch), prefill, decode.
 
-Port of the attention branch of ``repro.models.lm.LMModel``: family
-``dense``, ``vlm`` with the ``vision_stub`` frontend (early fusion, image
-tokens share the vocab, so the same path) and ``moe`` (every block's MLP a
-top-k MoE, ``layers.moe_block``, whose Switch aux loss ``loss`` adds;
-experts stacked ``[L, E, ...]``). A sliding window bounds the cache's ring
-at ``cache_len`` and masks the eval forward alike. Parameters keep the
+Port of ``repro.models.lm.LMModel``: family ``dense``, ``vlm`` with the
+``vision_stub`` frontend (early fusion, image tokens share the vocab, so
+the same path), ``moe`` (every block's MLP a top-k MoE,
+``layers.moe_block``, whose Switch aux loss ``loss`` adds; experts stacked
+``[L, E, ...]``), ``ssm`` (Mamba2: every block a norm and a
+``mamba.mamba_block`` mixer) and ``hybrid`` (zamba2: Mamba2 layers in
+segments of ``hybrid_attn_every``, each segment followed by one of
+``hybrid_n_shared_blocks`` parameter-shared attention + MLP blocks, the
+segment index modulo their count). A sliding window bounds the cache's
+ring at ``cache_len`` and masks the eval forward alike. The SSM families'
+cache is whole-batch only — the SSM and conv states float32 and the
+compute dtype, the hybrid's attention cache one fp entry a segment — as in
+the reference, whose serving engine does not take them. Parameters keep the
 JAX package's layout — nested dicts with every block leaf stacked ``[L, ...]``
 — so weights carry across unchanged (``repro_torch.weights``). Layers run as
 a Python loop over per-layer views of the stacked leaves. The KV cache is
@@ -42,12 +49,16 @@ from .layers import (
     moe_block,
     slot_write,
 )
+from .mamba import init_mamba_params, mamba_block, ssm_dims
 
 #: the cache's per-layer leaves, each [L, B, S, ...] (the scales only in an
 #: int8 cache, "v_err" only with ``kv_bias_correct`` as well)
 KV_KEYS = ("k", "v", "k_scale", "v_scale", "v_err")
 #: the MLP activations of ``layers.mlp_block``
 ACTS = ("silu_glu", "gelu_glu", "gelu", "relu")
+#: the decoder families this model runs (the encoder-decoder is
+#: ``encdec.EncDecModel``)
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def _layer(tree, i: int):
@@ -56,12 +67,17 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _stack_stats(per_layer: list) -> dict:
+    """Per-layer stat dicts → one dict of [L, ...] stacks (the reference's
+    scan output)."""
+    return {k: torch.stack([st[k] for st in per_layer]) for k in per_layer[0]}
+
+
 class LMModel:
     def __init__(self, cfg: ModelConfig):
         unsupported = [
             what for what, bad in (
-                (f"family {cfg.family!r}",
-                 cfg.family not in ("dense", "vlm", "moe")),
+                (f"family {cfg.family!r}", cfg.family not in FAMILIES),
                 ("experts outside family 'moe'",
                  bool(cfg.n_experts) != (cfg.family == "moe")),
                 (f"frontend {cfg.frontend!r}",
@@ -71,8 +87,9 @@ class LMModel:
             ) if bad]
         if unsupported:
             raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unsupported)} not ported yet (the "
-                f"port serves dense and MoE RMSNorm decoders)")
+                f"{cfg.name}: {', '.join(unsupported)} is not a decoder "
+                f"this model runs (dense, MoE, SSM and hybrid RMSNorm "
+                f"decoders; an encoder-decoder builds EncDecModel)")
         self.cfg = cfg
         # (params object, its compute-dtype copy, per-layer views) — see
         # prepare; the serving loop reuses one params tree every step
@@ -96,14 +113,14 @@ class LMModel:
         else:
             gen = torch.Generator(device=device).manual_seed(int(seed))
         dtype = cfg.params_dtype
-        L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
+        D, F = cfg.d_model, cfg.d_ff
 
         def normal(shape, scale):
             return (torch.randn(shape, generator=gen, device=device)
                     * scale).to(dtype)
 
-        def lin(d_in, d_out):
-            return normal((L, d_in, d_out), d_in ** -0.5)
+        def uniform(shape):
+            return torch.rand(shape, generator=gen, device=device)
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=dtype, device=device)
@@ -111,42 +128,58 @@ class LMModel:
         def ones(*shape):
             return torch.ones(shape, dtype=dtype, device=device)
 
-        attn = {"wq": lin(D, cfg.attn_dim), "wk": lin(D, cfg.kv_dim),
-                "wv": lin(D, cfg.kv_dim), "wo": lin(cfg.attn_dim, D),
-                "bo": zeros(L, D)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(L, cfg.attn_dim), bk=zeros(L, cfg.kv_dim),
-                        bv=zeros(L, cfg.kv_dim))
-        if cfg.qk_norm:
-            attn.update(q_norm=ones(L, cfg.head_dim),
-                        k_norm=ones(L, cfg.head_dim))
         glu = cfg.act.endswith("_glu")
 
-        def dense_mlp(f):
-            mlp = {"wu": lin(D, f), "wd": lin(f, D), "bd": zeros(L, D)}
-            if glu:
-                mlp["wg"] = lin(D, f)
-            return mlp
+        def attention_blocks(L):
+            """L stacked attention + MLP (or MoE) blocks."""
+            def lin(d_in, d_out):
+                return normal((L, d_in, d_out), d_in ** -0.5)
 
-        if cfg.n_experts:
-            # the JAX _init_moe: experts [L, E, ...], the router, and the
-            # shared experts' MLP d_ff x n_shared_experts wide
-            E = cfg.n_experts
-            experts = {"wu": normal((L, E, D, F), D ** -0.5),
-                       "wd": normal((L, E, F, D), F ** -0.5)}
-            if glu:
-                experts["wg"] = normal((L, E, D, F), D ** -0.5)
-            mlp = {"router": lin(D, E), "experts": experts}
-            if cfg.n_shared_experts:
-                mlp["shared"] = dense_mlp(F * cfg.n_shared_experts)
+            attn = {"wq": lin(D, cfg.attn_dim), "wk": lin(D, cfg.kv_dim),
+                    "wv": lin(D, cfg.kv_dim), "wo": lin(cfg.attn_dim, D),
+                    "bo": zeros(L, D)}
+            if cfg.qkv_bias:
+                attn.update(bq=zeros(L, cfg.attn_dim), bk=zeros(L, cfg.kv_dim),
+                            bv=zeros(L, cfg.kv_dim))
+            if cfg.qk_norm:
+                attn.update(q_norm=ones(L, cfg.head_dim),
+                            k_norm=ones(L, cfg.head_dim))
+
+            def dense_mlp(f):
+                mlp = {"wu": lin(D, f), "wd": lin(f, D), "bd": zeros(L, D)}
+                if glu:
+                    mlp["wg"] = lin(D, f)
+                return mlp
+
+            if cfg.n_experts:
+                # the JAX _init_moe: experts [L, E, ...], the router, and
+                # the shared experts' MLP d_ff x n_shared_experts wide
+                E = cfg.n_experts
+                experts = {"wu": normal((L, E, D, F), D ** -0.5),
+                           "wd": normal((L, E, F, D), F ** -0.5)}
+                if glu:
+                    experts["wg"] = normal((L, E, D, F), D ** -0.5)
+                mlp = {"router": lin(D, E), "experts": experts}
+                if cfg.n_shared_experts:
+                    mlp["shared"] = dense_mlp(F * cfg.n_shared_experts)
+            else:
+                mlp = dense_mlp(F)
+            return {"attn_norm": {"w": ones(L, D)}, "attn": attn,
+                    "mlp_norm": {"w": ones(L, D)}, "mlp": mlp}
+
+        L = cfg.n_layers
+        extra = {}
+        if cfg.family in ("ssm", "hybrid"):
+            blocks = {"norm": {"w": ones(L, D)},
+                      "mixer": init_mamba_params(normal, uniform, L, cfg,
+                                                 dtype, device)}
+            if cfg.family == "hybrid":
+                extra["shared_blocks"] = attention_blocks(
+                    cfg.hybrid_n_shared_blocks)
         else:
-            mlp = dense_mlp(F)
-        params = {
-            "embed": normal((cfg.vocab_size, D), 0.02),
-            "final_norm": {"w": ones(D)},
-            "blocks": {"attn_norm": {"w": ones(L, D)}, "attn": attn,
-                       "mlp_norm": {"w": ones(L, D)}, "mlp": mlp},
-        }
+            blocks = attention_blocks(L)
+        params = {"embed": normal((cfg.vocab_size, D), 0.02),
+                  "final_norm": {"w": ones(D)}, "blocks": blocks, **extra}
         if not cfg.tie_embeddings:
             params["lm_head"] = normal((D, cfg.vocab_size), D ** -0.5)
         return params
@@ -158,16 +191,36 @@ class LMModel:
         reference folds no norm into experts), equalizes each expert's
         up/down pair and the shared experts', and quantizes the router and
         the stacked expert weights; the expert sites have no statistic, so
-        bias correction passes them by."""
+        bias correction passes them by. The Mamba2 mixers (``ssm``,
+        ``hybrid``) take norm folding only — the gated RMSNorm before
+        out_proj blocks their CLE pairs — and quantize in_proj / out_proj;
+        the hybrid's attention ops address its ``shared_blocks``."""
         cfg = self.cfg
+        ops: list = []
+        sites: list = []
+        if cfg.family in ("ssm", "hybrid"):
+            ops.append(NormFoldOp(
+                norm_w=("blocks", "norm", "w"),
+                consumers=[("blocks", "mixer", "in_proj")],
+                consumer_biases=[("blocks", "mixer", "in_bias")]))
+            sites += [
+                WeightSite("ssm_in_proj", ("blocks", "mixer", "in_proj"),
+                           ("blocks", "mixer", "in_bias"), "dense", "ssm_in"),
+                WeightSite("ssm_out_proj", ("blocks", "mixer", "out_proj"),
+                           ("blocks", "mixer", "out_bias"), "dense",
+                           "ssm_out_in"),
+            ]
+        if cfg.family == "ssm":
+            return DFQPlan(tuple(ops), tuple(sites), cfg.name)
+        prefix = ("shared_blocks",) if cfg.family == "hybrid" else ("blocks",)
 
         def P(*rest):
-            return ("blocks",) + rest
+            return prefix + rest
 
         glu = cfg.act.endswith("_glu")
         attn_bias = ((P("attn", "bq"), P("attn", "bk"), P("attn", "bv"))
                      if cfg.qkv_bias else (None, None, None))
-        ops: list = [
+        ops += [
             NormFoldOp(norm_w=P("attn_norm", "w"),
                        consumers=[P("attn", "wq"), P("attn", "wk"),
                                   P("attn", "wv")],
@@ -203,7 +256,7 @@ class LMModel:
             ops.append(VBiasAbsorbOp(
                 bv=P("attn", "bv"), wo=P("attn", "wo"), bo=P("attn", "bo"),
                 n_q=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim))
-        sites = [
+        sites += [
             WeightSite("wq", P("attn", "wq"), P("attn", "bq"), "dense", "attn_in"),
             WeightSite("wk", P("attn", "wk"), P("attn", "bk"), "dense", "attn_in"),
             WeightSite("wv", P("attn", "wv"), P("attn", "bv"), "dense", "attn_in"),
@@ -254,6 +307,22 @@ class LMModel:
         self._prepared = (params, p, layers)
         return p, layers
 
+    def _shared(self, p, seg: int) -> dict:
+        """The hybrid's parameter-shared block after segment ``seg``."""
+        return _layer(p["shared_blocks"], seg % self.cfg.hybrid_n_shared_blocks)
+
+    def _segments(self):
+        """The hybrid's segments: (segment index, its layer indices)."""
+        every = self.cfg.hybrid_attn_every
+        return [(seg, range(seg * every, (seg + 1) * every))
+                for seg in range(self.cfg.n_layers // every)]
+
+    def _mamba_layer(self, p, x, *, state=None, capture=None):
+        h = apply_norm(x, p["norm"], self.cfg.norm)
+        out, new_state = mamba_block(p["mixer"], h, self.cfg, state=state,
+                                     capture=capture)
+        return x + out, new_state
+
     def _mlp(self, p, h, capture=None):
         """The block's MLP (an MoE block's with its aux loss, else 0)."""
         if self.cfg.n_experts:
@@ -280,7 +349,8 @@ class LMModel:
         ``down_in_moe`` [L, E, F] and ``router_probs`` [L, E] in place of
         ``down_in``) the per-layer means of each site's input stacked
         [L, D], plus ``final_h`` [D], the mean of the final norm's output —
-        means in the compute dtype, as the JAX scan gives them.
+        means in the compute dtype, as the JAX scan gives them (the SSM
+        families: ``_apply_ssm``'s keys).
         ``return_aux=True`` returns ``(logits, aux)`` instead, aux the MoE
         blocks' summed load-balancing loss (0.0 for a dense model) — the
         two halves of the JAX ``apply``'s result.
@@ -288,28 +358,62 @@ class LMModel:
         cfg = self.cfg
         p, layers = self.prepare(params)
         x = self._embed(p, tokens)
-        per_layer = []
         aux = 0.0
-        for lp in layers:
-            stats = {} if capture else None
-            h = apply_norm(x, lp["attn_norm"], cfg.norm)
-            x = x + causal_attention_block(lp["attn"], h, self._attn_dims(),
-                                           capture=stats)
-            h = apply_norm(x, lp["mlp_norm"], cfg.norm)
-            out, a = self._mlp(lp["mlp"], h, capture=stats)
-            x = x + out
-            aux = aux + a
-            per_layer.append(stats)
+        if cfg.family in ("ssm", "hybrid"):
+            x, stats = self._apply_ssm(p, layers, x, capture)
+        else:
+            per_layer = []
+            for lp in layers:
+                layer_stats = {} if capture else None
+                x, a = self._eval_block(lp, x, layer_stats)
+                aux = aux + a
+                per_layer.append(layer_stats)
+            stats = (_stack_stats(per_layer) if capture else None)
         h = apply_norm(x, p["final_norm"], cfg.norm)
         logits = h if return_hidden else self._unembed(p, h)
         if return_aux:
             return logits, aux
         if not capture:
             return logits
-        stats = {k: torch.stack([s[k] for s in per_layer])
-                 for k in per_layer[0]}
         stats["final_h"] = h.reshape(-1, cfg.d_model).mean(dim=0)
         return logits, stats
+
+    def _eval_block(self, lp, x, stats):
+        """One attention + MLP block of the eval forward; returns (x, the
+        MoE aux loss)."""
+        cfg = self.cfg
+        h = apply_norm(x, lp["attn_norm"], cfg.norm)
+        x = x + causal_attention_block(lp["attn"], h, self._attn_dims(),
+                                       capture=stats)
+        h = apply_norm(x, lp["mlp_norm"], cfg.norm)
+        out, a = self._mlp(lp["mlp"], h, capture=stats)
+        return x + out, a
+
+    def _apply_ssm(self, p, layers, x, capture):
+        """The SSM families' eval forward. Stats as the reference's: the
+        mixers' ``ssm_in`` / ``ssm_out_in`` stacked [L, ...] (under
+        ``"mamba"`` for the hybrid), and each shared block application's
+        own under ``"shared_<segment>"``."""
+        if self.cfg.family == "ssm":
+            per_layer = []
+            for lp in layers:
+                st = {} if capture else None
+                x, _ = self._mamba_layer(lp, x, capture=st)
+                per_layer.append(st)
+            return x, (_stack_stats(per_layer) if capture else None)
+        per_layer, stats = [], {}
+        for seg, idx in self._segments():
+            for i in idx:
+                st = {} if capture else None
+                x, _ = self._mamba_layer(layers[i], x, capture=st)
+                per_layer.append(st)
+            st = {} if capture else None
+            x, _ = self._eval_block(self._shared(p, seg), x, st)
+            if capture:
+                stats[f"shared_{seg}"] = st
+        if capture:
+            stats["mamba"] = _stack_stats(per_layer)
+        return x, stats
 
     def loss(self, params, batch: dict) -> torch.Tensor:
         """Mean next-token cross entropy over ``batch["tokens"]`` /
@@ -366,9 +470,11 @@ class LMModel:
 
     def init_cache(self, batch: int, seq_len: int, *,
                    device: Optional[Union[str, torch.device]] = "cuda",
-                   per_slot: bool = True, kv_bits: Optional[int] = None,
+                   per_slot: Optional[bool] = None,
+                   kv_bits: Optional[int] = None,
                    dtype: Optional[torch.dtype] = None) -> dict:
-        """The KV cache. ``per_slot=True`` (the serving engine's) makes every
+        """The KV cache. ``per_slot=True`` (the serving engine's, and the
+        default of the attention families) makes every
         batch row a serving slot with its own write offset (``pos`` [B]) and
         absolute slot positions (``kpos`` [B, S], -1 = empty);
         ``per_slot=False`` the whole-batch form, every row at one offset
@@ -378,12 +484,24 @@ class LMModel:
         marking an unwritten position, and with ``kv_bias_correct`` a
         ``v_err`` leaf [L, B, S, Hkv] float32 holding each token's V error
         mean; 16 → the payload in ``dtype`` (default the compute dtype) and
-        no other leaf. The ring holds ``cache_len(seq_len)`` positions."""
+        no other leaf. The ring holds ``cache_len(seq_len)`` positions.
+
+        The SSM families take the whole-batch form only (their default; an
+        explicit ``per_slot=True`` raises, the reference's refusal): ``ssm``
+        [L, B, H, P, S] float32 and ``conv`` [L, B, W-1, d_conv] in
+        ``dtype``, and for the hybrid fp ``k`` / ``v`` [L // every, B, S,
+        Hkv, hd] (whatever ``kv_bits``, as the reference's) with ``kpos``
+        [S]."""
         cfg = self.cfg
         kv_bits = cfg.kv_cache_bits if kv_bits is None else int(kv_bits)
         if kv_bits not in (8, 16):
             raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
         device = resolve_device(device)
+        if cfg.family in ("ssm", "hybrid"):
+            return self._ssm_cache(batch, seq_len, device, bool(per_slot),
+                                   dtype or cfg.compute_dtype)
+        if per_slot is None:
+            per_slot = True
         L, S, H, hd = (cfg.n_layers, self.cache_len(seq_len), cfg.n_kv_heads,
                        cfg.head_dim)
         kv_dtype = (torch.int8 if kv_bits == 8
@@ -406,22 +524,71 @@ class LMModel:
                                              dtype=torch.float32, device=device)
         return cache
 
+    def _ssm_cache(self, batch, seq_len, device, per_slot, dtype) -> dict:
+        cfg = self.cfg
+        if per_slot:
+            raise ValueError(
+                f"per-slot caches are only supported for attention-family "
+                f"models (got family={cfg.family!r}); SSM state handoff is "
+                f"position-free but needs dedicated plumbing")
+        _, H, _, St, _, d_conv = ssm_dims(cfg)
+        L = cfg.n_layers
+        cache = {
+            "ssm": torch.zeros((L, batch, H, cfg.ssm_head_dim, St),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((L, batch, cfg.ssm_conv_width - 1, d_conv),
+                                dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int64, device=device),
+        }
+        if cfg.family == "hybrid":
+            S, n_app = self.cache_len(seq_len), L // cfg.hybrid_attn_every
+            shape = (n_app, batch, S, cfg.n_kv_heads, cfg.head_dim)
+            cache.update(k=torch.zeros(shape, dtype=dtype, device=device),
+                         v=torch.zeros(shape, dtype=dtype, device=device),
+                         kpos=torch.full((S,), -1, dtype=torch.int64,
+                                         device=device))
+        return cache
+
+    def _mamba_cached(self, lp, x, cache, i: int):
+        """Layer i's mixer over its cached state, written back in place."""
+        x, st = self._mamba_layer(lp, x, state={"ssm": cache["ssm"][i],
+                                                "conv": cache["conv"][i]})
+        cache["ssm"][i].copy_(st["ssm"])
+        cache["conv"][i].copy_(st["conv"])
+        return x
+
     def _forward_cached(self, params, tokens, cache, *, logits_at=None):
         """Run T tokens from ``cache["pos"]`` (each row's, or the batch's);
         ``logits_at`` [B] picks each row's logits position, a scalar the
         batch's (default: the last)."""
+        cfg = self.cfg
         p, layers = self.prepare(params)
         B, T = tokens.shape
         pos = cache["pos"]
         steps = torch.arange(T, device=pos.device)
         positions = pos[:, None] + steps[None, :] if pos.ndim else pos + steps
-        slots = slot_write(cache["kpos"], positions, self.cfg.sliding_window)
         x = self._embed(p, tokens)
-        for i, lp in enumerate(layers):
-            x = self._transformer_block(
-                lp, x, positions=positions, slots=slots,
-                cache={k: cache[k][i] for k in KV_KEYS if k in cache})
-        x = apply_norm(x, p["final_norm"], self.cfg.norm)
+        new = {"pos": pos + T}
+        if cfg.family == "ssm":
+            for i, lp in enumerate(layers):
+                x = self._mamba_cached(lp, x, cache, i)
+        else:
+            slots = slot_write(cache["kpos"], positions, cfg.sliding_window)
+            new["kpos"] = slots.kpos
+            if cfg.family == "hybrid":
+                for seg, idx in self._segments():
+                    for i in idx:
+                        x = self._mamba_cached(layers[i], x, cache, i)
+                    x = self._transformer_block(
+                        self._shared(p, seg), x, positions=positions,
+                        slots=slots,
+                        cache={"k": cache["k"][seg], "v": cache["v"][seg]})
+            else:
+                for i, lp in enumerate(layers):
+                    x = self._transformer_block(
+                        lp, x, positions=positions, slots=slots,
+                        cache={k: cache[k][i] for k in KV_KEYS if k in cache})
+        x = apply_norm(x, p["final_norm"], cfg.norm)
         if logits_at is None:
             h_last = x[:, -1:, :]
         else:
@@ -430,7 +597,7 @@ class LMModel:
             h_last = torch.gather(x, 1, at[:, None, None].expand(
                 B, 1, x.shape[-1]))
         logits = self._unembed(p, h_last)[:, 0]
-        return logits, {**cache, "kpos": slots.kpos, "pos": pos + T}
+        return logits, {**cache, **new}
 
     def prefill(self, params, tokens, cache, *, logits_at=None):
         return self._forward_cached(params, tokens, cache, logits_at=logits_at)

@@ -85,13 +85,21 @@ def default_calibration(model, cfg: ModelConfig, *, seed: int = 1,
                         batch: int = 2, seq: int = 32
                         ) -> Callable[[Mapping], Mapping]:
     """The standard data-free calibration hook: synthetic random tokens
-    (``data.calibration_tokens``, on the device of the params it is given)
-    through ``model.calibration_stats``."""
-    from ..data import calibration_tokens
+    (``data.calibration_tokens``, on the device of the params it is given),
+    plus random frames for an encoder-decoder (``prng.normal`` under
+    ``PRNGKey(seed)``, the reference's ``jax.random.normal`` draw within 4
+    ulp), through ``model.calibration_stats``."""
+    from ..data import calibration_tokens, prng
 
     def calibrate(params):
+        device = params["embed"].device
         toks = calibration_tokens(seed, batch, seq, cfg.vocab_size,
-                                  device=params["embed"].device)
+                                  device=device)
+        if cfg.is_encdec:
+            frames = prng.normal(prng.PRNGKey(seed),
+                                 (batch, cfg.enc_seq, cfg.d_model))
+            return model.calibration_stats(
+                params, toks, torch.from_numpy(frames).to(device))
         return model.calibration_stats(params, toks)
 
     return calibrate

@@ -11,11 +11,12 @@ checkpointer's ``step_0/`` (QTensors encoded as ``{"__qtensor_<mode>__":
 loads in the other.
 
 The config sidecar (hazard read off the reference): the JAX
-``ModelConfig`` has many more fields than the port's. ``load`` takes the
-fields the port has, ignores those that do not change a decoder's serving
-forward, and refuses any other whose value differs from the JAX default (an
-MLP bias, an SSM, an encoder, ...). The MoE fields and the sliding window
-are the port's own since the MoE family was ported. ``kv_cache_bits`` is
+``ModelConfig`` has a few more fields than the port's. ``load`` takes the
+fields the port has — the MoE, SSM, hybrid and encoder-decoder fields
+among them, so either package's mamba2, zamba2 or whisper artifact loads —
+ignores those that do not change what the model computes (training and
+cost-probe switches), and refuses any other whose value differs from the
+JAX default (an MLP bias). ``kv_cache_bits`` is
 a field of both configs — 8 after a ``kv_cache`` stage with bits=8, else
 16 (the fp cache) — so either package's ``load`` serves the precision the
 other saved; ``QuantizedModel.kv_bits`` reads it.
@@ -42,16 +43,11 @@ _QT_PREFIX = "__qtensor_"
 # another value changes what the model computes, and the port refuses it
 _MUST_BE_DEFAULT = {
     "mlp_bias": False,            # an MLP bias pair in the DFQ plan
-    "ssm_state": 0, "hybrid_attn_every": 0,
-    "n_enc_layers": 0,
 }
-# JAX ModelConfig fields with no effect on a decoder's serving forward
-# (training, cost probes, other families' geometry)
+# JAX ModelConfig fields with no effect on what the model computes
+# (training, cost probes, an init-only bias slot)
 _IGNORED = frozenset({
-    "attn_out_bias", "attn_causal_segments",
-    "ssm_expand", "ssm_head_dim", "ssm_conv_width",
-    "ssm_chunk", "ssm_n_groups", "hybrid_n_shared_blocks", "enc_seq",
-    "remat", "unroll_layers",
+    "attn_out_bias", "attn_causal_segments", "remat", "unroll_layers",
 })
 _PORT_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelConfig))
 
@@ -68,8 +64,7 @@ def _config_from_sidecar(fields: dict) -> ModelConfig:
                if k in fields and fields[k] != default]
     if refused:
         raise PipelineError(
-            f"{fields.get('name')}: {', '.join(refused)} is not ported yet "
-            "(the port serves dense and MoE decoders)")
+            f"{fields.get('name')}: {', '.join(refused)} is not ported yet")
     return ModelConfig(**{k: v for k, v in fields.items() if k in _PORT_FIELDS})
 
 

@@ -1191,6 +1191,9 @@ class ServingEngine:
         if snap_index is not None:
             self.prefix_index = PrefixIndex(self.page_size)
         snap_masked = dict(self._masked_forwards)
+        # the throwaway traffic is the engine's own: a bounded admission
+        # queue (max_queue below the slot count) must not refuse it
+        snap_bound, self.scheduler.max_queue = self.scheduler.max_queue, None
         try:
             shapes = self.warmup_shapes()
             rid = -1
@@ -1228,6 +1231,7 @@ class ServingEngine:
             self._on_token, self._on_result = snap_cbs
             self.scheduler.admitted_order.clear()
             self.scheduler.admitted_order.extend(snap_order)
+            self.scheduler.max_queue = snap_bound
         if self.graphs is None:
             return {"seconds": time.perf_counter() - t0, **ran}
         torch.cuda.synchronize(self.device)

@@ -2,8 +2,10 @@
 
 ``from_jax_numpy`` takes the JAX parameter tree converted to nested dicts of
 numpy arrays — each ``QTensor`` given as ``{"q", "scale", "mode"}``, block
-leaves stacked ``[L, ...]``, an MoE block's experts ``[L, E, ...]`` beside
-its router and shared expert — and returns the port's tree in the same
+leaves stacked ``[L, ...]``: an MoE block's experts ``[L, E, ...]`` beside
+its router and shared expert, a Mamba2 block's ``mixer``, the hybrid's
+``shared_blocks``, the encoder-decoder's ``enc_blocks`` / ``dec_blocks``
+(with their ``cross`` attention) — and returns the port's tree in the same
 layout, on ``device``. ``cnn_from_jax_numpy`` does the same for the CNN's params or
 folded tree (lists of blocks, ``FoldedLayer`` leaves, ``stride`` ints). The
 conversion on the JAX side belongs to the caller (the tests); this module
@@ -35,8 +37,8 @@ def _tensor(a, device) -> torch.Tensor:
 def from_jax_numpy(params_np: Mapping, cfg: ModelConfig,
                    device: Optional[Union[str, torch.device]] = "cuda") -> dict:
     """The port's parameter tree for ``cfg`` from a numpy copy of the JAX
-    tree. Checks the embedding, the layer count and (MoE) the expert count
-    against ``cfg``."""
+    tree. Checks the embedding, the layer counts (the encoder's too, the
+    hybrid's shared blocks) and (MoE) the expert count against ``cfg``."""
     device = resolve_device(device)
 
     def walk(node, path):
@@ -52,9 +54,19 @@ def from_jax_numpy(params_np: Mapping, cfg: ModelConfig,
     if emb != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {emb} does not match {cfg.name} "
                          f"({cfg.vocab_size}, {cfg.d_model})")
-    L = params["blocks"]["attn_norm"]["w"].shape[0]
-    if L != cfg.n_layers:
-        raise ValueError(f"{L} stacked blocks, {cfg.name} has {cfg.n_layers}")
+    if cfg.is_encdec:
+        stacks = {"enc_blocks": cfg.n_enc_layers, "dec_blocks": cfg.n_layers}
+    else:
+        stacks = {"blocks": cfg.n_layers}
+        if cfg.family == "hybrid":
+            stacks["shared_blocks"] = cfg.hybrid_n_shared_blocks
+    for stack, n in stacks.items():
+        norm = params[stack].get("norm", params[stack].get("attn_norm"))
+        L = norm["w"].shape[0]
+        if L != n:
+            raise ValueError(f"{L} stacked {stack}, {cfg.name} has {n}")
+    if "mlp" not in params.get("blocks", {}):
+        return params
     experts = params["blocks"]["mlp"].get("experts")
     if (experts is not None) != bool(cfg.n_experts):
         raise ValueError(f"{cfg.name} has {cfg.n_experts} experts; the tree "

@@ -228,15 +228,16 @@ def test_load_missing_dir_actionable_error(tmp_path):
 
 
 @pytest.mark.parametrize("edit,match", [
-    ({"ssm_state": 16}, "ssm_state=16 is not ported yet"),
-    ({"n_enc_layers": 2}, "n_enc_layers=2 is not ported yet"),
+    ({"mlp_bias": True}, "mlp_bias=True is not ported yet"),
+    ({"ssm_chunk": 64, "enc_seq": 3000}, None),
     ({"rotary_scaling": 2.0}, "fields the port does not know: rotary_scaling"),
     ({"max_seq": 128, "remat": False, "logit_chunk": 32}, None),
 ])
 def test_config_sidecar_fields(tmp_path, edit, match):
-    """The port takes its own fields, ignores the JAX fields that do not
-    change a decoder's serving forward, and refuses any other that differs
-    from the JAX default (an SSM, an encoder), or that it does not know."""
+    """The port takes its own fields (the SSM and encoder-decoder ones
+    among them), ignores the JAX fields that do not change what the model
+    computes, and refuses any other that differs from the JAX default (an
+    MLP bias), or that it does not know."""
     d = str(tmp_path)
     repro_torch.quantize(ARCH, recipe="naive-int8", calibration=None,
                          device="cpu").save(d)
@@ -247,7 +248,11 @@ def test_config_sidecar_fields(tmp_path, edit, match):
     with open(path, "w") as f:
         json.dump(meta, f)
     if match is None:
-        assert QuantizedModel.load(d, device="cpu").cfg == get_config(ARCH)
+        port_edit = {k: v for k, v in edit.items()
+                     if k in {f.name for f in dataclasses.fields(
+                         get_config(ARCH))}}
+        assert QuantizedModel.load(d, device="cpu").cfg == dataclasses.replace(
+            get_config(ARCH), **port_edit)
     else:
         with pytest.raises(PipelineError, match=match):
             QuantizedModel.load(d, device="cpu")

@@ -68,11 +68,16 @@ def _pair(arch, act=None, seed=0):
 
 def test_registry_lists_the_five_dense_archs():
     """The five dense archs, beside the two MoE archs
-    (tests/test_torch_moe.py)."""
-    assert list_archs() == sorted(ARCHS + ["mixtral-8x22b",
-                                           "llama4-scout-17b-a16e"])
+    (tests/test_torch_moe.py), the SSM and hybrid archs
+    (tests/test_torch_ssm.py) and the encoder-decoder
+    (tests/test_torch_encdec.py): the JAX package's registry."""
+    from repro.configs import list_archs as jax_list_archs
+
+    assert list_archs() == sorted(ARCHS + [
+        "mixtral-8x22b", "llama4-scout-17b-a16e", "mamba2-2.7b",
+        "zamba2-2.7b", "whisper-tiny"]) == jax_list_archs()
     assert [a for a in list_archs()
-            if get_config(a).family != "moe"] == sorted(ARCHS)
+            if get_config(a).family in ("dense", "vlm")] == sorted(ARCHS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

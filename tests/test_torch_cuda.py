@@ -1578,3 +1578,149 @@ def test_moe_smoke_serving_on_the_card_serves_the_cpu_tokens(dev, arch):
     assert counts["qmatmul_w8a8"] > 0 and counts["fused_decode"] > 0
     for rid, r in out["cpu"].items():
         assert out[str(dev)][rid].tokens == r.tokens, rid
+
+
+def _family_cases():
+    """(M, K, N) of every GEMM on chip_smoke.py's phase-11 path
+    (``family_gemms``, derived from the layers it runs): mamba2's and
+    zamba2's in_proj (N = 10576 = 82·128 + 80 and 10448 = 81·128 + 80, a
+    partial last tile under the planner's K split), out_proj and zamba2's
+    shared block at a decode step and a prefill (M = 8, 1024), whisper's
+    decoder there and its encoder over 8 x 1500 frames (M = 12,000, K =
+    384: few K steps)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return tuple((M, K, N) for _, K, N, ms in mod.family_gemms() for M in ms)
+
+
+FAMILY_CASES = _family_cases()
+
+
+@pytest.mark.parametrize("M,K,N", FAMILY_CASES)
+def test_family_gemm_shapes_against_plain(dev, M, K, N):
+    """At the new families' shapes, one launch each: qmatmul_w8a8
+    bit-equal to its plain version, quantize_act bit-equal (12,000 rows),
+    qmatmul_w8a8_qin bit-equal to quantize_act + qmatmul_w8a8 where the
+    plan folds, qmatmul_w8a16 within its tolerance (bf16, per-tensor
+    scale, as the path); the last N tile's columns included."""
+    from repro_torch.kernels import gemm_plan, launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8 import (
+        qmatmul_w8a8,
+        qmatmul_w8a8_qin,
+        qmatmul_w8a8_ref,
+    )
+    from repro_torch.kernels.qmatmul_w8a16 import (
+        qmatmul_w8a16,
+        qmatmul_w8a16_ref,
+    )
+    from repro_torch.kernels.quantize_act import quantize_act, quantize_act_ref
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8,
+                      generator=g).t()
+    sw = torch.rand(N, device=dev, generator=g) * 0.01 + 1e-4
+    bias = torch.randn(N, device=dev, generator=g)
+    x = (torch.randn((M, K), device=dev, generator=g) * 3).to(bf16)
+    reset_launch_counts()
+    a_q, a_s = quantize_act(x)
+    qr, sr = quantize_act_ref(x)
+    assert torch.equal(a_q, qr) and torch.equal(a_s, sr)
+    y = qmatmul_w8a8(a_q, w, a_s, sw, bias, out_dtype=bf16)
+    assert torch.equal(y, qmatmul_w8a8_ref(a_q, w, a_s, sw, bias, bf16))
+    assert launch_counts()["qmatmul_w8a8"] == 1
+    if gemm_plan.plan(M, N, K).fold:
+        reset_launch_counts()
+        yq = qmatmul_w8a8_qin(x, w, sw, bias, out_dtype=bf16)
+        assert launch_counts()["qmatmul_w8a8_qin"] == 1
+        assert torch.equal(yq, y)
+    s1 = (torch.rand((1,), device=dev, generator=g) * 0.01 + 1e-4).to(bf16)
+    b16 = bias.to(bf16)
+    reset_launch_counts()
+    y16 = qmatmul_w8a16(x, w, s1, b16)
+    assert launch_counts()["qmatmul_w8a16"] == 1
+    yr = qmatmul_w8a16_ref(x, w, s1, b16, bf16)
+    diff = (y16.float() - yr.float()).abs()
+    tol = _w8a16_tolerance(x, w, s1, b16, yr)
+    assert bool((diff <= tol).all()), (M, K, N, float(diff.max()))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b",
+                                  "whisper-tiny"])
+def test_family_smoke_on_the_card_matches_the_cpu(dev, arch):
+    """A smoke model of each new family on host-drawn weights under
+    serve-w8a8, quantized on the card and on the CPU: every payload,
+    scale and weight bit-equal; prefill and 4 greedy decode steps on the
+    card (kernels launched) within 5 % of the largest |logit| of the CPU's
+    (plain versions) on the same tokens."""
+    import repro_torch
+    from repro_torch.data import prng
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.quantized.qtensor import QTensor
+
+    model = repro_torch.build_model(repro_torch.get_config(arch, smoke=True))
+    cfg = model.cfg
+    params = model.init(0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(3))
+    frames = (torch.from_numpy(prng.normal(prng.PRNGKey(3), (
+        2, cfg.enc_seq, cfg.d_model))) if cfg.is_encdec else None)
+    out, trees = {}, {}
+    for d in ("cpu", dev):
+        qm = repro_torch.quantize(model, params, device=d, recipe="serve-w8a8")
+        trees[str(d)] = qm.params
+        cache = model.init_cache(2, 16, device=d)
+        if frames is not None:
+            cache = model.warm_cache(qm.params, frames.to(d), cache)
+        reset_launch_counts()
+        lg, cache = model.prefill(qm.params, toks[:, :8].to(d), cache)
+        steps = [lg]
+        for t in range(8, 12):
+            lg, cache = model.decode_step(qm.params, toks[:, t:t + 1].to(d),
+                                          cache)
+            steps.append(lg)
+        out[str(d)] = torch.stack(steps).float().cpu()
+    counts = launch_counts()
+    # the card's run (the last): every input through the W8A8 kernels
+    # (smoke rows fold: the quantize-in GEMM, and int8 GEMMs beside it)
+    assert counts["qmatmul_w8a8_qin"] + counts["qmatmul_w8a8"] > 0, counts
+
+    def qleaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from qleaves(v)
+        elif isinstance(tree, QTensor):
+            yield tree
+
+    for a, b in zip(qleaves(trees["cpu"]), qleaves(trees[str(dev)])):
+        assert torch.equal(a.q, b.q.cpu()) and torch.equal(a.scale,
+                                                           b.scale.cpu())
+    diff = float((out["cpu"] - out[str(dev)]).abs().max())
+    assert diff <= 0.05 * float(out["cpu"].abs().max()), diff
+
+
+def test_idle_engine_step_launches_nothing_on_the_card(dev):
+    """The async server steps the engine while only sleepers remain: with
+    nothing in flight a fast-path step (graphs captured by warmup) moves
+    the clock one tick and replays no graph — no kernel launched."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServingEngine
+
+    qm = repro_torch.quantize("qwen2-0.5b-smoke", recipe="serve-w8a16-kv8",
+                              device=dev)
+    eng = ServingEngine(qm.model, qm.params, qm.cfg, num_slots=2, max_len=32,
+                        prefill_chunk=8, device=dev)
+    eng.warmup()
+    reset_launch_counts()
+    clock = eng.clock
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    assert eng.clock == clock + 3
+    assert not any(launch_counts().values()), launch_counts()

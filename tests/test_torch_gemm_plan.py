@@ -317,3 +317,41 @@ def test_mixtral_decode_gate_up_takes_no_split_and_folds():
     assert (p.splits, p.ctas, p.fold) == (1, 8 * 1024, True)
     down = gemm_plan.plan(8, 6144, 16384, experts=8)
     assert down.splits == 1 and not down.fold     # a 256 KiB int8 slice
+
+
+def _chip_smoke():
+    """chip_smoke.py, loaded from the repo root (it imports torch only
+    inside its functions)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_phase_11_gemms_are_every_projection_of_the_new_families():
+    """The shapes chip_smoke.py's phase 2 and the card tests hold against
+    the plain versions for phase 11 (``family_gemms``, ``family_quantize``,
+    derived from the layers phase 11 runs) are every GEMM of the three
+    families at the published widths, written out here from the configs:
+    at a decode step of 8 and a 128-token prefill of 8, mamba2's in_proj
+    (2 x 5120 + 2 x 128 + 80 = 10576) and out_proj, zamba2's in_proj
+    (2 x 5120 + 2 x 64 + 80 = 10448; its out_proj is mamba2's), its shared
+    block's q/k/v/o (32 heads of 80), gate/up and down, whisper's decoder
+    projections; whisper's encoder over 8 x 1500 frames. quantize_act
+    runs at the prefill's and the encoder's inputs, every decode input
+    folds."""
+    cs = _chip_smoke()
+    decode, prefill, enc = 8, 8 * 128, 8 * 1500
+    want = {(enc, 384, 384), (enc, 384, 1536), (enc, 1536, 384)}
+    for M in (decode, prefill):
+        want |= {(M, 2560, 10576), (M, 5120, 2560), (M, 2560, 10448),
+                 (M, 2560, 2560), (M, 2560, 10240), (M, 10240, 2560),
+                 (M, 384, 384), (M, 384, 1536), (M, 1536, 384)}
+    got = [(M, K, N) for _, K, N, ms in cs.family_gemms() for M in ms]
+    assert len(got) == len(set(got)) and set(got) == want
+    assert set(cs.family_quantize()) == {
+        (prefill, 2560), (prefill, 5120), (prefill, 10240), (prefill, 384),
+        (prefill, 1536), (enc, 384), (enc, 1536)}

@@ -210,7 +210,7 @@ def test_init_is_seeded_and_shaped():
 def test_unported_features_raise():
     cfg = get_config(f"{ARCH}-smoke")
     with pytest.raises(NotImplementedError, match="family"):
-        build_model(dataclasses.replace(cfg, family="ssm"))
+        build_model(dataclasses.replace(cfg, family="retnet"))
     m = build_model(cfg)
     with pytest.raises(ValueError, match="kv_bits must be 8 or 16"):
         m.init_cache(1, 8, device="cpu", kv_bits=4)
