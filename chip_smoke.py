@@ -280,6 +280,32 @@ Phases, each of which must pass (nothing here catches a failure):
      peak memory, warm_cache and prefill ms, decode tok/s. No decode
      attention kernel runs: zamba2's shared attention (head_dim 80) and
      whisper's self attention read fp caches, as in the reference.
+  12. training — 12a: ``repro_torch.launch.train.main`` on qwen2-0.5b at
+     full width (24 layers, d 896, vocab 151,936, tied embeddings, bf16
+     compute over float32 params, remat on), ``TRAIN``'s batch, sequence
+     and steps, checkpoints in a directory under ``build/`` removed after:
+     median and p90 step ms (the first step apart), train tokens/s, ``mfu``
+     (6·N·tokens over the step time over the bf16 peak ``bound_ms`` uses,
+     N ``cfg.param_count()``), peak device memory, the mean loss of the
+     first 10 steps against the last 10 (it must fall), straggler events
+     and retries; then ``TRAIN_PROFILED`` more steps under
+     ``torch.profiler`` (the device busy share, the leading kernels). 12b:
+     the fault path at full width and ``TRAIN_FAULT``'s cut depth under
+     ``torch.use_deterministic_algorithms(True)`` (with
+     ``CUBLAS_WORKSPACE_CONFIG`` set for 12b only): an uninterrupted run, a
+     run with a failure injected past the first checkpoint (the loop
+     restores and replays), and a preempted run (its checkpoint bit-equal
+     to the state the loop held) resumed with ``--resume`` in a fresh
+     loop: both end bit-equal to the uninterrupted run. 12c: 12a's trained
+     weights through ``repro_torch.quantize`` under dfq-int8, serve-w8a16,
+     naive-int8 and serve-w8a8-kv8 — logits SQNR and greedy agreement
+     against the trained float model on ``calibration_tokens(5, 4, 64,
+     vocab)`` and the loss on a held-out batch of the training stream,
+     logged (which recipe keeps more is a finding, not a gate) — then
+     served (``TRAINED_SERVE``'s 8 requests, fast path, graphs captured by
+     warmup) under serve-w8a16 over the bf16 KV cache and serve-w8a8-kv8:
+     launches exact (``expected_launches``), and again at
+     ``backend="torch"``: no launch, every request finished.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -2219,6 +2245,9 @@ def _leaves(tree, path=()):
     elif isinstance(tree, QTensor):
         yield path + ("q",), tree.q
         yield path + ("scale",), tree.scale
+    elif isinstance(tree, (list, tuple)):        # a train state
+        for i, t in enumerate(tree):
+            yield from _leaves(t, path + (i,))
     else:
         yield path, tree
 
@@ -4477,6 +4506,322 @@ def check_families(torch, dev):
     return counts
 
 
+# --------------------------------------------------------------- phase 12
+# 12a: the training run (the launcher's flags): qwen2-0.5b at full width, one
+# checkpoint mid-run (step 40) and the final one
+TRAIN = dict(arch="qwen2-0.5b", steps=60, batch=8, seq=256, ckpt_every=40)
+# 12b: the fault path at full width and a cut depth: checkpoints at steps 2
+# and 4 and the end, a failure injected at step 5, a preemption requested
+# once 5 steps are done. The loop restores the latest checkpoint it can
+# see: the step-4 one may still be in writing (saves are asynchronous), but
+# the step-2 one is complete (a save waits for the one before it)
+TRAIN_FAULT = dict(layers=4, steps=6, ckpt_every=2, fail_at=5, preempt_at=5)
+# 12a: steps run again under torch.profiler after the launcher's run
+TRAIN_PROFILED = 3
+# 12c: the evaluation tokens (seed, batch, length), the held-out batch of
+# the training stream (a step the run never reads) and the served trace of
+# the trained model: phase 4's settings, 8 requests
+TRAINED_EVAL = (5, 4, 64)
+HELD_OUT_STEP = 10_000
+TRAINED_SERVE = dict(SERVE, trace=8)
+
+
+def train_args(ckpt_dir, *extra, **over):
+    """The launcher's argv for ``TRAIN`` (``over`` replacing its values)."""
+    t = dict(TRAIN, **over)
+    return ["--arch", t["arch"], "--steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--ckpt-dir", ckpt_dir,
+            "--ckpt-every", str(t["ckpt_every"]), *extra]
+
+
+def train_full_width(torch, dev, smi):
+    """12a: the launcher's ``main`` at full width. Returns its ``TrainRun``."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_train")
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    try:
+        t0 = time.perf_counter()
+        run = train.main(train_args(directory))
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    cfg = run.cfg
+    assert run.end == TRAIN["steps"] and len(run.losses) == TRAIN["steps"]
+    assert run.metrics.retries == 0 and all(np.isfinite(run.losses))
+    steady = np.array(run.step_seconds[1:]) * 1e3
+    med, p90 = float(np.median(steady)), float(np.percentile(steady, 90))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    n_params = cfg.param_count()
+    mfu = 6 * n_params * tokens / (med / 1e3) / BF16_OPS_S
+    first, last = float(np.mean(run.losses[:10])), float(np.mean(run.losses[-10:]))
+    assert last < first, f"12a: the loss did not fall ({first:.4f} -> {last:.4f})"
+    log(f"  12a qwen2-0.5b ({cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, {cfg.dtype} compute "
+        f"over {cfg.param_dtype} params, remat {cfg.remat}; N = {n_params} "
+        f"params): {TRAIN['steps']} steps of {TRAIN['batch']} x "
+        f"{TRAIN['seq']} tokens in {seconds:.2f} s (checkpoints at step "
+        f"{TRAIN['ckpt_every']} and the end included)")
+    log(f"  12a step ms: first {run.step_seconds[0] * 1e3:.1f}, median "
+        f"{med:.2f}, p90 {p90:.2f}, min {float(steady.min()):.2f}, max "
+        f"{float(steady.max()):.2f}; train tokens/s {tokens / (med / 1e3):.0f} "
+        f"(at the median); peak device memory {peak / 2**30:.2f} GiB ({smi})")
+    log(f"  12a mfu {mfu:.4f} (6 x {n_params} x {tokens} tokens / "
+        f"{med:.2f} ms / {BF16_OPS_S / 1e12:.0f} TFLOP/s bf16 peak)")
+    log(f"  12a loss: first 10 steps {first:.4f}, last 10 {last:.4f} "
+        f"(step 1 {run.losses[0]:.4f}, step {TRAIN['steps']} "
+        f"{run.losses[-1]:.4f}); straggler events "
+        f"{run.metrics.straggler_events}, retries {run.metrics.retries}")
+    profile_train_steps(torch, dev, run, smi)
+    return run
+
+
+def profile_train_steps(torch, dev, run, smi):
+    """``TRAIN_PROFILED`` more steps of the launcher's train step from 12a's
+    state (one unprofiled first), under ``torch.profiler``: the wall time a
+    step, the device busy share and the kernels that lead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serve import _report_profile
+    from repro_torch.launch.steps import make_train_step
+
+    _, step = make_train_step(run.cfg, lr_cfg={
+        "peak_lr": 1e-3, "warmup": 20, "total": TRAIN["steps"]})
+    stream = TokenStream(seed=0, shard=0, n_shards=1,
+                         batch_per_shard=TRAIN["batch"], seq=TRAIN["seq"],
+                         vocab=run.cfg.vocab_size, device=dev)
+    params, opt = run.state
+    params, opt, m = step(params, opt, stream.batch(TRAIN["steps"]))
+    float(m["loss"])
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(TRAIN_PROFILED):
+            params, opt, m = step(params, opt,
+                                  stream.batch(TRAIN["steps"] + 1 + i))
+            float(m["loss"])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    busy = _report_profile(prof, wall)
+    log(f"  12a profiled: {TRAIN_PROFILED} more steps at "
+        f"{wall / TRAIN_PROFILED * 1e3:.1f} ms a step under the profiler; "
+        "device busy share "
+        + ("not measured (no device time recorded)" if busy is None
+           else f"{busy * 100:.1f} %") + f" ({smi})")
+
+
+def same_state(torch, a, b, what):
+    """Two train states equal leaf for leaf, bit for bit; returns the leaf
+    count."""
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    assert [p for p, _ in la] == [p for p, _ in lb], what
+    for (path, x), (_, y) in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y), (
+            f"{what}: {'/'.join(map(str, path))} differs")
+    return len(la)
+
+
+def train_fault_path(torch, dev):
+    """12b: the launcher's fault path at full width, ``TRAIN_FAULT``'s depth,
+    deterministic algorithms on (``CUBLAS_WORKSPACE_CONFIG`` set for this
+    phase only, both restored after)."""
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWState
+
+    f = TRAIN_FAULT
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_fault")
+    shutil.rmtree(root, ignore_errors=True)
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    saved_det = torch.are_deterministic_algorithms_enabled()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        def args(name, *extra):
+            return train_args(os.path.join(root, name), "--layers",
+                              str(f["layers"]), *extra, steps=f["steps"],
+                              ckpt_every=f["ckpt_every"])
+
+        t0 = time.perf_counter()
+        ref = train.main(args("ref"))
+        fired = []
+
+        def inject(step):
+            if step == f["fail_at"] and not fired:
+                fired.append(step)
+                return True
+            return False
+
+        failed = train.main(args("fail"), inject_failure=inject)
+        assert fired and failed.metrics.retries == 1
+        assert failed.metrics.restores == 1 and failed.end == f["steps"]
+        pre = train.main(args("pre"), preempt_at=f["preempt_at"])
+        assert pre.metrics.preempted and pre.end == f["preempt_at"]
+        ckpt = Checkpointer(os.path.join(root, "pre"))
+        assert ckpt.latest_step() == f["preempt_at"]
+        saved, _ = ckpt.restore(pre.state)
+        assert isinstance(saved[1], AdamWState)
+        n = same_state(torch, saved, pre.state, "the preemption checkpoint")
+        resumed = train.main(args("pre", "--resume"))
+        assert resumed.start == f["preempt_at"] and resumed.end == f["steps"]
+        same_state(torch, failed.state, ref.state,
+                   "the replayed run against the uninterrupted one")
+        same_state(torch, resumed.state, ref.state,
+                   "the resumed run against the uninterrupted one")
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(saved_det)
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    replays = len(failed.losses) - f["steps"]
+    log(f"  12b fault path (qwen2-0.5b full width, {f['layers']} layers, "
+        f"{f['steps']} steps, checkpoints every {f['ckpt_every']}, "
+        f"deterministic algorithms): failure injected at step "
+        f"{f['fail_at']}: 1 retry, restored from step "
+        f"{f['fail_at'] - replays} and replayed ({len(failed.losses)} step "
+        f"calls for {f['steps']} steps); "
+        f"preempted after step {f['preempt_at']}: its checkpoint = the "
+        f"loop's state ({n} leaves bit-equal), resumed with --resume to step "
+        f"{f['steps']}; both final states bit-equal to the uninterrupted "
+        f"run's, leaf for leaf; losses {[round(x, 4) for x in ref.losses]} "
+        f"({seconds:.1f} s)")
+
+
+def quantize_trained(torch, dev, run):
+    """12c, first half: 12a's trained weights through ``repro_torch.quantize``
+    under dfq-int8, serve-w8a16, naive-int8 and serve-w8a8-kv8: logits SQNR
+    and greedy agreement against the trained float model on
+    ``TRAINED_EVAL``'s uniform ids (the data-free calibration source), and
+    the loss on a held-out batch of the training stream beside the float
+    model's. Logged, not gated (beyond finite values): which recipe keeps
+    more is the finding. Returns {recipe: QuantizedModel} of the two served
+    recipes."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.core import sqnr_db
+    from repro_torch.data import calibration_tokens, token_batch
+
+    model, params = run.model, run.state[0]
+    cfg = run.cfg
+    toks = calibration_tokens(*TRAINED_EVAL, cfg.vocab_size, device=dev)
+    held = token_batch(0, HELD_OUT_STEP, 0, TRAIN["batch"], TRAIN["seq"],
+                       cfg.vocab_size, device=dev)
+    with torch.no_grad():
+        y_fp = model.apply(params, toks).float()
+        loss_fp = float(model.loss(params, held))
+    log(f"  12c trained float model: held-out loss {loss_fp:.4f} (training "
+        f"stream step {HELD_OUT_STEP}, {TRAIN['batch']} x {TRAIN['seq']})")
+    served = {}
+    for recipe in ("dfq-int8", "serve-w8a16", "naive-int8",
+                   "serve-w8a8-kv8"):
+        qm = repro_torch.quantize(model, params=params, recipe=recipe,
+                                  device=dev)
+        with torch.no_grad():
+            y = qm.model.apply(qm.params, toks).float()
+            loss_q = float(qm.model.loss(qm.params, held))
+        assert bool(torch.isfinite(y).all()) and np.isfinite(loss_q), recipe
+        agree = float((y.argmax(-1) == y_fp.argmax(-1)).float().mean())
+        log(f"  12c trained qwen2-0.5b {recipe}: logits SQNR "
+            f"{float(sqnr_db(y_fp, y)):.2f} dB, greedy agreement {agree:.4f} "
+            f"against the trained float model on calibration_tokens"
+            f"{TRAINED_EVAL + (cfg.vocab_size,)}; held-out loss {loss_q:.4f} "
+            f"({loss_q - loss_fp:+.4f} on the float model's)")
+        if recipe.startswith("serve-"):
+            served[recipe] = qm
+    return served
+
+
+def serve_trained(torch, dev, qm, label, kv_bits, quantize):
+    """12c, second half: ``TRAINED_SERVE``'s requests through a fast
+    ``ServingEngine`` of the quantized trained weights (graphs captured by
+    warmup), launches exact; then a ``backend="torch"`` engine on the same
+    requests: no launch. Returns the kernel run's launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import ServeRun
+    from repro_torch.serving import ServingEngine, synthetic_trace
+
+    sv = TRAINED_SERVE
+    out = {}
+    for backend in (None, "torch"):
+        engine = ServingEngine(qm.model, qm.params, qm.cfg, fast=True,
+                               kv_bits=kv_bits, num_slots=sv["slots"],
+                               max_len=sv["max_len"],
+                               prefill_chunk=sv["prefill_chunk"],
+                               device=dev, backend=backend)
+        requests = synthetic_trace(
+            sv["trace_seed"], sv["trace"], vocab_size=qm.cfg.vocab_size,
+            prompt_lens=(sv["prompt_min"], sv["prompt_len"]),
+            gen_lens=(sv["gen_min"], sv["gen_len"]), mean_interarrival=1.0)
+        reset_launch_counts()
+        warm = engine.warmup() if backend is None else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run(requests)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        run = ServeRun(results=results, stats=dict(engine.stats),
+                       seconds=seconds,
+                       generated_tokens=engine.stats["generated_tokens"],
+                       report=qm.report, warmup=warm, path="fast")
+        assert len(results) == sv["trace"], label
+        assert all(r.status == "ok" and r.tokens for r in results.values()), label
+        out[backend] = run, counts
+    run, counts = out[None]
+    want = expected_launches(quantize, True, *forwards(run), cfg=qm.cfg,
+                             kv_bits=kv_bits, slots=sv["slots"],
+                             chunk=sv["prefill_chunk"])
+    for name, n in counts.items():
+        assert n == want.get(name, 0), (
+            f"12c {label}: {name} launched {n} times, expected "
+            f"{want.get(name, 0)}")
+    plain_run, plain_counts = out["torch"]
+    assert not any(plain_counts.values()), (
+        f"12c {label}: backend='torch' launched {plain_counts}")
+    same = sum(plain_run.results[rid].tokens == r.tokens
+               for rid, r in run.results.items())
+    log(f"  12c served the trained model under {label}: {sv['trace']} "
+        f"requests, {run.generated_tokens} tokens in {run.seconds:.3f} s = "
+        f"{run.tokens_per_second:.1f} tok/s (fast path, {sv['slots']} slots); "
+        f"launches {json.dumps(counts)} = expected; backend='torch': 0 "
+        f"launches, {same} of {sv['trace']} requests with the kernels' tokens")
+    return counts
+
+
+def check_training(torch, dev, smi):
+    """Phase 12. Returns {served label: launch counts}."""
+    run = train_full_width(torch, dev, smi)
+    train_fault_path(torch, dev)
+    served = quantize_trained(torch, dev, run)
+    del run
+    counts = {}
+    for label, recipe, kv_bits, quantize in (
+            ("serve-w8a16 (bf16 KV)", "serve-w8a16", 16, "w8a16"),
+            ("serve-w8a8-kv8", "serve-w8a8-kv8", 8, "w8a8")):
+        counts[label] = serve_trained(torch, dev, served[recipe], label,
+                                      kv_bits, quantize)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4699,6 +5044,13 @@ def main() -> int:
     family_counts = check_families(torch, dev)
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s ({smi})")
 
+    log("== phase 12: train qwen2-0.5b (full width) through "
+        "repro_torch.launch.train, then quantize and serve what it trained")
+    log(f"  {smi}")
+    t12 = time.perf_counter()
+    trained_counts = check_training(torch, dev, smi)
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s ({smi})")
+
     # each kernel's launches come from the run of the path it serves; the
     # fused decode from the default (w8a16) path, kv_attention from the
     # default recipe's unfused route; the quantize-out GEMMs are on no
@@ -4807,6 +5159,21 @@ def main() -> int:
                 "source": csrc + sources[name][0],
                 "replaces": tpu + sources[name][1], "launches": n,
                 "path": f"phase 11: {arch} {recipe} prefill + decode"})
+    # phase 12's launches (the trained model served), each beside the
+    # kernel's phase-2 row at the decode shape
+    for label, counted in trained_counts.items():
+        for name, n in counted.items():
+            if n == 0:
+                continue
+            row = next(r for r in tables[name] if r["shape"] == main[name][0])
+            kernels.append({
+                **{k: v for k, v in row.items()
+                   if k not in ("splits", "share", "tickets", "bm", "waiters",
+                                "residency", "stepwise_ms")},
+                "name": f"{name} (trained qwen2-0.5b)", "route": "cuda",
+                "source": csrc + sources[name][0],
+                "replaces": tpu + sources[name][1], "launches": n,
+                "path": f"phase 12: trained qwen2-0.5b {label}, fast path"})
     log(f"  the script took {time.perf_counter() - t_script:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

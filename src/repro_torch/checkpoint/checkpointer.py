@@ -14,9 +14,13 @@ on a worker thread (``wait()`` joins it; the next save waits first). The
 most recent ``keep`` steps are kept.
 
 Leaf order (hazard read off the reference): ``jax.tree.flatten`` visits a
-dict's keys SORTED and a list in order, and ``arr_i`` is the i-th leaf of
+dict's keys SORTED and a list or tuple (a ``NamedTuple`` such as
+``AdamWState`` among them) in order, and ``arr_i`` is the i-th leaf of
 that walk. ``_flatten`` here walks the same way; any other order would bind
-``arr_i`` to the wrong leaf across packages.
+``arr_i`` to the wrong leaf across packages. So a training checkpoint of
+``(params, AdamWState)`` written by either package restores in the other,
+leaf for leaf, through ``restore(target_tree)``, which rebuilds the
+target's own structure (its ``NamedTuple`` types included).
 
 bfloat16 without ``ml_dtypes`` (hazard): the JAX package's ``np.save`` of a
 bfloat16 array writes a ``'<V2'`` payload, and its manifest says
@@ -74,6 +78,26 @@ def _unflatten(skeleton, leaves: list):
         return next(it)
 
     return build(skeleton)
+
+
+def _rebuild(target, leaves: list):
+    """The target tree's structure — dicts in their own key order, lists,
+    tuples and NamedTuples as their own types — over ``leaves`` given in
+    ``_flatten``'s order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            kids = [build(v) for v in node]
+            if hasattr(node, "_fields"):                  # a NamedTuple
+                return type(node)(*kids)
+            return type(node)(kids)
+        return next(it)
+
+    return build(target)
 
 
 def _skeleton(tree):
@@ -206,6 +230,42 @@ class Checkpointer:
                  if d.startswith("step_") and ".tmp" not in d
                  and os.path.exists(os.path.join(self.dir, d, "manifest.json"))]
         return max(steps) if steps else None
+
+    def restore(self, target_tree: Any, step: Optional[int] = None,
+                device: Optional[torch.device] = None) -> tuple[Any, int]:
+        """Restore step ``step`` (default: the latest) into the structure of
+        ``target_tree``: the i-th leaf of ``_flatten(target_tree)`` reads
+        ``arr_i``, with the checkpoint's dtype, onto ``device`` (default:
+        that target leaf's device). The leaf count and every shape must
+        match the target's; a mismatch raises ``CheckpointError`` naming
+        the leaf. Returns ``(tree, step)``."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.dir}")
+        d = os.path.join(self.dir, f"step_{step}")
+        pairs = _flatten(target_tree)
+        with open(os.path.join(d, "manifest.json")) as f:
+            spec = json.load(f)
+        if spec["n_leaves"] != len(pairs):
+            raise CheckpointError(f"{d}: the checkpoint has {spec['n_leaves']} "
+                                  f"leaves, the target {len(pairs)}")
+        leaves = []
+        for i, ((path, ref), dtype) in enumerate(zip(pairs, spec["dtypes"])):
+            want = list(np.shape(ref) if not isinstance(ref, torch.Tensor)
+                        else ref.shape)
+            if list(spec["shapes"][i]) != want:
+                raise CheckpointError(
+                    f"leaf {_name(path)}: the checkpoint's shape "
+                    f"{spec['shapes'][i]}, the target's {want}")
+            t = _read_leaf(os.path.join(d, f"arr_{i}.npy"), path, dtype)
+            if list(t.shape) != want:
+                raise CheckpointError(
+                    f"leaf {_name(path)}: arr_{i} holds shape "
+                    f"{list(t.shape)}, the target's {want}")
+            dev = device if device is not None else (
+                ref.device if isinstance(ref, torch.Tensor) else None)
+            leaves.append(t if dev is None else t.to(dev))
+        return _rebuild(target_tree, leaves), step
 
     def restore_skeleton(self, step: Optional[int] = None,
                          device: Optional[torch.device] = None

@@ -1,5 +1,11 @@
-"""Synthetic data for the data-free flow (port of ``repro.data``'s
-calibration ids and the CNN's images)."""
-from .synthetic import calibration_tokens, synthetic_image_batch
+"""Synthetic data (port of ``repro.data``): the training token stream, the
+data-free flow's calibration ids and the CNN's images."""
+from .synthetic import (
+    TokenStream,
+    calibration_tokens,
+    synthetic_image_batch,
+    token_batch,
+)
 
-__all__ = ["calibration_tokens", "synthetic_image_batch"]
+__all__ = ["TokenStream", "calibration_tokens", "synthetic_image_batch",
+           "token_batch"]

@@ -1,18 +1,24 @@
-"""Synthetic data for the data-free flow — port of ``repro.data.synthetic``'s
-``calibration_tokens`` and ``synthetic_image_batch``.
+"""Synthetic data — port of ``repro.data.synthetic``: the training stream
+(``token_batch``, ``TokenStream``), the data-free flow's calibration ids
+(``calibration_tokens``) and the CNN's images (``synthetic_image_batch``).
+
+Every batch is a pure function of (seed, step, shard), so a replayed or
+resumed step reads the same data, whatever the world size.
 
 Empirical bias correction (paper appendix D) needs E[x] at each weight
 site's input; with uniformly random token ids as the calibration source the
 flow stays data-free. The ids are the JAX package's, bit for bit: they are
 drawn on the host with the threefry generator of ``prng`` (numpy ``uint32``
 arithmetic, as ``jax.random.randint`` draws them) and moved to the device,
-so the card, the CPU and the JAX package calibrate on the same tokens. The
-CNN's images are drawn the same way: their labels are the JAX package's bit
+so the card, the CPU and the JAX package calibrate on the same tokens.
+The training ids are the JAX package's bit for bit as well (see
+``token_batch`` for the one hazard). The CNN's images are drawn the same way: their labels are the JAX package's bit
 for bit, their pixels within 1e-6 (numpy's float32 ``sin``, ``cos`` and
 ``prng.normal`` round other than XLA's).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import numpy as np
@@ -20,6 +26,7 @@ import torch
 
 from ..device import resolve_device
 from . import prng
+from .libm import powf
 
 
 def _fold(seed: int, *salts: int):
@@ -67,3 +74,50 @@ def synthetic_image_batch(seed: int, step: int, batch: int, size: int,
     dev = resolve_device(device)
     return {"x": torch.from_numpy(x).to(dev),
             "y": torch.from_numpy(y.astype(np.int64)).to(dev)}
+
+
+def token_batch(seed: int, step: int, shard: int, batch: int, seq: int,
+                vocab: int, *,
+                device: Optional[Union[str, torch.device]] = "cuda") -> dict:
+    """One shard's {"tokens", "labels"} [batch, seq] int64 for a step, on
+    ``device``: the ids of ``repro.data.synthetic.token_batch`` with the
+    same arguments, bit for bit. A Zipf marginal — ``int32(u^(-1/1.1) - 1)``
+    of u uniform on [1e-6, 1), clipped to the vocabulary — and at every odd
+    position, with probability 1/2 (``bernoulli``: a uniform draw below
+    0.5), a repeat of the previous position's id (the ``roll``), so the
+    bigrams are learnable; the labels are the tokens shifted by one.
+
+    Hazard: the float32 ``pow`` decides the truncation wherever
+    ``u^(-1/1.1) - 1`` lies within an ulp of an integer. numpy's float32
+    ``power`` differs from the JAX package's in the last place for one
+    value in five, PyTorch's for one in fifty, float64 rounded to float32
+    for one in two thousand; the C library's ``powf`` (``data.libm``),
+    which the JAX package's CPU backend calls, agrees with it on every
+    value, so the ids are drawn with it, on the host."""
+    k1, k2, _ = prng.split(_fold(seed, step, shard), 3)
+    u = prng.uniform(k1, (batch, seq + 1), 1e-6, 1.0)
+    zipf = np.clip((powf(u, -1.0 / 1.1) - np.float32(1)).astype(np.int32),
+                   0, vocab - 1)
+    rep = prng.uniform(k2, (batch, seq + 1)) < np.float32(0.5)
+    odd = np.arange(seq + 1) % 2 == 1
+    toks = np.where(rep & odd, np.roll(zipf, 1, axis=1), zipf)
+    t = torch.from_numpy(toks.astype(np.int64)).to(resolve_device(device))
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """A shard's stateless stream (the train launcher's data): ``batch(step)``
+    is ``token_batch`` of this shard at that step, on ``device``."""
+
+    seed: int
+    shard: int
+    n_shards: int
+    batch_per_shard: int
+    seq: int
+    vocab: int
+    device: Optional[Union[str, torch.device]] = "cuda"
+
+    def batch(self, step: int) -> dict:
+        return token_batch(self.seed, step, self.shard, self.batch_per_shard,
+                           self.seq, self.vocab, device=self.device)

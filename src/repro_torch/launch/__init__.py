@@ -1,1 +1,2 @@
-"""Entry points: the serving launcher."""
+"""Entry points: the serving and training launchers, and the step
+builders they share (``launch.steps``)."""

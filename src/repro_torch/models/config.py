@@ -30,6 +30,9 @@ class ModelConfig:
     rope: bool = True
     rope_theta: float = 10000.0
     qk_norm: bool = False                     # chameleon
+    attn_causal_segments: int = 8             # the chunked training
+                                              # attention's causal block
+                                              # skipping (chunk_kv only)
     kv_cache_bits: int = 16                   # 8 → int8 KV cache (per-token,
                                               # per-head absmax scales)
     tie_embeddings: bool = True
@@ -64,6 +67,8 @@ class ModelConfig:
                                               # the caller gives the frames)
     dtype: str = "bfloat16"                   # activation compute dtype
     param_dtype: str = "float32"
+    remat: bool = True                        # recompute each block in the
+                                              # backward (memory, not numbers)
     logit_chunk: int = 1024                   # the loss's sequence chunking
     kv_bias_correct: bool = False             # int8 KV only: store per-token
                                               # V error means (v_err) and
@@ -180,6 +185,7 @@ class ModelConfig:
             max_seq=128,
             dtype="float32",
             param_dtype="float32",
+            remat=False,
             logit_chunk=32,
         )
 

@@ -17,6 +17,11 @@ cross keys and values (``ck``, ``cv`` [L, B, enc_seq, H, hd]) that
 routes through the int8 GEMMs (``layers.linear``) like the decoder-only
 model's.
 
+Training: ``loss`` is differentiable through the compute-dtype casts;
+under autograd with ``cfg.remat`` every encoder and decoder layer runs
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), and
+``chunk_kv`` chunks the decoder's causal self-attention.
+
 DFQ notes: the plain-GELU MLP pairs are *approximate* CLE (``exact=False``,
 skipped by default); LayerNorm gives the norm folds a shift (β) to fold
 into the consumers' biases.
@@ -26,6 +31,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import (
     DensePairOp,
@@ -37,7 +43,6 @@ from ..core.graph import (
     WeightSite,
 )
 from ..device import resolve_device
-from ..quantized.qtensor import map_leaves
 from .config import ModelConfig
 from .layers import (
     AttnDims,
@@ -49,7 +54,7 @@ from .layers import (
     mlp_block,
     slot_write,
 )
-from .lm import _layer, _stack_stats
+from .lm import _layer, _stack_stats, cast_for_compute, prepared
 
 
 def sinusoidal_positions(T: int, d: int, device=None) -> torch.Tensor:
@@ -129,23 +134,31 @@ class EncDecModel:
     def _dims(self) -> AttnDims:
         cfg = self.cfg
         return AttnDims(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                        head_dim=cfg.head_dim, rope=False)
+                        head_dim=cfg.head_dim, rope=False,
+                        causal_segments=cfg.attn_causal_segments)
 
     def prepare(self, params: dict):
         """The params cast to the compute dtype (every float32 leaf, as the
         reference's ``_cast``) and the per-layer views of both stacks —
-        once per params object."""
-        if self._prepared is not None and self._prepared[0] is params:
-            return self._prepared[1:]
+        once per params object; under autograd, with a leaf that requires
+        grad, every call (``lm.prepared``)."""
         cfg = self.cfg
-        compute = cfg.compute_dtype
-        p = map_leaves(
-            lambda a: (a.to(compute) if a.dtype == torch.float32
-                       and compute != torch.float32 else a), params)
-        enc = [_layer(p["enc_blocks"], i) for i in range(cfg.n_enc_layers)]
-        dec = [_layer(p["dec_blocks"], i) for i in range(cfg.n_layers)]
-        self._prepared = (params, p, enc, dec)
-        return p, enc, dec
+
+        def build():
+            p = cast_for_compute(params, cfg.compute_dtype)
+            return (p, [_layer(p["enc_blocks"], i)
+                        for i in range(cfg.n_enc_layers)],
+                    [_layer(p["dec_blocks"], i) for i in range(cfg.n_layers)])
+
+        entry, self._prepared = prepared(self._prepared, params, build)
+        return entry[1:]
+
+    def _run(self, fn, *args, stats=None):
+        """``fn(*args, stats)``, under ``checkpoint`` where this forward
+        remats (``cfg.remat``, autograd on, no stats captured)."""
+        if self.cfg.remat and stats is None and torch.is_grad_enabled():
+            return checkpoint(fn, *args, stats, use_reentrant=False)
+        return fn(*args, stats)
 
     def encode(self, params, frames: torch.Tensor, *,
                capture: bool = False):
@@ -160,22 +173,48 @@ class EncDecModel:
         per_layer = []
         for lp in enc:
             st = {} if capture else None
-            h = apply_norm(x, lp["attn_norm"], "ln")
-            x = x + causal_attention_block(lp["attn"], h, self._dims(),
-                                           capture=st, causal=False)
-            h = apply_norm(x, lp["mlp_norm"], "ln")
-            x = x + mlp_block(lp["mlp"], h, cfg.act, capture=st)
+            x = self._run(self._enc_layer, lp, x, stats=st)
             per_layer.append(st)
         x = apply_norm(x, p["enc_final_norm"], "ln")
         return x, (_stack_stats(per_layer) if capture else {})
 
+    def _enc_layer(self, lp, x, st):
+        h = apply_norm(x, lp["attn_norm"], "ln")
+        x = x + causal_attention_block(lp["attn"], h, self._dims(),
+                                       capture=st, causal=False)
+        h = apply_norm(x, lp["mlp_norm"], "ln")
+        return x + mlp_block(lp["mlp"], h, self.cfg.act, capture=st)
+
+    def _dec_layer(self, lp, x, self_attn, kv, st):
+        """One decoder layer: ``self_attn(h, capture)`` the self-attention
+        (causal, or over the cache), ``kv`` the cross keys and values;
+        ``st`` (a dict) receives the layer's stats, the reference's
+        names."""
+        cap = st is not None
+        h = apply_norm(x, lp["attn_norm"], "ln")
+        self_st, cross_st, mlp_st = ({} if cap else None for _ in range(3))
+        x = x + self_attn(h, self_st)
+        h = apply_norm(x, lp["cross_norm"], "ln")
+        x = x + cross_attention_block(lp["cross"], h, self._dims(),
+                                      kv=kv, capture=cross_st)
+        h = apply_norm(x, lp["mlp_norm"], "ln")
+        x = x + mlp_block(lp["mlp"], h, self.cfg.act, capture=mlp_st)
+        if cap:
+            st.update({f"dec_{k}": v for k, v in self_st.items()})
+            st.update({f"cross_{k}": v for k, v in cross_st.items()})
+            st.update({f"dec_{k}": v for k, v in mlp_st.items()})
+        return x
+
     def decode(self, params, tokens: torch.Tensor,
                enc_out: Optional[torch.Tensor], *,
-               cache: Optional[dict] = None, capture: bool = False):
+               cache: Optional[dict] = None, capture: bool = False,
+               chunk_kv: Optional[int] = None):
         """The decoder over tokens [B, T]: teacher-forced against
-        ``enc_out`` (no cache), or from ``cache["pos"]`` over a warmed cache
-        (self-attention ring written in place, cross keys and values read).
-        Returns (logits [B, T, V], the new cache or None, stats)."""
+        ``enc_out`` (no cache; ``chunk_kv`` chunks its causal
+        self-attention), or from ``cache["pos"]`` over a warmed cache
+        (self-attention ring written in place, cross keys and values read;
+        ``chunk_kv`` chunks the attention over the cache alike). Returns
+        (logits [B, T, V], the new cache or None, stats)."""
         cfg = self.cfg
         p, _, dec = self.prepare(params)
         B, T = tokens.shape
@@ -187,33 +226,28 @@ class EncDecModel:
         x = x + p["dec_pos"][positions].to(cfg.compute_dtype)
         slots = (slot_write(cache["kpos"], positions)
                  if cache is not None else None)
+        dims = self._dims()
         per_layer = []
         for i, lp in enumerate(dec):
             st = {} if capture else None
-            h = apply_norm(x, lp["attn_norm"], "ln")
-            self_st = {} if capture else None
             if cache is None:
-                a = causal_attention_block(lp["attn"], h, self._dims(),
-                                           capture=self_st)
-                kv = cross_kv(lp["cross"], enc_out, self._dims())
+                def self_attn(h, cap, lp=lp):
+                    return causal_attention_block(lp["attn"], h, dims,
+                                                  capture=cap,
+                                                  chunk_kv=chunk_kv)
+
+                kv = cross_kv(lp["cross"], enc_out, dims)
+                x = self._run(self._dec_layer, lp, x, self_attn, kv, stats=st)
             else:
-                a = attention_block(lp["attn"], h, self._dims(),
-                                    positions=positions, slots=slots,
-                                    cache={"k": cache["k"][i],
-                                           "v": cache["v"][i]})
-                kv = (cache["ck"][i], cache["cv"][i])
-            x = x + a
-            h = apply_norm(x, lp["cross_norm"], "ln")
-            cross_st = {} if capture else None
-            x = x + cross_attention_block(lp["cross"], h, self._dims(),
-                                          kv=kv, capture=cross_st)
-            h = apply_norm(x, lp["mlp_norm"], "ln")
-            mlp_st = {} if capture else None
-            x = x + mlp_block(lp["mlp"], h, cfg.act, capture=mlp_st)
-            if capture:
-                st.update({f"dec_{k}": v for k, v in self_st.items()})
-                st.update({f"cross_{k}": v for k, v in cross_st.items()})
-                st.update({f"dec_{k}": v for k, v in mlp_st.items()})
+                def self_attn(h, cap, lp=lp, i=i):
+                    return attention_block(lp["attn"], h, dims,
+                                           positions=positions, slots=slots,
+                                           chunk_kv=chunk_kv,
+                                           cache={"k": cache["k"][i],
+                                                  "v": cache["v"][i]})
+
+                x = self._dec_layer(lp, x, self_attn,
+                                    (cache["ck"][i], cache["cv"][i]), st)
             per_layer.append(st)
         x = apply_norm(x, p["final_norm"], "ln")
         logits = x @ p["embed"].t().to(x.dtype)
@@ -232,26 +266,28 @@ class EncDecModel:
 
     def apply(self, params, tokens: torch.Tensor,
               frames: Optional[torch.Tensor] = None, *,
-              capture: bool = False):
+              capture: bool = False, chunk_kv: Optional[int] = None):
         """The teacher-forced forward: tokens [B, T] and frames (default: the
         zeros stub) → logits [B, T, V]; with ``capture`` (logits, stats),
         the encoder's stats prefixed ``enc_`` beside the decoder's
-        (``dec_*``, ``cross_*``), as the reference names them."""
+        (``dec_*``, ``cross_*``), as the reference names them. ``chunk_kv``
+        chunks the decoder's self-attention."""
         enc_out, enc_stats = self.encode(params, self._frames(tokens, frames),
                                          capture=capture)
         logits, _, dec_stats = self.decode(params, tokens, enc_out,
-                                           capture=capture)
+                                           capture=capture, chunk_kv=chunk_kv)
         if not capture:
             return logits
         return logits, {**{f"enc_{k}": v for k, v in enc_stats.items()},
                         **dec_stats}
 
-    def loss(self, params, batch: dict) -> torch.Tensor:
+    def loss(self, params, batch: dict, *,
+             chunk_kv: Optional[int] = None) -> torch.Tensor:
         """Mean next-token cross entropy (float32 logits) over
         ``batch["tokens"]`` / ``batch["labels"]``, the encoder fed
-        ``batch.get("frames")``. The forward only."""
-        logits = self.apply(params, batch["tokens"],
-                            batch.get("frames")).float()
+        ``batch.get("frames")``; differentiable, as ``LMModel.loss``."""
+        logits = self.apply(params, batch["tokens"], batch.get("frames"),
+                            chunk_kv=chunk_kv).float()
         gold = torch.gather(logits, -1, batch["labels"][..., None].long())
         return (torch.logsumexp(logits, -1) - gold[..., 0]).mean()
 
@@ -305,8 +341,10 @@ class EncDecModel:
             cache["cv"][i].copy_(v.to(cache["cv"].dtype))
         return cache
 
-    def prefill(self, params, tokens, cache):
-        logits, new_cache, _ = self.decode(params, tokens, None, cache=cache)
+    def prefill(self, params, tokens, cache, *,
+                chunk_kv: Optional[int] = None):
+        logits, new_cache, _ = self.decode(params, tokens, None, cache=cache,
+                                           chunk_kv=chunk_kv)
         return logits[:, -1], new_cache
 
     def decode_step(self, params, token, cache):

@@ -20,8 +20,10 @@ whole-batch ring cache, int8 or fp:
     cache, decode and prefill alike — plain maths in the reference too,
     outside any Pallas kernel;
 
-plus the cache-free attention of the eval forward (causal, or over every
-position for an encoder) and the encoder-decoder's cross attention (keys
+plus the cache-free attention of the eval and training forward (causal,
+or over every position for an encoder; with ``chunk_kv`` the reference's
+two-level online softmax over key and query chunks, its causal frontier
+cut per query segment) and the encoder-decoder's cross attention (keys
 and values from the encoder output, or from the cross cache that
 ``EncDecModel.warm_cache`` fills). A sliding window
 (``AttnDims.window``) masks keys more than ``window - 1`` positions back,
@@ -42,6 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_decode.ops import fused_decode, fusion_enabled
 from ..kernels.kv_attention.ops import append_quantize, kv_attention_decode
@@ -155,6 +158,7 @@ class AttnDims:
     rope: bool = True
     rope_theta: float = 10000.0
     window: Optional[int] = None
+    causal_segments: int = 1
 
 
 class SlotWrite(NamedTuple):
@@ -213,17 +217,102 @@ def _repeat_kv(x, group: int):
         B, T, H * group, hd)
 
 
-def attention_scores_softmax(q, k, v, mask):
+def attention_scores_softmax(q, k, v, mask, chunk_kv: Optional[int] = None,
+                             chunk_q: Optional[int] = None,
+                             causal_segments: int = 1):
     """softmax(q·kᵀ)·v. q [B, Tq, H, hd]; k, v [B, Tk, H, hd]; mask
-    [B, Tq, Tk] (True = attend) or [Tq, Tk]."""
+    [B, Tq, Tk] (True = attend) or [Tq, Tk], or None.
+
+    ``chunk_kv`` (Tk a multiple of it) takes the reference's two-level
+    online softmax: query chunks of ``chunk_q`` (default min(Tq,
+    max(chunk_kv // 4, 256)), or all of Tq where that does not divide it),
+    each running over the key chunks with a float32 running max, sum and
+    accumulator, so no [B, H, Tq, Tk] score tensor lives at once; under
+    autograd each key chunk's step is recomputed in the backward (the
+    reference's ``jax.checkpoint``). Only a 2-D mask chunks.
+    ``causal_segments > 1`` (with a mask and Tq == Tk) splits the query
+    chunks into that many segments, each scanning the key chunks up to its
+    causal frontier only. Plain maths in the reference too, outside any
+    Pallas kernel."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    s = s.float()
-    if mask is not None:
-        m = mask[None, None] if mask.ndim == 2 else mask[:, None]
-        s = torch.where(m, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    B, Tk, H, hd = k.shape
+    Tq = q.shape[1]
+    if chunk_kv is None or Tk <= chunk_kv:
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        s = s.float()
+        if mask is not None:
+            m = mask[None, None] if mask.ndim == 2 else mask[:, None]
+            s = torch.where(m, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    if mask is not None and mask.ndim == 3:
+        raise NotImplementedError(
+            "per-slot (3-D) masks require the unchunked attention path — "
+            "call without chunk_kv (serving decode/prefill-chunk shapes are "
+            "small enough that chunking buys nothing)")
+    if Tk % chunk_kv:
+        raise ValueError(f"chunk_kv {chunk_kv} does not divide the {Tk} keys")
+    n_kv = Tk // chunk_kv
+    k_b = k.reshape(B, n_kv, chunk_kv, H, hd).transpose(0, 1)
+    v_b = v.reshape(B, n_kv, chunk_kv, H, hd).transpose(0, 1)
+    chunk_q = chunk_q or min(Tq, max(chunk_kv // 4, 256))
+    if Tq % chunk_q:
+        chunk_q = Tq
+    n_q = Tq // chunk_q
+    q_b = q.reshape(B, n_q, chunk_q, H, hd).transpose(0, 1)
+    # [n_q, chunk_q, n_kv, chunk_kv]: no batch or head dims
+    mask_b = (mask.reshape(n_q, chunk_q, n_kv, chunk_kv)
+              if mask is not None else None)
+
+    def kv_step(qb, kb, vb, mb, m, l, acc):
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, kb).float() * scale
+        if mb is not None:
+            s = torch.where(mb[None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(-1)
+        acc_new = acc * corr.transpose(1, 2)[..., None] + torch.einsum(
+            "bhqk,bkhd->bqhd", p.to(qb.dtype), vb).float()
+        return m_new, l_new, acc_new
+
+    remat = torch.is_grad_enabled()
+
+    def run_block(q_part, mask_part, k_part, v_part):
+        """The online softmax over the given key chunks, for each of the
+        given query chunks."""
+        outs = []
+        for i in range(q_part.shape[0]):
+            qb = q_part[i]
+            m = torch.full((B, H, chunk_q), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros((B, H, chunk_q), dtype=torch.float32,
+                            device=q.device)
+            acc = torch.zeros((B, chunk_q, H, hd), dtype=torch.float32,
+                              device=q.device)
+            for j in range(k_part.shape[0]):
+                mb = mask_part[i, :, j] if mask_part is not None else None
+                args = (qb, k_part[j], v_part[j], mb, m, l, acc)
+                m, l, acc = (checkpoint(kv_step, *args, use_reentrant=False)
+                             if remat else kv_step(*args))
+            out = acc / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]
+            outs.append(out.to(q.dtype))
+        return torch.stack(outs)
+
+    nseg = causal_segments
+    if nseg > 1 and mask is not None and n_q % nseg == 0 and Tq == Tk:
+        seg_q = n_q // nseg
+        outs = []
+        for si in range(nseg):
+            q_hi = (si + 1) * seg_q * chunk_q
+            n_kv_s = -(-q_hi // chunk_kv)                  # ceil
+            rows = slice(si * seg_q, (si + 1) * seg_q)
+            outs.append(run_block(q_b[rows], mask_b[rows, :, :n_kv_s],
+                                  k_b[:n_kv_s], v_b[:n_kv_s]))
+        out_b = torch.cat(outs, dim=0)
+    else:
+        out_b = run_block(q_b, mask_b, k_b, v_b)
+    return out_b.transpose(0, 1).reshape(B, Tq, H, hd)
 
 
 def _project_qkv(p: dict, x: torch.Tensor, dims: AttnDims, positions):
@@ -259,12 +348,15 @@ def _record_mean(capture: Optional[dict], key: str, x: torch.Tensor) -> None:
 
 def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
                            capture: Optional[dict] = None,
-                           causal: bool = True) -> torch.Tensor:
-    """The cache-free attention of the eval forward (``LMModel.apply``, the
-    encoder-decoder's stacks): fp keys and values, plain softmax, causal
-    unless ``causal=False`` (an encoder attends to every position).
-    ``capture``, a dict, receives the means of the qkv input (``attn_in``)
-    and of the output projection's input (``o_in``)."""
+                           causal: bool = True,
+                           chunk_kv: Optional[int] = None) -> torch.Tensor:
+    """The cache-free attention of the eval and training forward
+    (``LMModel.apply``, the encoder-decoder's stacks): fp keys and values,
+    plain softmax, causal unless ``causal=False`` (an encoder attends to
+    every position); ``chunk_kv`` chunks it (``attention_scores_softmax``,
+    ``dims.causal_segments`` its segments). ``capture``, a dict, receives
+    the means of the qkv input (``attn_in``) and of the output
+    projection's input (``o_in``)."""
     B, T, _ = x.shape
     _record_mean(capture, "attn_in", x)
     positions = torch.arange(T, device=x.device)
@@ -276,7 +368,9 @@ def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
         if dims.window is not None:
             mask = mask.triu(1 - dims.window)
     attn = attention_scores_softmax(q, _repeat_kv(k, group),
-                                    _repeat_kv(v, group), mask)
+                                    _repeat_kv(v, group), mask,
+                                    chunk_kv=chunk_kv,
+                                    causal_segments=dims.causal_segments)
     attn = attn.reshape(B, T, dims.n_q * dims.head_dim)
     _record_mean(capture, "o_in", attn)
     return linear(attn, p["wo"], p.get("bo"))
@@ -315,13 +409,16 @@ def cross_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
 
 def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
                     positions: torch.Tensor, cache: dict,
-                    slots: SlotWrite) -> torch.Tensor:
+                    slots: SlotWrite,
+                    chunk_kv: Optional[int] = None) -> torch.Tensor:
     """qkv projection → rope → cached attention → output projection.
 
     cache: this layer's {"k", "v" [B, S, Hkv, hd] int8, "k_scale",
     "v_scale" [B, S, Hkv] float32, and with the V bias correction "v_err"
     [B, S, Hkv] float32}, or an fp cache's {"k", "v"} alone, written in
-    place. T == 1 is the decode hot path, T > 1 a prefill chunk.
+    place. T == 1 is the decode hot path, T > 1 a prefill chunk;
+    ``chunk_kv`` chunks the plain softmax attention over the cache (a
+    whole-batch cache's 2-D mask only, as the reference's).
     """
     B, T, D = x.shape
     nq, nkv, hd = dims.n_q, dims.n_kv, dims.head_dim
@@ -335,7 +432,8 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
         cv[slots.where] = v.to(cv.dtype)
         attn = attention_scores_softmax(q, _repeat_kv(ck.to(x.dtype), group),
                                         _repeat_kv(cv.to(x.dtype), group),
-                                        slots.mask)
+                                        slots.mask, chunk_kv=chunk_kv,
+                                        causal_segments=dims.causal_segments)
         return linear(attn.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
     verr = cache.get("v_err")
 
@@ -376,7 +474,9 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
         # Σ p (ṽ − e) == Σ p ṽ − Σ p e: the decode route's correction
         vd = vd - verr.to(x.dtype)[..., None]
     attn = attention_scores_softmax(q, _repeat_kv(kd, group),
-                                    _repeat_kv(vd, group), slots.mask)
+                                    _repeat_kv(vd, group), slots.mask,
+                                    chunk_kv=chunk_kv,
+                                    causal_segments=dims.causal_segments)
     return linear(attn.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
 
 

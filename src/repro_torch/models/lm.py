@@ -1,5 +1,5 @@
-"""Decoder-only LM: init, the eval forward and its loss, the KV cache (int8
-or fp, per-slot or whole-batch), prefill, decode.
+"""Decoder-only LM: init, the eval and training forward and its loss, the KV
+cache (int8 or fp, per-slot or whole-batch), prefill, decode.
 
 Port of ``repro.models.lm.LMModel``: family ``dense``, ``vlm`` with the
 ``vision_stub`` frontend (early fusion, image tokens share the vocab, so
@@ -16,17 +16,21 @@ compute dtype, the hybrid's attention cache one fp entry a segment — as in
 the reference, whose serving engine does not take them. Parameters keep the
 JAX package's layout — nested dicts with every block leaf stacked ``[L, ...]``
 — so weights carry across unchanged (``repro_torch.weights``). Layers run as
-a Python loop over per-layer views of the stacked leaves. The KV cache is
-updated IN PLACE (the JAX model returns updated copies under donation);
-``prefill`` / ``decode_step`` still return ``(logits, cache)`` with fresh
-``kpos`` / ``pos`` bookkeeping tensors. ``dfq_plan`` tells the quantization
-pipeline where the paper's rewrites apply.
+a Python loop over per-layer views of the stacked leaves; under autograd
+with ``cfg.remat`` each block (each Mamba2 layer in the SSM families) runs
+under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``: its
+activations are recomputed in the backward, the numbers unchanged. The KV
+cache is updated IN PLACE (the JAX model returns updated copies under
+donation); ``prefill`` / ``decode_step`` still return ``(logits, cache)``
+with fresh ``kpos`` / ``pos`` bookkeeping tensors. ``dfq_plan`` tells the
+quantization pipeline where the paper's rewrites apply.
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.graph import (
     DensePairOp,
@@ -38,7 +42,7 @@ from ..core.graph import (
     WeightSite,
 )
 from ..device import resolve_device
-from ..quantized.qtensor import map_leaves
+from ..quantized.qtensor import QTensor, map_leaves
 from .config import ModelConfig
 from .layers import (
     AttnDims,
@@ -65,6 +69,40 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _requires_grad(tree) -> bool:
+    """Whether any tensor of a params tree requires grad."""
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    if isinstance(tree, QTensor):
+        return tree.scale.requires_grad
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def cast_for_compute(params, compute: torch.dtype):
+    """Every float32 leaf cast to the compute dtype (QTensor scales
+    included), as the JAX forwards cast them; under autograd the cast's
+    gradient comes back in float32."""
+    return map_leaves(
+        lambda a: (a.to(compute) if a.dtype == torch.float32
+                   and compute != torch.float32 else a), params)
+
+
+def prepared(cache: Optional[tuple], params, build):
+    """``prepare``'s cache: ``(params, *build())`` for one params object,
+    reused while the caller passes the same object (the serving loop).
+    Never under autograd with a leaf that requires grad: the cast would
+    hold the last step's graph, and a replayed step would backward through
+    a freed graph or read stale casts. Returns (the entry, the cache to
+    keep)."""
+    if torch.is_grad_enabled() and _requires_grad(params):
+        return (params, *build()), cache
+    if cache is None or cache[0] is not params:
+        cache = (params, *build())
+    return cache, cache
 
 
 def _stack_stats(per_layer: list) -> dict:
@@ -96,7 +134,9 @@ class LMModel:
         self._prepared = None
         #: a diagnostic: set to a list, and every MoE block a forward runs
         #: appends the choices each batch row dropped for capacity
-        #: (``moe_block``'s ``drops``); None records nothing
+        #: (``moe_block``'s ``drops``; a training forward under remat
+        #: appends a block's again when the backward recomputes it); None
+        #: records nothing
         self.drop_log: Optional[list] = None
 
     # ------------------------------------------------------------------ init
@@ -290,22 +330,26 @@ class LMModel:
         return AttnDims(n_q=cfg.n_heads, n_kv=cfg.n_kv_heads,
                         head_dim=cfg.head_dim, qk_norm=cfg.qk_norm,
                         rope=cfg.rope, rope_theta=cfg.rope_theta,
-                        window=cfg.sliding_window)
+                        window=cfg.sliding_window,
+                        causal_segments=cfg.attn_causal_segments)
 
     def prepare(self, params: dict):
-        """The params cast to the compute dtype (every float32 leaf,
-        QTensor scales included, as the JAX forward casts them) plus the
-        per-layer views of the stacked blocks — computed once per params
-        object, since the serving loop passes the same tree every step."""
-        if self._prepared is not None and self._prepared[0] is params:
-            return self._prepared[1], self._prepared[2]
-        compute = self.cfg.compute_dtype
-        p = map_leaves(
-            lambda a: (a.to(compute) if a.dtype == torch.float32
-                       and compute != torch.float32 else a), params)
-        layers = [_layer(p["blocks"], i) for i in range(self.cfg.n_layers)]
-        self._prepared = (params, p, layers)
-        return p, layers
+        """The params cast to the compute dtype (``cast_for_compute``) plus
+        the per-layer views of the stacked blocks — computed once per
+        params object, since the serving loop passes the same tree every
+        step; under autograd, with a leaf that requires grad, every call
+        (``prepared``)."""
+        def build():
+            p = cast_for_compute(params, self.cfg.compute_dtype)
+            return p, [_layer(p["blocks"], i)
+                       for i in range(self.cfg.n_layers)]
+
+        entry, self._prepared = prepared(self._prepared, params, build)
+        return entry[1], entry[2]
+
+    def _remat(self, capture) -> bool:
+        """Whether this forward recomputes its blocks in the backward."""
+        return self.cfg.remat and capture is None and torch.is_grad_enabled()
 
     def _shared(self, p, seg: int) -> dict:
         """The hybrid's parameter-shared block after segment ``seg``."""
@@ -330,19 +374,24 @@ class LMModel:
                              drops=self.drop_log)
         return mlp_block(p, h, self.cfg.act, capture=capture), 0.0
 
-    def _transformer_block(self, p, x, *, positions, cache, slots):
+    def _transformer_block(self, p, x, *, positions, cache, slots,
+                           chunk_kv=None):
         cfg = self.cfg
         h = apply_norm(x, p["attn_norm"], cfg.norm)
         x = x + attention_block(p["attn"], h, self._attn_dims(),
-                                positions=positions, cache=cache, slots=slots)
+                                positions=positions, cache=cache, slots=slots,
+                                chunk_kv=chunk_kv)
         h = apply_norm(x, p["mlp_norm"], cfg.norm)
         return x + self._mlp(p["mlp"], h)[0]
 
     def apply(self, params, tokens: torch.Tensor, *, capture: bool = False,
-              return_hidden: bool = False, return_aux: bool = False):
-        """The eval forward: causal (within the sliding window, if any), no
-        cache, fp keys and values. tokens [B, T] → logits [B, T, V];
-        ``return_hidden`` returns the final norm's output [B, T, D] instead.
+              chunk_kv: Optional[int] = None, return_hidden: bool = False,
+              return_aux: bool = False):
+        """The eval and training forward: causal (within the sliding window,
+        if any), no cache, fp keys and values. tokens [B, T] → logits
+        [B, T, V]; ``return_hidden`` returns the final norm's output
+        [B, T, D] instead. ``chunk_kv`` chunks the attention
+        (``layers.attention_scores_softmax``).
 
         ``capture=True`` returns ``(logits, stats)``: per stat key
         (``attn_in``, ``o_in``, ``mlp_in``, ``down_in``; an MoE block's
@@ -355,74 +404,95 @@ class LMModel:
         blocks' summed load-balancing loss (0.0 for a dense model) — the
         two halves of the JAX ``apply``'s result.
         """
-        cfg = self.cfg
         p, layers = self.prepare(params)
-        x = self._embed(p, tokens)
-        aux = 0.0
-        if cfg.family in ("ssm", "hybrid"):
-            x, stats = self._apply_ssm(p, layers, x, capture)
-        else:
-            per_layer = []
-            for lp in layers:
-                layer_stats = {} if capture else None
-                x, a = self._eval_block(lp, x, layer_stats)
-                aux = aux + a
-                per_layer.append(layer_stats)
-            stats = (_stack_stats(per_layer) if capture else None)
-        h = apply_norm(x, p["final_norm"], cfg.norm)
+        h, aux, stats = self._hidden(p, layers, tokens, capture, chunk_kv)
         logits = h if return_hidden else self._unembed(p, h)
         if return_aux:
             return logits, aux
         if not capture:
             return logits
-        stats["final_h"] = h.reshape(-1, cfg.d_model).mean(dim=0)
+        stats["final_h"] = h.reshape(-1, self.cfg.d_model).mean(dim=0)
         return logits, stats
 
-    def _eval_block(self, lp, x, stats):
+    def _hidden(self, p, layers, tokens, capture, chunk_kv):
+        """The final norm's output [B, T, D], the MoE aux loss and the
+        stats (a dict with ``capture``, else None) over prepared params."""
+        cfg = self.cfg
+        x = self._embed(p, tokens)
+        aux = 0.0
+        if cfg.family in ("ssm", "hybrid"):
+            x, stats = self._apply_ssm(p, layers, x, capture, chunk_kv)
+        else:
+            per_layer = []
+            for lp in layers:
+                layer_stats = {} if capture else None
+                x, a = self._block(self._eval_block, lp, x, layer_stats,
+                                   chunk_kv)
+                aux = aux + a
+                per_layer.append(layer_stats)
+            stats = (_stack_stats(per_layer) if capture else None)
+        return apply_norm(x, p["final_norm"], cfg.norm), aux, stats
+
+    def _block(self, fn, lp, x, stats, *args):
+        """``fn(lp, x, stats, *args)``, under ``checkpoint`` where this
+        forward remats."""
+        if self._remat(stats):
+            return checkpoint(fn, lp, x, stats, *args, use_reentrant=False)
+        return fn(lp, x, stats, *args)
+
+    def _eval_block(self, lp, x, stats, chunk_kv=None):
         """One attention + MLP block of the eval forward; returns (x, the
         MoE aux loss)."""
         cfg = self.cfg
         h = apply_norm(x, lp["attn_norm"], cfg.norm)
         x = x + causal_attention_block(lp["attn"], h, self._attn_dims(),
-                                       capture=stats)
+                                       capture=stats, chunk_kv=chunk_kv)
         h = apply_norm(x, lp["mlp_norm"], cfg.norm)
         out, a = self._mlp(lp["mlp"], h, capture=stats)
         return x + out, a
 
-    def _apply_ssm(self, p, layers, x, capture):
+    def _eval_mamba(self, lp, x, stats):
+        return self._mamba_layer(lp, x, capture=stats)[0]
+
+    def _apply_ssm(self, p, layers, x, capture, chunk_kv=None):
         """The SSM families' eval forward. Stats as the reference's: the
         mixers' ``ssm_in`` / ``ssm_out_in`` stacked [L, ...] (under
         ``"mamba"`` for the hybrid), and each shared block application's
-        own under ``"shared_<segment>"``."""
+        own under ``"shared_<segment>"``. Under remat the Mamba2 layers
+        recompute (the hybrid's shared blocks do not, as the
+        reference's)."""
         if self.cfg.family == "ssm":
             per_layer = []
             for lp in layers:
                 st = {} if capture else None
-                x, _ = self._mamba_layer(lp, x, capture=st)
+                x = self._block(self._eval_mamba, lp, x, st)
                 per_layer.append(st)
             return x, (_stack_stats(per_layer) if capture else None)
         per_layer, stats = [], {}
         for seg, idx in self._segments():
             for i in idx:
                 st = {} if capture else None
-                x, _ = self._mamba_layer(layers[i], x, capture=st)
+                x = self._block(self._eval_mamba, layers[i], x, st)
                 per_layer.append(st)
             st = {} if capture else None
-            x, _ = self._eval_block(self._shared(p, seg), x, st)
+            x, _ = self._eval_block(self._shared(p, seg), x, st, chunk_kv)
             if capture:
                 stats[f"shared_{seg}"] = st
         if capture:
             stats["mamba"] = _stack_stats(per_layer)
         return x, stats
 
-    def loss(self, params, batch: dict) -> torch.Tensor:
+    def loss(self, params, batch: dict, *,
+             chunk_kv: Optional[int] = None) -> torch.Tensor:
         """Mean next-token cross entropy over ``batch["tokens"]`` /
         ``batch["labels"]`` [B, T], the logits taken ``logit_chunk``
         positions at a time in float32 (``jax.nn.logsumexp`` minus the
-        gold logit), plus 0.01 x the MoE blocks' aux loss, as the JAX
-        ``loss``. ``T`` must be a multiple of the
-        chunk, as the JAX ``loss``'s reshape requires. The forward only:
-        gradients and the optimizer are not ported yet."""
+        gold logit, read with ``gather``: the value and the gradient of the
+        reference's masked sum), plus 0.01 x the MoE blocks' aux loss, as
+        the JAX ``loss``. ``T`` must be a multiple of the chunk, as the JAX
+        ``loss``'s reshape requires. Differentiable: the training step
+        takes its gradient with respect to float32 params through the
+        compute-dtype casts."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, T = tokens.shape
@@ -430,9 +500,8 @@ class LMModel:
         if T % C:
             raise ValueError(f"loss: sequence length {T} is not a multiple "
                              f"of logit_chunk {C}")
-        h, aux = self.apply(params, tokens, return_hidden=True,
-                            return_aux=True)
-        p, _ = self.prepare(params)
+        p, layers = self.prepare(params)
+        h, aux, _ = self._hidden(p, layers, tokens, None, chunk_kv)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for c in range(T // C):
             logits = self._unembed(p, h[:, c * C:(c + 1) * C]).float()
@@ -557,10 +626,12 @@ class LMModel:
         cache["conv"][i].copy_(st["conv"])
         return x
 
-    def _forward_cached(self, params, tokens, cache, *, logits_at=None):
+    def _forward_cached(self, params, tokens, cache, *, logits_at=None,
+                        chunk_kv=None):
         """Run T tokens from ``cache["pos"]`` (each row's, or the batch's);
         ``logits_at`` [B] picks each row's logits position, a scalar the
-        batch's (default: the last)."""
+        batch's (default: the last); ``chunk_kv`` chunks the attention over
+        a whole-batch cache."""
         cfg = self.cfg
         p, layers = self.prepare(params)
         B, T = tokens.shape
@@ -581,12 +652,13 @@ class LMModel:
                         x = self._mamba_cached(layers[i], x, cache, i)
                     x = self._transformer_block(
                         self._shared(p, seg), x, positions=positions,
-                        slots=slots,
+                        slots=slots, chunk_kv=chunk_kv,
                         cache={"k": cache["k"][seg], "v": cache["v"][seg]})
             else:
                 for i, lp in enumerate(layers):
                     x = self._transformer_block(
                         lp, x, positions=positions, slots=slots,
+                        chunk_kv=chunk_kv,
                         cache={k: cache[k][i] for k in KV_KEYS if k in cache})
         x = apply_norm(x, p["final_norm"], cfg.norm)
         if logits_at is None:
@@ -599,8 +671,10 @@ class LMModel:
         logits = self._unembed(p, h_last)[:, 0]
         return logits, {**cache, **new}
 
-    def prefill(self, params, tokens, cache, *, logits_at=None):
-        return self._forward_cached(params, tokens, cache, logits_at=logits_at)
+    def prefill(self, params, tokens, cache, *, logits_at=None,
+                chunk_kv: Optional[int] = None):
+        return self._forward_cached(params, tokens, cache, logits_at=logits_at,
+                                    chunk_kv=chunk_kv)
 
     def decode_step(self, params, token, cache):
         """token [B, 1] → (logits [B, V], cache)."""

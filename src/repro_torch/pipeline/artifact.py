@@ -14,9 +14,9 @@ The config sidecar (hazard read off the reference): the JAX
 ``ModelConfig`` has a few more fields than the port's. ``load`` takes the
 fields the port has — the MoE, SSM, hybrid and encoder-decoder fields
 among them, so either package's mamba2, zamba2 or whisper artifact loads —
-ignores those that do not change what the model computes (training and
-cost-probe switches), and refuses any other whose value differs from the
-JAX default (an MLP bias). ``kv_cache_bits`` is
+ignores those that do not change what the model computes (a cost-probe
+switch, an init-only bias slot), and refuses any other whose value
+differs from the JAX default (an MLP bias). ``kv_cache_bits`` is
 a field of both configs — 8 after a ``kv_cache`` stage with bits=8, else
 16 (the fp cache) — so either package's ``load`` serves the precision the
 other saved; ``QuantizedModel.kv_bits`` reads it.
@@ -45,10 +45,8 @@ _MUST_BE_DEFAULT = {
     "mlp_bias": False,            # an MLP bias pair in the DFQ plan
 }
 # JAX ModelConfig fields with no effect on what the model computes
-# (training, cost probes, an init-only bias slot)
-_IGNORED = frozenset({
-    "attn_out_bias", "attn_causal_segments", "remat", "unroll_layers",
-})
+# (a cost-probe switch, an init-only bias slot)
+_IGNORED = frozenset({"attn_out_bias", "unroll_layers"})
 _PORT_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelConfig))
 
 

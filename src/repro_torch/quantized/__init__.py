@@ -1,5 +1,5 @@
 """int8 weights: the QTensor container and the serving pack stage."""
-from .ptq import quantize_for_serving, serving_summary
+from .ptq import dequantize_params, quantize_for_serving, serving_summary
 from .qtensor import (
     QTensor,
     map_leaves,
@@ -9,6 +9,6 @@ from .qtensor import (
     quantize_param,
 )
 
-__all__ = ["QTensor", "map_leaves", "qtensor_matmul", "qtensor_matmul_prequant",
-           "quantize_for_serving", "quantize_input", "quantize_param",
-           "serving_summary"]
+__all__ = ["QTensor", "dequantize_params", "map_leaves", "qtensor_matmul",
+           "qtensor_matmul_prequant", "quantize_for_serving",
+           "quantize_input", "quantize_param", "serving_summary"]

@@ -26,6 +26,16 @@ def quantize_for_serving(params: Mapping, plan: DFQPlan, *,
     return params
 
 
+def dequantize_params(params: Mapping) -> dict:
+    """Undo for validation: every ``QTensor`` replaced by its float32 image
+    ``q · scale`` (the fake-quant weights), every other leaf kept."""
+    if isinstance(params, Mapping):
+        return {k: dequantize_params(v) for k, v in params.items()}
+    if isinstance(params, QTensor):
+        return params.dequant()
+    return params
+
+
 def serving_summary(params: Mapping) -> dict:
     """Bytes accounting: fp32 vs int8 parameter payload."""
     fp_bytes = q_bytes = 0

@@ -1,5 +1,8 @@
-"""Runtime services of the port (``repro.runtime``): so far the straggler
-monitor the serving engine observes its steps with."""
-from .fault_tolerance import StragglerMonitor
+"""Runtime services of the port (``repro.runtime``): the fault-tolerant
+training loop, the straggler monitor (which the serving engine observes
+its steps with too) and elastic scaling's shard assignment."""
+from .elastic import shard_assignment
+from .fault_tolerance import FaultTolerantLoop, LoopMetrics, StragglerMonitor
 
-__all__ = ["StragglerMonitor"]
+__all__ = ["FaultTolerantLoop", "LoopMetrics", "StragglerMonitor",
+           "shard_assignment"]

@@ -58,6 +58,8 @@ def test_import_leaves_jax_out_and_torch_state_alone():
         "import repro_torch, repro_torch.serving, repro_torch.kernels\n"
         "import repro_torch.launch.serve, repro_torch.weights\n"
         "import repro_torch.core, repro_torch.pipeline\n"
+        "import repro_torch.launch.train, repro_torch.launch.steps\n"
+        "import repro_torch.runtime, repro_torch.optim, repro_torch.data\n"
         "after = (torch.get_default_dtype(), torch.get_num_threads(),\n"
         "         torch.are_deterministic_algorithms_enabled())\n"
         "print(before == after, 'jax' in sys.modules, 'repro' in sys.modules)")
