@@ -306,6 +306,28 @@ Phases, each of which must pass (nothing here catches a failure):
      warmup) under serve-w8a16 over the bf16 KV cache and serve-w8a8-kv8:
      launches exact (``expected_launches``), and again at
      ``backend="torch"``: no launch, every request finished.
+  13. tensor-parallel serving — phase 2 first holds every per-rank kernel
+     shape of qwen2-0.5b over a model axis of 2 (``check_tp_shapes``: the
+     cut column GEMMs, the epilogue-free int32 W8A8 GEMM at the cut and the
+     whole K, bit-equal to its plain version and through ``w8a8_epilogue``
+     to qmatmul_w8a8, the W8A16 float32 partials, head-local fused_decode
+     and kv_attention, quantize_act of the gathered rows). 13a / 13b: two
+     ranks spawned on the one card (``tp_rank``; gloo, named explicitly:
+     NCCL refuses two ranks on one device) serve phase 4's trace under
+     serve-w8a8-kv8-tp and serve-w8a16-kv8-tp over 1x2 and 2x1 meshes,
+     fast (eager: gloo's collectives cannot be captured) and stepwise:
+     every request's tokens and finish tick equal phase 4's, each rank's
+     launches exact (``tp_expected_launches``); after each fast 1x2 run,
+     the teacher-forced logits of every request (``tp_teacher_forced``):
+     W8A8 bit-equal to one device; W8A16 (float32 partials summed in
+     another order) no farther from one device than twice the bf16
+     forward's own distance from float32, its argmax moved only at
+     near-ties, its tokens counted against phase 4's. 13c: a 1x1 NCCL mesh
+     in this process, the fast path with its CUDA graphs capturing the
+     mesh's collectives (warmup): phase 4's tokens, launches exact, tok/s
+     beside phase 4's. 13d: ``repro_torch.serve(ServeConfig(mesh=(1, 2),
+     mesh_backend="gloo", save=...))`` and ``--load`` of that artifact over
+     its recorded mesh: the same tokens, each rank's launches exact.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -2015,6 +2037,234 @@ def check_family_quantize_act(torch, dev, gen):
         log_row("quantize_act", r)
         rows.append({**r, "gemm": (M, K)})
     return rows
+
+
+# the per-rank shapes of tensor-parallel qwen2-0.5b (phase 13): a model axis
+# of 2 cuts q to 448 columns, k / v to 64 (one N tile, a 64-column bias)
+# and gate / up to 2432, and the row-parallel o and down to K = 448 and
+# 2432 (their epilogue-free int32 GEMM); a model axis of 1 keeps the whole
+# K (o 896, down 4864) on the same int32 route. Each with the rows it
+# takes: a decode step 8 slots (4 a rank on a data axis of 2), a prefill
+# chunk 8 slots x 32 (4 x 32).
+TP_COLUMN = (("q", 896, 448), ("k/v", 896, 64), ("gate/up", 896, 2432))
+TP_ROW = (("o", 448, 896), ("down", 2432, 896), ("o model=1", 896, 896),
+          ("down model=1", 4864, 896))
+TP_M = {"cut": (8, 256), "model=1": (4, 8, 128, 256)}
+# head-local decode attention at 1x2 (7 of the 14 q heads over 1 of the 2
+# KV heads: group 7), and the whole heads at 4 slots a rank (2x1)
+TP_ATTENTION = ((8, 7, 1, 64, 512), (4, 14, 2, 64, 512))
+# the row-parallel projections' whole rows quantize_act quantizes after
+# the gather (down's input; o's is phase 2's x[8,896]), decode and prefill
+TP_QUANTIZE = ((8, 4864), (256, 4864), (256, 896))
+
+
+def _int_mm_ms(torch, a, w):
+    """``torch._int_mm`` (an exact int8 x int8 -> int32 product: the int32
+    variant's function) on ``a``, its rows zero-padded to 32 below 17."""
+    M, K = a.shape
+    a_lib = a if M > 16 else torch.cat([a, a.new_zeros((32 - M, K))])
+    return device_ms(lambda: torch._int_mm(a_lib, w), 50)
+
+
+def check_tp_shapes(torch, dev, gen):
+    """Every per-rank kernel shape of phase 13 against its plain version
+    before any rank serves: the column-parallel W8A8 GEMM (and its
+    quantize-in fold where gemm_plan folds) and W8A16 GEMM at q / k / v /
+    gate / up's cut N, bit-equal and within W8A16_TOL; the epilogue-free
+    int32 W8A8 GEMM at o / down's cut K (and the whole K of a model axis of
+    1), bit-equal to its plain version and, through the scale epilogue
+    (``w8a8_epilogue``), to ``qmatmul_w8a8`` in bfloat16 and float32; the
+    row-parallel W8A16 GEMM's float32 partials at the cut K; fused_decode and
+    kv_attention head-local (Hq 7, Hkv 1) and at 4 slots; quantize_act at
+    the gathered rows. Returns {kernel: rows} (timed, the rows' format)."""
+    from repro_torch.kernels import gemm_plan
+    from repro_torch.kernels.fused_decode.kernel import fused_decode_cuda
+    from repro_torch.kernels.fused_decode.ref import fused_decode_ref
+    from repro_torch.kernels.kv_attention.kernel import kv_attention_cuda
+    from repro_torch.kernels.kv_attention.ref import kv_attention_ref
+    from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_cuda
+    from repro_torch.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_i32_cuda,
+        qmatmul_w8a8_qin_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a8.ref import (
+        qmatmul_w8a8_i32_ref,
+        qmatmul_w8a8_qin_ref,
+        qmatmul_w8a8_ref,
+        w8a8_epilogue,
+    )
+    from repro_torch.kernels.quantize_act.kernel import quantize_act_cuda
+    from repro_torch.kernels.quantize_act.ref import quantize_act_ref
+
+    out = {k: [] for k in ("qmatmul_w8a8", "qmatmul_w8a8_qin",
+                           "qmatmul_w8a8_i32", "qmatmul_w8a16",
+                           "fused_decode", "kv_attention", "quantize_act")}
+    bf = torch.bfloat16
+    for (label, K, N), row_par in ([(c, False) for c in TP_COLUMN]
+                                   + [(r, True) for r in TP_ROW]):
+        w = _kmajor_int8(torch, gen, dev, K, N)
+        sw = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
+        bias = torch.randn((N,), generator=gen, device=dev)
+        for M in TP_M["model=1" if "model=1" in label else "cut"]:
+            p = gemm_plan.plan(M, N, K)
+            tag = f"M={M} K={K} N={N} ({label})"
+            a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            sa = torch.rand((M,), generator=gen, device=dev) * 0.05 + 1e-4
+            x = (torch.randn((M, K), generator=gen, device=dev) * 2).to(bf)
+            if row_par:
+                acc = qmatmul_w8a8_i32_cuda(a, w)
+                accr = qmatmul_w8a8_i32_ref(a, w)
+                torch.cuda.synchronize()
+                assert torch.equal(acc, accr), f"qmatmul_w8a8_i32 {tag}"
+                for od in (bf, torch.float32):
+                    y = qmatmul_w8a8_cuda(a, w, sa, sw, bias, out_dtype=od)
+                    assert torch.equal(w8a8_epilogue(acc, sa, sw, bias, od), y), (
+                        f"qmatmul_w8a8_i32 {tag} + epilogue != qmatmul_w8a8 "
+                        f"{od}")
+                b, by = bound_ms(M * K + K * N + 4 * M * N, 2 * M * K * N,
+                                 INT8_OPS_S)
+                kern = lambda: qmatmul_w8a8_i32_cuda(a, w)
+                out["qmatmul_w8a8_i32"].append({
+                    "shape": tag + " -> int32", "max_abs_err": 0.0,
+                    "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
+                    "plain_ms": device_ms(
+                        lambda: qmatmul_w8a8_i32_ref(a, w), 10),
+                    "bound_ms": b, "bound_by": by,
+                    "library_ms": _int_mm_ms(torch, a, w),
+                    "library": "torch._int_mm" + (
+                        "" if M > 16 else f", M zero-padded {M}->32"),
+                    "splits": p.splits})
+                if "model=1" in label:
+                    # a model axis of 1 runs W8A16's single-device GEMM
+                    # (phase 2's rows)
+                    continue
+                # the W8A16 row shard: float32 partials (the bf16
+                # activation taken in float32), no bias
+                x = x.float()
+                y16 = qmatmul_w8a16_cuda(x, w, sw, None)
+                y16r = qmatmul_w8a16_ref(x, w, sw, None, torch.float32)
+            else:
+                y = qmatmul_w8a8_cuda(a, w, sa, sw, bias, out_dtype=bf)
+                torch.cuda.synchronize()
+                assert torch.equal(y, qmatmul_w8a8_ref(a, w, sa, sw, bias, bf)), (
+                    f"qmatmul_w8a8 {tag}")
+                b, by = bound_ms(M * K + K * N + 4 * M + 8 * N + 2 * M * N,
+                                 2 * M * K * N, INT8_OPS_S)
+                kern = lambda: qmatmul_w8a8_cuda(a, w, sa, sw, bias,
+                                                 out_dtype=bf)
+                out["qmatmul_w8a8"].append({
+                    "shape": tag + " -> bf16", "max_abs_err": 0.0,
+                    "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
+                    "plain_ms": device_ms(lambda: qmatmul_w8a8_ref(
+                        a, w, sa, sw, bias, bf), 10),
+                    "bound_ms": b, "bound_by": by,
+                    "library_ms": _int_mm_ms(torch, a, w),
+                    "library": "torch._int_mm (no epilogue)",
+                    "splits": p.splits})
+                if p.fold:
+                    yq = qmatmul_w8a8_qin_cuda(x, w, sw, bias, out_dtype=bf)
+                    torch.cuda.synchronize()
+                    assert torch.equal(yq, qmatmul_w8a8_qin_ref(
+                        x, w, sw, bias, bf)), f"qmatmul_w8a8_qin {tag}"
+                    b, by = bound_ms(2 * M * K + K * N + 8 * N + 2 * M * N,
+                                     2 * M * K * N, INT8_OPS_S)
+                    kern = lambda: qmatmul_w8a8_qin_cuda(x, w, sw, bias,
+                                                         out_dtype=bf)
+                    out["qmatmul_w8a8_qin"].append({
+                        "shape": tag + " bf16 -> bf16", "max_abs_err": 0.0,
+                        "ms": device_ms(kern, 50),
+                        "call_ms": call_ms(kern, 50),
+                        "plain_ms": device_ms(lambda: qmatmul_w8a8_qin_ref(
+                            x, w, sw, bias, bf), 10),
+                        "bound_ms": b, "bound_by": by, "library_ms": None,
+                        "splits": p.splits})
+                y16 = qmatmul_w8a16_cuda(x, w, sw, bias)
+                y16r = qmatmul_w8a16_ref(x, w, sw, bias, bf)
+            torch.cuda.synchronize()
+            tol = w8a16_tolerance(torch, x, w, sw, None if row_par else bias,
+                                  y16r)
+            err = (y16.float() - y16r.float()).abs()
+            assert bool((err <= tol).all()), (
+                f"qmatmul_w8a16 {tag}: max |diff| {float(err.max())}")
+            od = torch.float32 if row_par else bf
+            b, by = bound_ms(M * K * x.element_size() + K * N + 4 * N
+                             + M * N * (4 if row_par else 2),
+                             2 * M * K * N,
+                             F32_OPS_S if row_par else BF16_OPS_S)
+            bb = None if row_par else bias
+            kern = lambda: qmatmul_w8a16_cuda(x, w, sw, bb)
+            out["qmatmul_w8a16"].append({
+                "shape": tag + (" -> f32 partials" if row_par else " -> bf16"),
+                "max_abs_err": float(err.max()),
+                "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
+                "plain_ms": device_ms(lambda: qmatmul_w8a16_ref(
+                    x, w, sw, bb, od), 10),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "splits": p.splits})
+    for B, Hq, Hkv, hd, S in TP_ATTENTION:
+        lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        leaves, valid, q, kn, vn, idx = _decode_inputs(
+            torch, dev, gen, B, S, Hq, Hkv, hd, bf, lens)
+        tag = f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} bfloat16"
+        got = [t.clone() for t in leaves]
+        o = fused_decode_cuda(q, *got, kn, vn, idx.to(torch.int32), valid)
+        want = [t.clone() for t in leaves]
+        orf, _ = fused_decode_ref(q, *want, kn[:, None], vn[:, None],
+                                  idx[:, None], valid=valid, out_dtype=bf)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(got, want)), (
+            f"fused_decode {tag}: appended leaves differ")
+        diff, _ = check_attention_out(torch, o, orf, f"fused_decode {tag}")
+        n_live = int(valid.sum())
+        b, by = bound_ms(2 * B * Hq * hd * 2 + n_live * Hkv * (hd + 4) * 2
+                         + B * S + 2 * B * Hkv * hd * 3 + 8 * B * Hkv,
+                         4 * Hq * n_live * hd, F32_OPS_S)
+        run = [t.clone() for t in leaves]
+        idx32 = idx.to(torch.int32)
+        kern = lambda: fused_decode_cuda(q, *run, kn, vn, idx32, valid)
+        out["fused_decode"].append({
+            "shape": tag + " (no quantize-out)", "max_abs_err": float(diff.max()),
+            "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
+            "plain_ms": device_ms(lambda: fused_decode_ref(
+                q, *run, kn[:, None], vn[:, None], idx[:, None], valid=valid,
+                out_dtype=bf), 5),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+        kq, ks, vq, vs = leaves
+        o = kv_attention_cuda(q, kq, ks, vq, vs, None)
+        orf = kv_attention_ref(q, kq, ks, vq, vs, bf)
+        torch.cuda.synchronize()
+        diff, _ = check_attention_out(torch, o, orf, f"kv_attention {tag}")
+        b, by = bound_ms(2 * B * Hq * hd * 2 + B * S * Hkv * 4
+                         + n_live * Hkv * (2 * hd + 4), 4 * Hq * n_live * hd,
+                         F32_OPS_S)
+        kern = lambda: kv_attention_cuda(q, kq, ks, vq, vs, None)
+        out["kv_attention"].append({
+            "shape": tag, "max_abs_err": float(diff.max()),
+            "ms": device_ms(kern, 50), "call_ms": call_ms(kern, 50),
+            "plain_ms": device_ms(lambda: kv_attention_ref(
+                q, kq, ks, vq, vs, bf), 5),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+    for M, K in TP_QUANTIZE:
+        x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(bf)
+        qa, sa = quantize_act_cuda(x)
+        qr, sr = quantize_act_ref(x)
+        torch.cuda.synchronize()
+        assert torch.equal(qa, qr) and torch.equal(sa, sr), (
+            f"quantize_act x[{M},{K}]")
+        b, by = bound_ms(M * K * 2 + M * K + 4 * M, 5 * M * K, F32_OPS_S)
+        out["quantize_act"].append({
+            "shape": f"x[{M},{K}] bfloat16", "max_abs_err": 0.0,
+            "ms": device_ms(lambda: quantize_act_cuda(x), 50),
+            "call_ms": call_ms(lambda: quantize_act_cuda(x), 50),
+            "plain_ms": device_ms(lambda: quantize_act_ref(x), 10),
+            "bound_ms": b, "bound_by": by, "library_ms": None})
+    for name, rows in out.items():
+        for r in rows:
+            log_row(name, r)
+    return out
 
 
 # the expert-batched GEMMs of the MoE archs (one launch a projection, E
@@ -4822,6 +5072,430 @@ def check_training(torch, dev, smi):
     return counts
 
 
+# --------------------------------------------------------------- phase 13
+# the meshes of 13a and 13b: two ranks on the one card, over gloo (NCCL
+# refuses two ranks on one device)
+TP_MESHES = ((1, 2), (2, 1))
+# 13d's serve / --load round trip: a shorter trace of phase 4's settings
+TP_ROUND_TRIP = dict(SERVE, trace=4, prompt_min=32, prompt_len=64, gen_min=8,
+                     gen_len=8)
+
+
+def tp_expected_launches(quantize, shape, steps, chunks):
+    """{kernel: launches} of one rank of a tensor-parallel serve of
+    qwen2-0.5b over ``shape`` (data, model) on phase 4's settings, per
+    decode step and prefill dispatch, as the model launches them: the
+    column-parallel q/k/v and gate/up at this rank's columns (W8A8: the
+    quantize-in fold where gemm_plan folds at every N, else quantize_act and
+    an int8 GEMM each), fused_decode once a layer a decode step, and the
+    row-parallel o and down — W8A16 one GEMM each (float32 partials); W8A8
+    one epilogue-free int32 GEMM each, after one quantize_act of the
+    gathered row, except o at a decode step of a model axis of 1, which
+    takes the fused kernel's quantize-out (the attention sees every
+    head)."""
+    import repro_torch
+    from repro_torch.kernels import gemm_plan
+
+    cfg = repro_torch.get_config(SERVE["arch"])
+    data, m = shape
+    D, F, A, KV, L = (cfg.d_model, cfg.d_ff, cfg.attn_dim, cfg.kv_dim,
+                      cfg.n_layers)
+    slots = SERVE["slots"] // data
+    want = {"fused_decode": L * steps}
+    if quantize == "w8a16":
+        want["qmatmul_w8a16"] = 7 * L * (steps + chunks)
+        return want
+    want.update(quantize_act=0, qmatmul_w8a8=0, qmatmul_w8a8_qin=0,
+                qmatmul_w8a8_i32=0)
+    for T, n, decode in ((1, steps, True), (SERVE["prefill_chunk"], chunks,
+                                            False)):
+        M = slots * T
+        for K, Ns in ((D, (A // m, KV // m, KV // m)), (D, (F // m, F // m))):
+            if all(gemm_plan.plan(M, N, K).fold for N in Ns):
+                want["qmatmul_w8a8_qin"] += L * n
+                want["qmatmul_w8a8"] += (len(Ns) - 1) * L * n
+            else:
+                want["quantize_act"] += L * n
+                want["qmatmul_w8a8"] += len(Ns) * L * n
+        want["qmatmul_w8a8_i32"] += 2 * L * n
+        want["quantize_act"] += (1 if decode and m == 1 else 2) * L * n
+    return want
+
+
+def tp_teacher_forced(torch, model, params, eng, seqs):
+    """Each sequence's every-position logits (``logits_at="all"``) on the
+    card: the single-device ``params`` in bf16 (the serving dtype) and in
+    float32, and the sharded engine's blocks under its shard (bf16).
+    Returns per sequence (positions, positions whose argmax moved from the
+    single-device bf16 one, max |sharded - single bf16| / max |logit|, max
+    |single bf16 - single float32| / max |logit| — the bf16 forward's own
+    distance — and the largest ratio of a moved position's single-device
+    top-2 gap to twice the sequence's max |sharded - single bf16|, 0 where
+    none moved). Every rank runs it (its collectives) and gets the same
+    numbers."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding.tp import tp_scope
+
+    shard = eng.shard
+    model32 = repro_torch.build_model(
+        dataclasses.replace(model.cfg, dtype="float32"))
+    out = []
+    with torch.no_grad():
+        for seq in seqs:
+            toks = torch.tensor([list(seq)], device="cuda")
+            T = toks.shape[1]
+            cache = model32.init_cache(1, T, device="cuda", per_slot=True,
+                                       kv_bits=8)
+            f32 = model32.prefill(params, toks, cache,
+                                  logits_at="all")[0][0].float()
+            cache = model.init_cache(1, T, device="cuda", per_slot=True,
+                                     kv_bits=8)
+            single = model.prefill(params, toks, cache, logits_at="all")[0][0]
+            cache = model.init_cache(1, T, device="cuda", per_slot=True,
+                                     kv_bits=8, kv_heads=shard.kv_heads)
+            with tp_scope(shard):
+                sh = model.prefill(eng.params, toks, cache,
+                                   logits_at="all")[0][0]
+                lo = shard.vocab_offset(sh.shape[-1])
+                moved_to = coll.argmax(sh, lo, shard.model_group)
+            single = single.float()
+            diff = (sh.float() - single[:, lo:lo + sh.shape[-1]]).abs().amax()
+            coll.all_reduce_max(diff, shard.model_group)
+            top2 = single.topk(2, dim=-1).values
+            ref = single.argmax(-1)
+            moved = moved_to != ref
+            rows = torch.arange(T, device="cuda")
+            gap = single[rows, ref] - single[rows, moved_to]
+            d = float(diff)
+            worst = (float(gap[moved].max()) / (2 * d) if bool(moved.any())
+                     else 0.0)
+            scale = float(single.abs().max())
+            out.append((T, int(moved.sum()), d / scale,
+                        float((single - f32).abs().max()) / scale, worst))
+    return out
+
+
+def tp_rank(rank, world, store, out, ref):
+    """A rank of 13a / 13b: join the gloo group, and for serve-w8a8-kv8-tp
+    and serve-w8a16-kv8-tp (qwen2-0.5b quantized from phase 4's seed on the
+    card) serve phase 4's trace over each mesh of ``TP_MESHES``, fast and
+    stepwise, each run's launches counted from 0; after each fast 1x2 run,
+    ``tp_teacher_forced`` over every request's prompt and phase 4's tokens
+    (``ref``: {quantize: {rid: tokens}}). Writes its results (or its
+    traceback) to ``out.<rank>``."""
+    import dataclasses
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    result = None
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        import repro_torch
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.launch.mesh import make_production_mesh
+        from repro_torch.launch.serve import _requests
+
+        meshes = {s: make_production_mesh(shape=s, device="cuda",
+                                          backend="gloo") for s in TP_MESHES}
+        config = repro_torch.ServeConfig(**SERVE)
+        result = {}
+        for quantize in ("w8a8", "w8a16"):
+            qm = repro_torch.quantize(
+                repro_torch.build_model(repro_torch.get_config(SERVE["arch"])),
+                None, init_seed=SERVE["seed"], device="cuda",
+                recipe=f"serve-{quantize}-kv8-tp")
+            reqs = _requests(config, qm.cfg.vocab_size)
+            for shape in TP_MESHES:
+                for fast in (True, False):
+                    eng = repro_torch.ServingEngine.from_quantized(
+                        qm, mesh=meshes[shape], num_slots=SERVE["slots"],
+                        max_len=SERVE["max_len"],
+                        prefill_chunk=SERVE["prefill_chunk"], fast=fast,
+                        device="cuda")
+                    torch.cuda.synchronize()
+                    dist.barrier()
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    res = eng.run([dataclasses.replace(r) for r in reqs])
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                    result[quantize, shape, fast] = {
+                        "tokens": {rid: (list(r.tokens), r.finished_at,
+                                         r.status) for rid, r in res.items()},
+                        "seconds": dt, "stats": dict(eng.stats),
+                        "counts": launch_counts(),
+                        "head_local": eng.shard.head_local}
+                    if fast and shape == (1, 2):
+                        t0 = time.perf_counter()
+                        result[quantize, shape, fast]["teacher_forced"] = (
+                            tp_teacher_forced(
+                                torch, qm.model, qm.params, eng,
+                                [list(r.prompt) + ref[quantize][r.rid]
+                                 for r in reqs]))
+                        result[quantize, shape, fast]["tf_seconds"] = (
+                            time.perf_counter() - t0)
+                    del eng
+            del qm
+        dist.destroy_process_group()
+    except BaseException:
+        result = traceback.format_exc()
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(result, f)
+
+
+def spawn_tp_ranks(world, ref, timeout=900):
+    """Run ``tp_rank`` in ``world`` spawned processes; {rank: results}."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank,
+                             args=(r, world, os.path.join(tmp, "store"),
+                                   os.path.join(tmp, "out"), ref))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        got = {}
+        for r in range(world):
+            path = os.path.join(tmp, f"out.{r}")
+            assert os.path.exists(path), (
+                f"phase 13 rank {r} left no result (exit codes "
+                f"{[p.exitcode for p in procs]})")
+            with open(path, "rb") as f:
+                got[r] = pickle.load(f)
+            assert not isinstance(got[r], str), (
+                f"phase 13 rank {r} failed:\n{got[r]}")
+        return got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def same_tp_tokens(tokens, ref, what):
+    """Every request of a phase-13 run (``{rid: (tokens, finish tick,
+    status)}``) got ``ref``'s (a phase-4 run) tokens and finish tick."""
+    assert sorted(tokens) == sorted(ref.results), f"{what}: other requests"
+    for rid, r in ref.results.items():
+        toks, fin, status = tokens[rid]
+        assert status == "ok", f"{what}: request {rid}: {status}"
+        assert toks == r.tokens, f"{what}: request {rid}: other tokens"
+        assert fin == r.finished_at, (
+            f"{what}: request {rid}: finished at tick {fin}, not "
+            f"{r.finished_at}")
+
+
+def check_tensor_parallel(torch, dev, runs, stepwise, smi):
+    """Phase 13: qwen2-0.5b served tensor-parallel on the card.
+
+    13a / 13b: meshes 1x2 and 2x1, two ranks on the one card over gloo (the
+    backend named explicitly; NCCL refuses two ranks on one device), the
+    fast path (eager: gloo's collectives cannot be captured) and the
+    stepwise path, serve-w8a8-kv8-tp and serve-w8a16-kv8-tp on phase 4's
+    trace: every request's tokens and finish tick equal phase 4's
+    single-device runs on the same weights, each rank's launches exact.
+    13c: a 1x1 NCCL mesh, the fast path with its CUDA graphs (captured by
+    warmup) holding the mesh's collectives: phase 4's tokens, launches
+    exact, tok/s beside phase 4's. 13d: ``repro_torch.serve(ServeConfig(
+    mesh=(1, 2), mesh_backend="gloo", save=...))`` and ``--load`` of that
+    artifact over its recorded mesh: the same tokens, each rank's launches
+    exact. Returns {label: (launch counts of rank 0, the run's note)}."""
+    import shutil
+
+    import torch.distributed as dist
+
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_production_mesh
+
+    counted = {}
+    t = time.perf_counter()
+    ranks = spawn_tp_ranks(2, {q: {rid: list(r.tokens) for rid, r in
+                                   runs[q][0].results.items()}
+                               for q in ("w8a8", "w8a16")})
+    log(f"  13a/13b: 2 ranks spawned, quantized and served in "
+        f"{time.perf_counter() - t:.1f} s")
+    for (quantize, shape, fast), r0 in ranks[0].items():
+        mesh_s = "x".join(map(str, shape))
+        label = (f"serve-{quantize}-kv8-tp {mesh_s} gloo "
+                 + ("fast (eager)" if fast else "stepwise"))
+        ref = runs[quantize][0] if fast else stepwise[quantize]
+        tf = r0.get("teacher_forced")
+        if tf is not None:
+            n = sum(t[0] for t in tf)
+            moved = sum(t[1] for t in tf)
+            rel = max(t[2] for t in tf)
+            bf16 = min(t[3] for t in tf)
+            worst = max(t[4] for t in tf)
+            log(f"  {label}: teacher-forced logits over the 16 requests' "
+                f"prompts and phase 4's tokens ({r0['tf_seconds']:.1f} s): "
+                f"max |sharded - single-device| {rel:.3g} of max |logit| "
+                f"(the single-device bf16 forward's own distance from "
+                f"float32: at least {bf16:.3g}); argmax moved at {moved} of "
+                f"{n} positions"
+                + (f", each a near-tie (top-2 gap <= {worst:.3f} x 2 max "
+                   f"|diff|)" if moved else ""))
+            if quantize == "w8a8":
+                assert moved == 0 and rel == 0.0, (
+                    f"{label}: W8A8 logits not bit-equal to one device")
+            else:
+                # the reordered float32 partials move the logits less than
+                # bf16 itself does (phase 11's 2x rule), and the argmax
+                # only at near-ties
+                for t in tf:
+                    assert t[2] <= 2 * t[3] and t[4] <= 1.0, (
+                        f"{label}: a sequence of {t[0]} positions: sharded "
+                        f"distance {t[2]}, bf16 distance {t[3]}, worst gap "
+                        f"ratio {t[4]}")
+        if quantize == "w8a16" and shape == (1, 2):
+            # float32 partials summed in another order than the
+            # single-device GEMM's: a near-tie may move (checked above);
+            # the tokens are phase 4's up to each request's first move
+            same, first = 0, []
+            for rid, rr in ref.results.items():
+                toks = r0["tokens"][rid][0]
+                assert r0["tokens"][rid][2] == "ok" and len(toks) == 32, (
+                    f"{label}: request {rid}")
+                if toks == rr.tokens:
+                    same += 1
+                else:
+                    first.append(next(i for i, (a, b) in
+                                      enumerate(zip(toks, rr.tokens))
+                                      if a != b))
+            log(f"  {label}: {same} of 16 requests = phase 4's tokens; the "
+                f"others part at generated token {sorted(first)}")
+        else:
+            same_tp_tokens(r0["tokens"], ref, label)
+        st = r0["stats"]
+        assert st["graphs"] == 0 and (not fast or "gloo" in st["graphs_off"]), (
+            label, st["graphs_off"])
+        want = tp_expected_launches(quantize, shape, st["decode_steps"],
+                                    st["prefill_dispatches"])
+        for rank, res in ranks.items():
+            got = res[quantize, shape, fast]["counts"]
+            for name in set(got) | set(want):
+                assert got.get(name, 0) == want.get(name, 0), (
+                    f"{label} rank {rank}: {name} launched "
+                    f"{got.get(name, 0)} times, expected {want.get(name, 0)}")
+        gen = st["generated_tokens"]
+        moves = quantize == "w8a16" and shape == (1, 2)
+        log(f"  {label}: "
+            + ("16/16 requests finished" if moves else
+               "16/16 requests = phase 4's tokens and finish ticks")
+            + f"; {gen} tokens in {r0['seconds']:.3f} s = "
+            f"{gen / r0['seconds']:.1f} tok/s (phase 4 single-device "
+            f"{ref.tokens_per_second:.1f}); head-local "
+            f"{r0['head_local']}; {st['decode_steps']} decode steps in "
+            f"{st['decode_dispatches']} dispatches, "
+            f"{st['prefill_dispatches']} prefill dispatches; launches a "
+            f"rank {json.dumps(r0['counts'])}, equal on both ranks ({smi})")
+        counted[f"13{'a' if shape == (1, 2) else 'b'} {label}"] = r0["counts"]
+
+    log("  13c: a 1x1 NCCL mesh, the fast path under CUDA graphs")
+    mesh = make_production_mesh(shape=(1, 1), device="cuda")
+    assert dist.get_backend() == "nccl"
+    try:
+        for quantize in ("w8a8", "w8a16"):
+            qm = repro_torch.quantize(
+                repro_torch.build_model(repro_torch.get_config(SERVE["arch"])),
+                None, init_seed=SERVE["seed"], device="cuda",
+                recipe=f"serve-{quantize}-kv8-tp")
+            from repro_torch.launch.serve import _requests
+
+            reqs = _requests(repro_torch.ServeConfig(**SERVE),
+                             qm.cfg.vocab_size)
+            eng = repro_torch.ServingEngine.from_quantized(
+                qm, mesh=mesh, num_slots=SERVE["slots"],
+                max_len=SERVE["max_len"],
+                prefill_chunk=SERVE["prefill_chunk"], device="cuda")
+            reset_launch_counts()
+            warm = eng.warmup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.run(reqs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            label = f"serve-{quantize}-kv8-tp 1x1 nccl fast (CUDA graphs)"
+            same_tp_tokens({rid: (list(r.tokens), r.finished_at, r.status)
+                            for rid, r in res.items()}, runs[quantize][0],
+                           label)
+            st = eng.stats
+            assert st["graphs"] == 1 and warm["graphs"] > 0, label
+            want = tp_expected_launches(
+                quantize, (1, 1), st["decode_steps"] + warm["decode_steps"],
+                st["prefill_dispatches"] + warm["prefill_dispatches"])
+            for name in set(counts) | set(want):
+                assert counts.get(name, 0) == want.get(name, 0), (
+                    f"{label}: {name} launched {counts.get(name, 0)} times, "
+                    f"expected {want.get(name, 0)}")
+            gen = st["generated_tokens"]
+            log(f"  {label}: 16/16 requests = phase 4's tokens and finish "
+                f"ticks; {warm['graphs']} graphs captured in "
+                f"{warm['capture_seconds']:.2f} s; {gen} tokens in {dt:.3f} s "
+                f"= {gen / dt:.1f} tok/s beside phase 4's "
+                f"{runs[quantize][0].tokens_per_second:.1f}; launches "
+                f"{json.dumps(counts)} ({smi})")
+            counted["13c " + label] = counts
+            del eng, qm
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_tp_artifact")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        common = dict(mesh_backend="gloo", quantize="w8a8", kv_bits=8,
+                      **TP_ROUND_TRIP)
+        first = repro_torch.serve(repro_torch.ServeConfig(
+            mesh=(1, 2), save=directory, **common))
+        common.pop("quantize")
+        common.pop("kv_bits")
+        again = repro_torch.serve(repro_torch.ServeConfig(load=directory,
+                                                          **common))
+        assert first.mesh == again.mesh == (1, 2), (first.mesh, again.mesh)
+        assert [r["stage"] for r in first.report][-1] == "shard"
+        for rid, r in first.results.items():
+            assert r.status == "ok" and again.results[rid].tokens == r.tokens, (
+                f"13d: request {rid}: --load tokens differ")
+        for label, run in (("serve", first), ("--load", again)):
+            st = run.stats
+            want = tp_expected_launches("w8a8", (1, 2), st["decode_steps"],
+                                        st["prefill_dispatches"])
+            for rank, got in enumerate(run.rank_launches):
+                for name in set(got) | set(want):
+                    assert got.get(name, 0) == want.get(name, 0), (
+                        f"13d {label} rank {rank}: {name} launched "
+                        f"{got.get(name, 0)}, expected {want.get(name, 0)}")
+        log(f"  13d: repro_torch.serve(mesh=(1, 2), save=...) then --load "
+            f"over the recorded 1x2 mesh: {len(first.results)} requests, "
+            f"the same tokens; launches exact on both ranks of both runs; "
+            f"{first.tokens_per_second:.1f} / {again.tokens_per_second:.1f} "
+            f"tok/s ({smi})")
+        counted["13d serve-w8a8-kv8-tp 1x2 gloo --load"] = \
+            again.rank_launches[0]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return counted
+
+
 def main() -> int:
     import torch
 
@@ -4886,6 +5560,8 @@ def main() -> int:
     family_rows = check_new_gemms(torch, dev, gen, family_gemms(),
                                   "the new families' shapes")
     family_rows["quantize_act"] = check_family_quantize_act(torch, dev, gen)
+    log("  the per-rank shapes of tensor-parallel qwen2-0.5b (phase 13)")
+    tp_rows = check_tp_shapes(torch, dev, gen)
 
     log("== phase 3: small-input reference")
     for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8", "dfq-int8",
@@ -5174,6 +5850,50 @@ def main() -> int:
                 "source": csrc + sources[name][0],
                 "replaces": tpu + sources[name][1], "launches": n,
                 "path": f"phase 12: trained qwen2-0.5b {label}, fast path"})
+    log("== phase 13: serve qwen2-0.5b (full width) tensor-parallel over a "
+        "torch.distributed mesh (1x2 and 2x1 over gloo on the one card, 1x1 "
+        "over NCCL under CUDA graphs)")
+    log(f"  {smi}")
+    t13 = time.perf_counter()
+    tp_counts = check_tensor_parallel(torch, dev, runs, stepwise, smi)
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s ({smi})")
+    # the launches of phase 13's fast and --load runs, each beside phase
+    # 2's row of the kernel at the shape the run launched it at (1x2: this
+    # rank's cut shapes; 2x1 and 1x1: the whole shapes, the int32 GEMM at
+    # the whole K) or, where phase 2 has none there, its decode-shape row
+    at_shape = {
+        "1x2": {"qmatmul_w8a8": "M=8 K=896 N=2432",
+                "qmatmul_w8a8_qin": "M=8 K=896",
+                "qmatmul_w8a8_i32": "M=8 K=2432 N=896",
+                "quantize_act": "x[8,4864]",
+                "qmatmul_w8a16": "M=8 K=896 N=2432",
+                "fused_decode": "B=8 Hq=7 Hkv=1"},
+        "2x1": {"qmatmul_w8a8_i32": "M=4 K=4864 N=896",
+                "fused_decode": "B=4 Hq=14"},
+        "1x1": {"qmatmul_w8a8_i32": "M=8 K=4864 N=896"}}
+    for label, counted in tp_counts.items():
+        if "stepwise" in label:
+            continue
+        for name, n in sorted(counted.items()):
+            if n == 0:
+                continue
+            rows = tp_rows.get(name, [])
+            key = at_shape[label.split()[2]].get(name)
+            row = next((r for r in rows if key and r["shape"].startswith(key)),
+                       None)
+            if row is None:
+                row = next(r for r in tables[name]
+                           if r["shape"] == main[name][0])
+            kernels.append({
+                **{k: v for k, v in row.items()
+                   if k not in ("splits", "share", "tickets", "bm", "waiters",
+                                "residency", "stepwise_ms")},
+                "name": f"{name} (tensor-parallel)", "route": "cuda",
+                "source": csrc + (sources[name][0] if name in sources
+                                  else "qmatmul_w8a8.cu"),
+                "replaces": tpu + (sources[name][1] if name in sources
+                                   else "qmatmul_w8a8/kernel.py:72"),
+                "launches": n, "path": f"phase {label}"})
     log(f"  the script took {time.perf_counter() - t_script:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

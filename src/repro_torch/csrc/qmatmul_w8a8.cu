@@ -27,6 +27,12 @@
 // The epilogue uses __fmul_rn / __fadd_rn so it is never contracted into an
 // FMA: for float32 output the result is bit-equal to the plain version.
 //
+// Epilogue-free variant (out_kind 2, qmatmul_w8a8_i32): the same mainloop
+// and reduction, then the exact int32 accumulator stored as it is — a
+// row-parallel shard's partial sums, which the ranks add in int32 (exact,
+// unlike float32 partials: |acc| reaches 7.8e7 at K = 4864, past 2^24)
+// before the scale epilogue; sa, sw and bias are not read.
+//
 // Expert-batched (the MoE block's projections, which the reference runs as
 // jax.vmap of linear() over the expert axis: one pallas_call with the
 // expert index in its grid): E experts' operands back to back in one
@@ -83,6 +89,9 @@ using repro::gemm::BK;
 using repro::gemm::ld16;
 using repro::gemm::word;
 
+// repro_qmatmul_w8a8's output kinds (kernel.py OUT_KINDS)
+constexpr int OUT_F32 = 0, OUT_BF16 = 1, OUT_I32 = 2;
+
 // Unpadded 64-byte rows: the 16-byte fragment reads of 8 lanes (two rows,
 // four quads) cover 128 contiguous bytes.
 constexpr int LDS = BK;
@@ -118,9 +127,11 @@ qmatmul_w8a8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
   const size_t e = repro::gemm::expert_tile<BM>(M, mt);
   A += e * M * K;
   Bt += e * N * K;
-  sa += e * M;
-  sw += e * N;
-  bias += e * N;
+  if constexpr (!std::is_same<OutT, int>::value) {
+    sa += e * M;
+    sw += e * N;
+    bias += e * N;
+  }
   if constexpr (ROUTE == q8r::NONE) C += e * M * N;
   if constexpr (ROUTE != q8r::NONE) q8r::take_tile(q8, gridDim.x, mt, nt);
   const int m0 = mt * BM, n0 = nt * BN;
@@ -128,21 +139,23 @@ qmatmul_w8a8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
     for (int i = threadIdx.x; i < BM; i += blockDim.x) smax[i] = 0u;
   // the epilogue's operands, loaded now so their latency hides under the
   // mainloop (0 past M or N)
+  // (the int32 variant reads none: its sa, sw and bias are null)
+  constexpr bool ACC_OUT = std::is_same<OutT, int>::value;
   float row_s[W::MT][2], col_s[W::NT][2], col_b[W::NT][2];
 #pragma unroll
   for (int i = 0; i < W::MT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = m0 + w.row(i, h);
-      row_s[i][h] = r < M ? sa[r] : 0.f;
+      row_s[i][h] = !ACC_OUT && r < M ? sa[r] : 0.f;
     }
 #pragma unroll
   for (int j = 0; j < W::NT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = n0 + w.col(j, e);
-      col_s[j][e] = c < N ? sw[c] : 0.f;
-      col_b[j][e] = c < N ? bias[c] : 0.f;
+      col_s[j][e] = !ACC_OUT && c < N ? sw[c] : 0.f;
+      col_b[j][e] = !ACC_OUT && c < N ? bias[c] : 0.f;
     }
 
   int acc[W::ACC];
@@ -200,7 +213,12 @@ qmatmul_w8a8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
         for (int j = 0; j < W::NT; ++j) {
           const int col = n0 + w.col(j, 0);
           if (row >= M || col >= N) continue;
-          if constexpr (ROUTE == q8r::NONE) {
+          if constexpr (ACC_OUT) {
+            // the exact accumulator, no epilogue
+            int* p = C + static_cast<size_t>(row) * N + col;
+            p[0] = acc[(i * W::NT + j) * 4 + 2 * h];
+            if (col + 1 < N) p[1] = acc[(i * W::NT + j) * 4 + 2 * h + 1];
+          } else if constexpr (ROUTE == q8r::NONE) {
             repro::gemm::store_pair(C, row, col, N, o[i][h][j][0], o[i][h][j][1]);
           } else {
             if constexpr (ROUTE == q8r::WORKSPACE)
@@ -610,7 +628,7 @@ int launch_qin(const void* x, const void* wt, const void* sw, const void* bias,
 template <int BM>
 int launch_tiles(const void* a, const void* wt, const void* sa, const void* sw,
                  const void* bias, void* c, const repro::q8::Call& q8, int M,
-                 int N, int K, int E, int splits, int out_bf16, int vec,
+                 int N, int K, int E, int splits, int out_kind, int vec,
                  cudaStream_t st) {
   namespace q8r = repro::q8;
   const dim3 grid = repro::gemm::expert_grid<BM>(M, N, E, splits);
@@ -627,10 +645,14 @@ int launch_tiles(const void* a, const void* wt, const void* sa, const void* sw,
                        qmatmul_w8a8_kernel<BM, float, q8r::WORKSPACE>>(
         q8, smem, grid, st, A, Bt, SA, SW, BI, static_cast<float*>(nullptr),
         args, M, N, K, vec);
-  if (out_bf16)
+  if (out_kind == OUT_BF16)
     return launch<BM, qmatmul_w8a8_kernel<BM, __nv_bfloat16, q8r::NONE>>(
         smem, grid, st, A, Bt, SA, SW, BI, static_cast<__nv_bfloat16*>(c),
         args, M, N, K, vec);
+  if (out_kind == OUT_I32)
+    return launch<BM, qmatmul_w8a8_kernel<BM, int, q8r::NONE>>(
+        smem, grid, st, A, Bt, SA, SW, BI, static_cast<int*>(c), args, M, N,
+        K, vec);
   return launch<BM, qmatmul_w8a8_kernel<BM, float, q8r::NONE>>(
       smem, grid, st, A, Bt, SA, SW, BI, static_cast<float*>(c), args, M, N,
       K, vec);
@@ -638,21 +660,22 @@ int launch_tiles(const void* a, const void* wt, const void* sa, const void* sw,
 
 int dispatch(const void* a, const void* wt, const void* sa, const void* sw,
              const void* bias, void* c, const repro::q8::Call& q8, int M,
-             int N, int K, int E, int bm, int splits, int out_bf16, int vec,
+             int N, int K, int E, int bm, int splits, int out_kind, int vec,
              void* stream) {
-  if (E < 1 || (E > 1 && q8.route != repro::q8::NONE))
+  if (E < 1 || (E > 1 && q8.route != repro::q8::NONE) || out_kind < OUT_F32 ||
+      out_kind > OUT_I32 || (out_kind == OUT_I32 && q8.route != repro::q8::NONE))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == 16)
     return launch_tiles<16>(a, wt, sa, sw, bias, c, q8, M, N, K, E, splits,
-                            out_bf16, vec, st);
+                            out_kind, vec, st);
   if (bm == 64)
     return launch_tiles<64>(a, wt, sa, sw, bias, c, q8, M, N, K, E, splits,
-                            out_bf16, vec, st);
+                            out_kind, vec, st);
   if (bm == 128)
     return launch_tiles<128>(a, wt, sa, sw, bias, c, q8, M, N, K, E, splits,
-                             out_bf16, vec, st);
+                             out_kind, vec, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -667,7 +690,9 @@ int resident(int splits, int* out) {
 }  // namespace
 
 // a [M, K] int8, wt [N, K] int8 (the K-major weight), sa [M], sw [N],
-// bias [N] float32, c [M, N] float32 or bfloat16 — all contiguous; E > 1
+// bias [N] float32, c [M, N] float32 (out_kind 0) or bfloat16 (1) — all
+// contiguous; out_kind 2 is the epilogue-free variant: c [M, N] int32, the
+// exact accumulator, and sa, sw and bias are not read (may be null); E > 1
 // experts in one launch: each operand E of those back to back ([E, M, K],
 // [E, N, K], [E, M], [E, N], [E, N], [E, M, N]). bm (16, 64 or 128) and
 // splits (1 ... 16, the K splits of a tile) come from kernels/gemm_plan.py.
@@ -675,10 +700,10 @@ int resident(int splits, int* out) {
 extern "C" int repro_qmatmul_w8a8(const void* a, const void* wt, const void* sa,
                                   const void* sw, const void* bias, void* c,
                                   int M, int N, int K, int E, int bm,
-                                  int splits, int out_bf16, int vec,
+                                  int splits, int out_kind, int vec,
                                   void* stream) {
   return dispatch(a, wt, sa, sw, bias, c, repro::q8::Call{}, M, N, K, E, bm,
-                  splits, out_bf16, vec, stream);
+                  splits, out_kind, vec, stream);
 }
 
 // The quantize-in variant: x [M, K] float32 (x_bf16 == 0) or bfloat16 in

@@ -16,6 +16,11 @@ The quantize-out variant's route (``GemmPlan.q8_route``) comes from
 instantiation (``q8_residency``); ``qmatmul_w8a8_q8_plan`` gives the plan a
 call launches, and the private ``_route`` keyword forces a route.
 
+The epilogue-free variant (``qmatmul_w8a8_i32_cuda``, its own launch
+counter) writes the int32 accumulator and reads no scale or bias: a
+row-parallel shard's partial sums, added over the ranks in int32 before the
+scale epilogue (``ref.w8a8_epilogue``).
+
 Expert-batched (the MoE block's projections): the GEMM and its quantize-in
 variant take every operand with a leading expert axis — a_q or x
 [E, M, K], w_q [E, K, N] (each expert's K-major), a_scale [E, M],
@@ -40,6 +45,8 @@ _ARGS_QIN = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 10
              + (ctypes.c_void_p,))
 
 
+#: the C interface's output kinds of repro_qmatmul_w8a8 (out_kind)
+OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 #: the C interface's ids of gemm_plan.Q8_ROUTES (q8_epilogue.cuh: Route)
 Q8_ROUTE_IDS = {"resident": 1, "workspace": 2}
 # {(device, C function, bm, splits, ...): resident clusters}
@@ -157,9 +164,29 @@ def qmatmul_w8a8_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
     _build.call("repro_qmatmul_w8a8", _ARGS, a_q.data_ptr(), wt.data_ptr(),
                 a_scale.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), M, N, K, E, plan.bm, plan.splits,
-                int(out_dtype == torch.bfloat16), vec,
+                OUT_KINDS[out_dtype], vec,
                 torch.cuda.current_stream(dev).cuda_stream)
     count_launch("qmatmul_w8a8")
+    return out
+
+
+def qmatmul_w8a8_i32_cuda(a_q: torch.Tensor, w_q: torch.Tensor, *,
+                          _splits: Optional[int] = None):
+    """The epilogue-free variant: a_q [M, K] int8, w_q [K, N] int8
+    (K-major), on the card → the exact int32 accumulator [M, N] (the same
+    mainloop and split as ``qmatmul_w8a8_cuda``; no scale, no bias)."""
+    a_q, wt, vec = _checked(a_q, w_q, None, None, None,
+                            "qmatmul_w8a8_i32_cuda")
+    M, K = a_q.shape
+    N = wt.shape[0]
+    dev = a_q.device
+    plan = gemm_plan.plan(M, N, K, splits=_splits)
+    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    _build.call("repro_qmatmul_w8a8", _ARGS, a_q.data_ptr(), wt.data_ptr(),
+                None, None, None, out.data_ptr(), M, N, K, 1, plan.bm,
+                plan.splits, OUT_KINDS[torch.int32], vec,
+                torch.cuda.current_stream(dev).cuda_stream)
+    count_launch("qmatmul_w8a8_i32")
     return out
 
 

@@ -20,6 +20,11 @@ The model calls it wherever ``gemm_plan`` folds (``GemmPlan.fold``), for
 the first projection that reads an activation, which also hands the
 quantized activation to the others (``quantized=True``).
 
+``qmatmul_w8a8_i32`` is the epilogue-free variant (its own launch counter):
+the exact int32 accumulator, which a row-parallel shard sums over its ranks
+before ``w8a8_epilogue`` (the kernel's epilogue, in plain torch: the same
+bits).
+
 A leading expert axis on every operand (the MoE block's projections) is
 one expert-batched launch of the GEMM or its quantize-in variant on the
 card; the plain versions loop over the experts.
@@ -33,10 +38,16 @@ import torch
 from ..dispatch import register_impl, register_spec, resolve
 from .kernel import (
     qmatmul_w8a8_cuda,
+    qmatmul_w8a8_i32_cuda,
     qmatmul_w8a8_q8_cuda,
     qmatmul_w8a8_qin_cuda,
 )
-from .ref import qmatmul_w8a8_q8_ref, qmatmul_w8a8_qin_ref, qmatmul_w8a8_ref
+from .ref import (
+    qmatmul_w8a8_i32_ref,
+    qmatmul_w8a8_q8_ref,
+    qmatmul_w8a8_qin_ref,
+    qmatmul_w8a8_ref,
+)
 
 
 @register_impl("qmatmul_w8a8", "cuda", pad="zero")
@@ -62,6 +73,16 @@ def _w8a8_torch(a_q, w_q, a_scale, w_scale, bias, *, out_dtype):
         return _per_expert(qmatmul_w8a8_ref, a_q, w_q, a_scale, w_scale,
                            bias, out_dtype)
     return qmatmul_w8a8_ref(a_q, w_q, a_scale, w_scale, bias, out_dtype)
+
+
+@register_impl("qmatmul_w8a8_i32", "cuda", pad="zero")
+def _w8a8_i32_cuda(a_q, w_q):
+    return qmatmul_w8a8_i32_cuda(a_q, w_q)
+
+
+@register_impl("qmatmul_w8a8_i32", "torch", pad="zero")
+def _w8a8_i32_torch(a_q, w_q):
+    return qmatmul_w8a8_i32_ref(a_q, w_q)
 
 
 @register_impl("qmatmul_w8a8_q8", "cuda", pad="zero")
@@ -116,6 +137,15 @@ def qmatmul_w8a8_qin(x: torch.Tensor, w_q: torch.Tensor, w_scale,
     return resolve("qmatmul_w8a8_qin", x, backend)(x, w_q, w_scale, bias,
                                           out_dtype=out_dtype,
                                           quantized=quantized)
+
+
+def qmatmul_w8a8_i32(a_q: torch.Tensor, w_q: torch.Tensor, *,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """The epilogue-free W8A8 GEMM: a_q [M, K] int8 times w_q [K, N] int8
+    (K-major) → the exact int32 accumulator [M, N], no scale and no bias.
+    A row-parallel shard sums these over its ranks in int32 and then
+    applies ``w8a8_epilogue``, which gives ``qmatmul_w8a8``'s bits."""
+    return resolve("qmatmul_w8a8_i32", a_q, backend)(a_q, w_q)
 
 
 def qmatmul_w8a8(a_q: torch.Tensor, w_q: torch.Tensor, a_scale, w_scale,

@@ -18,6 +18,29 @@ def qmatmul_w8a8_acc(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return a_q.to(torch.float64) @ w_q.to(torch.float64)
 
 
+def w8a8_epilogue(acc: torch.Tensor, a_scale, w_scale,
+                  bias: Optional[torch.Tensor] = None,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The W8A8 GEMM's scale epilogue on an exact accumulator ``acc``
+    [M, N] (int32 or integral float64): ``((acc * a_scale) * w_scale) +
+    bias`` in float32, each step rounded alone — the kernel's
+    ``__fmul_rn`` / ``__fadd_rn`` order, so the same bits on either
+    device."""
+    out = acc.to(torch.float32)
+    out = (out * torch.atleast_1d(a_scale).float()[:, None]
+           * torch.atleast_1d(w_scale).float()[None, :])
+    if bias is not None:
+        out = out + bias.float()[None, :]
+    return out.to(out_dtype)
+
+
+def qmatmul_w8a8_i32_ref(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The epilogue-free plain version: the exact accumulator as int32
+    [M, N] (a row-parallel shard's partial sums, added over the ranks in
+    int32 before ``w8a8_epilogue``)."""
+    return qmatmul_w8a8_acc(a_q, w_q).to(torch.int32)
+
+
 def qmatmul_w8a8_ref(
     a_q: torch.Tensor,          # [M, K] int8
     w_q: torch.Tensor,          # [K, N] int8
@@ -26,12 +49,8 @@ def qmatmul_w8a8_ref(
     bias: Optional[torch.Tensor] = None,   # [N] float32
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    out = qmatmul_w8a8_acc(a_q, w_q).to(torch.float32)
-    out = (out * torch.atleast_1d(a_scale).float()[:, None]
-           * torch.atleast_1d(w_scale).float()[None, :])
-    if bias is not None:
-        out = out + bias.float()[None, :]
-    return out.to(out_dtype)
+    return w8a8_epilogue(qmatmul_w8a8_acc(a_q, w_q), a_scale, w_scale, bias,
+                         out_dtype)
 
 
 def qmatmul_w8a8_q8_ref(a_q, w_q, a_scale, w_scale, bias=None, bits: int = 8):

@@ -1,2 +1,2 @@
-"""Entry points: the serving and training launchers, and the step
-builders they share (``launch.steps``)."""
+"""Entry points: the serving and training launchers, the step builders
+they share (``launch.steps``) and the serving mesh (``launch.mesh``)."""

@@ -40,13 +40,37 @@ JAX package's calibration ids; ``--max-queue`` bounds the admission queue
 pipeline's stage report, the wall time of the serving loop, what warmup ran
 and, on the async path, the SLO summary and the server's counters (the JAX
 launcher returns the results map alone).
+
+``--mesh DxM`` (or ``PxDxM``) serves tensor-parallel over a
+``torch.distributed`` device mesh, as the JAX launcher does: the recipe's
+``-tp`` twin is quantized (``serve-w8a16-tp``, ...), whose shard stage the
+artifact records, and ``--save`` records the mesh and every leaf's spec.
+``serve`` starts the mesh's ranks itself — one process a mesh position
+(``torch.multiprocessing``, spawned, over a file store in a temporary
+directory) — unless it already runs inside a process group of that size
+(one ``serve`` call a rank, as ``torchrun`` starts them). Every rank builds
+and quantizes the same seeded model, places its blocks and runs the same
+host loop: the scheduler reads nothing but the trace and the tokens,
+which every rank receives whole from the collectives, so every rank
+decides the same admissions, chunks, horizons and preemptions. Rank 0
+prints and returns the run; the other ranks print nothing. A ``--load``
+artifact's recorded mesh is served unless ``--mesh`` names another, or
+single-device, with a note, where this host cannot hold it (NCCL: more
+ranks than cards). ``--mesh-backend`` picks the process group's backend
+(NCCL on the card, gloo on the CPU by default).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import pickle
+import shutil
 import signal
+import sys
+import tempfile
 import time
+import traceback
 from typing import Optional
 
 import numpy as np
@@ -108,6 +132,11 @@ class ServeRun:
     # the paged pool: pages still referenced after the loop that no live
     # slot maps and no prefix index pins (a refcount leak; must be 0)
     leaked_pages: Optional[int] = None
+    # the mesh served over (None: one device), its backend, and the launch
+    # counts of each rank's serving loop (rank order; {} on one device)
+    mesh: Optional[tuple] = None
+    mesh_backend: Optional[str] = None
+    rank_launches: list = dataclasses.field(default_factory=list)
 
     @property
     def tokens_per_second(self) -> float:
@@ -265,9 +294,16 @@ def _quantize(config: ServeConfig, device):
             cfg = dataclasses.replace(cfg, kv_cache_bits=config.kv_bits)
         model = build_model(cfg)
         return None, cfg, model, model.init(config.seed, device=device)
-    recipe = config.recipe or (f"serve-{config.quantize}-kv8"
-                               if config.kv_bits == 8
-                               else f"serve-{config.quantize}")
+    recipe = config.recipe
+    if recipe is None:
+        from ..pipeline.recipes import BUILTIN_RECIPES
+
+        recipe = (f"serve-{config.quantize}-kv8" if config.kv_bits == 8
+                  else f"serve-{config.quantize}")
+        # --mesh prefers the recipe's -tp twin (its shard stage records the
+        # plan on the artifact); the engine serves any recipe sharded
+        if config.mesh and f"{recipe}-tp" in BUILTIN_RECIPES:
+            recipe = f"{recipe}-tp"
     # quantize draws the weights itself: no reference here keeps the
     # float32 tree alive once the pipeline has replaced it
     qm = quantize(build_model(cfg), None, init_seed=config.seed,
@@ -281,10 +317,159 @@ def _quantize(config: ServeConfig, device):
     return qm, qm.cfg, qm.model, qm.params
 
 
+def _mesh_shape(config: ServeConfig):
+    """(the mesh to serve over or None, where it came from): ``--mesh``, else
+    a ``--load`` artifact's recorded mesh — unless this host cannot hold
+    it, which is noted and served single-device."""
+    if config.mesh is not None:
+        return config.mesh, "--mesh"
+    if not config.load:
+        return None, None
+    from ..pipeline.artifact import read_sharding
+    from .mesh import check_fits, mesh_backend
+
+    rec = read_sharding(config.load)
+    if not (rec.get("mode") and rec.get("mesh_shape")):
+        return None, None
+    shape = tuple(rec["mesh_shape"])
+    try:
+        check_fits(shape, config.device,
+                   mesh_backend(config.device, config.mesh_backend))
+    except ValueError as e:
+        print(f"note: artifact-recorded mesh {'x'.join(map(str, shape))}: "
+              f"{e} — serving single-device")
+        return None, None
+    return shape, "artifact-recorded mesh"
+
+
 def serve(config: ServeConfig) -> ServeRun:
-    """Build, quantize and serve per ``config``; prints a short report."""
+    """Build, quantize and serve per ``config``; prints a short report.
+    With a mesh (``--mesh``, or a ``--load`` artifact's), the run is the
+    mesh's ranks' (see the module docstring): rank 0's ``ServeRun``."""
     config = dataclasses.replace(config).validate()
+    shape, source = _mesh_shape(config)
+    if shape is None:
+        return _serve(config, None)
+    import math
+
+    import torch.distributed as dist
+
+    config = dataclasses.replace(config, mesh=shape)
+    if dist.is_initialized() and dist.get_world_size() == math.prod(shape):
+        return _serve_rank(config, source)
+    return _spawn_ranks(config, source)
+
+
+def _serve_rank(config: ServeConfig, source: str) -> ServeRun:
+    """This process's rank of the mesh: build the mesh over the running
+    process group, serve, and report the run (rank 0 prints)."""
+    import torch.distributed as dist
+
+    from ..kernels import launch_counts
+    from .mesh import make_production_mesh, mesh_backend
+
     device = resolve_device(config.device)
+    backend = mesh_backend(device, config.mesh_backend)
+    if device.type == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    mesh = make_production_mesh(shape=config.mesh, device=device,
+                                backend=backend)
+    with contextlib.ExitStack() as quiet:
+        if dist.get_rank():
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+        print(f"mesh ({source}): " + ", ".join(
+            f"{a}={n}" for a, n in zip(mesh.mesh_dim_names, mesh.shape))
+            + f" over {backend} on {device}")
+        run = _serve(config, mesh)
+    run.mesh, run.mesh_backend = tuple(config.mesh), backend
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, launch_counts())
+    run.rank_launches = counts
+    return run
+
+
+def _rank_main(rank: int, world: int, store: str, config: ServeConfig,
+               source: str, out: str) -> None:
+    """A spawned rank: join the process group, serve, and (rank 0) write
+    the run to ``out``; a rank that fails writes its exception there."""
+    import torch.distributed as dist
+
+    from .mesh import mesh_backend
+
+    backend = mesh_backend(config.device, config.mesh_backend)
+    if torch.device(config.device).type == "cpu":
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    result = None
+    try:
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        try:
+            run = _serve_rank(config, source)
+        finally:
+            dist.destroy_process_group()
+        if rank == 0:
+            result = run
+    except BaseException as e:               # reported to the parent
+        result = (e, traceback.format_exc())
+    sys.stdout.flush()
+    if result is not None:
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(result, f)
+
+
+def _spawn_ranks(config: ServeConfig, source: str) -> ServeRun:
+    """Start the mesh's ranks (spawned processes over a file store), wait
+    for them, and return rank 0's run; a rank's failure is raised here."""
+    import math
+
+    import torch.multiprocessing as mp
+
+    world = math.prod(config.mesh)
+    tmp = tempfile.mkdtemp(prefix="repro_serve_")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, world, os.path.join(tmp, "store"),
+                                   config, source, os.path.join(tmp, "run")))
+                 for r in range(world)]
+        sys.stdout.flush()
+        for p in procs:
+            p.start()
+        # a rank that dies leaves the others waiting in a collective: stop
+        # them
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                for p in procs:
+                    p.kill()
+            time.sleep(0.05)
+        results = {}
+        for r in range(world):
+            path = os.path.join(tmp, f"run.{r}")
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    results[r] = pickle.load(f)
+        for r, res in sorted(results.items()):
+            if isinstance(res, tuple):
+                err, tb = res
+                if isinstance(err, ServeConfigError):
+                    raise err
+                raise RuntimeError(f"mesh rank {r} failed:\n{tb}")
+        bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if bad or 0 not in results:
+            raise RuntimeError(f"mesh ranks {bad} exited with codes "
+                               f"{[procs[r].exitcode for r in bad]}")
+        return results[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _serve(config: ServeConfig, mesh) -> ServeRun:
+    """Build, quantize and serve per ``config``, sharded over ``mesh``
+    (a ``DeviceMesh``) where given."""
+    device = resolve_device(config.device)
+    rank0 = mesh is None or mesh.get_rank() == 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t_start = time.perf_counter()
@@ -321,9 +506,11 @@ def serve(config: ServeConfig) -> ServeRun:
             from ..pipeline.cli import print_site_sqnr
 
             print_site_sqnr(qm)
-        if config.save:
-            qm.save(config.save)
-            print(f"saved QuantizedModel to {config.save}")
+        if config.save and rank0:
+            qm.save(config.save, mesh=mesh)
+            print(f"saved QuantizedModel to {config.save}"
+                  + (" (serve-mode specs recorded)"
+                     if mesh is not None and qm.shard_mode else ""))
     else:
         print(f"serving {cfg.name} unquantized ({cfg.param_dtype} weights, "
               f"{cfg.dtype} compute) on {device}")
@@ -348,7 +535,7 @@ def serve(config: ServeConfig) -> ServeRun:
                            num_pages=config.num_pages,
                            prefix_reuse=config.prefix_reuse,
                            max_queue=config.max_queue,
-                           straggler=straggler, device=device)
+                           straggler=straggler, device=device, mesh=mesh)
     layout = (f"paged ({engine.pool.num_pages} pages x {engine.page_size} "
               f"positions, prefix reuse "
               f"{'on' if engine.prefix_index is not None else 'off'})"
@@ -405,6 +592,12 @@ def serve(config: ServeConfig) -> ServeRun:
               f"{engine.scheduler.pending()} queued requests unserved")
     path = ("stepwise" if config.reference
             else f"fast (decode horizon {config.decode_horizon})")
+    if mesh is not None:
+        path += (f", sharded {config.mesh_str} over "
+                 f"{engine.shard.backend}"
+                 + ("" if engine.graphs is not None or config.reference
+                    else f"; no CUDA graphs: {engine.stats['graphs_off']}"
+                    if device.type == "cuda" else ""))
     run = ServeRun(results=results, stats=dict(engine.stats), seconds=dt,
                    generated_tokens=engine.stats["generated_tokens"],
                    report=[] if qm is None else qm.report, path=path,

@@ -1,16 +1,23 @@
 """Typed serving configuration: one dataclass is both the ``serve`` API and
 (through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. It
 has every field of the JAX ``ServeConfig`` with the same flag, type,
-default and validation, except two that come with later work:
-``mesh`` (tensor-parallel serving over several cards) and ``lint`` (the
-QuantLint graph linter, to be re-based on torch graphs). They are absent,
-not fields that can only raise.
+default and validation, except ``lint`` (the QuantLint graph linter, to be
+re-based on torch graphs), which is absent, not a field that can only
+raise.
+
+``mesh`` (``--mesh DxM`` or ``PxDxM``, ``parse_mesh``) serves over a
+``torch.distributed`` device mesh ("data", "model"), as the JAX
+launcher's: slots over "data", weights tensor-parallel over "model"; the
+launcher starts a rank a mesh position. Its backend is NCCL on the card
+(a card a rank: a mesh larger than the card count raises) and gloo on the
+CPU, unless ``mesh_backend`` names one — gloo on the card runs several
+ranks on one card. ``serve_async`` with a mesh raises (ROADMAP.md Queue A).
 
 Besides the JAX fields, the port's own: ``layers`` (the arch cut to its
 first N layers, widths kept, for a card that cannot hold the full depth),
-``seed`` (of the random weights), ``device``, ``profile``, and
-``prompt_min`` / ``gen_min`` (the trace's shortest prompt and generation;
-the JAX launcher fixes both at 4). The kernel tier is the device's unless
+``seed`` (of the random weights), ``device``, ``mesh_backend``,
+``profile``, and ``prompt_min`` / ``gen_min`` (the trace's shortest prompt
+and generation; the JAX launcher fixes both at 4). The kernel tier is the device's unless
 ``REPRO_KERNEL_BACKEND`` names one (``kernels.dispatch``).
 
 ``quantize`` picks the weight scheme (``w8a16``, the JAX launcher's default,
@@ -27,16 +34,18 @@ arrival schedule of N requests, through the async front-end with
 
 With ``load``, the artifact's record meets this config under the JAX
 launcher's precedence contract (``_ARTIFACT_POLICY``) for the fields this
-config has: ``arch``, ``smoke``, ``quantize`` and ``recipe`` are "baked" —
-the artifact is served as saved and an explicit differing value is
-reported as ignored — and ``kv_bits`` is "must-match": an explicit value
-other than the artifact's raises.
+config has: ``mesh`` is "cli" — an explicit ``--mesh`` re-deploys on a new
+topology, else the artifact's recorded mesh is served; ``arch``, ``smoke``,
+``quantize`` and ``recipe`` are "baked" — the artifact is served as saved
+and an explicit differing value is reported as ignored — and ``kv_bits``
+is "must-match": an explicit value other than the artifact's raises.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 
 #: the weight schemes the launcher serves ("none": fp32 weights)
@@ -45,6 +54,20 @@ QUANTIZE_CHOICES = ("none", "w8a16", "w8a8")
 
 class ServeConfigError(ValueError):
     """Invalid serving configuration."""
+
+
+def parse_mesh(spec) -> Optional[Tuple[int, ...]]:
+    """"2x4" -> (2, 4); accepts an already-parsed tuple or None."""
+    if spec is None or isinstance(spec, tuple):
+        return spec
+    try:
+        shape = tuple(int(s) for s in str(spec).lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or any(s < 1 for s in shape):
+        raise ServeConfigError(
+            f"--mesh wants DxM (or PxDxM), e.g. 2x4; got {spec!r}")
+    return shape
 
 
 def _f(default, help=None, **cli):
@@ -71,10 +94,23 @@ class ServeConfig:
         "scales (decode attends through the fused_decode kernel), 16 = fp. "
         "Default: what the recipe/artifact recorded (--kv-bits 8 selects "
         "the serve-<quantize>-kv8 recipe)", type=int, choices=[8, 16])
+    mesh: Optional[Tuple[int, ...]] = _f(
+        None, "serve sharded over a device mesh, e.g. 2x4 = (\"data\": 2, "
+        "\"model\": 4) — slots shard over data, weights tensor-parallel over "
+        "model (a P x D x M form adds the leading \"pod\" axis); the "
+        "launcher starts D*M ranks (one card each under NCCL; --mesh-backend "
+        "gloo shares one card). Default: the mesh recorded in a --load "
+        "artifact, else single-device", metavar="DxM", parse=parse_mesh)
+    mesh_backend: Optional[str] = _f(
+        None, "the mesh's torch.distributed backend: nccl (the card's "
+        "default, a card a rank) or gloo (the CPU's default; on the card, "
+        "several ranks on one card, collectives through host memory)",
+        choices=["nccl", "gloo"])
     device: str = _f("cuda", "cuda (default) or cpu (the plain PyTorch "
                      "versions of the kernels)")
     save: Optional[str] = _f(
-        None, "persist the QuantizedModel after quantization",
+        None, "persist the QuantizedModel after quantization (with --mesh: "
+        "the serve-mode partition specs are recorded in the artifact)",
         metavar="DIR")
     verbose: bool = _f(False, "print per-site weight SQNR diagnostics",
                        switch=True)
@@ -206,19 +242,45 @@ class ServeConfig:
                            or self.gen_min > self.gen_len):
             raise ServeConfigError("--prompt-min/--gen-min exceed "
                                    "--prompt-len/--gen-len")
+        if self.mesh is not None:
+            self.mesh = parse_mesh(self.mesh)     # tolerate a "2x4" string
+            if self.serve_async:
+                raise ServeConfigError(
+                    "--serve-async with --mesh is not ported yet (ROADMAP.md "
+                    "Queue A: --serve-async with --mesh); serve the trace "
+                    "synchronously, or drop --mesh")
+            from .mesh import check_fits, mesh_backend
+
+            try:
+                check_fits(self.mesh, self.device,
+                           mesh_backend(self.device, self.mesh_backend))
+            except ValueError as e:
+                raise ServeConfigError(f"--mesh {self.mesh_str}: {e}") from None
         return self
+
+    @property
+    def mesh_str(self) -> Optional[str]:
+        return None if self.mesh is None else "x".join(map(str, self.mesh))
+
+    @property
+    def mesh_size(self) -> int:
+        return 1 if self.mesh is None else math.prod(self.mesh)
 
     @classmethod
     def from_args(cls, ns: argparse.Namespace) -> "ServeConfig":
-        return cls(**{f.name: getattr(ns, f.name)
-                      for f in dataclasses.fields(cls)})
+        kw = {}
+        for f in dataclasses.fields(cls):
+            v = getattr(ns, f.name)
+            parse = f.metadata.get("parse")
+            kw[f.name] = parse(v) if parse is not None else v
+        return cls(**kw)
 
     @classmethod
     def from_artifact(cls, qm) -> "ServeConfig":
         """The ServeConfig a ``QuantizedModel`` was quantized AS: its arch
         (and smoke), its recipe, its weight scheme — the mode of its int8
-        weights, or "none" for fp (fake-quantized) ones — and its KV
-        precision."""
+        weights, or "none" for fp (fake-quantized) ones — its KV precision,
+        and the mesh a sharded artifact recorded."""
         from ..quantized.qtensor import QTensor
 
         def modes(node):
@@ -231,9 +293,14 @@ class ServeConfig:
         name = qm.cfg.name
         smoke = name.endswith("-smoke")
         found = modes(qm.params)
+        sharding = getattr(qm, "sharding", {}) or {}
+        mesh = (tuple(sharding["mesh_shape"])
+                if sharding.get("mode") and sharding.get("mesh_shape")
+                else None)
         return cls(arch=name[: -len("-smoke")] if smoke else name,
                    smoke=smoke, quantize=found.pop() if found else "none",
-                   recipe=qm.recipe.name, kv_bits=qm.cfg.kv_cache_bits)
+                   recipe=qm.recipe.name, kv_bits=qm.cfg.kv_cache_bits,
+                   mesh=mesh)
 
     def with_artifact(self, art: "ServeConfig"):
         """Merge this (CLI/API) config with an artifact's record:
@@ -245,6 +312,13 @@ class ServeConfig:
         for name, policy in _ARTIFACT_POLICY.items():
             cli, rec = getattr(self, name), getattr(art, name)
             flag = "--" + name.replace("_", "-")
+            if policy == "cli":
+                # an explicit value re-deploys; else the artifact's
+                merged[name] = rec if cli == _DEFAULTS[name] else cli
+                if cli != _DEFAULTS[name] and rec is not None and rec != cli:
+                    notes.append(f"{flag} {_fmt(cli)} overrides the "
+                                 f"artifact-recorded {_fmt(rec)}")
+                continue
             merged[name] = rec
             if cli == _DEFAULTS[name] or cli == rec:
                 continue
@@ -260,12 +334,20 @@ class ServeConfig:
 
 
 #: how a --load artifact's record meets this config (the JAX launcher's
-#: rule for the fields the port's config has): "baked" — the saved weights
-#: are this value, the artifact wins; "must-match" — the calibration is
-#: bound to the recorded value, a differing explicit one raises
-_ARTIFACT_POLICY = {"arch": "baked", "smoke": "baked", "quantize": "baked",
-                    "recipe": "baked", "kv_bits": "must-match"}
+#: rule for the fields the port's config has): "cli" — serving honours
+#: either, an explicit value wins (mesh: re-deploy on a new topology);
+#: "baked" — the saved weights are this value, the artifact wins;
+#: "must-match" — the calibration is bound to the recorded value, a
+#: differing explicit one raises
+_ARTIFACT_POLICY = {"mesh": "cli", "arch": "baked", "smoke": "baked",
+                    "quantize": "baked", "recipe": "baked",
+                    "kv_bits": "must-match"}
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
+
+
+def _fmt(v) -> str:
+    """A field's value as its flag takes it (a mesh as DxM)."""
+    return "x".join(map(str, v)) if isinstance(v, tuple) else str(v)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -277,6 +359,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "continuous-batching engine on the card")
     for f in dataclasses.fields(ServeConfig):
         md = dict(f.metadata)
+        md.pop("parse", None)
         help_ = md.pop("help", None)
         flag = md.pop("flag", "--" + f.name.replace("_", "-"))
         if md.pop("invert", False):

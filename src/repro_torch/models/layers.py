@@ -48,7 +48,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_decode.ops import fused_decode, fusion_enabled
 from ..kernels.kv_attention.ops import append_quantize, kv_attention_decode
-from ..kernels.qmatmul_w8a8.ops import qmatmul_w8a8_qin
+from ..kernels.qmatmul_w8a8.ops import qmatmul_w8a8_i32, qmatmul_w8a8_qin
+from ..kernels.qmatmul_w8a8.ref import w8a8_epilogue
+from ..kernels.qmatmul_w8a16.ops import qmatmul_w8a16
 from ..quantized.qtensor import (
     QTensor,
     gemm_rows,
@@ -57,6 +59,8 @@ from ..quantized.qtensor import (
     quantize_input,
     quantizes_in_gemm,
 )
+from ..sharding import collectives as coll
+from ..sharding.tp import current_shard
 
 NEG_INF = -1e30
 
@@ -315,20 +319,30 @@ def attention_scores_softmax(q, k, v, mask, chunk_kv: Optional[int] = None,
     return out_b.transpose(0, 1).reshape(B, Tq, H, hd)
 
 
-def _project_qkv(p: dict, x: torch.Tensor, dims: AttnDims, positions):
-    """q [B, T, Hq, hd], k and v [B, T, Hkv, hd], q and k roped."""
+def _project_qkv(p: dict, x: torch.Tensor, dims: AttnDims, positions,
+                 tp=None, local: bool = False):
+    """q [B, T, Hq, hd], k and v [B, T, Hkv, hd], q and k roped. Under a
+    serving shard ``tp`` the column-parallel projections write this rank's
+    columns (their biases cut to match), and the heads are this rank's
+    where ``local`` (head-local attention), else all of them."""
     B, T, _ = x.shape
+    bq, bk, bv = p.get("bq"), p.get("bk"), p.get("bv")
+    if tp is not None:
+        bq, bk, bv = (tp.col_bias(bq, "wq"), tp.col_bias(bk, "wk"),
+                      tp.col_bias(bv, "wv"))
     if _all_w8a8(p["wq"], p["wk"], p["wv"]):
         q, k, v = _shared_linears(
-            x, [(p["wq"], p.get("bq")), (p["wk"], p.get("bk")),
-                (p["wv"], p.get("bv"))])
+            x, [(p["wq"], bq), (p["wk"], bk), (p["wv"], bv)])
     else:
-        q = linear(x, p["wq"], p.get("bq"))
-        k = linear(x, p["wk"], p.get("bk"))
-        v = linear(x, p["wv"], p.get("bv"))
-    q = q.reshape(B, T, dims.n_q, dims.head_dim)
-    k = k.reshape(B, T, dims.n_kv, dims.head_dim)
-    v = v.reshape(B, T, dims.n_kv, dims.head_dim)
+        q = linear(x, p["wq"], bq)
+        k = linear(x, p["wk"], bk)
+        v = linear(x, p["wv"], bv)
+    if tp is not None:
+        q, k, v = (tp.heads(q, "wq", local), tp.heads(k, "wk", local),
+                   tp.heads(v, "wv", local))
+    q = q.reshape(B, T, -1, dims.head_dim)
+    k = k.reshape(B, T, -1, dims.head_dim)
+    v = v.reshape(B, T, -1, dims.head_dim)
     if dims.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -418,39 +432,60 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
     [B, S, Hkv] float32}, or an fp cache's {"k", "v"} alone, written in
     place. T == 1 is the decode hot path, T > 1 a prefill chunk;
     ``chunk_kv`` chunks the plain softmax attention over the cache (a
-    whole-batch cache's 2-D mask only, as the reference's).
+    whole-batch cache's 2-D mask only, as the reference's). Under a serving
+    shard (``sharding.tp``) the heads and the cache are this rank's where
+    the attention is head-local, and ``wo`` is row-parallel where the
+    planner says so.
     """
     B, T, D = x.shape
-    nq, nkv, hd = dims.n_q, dims.n_kv, dims.head_dim
-    q, k, v = _project_qkv(p, x, dims, positions)
-    group = nq // nkv
+    tp = current_shard()
+    local = tp is not None and tp.head_local
+    q, k, v = _project_qkv(p, x, dims, positions, tp, local)
+    # a W8A8 wo reads the fused kernel's quantize-out epilogue where the
+    # kernel sees the whole row (its scale is a max over every head)
+    attn, q8 = _cached_attention(q, k, v, dims, cache, slots, chunk_kv,
+                                 x.dtype, _all_w8a8(p["wo"]) and not local)
+    if tp is not None:
+        return _tp_project_out(attn, p["wo"], p.get("bo"), tp, "wo",
+                               local=local, q8=q8)
+    if q8 is not None:
+        return qtensor_matmul_prequant(q8[0], q8[1], p["wo"], p.get("bo"),
+                                       (B, T), out_dtype=x.dtype)
+    return linear(attn, p["wo"], p.get("bo"))
+
+
+def _cached_attention(q, k, v, dims: AttnDims, cache: dict,
+                      slots: SlotWrite, chunk_kv, dtype, want_q8: bool):
+    """The new K/V written into ``cache`` and q attended over it: returns
+    (attention output [B, T, Hq·hd], and at a fused decode step with
+    ``want_q8`` its quantize-out (int8 [B, Hq·hd], scale [B]), else
+    None)."""
+    B, T, nq, hd = q.shape
+    group = nq // k.shape[2]
     if "k_scale" not in cache:
         # the fp cache: write the new rows, then attend over the whole
         # cache in the compute dtype, as the reference's plain maths
         ck, cv = cache["k"], cache["v"]
         ck[slots.where] = k.to(ck.dtype)
         cv[slots.where] = v.to(cv.dtype)
-        attn = attention_scores_softmax(q, _repeat_kv(ck.to(x.dtype), group),
-                                        _repeat_kv(cv.to(x.dtype), group),
+        attn = attention_scores_softmax(q, _repeat_kv(ck.to(dtype), group),
+                                        _repeat_kv(cv.to(dtype), group),
                                         slots.mask, chunk_kv=chunk_kv,
                                         causal_segments=dims.causal_segments)
-        return linear(attn.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
+        return attn.reshape(B, T, nq * hd), None
     verr = cache.get("v_err")
 
     if T == 1:
         valid = slots.valid
         if fusion_enabled() and verr is None:
-            # ONE launch from roped q/k/v to the attention output; a W8A8
-            # wo reads the kernel's quantize-out epilogue (int8 + scale)
-            want_q8 = _all_w8a8(p["wo"])
+            # ONE launch from roped q/k/v to the attention output (and its
+            # quantize-out epilogue)
             out, _ = fused_decode(
                 q[:, 0], cache["k"], cache["k_scale"], cache["v"],
                 cache["v_scale"], k, v, slots.idx, valid=valid,
-                out_dtype=x.dtype, quantize_out=want_q8)
+                out_dtype=dtype, quantize_out=want_q8)
             if want_q8:
-                return qtensor_matmul_prequant(out[1], out[2], p["wo"],
-                                               p.get("bo"), (B, T),
-                                               out_dtype=x.dtype)
+                return out[0].reshape(B, T, nq * hd), (out[1], out[2])
         else:
             # the stepwise route (REPRO_FUSED_DECODE=0, or a cache with the
             # V bias correction): append-quantize, mask, the kv_attention
@@ -459,8 +494,8 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
             out, _ = kv_attention_decode(
                 q[:, 0], cache["k"], cache["k_scale"], cache["v"],
                 cache["v_scale"], k, v, slots.idx, valid=valid,
-                out_dtype=x.dtype, cache_verr=verr)
-        return linear(out.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
+                out_dtype=dtype, cache_verr=verr)
+        return out.reshape(B, T, nq * hd), None
 
     # chunked prefill: append-quantize once, then attend over the
     # dequantized cache in the compute dtype
@@ -468,16 +503,74 @@ def attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
                              cache["v_scale"], k, v, slots.idx,
                              cache_verr=verr)
     ck, ks, cv, vs = leaves[:4]
-    kd = ck.to(x.dtype) * ks.to(x.dtype)[..., None]
-    vd = cv.to(x.dtype) * vs.to(x.dtype)[..., None]
+    kd = ck.to(dtype) * ks.to(dtype)[..., None]
+    vd = cv.to(dtype) * vs.to(dtype)[..., None]
     if verr is not None:
         # Σ p (ṽ − e) == Σ p ṽ − Σ p e: the decode route's correction
-        vd = vd - verr.to(x.dtype)[..., None]
+        vd = vd - verr.to(dtype)[..., None]
     attn = attention_scores_softmax(q, _repeat_kv(kd, group),
                                     _repeat_kv(vd, group), slots.mask,
                                     chunk_kv=chunk_kv,
                                     causal_segments=dims.causal_segments)
-    return linear(attn.reshape(B, T, nq * hd), p["wo"], p.get("bo"))
+    return attn.reshape(B, T, nq * hd), None
+
+
+def _tp_project_out(h: torch.Tensor, w, b, tp, name: str, *, local: bool,
+                    q8=None) -> torch.Tensor:
+    """The output projection ``name`` (wo, wd) of ``h`` [..., K] under a
+    serving shard: ``h`` is this rank's K block where ``local``, else whole
+    (``q8``: its whole rows quantized, from the fused decode). A
+    row-parallel projection takes this rank's block; otherwise the whole
+    rows are gathered and the projection runs as on one device."""
+    if tp.row[name]:
+        return _row_linear(h if local else tp.block(h), w, b, tp,
+                           whole=None if local else h, q8=q8)
+    if local:
+        h = tp.gather(h)
+    if q8 is not None:
+        return qtensor_matmul_prequant(q8[0], q8[1], w, b,
+                                       tuple(h.shape[:-1]), out_dtype=h.dtype)
+    return linear(h, w, b)
+
+
+def _row_linear(x: torch.Tensor, w, b, tp, *, whole=None,
+                q8=None) -> torch.Tensor:
+    """A row-parallel projection: this rank's K block ``x`` [..., K/M]
+    times its rows of ``w``, the partial sums added over "model", the bias
+    once.
+
+    W8A8: the activation is quantized against its WHOLE row's scale (a max
+    over every rank's block): ``q8`` where the caller has it, else
+    ``quantize_act`` of ``whole`` (gathered where not given); this rank's
+    K block of the int8 row goes through the epilogue-free GEMM, whose
+    int32 partials are summed exactly, then the scale epilogue — the
+    single-device W8A8 bits. W8A16 and float weights sum float32
+    partials (the bias after the sum), a reordered reduction; on a model
+    axis of 1 the rank holds whole rows and runs the single-device
+    projection (its sum over the one rank changes nothing)."""
+    lead, dtype = tuple(x.shape[:-1]), x.dtype
+    if isinstance(w, QTensor) and w.mode == "w8a8":
+        if q8 is None:
+            a_q, a_s, _ = quantize_input(tp.gather(x) if whole is None
+                                         else whole)
+        else:
+            a_q, a_s = q8
+        acc = qmatmul_w8a8_i32(tp.block(a_q).contiguous(), w.q)
+        coll.all_reduce_sum(acc, tp.model_group)
+        y = w8a8_epilogue(acc, a_s, w.scale, b, dtype)
+        return y.reshape(*lead, y.shape[-1])
+    if tp.model_n == 1:
+        return coll.all_reduce_sum(linear(x, w, b), tp.model_group)
+    if isinstance(w, QTensor):
+        # the kernel writes its activation's dtype: float32 partials from
+        # the activation in float32 (exact for bf16)
+        y = qmatmul_w8a16(gemm_rows(x, w).float(), w.q, w.scale, None)
+    else:
+        y = (x @ w).float()
+    coll.all_reduce_sum(y, tp.model_group)
+    if b is not None:
+        y = y + b.float()
+    return y.to(dtype).reshape(*lead, y.shape[-1])
 
 
 # --------------------------------------------------------------------------
@@ -503,6 +596,15 @@ def mlp_block(p: dict, x: torch.Tensor, act: str, *,
     eval forward's only; the serving path passes none) receives the means
     of the gate/up input (``mlp_in``) and of the down projection's input
     (``down_in``)."""
+    tp = current_shard()
+    if tp is not None:
+        # column-parallel gate/up (their biases cut to this rank's
+        # columns), then the down projection of this rank's block
+        cut = {n: tp.col_bias(p[n], "w" + n[1]) for n in ("bg", "bu")
+               if n in p}
+        h = _mlp_hidden({**p, **cut}, x, act)
+        return _tp_project_out(h, p["wd"], p.get("bd"), tp, "wd",
+                               local=tp.col["wu"])
     _record_mean(capture, "mlp_in", x)
     h = _mlp_hidden(p, x, act)
     _record_mean(capture, "down_in", h)

@@ -54,6 +54,8 @@ from .layers import (
     slot_write,
 )
 from .mamba import init_mamba_params, mamba_block, ssm_dims
+from ..sharding import collectives as coll
+from ..sharding.tp import current_shard
 
 #: the cache's per-layer leaves, each [L, B, S, ...] (the scales only in an
 #: int8 cache, "v_err" only with ``kv_bias_correct`` as well)
@@ -521,7 +523,17 @@ class LMModel:
         return self.apply(params, tokens, capture=True)[1]
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cfg.compute_dtype)
+        tp = current_shard()
+        if tp is None or not tp.embed_sharded:
+            return params["embed"][tokens].to(self.cfg.compute_dtype)
+        # vocab-parallel: this rank's rows [lo, lo + V/M), zeros for the
+        # other ids, summed over the ranks (one non-zero term an element)
+        w = params["embed"]
+        lo = tp.model_rank * w.shape[0]
+        mine = (tokens >= lo) & (tokens < lo + w.shape[0])
+        rows = w[torch.where(mine, tokens - lo, 0)].to(self.cfg.compute_dtype)
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return coll.combine(rows, tp.model_group)
 
     def _unembed(self, params, h):
         w = params.get("lm_head")
@@ -541,7 +553,8 @@ class LMModel:
                    device: Optional[Union[str, torch.device]] = "cuda",
                    per_slot: Optional[bool] = None,
                    kv_bits: Optional[int] = None,
-                   dtype: Optional[torch.dtype] = None) -> dict:
+                   dtype: Optional[torch.dtype] = None,
+                   kv_heads: Optional[int] = None) -> dict:
         """The KV cache. ``per_slot=True`` (the serving engine's, and the
         default of the attention families) makes every
         batch row a serving slot with its own write offset (``pos`` [B]) and
@@ -560,7 +573,9 @@ class LMModel:
         [L, B, H, P, S] float32 and ``conv`` [L, B, W-1, d_conv] in
         ``dtype``, and for the hybrid fp ``k`` / ``v`` [L // every, B, S,
         Hkv, hd] (whatever ``kv_bits``, as the reference's) with ``kpos``
-        [S]."""
+        [S]. ``kv_heads`` sizes an attention cache's head axis (default
+        ``cfg.n_kv_heads``; a tensor-parallel rank's pool holds its own
+        heads)."""
         cfg = self.cfg
         kv_bits = cfg.kv_cache_bits if kv_bits is None else int(kv_bits)
         if kv_bits not in (8, 16):
@@ -571,8 +586,8 @@ class LMModel:
                                    dtype or cfg.compute_dtype)
         if per_slot is None:
             per_slot = True
-        L, S, H, hd = (cfg.n_layers, self.cache_len(seq_len), cfg.n_kv_heads,
-                       cfg.head_dim)
+        L, S, H, hd = (cfg.n_layers, self.cache_len(seq_len),
+                       kv_heads or cfg.n_kv_heads, cfg.head_dim)
         kv_dtype = (torch.int8 if kv_bits == 8
                     else dtype or cfg.compute_dtype)
         cache = {
@@ -630,8 +645,8 @@ class LMModel:
                         chunk_kv=None):
         """Run T tokens from ``cache["pos"]`` (each row's, or the batch's);
         ``logits_at`` [B] picks each row's logits position, a scalar the
-        batch's (default: the last); ``chunk_kv`` chunks the attention over
-        a whole-batch cache."""
+        batch's (default: the last), ``"all"`` every position's ([B, T,
+        V]); ``chunk_kv`` chunks the attention over a whole-batch cache."""
         cfg = self.cfg
         p, layers = self.prepare(params)
         B, T = tokens.shape
@@ -661,6 +676,8 @@ class LMModel:
                         chunk_kv=chunk_kv,
                         cache={k: cache[k][i] for k in KV_KEYS if k in cache})
         x = apply_norm(x, p["final_norm"], cfg.norm)
+        if isinstance(logits_at, str) and logits_at == "all":
+            return self._unembed(p, x), {**cache, **new}
         if logits_at is None:
             h_last = x[:, -1:, :]
         else:

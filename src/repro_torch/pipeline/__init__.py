@@ -1,6 +1,5 @@
 """Quantization pipeline: stage registry + recipes + QuantizedModel (port
-of ``repro.pipeline``; the ``shard`` stage and the ``-tp`` recipes come
-with tensor-parallel serving).
+of ``repro.pipeline``).
 
     repro_torch.quantize(arch_or_model, params=None, recipe="dfq-int8", ...)
         → QuantizedModel (.apply/.prefill/.decode_step, .save/.load,
@@ -18,7 +17,6 @@ from .state import (  # noqa: F401
     StageRecord,
 )
 from .registry import (  # noqa: F401
-    NOT_PORTED,
     Stage,
     get_stage,
     list_stages,

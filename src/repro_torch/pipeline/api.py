@@ -193,7 +193,9 @@ def quantize(
         model = build_model(cfg)
     return QuantizedModel(model=model, cfg=cfg, params=state.params,
                           recipe=r, report=state.report,
-                          act_qparams=state.act_qparams)
+                          act_qparams=state.act_qparams,
+                          sharding=({"mode": state.shard_mode}
+                                    if state.shard_mode else {}))
 
 
 def run_legacy_dfq(params, plan, config: DFQConfig, input_means_fn) -> dict:

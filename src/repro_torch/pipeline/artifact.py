@@ -16,7 +16,11 @@ fields the port has — the MoE, SSM, hybrid and encoder-decoder fields
 among them, so either package's mamba2, zamba2 or whisper artifact loads —
 ignores those that do not change what the model computes (a cost-probe
 switch, an init-only bias slot), and refuses any other whose value
-differs from the JAX default (an MLP bias). ``kv_cache_bits`` is
+differs from the JAX default (an MLP bias). The sidecar's ``sharding``
+record — the shard stage's plan, and after ``save(directory, mesh=)`` the
+mesh's shape and axes and every leaf's serve-mode spec as JAX prints it —
+round-trips either way, so a JAX ``-tp`` artifact loads here and the
+port's in JAX. ``kv_cache_bits`` is
 a field of both configs — 8 after a ``kv_cache`` stage with bits=8, else
 16 (the fp cache) — so either package's ``load`` serves the precision the
 other saved; ``QuantizedModel.kv_bits`` reads it.
@@ -66,6 +70,18 @@ def _config_from_sidecar(fields: dict) -> ModelConfig:
     return ModelConfig(**{k: v for k, v in fields.items() if k in _PORT_FIELDS})
 
 
+def read_sharding(directory: str) -> dict:
+    """An artifact's ``sharding`` record, read from its sidecar alone (no
+    weights)."""
+    meta_path = os.path.join(directory, _META_FILE)
+    if not os.path.exists(meta_path):
+        raise PipelineError(
+            f"{directory!r} is not a QuantizedModel directory "
+            f"(missing {_META_FILE}); save one with QuantizedModel.save()")
+    with open(meta_path) as f:
+        return json.load(f).get("sharding", {})
+
+
 def _encode_qtensors(tree):
     """QTensor leaves → tagged plain dicts (the mode in the key; inside,
     ``q`` sorts before ``scale``, the order of their ``arr_i``)."""
@@ -104,6 +120,24 @@ class QuantizedModel:
     # backends; in memory only (save persists the float ranges in the
     # report, as the JAX package does)
     act_qparams: dict = dataclasses.field(default_factory=dict)
+    # the serving parallelism plan from the shard stage: {"mode": "tp"} plus,
+    # once save(mesh=...) ran, the mesh's shape and axes and the per-leaf
+    # serve-mode specs ("/blocks/mlp/wu/q": "PartitionSpec(None, None,
+    # 'model')"); round-trips through save / load
+    sharding: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def shard_mode(self):
+        """"tp" when the recipe carried a shard stage, else None."""
+        return self.sharding.get("mode")
+
+    def serve_pspecs(self, mesh) -> Any:
+        """The serve-mode spec tree of this artifact's params over ``mesh``
+        (int8 payload and scale co-sharded on "model", no FSDP)."""
+        from ..sharding import params_pspecs
+
+        heads = {"n_q": self.cfg.n_heads, "n_kv": self.cfg.n_kv_heads}
+        return params_pspecs(self.params, mesh, heads, mode="serve")
 
     @property
     def kv_bits(self) -> int:
@@ -148,13 +182,27 @@ class QuantizedModel:
         return {}
 
     # --------------------------------------------------------- persistence
-    def save(self, directory: str) -> str:
+    def save(self, directory: str, mesh=None) -> str:
         """Atomic save: the params through the checkpointer, then the JSON
-        sidecar with the config, the recipe and the stage report."""
+        sidecar with the config, the recipe, the sharding record and the
+        stage report. For a sharded artifact (a shard stage in the recipe),
+        the deployment ``mesh`` (a ``DeviceMesh``, or anything whose
+        ``shape`` maps axis → size) is recorded too: its shape, its axes and
+        the serve-mode spec of every leaf."""
         from ..checkpoint import Checkpointer
+        from ..sharding.partition import mesh_sizes, spec_paths
 
         Checkpointer(directory, keep=1).save(0, _encode_qtensors(self.params),
                                              blocking=True)
+        sharding = dict(self.sharding)
+        if mesh is not None and self.shard_mode:
+            sizes = mesh_sizes(mesh)
+            sharding.update(
+                mesh_shape=[int(n) for n in sizes.values()],
+                mesh_axes=list(sizes),
+                specs={path: str(spec) for path, spec in
+                       spec_paths(self.serve_pspecs(mesh))})
+            self.sharding = sharding
         config = dataclasses.asdict(self.cfg)
         meta = {
             "format_version": 1,
@@ -163,7 +211,7 @@ class QuantizedModel:
                        "description": self.recipe.description,
                        "steps": [{"stage": s.stage, "options": dict(s.options)}
                                  for s in self.recipe.steps]},
-            "sharding": {},
+            "sharding": sharding,
             "report": self.report,
         }
         tmp = os.path.join(directory, _META_FILE + ".tmp")
@@ -189,11 +237,6 @@ class QuantizedModel:
         device = resolve_device(device)
         with open(meta_path) as f:
             meta = json.load(f)
-        if meta.get("sharding"):
-            raise PipelineError(
-                f"{directory!r} records a sharded deployment "
-                f"({meta['sharding']}); tensor-parallel serving is not "
-                "ported yet")
         cfg = _config_from_sidecar(meta["config"])
         tree, _ = Checkpointer(directory, keep=1).restore_skeleton(
             0, device=device)
@@ -203,4 +246,5 @@ class QuantizedModel:
                         meta["recipe"].get("description", ""))
         return cls(model=build_model(cfg), cfg=cfg,
                    params=_decode_qtensors(tree), recipe=recipe,
-                   report=meta.get("report", []))
+                   report=meta.get("report", []),
+                   sharding=meta.get("sharding", {}))

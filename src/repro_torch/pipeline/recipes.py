@@ -1,11 +1,11 @@
 """Declarative recipes: named stage sequences with per-stage options (port
 of ``repro.pipeline.recipes``).
 
-A recipe is data, not code. The built-ins are the JAX package's, but the
-tensor-parallel ``-tp`` deployments (``NOT_PORTED_RECIPES``): the paper's
-Fig. 4 flow (``dfq-int8``) and its two ablations, and the serving
+A recipe is data, not code. The built-ins are the JAX package's: the
+paper's Fig. 4 flow (``dfq-int8``) and its two ablations, and the serving
 deployments — norm folding → CLE → bias absorption → int8 pack, with or
-without the int8 KV cache.
+without the int8 KV cache — each with its tensor-parallel ``-tp`` twin
+(the same stages and ``shard[tp]``, which records the plan).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import dataclasses
 import difflib
 from typing import Any, Iterable, Mapping, Sequence, Union
 
-from .registry import NOT_PORTED, get_stage, list_stages
+from .registry import get_stage, list_stages
 from .state import RecipeError
 
 
@@ -116,12 +116,29 @@ BUILTIN_RECIPES: dict = {
            "(weights, activations, KV stream)",
            "fold_norm", "cle", "bias_absorb", ("pack", {"mode": "w8a8"}),
            ("kv_cache", {"bits": 8})),
+        # every serve-* deployment has a -tp twin (same stages + shard[tp])
+        # so --mesh never has to drop the topology from a saved artifact
+        _r("serve-w8a16-tp",
+           "serve-w8a16 deployed tensor-parallel: int8 weights + scales "
+           "co-sharded over the mesh's \"model\" axis, KV pool sharded "
+           "slot-wise over \"data\"",
+           "fold_norm", "cle", "bias_absorb", ("pack", {"mode": "w8a16"}),
+           ("shard", {"mode": "tp"})),
+        _r("serve-w8a8-tp",
+           "serve-w8a8 deployed tensor-parallel across a device mesh",
+           "fold_norm", "cle", "bias_absorb", ("pack", {"mode": "w8a8"}),
+           ("shard", {"mode": "tp"})),
+        _r("serve-w8a16-kv8-tp",
+           "serve-w8a16-kv8 deployed tensor-parallel across a device mesh",
+           "fold_norm", "cle", "bias_absorb", ("pack", {"mode": "w8a16"}),
+           ("kv_cache", {"bits": 8}), ("shard", {"mode": "tp"})),
+        _r("serve-w8a8-kv8-tp",
+           "the full int8 serving stack (weights, activations, KV stream) "
+           "deployed tensor-parallel across a device mesh",
+           "fold_norm", "cle", "bias_absorb", ("pack", {"mode": "w8a8"}),
+           ("kv_cache", {"bits": 8}), ("shard", {"mode": "tp"})),
     )
 }
-
-#: built-in recipes of the JAX package that need a stage the port lacks
-NOT_PORTED_RECIPES = ("serve-w8a16-tp", "serve-w8a8-tp", "serve-w8a16-kv8-tp",
-                      "serve-w8a8-kv8-tp")
 
 RecipeLike = Union[str, Recipe, Sequence]
 
@@ -134,11 +151,6 @@ def resolve_recipe(spec: RecipeLike) -> Recipe:
     if isinstance(spec, str):
         if spec in BUILTIN_RECIPES:
             return BUILTIN_RECIPES[spec]
-        if spec in NOT_PORTED_RECIPES:
-            raise RecipeError(
-                f"recipe {spec!r} is not ported yet: it needs a stage the "
-                f"PyTorch pipeline lacks ({', '.join(NOT_PORTED)}). Built-ins: "
-                f"{', '.join(sorted(BUILTIN_RECIPES))}")
         hint = difflib.get_close_matches(spec, BUILTIN_RECIPES, n=1)
         suggest = f" — did you mean {hint[0]!r}?" if hint else ""
         raise RecipeError(

@@ -5,9 +5,6 @@ The built-in stages (``stages.py``) wrap the core DFQ transforms; other
 code registers more with ``@register_stage(name, **option_defaults)``. The
 declared keyword defaults double as the stage's option schema: a recipe
 passing an undeclared option fails validation with an actionable error.
-
-Stages of the JAX package that the port does not have yet are named in
-``NOT_PORTED``: asking for one raises a ``RecipeError`` that says so.
 """
 from __future__ import annotations
 
@@ -18,10 +15,6 @@ from typing import Any, Callable, Mapping
 from .state import PipelineError, RecipeError
 
 _STAGES: dict = {}
-
-#: stages of the JAX pipeline that are later slices of the port (``shard``
-#: comes with tensor-parallel serving)
-NOT_PORTED = ("shard",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,13 +64,7 @@ def get_stage(name: str) -> Stage:
         return _STAGES[name]
     except KeyError:
         pass
-    if name in NOT_PORTED:
-        raise RecipeError(
-            f"stage {name!r} is not ported yet: the PyTorch pipeline has "
-            f"{', '.join(sorted(_STAGES))}; use the JAX package "
-            "(repro.quantize) for recipes that need it") from None
-    hint = difflib.get_close_matches(name, list(_STAGES) + list(NOT_PORTED),
-                                     n=1)
+    hint = difflib.get_close_matches(name, list(_STAGES), n=1)
     suggest = f" — did you mean {hint[0]!r}?" if hint else ""
     raise RecipeError(f"unknown stage {name!r}{suggest} Registered stages: "
                       f"{', '.join(sorted(_STAGES))}") from None

@@ -6,8 +6,8 @@ bias_absorb → bias_correct → weight_quant (fake-quant) or pack (true-int8
 serving), then kv_cache, which records the KV-cache precision;
 act_ranges sets the activation ranges data-free. ``bias_correct`` runs
 before weight quantization because ε = W̃ − W is computed from the
-still-fp weights. ``shard`` comes with tensor-parallel serving
-(``registry.NOT_PORTED``).
+still-fp weights. ``shard`` records the serving parallelism plan (the
+``-tp`` recipes).
 """
 from __future__ import annotations
 
@@ -193,6 +193,26 @@ def kv_cache_stage(state, ctx, *, bits):
         raise PipelineError(f"kv_cache: bits must be 8 or 16, got {bits!r}")
     state.kv_bits = int(bits)
     state.note(bits=int(bits))
+    return state
+
+
+@register_stage("shard", mode="tp")
+def shard_stage(state, ctx, *, mode):
+    """Record the serving parallelism plan on the artifact.
+
+    mode="tp": serve the model tensor-parallel — weights placed under the
+    serve-mode partition specs (Megatron TP over the mesh's "model" axis,
+    int8 QTensor scales co-sharded with their payload columns, no FSDP
+    factor) and the pooled KV cache sharded slot-wise over "data". A
+    weight-free stage, like ``kv_cache``: the per-layer DFQ metadata shards
+    with its tensor, so nothing is re-quantized —
+    ``ServingEngine(mesh=...)`` applies the plan at load.
+    """
+    if mode not in ("tp", "none"):
+        raise PipelineError(f"shard: unknown mode {mode!r}; use 'tp' or "
+                            "'none'")
+    state.shard_mode = None if mode == "none" else mode
+    state.note(mode=mode)
     return state
 
 

@@ -61,6 +61,7 @@ class PipelineState:
     packed: bool = False
     pack_mode: Optional[str] = None
     kv_bits: Optional[int] = None  # set by the kv_cache stage (8 → int8 KV)
+    shard_mode: Optional[str] = None  # set by the shard stage ("tp")
     records: list = dataclasses.field(default_factory=list)
     _pending_metrics: dict = dataclasses.field(default_factory=dict)
 

@@ -54,16 +54,26 @@ class CachePool:
     def __init__(self, model, num_slots: int, max_len: int, *, device,
                  kv_bits: Optional[int] = None,
                  page_size: Optional[int] = None,
-                 num_pages: Optional[int] = None):
+                 num_pages: Optional[int] = None, shard=None):
         """``kv_bits``: 8 (int8) or 16 (fp); None follows the model's
         ``cfg.kv_cache_bits``. ``page_size`` switches to the paged layout;
         ``num_pages`` sizes it (default: every slot can map a full ring,
-        ``num_slots * ceil(ring / page_size)``)."""
+        ``num_slots * ceil(ring / page_size)``). ``shard`` (a
+        ``sharding.tp.ServeShard``): the device leaves hold this rank's
+        slots and KV heads (``serve_cache_pspecs``), while the host
+        bookkeeping — free slots, pages, refcounts — stays the whole pool's,
+        the same on every rank; a slot's bookkeeping write lands only on
+        the rank that holds it."""
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.num_slots = num_slots
-        cache = model.init_cache(num_slots, max_len, device=device,
-                                 per_slot=True, kv_bits=kv_bits)
+        self._rows = (None if shard is None or not shard.slots_sharded
+                      else (shard.slot_lo, shard.slot_hi))
+        rows = num_slots if self._rows is None else self._rows[1] - self._rows[0]
+        cache = model.init_cache(rows, max_len, device=device,
+                                 per_slot=True, kv_bits=kv_bits,
+                                 kv_heads=None if shard is None
+                                 else shard.kv_heads)
         self.kv_bits = 8 if "k_scale" in cache else 16
         self.max_len = int(cache["kpos"].shape[-1])
         self.page_size = None if page_size is None else int(page_size)
@@ -210,9 +220,19 @@ class CachePool:
         return slot
 
     def _reset_slot(self, slot: int) -> None:
-        self.cache["kpos"][slot] = -1
-        self.cache["pos"][slot] = 0
+        row = self.local_row(slot)
+        if row is not None:
+            self.cache["kpos"][row] = -1
+            self.cache["pos"][row] = 0
         self._pending_reset.discard(slot)
+
+    def local_row(self, slot: int) -> Optional[int]:
+        """``slot``'s row in the device leaves (None: another rank holds
+        it)."""
+        if self._rows is None:
+            return slot
+        lo, hi = self._rows
+        return slot - lo if lo <= slot < hi else None
 
     def note_reset_committed(self, slot: int) -> None:
         """A deferred (fresh-mask) reset committed inside a prefill

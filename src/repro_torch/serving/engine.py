@@ -67,6 +67,22 @@ then block head-of-line. A row whose logits are non-finite (or that
 ``request_drain`` closes admission and finishes what was admitted.
 ``serving/chaos.py`` drives all of it deterministically.
 
+**Tensor-parallel** (``mesh=``, a ``torch.distributed`` ``DeviceMesh``
+from ``launch.mesh``): the params are placed by the reference's planner
+(``sharding.partition``, serve mode) and each rank keeps its blocks; the
+pool holds the rank's slots ("data", contiguous only) and KV heads
+("model"); the forward runs under ``sharding.tp`` (column- and
+row-parallel projections, head-local attention where the model axis
+divides both head counts, the vocab-parallel embedding and logits) and
+each dispatch's per-slot outputs are gathered over the data axis. Every
+rank runs this same host loop: it reads only the requests and the tokens,
+which every rank receives whole from the collectives, so the ranks decide
+the same admissions, chunks, horizons and preemptions — no decision reads
+a rank's wall clock. Under NCCL the fast path's graphs capture the
+collectives; gloo's block the host, and a gloo engine runs the fast path
+eagerly (``stats["graphs"]`` 0, ``stats["graphs_off"]`` says why). The
+MoE family is refused over a mesh (ROADMAP.md Queue A).
+
 Unlike the JAX engine, which donates the cache to each jitted step, the
 port updates ``pool.cache`` IN PLACE and never rebinds a leaf: the model
 writes the K/V payload into the pool's own tensors (paged: into the dense
@@ -89,6 +105,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.dispatch import TIERS, tier_scope
 from ..runtime.fault_tolerance import StragglerMonitor
+from ..sharding.tp import tp_scope
 from .cache_pool import KNOWN_BOOKKEEPING, CachePool
 from .errors import QueueFull, RequestTooLarge
 from .scheduler import FIFOScheduler, PrefixIndex, Request
@@ -237,7 +254,10 @@ class ServingEngine:
     raises the retryable ``QueueFull``). straggler: a ``StragglerMonitor``
     observing each engine step's wall time (``stats["straggler_steps"]``);
     None = defaults. device: where the pool lives and the params must
-    live; the card unless ``device="cpu"``.
+    live; the card unless ``device="cpu"``. mesh: a ``DeviceMesh``
+    ("data", "model" [, leading "pod"]) to serve tensor-parallel over
+    (see the module docstring); every rank of it builds its engine from
+    the same params and serves the same requests.
 
     **Streaming** (``set_stream_callbacks``): ``on_token(rid, tokens,
     tick)`` fires at every host sync that brings new tokens of a request
@@ -263,11 +283,16 @@ class ServingEngine:
                  num_pages: Optional[int] = None, prefix_reuse: bool = True,
                  max_queue: Optional[int] = None,
                  straggler: Optional[StragglerMonitor] = None,
-                 device="cuda", backend: Optional[str] = None):
+                 device="cuda", backend: Optional[str] = None, mesh=None):
         if cfg.family in ("ssm", "hybrid", "audio"):
             raise ValueError(
                 f"the serving engine supports attention-family decoder-only "
                 f"models (got {cfg.name!r}, family {cfg.family!r})")
+        if mesh is not None and cfg.family == "moe":
+            raise ValueError(
+                f"{cfg.name}: the MoE family is not served over a mesh yet "
+                f"(ROADMAP.md Queue A: the MoE family under a mesh, with "
+                f"_moe_block_shardmap); serve it without mesh=")
         if decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, got {decode_horizon}")
         self.device = resolve_device(device)
@@ -279,6 +304,20 @@ class ServingEngine:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine serves on {self.device}")
         self.model = model
+        self.mesh = mesh
+        self.shard = None
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from ..sharding.partition import shard_tree
+            from ..sharding.tp import ServeShard
+
+            self.shard = ServeShard(
+                mesh, cfg, params, num_slots=num_slots,
+                paged=page_size is not None,
+                backend=dist.get_backend(mesh.get_group("model")))
+            # this rank's blocks of the serve-mode specs
+            params = shard_tree(params, self.shard.specs, mesh)
         self.params = params
         # the compute-dtype cast, out of the loop; held so that the tensors
         # a captured graph reads outlive any later prepare of other params
@@ -290,7 +329,7 @@ class ServingEngine:
         self.fast = fast
         self.pool = CachePool(model, num_slots, max_len, device=self.device,
                               kv_bits=kv_bits, page_size=page_size,
-                              num_pages=num_pages)
+                              num_pages=num_pages, shard=self.shard)
         self.kv_bits = self.pool.kv_bits
         self.page_size = self.pool.page_size
         self.paged = self.pool.paged
@@ -309,9 +348,17 @@ class ServingEngine:
         self.scheduler = FIFOScheduler(max_queue=max_queue)
         self.straggler = straggler or StragglerMonitor()
         self.graphs = None
-        if fast and self.device.type == "cuda":
+        if not fast:
+            graphs_off = "the stepwise path"
+        elif self.device.type != "cuda":
+            graphs_off = "the CPU runs the fast path eagerly"
+        elif self.shard is not None and self.shard.backend != "nccl":
+            graphs_off = (f"{self.shard.backend}'s collectives block the "
+                          f"host: no CUDA graph can capture them")
+        else:
             from .graphs import EngineGraphs
 
+            graphs_off = ""
             self.graphs = EngineGraphs(self.device)
         # forwards of the masked dispatches run before each capture (they
         # are in no stat: warmup reports them)
@@ -349,6 +396,9 @@ class ServingEngine:
             # what "slow" means for the monitor (a config echo)
             "straggler_threshold": float(getattr(self.straggler,
                                                  "threshold", 0.0)),
+            # whether the fast path replays CUDA graphs, and why not
+            "graphs": int(self.graphs is not None),
+            "graphs_off": graphs_off,
         }
 
     @classmethod
@@ -381,6 +431,7 @@ class ServingEngine:
                "pos": start}
         logits, sub = self.model.prefill(self.params, tokens, sub,
                                          logits_at=n_valid - 1)
+        tok, nonfinite = self._pick(logits)
         end = start + n_valid
         kpos = torch.where(sub["kpos"] >= end[:, None], -1, sub["kpos"])
         for k in payload:
@@ -391,9 +442,7 @@ class ServingEngine:
         pos = torch.where(is_real, end, cache["pos"])
         cache["kpos"].copy_(kpos)
         cache["pos"].copy_(pos)
-        tok = torch.argmax(logits, dim=-1)
-        bad = ~torch.isfinite(logits).all(dim=-1) & is_real
-        return tok, bad
+        return tok, nonfinite & is_real
 
     def _decode_masked(self, cache, tokens, active):
         """One full-slot-batch decode step over ``cache``. Rows not in
@@ -410,8 +459,26 @@ class ServingEngine:
         pos = torch.where(active, new["pos"], prev_pos)
         cache["kpos"].copy_(kpos)
         cache["pos"].copy_(pos)
-        bad = ~torch.isfinite(logits).all(dim=-1) & active
-        return torch.argmax(logits, dim=-1), bad
+        tok, nonfinite = self._pick(logits)
+        return tok, nonfinite & active
+
+    def _pick(self, logits):
+        """(greedy token, non-finite flag) of each row; over the vocab
+        shards of a sharded engine."""
+        if self.shard is not None:
+            return self.shard.pick(logits)
+        return torch.argmax(logits, dim=-1), ~torch.isfinite(logits).all(dim=-1)
+
+    def _on_slots(self, impl, *args, **kwargs):
+        """``impl`` over the contiguous pool on this rank's slots: the
+        per-slot arguments cut to its rows, each output gathered over the
+        data-parallel group, so every rank's host sees every slot."""
+        sh = self.shard
+        if sh is None or not sh.slots_sharded:
+            return impl(self.pool.cache, *args, **kwargs)
+        lo, hi = sh.slot_lo, sh.slot_hi
+        out = impl(self.pool.cache, *(a[lo:hi] for a in args), **kwargs)
+        return tuple(sh.gather_slots(o) for o in out)
 
     def _decode_horizon_impl(self, cache, tokens, remaining, *, k: int):
         """K decode steps over ``cache`` in one dispatch, one host sync.
@@ -459,8 +526,8 @@ class ServingEngine:
         """One full-width masked prefill (``_prefill_masked``); the fast
         path's ``[num_slots, C]`` dispatch."""
         if not self.paged:
-            return self._prefill_masked(self.pool.cache, tokens, n_valid,
-                                        fresh, is_real)
+            return self._on_slots(self._prefill_masked, tokens, n_valid,
+                                  fresh, is_real)
         start = torch.where(fresh, 0, self.pool.cache["pos"])
         rows = self._ring_rows(start, is_real[:, None].expand(tokens.shape))
         return self._on_view(rows, self._prefill_masked, tokens, n_valid,
@@ -469,7 +536,7 @@ class ServingEngine:
     def _decode(self, tokens, active):
         """One masked decode step (the stepwise path)."""
         if not self.paged:
-            return self._decode_masked(self.pool.cache, tokens, active)
+            return self._on_slots(self._decode_masked, tokens, active)
         rows = self._ring_rows(self.pool.cache["pos"], active[:, None])
         return self._on_view(rows, self._decode_masked, tokens, active)
 
@@ -477,8 +544,8 @@ class ServingEngine:
         """A decode horizon (``_decode_horizon_impl``); paged, ONE gather
         before its k steps and one commit after them."""
         if not self.paged:
-            return self._decode_horizon_impl(self.pool.cache, tokens,
-                                             remaining, k=k)
+            return self._on_slots(self._decode_horizon_impl, tokens,
+                                  remaining, k=k)
         t = torch.arange(k, device=remaining.device)[None, :]
         rows = self._ring_rows(self.pool.cache["pos"], t < remaining[:, None])
         return self._on_view(rows, self._decode_horizon_impl, tokens,
@@ -1082,7 +1149,7 @@ class ServingEngine:
         decode. On the fast path a decode horizon advances the clock by K
         ticks (one a generated-token step, as on the stepwise path)."""
         t0 = time.monotonic()
-        with tier_scope(self.backend):
+        with tier_scope(self.backend), tp_scope(self.shard):
             ticks = self._step()
         self.stats["engine_steps"] += ticks
         self.clock += float(ticks)

@@ -44,6 +44,12 @@ What a graph relies on, and how this module keeps it:
     capture's count is taken back (nothing ran) and added again at every
     replay, so ``launch_counts()`` keeps counting the launches that ran.
 
+  * **Collectives.** A tensor-parallel engine over NCCL captures its
+    mesh's collectives (``sharding.collectives``, all ``all_reduce``) on
+    this stream with everything else; the masked dispatch before the
+    capture brings up the communicators. Gloo's collectives block the
+    host and cannot be captured: the engine builds no graphs over gloo.
+
 A capture that fails raises; nothing falls back to running the fast path
 eagerly on the card.
 """

@@ -287,10 +287,19 @@ def test_mixtral_artifact_round_trips_through_both_packages(tmp_path):
 
 
 def test_sharded_artifact_is_refused(tmp_path):
-    jq = repro.quantize(ARCH, recipe="serve-w8a8-tp")
+    """A JAX ``-tp`` artifact loads with its shard stage's record and its
+    int8 weights; what the port still refuses of it is a mesh over the MoE
+    family (ROADMAP.md Queue A), before any rank starts."""
+    jq = repro.quantize("mixtral-8x22b-smoke", recipe="serve-w8a8-tp")
     jq.save(str(tmp_path))
-    with pytest.raises(PipelineError, match="tensor-parallel serving"):
-        QuantizedModel.load(str(tmp_path), device="cpu")
+    qm = QuantizedModel.load(str(tmp_path), device="cpu")
+    assert qm.shard_mode == "tp" and qm.sharding == {"mode": "tp"}
+    _assert_same_leaves(qm.params, jax_to_numpy(jq.params))
+    from repro_torch.serving import ServingEngine
+
+    with pytest.raises(ValueError, match="MoE family is not served over a "
+                                         "mesh"):
+        ServingEngine.from_quantized(qm, device="cpu", mesh=object())
 
 
 # ------------------------------------------------------ the checkpointer

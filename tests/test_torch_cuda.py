@@ -1724,3 +1724,61 @@ def test_idle_engine_step_launches_nothing_on_the_card(dev):
     torch.cuda.synchronize()
     assert eng.clock == clock + 3
     assert not any(launch_counts().values()), launch_counts()
+
+
+def test_qmatmul_w8a8_i32_and_epilogue_bit_equal(dev):
+    """The epilogue-free W8A8 GEMM writes the exact int32 accumulator (its
+    plain version's), and the scale epilogue after it gives
+    ``qmatmul_w8a8``'s bits, at ragged and split shapes, the cut shapes of
+    a model axis of 2 among them."""
+    from repro_torch.kernels.qmatmul_w8a8 import qmatmul_w8a8
+    from repro_torch.kernels.qmatmul_w8a8.ops import qmatmul_w8a8_i32
+    from repro_torch.kernels.qmatmul_w8a8.ref import (
+        qmatmul_w8a8_i32_ref,
+        w8a8_epilogue,
+    )
+
+    for M, K, N in ((1, 16, 8), (5, 33, 17), (8, 448, 896), (8, 2432, 896),
+                    (256, 2432, 896)) + SPLIT_CASES:
+        a = torch.randint(-128, 128, (M, K), device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (N, K), device=dev, dtype=torch.int8).t()
+        sa, sw = torch.rand(M, device=dev), torch.rand(N, device=dev)
+        bias = torch.randn(N, device=dev)
+        acc = qmatmul_w8a8_i32(a, w)
+        assert acc.dtype == torch.int32
+        assert torch.equal(acc, qmatmul_w8a8_i32_ref(a, w)), (M, K, N)
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(w8a8_epilogue(acc, sa, sw, bias, out),
+                               qmatmul_w8a8(a, w, sa, sw, bias,
+                                            out_dtype=out)), (M, K, N, out)
+
+
+def test_one_rank_nccl_mesh_serves_the_single_device_tokens(dev):
+    """A 1x1 NCCL mesh (one process, its own 1-rank group): the fast path
+    captures the mesh's collectives in its CUDA graphs, and serve-w8a8-kv8-tp
+    gives the single-device engine's tokens."""
+    import torch.distributed as dist
+
+    import repro_torch
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.serving import Request, ServingEngine
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already running in this process")
+    qm = repro_torch.quantize("qwen2-0.5b-smoke", recipe="serve-w8a8-kv8-tp",
+                              device=dev)
+    reqs = [Request(rid=i, prompt=list(range(3 + 2 * i)), max_new_tokens=5)
+            for i in range(4)]
+    kw = dict(num_slots=2, max_len=32, prefill_chunk=8, device=dev)
+    single = ServingEngine.from_quantized(qm, **kw).run(
+        [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=5) for r in reqs])
+    mesh = make_production_mesh(shape=(1, 1), device=dev)
+    try:
+        eng = ServingEngine.from_quantized(qm, mesh=mesh, **kw)
+        assert eng.stats["graphs"] == 1
+        assert eng.warmup()["graphs"] > 0
+        got = eng.run(reqs)
+    finally:
+        dist.destroy_process_group()
+    assert {r: v.tokens for r, v in got.items()} == \
+        {r: v.tokens for r, v in single.items()}

@@ -60,6 +60,8 @@ def test_import_leaves_jax_out_and_torch_state_alone():
         "import repro_torch.core, repro_torch.pipeline\n"
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "import repro_torch.runtime, repro_torch.optim, repro_torch.data\n"
+        "import repro_torch.sharding, repro_torch.sharding.collectives\n"
+        "import repro_torch.sharding.tp, repro_torch.launch.mesh\n"
         "after = (torch.get_default_dtype(), torch.get_num_threads(),\n"
         "         torch.are_deterministic_algorithms_enabled())\n"
         "print(before == after, 'jax' in sys.modules, 'repro' in sys.modules)")
@@ -78,6 +80,23 @@ def test_import_reads_no_backend_environment():
         "from repro_torch.kernels import dispatch\n"
         "print(dispatch.tier_for(torch.zeros(1)), dict(os.environ) == snap)")
     assert out == "torch True"
+
+
+def test_sharding_modules_are_the_ports_own():
+    """The planner, the collectives, the shard and the mesh are the port's
+    own copies: present, parsed by the import check above, and importing
+    torch.distributed at most (no process group is started at import)."""
+    for rel in ("sharding/__init__.py", "sharding/partition.py",
+                "sharding/collectives.py", "sharding/tp.py",
+                "launch/mesh.py"):
+        path = PORT / rel
+        assert path in _port_files(), rel
+        assert not {n.split(".")[0] for n in _imports(path)} & {
+            "jax", "jaxlib", "repro"}, rel
+    out = _run("import torch.distributed as dist, repro_torch.sharding.tp, "
+               "repro_torch.launch.mesh, repro_torch.launch.serve\n"
+               "print(dist.is_initialized())")
+    assert out == "False"
 
 
 def test_entry_points_default_to_the_card():

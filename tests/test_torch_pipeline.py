@@ -41,7 +41,6 @@ from _torch_port import hostile_jax_params, jax_to_numpy
 import repro_torch
 from repro_torch import get_config
 from repro_torch.pipeline import (
-    NOT_PORTED,
     PipelineError,
     Recipe,
     RecipeError,
@@ -100,14 +99,11 @@ def test_with_options_unknown_stage_error():
 
 
 def test_builtin_recipes_validate_and_match_jax():
-    """Every built-in of the JAX package but the four tensor-parallel
-    ``-tp`` deployments, step for step."""
-    assert list_recipes() == ["cle-only", "dfq-int8", "naive-int8",
-                              "serve-w8a16", "serve-w8a16-kv8", "serve-w8a8",
-                              "serve-w8a8-kv8"]
-    assert sorted(set(jax_pipeline.list_recipes()) - set(list_recipes())) == [
-        "serve-w8a16-kv8-tp", "serve-w8a16-tp", "serve-w8a8-kv8-tp",
-        "serve-w8a8-tp"]
+    """Every built-in of the JAX package — the four tensor-parallel ``-tp``
+    deployments among them — step for step."""
+    assert list_recipes() == jax_pipeline.list_recipes()
+    assert {"serve-w8a16-kv8-tp", "serve-w8a16-tp", "serve-w8a8-kv8-tp",
+            "serve-w8a8-tp"} <= set(list_recipes())
     for name in list_recipes():
         r = resolve_recipe(name)
         r.validate()
@@ -161,21 +157,13 @@ def test_config_and_cle_stage_take_only_options_the_port_reads():
         Recipe("r", (RecipeStep("cle", {"include_approx": True}),)).validate()
 
 
-@pytest.mark.parametrize("stage", NOT_PORTED)
-def test_unported_stage_raises_naming_it(stage):
-    assert stage in jax_pipeline.list_stages()      # a JAX stage
-    with pytest.raises(PipelineError, match=f"{stage}.*not ported yet"):
-        repro_torch.quantize(ARCH, recipe=["fold_norm", stage], device="cpu")
-
-
 def test_unported_recipe_and_missing_recipe_raise():
-    """The ``-tp`` recipes raise "not ported yet" naming the stage they
-    need; with no recipe, ``quantize`` runs the JAX default, dfq-int8."""
-    for name in ("serve-w8a16-tp", "serve-w8a8-tp", "serve-w8a16-kv8-tp",
-                 "serve-w8a8-kv8-tp"):
-        with pytest.raises(PipelineError,
-                           match=f"{name}.*not ported yet.*shard"):
-            resolve_recipe(name)
+    """Every stage of the JAX pipeline is the port's; an unknown recipe
+    raises with a suggestion; with no recipe, ``quantize`` runs the JAX
+    default, dfq-int8."""
+    assert list_stages() == jax_pipeline.list_stages()
+    with pytest.raises(RecipeError, match="serve-w8a8-tp"):
+        resolve_recipe("serve-w8a8-tq")
     qm = repro_torch.quantize(ARCH, device="cpu")
     assert qm.recipe.name == "dfq-int8"
     assert [r["stage"] for r in qm.report] == [

@@ -30,9 +30,8 @@ from repro_torch.quantized.qtensor import QTensor
 
 import torch
 
-#: JAX fields that come with later work (tensor-parallel serving, the
-#: QuantLint graph linter)
-NOT_PORTED = {"mesh", "lint"}
+#: the JAX field that comes with later work (the QuantLint graph linter)
+NOT_PORTED = {"lint"}
 
 
 def _fake_artifact(recipe="serve-w8a8-kv8", kv_bits=8,
@@ -62,8 +61,8 @@ def _actions(parser):
     return {a.dest: a for a in parser._actions if a.dest != "help"}
 
 
-def test_every_jax_field_but_mesh_and_lint_has_its_port_twin():
-    """Each JAX ``ServeConfig`` field except ``mesh`` / ``lint`` is a port
+def test_every_jax_field_but_lint_has_its_port_twin():
+    """Each JAX ``ServeConfig`` field except ``lint`` is a port
     field of the same name, with the same flag, default, type, choices and
     kind of switch."""
     jax_fields = {f.name for f in dataclasses.fields(JaxServeConfig)}
