@@ -315,19 +315,53 @@ Phases, each of which must pass (nothing here catches a failure):
      ranks spawned on the one card (``tp_rank``; gloo, named explicitly:
      NCCL refuses two ranks on one device) serve phase 4's trace under
      serve-w8a8-kv8-tp and serve-w8a16-kv8-tp over 1x2 and 2x1 meshes,
-     fast (eager: gloo's collectives cannot be captured) and stepwise:
-     every request's tokens and finish tick equal phase 4's, each rank's
+     fast (eager: gloo's collectives cannot be captured) and stepwise, at
+     full width cut to ``TP_LAYERS`` layers (the depth logged): every
+     request's tokens and finish tick equal one device's at that depth
+     (fast and stepwise, ``serve_cut``), each rank's
      launches exact (``tp_expected_launches``); after each fast 1x2 run,
      the teacher-forced logits of every request (``tp_teacher_forced``):
      W8A8 bit-equal to one device; W8A16 (float32 partials summed in
      another order) no farther from one device than twice the bf16
      forward's own distance from float32, its argmax moved only at
-     near-ties, its tokens counted against phase 4's. 13c: a 1x1 NCCL mesh
+     near-ties, its tokens counted against one device's. 13c: a 1x1 NCCL mesh
      in this process, the fast path with its CUDA graphs capturing the
      mesh's collectives (warmup): phase 4's tokens, launches exact, tok/s
      beside phase 4's. 13d: ``repro_torch.serve(ServeConfig(mesh=(1, 2),
      mesh_backend="gloo", save=...))`` and ``--load`` of that artifact over
      its recorded mesh: the same tokens, each rank's launches exact.
+  14. the MoE family and the async front-end over a mesh — phase 2 first
+     holds every per-rank expert GEMM (``check_moe_tp_shapes``: the
+     expert-batched int32 W8A8 GEMM at mixtral's and llama4's row-parallel
+     expert down — one launch, bit-equal to its plain version and through
+     ``w8a8_epilogue`` to the expert-batched qmatmul_w8a8 —, W8A16's
+     float32 partials of mixtral's and llama4's expert down at 1x2 within
+     W8A16_TOL, and the cut expert gate/up, W8A8 and W8A16). 14a:
+     mixtral-8x22b at full width and phase 9's depth (checked against what
+     two ranks on the card hold), quantized once under serve-w8a8-kv8-tp
+     and serve-w8a16-tp and saved; one device serves ``MOE_TP``'s trace
+     (phase 4's, cut to ``MOE_TP_TRACE`` requests) fast and stepwise; a
+     W8A8 prefill chunk of 8 slots bit-equal to its two halves' (the batch a
+     rank of a data axis of 2 prefills), timed as the model runs it (a KV
+     head's group a call) and as one call over every head
+     (``prefill_rows_check``; 14d the same for qwen2); two ranks spawned on
+     the one card (``moe_tp_rank``, gloo) load each artifact and serve it
+     over 1x2 and 2x1, fast (eager) and stepwise: W8A8 every request's
+     tokens, admission and finish ticks the one device's, W8A16 the same
+     at 2x1 and at 1x2 the same or phase 13's teacher-forced criterion;
+     after each fast run layer 0's MoE block on the same activations,
+     sharded against one device (``moe_block_gap``): router logits
+     bit-equal, drops equal, the output W8A8 bit-equal and W8A16 within
+     ``MOE_BLOCK_TOL`` of max |y|; each rank's launches exact (``moe_tp_expected_launches``), its peak
+     memory and the choices dropped logged. 14b: the W8A8 artifact over a
+     1x1 NCCL mesh under CUDA graphs: the one device's tokens and ticks.
+     14c: llama4-scout at smoke size over 1x2, W8A8 (its float shared
+     expert cut over "model"): the one device's tokens. 14d:
+     ``repro_torch.serve(ServeConfig(serve_async=True, mesh=(1, 2)))`` of
+     qwen2-0.5b's serve-w8a8-kv8-tp artifact on phase 10a's and 10b's
+     traces (cut: ``ASYNC_TP_TRACES``): every outcome, the server's
+     counters and the SLO summary equal the one device's, each rank's
+     launches exact.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -335,6 +369,7 @@ CUDA device, or when the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2066,7 +2101,8 @@ def _int_mm_ms(torch, a, w):
     return device_ms(lambda: torch._int_mm(a_lib, w), 50)
 
 
-def check_tp_shapes(torch, dev, gen):
+def check_tp_shapes(torch, dev, gen, column=TP_COLUMN, row=TP_ROW, ms=TP_M,
+                    attention=TP_ATTENTION, quantize=TP_QUANTIZE):
     """Every per-rank kernel shape of phase 13 against its plain version
     before any rank serves: the column-parallel W8A8 GEMM (and its
     quantize-in fold where gemm_plan folds) and W8A16 GEMM at q / k / v /
@@ -2076,7 +2112,9 @@ def check_tp_shapes(torch, dev, gen):
     (``w8a8_epilogue``), to ``qmatmul_w8a8`` in bfloat16 and float32; the
     row-parallel W8A16 GEMM's float32 partials at the cut K; fused_decode and
     kv_attention head-local (Hq 7, Hkv 1) and at 4 slots; quantize_act at
-    the gathered rows. Returns {kernel: rows} (timed, the rows' format)."""
+    the gathered rows. The shape tables default to qwen2's (``TP_*``);
+    phase 14 passes mixtral's (``MOE_TP_*``). Returns {kernel: rows}
+    (timed, the rows' format)."""
     from repro_torch.kernels import gemm_plan
     from repro_torch.kernels.fused_decode.kernel import fused_decode_cuda
     from repro_torch.kernels.fused_decode.ref import fused_decode_ref
@@ -2102,12 +2140,12 @@ def check_tp_shapes(torch, dev, gen):
                            "qmatmul_w8a8_i32", "qmatmul_w8a16",
                            "fused_decode", "kv_attention", "quantize_act")}
     bf = torch.bfloat16
-    for (label, K, N), row_par in ([(c, False) for c in TP_COLUMN]
-                                   + [(r, True) for r in TP_ROW]):
+    for (label, K, N), row_par in ([(c, False) for c in column]
+                                   + [(r, True) for r in row]):
         w = _kmajor_int8(torch, gen, dev, K, N)
         sw = torch.rand((N,), generator=gen, device=dev) * 0.01 + 1e-4
         bias = torch.randn((N,), generator=gen, device=dev)
-        for M in TP_M["model=1" if "model=1" in label else "cut"]:
+        for M in ms["model=1" if "model=1" in label else "cut"]:
             p = gemm_plan.plan(M, N, K)
             tag = f"M={M} K={K} N={N} ({label})"
             a = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
@@ -2204,7 +2242,7 @@ def check_tp_shapes(torch, dev, gen):
                     x, w, sw, bb, od), 10),
                 "bound_ms": b, "bound_by": by, "library_ms": None,
                 "splits": p.splits})
-    for B, Hq, Hkv, hd, S in TP_ATTENTION:
+    for B, Hq, Hkv, hd, S in attention:
         lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
         leaves, valid, q, kn, vn, idx = _decode_inputs(
             torch, dev, gen, B, S, Hq, Hkv, hd, bf, lens)
@@ -2247,7 +2285,7 @@ def check_tp_shapes(torch, dev, gen):
             "plain_ms": device_ms(lambda: kv_attention_ref(
                 q, kq, ks, vq, vs, bf), 5),
             "bound_ms": b, "bound_by": by, "library_ms": None})
-    for M, K in TP_QUANTIZE:
+    for M, K in quantize:
         x = (torch.randn((M, K), generator=gen, device=dev) * 3).to(bf)
         qa, sa = quantize_act_cuda(x)
         qr, sr = quantize_act_ref(x)
@@ -2458,6 +2496,230 @@ def check_expert_gemms(torch, dev, gen):
         "quantize-in fold bit-equal, W8A16 within its tolerance, at every "
         "expert shape and both routers")
     return rows
+
+
+# the per-rank expert shapes of tensor-parallel MoE serving (phase 14): the
+# row-parallel expert down through the expert-batched int32 GEMM — (arch,
+# mesh, E, the expert rows M a rank at a decode step and a prefill chunk of
+# 32, K, N): a model axis of 2 cuts mixtral's K = 16384 to 8192 and
+# llama4's 8192 to 4096, a data axis of 2 halves the slots (4 a rank), a
+# 1x1 mesh keeps both (14b's decode step);
+# then the cut expert gate/up (K, N = F/2), W8A8 (quantize-in where
+# gemm_plan folds) and W8A16, at both row counts
+MOE_TP_DOWN = (("mixtral-8x22b", "1x2", 8, (8, 80), 8192, 6144),
+               ("mixtral-8x22b", "2x1", 8, (4, 40), 16384, 6144),
+               ("mixtral-8x22b", "1x1", 8, (8,), 16384, 6144),
+               ("llama4-scout-17b-a16e", "1x2", 16, (8, 16), 4096, 5120))
+MOE_TP_GATE_UP = (("mixtral-8x22b", 8, (8, 80), 6144, 8192),
+                  ("llama4-scout-17b-a16e", 16, (8, 16), 5120, 4096))
+# and mixtral's dense per-rank shapes (``check_tp_shapes``' tables): q
+# (48 heads of 128) and k / v (8) cut to this rank's heads at 1x2, o
+# row-parallel at the cut K = 3072 and the whole 6144 (2x1, 1x1);
+# head-local decode attention at 1x2 (24 q heads over 4 KV heads), the
+# whole heads at 4 slots (2x1) and 8 (1x1); quantize_act of the gathered
+# expert rows (E x the slots' capacity rows, K = 16384: 1x2 and 1x1 a
+# decode step and a prefill chunk, 2x1 a decode step) and of o's rows
+MOE_TP_COLUMN = (("mixtral q", 6144, 3072), ("mixtral k/v", 6144, 512))
+MOE_TP_ROW = (("mixtral o", 3072, 6144), ("mixtral o model=1", 6144, 6144))
+MOE_TP_ATTENTION = ((8, 24, 4, 128, 512), (4, 48, 8, 128, 512),
+                    (8, 48, 8, 128, 512))
+MOE_TP_QUANTIZE = ((64, 16384), (640, 16384), (32, 16384), (8, 6144))
+
+
+def check_moe_tp_shapes(torch, dev, gen):
+    """Every per-rank expert GEMM of phase 14 against its plain version:
+    ``qmatmul_w8a8_i32`` with the expert axis (``MOE_TP_DOWN``) ONE launch
+    (``qmatmul_w8a8_i32_experts``), each expert's accumulator its plain
+    version's, and through ``w8a8_epilogue`` (per-expert scales [E, M] and
+    [E, 1]) the expert-batched ``qmatmul_w8a8``'s bits in bfloat16 and
+    float32; at a model axis of 2 (1x2) also W8A16's expert down, ONE
+    launch of ``qmatmul_w8a16`` on float32 rows (the float32 partials
+    ``_row_linear`` sums), each expert within ``W8A16_TOL`` of its plain
+    version; the cut gate/up (``MOE_TP_GATE_UP``) as the quantize-in W8A8
+    GEMM where the plan folds (else ``qmatmul_w8a8`` on quantize_act's rows)
+    bit-equal to its plain version, and as ``qmatmul_w8a16`` within
+    ``W8A16_TOL``. Each row timed beside its bound and plain version; a
+    loop of ``torch._int_mm`` over the experts is the int32 rows' yardstick
+    (no one PyTorch call computes an expert-batched product:
+    ``library_ms`` None). Returns {kernel: rows}."""
+    from repro_torch.kernels import gemm_plan, launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8.kernel import (
+        qmatmul_w8a8_cuda,
+        qmatmul_w8a8_i32_cuda,
+        qmatmul_w8a8_qin_cuda,
+    )
+    from repro_torch.kernels.qmatmul_w8a8.ref import (
+        qmatmul_w8a8_i32_ref,
+        qmatmul_w8a8_qin_ref,
+        qmatmul_w8a8_ref,
+        w8a8_epilogue,
+    )
+    from repro_torch.kernels.qmatmul_w8a16.kernel import qmatmul_w8a16_cuda
+    from repro_torch.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref
+
+    bf = torch.bfloat16
+    out = {"qmatmul_w8a8_i32_experts": [], "qmatmul_w8a8": [],
+           "qmatmul_w8a8_qin": [], "qmatmul_w8a16": []}
+    for arch, mesh, E, Ms, K, N in MOE_TP_DOWN:
+        w = _experts_w(torch, gen, dev, E, K, N)
+        sw = torch.rand((E, 1), generator=gen, device=dev) * 0.01 + 1e-4
+        sw_n = sw.expand(E, N).contiguous()
+        zero = torch.zeros((E, N), device=dev)
+        for M in Ms:
+            tag = f"E={E} M={M} K={K} N={N} ({arch} down, a rank at {mesh})"
+            p = gemm_plan.plan(M, N, K, experts=E)
+            a = torch.randint(-128, 128, (E, M, K), generator=gen,
+                              device=dev, dtype=torch.int8)
+            sa = torch.rand((E, M), generator=gen, device=dev) * 0.05 + 1e-4
+            reset_launch_counts()
+            acc = qmatmul_w8a8_i32_cuda(a, w)
+            assert launch_counts().get("qmatmul_w8a8_i32_experts") == 1, (
+                f"qmatmul_w8a8_i32 {tag}: {launch_counts()}")
+            torch.cuda.synchronize()
+            for e in range(E):
+                assert torch.equal(acc[e], qmatmul_w8a8_i32_ref(a[e], w[e])), (
+                    f"qmatmul_w8a8_i32 {tag}: expert {e} off its plain "
+                    f"version")
+            for od in (bf, torch.float32):
+                y = qmatmul_w8a8_cuda(a, w, sa, sw_n, zero, out_dtype=od)
+                assert torch.equal(w8a8_epilogue(acc, sa, sw, None, od), y), (
+                    f"qmatmul_w8a8_i32 {tag} + epilogue != qmatmul_w8a8 {od}")
+            a_lib = a if M > 16 else torch.cat(
+                [a, a.new_zeros((E, 32 - M, K))], 1)
+            b, by = bound_ms(E * (M * K + K * N + 4 * M * N),
+                             2 * E * M * K * N, INT8_OPS_S)
+            kern = lambda: qmatmul_w8a8_i32_cuda(a, w)
+            out["qmatmul_w8a8_i32_experts"].append({
+                "shape": tag + " -> int32", "max_abs_err": 0.0,
+                "ms": device_ms(kern, 20), "call_ms": call_ms(kern, 20),
+                "plain_ms": device_ms(lambda: [qmatmul_w8a8_i32_ref(
+                    a[e], w[e]) for e in range(E)], 2),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "yardstick_ms": device_ms(lambda: [torch._int_mm(
+                    a_lib[e], w[e]) for e in range(E)], 20),
+                "yardstick": "a loop of torch._int_mm over the experts"
+                + ("" if M > 16 else f", M zero-padded {M}->32"),
+                "with_epilogue_ms": device_ms(lambda: qmatmul_w8a8_cuda(
+                    a, w, sa, sw_n, zero, out_dtype=bf), 20),
+                "splits": p.splits})
+            if mesh != "1x2":
+                continue
+            # W8A16 at a model axis of 2: the expert down's float32
+            # partials (``_row_linear``: the bf16 hidden rows taken in
+            # float32, the bf16-cast scale), one expert-batched launch of
+            # the float32 kernel
+            x = torch.randn((E, M, K), generator=gen, device=dev).to(bf).float()
+            s16 = sw.to(bf)
+            reset_launch_counts()
+            y = qmatmul_w8a16_cuda(x, w, s16, None)
+            assert launch_counts().get("qmatmul_w8a16") == 1, (
+                f"qmatmul_w8a16 {tag} float32: {launch_counts()}")
+            torch.cuda.synchronize()
+            worst = 0.0
+            for e in range(E):
+                yr = qmatmul_w8a16_ref(x[e], w[e], s16[e], None, torch.float32)
+                diff = (y[e] - yr).abs()
+                tol = w8a16_tolerance(torch, x[e], w[e], s16[e], None, yr)
+                assert bool((diff <= tol).all()), (
+                    f"qmatmul_w8a16 {tag} float32: expert {e} off its plain "
+                    f"version at {int((diff > tol).sum())} values")
+                worst = max(worst, float(diff.max()))
+            b, by = bound_ms(E * (4 * M * K + K * N + 2 + 4 * M * N),
+                             2 * E * M * K * N, F32_OPS_S)
+            kern = lambda: qmatmul_w8a16_cuda(x, w, s16, None)
+            out["qmatmul_w8a16"].append({
+                "shape": tag + " float32 -> f32 partials",
+                "max_abs_err": worst, "ms": device_ms(kern, 20),
+                "call_ms": call_ms(kern, 20),
+                "plain_ms": device_ms(lambda: [qmatmul_w8a16_ref(
+                    x[e], w[e], s16[e], None, torch.float32)
+                    for e in range(E)], 2),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "splits": p.splits})
+        del w
+    for arch, E, Ms, K, N in MOE_TP_GATE_UP:
+        w = _experts_w(torch, gen, dev, E, K, N)
+        sw = torch.rand((E, 1), generator=gen, device=dev) * 0.01 + 1e-4
+        sw_n = sw.expand(E, N).contiguous()
+        zero = torch.zeros((E, N), device=dev)
+        for M in Ms:
+            tag = f"E={E} M={M} K={K} N={N} ({arch} gate/up, a rank at 1x2)"
+            p = gemm_plan.plan(M, N, K, experts=E)
+            x = torch.stack([_qin_input(torch, gen, dev, M, K, bf)
+                             for _ in range(E)])
+            if p.fold:
+                y = qmatmul_w8a8_qin_cuda(x, w, sw_n, zero, out_dtype=bf)
+                torch.cuda.synchronize()
+                for e in range(E):
+                    assert torch.equal(y[e], qmatmul_w8a8_qin_ref(
+                        x[e], w[e], sw_n[e], zero[e], bf)), (
+                        f"qmatmul_w8a8_qin {tag}: expert {e}")
+                b, by = bound_ms(E * (2 * M * K + K * N + 8 * N + 2 * M * N),
+                                 2 * E * M * K * N, INT8_OPS_S)
+                kern = lambda: qmatmul_w8a8_qin_cuda(x, w, sw_n, zero,
+                                                     out_dtype=bf)
+                name = "qmatmul_w8a8_qin"
+                plain = lambda: [qmatmul_w8a8_qin_ref(
+                    x[e], w[e], sw_n[e], zero[e], bf) for e in range(E)]
+            else:
+                a = torch.randint(-128, 128, (E, M, K), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                sa = (torch.rand((E, M), generator=gen, device=dev) * 0.05
+                      + 1e-4)
+                y = qmatmul_w8a8_cuda(a, w, sa, sw_n, zero, out_dtype=bf)
+                torch.cuda.synchronize()
+                for e in range(E):
+                    assert torch.equal(y[e], qmatmul_w8a8_ref(
+                        a[e], w[e], sa[e], sw_n[e], zero[e], bf)), (
+                        f"qmatmul_w8a8 {tag}: expert {e}")
+                b, by = bound_ms(E * (M * K + K * N + 4 * M + 8 * N
+                                      + 2 * M * N),
+                                 2 * E * M * K * N, INT8_OPS_S)
+                kern = lambda: qmatmul_w8a8_cuda(a, w, sa, sw_n, zero,
+                                                 out_dtype=bf)
+                name = "qmatmul_w8a8"
+                plain = lambda: [qmatmul_w8a8_ref(
+                    a[e], w[e], sa[e], sw_n[e], zero[e], bf)
+                    for e in range(E)]
+            out[name].append({
+                "shape": tag + (" bf16 -> bf16" if p.fold else " -> bf16"),
+                "max_abs_err": 0.0, "ms": device_ms(kern, 20),
+                "call_ms": call_ms(kern, 20), "plain_ms": device_ms(plain, 2),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "splits": p.splits})
+            s16 = sw.to(bf)
+            y = qmatmul_w8a16_cuda(x, w, s16, None)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for e in range(E):
+                yr = qmatmul_w8a16_ref(x[e], w[e], s16[e], None, bf)
+                diff = (y[e].float() - yr.float()).abs()
+                tol = w8a16_tolerance(torch, x[e], w[e], s16[e], None, yr)
+                assert bool((diff <= tol).all()), (
+                    f"qmatmul_w8a16 {tag}: expert {e} off its plain version")
+                worst = max(worst, float(diff.max()))
+            b, by = bound_ms(E * (2 * M * K + K * N + 2 + 2 * M * N),
+                             2 * E * M * K * N, BF16_OPS_S)
+            kern = lambda: qmatmul_w8a16_cuda(x, w, s16, None)
+            out["qmatmul_w8a16"].append({
+                "shape": tag + " bfloat16", "max_abs_err": worst,
+                "ms": device_ms(kern, 20), "call_ms": call_ms(kern, 20),
+                "plain_ms": device_ms(lambda: [qmatmul_w8a16_ref(
+                    x[e], w[e], s16[e], None, bf) for e in range(E)], 2),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "splits": p.splits})
+        del w
+    for name, rows in out.items():
+        for r in rows:
+            log_row(name, r)
+            if "with_epilogue_ms" in r:
+                log(f"    + epilogue as qmatmul_w8a8 (one launch, bf16 out): "
+                    f"{r['with_epilogue_ms'] * 1e3:.2f} us")
+    log("  the per-rank expert GEMMs of phase 14: the expert-batched int32 "
+        "GEMM one launch, bit-equal to its plain version and through the "
+        "epilogue to qmatmul_w8a8; the cut gate/up bit-equal (W8A8) and "
+        "within W8A16_TOL")
+    return out
 
 
 # --------------------------------------------------------------- phase 3
@@ -5076,12 +5338,17 @@ def check_training(torch, dev, smi):
 # the meshes of 13a and 13b: two ranks on the one card, over gloo (NCCL
 # refuses two ranks on one device)
 TP_MESHES = ((1, 2), (2, 1))
+# 13a / 13b serve qwen2-0.5b at full width cut to TP_LAYERS of its 24
+# layers (two gloo ranks on the one card stage each collective through
+# host memory: at 24 layers 13a / 13b took 163-285 s), beside one-device
+# runs at the same depth; 13c and 13d serve all 24
+TP_LAYERS = 6
 # 13d's serve / --load round trip: a shorter trace of phase 4's settings
 TP_ROUND_TRIP = dict(SERVE, trace=4, prompt_min=32, prompt_len=64, gen_min=8,
                      gen_len=8)
 
 
-def tp_expected_launches(quantize, shape, steps, chunks):
+def tp_expected_launches(quantize, shape, steps, chunks, layers=None):
     """{kernel: launches} of one rank of a tensor-parallel serve of
     qwen2-0.5b over ``shape`` (data, model) on phase 4's settings, per
     decode step and prefill dispatch, as the model launches them: the
@@ -5092,14 +5359,14 @@ def tp_expected_launches(quantize, shape, steps, chunks):
     one epilogue-free int32 GEMM each, after one quantize_act of the
     gathered row, except o at a decode step of a model axis of 1, which
     takes the fused kernel's quantize-out (the attention sees every
-    head)."""
+    head). ``layers`` cuts the depth (default: all 24)."""
     import repro_torch
     from repro_torch.kernels import gemm_plan
 
     cfg = repro_torch.get_config(SERVE["arch"])
     data, m = shape
     D, F, A, KV, L = (cfg.d_model, cfg.d_ff, cfg.attn_dim, cfg.kv_dim,
-                      cfg.n_layers)
+                      layers or cfg.n_layers)
     slots = SERVE["slots"] // data
     want = {"fused_decode": L * steps}
     if quantize == "w8a16":
@@ -5122,7 +5389,7 @@ def tp_expected_launches(quantize, shape, steps, chunks):
     return want
 
 
-def tp_teacher_forced(torch, model, params, eng, seqs):
+def tp_teacher_forced(torch, model, params, eng, seqs, kv_bits=8):
     """Each sequence's every-position logits (``logits_at="all"``) on the
     card: the single-device ``params`` in bf16 (the serving dtype) and in
     float32, and the sharded engine's blocks under its shard (bf16).
@@ -5148,14 +5415,14 @@ def tp_teacher_forced(torch, model, params, eng, seqs):
             toks = torch.tensor([list(seq)], device="cuda")
             T = toks.shape[1]
             cache = model32.init_cache(1, T, device="cuda", per_slot=True,
-                                       kv_bits=8)
+                                       kv_bits=kv_bits)
             f32 = model32.prefill(params, toks, cache,
                                   logits_at="all")[0][0].float()
             cache = model.init_cache(1, T, device="cuda", per_slot=True,
-                                     kv_bits=8)
+                                     kv_bits=kv_bits)
             single = model.prefill(params, toks, cache, logits_at="all")[0][0]
             cache = model.init_cache(1, T, device="cuda", per_slot=True,
-                                     kv_bits=8, kv_heads=shard.kv_heads)
+                                     kv_bits=kv_bits, kv_heads=shard.kv_heads)
             with tp_scope(shard):
                 sh = model.prefill(eng.params, toks, cache,
                                    logits_at="all")[0][0]
@@ -5180,12 +5447,13 @@ def tp_teacher_forced(torch, model, params, eng, seqs):
 
 def tp_rank(rank, world, store, out, ref):
     """A rank of 13a / 13b: join the gloo group, and for serve-w8a8-kv8-tp
-    and serve-w8a16-kv8-tp (qwen2-0.5b quantized from phase 4's seed on the
-    card) serve phase 4's trace over each mesh of ``TP_MESHES``, fast and
-    stepwise, each run's launches counted from 0; after each fast 1x2 run,
-    ``tp_teacher_forced`` over every request's prompt and phase 4's tokens
-    (``ref``: {quantize: {rid: tokens}}). Writes its results (or its
-    traceback) to ``out.<rank>``."""
+    and serve-w8a16-kv8-tp (qwen2-0.5b at ``TP_LAYERS`` layers, quantized
+    from phase 4's seed on the card) serve phase 4's trace over each mesh
+    of ``TP_MESHES``, fast and stepwise, each run's launches counted from
+    0; after each fast 1x2 run, ``tp_teacher_forced`` over every request's
+    prompt and the one device's tokens at that depth (``ref``: {quantize:
+    {rid: tokens}}). Writes its results (or its traceback) to
+    ``out.<rank>``."""
     import dataclasses
     import pickle
     import traceback
@@ -5207,11 +5475,12 @@ def tp_rank(rank, world, store, out, ref):
                                           backend="gloo") for s in TP_MESHES}
         config = repro_torch.ServeConfig(**SERVE)
         result = {}
+        cfg = dataclasses.replace(repro_torch.get_config(SERVE["arch"]),
+                                  n_layers=TP_LAYERS)
         for quantize in ("w8a8", "w8a16"):
             qm = repro_torch.quantize(
-                repro_torch.build_model(repro_torch.get_config(SERVE["arch"])),
-                None, init_seed=SERVE["seed"], device="cuda",
-                recipe=f"serve-{quantize}-kv8-tp")
+                repro_torch.build_model(cfg), None, init_seed=SERVE["seed"],
+                device="cuda", recipe=f"serve-{quantize}-kv8-tp")
             reqs = _requests(config, qm.cfg.vocab_size)
             for shape in TP_MESHES:
                 for fast in (True, False):
@@ -5251,20 +5520,21 @@ def tp_rank(rank, world, store, out, ref):
         pickle.dump(result, f)
 
 
-def spawn_tp_ranks(world, ref, timeout=900):
-    """Run ``tp_rank`` in ``world`` spawned processes; {rank: results}."""
+def spawn_ranks(target, world, job, phase, timeout=900):
+    """Run ``target(rank, world, store, out, job)`` in ``world`` spawned
+    processes (``tp_rank``, ``moe_tp_rank``); {rank: results}."""
     import pickle
     import shutil
     import tempfile
 
     import torch.multiprocessing as mp
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     try:
         ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=tp_rank,
+        procs = [ctx.Process(target=target,
                              args=(r, world, os.path.join(tmp, "store"),
-                                   os.path.join(tmp, "out"), ref))
+                                   os.path.join(tmp, "out"), job))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -5277,12 +5547,12 @@ def spawn_tp_ranks(world, ref, timeout=900):
         for r in range(world):
             path = os.path.join(tmp, f"out.{r}")
             assert os.path.exists(path), (
-                f"phase 13 rank {r} left no result (exit codes "
+                f"phase {phase} rank {r} left no result (exit codes "
                 f"{[p.exitcode for p in procs]})")
             with open(path, "rb") as f:
                 got[r] = pickle.load(f)
             assert not isinstance(got[r], str), (
-                f"phase 13 rank {r} failed:\n{got[r]}")
+                f"phase {phase} rank {r} failed:\n{got[r]}")
         return got
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5301,15 +5571,16 @@ def same_tp_tokens(tokens, ref, what):
             f"{r.finished_at}")
 
 
-def check_tensor_parallel(torch, dev, runs, stepwise, smi):
+def check_tensor_parallel(torch, dev, runs, smi):
     """Phase 13: qwen2-0.5b served tensor-parallel on the card.
 
     13a / 13b: meshes 1x2 and 2x1, two ranks on the one card over gloo (the
     backend named explicitly; NCCL refuses two ranks on one device), the
     fast path (eager: gloo's collectives cannot be captured) and the
     stepwise path, serve-w8a8-kv8-tp and serve-w8a16-kv8-tp on phase 4's
-    trace: every request's tokens and finish tick equal phase 4's
-    single-device runs on the same weights, each rank's launches exact.
+    trace at ``TP_LAYERS`` layers: every request's tokens and finish tick
+    equal the one device's runs (``serve_cut``) on the same weights and
+    depth, each rank's launches exact.
     13c: a 1x1 NCCL mesh, the fast path with its CUDA graphs (captured by
     warmup) holding the mesh's collectives: phase 4's tokens, launches
     exact, tok/s beside phase 4's. 13d: ``repro_torch.serve(ServeConfig(
@@ -5325,17 +5596,22 @@ def check_tensor_parallel(torch, dev, runs, stepwise, smi):
     from repro_torch.launch.mesh import make_production_mesh
 
     counted = {}
+    # the one device at 13a / 13b's cut depth, fast and stepwise
+    cut = {q: {fast: serve_cut(torch, SERVE, TP_LAYERS, q, 8,
+                               reference=not fast)[0]
+               for fast in (True, False)} for q in ("w8a8", "w8a16")}
     t = time.perf_counter()
-    ranks = spawn_tp_ranks(2, {q: {rid: list(r.tokens) for rid, r in
-                                   runs[q][0].results.items()}
-                               for q in ("w8a8", "w8a16")})
+    ranks = spawn_ranks(tp_rank, 2, {q: {rid: list(r.tokens) for rid, r in
+                                         cut[q][True].results.items()}
+                                     for q in ("w8a8", "w8a16")}, 13)
     log(f"  13a/13b: 2 ranks spawned, quantized and served in "
         f"{time.perf_counter() - t:.1f} s")
     for (quantize, shape, fast), r0 in ranks[0].items():
         mesh_s = "x".join(map(str, shape))
         label = (f"serve-{quantize}-kv8-tp {mesh_s} gloo "
-                 + ("fast (eager)" if fast else "stepwise"))
-        ref = runs[quantize][0] if fast else stepwise[quantize]
+                 + ("fast (eager)" if fast else "stepwise")
+                 + f" ({TP_LAYERS} layers)")
+        ref = cut[quantize][fast]
         tf = r0.get("teacher_forced")
         if tf is not None:
             n = sum(t[0] for t in tf)
@@ -5344,7 +5620,7 @@ def check_tensor_parallel(torch, dev, runs, stepwise, smi):
             bf16 = min(t[3] for t in tf)
             worst = max(t[4] for t in tf)
             log(f"  {label}: teacher-forced logits over the 16 requests' "
-                f"prompts and phase 4's tokens ({r0['tf_seconds']:.1f} s): "
+                f"prompts and one device's tokens ({r0['tf_seconds']:.1f} s): "
                 f"max |sharded - single-device| {rel:.3g} of max |logit| "
                 f"(the single-device bf16 forward's own distance from "
                 f"float32: at least {bf16:.3g}); argmax moved at {moved} of "
@@ -5378,15 +5654,15 @@ def check_tensor_parallel(torch, dev, runs, stepwise, smi):
                     first.append(next(i for i, (a, b) in
                                       enumerate(zip(toks, rr.tokens))
                                       if a != b))
-            log(f"  {label}: {same} of 16 requests = phase 4's tokens; the "
-                f"others part at generated token {sorted(first)}")
+            log(f"  {label}: {same} of 16 requests = one device's tokens; "
+                f"the others part at generated token {sorted(first)}")
         else:
             same_tp_tokens(r0["tokens"], ref, label)
         st = r0["stats"]
         assert st["graphs"] == 0 and (not fast or "gloo" in st["graphs_off"]), (
             label, st["graphs_off"])
         want = tp_expected_launches(quantize, shape, st["decode_steps"],
-                                    st["prefill_dispatches"])
+                                    st["prefill_dispatches"], TP_LAYERS)
         for rank, res in ranks.items():
             got = res[quantize, shape, fast]["counts"]
             for name in set(got) | set(want):
@@ -5397,9 +5673,9 @@ def check_tensor_parallel(torch, dev, runs, stepwise, smi):
         moves = quantize == "w8a16" and shape == (1, 2)
         log(f"  {label}: "
             + ("16/16 requests finished" if moves else
-               "16/16 requests = phase 4's tokens and finish ticks")
+               "16/16 requests = one device's tokens and finish ticks")
             + f"; {gen} tokens in {r0['seconds']:.3f} s = "
-            f"{gen / r0['seconds']:.1f} tok/s (phase 4 single-device "
+            f"{gen / r0['seconds']:.1f} tok/s (one device "
             f"{ref.tokens_per_second:.1f}); head-local "
             f"{r0['head_local']}; {st['decode_steps']} decode steps in "
             f"{st['decode_dispatches']} dispatches, "
@@ -5496,6 +5772,731 @@ def check_tensor_parallel(torch, dev, runs, stepwise, smi):
     return counted
 
 
+# --------------------------------------------------------------- phase 14
+# the MoE family over a mesh: mixtral-8x22b at full width on phase 4's
+# engine settings, the trace cut to MOE_TP_TRACE requests to keep phase 14
+# inside its time (two ranks on the one card over gloo stage every
+# collective through host memory)
+MOE_TP_TRACE = 8
+MOE_TP = dict(MIXTRAL, trace=MOE_TP_TRACE)
+MOE_TP_RECIPES = (("w8a8", "serve-w8a8-kv8-tp", 8),
+                  ("w8a16", "serve-w8a16-tp", 16))
+# 14c: llama4-scout at smoke size (its shared expert's route), 1x2 W8A8
+LLAMA4_SMOKE = dict(arch="llama4-scout-17b-a16e-smoke", slots=3, max_len=32,
+                    prefill_chunk=4, trace=6, prompt_len=10, gen_len=6)
+# 14d: the async front-end over a 1x2 mesh, qwen2-0.5b serve-w8a8-kv8-tp;
+# phase 10a's and 10b's traces cut in length (gen 16) and count
+ASYNC_TP = dict(SERVE, gen_min=16, gen_len=16, serve_async=True)
+ASYNC_TP_TRACES = {"underload": dict(trace=4, qps=0.25),
+                   "overload": dict(trace=12, qps=2.0, max_queue=4,
+                                    timeout=48.0, shed_pressure=0.5,
+                                    page_size=32)}
+
+
+#: 14a's MoE-block gate: a sharded block's output from one device's on the
+#: same activations, as a share of one device's max |y|, where routing
+#: cannot amplify it (the router is whole, so every choice is one
+#: device's). W8A16 differs by float32 partials summed in another order
+#: (one bf16 rounding of y, 2^-8 of it) and by one-ulp flips of the cut
+#: gate/up's bf16 outputs, which the down projection averages: the gate is
+#: four of bf16's roundoffs. A rank's partial dropped moves y by about half
+#: its size (tests/test_torch_serving_sharded_moe.py plants it).
+MOE_BLOCK_TOL = 2.0 ** -6
+
+
+def moe_block_gap(torch, cfg, whole, local, x, shard):
+    """Layer 0's MoE block on activations ``x`` [B, T, D]: one device on
+    every row (``whole``: the one device's params tree) and the shard on
+    its rows (``local``: the rank's cut tree, each cast to the compute
+    dtype as the forward casts it), gathered over "data" where the slots
+    shard. Returns (router logits bit-equal, the drops of every row equal,
+    max |sharded - one device| / max |one device|). Every rank runs it
+    (its collectives) and gets the same answer."""
+    from repro_torch.models import layers
+    from repro_torch.models.lm import _layer, cast_for_compute
+    from repro_torch.sharding.tp import tp_scope
+
+    def mlp(params):
+        return cast_for_compute(_layer(params["blocks"], 0)["mlp"],
+                                cfg.compute_dtype)
+
+    with torch.no_grad():
+        one, cut = mlp(whole), mlp(local)
+        drops = []
+        y1, _ = layers.moe_block(one, x, cfg, drops=drops)
+        want = {"y": y1, "logits": layers.router_logits(one, x),
+                "drops": drops[0]}
+        rows = x[shard.slot_lo:shard.slot_hi] if shard.slots_sharded else x
+        drops = []
+        with tp_scope(shard):
+            y2, _ = layers.moe_block(cut, rows, cfg, drops=drops)
+            got = {"y": y2, "logits": layers.router_logits(cut, rows),
+                   "drops": drops[0]}
+        if shard.slots_sharded:
+            got = {k: shard.gather_slots(v.contiguous())
+                   for k, v in got.items()}
+    y1 = want["y"].float()
+    gap = float((got["y"].float() - y1).abs().max() / y1.abs().max())
+    return (bool(torch.equal(got["logits"], want["logits"])),
+            bool(torch.equal(got["drops"], want["drops"])), gap)
+
+
+@contextlib.contextmanager
+def one_call_prefill_attention():
+    """For a timing only: the prefill attention over the int8 cache as ONE
+    call over every head, as before it ran a KV head's group a call
+    (``layers._cached_attention``; the fp cache and the decode step as
+    they are)."""
+    from repro_torch.models import layers
+
+    real = layers._cached_attention
+
+    def one_call(q, k, v, dims, cache, slots, chunk_kv, dtype, want_q8):
+        if "k_scale" not in cache or q.shape[1] == 1 or "v_err" in cache:
+            return real(q, k, v, dims, cache, slots, chunk_kv, dtype,
+                        want_q8)
+        B, T, nq, hd = q.shape
+        group = nq // k.shape[2]
+        ck, ks, cv, vs = layers.append_quantize(
+            cache["k"], cache["k_scale"], cache["v"], cache["v_scale"], k, v,
+            slots.idx)[:4]
+        kd = ck.to(dtype) * ks.to(dtype)[..., None]
+        vd = cv.to(dtype) * vs.to(dtype)[..., None]
+        attn = layers.attention_scores_softmax(
+            q, layers._repeat_kv(kd, group), layers._repeat_kv(vd, group),
+            slots.mask, chunk_kv=chunk_kv,
+            causal_segments=dims.causal_segments)
+        return attn.reshape(B, T, nq * hd), None
+
+    layers._cached_attention = one_call
+    try:
+        yield
+    finally:
+        layers._cached_attention = real
+
+
+def prefill_rows_check(torch, qm, settings, label, smi):
+    """One prefill chunk at ``settings``' shape (its slots x prefill_chunk
+    tokens into a cache of max_len positions, int8 KV) through
+    ``model.prefill``: every position's logits over all the slots bit-equal
+    to those of the two halves run alone (a data axis of 2 prefills half
+    the slots a rank: the batched attention GEMMs see another batch).
+    Then the cost of running the prefill attention a KV head's group a
+    call, against ONE call over every head
+    (``one_call_prefill_attention``), back to back (``call_ms``: eager,
+    the host's time and syncs included — both hold a host sync, so
+    ``device_ms`` cannot run ahead of them): the chunk, and the attention
+    alone at the chunk's shape (a layer); and ``settings``' trace served
+    on the fast path (CUDA graphs, captured by warmup under the same
+    attention: ``one_device_run``) both ways, in the order split, one
+    call, one call, split. Returns {name: ms or tok/s}."""
+    from repro_torch.models import layers
+
+    cfg = qm.cfg
+    B, T, S = settings["slots"], settings["prefill_chunk"], settings["max_len"]
+    gen = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen).cuda()
+    model = qm.model
+
+    def prefill(rows):
+        cache = model.init_cache(rows.shape[0], S, device="cuda",
+                                 per_slot=True, kv_bits=8)
+        return model.prefill(qm.params, rows, cache, logits_at="all")[0]
+
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dims = layers.AttnDims(n_q=Hq, n_kv=Hkv, head_dim=hd)
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn((B, T, h, hd), generator=g, device="cuda").to(bf)
+               for h in (Hq, Hkv, Hkv))
+    slots = layers.slot_write(
+        torch.full((B, S), -1, dtype=torch.int64, device="cuda"),
+        torch.arange(T, device="cuda")[None].expand(B, T))
+    kv = {"k": torch.zeros((B, S, Hkv, hd), dtype=torch.int8, device="cuda"),
+          "v": torch.zeros((B, S, Hkv, hd), dtype=torch.int8, device="cuda"),
+          "k_scale": torch.zeros((B, S, Hkv), device="cuda"),
+          "v_scale": torch.zeros((B, S, Hkv), device="cuda")}
+    with torch.no_grad():
+        whole = prefill(toks)
+        h = B // 2
+        halves = torch.cat([prefill(toks[:h]), prefill(toks[h:])])
+        assert torch.equal(whole, halves), (
+            f"{label}: prefill logits of {B} slots differ from their halves' "
+            f"(max |diff| {float((whole.float() - halves.float()).abs().max())})")
+        cache = model.init_cache(B, S, device="cuda", per_slot=True,
+                                 kv_bits=8)
+        chunk = lambda: model.prefill(qm.params, toks, cache)
+        attend = lambda: layers._cached_attention(q, k, v, dims, kv, slots,
+                                                  None, bf, False)
+        ms = {"chunk": call_ms(chunk, 5), "attention": call_ms(attend, 20)}
+        with one_call_prefill_attention():
+            ms["chunk_one_call"] = call_ms(chunk, 5)
+            ms["attention_one_call"] = call_ms(attend, 20)
+    del cache, kv
+    fast, served = {"split": [], "one_call": []}, []
+    for way in ("split", "one_call", "one_call", "split"):
+        with (one_call_prefill_attention() if way == "one_call"
+              else contextlib.nullcontext()):
+            got, tps, _ = one_device_run(
+                torch, qm, settings, True, f"{label} ({way})", cfg=cfg,
+                kv_bits=8, quantize="w8a8")
+        fast[way].append(tps)
+        served.append(got)
+    same = all(got == served[0] for got in served)
+    ms.update({f"fast_{k}": v for k, v in fast.items()})
+    log(f"  {label}: a prefill chunk ({B} slots x {T} tokens, {S} "
+        f"positions, {cfg.n_layers} layers): every position's logits = its "
+        f"two halves' run alone, bit for bit; a KV head's group a call "
+        f"against one call over every head: the chunk back to back "
+        f"{ms['chunk']:.3f} / {ms['chunk_one_call']:.3f} ms "
+        f"({(ms['chunk'] / ms['chunk_one_call'] - 1) * 100:+.1f} %), the "
+        f"attention alone a layer {ms['attention']:.3f} / "
+        f"{ms['attention_one_call']:.3f} ms; the trace on the fast path "
+        f"(graphs) {' / '.join(f'{t:.1f}' for t in fast['split'])} against "
+        f"{' / '.join(f'{t:.1f}' for t in fast['one_call'])} tok/s, tokens "
+        f"and ticks {'the same' if same else 'not all the same'} ({smi})")
+    return ms
+
+
+def moe_tp_expected_launches(quantize, cfg, shape, flags, steps, chunks, *,
+                             slots, chunk, kv_bits):
+    """{kernel: launches} of one rank of an MoE engine over ``shape``
+    (data, model) per decode step and prefill dispatch, from the rank's
+    shard ``flags`` (``col`` / ``row`` / ``head_local`` /
+    ``slots_sharded``) as the layers launch them. W8A16: one qmatmul_w8a16
+    a projection (q, k, v, o, the router, the experts' gate, up and down).
+    W8A8 at each input: q / k / v at this rank's columns, the router whole,
+    the experts' gate / up at this rank's F columns (E rows of the capacity
+    C a row each) — the quantize-in fold where gemm_plan folds for all, else
+    quantize_act and an int8 GEMM each; o row-parallel: quantize_act of the
+    gathered row (none at a decode step that takes the fused kernel's
+    quantize-out: a model axis of 1) and one qmatmul_w8a8_i32, else
+    whole; the experts' down row-parallel: quantize_act of the gathered
+    rows and one qmatmul_w8a8_i32_experts. The fused decode once a layer a
+    decode step over the int8 cache. llama4's shared expert is float: no
+    kernel."""
+    from repro_torch.kernels import gemm_plan
+
+    data, m = shape
+    col, row = flags["col"], flags["row"]
+    local = slots // data if flags["slots_sharded"] else slots
+    L, E, D, F = cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff
+    A, KV = cfg.attn_dim, cfg.kv_dim
+    want = {}
+    if kv_bits == 8:
+        want["fused_decode"] = L * steps
+    if quantize == "w8a16":
+        want["qmatmul_w8a16"] = 8 * L * (steps + chunks)
+        return want
+    want.update(quantize_act=0, qmatmul_w8a8=0, qmatmul_w8a8_qin=0,
+                qmatmul_w8a8_i32=0, qmatmul_w8a8_i32_experts=0)
+
+    def cut(name, n):
+        return n // m if col[name] else n
+
+    def add(M, K, Ns, e, n):
+        if all(gemm_plan.plan(M, N, K, experts=e).fold for N in Ns):
+            want["qmatmul_w8a8_qin"] += L * n
+            want["qmatmul_w8a8"] += (len(Ns) - 1) * L * n
+        else:
+            want["quantize_act"] += L * n
+            want["qmatmul_w8a8"] += len(Ns) * L * n
+
+    for T, n, decode in ((1, steps, True), (chunk, chunks, False)):
+        M = local * T
+        BC = local * max(1, int(T * cfg.top_k / E * cfg.capacity_factor))
+        add(M, D, (cut("wq", A), cut("wk", KV), cut("wv", KV)), 1, n)
+        q8 = decode and kv_bits == 8 and not flags["head_local"]
+        if row["wo"]:
+            want["qmatmul_w8a8_i32"] += L * n
+            want["quantize_act"] += 0 if q8 else L * n
+        elif q8:
+            want["qmatmul_w8a8"] += L * n
+        else:
+            add(M, A, (D,), 1, n)
+        add(M, D, (E,), 1, n)
+        add(BC, D, (cut("experts/wg", F), cut("experts/wu", F)), E, n)
+        if row["experts/wd"]:
+            want["quantize_act"] += L * n
+            want["qmatmul_w8a8_i32_experts"] += L * n
+        else:
+            add(BC, F, (D,), E, n)
+    return want
+
+
+def moe_tp_rank(rank, world, store, out, job):
+    """A rank of 14a / 14c: join the gloo group; for each of ``job``'s
+    mixtral artifacts load it (``QuantizedModel.load``, as ``--load``) and
+    serve ``MOE_TP``'s trace over 1x2 and 2x1, fast and stepwise, each
+    run's launches, peak memory and drops (this rank's rows) counted from
+    its start; after each fast run, ``moe_block_gap`` on layer 0; after a
+    1x2 run whose tokens are not the one device's (``job["ref"]``, fast or
+    stepwise), ``tp_teacher_forced`` over its requests and the one
+    device's tokens;
+    then the llama4 smoke artifact over 1x2, fast. Writes its results (or
+    its traceback) to ``out.<rank>``."""
+    import dataclasses
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    result = None
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        import repro_torch
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.launch.mesh import make_production_mesh
+        from repro_torch.launch.serve import _requests
+        from repro_torch.sharding import collectives as coll
+
+        meshes = {s: make_production_mesh(shape=s, device="cuda",
+                                          backend="gloo") for s in TP_MESHES}
+        result = {}
+        runs = [(q, job["dirs"][q], MOE_TP, shape, fast)
+                for q, _, _ in MOE_TP_RECIPES for shape in TP_MESHES
+                for fast in (True, False)]
+        runs.append(("llama4", job["dirs"]["llama4"], LLAMA4_SMOKE, (1, 2),
+                     True))
+        qm = loaded = None
+        for key, directory, sv, shape, fast in runs:
+            t0 = time.perf_counter()
+            if loaded != directory:
+                qm = None
+                torch.cuda.empty_cache()
+                qm = repro_torch.QuantizedModel.load(directory, device="cuda")
+                loaded = directory
+            load_s = time.perf_counter() - t0
+            reqs = _requests(repro_torch.ServeConfig(**{
+                k: v for k, v in sv.items() if k != "arch"}),
+                qm.cfg.vocab_size)
+            eng = repro_torch.ServingEngine.from_quantized(
+                qm, mesh=meshes[shape], num_slots=sv["slots"],
+                max_len=sv["max_len"], prefill_chunk=sv["prefill_chunk"],
+                fast=fast, device="cuda")
+            qm.model.drop_log = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = eng.run([dataclasses.replace(r) for r in reqs])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            drops = torch.zeros((), dtype=torch.int64, device="cuda")
+            for d in qm.model.drop_log:
+                drops += d.sum()
+            qm.model.drop_log = None
+            sh = eng.shard
+            if sh.slots_sharded:
+                coll.all_reduce_sum(drops, sh.dp_group)
+            tokens = {rid: (list(r.tokens), r.admitted_at, r.finished_at,
+                            r.status) for rid, r in res.items()}
+            entry = {
+                "tokens": tokens, "seconds": dt, "load_seconds": load_s,
+                "stats": dict(eng.stats), "counts": counts,
+                "peak": torch.cuda.max_memory_allocated(),
+                "resident": torch.cuda.memory_allocated(),
+                "drops": int(drops),
+                "flags": {"col": dict(sh.col), "row": dict(sh.row),
+                          "head_local": sh.head_local,
+                          "slots_sharded": sh.slots_sharded}}
+            if fast and key != "llama4":
+                # layer 0's MoE block on seeded activations (8 slots x a
+                # prefill chunk), sharded against one device: the gate
+                # where routing cannot amplify a difference
+                x = torch.randn((sv["slots"], sv["prefill_chunk"],
+                                 qm.cfg.d_model),
+                                generator=torch.Generator().manual_seed(13))
+                entry["block"] = moe_block_gap(
+                    torch, qm.cfg, qm.params, eng.params,
+                    x.to("cuda", qm.cfg.compute_dtype), sh)
+            ref = job["ref"].get(key, {}).get(fast)
+            if (shape == (1, 2) and ref is not None
+                    and any(tokens[rid][0] != ref[rid] for rid in ref)):
+                t0 = time.perf_counter()
+                entry["teacher_forced"] = tp_teacher_forced(
+                    torch, qm.model, qm.params, eng,
+                    [list(r.prompt) + ref[r.rid] for r in reqs],
+                    kv_bits=qm.cfg.kv_cache_bits)
+                entry["tf_seconds"] = time.perf_counter() - t0
+            result[key, shape, fast] = entry
+            del eng
+        dist.destroy_process_group()
+    except BaseException:
+        result = traceback.format_exc()
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(result, f)
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor of a params tree (a QTensor's payload and
+    scale)."""
+    from repro_torch.quantized.qtensor import QTensor
+
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, QTensor):
+        return tree_bytes(tree.q) + tree_bytes(tree.scale)
+    return tree.numel() * tree.element_size()
+
+
+def one_device_run(torch, qm, sv, fast, label, *, cfg, kv_bits, quantize):
+    """The one-device engine over ``qm`` on ``sv``'s trace, fast (graphs
+    captured by warmup) or stepwise; launches held to
+    ``expected_launches``. Returns (tokens {rid: (tokens, admitted,
+    finished, status)}, tok/s, counts)."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import _requests
+
+    reqs = _requests(repro_torch.ServeConfig(**{
+        k: v for k, v in sv.items() if k != "arch"}), qm.cfg.vocab_size)
+    eng = repro_torch.ServingEngine.from_quantized(
+        qm, num_slots=sv["slots"], max_len=sv["max_len"],
+        prefill_chunk=sv["prefill_chunk"], fast=fast, device="cuda")
+    reset_launch_counts()
+    warm = eng.warmup() if fast else {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run([dataclasses.replace(r) for r in reqs])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    want = expected_launches(
+        quantize, True, eng.stats["decode_steps"] + warm.get("decode_steps", 0),
+        eng.stats["prefill_dispatches"] + warm.get("prefill_dispatches", 0),
+        cfg=cfg, kv_bits=kv_bits, slots=sv["slots"], chunk=sv["prefill_chunk"])
+    for name, n in counts.items():
+        assert n == want.get(name, 0), (
+            f"{label}: {name} launched {n} times, expected {want.get(name, 0)}")
+    for r in res.values():
+        assert r.status == "ok", f"{label}: request {r.rid}: {r.status}"
+    tokens = {rid: (list(r.tokens), r.admitted_at, r.finished_at, r.status)
+              for rid, r in res.items()}
+    return tokens, eng.stats["generated_tokens"] / dt, counts
+
+
+def check_moe_tensor_parallel(torch, dev, depth, smi):
+    """Phase 14: the MoE family served tensor-parallel on the card.
+
+    14a: mixtral-8x22b at full width and ``depth`` layers (phase 9's, the
+    depth the one quantize leaves 8 GiB free at, checked against what two
+    ranks on the card hold), quantized ONCE here under serve-w8a8-kv8-tp
+    and serve-w8a16-tp and saved; a one-device run of each (fast under
+    graphs, stepwise); two ranks spawned on the one card (gloo) load each
+    artifact and serve ``MOE_TP``'s trace over 1x2 and 2x1, fast (eager)
+    and stepwise: W8A8 every request's tokens, admission and finish ticks
+    the one device's; W8A16 the same at 2x1, and at 1x2 the same or phase
+    13's criterion (teacher-forced logits no farther from one device than
+    twice the bf16 forward's own distance from float32, every moved
+    argmax a near-tie); after each fast run, layer 0's MoE block on the
+    same activations (``moe_block_gap``): router logits bit-equal, drops
+    equal, W8A8 bit-equal, W8A16 within ``MOE_BLOCK_TOL``; the W8A8
+    artifact's prefill chunk against its two halves, timed both ways
+    (``prefill_rows_check``); each rank's launches exact
+    (``moe_tp_expected_launches``). 14b: the W8A8 artifact over a 1x1 NCCL
+    mesh in this process, the fast path under CUDA graphs (warmup): the
+    one device's tokens and ticks, launches exact. 14c: llama4-scout at
+    smoke size, W8A8, over 1x2 in the same ranks (its shared expert a
+    float MLP cut over "model"): the one device's tokens, launches exact.
+    14d: ``repro_torch.serve(ServeConfig(serve_async=True, mesh=(1, 2)))``
+    of qwen2-0.5b's serve-w8a8-kv8-tp artifact on ``ASYNC_TP_TRACES``
+    (phase 10a's and 10b's traces, cut) against the same served on one
+    device: every outcome, the server's counters and the SLO summary
+    equal; each rank's launches exact. Returns {label: counts} of the
+    fast runs of rank 0."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_production_mesh
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_moe_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    counted = {}
+    t14 = time.perf_counter()
+    try:
+        cfg = dataclasses.replace(repro_torch.get_config(MOE_TP["arch"]),
+                                  n_layers=depth)
+        dirs, ref, single, sizes = {}, {}, {}, {}
+        for quantize, recipe, kv_bits in MOE_TP_RECIPES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            qm = repro_torch.quantize(repro_torch.build_model(cfg), None,
+                                      init_seed=MOE_TP["seed"], device="cuda",
+                                      recipe=recipe)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
+            dirs[quantize] = os.path.join(root, recipe)
+            qm.save(dirs[quantize])
+            save_s = time.perf_counter() - t0
+            sizes[quantize] = tree_bytes(qm.params)
+            ref[quantize], single[quantize] = {}, {}
+            for fast in (True, False):
+                label = (f"14a mixtral-8x22b ({depth} layers) {recipe} one "
+                         f"device {'fast' if fast else 'stepwise'}")
+                toks, tps, counts = one_device_run(
+                    torch, qm, MOE_TP, fast, label, cfg=qm.cfg,
+                    kv_bits=kv_bits, quantize=quantize)
+                single[quantize][fast] = toks, tps
+                ref[quantize][fast] = {rid: t[0] for rid, t in toks.items()}
+                if fast:
+                    counted[label] = counts
+            if kv_bits == 8:
+                prefill_rows_check(torch, qm, MOE_TP,
+                                   f"14a mixtral-8x22b ({depth} layers) "
+                                   f"{recipe}", smi)
+            log(f"  14a {recipe}: quantized once and saved in {save_s:.1f} s "
+                f"(peak {peak / 2**30:.2f} GiB, {sizes[quantize] / 2**30:.2f} "
+                f"GiB of weights); one device {single[quantize][True][1]:.1f} "
+                f"/ {single[quantize][False][1]:.1f} tok/s fast / stepwise "
+                f"({smi})")
+            del qm
+        # what two ranks on the one card hold: each loads the whole artifact
+        # (a column cut is a view of it) and keeps a copy of its K rows of
+        # the row-parallel weights
+        total = torch.cuda.get_device_properties(dev).total_memory
+        per_layer = max(sizes.values()) / depth
+        hold = int((total - FREE_BYTES) // (2 * 1.5 * per_layer))
+        log(f"  14a depth: {depth} of {cfg.n_layers} layers (the one "
+            f"quantize's peak, phase 9's cut); two ranks holding up to 1.5x "
+            f"the artifact's {per_layer / 2**30:.2f} GiB a layer each could "
+            f"hold {hold}")
+        assert hold >= depth, f"two ranks cannot hold {depth} layers"
+        l4 = repro_torch.quantize(LLAMA4_SMOKE["arch"],
+                                  recipe="serve-w8a8-kv8-tp", device="cuda")
+        dirs["llama4"] = os.path.join(root, "llama4")
+        l4.save(dirs["llama4"])
+        l4_tokens, _, _ = one_device_run(
+            torch, l4, LLAMA4_SMOKE, True, "14c llama4-scout smoke one device",
+            cfg=l4.cfg, kv_bits=8, quantize="w8a8")
+        ref["llama4"] = {True: {rid: t[0] for rid, t in l4_tokens.items()}}
+        l4_cfg = l4.cfg
+        del l4
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(moe_tp_rank, 2, {"dirs": dirs, "ref": ref}, 14,
+                            timeout=600)
+        log(f"  14a/14c: 2 ranks spawned, loaded and served in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for (key, shape, fast), r0 in ranks[0].items():
+            mesh_s = "x".join(map(str, shape))
+            if key == "llama4":
+                label = f"14c llama4-scout smoke serve-w8a8-kv8-tp {mesh_s} gloo"
+                want_toks, q, kv, c, sv = (l4_tokens, "w8a8", 8, l4_cfg,
+                                           LLAMA4_SMOKE)
+            else:
+                recipe, kv = next((r, k) for q_, r, k in MOE_TP_RECIPES
+                                  if q_ == key)
+                label = (f"14a mixtral-8x22b {recipe} {mesh_s} gloo "
+                         + ("fast (eager)" if fast else "stepwise"))
+                want_toks, q, c, sv = single[key][fast][0], key, cfg, MOE_TP
+            block = r0.get("block")
+            if block is not None:
+                same_logits, same_drops, gap = block
+                limit = 0.0 if q == "w8a8" else MOE_BLOCK_TOL
+                log(f"  {label}: layer 0's MoE block on the same activations: "
+                    f"router logits bit-equal {same_logits}, drops equal "
+                    f"{same_drops}, max |sharded - one device| {gap:.4g} of "
+                    f"max |y| (the gate {limit:.4g})")
+                assert same_logits and same_drops and gap <= limit, (
+                    f"{label}: the MoE block off one device's: {block}")
+            tf = r0.get("teacher_forced")
+            if tf is not None:
+                n = sum(t[0] for t in tf)
+                moved = sum(t[1] for t in tf)
+                rel = max(t[2] for t in tf)
+                bf16 = min(t[3] for t in tf)
+                worst = max(t[4] for t in tf)
+                log(f"  {label}: other tokens than one device's; "
+                    f"teacher-forced logits ({r0['tf_seconds']:.1f} s): max "
+                    f"|sharded - one device| {rel:.3g} of max |logit| (the "
+                    f"bf16 forward's own distance from float32: at least "
+                    f"{bf16:.3g}); argmax moved at {moved} of {n} positions"
+                    + (f", each a near-tie (top-2 gap <= {worst:.3f} x 2 "
+                       f"max |diff|)" if moved else ""))
+                assert q == "w8a16" and shape == (1, 2), (
+                    f"{label}: tokens differ from one device's")
+                for t in tf:
+                    assert t[2] <= 2 * t[3] and t[4] <= 1.0, (
+                        f"{label}: a sequence of {t[0]} positions: sharded "
+                        f"distance {t[2]}, bf16 distance {t[3]}, worst gap "
+                        f"ratio {t[4]}")
+            else:
+                assert r0["tokens"] == want_toks, (
+                    f"{label}: tokens, admission or finish ticks differ "
+                    f"from one device's")
+            st = r0["stats"]
+            assert st["graphs"] == 0, label
+            want = moe_tp_expected_launches(
+                q, c, shape, r0["flags"], st["decode_steps"],
+                st["prefill_dispatches"], slots=sv["slots"],
+                chunk=sv["prefill_chunk"], kv_bits=kv)
+            for rank, res in ranks.items():
+                got = res[key, shape, fast]["counts"]
+                for name in set(got) | set(want):
+                    assert got.get(name, 0) == want.get(name, 0), (
+                        f"{label} rank {rank}: {name} launched "
+                        f"{got.get(name, 0)} times, expected "
+                        f"{want.get(name, 0)}")
+            gen = st["generated_tokens"]
+            peaks = ", ".join(
+                f"rank {rank} {res[key, shape, fast]['peak'] / 2**30:.2f}"
+                for rank, res in sorted(ranks.items()))
+            log(f"  {label}: {len(r0['tokens'])} requests"
+                + ("" if tf is not None else
+                   " = one device's tokens, admission and finish ticks")
+                + f"; {gen} tokens in {r0['seconds']:.3f} s = "
+                f"{gen / r0['seconds']:.1f} tok/s; peak memory GiB {peaks}; "
+                f"head-local {r0['flags']['head_local']}; prefill and decode "
+                f"drops (this rank's rows, summed over data) {r0['drops']}; "
+                f"{st['decode_steps']} decode steps in "
+                f"{st['decode_dispatches']} dispatches, "
+                f"{st['prefill_dispatches']} prefill dispatches; launches a "
+                f"rank {json.dumps(r0['counts'])}, equal on both ranks "
+                f"({smi})")
+            if fast:
+                counted[label] = r0["counts"]
+
+        log("  14b: the W8A8 artifact over a 1x1 NCCL mesh, the fast path "
+            "under CUDA graphs")
+        mesh = make_production_mesh(shape=(1, 1), device="cuda")
+        assert dist.get_backend() == "nccl"
+        try:
+            qm = repro_torch.QuantizedModel.load(dirs["w8a8"], device="cuda")
+            from repro_torch.launch.serve import _requests
+
+            reqs = _requests(repro_torch.ServeConfig(**{
+                k: v for k, v in MOE_TP.items() if k != "arch"}),
+                qm.cfg.vocab_size)
+            eng = repro_torch.ServingEngine.from_quantized(
+                qm, mesh=mesh, num_slots=MOE_TP["slots"],
+                max_len=MOE_TP["max_len"],
+                prefill_chunk=MOE_TP["prefill_chunk"], device="cuda")
+            reset_launch_counts()
+            warm = eng.warmup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.run(reqs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            label = "14b mixtral-8x22b serve-w8a8-kv8-tp 1x1 nccl fast (CUDA graphs)"
+            got = {rid: (list(r.tokens), r.admitted_at, r.finished_at,
+                         r.status) for rid, r in res.items()}
+            assert got == single["w8a8"][True][0], (
+                f"{label}: tokens or ticks differ from one device's")
+            st = eng.stats
+            assert st["graphs"] == 1 and warm["graphs"] > 0, label
+            sh = eng.shard
+            want = moe_tp_expected_launches(
+                "w8a8", cfg, (1, 1), {"col": sh.col, "row": sh.row,
+                                      "head_local": sh.head_local,
+                                      "slots_sharded": sh.slots_sharded},
+                st["decode_steps"] + warm["decode_steps"],
+                st["prefill_dispatches"] + warm["prefill_dispatches"],
+                slots=MOE_TP["slots"], chunk=MOE_TP["prefill_chunk"],
+                kv_bits=8)
+            for name in set(counts) | set(want):
+                assert counts.get(name, 0) == want.get(name, 0), (
+                    f"{label}: {name} launched {counts.get(name, 0)} times, "
+                    f"expected {want.get(name, 0)}")
+            gen = st["generated_tokens"]
+            log(f"  {label}: {len(got)} requests = one device's tokens and "
+                f"ticks; {warm['graphs']} graphs captured in "
+                f"{warm['capture_seconds']:.2f} s; {gen} tokens in {dt:.3f} s "
+                f"= {gen / dt:.1f} tok/s beside one device's "
+                f"{single['w8a8'][True][1]:.1f}; launches {json.dumps(counts)}"
+                f" ({smi})")
+            counted[label] = counts
+            del eng, qm
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  14a-14c took {time.perf_counter() - t14:.1f} s")
+
+    t0 = time.perf_counter()
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "chip_smoke_async_tp")
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        qm = repro_torch.quantize(
+            repro_torch.build_model(repro_torch.get_config(SERVE["arch"])),
+            None, init_seed=SERVE["seed"], device="cuda",
+            recipe="serve-w8a8-kv8-tp")
+        qm.save(directory)
+        prefill_rows_check(torch, qm, SERVE,
+                           "14d qwen2-0.5b serve-w8a8-kv8-tp", smi)
+        del qm
+        base = {k: v for k, v in ASYNC_TP.items() if k != "arch"}
+        for scenario, over in ASYNC_TP_TRACES.items():
+            kw = dict(base, load=directory, **over)
+            one, one_counts = counted_serve(repro_torch.ServeConfig(
+                warmup=True, **kw))
+            want = expected_launches("w8a8", True, *forwards(one))
+            for name, n in one_counts.items():
+                assert n == want.get(name, 0), (
+                    f"14d {scenario} one device: {name} launched {n} times, "
+                    f"expected {want.get(name, 0)}")
+            tp = repro_torch.serve(repro_torch.ServeConfig(
+                mesh=(1, 2), mesh_backend="gloo", **kw))
+            label = f"14d {scenario} --serve-async 1x2 gloo"
+            assert tp.mesh == (1, 2), label
+
+            def key(run):
+                return ([(o.rid, o.status, o.attempts, o.tokens,
+                          o.token_ticks, o.first_token_tick, o.finished_tick)
+                         for o in run.outcomes], run.server_stats,
+                        run.async_summary)
+
+            assert key(tp) == key(one), (
+                f"{label}: outcomes or counters differ from one device's")
+            st = tp.stats
+            want = tp_expected_launches("w8a8", (1, 2), st["decode_steps"],
+                                        st["prefill_dispatches"])
+            for rank, got in enumerate(tp.rank_launches):
+                for name in set(got) | set(want):
+                    assert got.get(name, 0) == want.get(name, 0), (
+                        f"{label} rank {rank}: {name} launched "
+                        f"{got.get(name, 0)}, expected {want.get(name, 0)}")
+            s, sv = tp.async_summary, tp.server_stats
+            log(f"  {label} ({over['trace']} requests at {over['qps']} a "
+                f"tick, gen {ASYNC_TP['gen_len']}"
+                + (f", max_queue {over['max_queue']}, paged"
+                   if "max_queue" in over else "")
+                + f"): every outcome, the server's counters and the SLO "
+                f"summary = one device's; statuses {s['statuses']}, "
+                f"admission " + ", ".join(f"{k}={sv[k]}" for k in (
+                    "submitted", "accepted", "shed_breaker", "shed_priority",
+                    "shed_queue", "breaker_opens"))
+                + f"; {tp.tokens_per_second:.1f} tok/s against one device's "
+                f"{one.tokens_per_second:.1f}; launches exact on both ranks "
+                f"({smi})")
+            counted[label] = tp.rank_launches[0]
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    log(f"  14d took {time.perf_counter() - t0:.1f} s")
+    return counted
+
+
 def main() -> int:
     import torch
 
@@ -5562,6 +6563,13 @@ def main() -> int:
     family_rows["quantize_act"] = check_family_quantize_act(torch, dev, gen)
     log("  the per-rank shapes of tensor-parallel qwen2-0.5b (phase 13)")
     tp_rows = check_tp_shapes(torch, dev, gen)
+    log("  the per-rank expert shapes of tensor-parallel mixtral-8x22b and "
+        "llama4-scout (phase 14), then mixtral's dense ones")
+    moe_tp_rows = check_moe_tp_shapes(torch, dev, gen)
+    for name, rows in check_tp_shapes(
+            torch, dev, gen, MOE_TP_COLUMN, MOE_TP_ROW, TP_M,
+            MOE_TP_ATTENTION, MOE_TP_QUANTIZE).items():
+        moe_tp_rows.setdefault(name, []).extend(rows)
 
     log("== phase 3: small-input reference")
     for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8", "dfq-int8",
@@ -5855,7 +6863,7 @@ def main() -> int:
         "over NCCL under CUDA graphs)")
     log(f"  {smi}")
     t13 = time.perf_counter()
-    tp_counts = check_tensor_parallel(torch, dev, runs, stepwise, smi)
+    tp_counts = check_tensor_parallel(torch, dev, runs, smi)
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s ({smi})")
     # the launches of phase 13's fast and --load runs, each beside phase
     # 2's row of the kernel at the shape the run launched it at (1x2: this
@@ -5889,6 +6897,62 @@ def main() -> int:
                    if k not in ("splits", "share", "tickets", "bm", "waiters",
                                 "residency", "stepwise_ms")},
                 "name": f"{name} (tensor-parallel)", "route": "cuda",
+                "source": csrc + (sources[name][0] if name in sources
+                                  else "qmatmul_w8a8.cu"),
+                "replaces": tpu + (sources[name][1] if name in sources
+                                   else "qmatmul_w8a8/kernel.py:72"),
+                "launches": n, "path": f"phase {label}"})
+    log("== phase 14: serve the MoE family (mixtral-8x22b full width, "
+        "llama4-scout) tensor-parallel over a torch.distributed mesh, and "
+        "--serve-async over a mesh")
+    log(f"  {smi}")
+    t14 = time.perf_counter()
+    moe_tp_counts = check_moe_tensor_parallel(torch, dev, depth9, smi)
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s ({smi})")
+    # the launches of phase 14's fast runs, each beside phase 2's row of
+    # the kernel at the shape the run launched it at (the per-rank expert
+    # GEMMs of check_moe_tp_shapes at a decode step), or its decode-shape
+    # row where phase 2 has none there
+    moe_at = {"1x2": {"qmatmul_w8a8_i32_experts": "E=8 M=8 K=8192",
+                      "qmatmul_w8a8_i32": "M=8 K=3072 N=6144",
+                      "qmatmul_w8a8_qin": "E=8 M=8 K=6144 N=8192",
+                      "qmatmul_w8a8": "E=8 M=80 K=6144 N=8192",
+                      "qmatmul_w8a16": "E=8 M=8 K=6144 N=8192",
+                      "fused_decode": "B=8 Hq=24",
+                      "quantize_act": "x[64,16384]"},
+              "2x1": {"qmatmul_w8a8_i32_experts": "E=8 M=4 K=16384",
+                      "qmatmul_w8a8_i32": "M=4 K=6144 N=6144",
+                      "fused_decode": "B=4 Hq=48",
+                      "quantize_act": "x[32,16384]"},
+              "1x1": {"qmatmul_w8a8_i32_experts": "E=8 M=8 K=16384",
+                      "qmatmul_w8a8_i32": "M=8 K=6144 N=6144",
+                      "fused_decode": "B=8 Hq=48",
+                      "quantize_act": "x[64,16384]"}}
+    for label, counted in moe_tp_counts.items():
+        mesh_s = next((m for m in ("1x2", "2x1", "1x1") if f" {m} " in label),
+                      None)
+        if mesh_s is None or label.startswith("14c"):
+            continue          # one device (phase 9's rows), smoke size
+        # 14d serves qwen2 (phase 13's shapes), 14a / 14b mixtral
+        at, rows_of = ((at_shape, tp_rows) if label.startswith("14d")
+                       else (moe_at, moe_tp_rows))
+        for name, n in sorted(counted.items()):
+            if n == 0:
+                continue
+            key = at.get(mesh_s, {}).get(name)
+            row = next((r for r in rows_of.get(name, [])
+                        if key and r["shape"].startswith(key)), None)
+            if row is None:
+                row = next(r for r in tables[name]
+                           if r["shape"] == main[name][0])
+            kernels.append({
+                **{k: v for k, v in row.items()
+                   if k not in ("splits", "share", "tickets", "bm", "waiters",
+                                "residency", "stepwise_ms",
+                                "with_epilogue_ms")},
+                "name": f"{name} ({'async ' if '14d' in label else ''}"
+                        f"tensor-parallel{' MoE' if '14d' not in label else ''})",
+                "route": "cuda",
                 "source": csrc + (sources[name][0] if name in sources
                                   else "qmatmul_w8a8.cu"),
                 "replaces": tpu + (sources[name][1] if name in sources

@@ -19,14 +19,17 @@ call launches, and the private ``_route`` keyword forces a route.
 The epilogue-free variant (``qmatmul_w8a8_i32_cuda``, its own launch
 counter) writes the int32 accumulator and reads no scale or bias: a
 row-parallel shard's partial sums, added over the ranks in int32 before the
-scale epilogue (``ref.w8a8_epilogue``).
+scale epilogue (``ref.w8a8_epilogue``). With an expert axis (a
+row-parallel MoE expert projection) it is one launch for every expert, its
+own counter again (``qmatmul_w8a8_i32_experts``).
 
 Expert-batched (the MoE block's projections): the GEMM and its quantize-in
 variant take every operand with a leading expert axis — a_q or x
 [E, M, K], w_q [E, K, N] (each expert's K-major), a_scale [E, M],
 w_scale and bias [E, N] → [E, M, N] — in ONE launch, the expert index in
-the grid (``gemm_plan.plan(..., experts=E)``); the quantize-out variant
-takes no expert axis.
+the grid (``gemm_plan.plan(..., experts=E)``); so does the epilogue-free
+variant (a_q [E, M, K], w_q [E, K, N] → int32 [E, M, N]); the quantize-out
+variant takes no expert axis.
 """
 from __future__ import annotations
 
@@ -174,19 +177,25 @@ def qmatmul_w8a8_i32_cuda(a_q: torch.Tensor, w_q: torch.Tensor, *,
                           _splits: Optional[int] = None):
     """The epilogue-free variant: a_q [M, K] int8, w_q [K, N] int8
     (K-major), on the card → the exact int32 accumulator [M, N] (the same
-    mainloop and split as ``qmatmul_w8a8_cuda``; no scale, no bias)."""
+    mainloop and split as ``qmatmul_w8a8_cuda``; no scale, no bias). E
+    experts' in one launch: a_q [E, M, K], w_q [E, K, N] → [E, M, N], the
+    expert index in the grid (``gemm_plan.plan(..., experts=E)``), counted
+    as ``qmatmul_w8a8_i32_experts``."""
+    experts = a_q.ndim == 3
     a_q, wt, vec = _checked(a_q, w_q, None, None, None,
-                            "qmatmul_w8a8_i32_cuda")
-    M, K = a_q.shape
-    N = wt.shape[0]
+                            "qmatmul_w8a8_i32_cuda", experts=experts)
+    E = a_q.shape[0] if experts else 1
+    M, K = a_q.shape[-2:]
+    N = wt.shape[-2]
     dev = a_q.device
-    plan = gemm_plan.plan(M, N, K, splits=_splits)
-    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    plan = gemm_plan.plan(M, N, K, splits=_splits, experts=E)
+    out = torch.empty(a_q.shape[:-1] + (N,), dtype=torch.int32, device=dev)
     _build.call("repro_qmatmul_w8a8", _ARGS, a_q.data_ptr(), wt.data_ptr(),
-                None, None, None, out.data_ptr(), M, N, K, 1, plan.bm,
+                None, None, None, out.data_ptr(), M, N, K, E, plan.bm,
                 plan.splits, OUT_KINDS[torch.int32], vec,
                 torch.cuda.current_stream(dev).cuda_stream)
-    count_launch("qmatmul_w8a8_i32")
+    count_launch("qmatmul_w8a8_i32_experts" if experts
+                 else "qmatmul_w8a8_i32")
     return out
 
 

@@ -20,10 +20,10 @@ The model calls it wherever ``gemm_plan`` folds (``GemmPlan.fold``), for
 the first projection that reads an activation, which also hands the
 quantized activation to the others (``quantized=True``).
 
-``qmatmul_w8a8_i32`` is the epilogue-free variant (its own launch counter):
-the exact int32 accumulator, which a row-parallel shard sums over its ranks
-before ``w8a8_epilogue`` (the kernel's epilogue, in plain torch: the same
-bits).
+``qmatmul_w8a8_i32`` is the epilogue-free variant (its own launch counter,
+``qmatmul_w8a8_i32_experts`` with an expert axis): the exact int32
+accumulator, which a row-parallel shard sums over its ranks before
+``w8a8_epilogue`` (the kernel's epilogue, in plain torch: the same bits).
 
 A leading expert axis on every operand (the MoE block's projections) is
 one expert-batched launch of the GEMM or its quantize-in variant on the
@@ -82,6 +82,8 @@ def _w8a8_i32_cuda(a_q, w_q):
 
 @register_impl("qmatmul_w8a8_i32", "torch", pad="zero")
 def _w8a8_i32_torch(a_q, w_q):
+    if a_q.ndim == 3:
+        return _per_expert(qmatmul_w8a8_i32_ref, a_q, w_q)
     return qmatmul_w8a8_i32_ref(a_q, w_q)
 
 
@@ -144,7 +146,9 @@ def qmatmul_w8a8_i32(a_q: torch.Tensor, w_q: torch.Tensor, *,
     """The epilogue-free W8A8 GEMM: a_q [M, K] int8 times w_q [K, N] int8
     (K-major) → the exact int32 accumulator [M, N], no scale and no bias.
     A row-parallel shard sums these over its ranks in int32 and then
-    applies ``w8a8_epilogue``, which gives ``qmatmul_w8a8``'s bits."""
+    applies ``w8a8_epilogue``, which gives ``qmatmul_w8a8``'s bits. E
+    experts at once: a_q [E, M, K], w_q [E, K, N] → [E, M, N] (one launch
+    on the card)."""
     return resolve("qmatmul_w8a8_i32", a_q, backend)(a_q, w_q)
 
 

@@ -25,12 +25,13 @@ def w8a8_epilogue(acc: torch.Tensor, a_scale, w_scale,
     [M, N] (int32 or integral float64): ``((acc * a_scale) * w_scale) +
     bias`` in float32, each step rounded alone — the kernel's
     ``__fmul_rn`` / ``__fadd_rn`` order, so the same bits on either
-    device."""
+    device. With a leading expert axis: acc [E, M, N], a_scale [E, M],
+    w_scale [E, N] | [E, 1], bias [E, N]."""
     out = acc.to(torch.float32)
-    out = (out * torch.atleast_1d(a_scale).float()[:, None]
-           * torch.atleast_1d(w_scale).float()[None, :])
+    out = (out * torch.atleast_1d(a_scale).float()[..., :, None]
+           * torch.atleast_1d(w_scale).float()[..., None, :])
     if bias is not None:
-        out = out + bias.float()[None, :]
+        out = out + bias.float()[..., None, :]
     return out.to(out_dtype)
 
 

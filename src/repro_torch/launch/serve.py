@@ -57,7 +57,11 @@ prints and returns the run; the other ranks print nothing. A ``--load``
 artifact's recorded mesh is served unless ``--mesh`` names another, or
 single-device, with a note, where this host cannot hold it (NCCL: more
 ranks than cards). ``--mesh-backend`` picks the process group's backend
-(NCCL on the card, gloo on the CPU by default).
+(NCCL on the card, gloo on the CPU by default). ``--serve-async`` over a
+mesh runs the front-end on rank 0 alone; every other rank replays rank 0's
+engine calls, step by step, over a gloo group of their own
+(``serving.mesh_control``). A rank that fails exits non-zero, the others
+are stopped, and the error names the rank that failed first.
 """
 from __future__ import annotations
 
@@ -127,8 +131,10 @@ class ServeRun:
     async_summary: Optional[dict] = None
     server_stats: Optional[dict] = None
     outcomes: Optional[list] = None
-    # whether SIGTERM drained the serving loop
+    # whether SIGTERM drained the serving loop, and (the async front-end)
+    # the engine tick at which admission closed
     drained: bool = False
+    drained_at: Optional[float] = None
     # the paged pool: pages still referenced after the loop that no live
     # slot maps and no prefix index pins (a refcount leak; must be 0)
     leaked_pages: Optional[int] = None
@@ -223,9 +229,14 @@ def _requests(config: ServeConfig, vocab_size: int) -> list:
 
 
 def _serve_async(config: ServeConfig, engine: ServingEngine, requests,
-                 sigterm: list):
+                 sigterm: list, drained_at: list, *, at_step: bool = False,
+                 drain_file: Optional[str] = None):
     """The trace through the async front-end, open-loop: returns
-    (summary, server stats). SIGTERM drains the server."""
+    (summary, server stats). SIGTERM drains the server and ``drained_at``
+    gets the tick. ``at_step``: the drain waits for the next step boundary
+    (a mesh's ranks replay it there); ``drain_file``: no handler, the
+    drain comes when that file appears (the launcher writes it on its
+    SIGTERM)."""
     import asyncio
 
     from ..serving import (
@@ -247,17 +258,65 @@ def _serve_async(config: ServeConfig, engine: ServingEngine, requests,
     client = AsyncClient(
         server, RetryPolicy(max_attempts=config.retry_attempts),
         seed=config.trace_seed)
-    prev = signal.signal(signal.SIGTERM,
-                         lambda *_: (sigterm.append(1), server.drain()))
+
+    def drain():
+        if not engine.draining:
+            drained_at.append(engine.clock)
+            server.drain()
+
+    def at_boundary(_):
+        if drain_file and not sigterm and os.path.exists(drain_file):
+            sigterm.append(1)
+        if sigterm:
+            drain()
+
+    if at_step:
+        server.pre_step.append(at_boundary)
+    handler = ((lambda *_: sigterm.append(1)) if at_step
+               else (lambda *_: (sigterm.append(1), drain())))
+    prev = (signal.signal(signal.SIGTERM, handler) if drain_file is None
+            else None)
     try:
         outcomes = asyncio.run(run_open_loop(server, client, requests,
                                              timeout=config.timeout))
     finally:
-        signal.signal(signal.SIGTERM, prev)
+        if drain_file is None:
+            signal.signal(signal.SIGTERM, prev)
     stats = {k: (dict(v) if k == "results" else v)
              for k, v in server.stats.items()}
     stats["breaker_opens"] = server.breaker.opens
     return summarize(outcomes, slo=SLO()), stats, outcomes
+
+
+def _serve_async_mesh(config: ServeConfig, engine: ServingEngine, requests,
+                      sigterm: list, drained_at: list, rank0: bool,
+                      drain_file: Optional[str]):
+    """``_serve_async`` over a mesh (``serving.mesh_control``): rank 0 runs
+    the front-end and leads, each other rank replays its engine calls over
+    a gloo group of their own; returns rank 0's (summary, server stats,
+    outcomes), (None, None, None) on the others. A SIGTERM to rank 0 (or,
+    spawned by the launcher, its ``drain_file``) drains it at the next
+    step boundary, the drain reaching the others with that step's batch;
+    the others ignore SIGTERM."""
+    from ..serving.mesh_control import Leader, control_group, follow
+
+    group = control_group()
+    if not rank0:
+        prev = signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        try:
+            follow(engine, group)
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+        return None, None, None
+    leader = Leader(engine, group)
+    try:
+        out = _serve_async(config, engine, requests, sigterm, drained_at,
+                           at_step=True, drain_file=drain_file)
+    except BaseException as e:
+        leader.close(e)
+        raise
+    leader.close()
+    return out
 
 
 def _report_async(summary: dict, stats: dict) -> None:
@@ -360,9 +419,11 @@ def serve(config: ServeConfig) -> ServeRun:
     return _spawn_ranks(config, source)
 
 
-def _serve_rank(config: ServeConfig, source: str) -> ServeRun:
+def _serve_rank(config: ServeConfig, source: str,
+                drain_file: Optional[str] = None) -> ServeRun:
     """This process's rank of the mesh: build the mesh over the running
-    process group, serve, and report the run (rank 0 prints)."""
+    process group, serve, and report the run (rank 0 prints);
+    ``drain_file``: the launcher's SIGTERM (``_serve_async``)."""
     import torch.distributed as dist
 
     from ..kernels import launch_counts
@@ -381,7 +442,7 @@ def _serve_rank(config: ServeConfig, source: str) -> ServeRun:
         print(f"mesh ({source}): " + ", ".join(
             f"{a}={n}" for a, n in zip(mesh.mesh_dim_names, mesh.shape))
             + f" over {backend} on {device}")
-        run = _serve(config, mesh)
+        run = _serve(config, mesh, drain_file)
     run.mesh, run.mesh_backend = tuple(config.mesh), backend
     counts = [None] * dist.get_world_size()
     dist.all_gather_object(counts, launch_counts())
@@ -392,10 +453,16 @@ def _serve_rank(config: ServeConfig, source: str) -> ServeRun:
 def _rank_main(rank: int, world: int, store: str, config: ServeConfig,
                source: str, out: str) -> None:
     """A spawned rank: join the process group, serve, and (rank 0) write
-    the run to ``out``; a rank that fails writes its exception there."""
+    the run to ``out``; a rank that fails writes its exception there.
+    Under ``--serve-async`` every rank ignores SIGTERM (a signal could
+    interrupt a collective): the launcher turns its own into
+    ``<out>.drain``, which rank 0 reads at each step boundary."""
     import torch.distributed as dist
 
     from .mesh import mesh_backend
+
+    if config.serve_async:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
 
     backend = mesh_backend(config.device, config.mesh_backend)
     if torch.device(config.device).type == "cpu":
@@ -406,7 +473,7 @@ def _rank_main(rank: int, world: int, store: str, config: ServeConfig,
         dist.init_process_group(backend, init_method=f"file://{store}",
                                 world_size=world, rank=rank)
         try:
-            run = _serve_rank(config, source)
+            run = _serve_rank(config, source, f"{out}.drain")
         finally:
             dist.destroy_process_group()
         if rank == 0:
@@ -417,11 +484,16 @@ def _rank_main(rank: int, world: int, store: str, config: ServeConfig,
     if result is not None:
         with open(f"{out}.{rank}", "wb") as f:
             pickle.dump(result, f)
+    if isinstance(result, tuple):
+        # a non-zero exit: the parent stops the other ranks at once
+        sys.exit(1)
 
 
 def _spawn_ranks(config: ServeConfig, source: str) -> ServeRun:
     """Start the mesh's ranks (spawned processes over a file store), wait
-    for them, and return rank 0's run; a rank's failure is raised here."""
+    for them, and return rank 0's run; a rank's failure is raised here.
+    Under ``--serve-async`` a SIGTERM to this process writes the drain
+    file rank 0 reads at its step boundaries: the mesh drains."""
     import math
 
     import torch.multiprocessing as mp
@@ -437,25 +509,39 @@ def _spawn_ranks(config: ServeConfig, source: str) -> ServeRun:
         sys.stdout.flush()
         for p in procs:
             p.start()
-        # a rank that dies leaves the others waiting in a collective: stop
-        # them
-        while any(p.is_alive() for p in procs):
-            if any(p.exitcode not in (None, 0) for p in procs):
-                for p in procs:
-                    p.kill()
-            time.sleep(0.05)
+        drain_file = os.path.join(tmp, "run.drain")
+        prev = (signal.signal(signal.SIGTERM,
+                              lambda *_: open(drain_file, "w").close())
+                if config.serve_async else None)
+        # a rank that fails exits non-zero and leaves the others waiting
+        # in a collective: stop them, and report the rank that failed
+        # first
+        first = None
+        try:
+            while any(p.is_alive() for p in procs):
+                bad = [r for r, p in enumerate(procs)
+                       if p.exitcode not in (None, 0)]
+                if bad:
+                    first = bad[0] if first is None else first
+                    for p in procs:
+                        p.kill()
+                time.sleep(0.05)
+        finally:
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)
         results = {}
         for r in range(world):
             path = os.path.join(tmp, f"run.{r}")
             if os.path.exists(path):
                 with open(path, "rb") as f:
                     results[r] = pickle.load(f)
-        for r, res in sorted(results.items()):
-            if isinstance(res, tuple):
-                err, tb = res
-                if isinstance(err, ServeConfigError):
-                    raise err
-                raise RuntimeError(f"mesh rank {r} failed:\n{tb}")
+        failed = sorted((r != first, r) for r, res in results.items()
+                        if isinstance(res, tuple))
+        for _, r in failed:
+            err, tb = results[r]
+            if isinstance(err, ServeConfigError):
+                raise err
+            raise RuntimeError(f"mesh rank {r} failed:\n{tb}")
         bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
         if bad or 0 not in results:
             raise RuntimeError(f"mesh ranks {bad} exited with codes "
@@ -465,9 +551,11 @@ def _spawn_ranks(config: ServeConfig, source: str) -> ServeRun:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _serve(config: ServeConfig, mesh) -> ServeRun:
+def _serve(config: ServeConfig, mesh,
+           drain_file: Optional[str] = None) -> ServeRun:
     """Build, quantize and serve per ``config``, sharded over ``mesh``
-    (a ``DeviceMesh``) where given."""
+    (a ``DeviceMesh``) where given; ``drain_file``: a spawned rank's
+    SIGTERM, written by the launcher (``_serve_async``)."""
     device = resolve_device(config.device)
     rank0 = mesh is None or mesh.get_rank() == 0
     if device.type == "cuda":
@@ -559,14 +647,20 @@ def _serve(config: ServeConfig, mesh) -> ServeRun:
     # SIGTERM → graceful drain: stop admitting, finish in-flight and parked
     # requests, report (the JAX launcher's contract)
     sigterm: list = []
+    drained_at: list = []
     summary = server_stats = outcomes = None
     shed: list = []
     prof = _profiler(device) if config.profile else contextlib.nullcontext()
     with prof:
         t0 = time.perf_counter()
-        if config.serve_async:
+        if config.serve_async and mesh is not None:
+            summary, server_stats, outcomes = _serve_async_mesh(
+                config, engine, requests, sigterm, drained_at, rank0,
+                drain_file)
+            results = engine.results
+        elif config.serve_async:
             summary, server_stats, outcomes = _serve_async(
-                config, engine, requests, sigterm)
+                config, engine, requests, sigterm, drained_at)
             results = engine.results
         else:
             prev = signal.signal(
@@ -609,6 +703,7 @@ def _serve(config: ServeConfig, mesh) -> ServeRun:
                    view_bytes=engine.view_bytes(), shed=shed,
                    async_summary=summary, server_stats=server_stats,
                    outcomes=outcomes, drained=bool(sigterm),
+                   drained_at=drained_at[0] if drained_at else None,
                    leaked_pages=(count_leaked_pages(engine) if engine.paged
                                  else None))
     print(f"served {len(results)} requests / {run.generated_tokens} generated "

@@ -11,7 +11,9 @@ launcher's: slots over "data", weights tensor-parallel over "model"; the
 launcher starts a rank a mesh position. Its backend is NCCL on the card
 (a card a rank: a mesh larger than the card count raises) and gloo on the
 CPU, unless ``mesh_backend`` names one — gloo on the card runs several
-ranks on one card. ``serve_async`` with a mesh raises (ROADMAP.md Queue A).
+ranks on one card. ``serve_async`` with a mesh runs the front-end on
+rank 0, the other ranks replaying its engine calls
+(``serving.mesh_control``).
 
 Besides the JAX fields, the port's own: ``layers`` (the arch cut to its
 first N layers, widths kept, for a card that cannot hold the full depth),
@@ -244,11 +246,6 @@ class ServeConfig:
                                    "--prompt-len/--gen-len")
         if self.mesh is not None:
             self.mesh = parse_mesh(self.mesh)     # tolerate a "2x4" string
-            if self.serve_async:
-                raise ServeConfigError(
-                    "--serve-async with --mesh is not ported yet (ROADMAP.md "
-                    "Queue A: --serve-async with --mesh); serve the trace "
-                    "synchronously, or drop --mesh")
             from .mesh import check_fits, mesh_backend
 
             try:

@@ -508,10 +508,16 @@ def _cached_attention(q, k, v, dims: AttnDims, cache: dict,
     if verr is not None:
         # Σ p (ṽ − e) == Σ p ṽ − Σ p e: the decode route's correction
         vd = vd - verr.to(dtype)[..., None]
-    attn = attention_scores_softmax(q, _repeat_kv(kd, group),
-                                    _repeat_kv(vd, group), slots.mask,
-                                    chunk_kv=chunk_kv,
-                                    causal_segments=dims.causal_segments)
+    # one KV head's group of q heads at a time: each call's shapes are then
+    # the same on one device and on a head-local serving shard (which holds
+    # whole groups), and so are the bits — the batched GEMMs' algorithm on
+    # the card depends on the batch (7 heads and 14 round differently)
+    attn = torch.cat([attention_scores_softmax(
+        q[:, :, j * group:(j + 1) * group].contiguous(),
+        _repeat_kv(kd[:, :, j:j + 1], group),
+        _repeat_kv(vd[:, :, j:j + 1], group), slots.mask, chunk_kv=chunk_kv,
+        causal_segments=dims.causal_segments) for j in range(kd.shape[2])],
+        dim=2)
     return attn.reshape(B, T, nq * hd), None
 
 
@@ -547,7 +553,9 @@ def _row_linear(x: torch.Tensor, w, b, tp, *, whole=None,
     single-device W8A8 bits. W8A16 and float weights sum float32
     partials (the bias after the sum), a reordered reduction; on a model
     axis of 1 the rank holds whole rows and runs the single-device
-    projection (its sum over the one rank changes nothing)."""
+    projection (its sum over the one rank changes nothing). An
+    expert-stacked ``w`` ([E, K/M, N], the MoE down projection) takes x
+    [E, rows, K/M] and runs every expert in the same one launch."""
     lead, dtype = tuple(x.shape[:-1]), x.dtype
     if isinstance(w, QTensor) and w.mode == "w8a8":
         if q8 is None:
@@ -555,9 +563,10 @@ def _row_linear(x: torch.Tensor, w, b, tp, *, whole=None,
                                          else whole)
         else:
             a_q, a_s = q8
-        acc = qmatmul_w8a8_i32(tp.block(a_q).contiguous(), w.q)
+        # an expert-stacked w: every expert's rows in one launch
+        acc = qmatmul_w8a8_i32(gemm_rows(tp.block(a_q), w).contiguous(), w.q)
         coll.all_reduce_sum(acc, tp.model_group)
-        y = w8a8_epilogue(acc, a_s, w.scale, b, dtype)
+        y = w8a8_epilogue(acc, a_s.reshape(acc.shape[:-1]), w.scale, b, dtype)
         return y.reshape(*lead, y.shape[-1])
     if tp.model_n == 1:
         return coll.all_reduce_sum(linear(x, w, b), tp.model_group)
@@ -590,21 +599,23 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block(p: dict, x: torch.Tensor, act: str, *,
-              capture: Optional[dict] = None) -> torch.Tensor:
+              capture: Optional[dict] = None, key: str = "") -> torch.Tensor:
     """The MLP, act ∈ {silu_glu, gelu_glu, gelu, relu}: gated
     ``wd(act(wg·x) * wu·x)`` or plain ``wd(act(wu·x))``. ``capture`` (the
     eval forward's only; the serving path passes none) receives the means
     of the gate/up input (``mlp_in``) and of the down projection's input
-    (``down_in``)."""
+    (``down_in``). ``key`` names the subtree's placement under a serving
+    shard ("shared/" for an MoE block's shared expert)."""
     tp = current_shard()
     if tp is not None:
         # column-parallel gate/up (their biases cut to this rank's
-        # columns), then the down projection of this rank's block
-        cut = {n: tp.col_bias(p[n], "w" + n[1]) for n in ("bg", "bu")
+        # columns), then the down projection of this rank's block, its
+        # bias added once after the sum
+        cut = {n: tp.col_bias(p[n], key + "w" + n[1]) for n in ("bg", "bu")
                if n in p}
         h = _mlp_hidden({**p, **cut}, x, act)
-        return _tp_project_out(h, p["wd"], p.get("bd"), tp, "wd",
-                               local=tp.col["wu"])
+        return _tp_project_out(h, p["wd"], p.get("bd"), tp, key + "wd",
+                               local=tp.col[key + "wu"])
     _record_mean(capture, "mlp_in", x)
     h = _mlp_hidden(p, x, act)
     _record_mean(capture, "down_in", h)
@@ -638,6 +649,12 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def router_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The MoE router's logits [..., E] in float32 (whole on every rank of
+    a serving shard, so a top-k choice never depends on the mesh)."""
+    return linear(x, p["router"], p.get("router_b")).float()
+
+
 def moe_block(p: dict, x: torch.Tensor, cfg, *,
               capture: Optional[dict] = None, drops: Optional[list] = None):
     """Top-k token-choice MoE with capacity (the reference's
@@ -653,14 +670,23 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *,
     the shared expert. ``capture`` receives ``mlp_in`` [D], ``down_in_moe``
     [E, F] (each expert's mean down-projection input over its slots) and
     ``router_probs`` [E]; ``drops``, a list, the choices each batch row
-    dropped for capacity ([B] int64 on x's device, no host sync)."""
+    dropped for capacity ([B] int64 on x's device, no host sync).
+
+    Under a serving shard (``sharding.tp``; the reference serves through
+    this same block, GSPMD partitioning it) the router is whole on every
+    rank and the dispatch and combine run on this rank's batch rows (the
+    capacity is a row's, so they are the single-device ones); the expert
+    gate/up write this rank's F columns and the down projection sums the
+    ranks' partials (W8A8: int32, then the scale epilogue — the
+    single-device bits), and the shared expert runs ``mlp_block``'s
+    tensor-parallel path, its bias added once after the sum."""
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = max(1, int(T * K / E * cfg.capacity_factor))
     dev = x.device
     _record_mean(capture, "mlp_in", x)
 
-    logits = linear(x, p["router"], p.get("router_b")).float()   # [B, T, E]
+    logits = router_logits(p, x)                                  # [B, T, E]
     ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = ex / ex.sum(dim=-1, keepdim=True)
     gate_vals, gate_idx = top_k(probs, K)                         # [B, T, K]
@@ -694,7 +720,15 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *,
     # every expert's B·C rows, in (row, slot) order, as the vmapped linear
     xin = ex_in.reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
     h = _mlp_hidden(p["experts"], xin, cfg.act)
-    out = linear(h, p["experts"]["wd"]).reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
+    tp = current_shard()
+    if tp is None:
+        out = linear(h, p["experts"]["wd"])
+    else:
+        # h is this rank's F block where gate/up are column-parallel; the
+        # down projection sums the ranks' partials before the combine
+        out = _tp_project_out(h, p["experts"]["wd"], None, tp, "experts/wd",
+                              local=tp.col["experts/wu"])
+    out = out.reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
 
     y = torch.zeros_like(x)
     for slot, (e, write_pos, keep) in enumerate(choices):
@@ -704,7 +738,7 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *,
                           torch.zeros_like(gate_vals[..., slot])).to(x.dtype)
         y = y + picked * w_k[..., None]
     if cfg.n_shared_experts:
-        y = y + mlp_block(p["shared"], x, cfg.act)
+        y = y + mlp_block(p["shared"], x, cfg.act, key="shared/")
 
     probs_flat = probs.reshape(-1, E)
     if capture is not None:

@@ -74,14 +74,15 @@ pool holds the rank's slots ("data", contiguous only) and KV heads
 ("model"); the forward runs under ``sharding.tp`` (column- and
 row-parallel projections, head-local attention where the model axis
 divides both head counts, the vocab-parallel embedding and logits) and
-each dispatch's per-slot outputs are gathered over the data axis. Every
+each dispatch's per-slot outputs are gathered over the data axis; an MoE
+block routes and dispatches this rank's slots, its experts column- and
+row-parallel over "model" (``sharding.tp``). Every
 rank runs this same host loop: it reads only the requests and the tokens,
 which every rank receives whole from the collectives, so the ranks decide
 the same admissions, chunks, horizons and preemptions — no decision reads
 a rank's wall clock. Under NCCL the fast path's graphs capture the
 collectives; gloo's block the host, and a gloo engine runs the fast path
-eagerly (``stats["graphs"]`` 0, ``stats["graphs_off"]`` says why). The
-MoE family is refused over a mesh (ROADMAP.md Queue A).
+eagerly (``stats["graphs"]`` 0, ``stats["graphs_off"]`` says why).
 
 Unlike the JAX engine, which donates the cache to each jitted step, the
 port updates ``pool.cache`` IN PLACE and never rebinds a leaf: the model
@@ -288,11 +289,6 @@ class ServingEngine:
             raise ValueError(
                 f"the serving engine supports attention-family decoder-only "
                 f"models (got {cfg.name!r}, family {cfg.family!r})")
-        if mesh is not None and cfg.family == "moe":
-            raise ValueError(
-                f"{cfg.name}: the MoE family is not served over a mesh yet "
-                f"(ROADMAP.md Queue A: the MoE family under a mesh, with "
-                f"_moe_block_shardmap); serve it without mesh=")
         if decode_horizon < 1:
             raise ValueError(f"decode_horizon must be >= 1, got {decode_horizon}")
         self.device = resolve_device(device)
@@ -374,6 +370,9 @@ class ServingEngine:
         self._cancelled: set[int] = set()
         self._inject_bad: set[int] = set()
         self._draining = False
+        # the listener of the accepted submit / cancel / request_drain
+        # calls and of each step (``_tell``): a mesh's async leader
+        self.control = None
         # REPRO_POOL_CHECK=1: audit the pool's bookkeeping after every step
         self._pool_check = os.environ.get("REPRO_POOL_CHECK") == "1"
         self.results: dict[int, RequestResult] = {}
@@ -635,6 +634,13 @@ class ServingEngine:
         except QueueFull:
             self.stats["shed"] += 1
             raise
+        self._tell("submit", request)
+
+    def _tell(self, call: str, *args) -> None:
+        """Hand an accepted call to ``self.control`` (rank 0 of a mesh's
+        async front-end: ``serving.mesh_control.Leader``), if any."""
+        if self.control is not None:
+            self.control(call, *args)
 
     def set_stream_callbacks(self, on_token=None, on_result=None) -> None:
         """Wire the streaming surface (see the class docstring); None
@@ -921,6 +927,7 @@ class ServingEngine:
         in-flight or parked one at the next step boundary, with the tokens
         generated so far, status "cancelled". False when the rid is unknown
         (finished, or never submitted)."""
+        self._tell("cancel", rid)
         if any(fl.req.rid == rid for fl in self._inflight.values()):
             self._cancelled.add(rid)
             return True
@@ -938,6 +945,7 @@ class ServingEngine:
         """Graceful drain: close admission — new ``submit`` calls shed with
         ``QueueFull``, queued requests stay unserved — but finish everything
         in flight, parked (preempted) requests included."""
+        self._tell("request_drain")
         self._draining = True
 
     @property
@@ -1148,6 +1156,7 @@ class ServingEngine:
         """One engine iteration: reap → admit → chunked prefill → batched
         decode. On the fast path a decode horizon advances the clock by K
         ticks (one a generated-token step, as on the stepwise path)."""
+        self._tell("step")
         t0 = time.monotonic()
         with tier_scope(self.backend), tp_scope(self.shard):
             ticks = self._step()

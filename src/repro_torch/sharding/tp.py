@@ -23,6 +23,14 @@ reference:
     collective; elsewhere every rank attends over every head;
   * a row-parallel projection multiplies this rank's K slice and sums the
     partials over "model" (``layers._row_linear``), its bias added once;
+  * an MoE block (the reference serves it through ``_moe_block_local``,
+    GSPMD partitioning it under these specs) keeps its router whole on
+    every rank — a cut router GEMM may sum in another order and flip a
+    top-k choice — and dispatches and combines this rank's slots locally;
+    the experts' gate/up are column-parallel over F (one expert-batched
+    launch a projection), their down row-parallel, the shared expert an
+    MLP under the same rules (``col`` / ``row`` keys ``experts/…`` and
+    ``shared/…``);
   * the embedding gathers this rank's vocab rows and sums the ranks'
     (one non-zero term an element), the logits are this rank's vocab
     columns, and the engine's greedy pick and non-finite flag reduce over
@@ -38,6 +46,7 @@ import torch
 
 from . import collectives as coll
 from .partition import (
+    MIN_SHARD_DIM,
     _dp_world,
     mesh_coords,
     mesh_sizes,
@@ -94,8 +103,21 @@ class ServeShard:
         self.dp_rank = coords["data"] + (coords.get("pod", 0) * sizes["data"])
         self.dp_group = dp_group(mesh)
         heads = {"n_q": cfg.n_heads, "n_kv": cfg.n_kv_heads}
+        #: the planner's serve-mode specs (what an artifact records)
         self.specs = params_pspecs(params, mesh, heads, mode="serve")
         flat = dict(spec_paths(self.specs))
+        # the router stays whole on every rank (a cut router GEMM may sum
+        # in another order and flip a top-k choice); the planner cuts it
+        # only at MIN_SHARD_DIM experts, which no arch of the catalog has
+        router = _spec_of(flat, "mlp", "router")
+        if router is not None and any(
+                "model" in (a if isinstance(a, tuple) else (a,))
+                for a in router):
+            raise NotImplementedError(
+                f"{cfg.name}: the planner cuts the MoE router's "
+                f"{cfg.n_experts} experts over \"model\" (at least "
+                f"{MIN_SHARD_DIM}); serving holds the router whole on every "
+                f"rank and does not cut it")
         # slots: the serve cache's rule (no MIN_SHARD_DIM floor); a paged
         # pool replicates them
         self.slots_sharded = (not paged and num_slots % self.dp_n == 0
@@ -109,16 +131,25 @@ class ServeShard:
         self.head_local = (self.model_n > 1 and cfg.n_heads % self.model_n == 0
                            and n_kv % self.model_n == 0)
         self.kv_heads = n_kv // self.model_n if self.kv_heads_sharded else n_kv
-        self.col = {}
-        for block, names in (("attn", ("wq", "wk", "wv")),
-                             ("mlp", ("wg", "wu"))):
+        # the flags key a dense projection by its name, an MoE block's by
+        # its subtree's too (experts/wd, shared/wu), present where the
+        # model has them
+        self.col, self.row = {}, {}
+        for block, key in (("attn", ""), ("mlp", ""),
+                           ("mlp/experts", "experts/"),
+                           ("mlp/shared", "shared/")):
+            names = ("wq", "wk", "wv", "wo") if block == "attn" else (
+                "wg", "wu", "wd")
             for name in names:
                 spec = _spec_of(flat, block, name)
-                self.col[name] = spec is not None and spec[-1] == "model"
-        self.row = {}
-        for block, name in (("attn", "wo"), ("mlp", "wd")):
-            spec = _spec_of(flat, block, name)
-            self.row[name] = spec is not None and spec[-2] == "model"
+                if key and spec is None:
+                    continue
+                if name in ("wo", "wd"):
+                    self.row[key + name] = (spec is not None
+                                            and spec[-2] == "model")
+                else:
+                    self.col[key + name] = (spec is not None
+                                            and spec[-1] == "model")
         embed = flat.get("/embed")
         self.embed_sharded = embed is not None and embed[0] == "model"
         head = flat.get("/lm_head")

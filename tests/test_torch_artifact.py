@@ -286,20 +286,43 @@ def test_mixtral_artifact_round_trips_through_both_packages(tmp_path):
                                rtol=0, atol=1e-3)
 
 
-def test_sharded_artifact_is_refused(tmp_path):
-    """A JAX ``-tp`` artifact loads with its shard stage's record and its
-    int8 weights; what the port still refuses of it is a mesh over the MoE
-    family (ROADMAP.md Queue A), before any rank starts."""
-    jq = repro.quantize("mixtral-8x22b-smoke", recipe="serve-w8a8-tp")
-    jq.save(str(tmp_path))
-    qm = QuantizedModel.load(str(tmp_path), device="cpu")
-    assert qm.shard_mode == "tp" and qm.sharding == {"mode": "tp"}
-    _assert_same_leaves(qm.params, jax_to_numpy(jq.params))
-    from repro_torch.serving import ServingEngine
+class _StubMesh:
+    """A JAX-side mesh for ``QuantizedModel.save(mesh=)``: its shape and
+    axis names (the planner reads nothing else)."""
 
-    with pytest.raises(ValueError, match="MoE family is not served over a "
-                                         "mesh"):
-        ServingEngine.from_quantized(qm, device="cpu", mesh=object())
+    def __init__(self, **axes):
+        self.shape = dict(axes)
+        self.axis_names = tuple(axes)
+
+
+def test_jax_moe_tp_artifact_serves_over_its_recorded_mesh(tmp_path):
+    """A JAX ``-tp`` MoE artifact saved with a 1x2 mesh loads with its
+    shard stage's record (the specs as JAX printed them) and its int8
+    weights, and ``--load`` serves it over the recorded mesh: the port's
+    single-device engine's tokens on the same artifact."""
+    import repro_torch
+    from repro_torch.launch.serve import _requests
+    from repro_torch.serving import ServingEngine, required_cache_len
+
+    jq = repro.quantize("mixtral-8x22b-smoke", recipe="serve-w8a8-tp")
+    jq.save(str(tmp_path), mesh=_StubMesh(data=1, model=2))
+    qm = QuantizedModel.load(str(tmp_path), device="cpu")
+    assert qm.shard_mode == "tp" and qm.sharding == jq.sharding
+    assert "'model'" in qm.sharding["specs"]["/blocks/mlp/experts/wu/q"]
+    _assert_same_leaves(qm.params, jax_to_numpy(jq.params))
+    config = repro_torch.ServeConfig(load=str(tmp_path), device="cpu",
+                                     trace=4, prompt_len=8, gen_len=6,
+                                     prefill_chunk=4)
+    run = repro_torch.serve(config)
+    assert run.mesh == (1, 2) and len(run.rank_launches) == 2
+    reqs = _requests(config, qm.cfg.vocab_size)
+    need = max(required_cache_len(len(r.prompt), r.max_new_tokens, 4)
+               for r in reqs)
+    eng = ServingEngine.from_quantized(qm, num_slots=config.slots,
+                                       max_len=need, prefill_chunk=4,
+                                       device="cpu")
+    want = {rid: list(r.tokens) for rid, r in eng.run(reqs).items()}
+    assert {rid: list(r.tokens) for rid, r in run.results.items()} == want
 
 
 # ------------------------------------------------------ the checkpointer

@@ -1782,3 +1782,174 @@ def test_one_rank_nccl_mesh_serves_the_single_device_tokens(dev):
         dist.destroy_process_group()
     assert {r: v.tokens for r, v in got.items()} == \
         {r: v.tokens for r, v in single.items()}
+
+
+def test_expert_batched_int32_gemm_one_launch_bit_equal(dev):
+    """The epilogue-free W8A8 GEMM with an expert axis is ONE launch (its
+    own counter), each expert's accumulator its plain version's, and the
+    scale epilogue after it the expert-batched ``qmatmul_w8a8``'s bits, at
+    ragged shapes and at mixtral's and llama4's per-rank down projections
+    (a model axis of 2)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a8 import qmatmul_w8a8
+    from repro_torch.kernels.qmatmul_w8a8.ops import qmatmul_w8a8_i32
+    from repro_torch.kernels.qmatmul_w8a8.ref import (
+        qmatmul_w8a8_i32_ref,
+        w8a8_epilogue,
+    )
+
+    for E, M, K, N in ((3, 5, 33, 17), (4, 8, 64, 96), (8, 8, 8192, 6144),
+                       (8, 80, 8192, 6144), (16, 16, 4096, 5120)):
+        a = torch.randint(-128, 128, (E, M, K), device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (E, N, K), device=dev,
+                          dtype=torch.int8).transpose(1, 2)
+        reset_launch_counts()
+        acc = qmatmul_w8a8_i32(a, w)
+        assert launch_counts().get("qmatmul_w8a8_i32_experts") == 1
+        assert acc.shape == (E, M, N) and acc.dtype == torch.int32
+        for e in range(E):
+            assert torch.equal(acc[e], qmatmul_w8a8_i32_ref(a[e], w[e])), (
+                E, M, K, N, e)
+        sa = torch.rand((E, M), device=dev) * 0.05 + 1e-4
+        sw = torch.rand((E, 1), device=dev) * 0.01 + 1e-4
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(w8a8_epilogue(acc, sa, sw, None, out),
+                               qmatmul_w8a8(a, w, sa, sw, None,
+                                            out_dtype=out)), (E, M, K, N)
+
+
+def test_one_rank_nccl_mesh_serves_moe_as_one_device(dev):
+    """A 1x1 NCCL mesh over mixtral-smoke under serve-w8a8-kv8-tp: the fast
+    path's graphs capture the collectives (and the expert-batched int32
+    GEMM of the row-parallel expert down), the single-device tokens."""
+    import torch.distributed as dist
+
+    import repro_torch
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.serving import Request, ServingEngine
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already running in this process")
+    qm = repro_torch.quantize("mixtral-8x22b-smoke",
+                              recipe="serve-w8a8-kv8-tp", device=dev)
+    reqs = [Request(rid=i, prompt=list(range(3 + 2 * i)), max_new_tokens=5)
+            for i in range(4)]
+    kw = dict(num_slots=2, max_len=16, prefill_chunk=4, device=dev)
+    single = ServingEngine.from_quantized(qm, **kw).run(
+        [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=5) for r in reqs])
+    mesh = make_production_mesh(shape=(1, 1), device=dev)
+    try:
+        eng = ServingEngine.from_quantized(qm, mesh=mesh, **kw)
+        assert eng.stats["graphs"] == 1
+        assert eng.warmup()["graphs"] > 0
+        got = eng.run(reqs)
+    finally:
+        dist.destroy_process_group()
+    assert {r: v.tokens for r, v in got.items()} == \
+        {r: v.tokens for r, v in single.items()}
+
+
+def test_head_local_prefill_attention_bit_equal_on_the_card(dev):
+    """A prefill chunk's attention over the int8 cache of half the KV heads
+    (a head-local rank of a model axis of 2) is bit-equal to those heads of
+    the whole attention: each KV head's group of q heads is one call, so
+    the batched GEMMs see the same shapes on one device and on a rank."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, T, S, Hq, Hkv, hd = 1, 206, 256, 14, 2, 64
+    dims = layers.AttnDims(n_q=Hq, n_kv=Hkv, head_dim=hd)
+    q = torch.randn((B, T, Hq, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, T, Hkv, hd), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, T, Hkv, hd), generator=g, device=dev).to(torch.bfloat16)
+    kpos = torch.full((B, S), -1, dtype=torch.int64, device=dev)
+    slots = layers.slot_write(kpos, torch.arange(T, device=dev)[None])
+
+    def cache(h):
+        return {"k": torch.zeros((B, S, h, hd), dtype=torch.int8, device=dev),
+                "v": torch.zeros((B, S, h, hd), dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros((B, S, h), device=dev),
+                "v_scale": torch.zeros((B, S, h), device=dev)}
+
+    whole, _ = layers._cached_attention(q, k, v, dims, cache(Hkv), slots,
+                                        None, torch.bfloat16, False)
+    whole = whole.reshape(B, T, Hq, hd)
+    half = Hq // 2
+    for r in range(2):
+        got, _ = layers._cached_attention(
+            q[:, :, r * half:(r + 1) * half], k[:, :, r:r + 1],
+            v[:, :, r:r + 1], dims, cache(1), slots, None, torch.bfloat16,
+            False)
+        assert torch.equal(got.reshape(B, T, half, hd),
+                           whole[:, :, r * half:(r + 1) * half]), r
+
+
+@pytest.mark.parametrize("E,M,K,N", [(8, 8, 8192, 6144), (8, 80, 8192, 6144),
+                                     (16, 16, 4096, 5120), (3, 5, 33, 17)])
+def test_expert_down_float32_partials_one_launch(dev, E, M, K, N):
+    """W8A16's row-parallel expert down at a model axis of 2 (mixtral's and
+    llama4's per-rank shapes, and a ragged one): the bf16 hidden rows taken
+    in float32 with the bf16-cast per-expert scale, as ``_row_linear``
+    passes them, are ONE expert-batched launch of the float32 kernel, each
+    expert's float32 partial within W8A16_TOL of its plain version."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmatmul_w8a16 import qmatmul_w8a16
+    from repro_torch.kernels.qmatmul_w8a16.ref import qmatmul_w8a16_ref
+
+    g = torch.Generator(device=dev).manual_seed(E * M + K)
+    x = torch.randn((E, M, K), device=dev, generator=g).to(
+        torch.bfloat16).float()
+    w = torch.randint(-127, 128, (E, N, K), device=dev, generator=g,
+                      dtype=torch.int8).transpose(1, 2)
+    s16 = (torch.rand((E, 1), device=dev, generator=g) * 0.01
+           + 1e-4).to(torch.bfloat16)
+    reset_launch_counts()
+    y = qmatmul_w8a16(x, w, s16, None)
+    assert launch_counts()["qmatmul_w8a16"] == 1
+    assert y.dtype == torch.float32 and y.shape == (E, M, N)
+    for e in range(E):
+        yr = qmatmul_w8a16_ref(x[e], w[e], s16[e], None, torch.float32)
+        diff = (y[e] - yr).abs()
+        tol = _w8a16_tolerance(x[e], w[e], s16[e], None, yr)
+        assert bool((diff <= tol).all()), (e, float(diff.max()))
+
+
+@pytest.mark.parametrize("Hq,Hkv,hd", [(14, 2, 64), (48, 8, 128)],
+                         ids=["qwen2", "mixtral"])
+def test_prefill_attention_rows_bit_equal_to_their_halves(dev, Hq, Hkv, hd):
+    """A prefill chunk's attention over the int8 cache at the engine's
+    shape (8 slots x 32 tokens, 512 positions; qwen2's and mixtral's
+    heads) is bit-equal, row for row, to the same rows run as two halves of
+    4 slots — what a rank of a data axis of 2 prefills: the batched GEMMs'
+    batch does not change the bits."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, T, S = 8, 32, 512
+    dims = layers.AttnDims(n_q=Hq, n_kv=Hkv, head_dim=hd)
+    bf = torch.bfloat16
+    q = torch.randn((B, T, Hq, hd), generator=g, device=dev).to(bf)
+    k = torch.randn((B, T, Hkv, hd), generator=g, device=dev).to(bf)
+    v = torch.randn((B, T, Hkv, hd), generator=g, device=dev).to(bf)
+    start = torch.randint(0, S - T, (B,), generator=g, device=dev)
+    pos = start[:, None] + torch.arange(T, device=dev)[None]
+    kpos = torch.where(torch.arange(S, device=dev)[None] < start[:, None],
+                       torch.arange(S, device=dev)[None], -1)
+    keys = torch.randint(-127, 128, (B, S, Hkv, hd), generator=g, device=dev,
+                         dtype=torch.int8)
+    vals = torch.randint(-127, 128, (B, S, Hkv, hd), generator=g, device=dev,
+                         dtype=torch.int8)
+    ks = torch.rand((B, S, Hkv), generator=g, device=dev) * 0.05
+    vs = torch.rand((B, S, Hkv), generator=g, device=dev) * 0.05
+
+    def attend(rows):
+        slots = layers.slot_write(kpos[rows].clone(), pos[rows])
+        cache = {"k": keys[rows].clone(), "v": vals[rows].clone(),
+                 "k_scale": ks[rows].clone(), "v_scale": vs[rows].clone()}
+        out, _ = layers._cached_attention(q[rows], k[rows], v[rows], dims,
+                                          cache, slots, None, bf, False)
+        return out
+
+    whole = attend(slice(0, B))
+    halves = torch.cat([attend(slice(0, B // 2)), attend(slice(B // 2, B))])
+    assert torch.equal(whole, halves)

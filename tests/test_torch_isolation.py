@@ -62,6 +62,7 @@ def test_import_leaves_jax_out_and_torch_state_alone():
         "import repro_torch.runtime, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.sharding, repro_torch.sharding.collectives\n"
         "import repro_torch.sharding.tp, repro_torch.launch.mesh\n"
+        "import repro_torch.serving.mesh_control\n"
         "after = (torch.get_default_dtype(), torch.get_num_threads(),\n"
         "         torch.are_deterministic_algorithms_enabled())\n"
         "print(before == after, 'jax' in sys.modules, 'repro' in sys.modules)")
@@ -88,13 +89,14 @@ def test_sharding_modules_are_the_ports_own():
     torch.distributed at most (no process group is started at import)."""
     for rel in ("sharding/__init__.py", "sharding/partition.py",
                 "sharding/collectives.py", "sharding/tp.py",
-                "launch/mesh.py"):
+                "launch/mesh.py", "serving/mesh_control.py"):
         path = PORT / rel
         assert path in _port_files(), rel
         assert not {n.split(".")[0] for n in _imports(path)} & {
             "jax", "jaxlib", "repro"}, rel
     out = _run("import torch.distributed as dist, repro_torch.sharding.tp, "
-               "repro_torch.launch.mesh, repro_torch.launch.serve\n"
+               "repro_torch.launch.mesh, repro_torch.launch.serve, "
+               "repro_torch.serving.mesh_control\n"
                "print(dist.is_initialized())")
     assert out == "False"
 

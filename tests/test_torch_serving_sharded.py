@@ -295,19 +295,6 @@ def test_head_local_guard_disengages_on_indivisible_heads(world4):
 
 # ---------------------------------------------------------------- refusals
 
-def test_moe_and_async_with_a_mesh_name_their_roadmap_item():
-    from repro_torch.models import build_model as torch_build_model
-
-    cfg = repro_torch.get_config("mixtral-8x22b-smoke")
-    model = torch_build_model(cfg)
-    params = model.init(0, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue A.*MoE"):
-        ServingEngine(model, params, cfg, device="cpu", mesh=object())
-    with pytest.raises(ServeConfigError, match="ROADMAP.md Queue A"):
-        repro_torch.ServeConfig(mesh=(1, 2), serve_async=True, trace=4,
-                                device="cpu").validate()
-
-
 def test_mesh_shape_and_nccl_are_checked_before_any_rank_starts():
     for bad in ((8,), (2, 0), (1, 2, 3, 4)):
         with pytest.raises(ValueError, match="positive ints"):
