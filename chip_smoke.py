@@ -362,6 +362,31 @@ Phases, each of which must pass (nothing here catches a failure):
      traces (cut: ``ASYNC_TP_TRACES``): every outcome, the server's
      counters and the SLO summary equal the one device's, each rank's
      launches exact.
+  15. training over a mesh (no kernel of the port on the path: the
+     reference's training runs no Pallas kernel either) — ``make_train_step``
+     under ``configure_sharding_hints``, every rank drawing the same whole
+     init and keeping its blocks, three steps of phase 12's batches.
+     15a: qwen2-0.5b at full width, ``TRAIN_MESH_LAYERS`` of 24 layers,
+     over 2x1 (FSDP) and 1x2 (TP, head-parallel: 7 of 14 q heads, 1 of 2
+     KV heads a rank), two gloo ranks spawned on the one card
+     (``train_mesh_rank``), in float32 and in the config's bf16 compute:
+     losses and grad norms against one device's at that depth within
+     ``TRAIN_MESH_TOL`` of the dtype, each rank's resident params and
+     moments equal to the planner's block bytes, its peak memory and step
+     ms. 15b: a 1x1 NCCL mesh at 24 layers in this process, deterministic
+     algorithms: losses, grad norms, params and moments bit-equal to one
+     device's. 15c: ``launch.train.main`` in the ranks' group at
+     ``TRAIN_ELASTIC``'s depth — an uninterrupted 2x1 run, a failure
+     injected on every rank and replayed (bit-equal to it), and the
+     uninterrupted run's checkpoint resumed by ``elastic_restore`` onto 1x2
+     (in the ranks) and onto one device (here), each to the end within
+     ``ELASTIC_TOL`` of the uninterrupted run's own update from the
+     checkpoint, and a resume from it with its AdamW moments zeroed (here)
+     outside that gate. 15d: mixtral-8x22b at full width, 1 of 56 layers, over
+     1x2, two steps donating the state (AdamW in place), beside one device
+     at that depth after the ranks end: losses and grad norms within
+     ``TRAIN_MESH_TOL``'s bf16 gate, each rank's blocks and peak. Every
+     gate is logged before the phase fails on one.
 
 The line before the last is the kernel table as one JSON object; the last
 line is the device record. Exits non-zero with no result when torch sees no
@@ -5340,9 +5365,10 @@ def check_training(torch, dev, smi):
 TP_MESHES = ((1, 2), (2, 1))
 # 13a / 13b serve qwen2-0.5b at full width cut to TP_LAYERS of its 24
 # layers (two gloo ranks on the one card stage each collective through
-# host memory: at 24 layers 13a / 13b took 163-285 s), beside one-device
-# runs at the same depth; 13c and 13d serve all 24
-TP_LAYERS = 6
+# host memory: at 24 layers 13a / 13b took 163-285 s, at 6 the serving
+# loops 49 s), beside one-device runs at the same depth; 13c and 13d
+# serve all 24
+TP_LAYERS = 3
 # 13d's serve / --load round trip: a shorter trace of phase 4's settings
 TP_ROUND_TRIP = dict(SERVE, trace=4, prompt_min=32, prompt_len=64, gen_min=8,
                      gen_len=8)
@@ -5784,8 +5810,10 @@ MOE_TP_RECIPES = (("w8a8", "serve-w8a8-kv8-tp", 8),
 # 14c: llama4-scout at smoke size (its shared expert's route), 1x2 W8A8
 LLAMA4_SMOKE = dict(arch="llama4-scout-17b-a16e-smoke", slots=3, max_len=32,
                     prefill_chunk=4, trace=6, prompt_len=10, gen_len=6)
-# 14d: the async front-end over a 1x2 mesh, qwen2-0.5b serve-w8a8-kv8-tp;
-# phase 10a's and 10b's traces cut in length (gen 16) and count
+# 14d: the async front-end over a 1x2 mesh, qwen2-0.5b serve-w8a8-kv8-tp
+# at phase 13's TP_LAYERS of its 24 layers (at 24, 14d took 71.5 s on the
+# H100 at 700 W); phase 10a's and 10b's traces cut in length (gen 16) and
+# count
 ASYNC_TP = dict(SERVE, gen_min=16, gen_len=16, serve_async=True)
 ASYNC_TP_TRACES = {"underload": dict(trace=4, qps=0.25),
                    "overload": dict(trace=12, qps=2.0, max_queue=4,
@@ -6207,9 +6235,9 @@ def check_moe_tensor_parallel(torch, dev, depth, smi):
     smoke size, W8A8, over 1x2 in the same ranks (its shared expert a
     float MLP cut over "model"): the one device's tokens, launches exact.
     14d: ``repro_torch.serve(ServeConfig(serve_async=True, mesh=(1, 2)))``
-    of qwen2-0.5b's serve-w8a8-kv8-tp artifact on ``ASYNC_TP_TRACES``
-    (phase 10a's and 10b's traces, cut) against the same served on one
-    device: every outcome, the server's counters and the SLO summary
+    of qwen2-0.5b's serve-w8a8-kv8-tp artifact at ``TP_LAYERS`` layers on
+    ``ASYNC_TP_TRACES`` (phase 10a's and 10b's traces, cut) against the
+    same served on one device: every outcome, the server's counters and the SLO summary
     equal; each rank's launches exact. Returns {label: counts} of the
     fast runs of rank 0."""
     import dataclasses
@@ -6438,10 +6466,11 @@ def check_moe_tensor_parallel(torch, dev, depth, smi):
                              "build", "chip_smoke_async_tp")
     shutil.rmtree(directory, ignore_errors=True)
     try:
+        cut = dataclasses.replace(repro_torch.get_config(SERVE["arch"]),
+                                  n_layers=TP_LAYERS)
         qm = repro_torch.quantize(
-            repro_torch.build_model(repro_torch.get_config(SERVE["arch"])),
-            None, init_seed=SERVE["seed"], device="cuda",
-            recipe="serve-w8a8-kv8-tp")
+            repro_torch.build_model(cut), None, init_seed=SERVE["seed"],
+            device="cuda", recipe="serve-w8a8-kv8-tp")
         qm.save(directory)
         prefill_rows_check(torch, qm, SERVE,
                            "14d qwen2-0.5b serve-w8a8-kv8-tp", smi)
@@ -6451,7 +6480,7 @@ def check_moe_tensor_parallel(torch, dev, depth, smi):
             kw = dict(base, load=directory, **over)
             one, one_counts = counted_serve(repro_torch.ServeConfig(
                 warmup=True, **kw))
-            want = expected_launches("w8a8", True, *forwards(one))
+            want = expected_launches("w8a8", True, *forwards(one), cfg=cut)
             for name, n in one_counts.items():
                 assert n == want.get(name, 0), (
                     f"14d {scenario} one device: {name} launched {n} times, "
@@ -6471,7 +6500,8 @@ def check_moe_tensor_parallel(torch, dev, depth, smi):
                 f"{label}: outcomes or counters differ from one device's")
             st = tp.stats
             want = tp_expected_launches("w8a8", (1, 2), st["decode_steps"],
-                                        st["prefill_dispatches"])
+                                        st["prefill_dispatches"],
+                                        layers=TP_LAYERS)
             for rank, got in enumerate(tp.rank_launches):
                 for name in set(got) | set(want):
                     assert got.get(name, 0) == want.get(name, 0), (
@@ -6495,6 +6525,517 @@ def check_moe_tensor_parallel(torch, dev, depth, smi):
         shutil.rmtree(directory, ignore_errors=True)
     log(f"  14d took {time.perf_counter() - t0:.1f} s")
     return counted
+
+
+# --------------------------------------------------------------- phase 15
+# the train step over a mesh (launch.steps under configure_sharding_hints,
+# sharding.train). 15a: qwen2-0.5b at full width cut to TRAIN_MESH_LAYERS
+# of its 24 layers (two gloo ranks on the one card stage every FSDP gather
+# and gradient sum through host memory), over 2x1 (FSDP) and 1x2 (TP),
+# beside one device at that depth; 15b: a 1x1 NCCL mesh at all 24 layers,
+# bit-equal to one device (deterministic algorithms); three steps of
+# phase 12's TokenStream batches from one init (seed 0, whole on every
+# rank, then cut)
+TRAIN_MESH = dict(steps=3, batch=8, seq=256, seed=0)
+TRAIN_MESH_LR = {"peak_lr": 1e-3, "warmup": 2, "total": 10}
+TRAIN_MESH_LAYERS = 2
+TRAIN_MESHES = ((2, 1), (1, 2))
+# a mesh's step against one device's on the card, each loss and grad norm
+# relative. In float32 compute (the config's widths and params, its
+# activations float32) the two sum in other orders: 1e-5 and 1e-4 (the
+# CPU tests hold the same step within 1e-5 of JAX's). In the config's
+# bfloat16 compute the embedding's gradient accumulates the rows of
+# repeated tokens in bf16, and the batch a rank holds changes that
+# rounding (a 1.8 % grad norm gap at 2x1 on the H100): 5e-3 and
+# 5e-2, a fault that drops a data shard's gradient or counts a replicated
+# leaf twice moves the norm by tens of percent
+TRAIN_MESH_TOL = {"float32": {"loss": 1e-5, "grad_norm": 1e-4},
+                  "bfloat16": {"loss": 5e-3, "grad_norm": 5e-2}}
+# 15c: the launcher (repro_torch.launch.train.main) in the two gloo ranks'
+# group, qwen2-0.5b at ``layers``: an uninterrupted 2x1 run, and a failure
+# injected on every rank and replayed; then the uninterrupted run's
+# checkpoint of step ``resume_at`` resumed onto 1x2 and onto one device
+# (elastic_restore), each to the end
+TRAIN_ELASTIC = dict(layers=2, steps=4, ckpt_every=2, fail_at=3,
+                     resume_at=2)
+# across meshes (bf16 compute): a resumed run's final params against the
+# uninterrupted run's, as a share of what the uninterrupted run itself
+# moved them after the checkpoint, ||resumed - run|| / ||run - checkpoint||
+# over every param leaf at once but the key bias, at most 5e-2. A sound
+# resume differs by the meshes' roundings alone; one that drops the AdamW
+# moments moves a third or more of the update (the phase plants it and
+# requires the gate to see it). The key bias's gradient is rounding noise
+# (zero in exact arithmetic), so it takes lr-sized steps in any direction:
+# each element within 2 x the resumed steps' summed lr, as the CPU test
+# holds it. The resumed losses within TRAIN_MESH_TOL's bf16 gate
+ELASTIC_TOL = 5e-2
+# 15d: mixtral-8x22b at full width, 1 of its 56 layers, over 1x2 (gloo):
+# each rank holds its F half of the experts (1.2 G float32 parameters) with
+# their gradients and moments; the steps donate the state (AdamW in place:
+# no second copy); the one-device oracle runs after the ranks end
+MOE_TRAIN = dict(layers=1, steps=2)
+
+
+def _param_paths(tree, path=()):
+    """[(path, leaf)] of a tree, dict keys sorted (``jax.tree.leaves``'
+    order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _param_paths(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in _param_paths(t, path + (i,))]
+    return [(path, tree)]
+
+
+def _train_leaves(tree):
+    return [x for _, x in _param_paths(tree)]
+
+
+def train_zeros(torch, tree):
+    """Zeros in the shape of every leaf of ``tree`` (dicts of tensors)."""
+    if isinstance(tree, dict):
+        return {k: train_zeros(torch, v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _train_leaves(tree))
+
+
+def mesh_train(torch, cfg, mesh, *, steps, lr=TRAIN_MESH_LR, donate=False,
+               keep=False):
+    """``steps`` train steps of ``cfg`` on the card from ``init(seed)``
+    (whole, then cut where ``mesh``: this rank's blocks) over phase 12's
+    TokenStream batches. Returns ({"losses", "grad_norms", "ms", "peak" —
+    bytes above what was allocated before —, and over a mesh "resident",
+    "planned", "whole": this rank's params and moments, the planner's
+    block bytes of the same, the whole state's}, the final state where
+    ``keep``)."""
+    import torch.distributed as dist
+
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps as st
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.partition import (
+        block_bytes,
+        opt_spec_tree,
+        shard_tree,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if mesh is not None:
+        st.configure_sharding_hints(cfg, mesh)
+    try:
+        model, step = st.make_train_step(cfg, lr_cfg=lr, donate=donate)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        params = model.init(TRAIN_MESH["seed"], device=dev)
+        out = {}
+        if mesh is not None:
+            shapes, (p_spec, _) = st.state_specs(model, mesh)
+            specs = (p_spec, opt_spec_tree(p_spec))
+            params = shard_tree(params, p_spec, mesh)
+        opt = adamw_init(params)
+        if mesh is not None:
+            out.update(resident=_tree_bytes((params, opt)),
+                       planned=block_bytes(shapes, specs, mesh),
+                       whole=_tree_bytes(shapes))
+        stream = TokenStream(seed=0, shard=0, n_shards=1,
+                             batch_per_shard=TRAIN_MESH["batch"],
+                             seq=TRAIN_MESH["seq"], vocab=cfg.vocab_size,
+                             device=dev)
+        losses, norms, ms = [], [], []
+        for s in range(steps):
+            batch = stream.batch(s)
+            torch.cuda.synchronize(dev)
+            if mesh is not None:
+                dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.update(losses=losses, grad_norms=norms, ms=ms,
+                   peak=torch.cuda.max_memory_allocated(dev) - base)
+        return out, ((params, opt) if keep else None)
+    finally:
+        if mesh is not None:
+            st.clear_sharding_hints()
+
+
+def elastic_argv(directory, *extra):
+    e = TRAIN_ELASTIC
+    return ["--arch", "qwen2-0.5b", "--layers", str(e["layers"]), "--steps",
+            str(e["steps"]), "--batch", str(TRAIN_MESH["batch"]), "--seq",
+            str(TRAIN_MESH["seq"]), "--ckpt-every", str(e["ckpt_every"]),
+            "--ckpt-dir", directory, *extra]
+
+
+def copy_checkpoint(src, dst, step):
+    """``src``'s checkpoint of ``step`` alone into ``dst`` (its latest)."""
+    import shutil
+
+    shutil.copytree(os.path.join(src, f"step_{step}"),
+                    os.path.join(dst, f"step_{step}"))
+
+
+def launcher_over_mesh(torch, dirs):
+    """15c in the ranks' group: the launcher's runs over 2x1 and 1x2 (gloo
+    named), deterministic algorithms on: uninterrupted, a failure replayed,
+    and the uninterrupted run's checkpoint of ``resume_at`` resumed onto
+    1x2 (copied to ``dirs["r"]``; rank 0 also copies it to ``dirs["one"]``
+    for the one-device resume). Returns their losses, ends, seconds,
+    retries, and whether the replayed run's state is the uninterrupted
+    one's bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    gloo = ("--mesh-backend", "gloo")
+    e = TRAIN_ELASTIC
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs, seconds = {}, {}
+    try:
+        for k, extra, kw in (
+                ("a", ("--mesh", "2x1"), {}),
+                ("f", ("--mesh", "2x1"),
+                 {"inject_failure": train.FailOnce(e["fail_at"])}),
+                ("r", ("--mesh", "1x2", "--resume"), {})):
+            if k == "r":
+                dist.barrier()
+                if dist.get_rank() == 0:
+                    for d in ("r", "one"):
+                        copy_checkpoint(dirs["a"], dirs[d], e["resume_at"])
+                dist.barrier()
+            t = time.perf_counter()
+            runs[k] = train.main(elastic_argv(dirs[k], *extra, *gloo), **kw)
+            seconds[k] = time.perf_counter() - t
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    a, f = runs["a"], runs["f"]
+    replay = all(torch.equal(x, y) for x, y in zip(_train_leaves(f.state),
+                                                   _train_leaves(a.state)))
+    return {"losses": {k: run.losses for k, run in runs.items()},
+            "ends": {k: (run.start, run.end) for k, run in runs.items()},
+            "seconds": seconds, "retries": f.metrics.retries,
+            "restores": f.metrics.restores, "replay_equal": replay,
+            "ranks": {k: run.ranks for k, run in runs.items()}}
+
+
+def resume_gap(torch, got, run, ckpt):
+    """A resumed run's params ``got`` against the uninterrupted run's
+    ``run``: (||got - run|| / ||run - ckpt|| over every leaf but the key
+    bias, the key bias's largest |got - run|); ``ckpt`` the params the
+    resume started from."""
+    num = den = 0.0
+    bias = 0.0
+    for (path, g), (_, w), (_, c) in zip(_param_paths(got),
+                                         _param_paths(run),
+                                         _param_paths(ckpt)):
+        g, w, c = (t.double() for t in (g, w.to(g.device), c.to(g.device)))
+        if path[-1] == "bk":
+            bias = max(bias, float((g - w).abs().max()))
+            continue
+        num += float((g - w).square().sum())
+        den += float((w - c).square().sum())
+    return (num / max(den, 1e-300)) ** 0.5, bias
+
+
+def train_mesh_rank(rank, world, store, out, job):
+    """A rank of phase 15 (two on the one card, gloo): 15a over each of
+    ``TRAIN_MESHES``, 15c the launcher's fault path and elastic resume,
+    15d mixtral over 1x2. Writes its results (or its traceback) to
+    ``out.<rank>``."""
+    import dataclasses
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    result = None
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        import repro_torch
+        from repro_torch.launch.mesh import make_production_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        meshes = {s: make_production_mesh(shape=s, device="cuda",
+                                          backend="gloo")
+                  for s in TRAIN_MESHES}
+        cfg = dataclasses.replace(repro_torch.get_config("qwen2-0.5b"),
+                                  n_layers=TRAIN_MESH_LAYERS)
+        result = {}
+        t0 = time.perf_counter()
+        for dtype in TRAIN_MESH_TOL:
+            c = dataclasses.replace(cfg, dtype=dtype)
+            for shape in TRAIN_MESHES:
+                result["15a", dtype, shape] = mesh_train(
+                    torch, c, meshes[shape], steps=TRAIN_MESH["steps"])[0]
+                torch.cuda.empty_cache()
+        result["15a seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["15c"] = launcher_over_mesh(torch, job["dirs"])
+        result["15c seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mcfg = dataclasses.replace(repro_torch.get_config("mixtral-8x22b"),
+                                   n_layers=MOE_TRAIN["layers"])
+        result["15d"] = mesh_train(torch, mcfg, meshes[(1, 2)],
+                                   steps=MOE_TRAIN["steps"], donate=True)[0]
+        result["15d seconds"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+    except BaseException:
+        result = traceback.format_exc()
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump(result, f)
+
+
+def _gaps(what, run, one, tol, failures):
+    """The largest relative gap of ``run``'s losses and grad norms from
+    ``one``'s; a gap over ``tol`` joins ``failures``."""
+    worst = {}
+    for key in ("losses", "grad_norms"):
+        gate = tol["loss" if key == "losses" else "grad_norm"]
+        gaps = [abs(g / w - 1) for g, w in zip(run[key], one[key])]
+        worst[key] = max(gaps)
+        if worst[key] > gate:
+            failures.append(f"{what} {key}: {run[key]} against one device's "
+                            f"{one[key]} ({worst[key]:.3g} > {gate})")
+    return worst
+
+
+def log_mesh_run(label, run, one, tol, failures):
+    """A mesh run's losses and grad norms beside one device's, gated."""
+    worst = _gaps(label, run, one, tol, failures)
+    log(f"  {label}: losses {[round(x, 6) for x in run['losses']]} "
+        f"(one device {[round(x, 6) for x in one['losses']]}), grad norms "
+        f"{[round(x, 5) for x in run['grad_norms']]} (one device "
+        f"{[round(x, 5) for x in one['grad_norms']]}); largest relative gap "
+        f"loss {worst['losses']:.3g} (gate {tol['loss']}), grad norm "
+        f"{worst['grad_norms']:.3g} (gate {tol['grad_norm']})")
+
+
+def log_rank_blocks(label, ranks, key, smi, failures):
+    """Each rank's resident params and moments against the planner's
+    block bytes (equal, and less than the whole state), its peak and step
+    ms."""
+    for r, res in sorted(ranks.items()):
+        run = res[key]
+        if not run["resident"] == run["planned"] < run["whole"]:
+            failures.append(f"{label} rank {r}: resident {run['resident']} "
+                            f"bytes, the planner's blocks {run['planned']}, "
+                            f"whole {run['whole']}")
+        log(f"  {label} rank {r}: params + AdamW moments resident "
+            f"{run['resident']} bytes = the planner's block bytes "
+            f"{run['planned']} (whole state {run['whole']}); peak "
+            f"{run['peak'] / 2**30:.2f} GiB; step ms "
+            f"{[round(x, 1) for x in run['ms']]} ({smi})")
+
+
+def check_training_over_mesh(torch, dev, smi):
+    """Phase 15. Nothing here launches a kernel of the port (the
+    reference's training runs no Pallas kernel either). Every gate is
+    read, and logged, before the phase fails on the first that did not
+    hold."""
+    import dataclasses
+    import shutil
+
+    import repro_torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import cosine_schedule
+
+    failures = []
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_train_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {k: os.path.join(root, k) for k in ("a", "f", "r", "one", "z")}
+    cfg = dataclasses.replace(repro_torch.get_config("qwen2-0.5b"),
+                              n_layers=TRAIN_MESH_LAYERS)
+    one = {}
+    for dtype in TRAIN_MESH_TOL:
+        one[dtype], _ = mesh_train(
+            torch, dataclasses.replace(cfg, dtype=dtype), None,
+            steps=TRAIN_MESH["steps"])
+        log(f"  15a one device, qwen2-0.5b at {TRAIN_MESH_LAYERS} of 24 "
+            f"layers, {dtype} compute: losses "
+            f"{[round(x, 6) for x in one[dtype]['losses']]}, step ms "
+            f"{[round(x, 1) for x in one[dtype]['ms']]}, peak "
+            f"{one[dtype]['peak'] / 2**30:.2f} GiB ({smi})")
+        torch.cuda.empty_cache()
+    saved_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        t_ranks = time.perf_counter()
+        ranks = spawn_ranks(train_mesh_rank, 2, {"dirs": dirs}, 15,
+                            timeout=1200)
+        t_ranks = time.perf_counter() - t_ranks
+        r0 = ranks[0]
+        for dtype, tol in TRAIN_MESH_TOL.items():
+            for shape in TRAIN_MESHES:
+                label = (f"15a {shape[0]}x{shape[1]} (gloo, two ranks on the "
+                         f"card), {dtype}")
+                log_mesh_run(label, r0["15a", dtype, shape], one[dtype], tol,
+                             failures)
+                log_rank_blocks(label, ranks, ("15a", dtype, shape), smi,
+                                failures)
+        log(f"  15a ranks took {r0['15a seconds']:.1f} s, 15c "
+            f"{r0['15c seconds']:.1f} s, 15d {r0['15d seconds']:.1f} s; the "
+            f"ranks' spawn and all their phases {t_ranks:.1f} s")
+
+        # 15c: the launcher over the mesh, then onto one device, then the
+        # planted fault: the checkpoint with its AdamW moments zeroed
+        c, e = r0["15c"], TRAIN_ELASTIC
+        if not (c["replay_equal"] and c["retries"] == 1
+                and c["restores"] == 1):
+            failures.append(f"15c: the replayed 2x1 run: bit-equal "
+                            f"{c['replay_equal']}, retries {c['retries']}, "
+                            f"restores {c['restores']}")
+        saved_det = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            t = time.perf_counter()
+            onto = train.main(elastic_argv(dirs["one"], "--resume"))
+            c["seconds"]["one"] = time.perf_counter() - t
+            t = time.perf_counter()
+            (params, opt), _ = Checkpointer(dirs["a"]).restore(
+                onto.state, step=e["resume_at"])
+            Checkpointer(dirs["z"]).save(e["resume_at"], (params, opt._replace(
+                m=train_zeros(torch, opt.m), v=train_zeros(torch, opt.v))),
+                blocking=True)
+            planted = train.main(elastic_argv(dirs["z"], "--resume"))
+            c["seconds"]["planted"] = time.perf_counter() - t
+        finally:
+            torch.use_deterministic_algorithms(saved_det)
+        run = Checkpointer(dirs["a"]).restore(onto.state)[0][0]
+        resumed = {"onto 1x2": (c["losses"]["r"], c["ends"]["r"],
+                                Checkpointer(dirs["r"]).restore(
+                                    onto.state)[0][0]),
+                   "onto one device": (onto.losses, (onto.start, onto.end),
+                                       onto.state[0]),
+                   "planted (moments dropped)": (
+                       planted.losses, (planted.start, planted.end),
+                       planted.state[0])}
+        lr_sum = sum(float(cosine_schedule(s, **train.LR_SCHEDULE,
+                                           total=e["steps"]))
+                     for s in range(e["resume_at"], e["steps"]))
+        tail = {"losses": c["losses"]["a"][e["resume_at"]:],
+                "grad_norms": [1.0] * (e["steps"] - e["resume_at"])}
+        readings = {}
+        for what, (losses, ends, got) in resumed.items():
+            gap, bias = resume_gap(torch, got, run, params)
+            readings[what] = (losses, gap, bias)
+            if ends != (e["resume_at"], e["steps"]):
+                failures.append(f"15c resumed {what}: steps {ends}")
+            if what.startswith("planted"):
+                if not gap > ELASTIC_TOL:
+                    failures.append(f"15c: a resume without its moments "
+                                    f"reads {gap:.3g}, within the gate "
+                                    f"{ELASTIC_TOL}")
+                continue
+            if gap > ELASTIC_TOL or bias > 2 * lr_sum:
+                failures.append(f"15c resumed {what}: params {gap:.3g} of "
+                                f"the uninterrupted run's update from the "
+                                f"checkpoint (gate {ELASTIC_TOL}), the key "
+                                f"bias {bias:.3g} (gate {2 * lr_sum:.3g})")
+            _gaps(f"15c resumed {what}",
+                  {"losses": losses, "grad_norms": tail["grad_norms"]}, tail,
+                  TRAIN_MESH_TOL["bfloat16"], failures)
+        del onto, planted, run, resumed, params, opt
+        log(f"  15c the launcher over 2x1 (gloo) at {e['layers']} layers, "
+            f"{e['steps']} steps, checkpoints every {e['ckpt_every']}: losses "
+            f"{[round(x, 6) for x in c['losses']['a']]}; a failure injected "
+            f"on every rank at step {e['fail_at']} replayed ({c['retries']} "
+            f"retry, {c['restores']} restore), its end state bit-equal to "
+            f"the uninterrupted run's: {c['replay_equal']}; its checkpoint "
+            f"of step {e['resume_at']} resumed by elastic_restore "
+            + "; ".join(f"{what}: losses {[round(x, 6) for x in losses]}, "
+                        f"params {gap:.3g} of the uninterrupted run's update "
+                        f"from the checkpoint, key bias {bias:.3g}"
+                        for what, (losses, gap, bias) in readings.items())
+            + f" (gates {ELASTIC_TOL}, the planted run above it; key bias "
+            f"{2 * lr_sum:.3g}); seconds " + ", ".join(
+                f"{k} {v:.1f}" for k, v in c["seconds"].items()))
+        for k, label in (("a", "uninterrupted 2x1"), ("r", "resumed 1x2")):
+            log(f"  15c {label}: each rank's resident / planned bytes and "
+                f"peak: " + ", ".join(
+                    f"rank {i} {x['resident']} / {x['planned']}, "
+                    f"{x['peak'] / 2**30:.2f} GiB"
+                    for i, x in enumerate(c["ranks"][k])))
+            if any(x["resident"] != x["planned"] for x in c["ranks"][k]):
+                failures.append(f"15c {label}: resident != planned")
+    finally:
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+
+    # 15b: a 1x1 NCCL mesh at 24 layers, bit-equal to one device
+    t15b = time.perf_counter()
+    full = repro_torch.get_config("qwen2-0.5b")
+    saved_det = torch.are_deterministic_algorithms_enabled()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        one24, s_one = mesh_train(torch, full, None,
+                                  steps=TRAIN_MESH["steps"], keep=True)
+        mesh = make_production_mesh(shape=(1, 1), device="cuda")
+        try:
+            nccl, s_nccl = mesh_train(torch, full, mesh,
+                                      steps=TRAIN_MESH["steps"], keep=True)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(saved_det)
+        if saved_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved_env
+    bit_equal = (nccl["losses"] == one24["losses"]
+                 and nccl["grad_norms"] == one24["grad_norms"]
+                 and all(torch.equal(a, b) for a, b in
+                         zip(_train_leaves(s_nccl), _train_leaves(s_one))))
+    del s_one, s_nccl
+    if not bit_equal or not nccl["resident"] == nccl["planned"] == \
+            nccl["whole"]:
+        failures.append(f"15b: the 1x1 NCCL mesh against one device: "
+                        f"bit-equal {bit_equal}, losses {nccl['losses']} / "
+                        f"{one24['losses']}")
+    log(f"  15b 1x1 NCCL mesh, qwen2-0.5b at 24 layers: losses "
+        f"{nccl['losses']}, grad norms {nccl['grad_norms']}; bit-equal to "
+        f"one device's, params and moments after {TRAIN_MESH['steps']} "
+        f"steps too: {bit_equal}; step ms {[round(x, 1) for x in nccl['ms']]}"
+        f" (one device {[round(x, 1) for x in one24['ms']]}; phase 12's "
+        f"steps are 8 x 256 too); peak {nccl['peak'] / 2**30:.2f} GiB (one "
+        f"device {one24['peak'] / 2**30:.2f}); "
+        f"{time.perf_counter() - t15b:.1f} s ({smi})")
+    torch.cuda.empty_cache()
+
+    # 15d: mixtral-8x22b over 1x2, then its one-device oracle
+    t15d = time.perf_counter()
+    mcfg = dataclasses.replace(repro_torch.get_config("mixtral-8x22b"),
+                               n_layers=MOE_TRAIN["layers"])
+    moe_one, _ = mesh_train(torch, mcfg, None, steps=MOE_TRAIN["steps"],
+                            donate=True)
+    label = "15d mixtral-8x22b 1 of 56 layers 1x2 (gloo)"
+    log_mesh_run(label, r0["15d"], moe_one, TRAIN_MESH_TOL["bfloat16"],
+                 failures)
+    log_rank_blocks(label, ranks, "15d", smi, failures)
+    log(f"  15d one device: peak {moe_one['peak'] / 2**30:.2f} GiB, step ms "
+        f"{[round(x, 1) for x in moe_one['ms']]}; the oracle took "
+        f"{time.perf_counter() - t15d:.1f} s ({smi})")
+    torch.cuda.empty_cache()
+    assert not failures, "phase 15: " + "; ".join(failures)
 
 
 def main() -> int:
@@ -6958,6 +7499,14 @@ def main() -> int:
                 "replaces": tpu + (sources[name][1] if name in sources
                                    else "qmatmul_w8a8/kernel.py:72"),
                 "launches": n, "path": f"phase {label}"})
+    log("== phase 15: train over a torch.distributed mesh — qwen2-0.5b "
+        "(full width) over 2x1 (FSDP) and 1x2 (TP) with two gloo ranks on "
+        "the one card, a 1x1 NCCL mesh, the launcher's fault path and "
+        "elastic resume, mixtral-8x22b over 1x2")
+    log(f"  {smi}")
+    t15 = time.perf_counter()
+    check_training_over_mesh(torch, dev, smi)
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s ({smi})")
     log(f"  the script took {time.perf_counter() - t_script:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -30,6 +30,19 @@ as ``torch.bfloat16``. It writes a bfloat16 leaf with the header descr
 imported (as it is under JAX), so the JAX package loads it as bfloat16; the
 port reads it back the same raw way. A leaf of any other dtype numpy does
 not know is refused with a message that names it.
+
+Over a mesh (``shardings``: a tree of ``sharding.partition.NamedSharding``
+beside the tree, ``named_shardings``' output): ``save`` gathers every leaf
+whole over the axes its spec names (``unshard_tree``, bit for bit) on the
+calling thread, every rank, before any writer starts — the writer thread
+runs no collective — and the mesh's rank 0 alone writes the host arrays,
+so the files are the one-device layout either package reads;
+``restore(target, shardings=)`` reads each leaf whole and keeps this
+rank's block (the reference's ``device_put`` onto the new mesh), after
+every rank has waited for its writer and met the others at a barrier, so
+all read the same step. ``on_mesh`` binds a target and its shardings for
+the fault-tolerant loop, whose ``save`` / ``restore(state)`` calls then
+take the mesh path.
 """
 from __future__ import annotations
 
@@ -42,6 +55,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..sharding.partition import local_block
 
 _BF16 = "bfloat16"
 
@@ -187,10 +203,16 @@ class Checkpointer:
         self._cleanup_tmp()
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Any, blocking: bool = False) -> None:
+    def save(self, step: int, tree: Any, blocking: bool = False,
+             shardings: Any = None) -> None:
         """Write ``tree`` (nested dicts / lists of tensors or numpy arrays)
-        as step ``step``."""
+        as step ``step``; with ``shardings``, this rank's blocks of it,
+        gathered whole first (every rank calls; rank 0 writes)."""
         self.wait()
+        if shardings is not None:
+            tree = _gather_whole(tree, shardings)
+            if dist.get_rank() != 0:
+                return
         pairs = _flatten(tree)
         host = [_to_host(path, leaf) for path, leaf in pairs]
         spec = {"step": step, "n_leaves": len(host),
@@ -232,13 +254,21 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, target_tree: Any, step: Optional[int] = None,
-                device: Optional[torch.device] = None) -> tuple[Any, int]:
+                device: Optional[torch.device] = None,
+                shardings: Any = None) -> tuple[Any, int]:
         """Restore step ``step`` (default: the latest) into the structure of
         ``target_tree``: the i-th leaf of ``_flatten(target_tree)`` reads
         ``arr_i``, with the checkpoint's dtype, onto ``device`` (default:
-        that target leaf's device). The leaf count and every shape must
-        match the target's; a mismatch raises ``CheckpointError`` naming
-        the leaf. Returns ``(tree, step)``."""
+        that target leaf's device; with ``shardings`` and a meta target,
+        the mesh's device). The leaf count and every shape must match the
+        target's; a mismatch raises ``CheckpointError`` naming the leaf.
+        ``shardings`` (a tree of ``NamedSharding`` beside the target, whose
+        leaves then may be meta tensors of the whole shapes) keeps each
+        leaf's block on this rank of its mesh; every rank calls. Returns
+        ``(tree, step)``."""
+        if shardings is not None:
+            self.wait()
+            dist.barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -249,6 +279,11 @@ class Checkpointer:
         if spec["n_leaves"] != len(pairs):
             raise CheckpointError(f"{d}: the checkpoint has {spec['n_leaves']} "
                                   f"leaves, the target {len(pairs)}")
+        placed = (None if shardings is None else
+                  [sh for _, sh in _flatten_shardings(shardings)])
+        if placed is not None and len(placed) != len(pairs):
+            raise CheckpointError(f"{len(placed)} shardings for "
+                                  f"{len(pairs)} target leaves")
         leaves = []
         for i, ((path, ref), dtype) in enumerate(zip(pairs, spec["dtypes"])):
             want = list(np.shape(ref) if not isinstance(ref, torch.Tensor)
@@ -264,8 +299,19 @@ class Checkpointer:
                     f"{list(t.shape)}, the target's {want}")
             dev = device if device is not None else (
                 ref.device if isinstance(ref, torch.Tensor) else None)
+            if placed is not None:
+                sh = placed[i]
+                t = local_block(t, sh.spec, sh.mesh).contiguous()
+                if dev is None or dev.type == "meta":
+                    dev = _mesh_device(sh.mesh)
             leaves.append(t if dev is None else t.to(dev))
         return _rebuild(target_tree, leaves), step
+
+    def on_mesh(self, target_tree: Any, shardings: Any) -> "MeshCheckpointer":
+        """This checkpointer as the fault-tolerant loop's, over a mesh:
+        ``target_tree`` the whole state's shapes (meta tensors will do),
+        ``shardings`` its placement."""
+        return MeshCheckpointer(self, target_tree, shardings)
 
     def restore_skeleton(self, step: Optional[int] = None,
                          device: Optional[torch.device] = None
@@ -307,3 +353,67 @@ class Checkpointer:
         for d in os.listdir(self.dir):
             if ".tmp" in d:
                 shutil.rmtree(os.path.join(self.dir, d), ignore_errors=True)
+
+
+class MeshCheckpointer:
+    """A ``Checkpointer`` bound to a sharded state's whole shapes and
+    placement: ``save(step, blocks)`` gathers and rank 0 writes,
+    ``restore(state)`` gives every rank its blocks of the latest step,
+    ``latest_step`` is the step every rank sees (after the writer and a
+    barrier)."""
+
+    def __init__(self, ckpt: Checkpointer, target_tree: Any, shardings: Any):
+        self.ckpt, self.target, self.shardings = ckpt, target_tree, shardings
+        self.dir = ckpt.dir
+
+    def save(self, step: int, tree: Any, blocking: bool = False) -> None:
+        self.ckpt.save(step, tree, blocking=blocking,
+                       shardings=self.shardings)
+
+    def wait(self) -> None:
+        self.ckpt.wait()
+
+    def latest_step(self) -> Optional[int]:
+        self.ckpt.wait()
+        dist.barrier()
+        return self.ckpt.latest_step()
+
+    def restore(self, state: Any = None, step: Optional[int] = None):
+        return self.ckpt.restore(self.target, step=step,
+                                 shardings=self.shardings)
+
+
+def _flatten_shardings(shardings) -> list:
+    """``_flatten`` of a shardings tree, a ``NamedSharding`` a leaf."""
+    from ..sharding.partition import NamedSharding
+
+    if isinstance(shardings, NamedSharding):
+        return [((), shardings)]
+    if isinstance(shardings, dict):
+        return [x for k in sorted(shardings)
+                for x in _flatten_shardings(shardings[k])]
+    if isinstance(shardings, (list, tuple)):
+        return [x for v in shardings for x in _flatten_shardings(v)]
+    return [((), shardings)]
+
+
+def _gather_whole(tree, shardings):
+    """``tree``'s blocks gathered whole by their shardings (every rank)."""
+    from ..sharding.partition import NamedSharding, unshard_tree
+
+    if isinstance(shardings, NamedSharding):
+        return unshard_tree(tree, shardings.spec, shardings.mesh)
+    if isinstance(tree, dict):
+        return {k: _gather_whole(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        kids = [_gather_whole(v, shardings[i]) for i, v in enumerate(tree)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else type(tree)(
+            kids)
+    return tree
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``: its card, or the CPU."""
+    if getattr(mesh, "device_type", "cpu") == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

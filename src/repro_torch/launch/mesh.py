@@ -7,7 +7,7 @@ reference's axis names — ("data", "model"), or ("pod", "data", "model") —
 over the ranks of the default process group, which must number exactly
 the mesh's size. A 1-rank mesh starts its own 1-rank group where none
 exists; a larger one needs its ranks started first
-(``repro_torch.launch.serve`` spawns them, or ``torchrun``).
+(``spawn_ranks``, as the serve and train launchers do, or ``torchrun``).
 
 The backend is NCCL on ``cuda`` and gloo on ``cpu`` unless the caller names
 one. Under NCCL each rank needs a card of its own: a mesh larger than
@@ -19,9 +19,18 @@ With a pod axis the mesh also carries the data-parallel group over
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
+import pickle
+import shutil
+import signal
 import socket
-from typing import Optional
+import sys
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -119,3 +128,112 @@ def make_production_mesh(*, multi_pod: bool = False, shape=None,
             if me in ranks:
                 mesh.repro_dp_group = group
     return mesh
+
+
+@dataclasses.dataclass
+class RankFailure:
+    """What a spawned rank that raised hands back: its exception, its
+    traceback and when it was caught (``time.time()``)."""
+    error: BaseException
+    traceback: str
+    at: float
+
+
+def _rank_entry(rank: int, world: int, store: str, backend: str,
+                split_threads: bool, drain: bool, body: Callable,
+                args: tuple, out: str) -> None:
+    """A spawned rank: join the process group over the file ``store``, run
+    ``body(*args)`` (with ``drain_file=`` where ``drain``), and write rank
+    0's result to ``<out>.0``; a rank that fails writes a ``RankFailure``
+    to ``<out>.<rank>`` and exits non-zero. The failure is stamped before
+    the rank leaves the group, so a peer that fails because it left (a
+    collective's connection closed) stamps a later time."""
+    if drain:
+        # a signal could interrupt a collective: the launcher turns its own
+        # SIGTERM into the drain file, which the body reads
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    if split_threads:
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    result = None
+    try:
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                world_size=world, rank=rank)
+        try:
+            result = body(*args, **({"drain_file": f"{out}.drain"}
+                                    if drain else {}))
+        except BaseException as e:           # reported to the parent
+            result = RankFailure(e, traceback.format_exc(), time.time())
+        finally:
+            dist.destroy_process_group()
+    except BaseException as e:               # joining or leaving the group
+        if not isinstance(result, RankFailure):
+            result = RankFailure(e, traceback.format_exc(), time.time())
+    sys.stdout.flush()
+    if rank == 0 or isinstance(result, RankFailure):
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(result, f)
+    if isinstance(result, RankFailure):
+        # a non-zero exit: the parent stops the other ranks at once
+        sys.exit(1)
+
+
+def spawn_ranks(body: Callable, args: tuple, world: int, backend: str, *,
+                split_threads: bool, drain: bool = False,
+                raise_as_is: tuple = ()) -> Any:
+    """Run ``body(*args)`` on ``world`` spawned ranks joined over a file
+    store (``body`` and ``args`` must pickle), wait for them, and return
+    rank 0's result. A rank that fails exits non-zero and leaves the others
+    waiting in a collective: they are stopped at once, and the earliest
+    failure is raised here (as it is where its type is in ``raise_as_is``,
+    else as a ``RuntimeError`` with the rank's traceback).
+    ``split_threads`` divides the host's threads among the ranks (ranks on
+    the CPU). ``drain``: the ranks ignore SIGTERM, and a SIGTERM to this
+    process writes the drain file that ``body`` gets as ``drain_file=``."""
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="repro_mesh_")
+    out = os.path.join(tmp, "run")
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_rank_entry,
+                             args=(r, world, os.path.join(tmp, "store"),
+                                   backend, split_threads, drain, body, args,
+                                   out))
+                 for r in range(world)]
+        sys.stdout.flush()
+        for p in procs:
+            p.start()
+        prev = (signal.signal(signal.SIGTERM,
+                              lambda *_: open(f"{out}.drain", "w").close())
+                if drain else None)
+        try:
+            while any(p.is_alive() for p in procs):
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    for p in procs:
+                        p.kill()
+                time.sleep(0.05)
+        finally:
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)
+        results = {}
+        for r in range(world):
+            try:
+                with open(f"{out}.{r}", "rb") as f:
+                    results[r] = pickle.load(f)
+            except (OSError, EOFError, pickle.UnpicklingError):
+                pass          # none written, or stopped while writing
+        failed = sorted((res.at, r) for r, res in results.items()
+                        if isinstance(res, RankFailure))
+        for _, r in failed:
+            if isinstance(results[r].error, raise_as_is):
+                raise results[r].error
+            raise RuntimeError(f"mesh rank {r} failed:\n"
+                               f"{results[r].traceback}")
+        bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if bad or 0 not in results:
+            raise RuntimeError(f"mesh ranks {bad} exited with codes "
+                               f"{[procs[r].exitcode for r in bad]}")
+        return results[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

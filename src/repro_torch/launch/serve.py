@@ -46,7 +46,7 @@ launcher returns the results map alone).
 ``-tp`` twin is quantized (``serve-w8a16-tp``, ...), whose shard stage the
 artifact records, and ``--save`` records the mesh and every leaf's spec.
 ``serve`` starts the mesh's ranks itself — one process a mesh position
-(``torch.multiprocessing``, spawned, over a file store in a temporary
+(``launch.mesh.spawn_ranks``: spawned, over a file store in a temporary
 directory) — unless it already runs inside a process group of that size
 (one ``serve`` call a rank, as ``torchrun`` starts them). Every rank builds
 and quantizes the same seeded model, places its blocks and runs the same
@@ -68,13 +68,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-import pickle
-import shutil
 import signal
-import sys
-import tempfile
 import time
-import traceback
 from typing import Optional
 
 import numpy as np
@@ -416,7 +411,15 @@ def serve(config: ServeConfig) -> ServeRun:
     config = dataclasses.replace(config, mesh=shape)
     if dist.is_initialized() and dist.get_world_size() == math.prod(shape):
         return _serve_rank(config, source)
-    return _spawn_ranks(config, source)
+    from .mesh import mesh_backend, spawn_ranks
+
+    # under --serve-async a SIGTERM to this process drains the mesh: rank 0
+    # reads the drain file at its step boundaries
+    return spawn_ranks(_serve_rank, (config, source), math.prod(shape),
+                       mesh_backend(config.device, config.mesh_backend),
+                       split_threads=torch.device(config.device).type == "cpu",
+                       drain=config.serve_async,
+                       raise_as_is=(ServeConfigError,))
 
 
 def _serve_rank(config: ServeConfig, source: str,
@@ -448,107 +451,6 @@ def _serve_rank(config: ServeConfig, source: str,
     dist.all_gather_object(counts, launch_counts())
     run.rank_launches = counts
     return run
-
-
-def _rank_main(rank: int, world: int, store: str, config: ServeConfig,
-               source: str, out: str) -> None:
-    """A spawned rank: join the process group, serve, and (rank 0) write
-    the run to ``out``; a rank that fails writes its exception there.
-    Under ``--serve-async`` every rank ignores SIGTERM (a signal could
-    interrupt a collective): the launcher turns its own into
-    ``<out>.drain``, which rank 0 reads at each step boundary."""
-    import torch.distributed as dist
-
-    from .mesh import mesh_backend
-
-    if config.serve_async:
-        signal.signal(signal.SIGTERM, signal.SIG_IGN)
-
-    backend = mesh_backend(config.device, config.mesh_backend)
-    if torch.device(config.device).type == "cpu":
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, torch.get_num_threads() // world))
-    result = None
-    try:
-        dist.init_process_group(backend, init_method=f"file://{store}",
-                                world_size=world, rank=rank)
-        try:
-            run = _serve_rank(config, source, f"{out}.drain")
-        finally:
-            dist.destroy_process_group()
-        if rank == 0:
-            result = run
-    except BaseException as e:               # reported to the parent
-        result = (e, traceback.format_exc())
-    sys.stdout.flush()
-    if result is not None:
-        with open(f"{out}.{rank}", "wb") as f:
-            pickle.dump(result, f)
-    if isinstance(result, tuple):
-        # a non-zero exit: the parent stops the other ranks at once
-        sys.exit(1)
-
-
-def _spawn_ranks(config: ServeConfig, source: str) -> ServeRun:
-    """Start the mesh's ranks (spawned processes over a file store), wait
-    for them, and return rank 0's run; a rank's failure is raised here.
-    Under ``--serve-async`` a SIGTERM to this process writes the drain
-    file rank 0 reads at its step boundaries: the mesh drains."""
-    import math
-
-    import torch.multiprocessing as mp
-
-    world = math.prod(config.mesh)
-    tmp = tempfile.mkdtemp(prefix="repro_serve_")
-    try:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, world, os.path.join(tmp, "store"),
-                                   config, source, os.path.join(tmp, "run")))
-                 for r in range(world)]
-        sys.stdout.flush()
-        for p in procs:
-            p.start()
-        drain_file = os.path.join(tmp, "run.drain")
-        prev = (signal.signal(signal.SIGTERM,
-                              lambda *_: open(drain_file, "w").close())
-                if config.serve_async else None)
-        # a rank that fails exits non-zero and leaves the others waiting
-        # in a collective: stop them, and report the rank that failed
-        # first
-        first = None
-        try:
-            while any(p.is_alive() for p in procs):
-                bad = [r for r, p in enumerate(procs)
-                       if p.exitcode not in (None, 0)]
-                if bad:
-                    first = bad[0] if first is None else first
-                    for p in procs:
-                        p.kill()
-                time.sleep(0.05)
-        finally:
-            if prev is not None:
-                signal.signal(signal.SIGTERM, prev)
-        results = {}
-        for r in range(world):
-            path = os.path.join(tmp, f"run.{r}")
-            if os.path.exists(path):
-                with open(path, "rb") as f:
-                    results[r] = pickle.load(f)
-        failed = sorted((r != first, r) for r, res in results.items()
-                        if isinstance(res, tuple))
-        for _, r in failed:
-            err, tb = results[r]
-            if isinstance(err, ServeConfigError):
-                raise err
-            raise RuntimeError(f"mesh rank {r} failed:\n{tb}")
-        bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
-        if bad or 0 not in results:
-            raise RuntimeError(f"mesh ranks {bad} exited with codes "
-                               f"{[procs[r].exitcode for r in bad]}")
-        return results[0]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _serve(config: ServeConfig, mesh,

@@ -1,12 +1,20 @@
 """Step builders — port of ``repro.launch.steps``: the train, prefill and
-decode programs of any arch, in the reference's functional form.
+decode programs of any arch, in the reference's functional form, and the
+sharding helpers of the train step.
 
 ``train_step(params, opt, batch)`` returns new params and a new optimizer
 state and never writes its inputs, so the fault-tolerant loop can replay
-any step from a checkpoint. The reference's sharding helpers
-(``configure_sharding_hints``, ``state_specs``, ``shardings_for``) wait
-for the port's ``sharding/`` (ROADMAP.md, Queue A): on one card every
-tensor lives whole on the device.
+any step from a checkpoint. Under ``configure_sharding_hints(cfg, mesh)``
+(a ``torch.distributed`` ``DeviceMesh`` of ("data", "model"), or ("pod",
+"data", "model")) the same step runs over the mesh, as the reference's
+jitted step runs under its shardings: params and AdamW state are this
+rank's blocks (``state_specs``' placement, ``sharding.shard_tree`` cuts
+them), the batch is the global one (each rank takes its rows), the forward
+gathers each layer's leaves where it runs (``sharding.train``), the
+gradients come back as blocks, summed over the data-parallel ranks, and
+``adamw_update`` runs on the blocks with the clip's norm over the mesh.
+``state_specs`` and ``shardings_for`` give shapes (``device="meta"``
+tensors) and specs without allocating.
 """
 from __future__ import annotations
 
@@ -14,13 +22,85 @@ from typing import Optional
 
 import torch
 
-from ..models import ModelConfig, ShapeConfig, build_model
-from ..optim import adamw_update, cosine_schedule
+from ..models import ModelConfig, ShapeConfig, build_model, cache_specs
+from ..optim import adamw_init, adamw_update, cosine_schedule
 from ..optim.adamw import _leaves, _map
+from ..sharding import collectives as coll
+from ..sharding.partition import (
+    NamedSharding,
+    PartitionSpec as P,
+    batch_pspec,
+    cache_pspecs,
+    mesh_sizes,
+    named_shardings,
+    opt_spec_tree,
+    params_pspecs,
+)
+from ..sharding.train import TrainShard, train_scope
+
+
+def configure_sharding_hints(cfg: ModelConfig, mesh):
+    """Arm the in-model shard context (``models.layers.set_shard_ctx``) for
+    training over ``mesh``: head-parallel attention where the head count
+    divides the model axis, context (sequence) parallel otherwise; an SSM
+    (no heads) arms no attention mode."""
+    from ..models.layers import set_shard_ctx
+
+    sizes = mesh_sizes(mesh)
+    model_n = sizes.get("model", 1)
+    dp = ("pod", "data") if "pod" in sizes else ("data",)
+    if cfg.n_heads == 0:
+        set_shard_ctx(enabled=True, dp=dp, model="model", attn_seq=False,
+                      mesh=mesh)
+        return
+    set_shard_ctx(enabled=True, dp=dp, model="model",
+                  attn_seq=(cfg.n_heads % model_n != 0),
+                  kv_heads_ok=(cfg.n_kv_heads % model_n == 0), mesh=mesh)
+
+
+def clear_sharding_hints():
+    from ..models.layers import set_shard_ctx
+
+    set_shard_ctx(enabled=False)
+
+
+def _heads(cfg: ModelConfig) -> dict:
+    return {"n_q": cfg.n_heads, "n_kv": cfg.n_kv_heads}
+
+
+def state_specs(model, mesh):
+    """((params, opt) shapes, (params, opt) specs) without allocation: the
+    shapes are ``device="meta"`` tensors; the params' specs take the
+    head rule, the moments' (a dict of step / m / v, as the reference's)
+    do not."""
+    params_shape = model.init(0, device="meta")
+    opt_shape = adamw_init(params_shape)
+    p_spec = params_pspecs(params_shape, mesh, _heads(model.cfg))
+    o_spec = {"step": P(), "m": params_pspecs(params_shape, mesh),
+              "v": params_pspecs(params_shape, mesh)}
+    return (params_shape, opt_shape), (p_spec, o_spec)
+
+
+def _armed_shard(model, held: dict) -> Optional[TrainShard]:
+    """The ``TrainShard`` of the armed shard context's mesh (None when no
+    mesh is armed), built once a mesh and mode."""
+    from ..models.layers import _SHARD_CTX as ctx
+
+    if not ctx["enabled"] or ctx.get("mesh") is None:
+        return None
+    key = (ctx["mesh"], ctx["attn_seq"], ctx["kv_heads_ok"])
+    if held.get("key") is None or any(
+            a is not b for a, b in zip(held["key"], key)):
+        _, (p_spec, _) = state_specs(model, ctx["mesh"])
+        held["key"] = key
+        held["shard"] = TrainShard(ctx["mesh"], model.cfg, p_spec,
+                                   attn_seq=ctx["attn_seq"],
+                                   kv_heads_ok=ctx["kv_heads_ok"])
+    return held["shard"]
 
 
 def make_train_step(cfg: ModelConfig, *, lr_cfg: Optional[dict] = None,
-                    chunk_kv: Optional[int] = None):
+                    chunk_kv: Optional[int] = None, donate: bool = False):
     """(model, train_step): ``train_step(params, opt, batch)`` → (params,
     opt, {"loss", "grad_norm", "lr"}), every metric a tensor on the params'
     device.
@@ -30,25 +110,48 @@ def make_train_step(cfg: ModelConfig, *, lr_cfg: Optional[dict] = None,
     gradient with respect to each (float32 through the compute-dtype
     casts); the learning rate is ``cosine_schedule(opt.step, **lr_cfg)``;
     ``adamw_update`` runs under ``torch.no_grad()`` and returns new tensors,
-    which carry no graph into the next step."""
+    which carry no graph into the next step. ``donate`` (the reference
+    launcher's ``donate_argnums``) has it write the given params and
+    moments instead (``adamw_update(inplace=True)``: no second copy of the
+    state), which the caller then holds as the new state.
+
+    Under an armed mesh (``configure_sharding_hints``, read at each call)
+    ``params`` and ``opt`` are this rank's blocks and ``batch`` the global
+    batch: the rank's loss is its rows' divided by the data-parallel world,
+    the gradient of each block sums the ranks' (inside the backward of the
+    gathers), and the loss and the norm are reduced over the mesh, the same
+    on every rank."""
     model = build_model(cfg)
     lr_cfg = lr_cfg or {"peak_lr": 3e-4, "warmup": 100, "total": 10000}
+    held: dict = {}
 
     def train_step(params, opt, batch):
         # the schedule reads the step on the host: before the forward, while
         # the device queue is empty, so that no read waits on the backward
         lr = cosine_schedule(opt.step, **lr_cfg)
+        shard = _armed_shard(model, held)
         leaf_params = _map(lambda p: p.detach().requires_grad_(), params)
         leaves = _leaves(leaf_params)
-        with torch.enable_grad():
-            loss = model.loss(leaf_params, batch, chunk_kv=chunk_kv)
+        with torch.enable_grad(), train_scope(shard):
+            if shard is None:
+                loss = model.loss(leaf_params, batch, chunk_kv=chunk_kv)
+            else:
+                loss = model.loss(leaf_params, shard.rows(batch),
+                                  chunk_kv=chunk_kv) / shard.dp_n
             by_leaf = dict(zip(map(id, leaves),
                                torch.autograd.grad(loss, leaves)))
         grads = _map(lambda p: by_leaf[id(p)], leaf_params)
+        loss = loss.detach()
+        counted = group = None
+        if shard is not None:
+            loss = coll.all_reduce_sum(loss.clone(), shard.dp_group)
+            counted = shard.counted()
+            group = torch.distributed.group.WORLD
         with torch.no_grad():
-            new_params, new_opt, gnorm = adamw_update(grads, opt, params,
-                                                      lr=lr)
-        return new_params, new_opt, {"loss": loss.detach(), "grad_norm": gnorm,
+            new_params, new_opt, gnorm = adamw_update(
+                grads, opt, params, lr=lr, counted=counted, group=group,
+                inplace=donate)
+        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm,
                                      "lr": lr}
 
     return model, train_step
@@ -83,3 +186,34 @@ def make_decode_step(cfg: ModelConfig):
         return model.decode_step(params, token, cache)
 
     return model, decode_step
+
+
+def shardings_for(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
+    """Every placement of one (arch x shape) cell, shapes as
+    ``device="meta"`` tensors: params (train mode; a decode cell's
+    resident TP-only placement), the batch, and per kind the AdamW state
+    (train), the whole-batch cache (decode) and an encoder-decoder's
+    frames (train, prefill)."""
+    model = build_model(cfg)
+    params_shape = model.init(0, device="meta")
+    p_spec = params_pspecs(params_shape, mesh, _heads(cfg),
+                           mode="decode" if shape.kind == "decode"
+                           else "train")
+    out = {
+        "params_shape": params_shape,
+        "params": named_shardings(p_spec, mesh),
+        "batch": NamedSharding(mesh, batch_pspec(mesh,
+                                                 batch=shape.global_batch)),
+    }
+    if shape.kind == "train":
+        out["opt_shape"] = adamw_init(params_shape)
+        out["opt"] = named_shardings(opt_spec_tree(p_spec), mesh)
+    if shape.kind == "decode":
+        cache_shape = cache_specs(cfg, shape)
+        out["cache_shape"] = cache_shape
+        out["cache"] = named_shardings(
+            cache_pspecs(cache_shape, mesh, shape.global_batch), mesh)
+    if cfg.is_encdec and shape.kind in ("train", "prefill"):
+        out["frames"] = NamedSharding(
+            mesh, batch_pspec(mesh, ndim=3, batch=shape.global_batch))
+    return out

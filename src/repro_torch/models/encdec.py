@@ -54,7 +54,8 @@ from .layers import (
     mlp_block,
     slot_write,
 )
-from .lm import _layer, _stack_stats, cast_for_compute, prepared
+from ..sharding.train import LayerBlocks, current_train, cut_of
+from .lm import _layer, _stack_stats, cast_for_compute, gathering, prepared
 
 
 def sinusoidal_positions(T: int, d: int, device=None) -> torch.Tensor:
@@ -82,15 +83,19 @@ class EncDecModel:
         normal · D^-1/2 attention projections, normal · d_in^-1/2 MLPs,
         normal · 0.02 embedding, normal · 0.01 decoder positions, zero
         biases, unit LayerNorm gains. ``torch.Generator`` draws differ from
-        ``jax.random``'s; tests carry JAX weights across instead."""
+        ``jax.random``'s; tests carry JAX weights across instead.
+        ``device="meta"`` gives the shapes and dtypes alone."""
         cfg = self.cfg
         device = resolve_device(device)
-        gen = (seed if isinstance(seed, torch.Generator)
+        meta = device.type == "meta"      # shapes and dtypes only
+        gen = (seed if isinstance(seed, torch.Generator) or meta
                else torch.Generator(device=device).manual_seed(int(seed)))
         dtype = cfg.params_dtype
         D, F = cfg.d_model, cfg.d_ff
 
         def normal(shape, scale):
+            if meta:
+                return torch.empty(shape, dtype=dtype, device=device)
             return (torch.randn(shape, generator=gen, device=device)
                     * scale).to(dtype)
 
@@ -143,6 +148,12 @@ class EncDecModel:
         once per params object; under autograd, with a leaf that requires
         grad, every call (``lm.prepared``)."""
         cfg = self.cfg
+        tr = current_train()
+        if tr is not None:
+            # a sharded train step: this rank's blocks, each layer
+            # gathered where it runs
+            top, stacks = tr.prepare(params)
+            return top, stacks["enc_blocks"], stacks["dec_blocks"]
 
         def build():
             p = cast_for_compute(params, cfg.compute_dtype)
@@ -156,6 +167,8 @@ class EncDecModel:
     def _run(self, fn, *args, stats=None):
         """``fn(*args, stats)``, under ``checkpoint`` where this forward
         remats (``cfg.remat``, autograd on, no stats captured)."""
+        if isinstance(args[0], LayerBlocks):
+            fn = gathering(fn)
         if self.cfg.remat and stats is None and torch.is_grad_enabled():
             return checkpoint(fn, *args, stats, use_reentrant=False)
         return fn(*args, stats)
@@ -222,7 +235,12 @@ class EncDecModel:
         pos0 = cache["pos"] if cache is not None else torch.zeros(
             (), dtype=torch.int64, device=dev)
         positions = pos0 + torch.arange(T, device=dev)
-        x = p["embed"][tokens].to(cfg.compute_dtype)
+        tr = current_train()
+        if tr is not None:
+            x = tr.embed(p["embed"], tokens, "embed" in cut_of(p),
+                         cfg.compute_dtype)
+        else:
+            x = p["embed"][tokens].to(cfg.compute_dtype)
         x = x + p["dec_pos"][positions].to(cfg.compute_dtype)
         slots = (slot_write(cache["kpos"], positions)
                  if cache is not None else None)
@@ -231,13 +249,17 @@ class EncDecModel:
         for i, lp in enumerate(dec):
             st = {} if capture else None
             if cache is None:
-                def self_attn(h, cap, lp=lp):
-                    return causal_attention_block(lp["attn"], h, dims,
-                                                  capture=cap,
-                                                  chunk_kv=chunk_kv)
+                def layer(lp, x, st):
+                    def self_attn(h, cap):
+                        return causal_attention_block(lp["attn"], h, dims,
+                                                      capture=cap,
+                                                      chunk_kv=chunk_kv)
 
-                kv = cross_kv(lp["cross"], enc_out, dims)
-                x = self._run(self._dec_layer, lp, x, self_attn, kv, stats=st)
+                    return self._dec_layer(lp, x, self_attn,
+                                           cross_kv(lp["cross"], enc_out,
+                                                    dims), st)
+
+                x = self._run(layer, lp, x, stats=st)
             else:
                 def self_attn(h, cap, lp=lp, i=i):
                     return attention_block(lp["attn"], h, dims,
@@ -250,7 +272,10 @@ class EncDecModel:
                                     (cache["ck"][i], cache["cv"][i]), st)
             per_layer.append(st)
         x = apply_norm(x, p["final_norm"], "ln")
-        logits = x @ p["embed"].t().to(x.dtype)
+        if tr is not None and "embed" in cut_of(p):
+            logits = tr.logits(x, p["embed"].t())   # this rank's vocab
+        else:
+            logits = x @ p["embed"].t().to(x.dtype)
         new_cache = None
         if cache is not None:
             new_cache = {**cache, "kpos": slots.kpos, "pos": pos0 + T}
@@ -285,9 +310,13 @@ class EncDecModel:
              chunk_kv: Optional[int] = None) -> torch.Tensor:
         """Mean next-token cross entropy (float32 logits) over
         ``batch["tokens"]`` / ``batch["labels"]``, the encoder fed
-        ``batch.get("frames")``; differentiable, as ``LMModel.loss``."""
+        ``batch.get("frames")``; differentiable, as ``LMModel.loss`` (a
+        vocab-parallel head under a sharded train step too)."""
         logits = self.apply(params, batch["tokens"], batch.get("frames"),
                             chunk_kv=chunk_kv).float()
+        tr = current_train()
+        if tr is not None and logits.shape[-1] < self.cfg.vocab_size:
+            return tr.nll(logits, batch["labels"]).mean()
         gold = torch.gather(logits, -1, batch["labels"][..., None].long())
         return (torch.logsumexp(logits, -1) - gold[..., 0]).mean()
 

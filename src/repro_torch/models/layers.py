@@ -61,8 +61,30 @@ from ..quantized.qtensor import (
 )
 from ..sharding import collectives as coll
 from ..sharding.tp import current_shard
+from ..sharding.train import current_train, cut_of
 
 NEG_INF = -1e30
+
+# --------------------------------------------------------------------------
+# The shard context (the reference's ``_SHARD_CTX``): armed by
+# ``launch.steps.configure_sharding_hints`` for training over a mesh. A
+# sharded train step (``sharding.train``) reads it for the attention's
+# mode: head-parallel (Megatron) where the head count divides the model
+# axis, else sequence-parallel (context parallelism: a rank's query rows at
+# their global positions, the keys and values whole); with ``kv_heads_ok``
+# false the keys and values stay whole and each rank takes its q heads'
+# groups of them. Under it an MoE block runs the reference's
+# ``_moe_block_shardmap`` (``_moe_block_tp``).
+# --------------------------------------------------------------------------
+
+_SHARD_CTX = {"enabled": False, "dp": ("data",), "model": "model",
+              "attn_seq": False, "kv_heads_ok": False, "mesh": None}
+
+
+def set_shard_ctx(*, enabled: bool, dp=("data",), model="model",
+                  attn_seq=False, kv_heads_ok=False, mesh=None):
+    _SHARD_CTX.update(enabled=enabled, dp=tuple(dp), model=model,
+                      attn_seq=attn_seq, kv_heads_ok=kv_heads_ok, mesh=mesh)
 
 
 def linear(x, w, b=None):
@@ -374,13 +396,16 @@ def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
     B, T, _ = x.shape
     _record_mean(capture, "attn_in", x)
     positions = torch.arange(T, device=x.device)
-    q, k, v = _project_qkv(p, x, dims, positions)
-    group = dims.n_q // dims.n_kv
     mask = None
     if causal:
         mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
         if dims.window is not None:
             mask = mask.triu(1 - dims.window)
+    tr = current_train()
+    if tr is not None and tr.tp and capture is None:
+        return _tp_attention(p, x, dims, tr, positions, mask, chunk_kv)
+    q, k, v = _project_qkv(p, x, dims, positions)
+    group = dims.n_q // dims.n_kv
     attn = attention_scores_softmax(q, _repeat_kv(k, group),
                                     _repeat_kv(v, group), mask,
                                     chunk_kv=chunk_kv,
@@ -388,6 +413,80 @@ def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
     attn = attn.reshape(B, T, dims.n_q * dims.head_dim)
     _record_mean(capture, "o_in", attn)
     return linear(attn, p["wo"], p.get("bo"))
+
+
+def _tp_attention(p: dict, x: torch.Tensor, dims: AttnDims, tr, positions,
+                  mask, chunk_kv) -> torch.Tensor:
+    """The cache-free attention under a sharded train step whose model axis
+    is larger than 1 (x whole on every rank of "model"; returns the whole
+    block output).
+
+    Head-parallel: a column-parallel q/k/v projection (its spec cuts the
+    columns) writes this rank's heads from x through Megatron's *f*, its
+    bias cut to them; a whole one is cut to this rank's heads after rope,
+    keys and values repeated to the q heads first (``kv_heads_ok`` false:
+    each rank takes its q heads' groups); the q/k norms of local heads sum
+    their gradient over "model"; a row-parallel ``wo`` sums the ranks'
+    partial products (*g*) and adds its bias once, a whole one reads the
+    heads gathered. Sequence-parallel: q, k and v whole, this rank's query
+    rows attend at their global positions over every key (keys and values
+    summing their gradient over "model"), and the rows are gathered before
+    ``wo``."""
+    B, T, _ = x.shape
+    nq, nkv, hd = dims.n_q, dims.n_kv, dims.head_dim
+    grp, M, g = nq // nkv, tr.model_n, tr.model_group
+    cut = cut_of(p)
+    if tr.attn_seq:
+        if cut & {"wq", "wk", "wv", "wo"}:
+            raise ValueError("sequence-parallel attention runs whole "
+                             "projections; the planner cut "
+                             f"{sorted(cut & {'wq', 'wk', 'wv', 'wo'})}")
+        if T % M:
+            raise ValueError(f"sequence-parallel attention: {T} positions "
+                             f"do not split over a model axis of {M}")
+        q, k, v = _project_qkv(p, x, dims, positions)
+        k = coll.grad_sum(_repeat_kv(k, grp), g)
+        v = coll.grad_sum(_repeat_kv(v, grp), g)
+        q = coll.scatter_forward(q, 1, g)
+        if mask is not None:
+            mask = coll.block_of(mask, 0, g)
+        attn = attention_scores_softmax(q, k, v, mask, chunk_kv=chunk_kv)
+        attn = coll.gather_forward(attn.reshape(B, T // M, nq * hd), 1, g)
+        return linear(attn, p["wo"], p.get("bo"))
+
+    xf = coll.grad_sum(x, g) if cut & {"wq", "wk", "wv"} else x
+
+    def project(name, bias):
+        b = p.get(bias)
+        if name in cut:
+            if b is not None:
+                b = coll.scatter_forward(b, -1, g)
+            return linear(xf, p[name], b).reshape(B, T, -1, hd)
+        return linear(x, p[name], b).reshape(B, T, -1, hd)
+
+    q, k, v = project("wq", "bq"), project("wk", "bk"), project("wv", "bv")
+    if dims.qk_norm:
+        q = rms_norm(q, coll.grad_sum(p["q_norm"], g) if "wq" in cut
+                     else p["q_norm"])
+        k = rms_norm(k, coll.grad_sum(p["k_norm"], g) if "wk" in cut
+                     else p["k_norm"])
+    if dims.rope:
+        cos, sin = rope_angles(positions, hd, dims.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if "wq" not in cut:
+        q = coll.scatter_forward(q, 2, g)
+    if "wk" in cut:
+        k, v = _repeat_kv(k, grp), _repeat_kv(v, grp)
+    else:
+        k = coll.scatter_forward(_repeat_kv(k, grp), 2, g)
+        v = coll.scatter_forward(_repeat_kv(v, grp), 2, g)
+    attn = attention_scores_softmax(q, k, v, mask, chunk_kv=chunk_kv,
+                                    causal_segments=dims.causal_segments)
+    attn = attn.reshape(B, T, (nq // M) * hd)
+    if "wo" in cut:
+        y = coll.sum_forward(attn @ p["wo"], g)
+        return y if p.get("bo") is None else y + p["bo"]
+    return linear(coll.gather_forward(attn, -1, g), p["wo"], p.get("bo"))
 
 
 def cross_kv(p: dict, src: torch.Tensor, dims: AttnDims):
@@ -606,6 +705,9 @@ def mlp_block(p: dict, x: torch.Tensor, act: str, *,
     of the gate/up input (``mlp_in``) and of the down projection's input
     (``down_in``). ``key`` names the subtree's placement under a serving
     shard ("shared/" for an MoE block's shared expert)."""
+    tr = current_train()
+    if tr is not None and "wu" in cut_of(p) and capture is None:
+        return _tp_mlp(p, x, act, tr)
     tp = current_shard()
     if tp is not None:
         # column-parallel gate/up (their biases cut to this rank's
@@ -620,6 +722,26 @@ def mlp_block(p: dict, x: torch.Tensor, act: str, *,
     h = _mlp_hidden(p, x, act)
     _record_mean(capture, "down_in", h)
     return linear(h, p["wd"], p.get("bd"))
+
+
+def _tp_mlp(p: dict, x: torch.Tensor, act: str, tr, *,
+            partial: bool = False) -> torch.Tensor:
+    """The MLP under a sharded train step, gate/up column-parallel over F
+    (x through Megatron's *f*, their biases cut to this rank's columns),
+    the down projection row-parallel: its partial products summed over
+    "model" (*g*) and the bias added once. ``partial`` (an MoE block's
+    shared expert) returns this rank's partial sum with ``bd / n`` added,
+    the reference's pre-scale, for the block's one sum."""
+    g = tr.model_group
+    cutb = {n: coll.scatter_forward(p[n], -1, g) for n in ("bg", "bu")
+            if n in p}
+    h = _mlp_hidden({**p, **cutb}, coll.grad_sum(x, g), act)
+    y = h @ p["wd"]
+    bd = p.get("bd")
+    if partial:
+        return y if bd is None else y + coll.grad_sum(bd, g) / tr.model_n
+    y = coll.sum_forward(y, g)
+    return y if bd is None else y + bd
 
 
 def _mlp_hidden(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
@@ -685,6 +807,14 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *,
     C = max(1, int(T * K / E * cfg.capacity_factor))
     dev = x.device
     _record_mean(capture, "mlp_in", x)
+    tr = current_train()
+    if tr is None or not tr.tp or capture is not None:
+        tr = None
+    # a sharded train step's experts cut over F (_moe_block_tp): their
+    # partial products reach y through the combine, so x enters them, and
+    # the gates leave them, through Megatron's f
+    ex_cut = tr is not None and "wu" in cut_of(p["experts"])
+    xe = coll.grad_sum(x, tr.model_group) if ex_cut else x
 
     logits = router_logits(p, x)                                  # [B, T, E]
     ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
@@ -715,13 +845,13 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *,
     if drops is not None:
         drops.append(sum((~keep).sum(dim=1) for _, _, keep in choices))
     slot_token = slot_token[..., :C].reshape(B, E * C)
-    x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    x_pad = torch.cat([xe, xe.new_zeros((B, 1, D))], dim=1)
     ex_in = torch.gather(x_pad, 1, slot_token[..., None].expand(B, E * C, D))
     # every expert's B·C rows, in (row, slot) order, as the vmapped linear
     xin = ex_in.reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
     h = _mlp_hidden(p["experts"], xin, cfg.act)
     tp = current_shard()
-    if tp is None:
+    if tp is None or ex_cut:
         out = linear(h, p["experts"]["wd"])
     else:
         # h is this rank's F block where gate/up are column-parallel; the
@@ -730,20 +860,53 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *,
                               local=tp.col["experts/wu"])
     out = out.reshape(E, B, C, D).transpose(0, 1).reshape(B, E * C, D)
 
+    gates = coll.grad_sum(gate_vals, tr.model_group) if ex_cut else gate_vals
     y = torch.zeros_like(x)
     for slot, (e, write_pos, keep) in enumerate(choices):
         flat = e * C + torch.clamp_max(write_pos, C - 1)          # [B, T]
         picked = torch.gather(out, 1, flat[..., None].expand(B, T, D))
-        w_k = torch.where(keep, gate_vals[..., slot],
-                          torch.zeros_like(gate_vals[..., slot])).to(x.dtype)
+        w_k = torch.where(keep, gates[..., slot],
+                          torch.zeros_like(gates[..., slot])).to(x.dtype)
         y = y + picked * w_k[..., None]
+    if tr is not None:
+        return _moe_block_tp(p, x, y, ex_cut, tr, cfg), _switch_aux(
+            probs, gate_idx, experts, E, capture, h)
     if cfg.n_shared_experts:
         y = y + mlp_block(p["shared"], x, cfg.act, key="shared/")
 
+    return y, _switch_aux(probs, gate_idx, experts, E, capture, h)
+
+
+def _switch_aux(probs, gate_idx, experts, E: int, capture, h):
+    """The Switch load-balancing loss of this block's rows (``capture``
+    receives ``down_in_moe`` and ``router_probs``)."""
     probs_flat = probs.reshape(-1, E)
     if capture is not None:
         capture["down_in_moe"] = h.mean(dim=1)                   # [E, F]
         capture["router_probs"] = probs_flat.mean(dim=0)
     me = probs_flat.mean(dim=0)
     ce = (gate_idx[..., 0].reshape(-1, 1) == experts).float().mean(dim=0)
-    return y, E * (me * ce).sum()
+    return E * (me * ce).sum()
+
+
+def _moe_block_tp(p: dict, x, y, ex_cut: bool, tr, cfg):
+    """The reference's ``_moe_block_shardmap`` closing an MoE block under a
+    sharded train step (model axis > 1): ``y`` the combine — this rank's
+    partial sum where the experts are cut over F (``_moe_specs``: gate/up
+    columns, down rows; the router whole) — plus the shared expert's
+    partial sum with ``bd / n``, then one sum over "model". The block runs
+    on this rank's batch rows, so its Switch aux loss is its data shard's;
+    the train step averages it over the data-parallel ranks (the
+    reference's two ``pmean`` calls: every model rank holds the same)."""
+    part, whole = (y, None) if ex_cut else (None, y)
+    if cfg.n_shared_experts:
+        if "wu" in cut_of(p["shared"]):
+            s = _tp_mlp(p["shared"], x, cfg.act, tr, partial=True)
+            part = s if part is None else part + s
+        else:
+            s = mlp_block(p["shared"], x, cfg.act)
+            whole = s if whole is None else whole + s
+    if part is not None:
+        part = coll.sum_forward(part, tr.model_group)
+    return whole if part is None else (part if whole is None
+                                       else part + whole)

@@ -56,6 +56,13 @@ from .layers import (
 from .mamba import init_mamba_params, mamba_block, ssm_dims
 from ..sharding import collectives as coll
 from ..sharding.tp import current_shard
+from ..sharding.train import (
+    Gathered,
+    LayerBlocks,
+    current_train,
+    cut_of,
+    train_scope,
+)
 
 #: the cache's per-layer leaves, each [L, B, S, ...] (the scales only in an
 #: int8 cache, "v_err" only with ``kv_bias_correct`` as well)
@@ -68,9 +75,22 @@ FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def _layer(tree, i: int):
+    if isinstance(tree, Gathered):
+        return Gathered({k: _layer(v, i) for k, v in tree.items()}, tree.cut)
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def gathering(fn):
+    """``fn`` taking a ``LayerBlocks`` first, gathered where it runs (under
+    a remat, again in the backward), inside its shard's ``train_scope``:
+    on the card the autograd engine recomputes on a thread of its own,
+    which the caller's scope does not reach."""
+    def run(lp, *args):
+        with train_scope(lp.shard):
+            return fn(lp.gather(), *args)
+    return run
 
 
 def _requires_grad(tree) -> bool:
@@ -147,10 +167,13 @@ class LMModel:
         """Seeded random parameters on ``device`` (default: the card), in the
         JAX init's scales: normal · d_in^-1/2 linears, normal · 0.02
         embedding, zero biases, unit norms. ``torch.Generator`` draws differ
-        from ``jax.random``'s; tests carry JAX weights across instead."""
+        from ``jax.random``'s; tests carry JAX weights across instead.
+        ``device="meta"`` gives the shapes and dtypes alone (no draw, no
+        memory: ``launch.steps.state_specs``)."""
         cfg = self.cfg
         device = resolve_device(device)
-        if isinstance(seed, torch.Generator):
+        meta = device.type == "meta"      # shapes and dtypes only
+        if isinstance(seed, torch.Generator) or meta:
             gen = seed
         else:
             gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -158,10 +181,14 @@ class LMModel:
         D, F = cfg.d_model, cfg.d_ff
 
         def normal(shape, scale):
+            if meta:
+                return torch.empty(shape, dtype=dtype, device=device)
             return (torch.randn(shape, generator=gen, device=device)
                     * scale).to(dtype)
 
         def uniform(shape):
+            if meta:
+                return torch.empty(shape, device=device)
             return torch.rand(shape, generator=gen, device=device)
 
         def zeros(*shape):
@@ -341,6 +368,13 @@ class LMModel:
         params object, since the serving loop passes the same tree every
         step; under autograd, with a leaf that requires grad, every call
         (``prepared``)."""
+        tr = current_train()
+        if tr is not None:
+            # a sharded train step: this rank's blocks, each layer
+            # gathered where it runs
+            top, stacks = tr.prepare(params)
+            return top, stacks["blocks"]
+
         def build():
             p = cast_for_compute(params, self.cfg.compute_dtype)
             return p, [_layer(p["blocks"], i)
@@ -437,7 +471,10 @@ class LMModel:
 
     def _block(self, fn, lp, x, stats, *args):
         """``fn(lp, x, stats, *args)``, under ``checkpoint`` where this
-        forward remats."""
+        forward remats (a sharded train step's ``LayerBlocks`` gathered
+        inside it)."""
+        if isinstance(lp, LayerBlocks):
+            fn = gathering(fn)
         if self._remat(stats):
             return checkpoint(fn, lp, x, stats, *args, use_reentrant=False)
         return fn(lp, x, stats, *args)
@@ -494,7 +531,9 @@ class LMModel:
         the JAX ``loss``. ``T`` must be a multiple of the chunk, as the JAX
         ``loss``'s reshape requires. Differentiable: the training step
         takes its gradient with respect to float32 params through the
-        compute-dtype casts."""
+        compute-dtype casts. Under a sharded train step (``sharding.train``)
+        the loss is this rank's rows', and a vocab-parallel head takes the
+        cross entropy over its vocab shards (``TrainShard.nll``)."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         B, T = tokens.shape
@@ -504,11 +543,16 @@ class LMModel:
                              f"of logit_chunk {C}")
         p, layers = self.prepare(params)
         h, aux, _ = self._hidden(p, layers, tokens, None, chunk_kv)
+        tr = current_train()
+        vocab_cut = tr is not None and self._head_name(p) in cut_of(p)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for c in range(T // C):
             logits = self._unembed(p, h[:, c * C:(c + 1) * C]).float()
-            gold = torch.gather(logits, -1,
-                                labels[:, c * C:(c + 1) * C, None].long())
+            lc = labels[:, c * C:(c + 1) * C]
+            if vocab_cut:
+                total = total + tr.nll(logits, lc).sum()
+                continue
+            gold = torch.gather(logits, -1, lc[..., None].long())
             total = total + (torch.logsumexp(logits, -1)
                              - gold[..., 0]).sum()
         loss = total / (B * T)
@@ -523,6 +567,10 @@ class LMModel:
         return self.apply(params, tokens, capture=True)[1]
 
     def _embed(self, params, tokens):
+        tr = current_train()
+        if tr is not None:
+            return tr.embed(params["embed"], tokens, "embed" in cut_of(params),
+                            self.cfg.compute_dtype)
         tp = current_shard()
         if tp is None or not tp.embed_sharded:
             return params["embed"][tokens].to(self.cfg.compute_dtype)
@@ -535,10 +583,19 @@ class LMModel:
         rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
         return coll.combine(rows, tp.model_group)
 
+    @staticmethod
+    def _head_name(params) -> str:
+        return "lm_head" if "lm_head" in params else "embed"
+
     def _unembed(self, params, h):
+        """The logits of ``h``; under a sharded train step whose head is
+        vocab-parallel, this rank's vocab columns."""
         w = params.get("lm_head")
         if w is None:
             w = params["embed"].t()
+        tr = current_train()
+        if tr is not None and self._head_name(params) in cut_of(params):
+            return tr.logits(h, w)
         return h @ w.to(h.dtype)
 
     # ---------------------------------------------------------------- cache

@@ -26,6 +26,13 @@ threshold, ``jax.nn.softplus`` does not), the decays and the state are
 float32 whatever the compute dtype, heads repeat their group's B and C
 head by head (``repeat_interleave``, ``jnp.repeat``), and the causal conv
 sums its taps in order from tap 0.
+
+Over a training mesh the reference arms no attention mode for an SSM (no
+heads: ``attn_seq=False``) and GSPMD partitions the mixer by the planner's
+specs; the port's sharded train step (``sharding.train``) gathers every
+mixer leaf whole where the layer runs (``in_proj``'s mixed segments are
+never cut over "model"), each rank on its own batch rows, and this block
+runs as on one device.
 """
 from __future__ import annotations
 

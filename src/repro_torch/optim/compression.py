@@ -6,8 +6,9 @@ and adds it back before the next round, so the compressed mean is
 unbiased over time (the paper's point that quantization error is biased
 and must be corrected, §4.2, applied to gradients). ``compressed_mean``
 all-gathers the int8 payload and one float32 scale a rank over a
-``torch.distributed`` group — 1 byte an element on the wire — and takes
-the dequantized mean locally, in the reference's order.
+``torch.distributed`` group (a mesh axis's) — the payload a byte an
+element — and takes the dequantized mean locally, in the reference's
+order.
 """
 from __future__ import annotations
 
@@ -44,16 +45,27 @@ def gathered_mean(q_all: torch.Tensor, s_all: torch.Tensor) -> torch.Tensor:
 
 
 def compressed_mean(g: torch.Tensor, residual: torch.Tensor,
-                    group: Optional[object] = None):
-    """The mean of ``g`` over the ranks of ``group`` (default: the world)
-    with an int8 payload and error feedback: (mean float32, new residual).
-    Every rank must call it with the same shape."""
+                    group: Optional[object] = None, *, mesh=None):
+    """The mean of ``g`` over the ranks of ``group`` with an int8 payload
+    and error feedback: (mean float32, new residual). ``group`` is a
+    process group (default: the world), or a mesh axis's name with
+    ``mesh`` (a ``DeviceMesh``), as the reference names its axis. Every
+    rank must call it with the same shape. The payloads and scales are
+    gathered by ``sharding.collectives.all_gather`` (bytes summed through
+    ``all_reduce``), so gloo and NCCL run the same code, on the CPU and
+    the card."""
     import torch.distributed as dist
 
+    from ..sharding import collectives as coll
+
+    if isinstance(group, str):
+        if mesh is None:
+            raise ValueError(f"compressed_mean over axis {group!r} needs "
+                             "the mesh")
+        group = mesh.get_group(group)
+    elif group is None:
+        group = dist.group.WORLD
     q, scale, new_residual = ef_compress(g, residual)
-    n = dist.get_world_size(group)
-    q_all = [torch.empty_like(q) for _ in range(n)]
-    s_all = [torch.empty_like(scale) for _ in range(n)]
-    dist.all_gather(q_all, q, group=group)
-    dist.all_gather(s_all, scale, group=group)
-    return gathered_mean(torch.stack(q_all), torch.stack(s_all)), new_residual
+    q_all = coll.all_gather(q[None], 0, group)
+    s_all = coll.all_gather(scale.reshape(1), 0, group)
+    return gathered_mean(q_all, s_all), new_residual

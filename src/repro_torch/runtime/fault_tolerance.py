@@ -24,6 +24,16 @@ Mechanisms:
     time; a step slower than ``threshold ×`` it is counted (and handed to
     ``on_straggler``). The first ``warmup_steps`` steps are not judged,
     and a slow step moves the EMA by at most ``threshold ×`` it.
+
+Over a mesh (``group``, the ranks that run one sharded step together) a
+retry is taken by every rank at the same step: the injected-failure hook
+and the preemption flag are OR-ed over the group at each step boundary
+(one small ``all_reduce``), a non-finite loss is the mesh's loss (the same
+on every rank), and the checkpointer is a ``MeshCheckpointer`` whose
+``latest_step`` every rank sees alike. An exception raised inside a
+rank's step is not retried there: the other ranks may be waiting for it
+in a collective, so it propagates, the rank exits non-zero, and the
+launcher ends every rank (``launch.train``, as ``launch.serve``'s).
 """
 from __future__ import annotations
 
@@ -88,6 +98,7 @@ class FaultTolerantLoop:
         abort_on_nan: bool = True,
         install_sigterm: bool = False,
         straggler: Optional[StragglerMonitor] = None,
+        group=None,
     ):
         self.step_fn = step_fn
         self.data_fn = data_fn
@@ -97,6 +108,7 @@ class FaultTolerantLoop:
         self.abort_on_nan = abort_on_nan
         self.straggler = straggler or StragglerMonitor()
         self.metrics = LoopMetrics()
+        self.group = group
         self._preempt = False
         if install_sigterm:
             signal.signal(signal.SIGTERM, self._on_sigterm)
@@ -108,6 +120,21 @@ class FaultTolerantLoop:
         """Testable preemption entry point (same path as SIGTERM)."""
         self._preempt = True
 
+    def _agree(self, flag: bool) -> bool:
+        """``flag`` OR-ed over the group (itself without one)."""
+        if self.group is None:
+            return bool(flag)
+        import torch
+        import torch.distributed as dist
+
+        from ..sharding.collectives import any_true
+
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend(self.group) == "nccl"
+               else torch.device("cpu"))
+        return bool(any_true(torch.tensor([bool(flag)], device=dev),
+                             self.group)[0])
+
     def run(self, state: Any, start_step: int, num_steps: int,
             inject_failure: Optional[Callable[[int], bool]] = None):
         """Run [start_step, start_step + num_steps); returns (state, the
@@ -117,22 +144,30 @@ class FaultTolerantLoop:
         end = start_step + num_steps
         retries_here = 0
         while step < end:
+            self._preempt = self._agree(self._preempt)
             if self._preempt:
                 self.ckpt.save(step, state, blocking=True)
                 self.metrics.preempted = True
                 return state, step
             t0 = time.monotonic()
+            failing = self._agree(inject_failure is not None
+                                  and inject_failure(step))
+            in_step = False
             try:
-                if inject_failure is not None and inject_failure(step):
+                if failing:
                     raise RuntimeError(f"injected failure at step {step}")
                 batch = self.data_fn(step)
+                in_step = True
                 state, m = self.step_fn(state, batch)
+                in_step = False
                 loss = (float(m.get("loss", np.nan)) if isinstance(m, dict)
                         else float(m))
                 if self.abort_on_nan and not np.isfinite(loss):
                     raise FloatingPointError(f"non-finite loss at step {step}")
                 self.metrics.last_loss = loss
             except Exception:
+                if in_step and self.group is not None:
+                    raise          # the other ranks cannot follow a retry
                 retries_here += 1
                 self.metrics.retries += 1
                 if retries_here > self.max_retries:

@@ -1,5 +1,6 @@
-"""The few collectives the sharded serving forward needs, over one process
-group (a mesh axis's, or the data-parallel one).
+"""The collectives the sharded forwards need, over one process group (a
+mesh axis's, or the data-parallel one): the serving forward's, which carry
+no gradient, and the training forward's, which do.
 
 Every one is built from ``all_reduce`` alone, which NCCL takes on the card
 and gloo takes on CPU and CUDA tensors alike, so the same code runs under
@@ -21,6 +22,25 @@ identity.
     global index, the max of the maxes, then the least global index that
     holds it: ties go to the lower index, as ``torch.argmax`` and
     ``jnp.argmax`` break them.
+
+The training forward's (``torch.autograd.Function`` pairs, each a forward
+and its backward, the same collectives):
+
+  * ``fsdp_gather``: a parameter's blocks gathered along a dim (forward);
+    the gradient summed over the data-parallel group and cut to this
+    rank's block (backward) — FSDP's just-in-time gather;
+  * ``grad_sum``: the identity forward, the gradient summed over the group
+    backward — Megatron's *f* before a column-parallel projection (and a
+    replicated leaf's data-parallel reduction);
+  * ``sum_forward``: the sum over the group forward, the identity backward
+    — Megatron's *g* after a row-parallel one;
+  * ``gather_forward``: the blocks gathered forward, this rank's block of
+    the gradient backward — a leaf a layer does not run partitioned, the
+    heads of a head-parallel attention before a whole projection, and the
+    sequence gather of context parallelism;
+  * ``scatter_forward``: this rank's block forward, the blocks gathered
+    backward — a replicated tensor cut to this rank's heads, rows or
+    columns.
 """
 from __future__ import annotations
 
@@ -90,3 +110,95 @@ def any_true(flags: torch.Tensor, group) -> torch.Tensor:
     x = flags.to(torch.int32)
     all_reduce_max(x, group)
     return x.bool()
+
+
+def block_of(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``group`` (a view)."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim] // n
+    return x.narrow(dim, r * size, size)
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, grad_group):
+        ctx.dim, ctx.group, ctx.grad_group = dim, group, grad_group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_sum(g.contiguous().clone(), ctx.grad_group)
+        return block_of(g, ctx.dim, ctx.group).contiguous(), None, None, None
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous().clone(), ctx.group), None
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return block_of(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+class _ScatterForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return block_of(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, group, grad_group) -> torch.Tensor:
+    """``x``'s blocks over ``group`` concatenated along ``dim``; backward,
+    the gradient summed over ``grad_group`` (the data-parallel ranks, a
+    pod axis's too) and cut to this rank's block."""
+    return _FSDPGather.apply(x, dim % x.ndim, group, grad_group)
+
+
+def grad_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; backward, its gradient summed over ``group``."""
+    return _GradSum.apply(x, group)
+
+
+def sum_forward(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (a new tensor); backward, the
+    gradient passes unchanged."""
+    return _SumForward.apply(x, group)
+
+
+def gather_forward(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x``'s blocks over ``group`` concatenated along ``dim``; backward,
+    this rank's block of the gradient."""
+    return _GatherForward.apply(x, dim % x.ndim, group)
+
+
+def scatter_forward(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (``x`` the same on every
+    rank of ``group``); backward, the ranks' gradient blocks gathered."""
+    return _ScatterForward.apply(x, dim % x.ndim, group)

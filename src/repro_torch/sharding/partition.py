@@ -20,10 +20,15 @@ records specs either package reads. The planner reads only the mesh's axis
 sizes: a ``torch.distributed`` ``DeviceMesh`` or any object whose
 ``shape`` maps axis → size (the tests' stub meshes). ``shard_tree`` takes
 the place of the reference's ``named_shardings``: it cuts every leaf to this
-rank's block of a real mesh.
+rank's block of a real mesh. The training side: ``opt_spec_tree`` (the
+AdamW state's specs, the reference's ``_opt_spec_tree``), ``block_bytes``
+(what a rank holds of a tree under its specs) and ``named_shardings``
+(a spec tree bound to its mesh, what ``Checkpointer.restore(shardings=)``
+reads).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional
 
 from ..quantized.qtensor import QTensor, k_major
@@ -185,8 +190,9 @@ def _rebuild(tree, flat: dict, prefix: str = ""):
     if isinstance(tree, dict):
         return {k: _rebuild(v, flat, f"{prefix}/{k}") for k, v in tree.items()}
     if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
-        return type(tree)(_rebuild(v, flat, f"{prefix}/{i}")
-                          for i, v in enumerate(tree))
+        kids = [_rebuild(v, flat, f"{prefix}/{i}") for i, v in enumerate(tree)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else type(tree)(
+            kids)
     if isinstance(tree, QTensor):
         return QTensorSpec(_rebuild(tree.q, flat, f"{prefix}/q"),
                            _rebuild(tree.scale, flat, f"{prefix}/scale"),
@@ -365,6 +371,26 @@ def local_block(t, spec: P, mesh):
     return t[index]
 
 
+def unshard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """The inverse of ``shard_tree``: every leaf of this rank's ``tree``
+    gathered whole over the axes its spec in ``specs`` places it on (a
+    dim over several axes gathered over the last first), the same on
+    every rank, bit for bit (``collectives.all_gather``). Dicts, lists,
+    tuples and NamedTuples keep their types."""
+    from . import collectives as coll
+
+    if isinstance(tree, dict):
+        return {k: unshard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        kids = [unshard_tree(v, specs[i], mesh) for i, v in enumerate(tree)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else type(tree)(
+            kids)
+    for d, a in enumerate(specs):
+        for axis in reversed((a,) if isinstance(a, str) else tuple(a or ())):
+            tree = coll.all_gather(tree, d, mesh.get_group(axis))
+    return tree
+
+
 def shard_tree(tree: Any, specs: Any, mesh) -> Any:
     """Every leaf of ``tree`` cut to this rank's block of ``mesh`` under its
     spec in ``specs`` (a tree of the same structure) — the port's
@@ -373,9 +399,71 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
     view, a cut along K a copy)."""
     if isinstance(tree, dict):
         return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(specs, QTensorSpec):
+        kids = [shard_tree(v, specs[i], mesh) for i, v in enumerate(tree)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else type(tree)(
+            kids)
     if isinstance(tree, QTensor):
         return QTensor(k_major(local_block(tree.q, specs.q, mesh)),
                        local_block(tree.scale, specs.scale, mesh).contiguous(),
                        tree.mode)
     cut = local_block(tree, specs, mesh)
     return cut if cut is tree else cut.contiguous()
+
+
+class NamedSharding(NamedTuple):
+    """A spec bound to its mesh: the rank's block of a leaf
+    (``local_block``), as JAX's ``NamedSharding`` places one."""
+    mesh: Any
+    spec: P
+
+
+def named_shardings(spec_tree: Any, mesh) -> Any:
+    """The spec tree with every spec bound to ``mesh`` (a QTensor's place
+    keeps its ``QTensorSpec`` of two)."""
+    if isinstance(spec_tree, P):
+        return NamedSharding(mesh, spec_tree)
+    if isinstance(spec_tree, QTensorSpec):
+        return QTensorSpec(NamedSharding(mesh, spec_tree.q),
+                           NamedSharding(mesh, spec_tree.scale),
+                           spec_tree.mode)
+    if isinstance(spec_tree, dict):
+        return {k: named_shardings(v, mesh) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)):
+        kids = [named_shardings(v, mesh) for v in spec_tree]
+        return (type(spec_tree)(*kids) if hasattr(spec_tree, "_fields")
+                else type(spec_tree)(kids))
+    return spec_tree
+
+
+def opt_spec_tree(p_spec: Any):
+    """The AdamW state's specs: the step replicated, each moment placed as
+    its parameter (the reference's ``_opt_spec_tree``)."""
+    from ..optim.adamw import AdamWState
+
+    return AdamWState(P(), p_spec, p_spec)
+
+
+def block_shape(shape, spec: P, mesh) -> tuple:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
+    sizes = mesh_sizes(mesh)
+    out = []
+    for d, a in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n = math.prod(sizes[x] for x in ((a,) if isinstance(a, str)
+                                         else (a or ())))
+        if d % n:
+            raise ValueError(f"a dim of {d} does not divide over {a} ({n})")
+        out.append(d // n)
+    return tuple(out)
+
+
+def block_bytes(shapes: Any, specs: Any, mesh) -> int:
+    """The bytes a rank holds of the tree ``shapes`` (tensors, meta ones
+    too) placed by ``specs`` on ``mesh``: each leaf's block, its dtype's
+    item size a element."""
+    flat = dict(spec_paths(specs))
+    total = 0
+    for path, leaf in _walk(shapes):
+        total += (math.prod(block_shape(tuple(leaf.shape), flat[path], mesh))
+                  * leaf.element_size())
+    return total

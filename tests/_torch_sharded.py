@@ -30,7 +30,23 @@ A task is ``(name, kind, mesh shape, kwargs)``; kinds:
   * ``async`` — the async front-end over a sharded engine
     (``serving.mesh_control``: rank 0 leads, the others follow) on one of
     ``async_run``'s scenarios; ``fail_at`` makes every follower raise at
-    that replayed step, ``fail_leader`` rank 0 after one step.
+    that replayed step, ``fail_leader`` rank 0 after one step;
+  * ``train`` — ``launch.steps.make_train_step`` under
+    ``configure_sharding_hints`` over the mesh, from a numpy init carried
+    across whole and cut by ``state_specs`` on every rank, for a few
+    steps of ``token_batch``: the metrics, the final (params, AdamWState)
+    gathered whole, and this rank's resident bytes beside the planner's
+    block bytes (``plant`` swaps in a planted fault: ``"double_count"``
+    counts every leaf in the clip's norm on every rank; ``backward_thread``
+    runs the backward on a thread of its own, as on the card);
+  * ``ckpt_save`` — the sharded train state after ``steps`` steps, saved
+    from the mesh by ``Checkpointer.save(shardings=)`` (rank 0 writes),
+    and returned whole;
+  * ``ckpt_restore`` — ``elastic_restore`` of a checkpoint onto the mesh
+    (the train step's placement): whether every rank's blocks equal its
+    cut of the checkpoint's whole leaves, bit for bit, how many leaves the
+    mesh cuts, the state gathered whole, and (``resave``) the state saved
+    again from this mesh.
 
 A rank that fails exits non-zero and ``run_ranks`` then stops the others,
 as the launcher does (``stop_on_failure=False``: it waits for each to end). ``run_ranks(..., collect=True)`` returns the result of
@@ -428,6 +444,202 @@ def counts_task(mesh, *, arch, params, requests, kv_bits, overrides=None,
                       "slots_sharded": sh.slots_sharded}}
 
 
+def _grad_on_a_thread(grad):
+    """``torch.autograd.grad`` run on a thread of its own, as the autograd
+    engine runs a CUDA backward (and a remat's recompute) on its device
+    thread: no context variable of the caller reaches it."""
+    import threading
+
+    def run(*a, **kw):
+        out = {}
+
+        def target():
+            try:
+                out["v"] = grad(*a, **kw)
+            except BaseException as e:   # re-raised on the caller's thread
+                out["e"] = e
+
+        t = threading.Thread(target=target)
+        t.start()
+        t.join()
+        if "e" in out:
+            raise out["e"]
+        return out["v"]
+    return run
+
+
+def train_task(mesh, *, arch, params, steps, batch, seq, lr,
+               overrides=None, plant=None, frames=None, backward_thread=False):
+    import torch
+
+    from repro_torch.data import token_batch
+    from repro_torch.launch import steps as st
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import train as shtrain
+    from repro_torch.sharding.partition import (
+        block_bytes,
+        opt_spec_tree,
+        shard_tree,
+        unshard_tree,
+    )
+
+    model, p, cfg = _model(arch, overrides, params)
+    real = shtrain.TrainShard.counted
+    if plant == "double_count":
+        shtrain.TrainShard.counted = lambda self: _map_tree(
+            real(self), lambda _: True)
+    real_grad = torch.autograd.grad
+    if backward_thread:
+        torch.autograd.grad = _grad_on_a_thread(real_grad)
+    st.configure_sharding_hints(cfg, mesh)
+    try:
+        model, step = st.make_train_step(cfg, lr_cfg=lr)
+        (shapes, opt_shapes), (p_spec, _) = st.state_specs(model, mesh)
+        specs = (p_spec, opt_spec_tree(p_spec))
+        blocks = shard_tree(p, p_spec, mesh)
+        opt = adamw_init(blocks)
+        resident = sum(t.numel() * t.element_size()
+                       for t in _leaves_of((blocks, opt)))
+        planned = block_bytes((shapes, opt_shapes), specs, mesh)
+        metrics = []
+        for s in range(steps):
+            b = token_batch(0, s, 0, batch, seq, cfg.vocab_size,
+                            device="cpu")
+            if frames is not None:
+                b["frames"] = torch.as_tensor(frames[s])
+            blocks, opt, m = step(blocks, opt, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        final = unshard_tree((blocks, opt), specs, mesh)
+    finally:
+        st.clear_sharding_hints()
+        shtrain.TrainShard.counted = real
+        torch.autograd.grad = real_grad
+    return {"metrics": metrics, "final": _numpy(final),
+            "resident": resident, "planned": planned}
+
+
+def _sharded_state(mesh, arch, params, overrides, steps, batch, seq, lr):
+    """(model, cfg, specs, shapes, the train state's blocks after
+    ``steps`` sharded steps)."""
+    from repro_torch.data import token_batch
+    from repro_torch.launch import steps as st
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.partition import opt_spec_tree, shard_tree
+
+    model, p, cfg = _model(arch, overrides, params)
+    st.configure_sharding_hints(cfg, mesh)
+    try:
+        model, step = st.make_train_step(cfg, lr_cfg=lr)
+        shapes, (p_spec, _) = st.state_specs(model, mesh)
+        blocks = shard_tree(p, p_spec, mesh)
+        state = (blocks, adamw_init(blocks))
+        for s in range(steps):
+            b = token_batch(0, s, 0, batch, seq, cfg.vocab_size, device="cpu")
+            *state, _ = step(*state, b)
+    finally:
+        st.clear_sharding_hints()
+    return model, cfg, (p_spec, opt_spec_tree(p_spec)), shapes, tuple(state)
+
+
+def ckpt_save_task(mesh, *, arch, params, directory, step=1, steps=1,
+                   batch=8, seq=32, lr=None, overrides=None):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.sharding.partition import named_shardings, unshard_tree
+
+    _, _, specs, _, state = _sharded_state(mesh, arch, params, overrides,
+                                           steps, batch, seq, lr)
+    Checkpointer(directory).save(step, state, blocking=True,
+                                 shardings=named_shardings(specs, mesh))
+    return {"whole": _numpy(unshard_tree(state, specs, mesh))}
+
+
+def ckpt_restore_task(mesh, *, arch, params, directory, overrides=None,
+                      resave=None):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch import steps as st
+    from repro_torch.runtime import elastic_restore
+    from repro_torch.sharding.partition import (
+        local_block,
+        named_shardings,
+        opt_spec_tree,
+        unshard_tree,
+    )
+
+    model, _, cfg = _model(arch, overrides, params)
+    shapes, (p_spec, _) = st.state_specs(model, mesh)
+    specs = (p_spec, opt_spec_tree(p_spec))
+    ckpt = Checkpointer(directory)
+    heads = {"n_q": cfg.n_heads, "n_kv": cfg.n_kv_heads}
+    state, step = elastic_restore(ckpt, shapes, mesh, heads=heads)
+    whole, _ = ckpt.restore(shapes, device="cpu")
+    same, cut = True, 0
+    for blk, full, spec in zip(_leaves_of(state), _leaves_of(whole),
+                               _spec_leaves(specs)):
+        mine = local_block(full, spec, mesh)
+        cut += mine.shape != full.shape
+        same = same and blk.shape == mine.shape and torch.equal(blk, mine)
+    flag = torch.tensor([0 if same else 1])
+    dist.all_reduce(flag)
+    if resave is not None:
+        Checkpointer(resave).save(step, state, blocking=True,
+                                  shardings=named_shardings(specs, mesh))
+    return {"equal": int(flag) == 0, "cut": cut, "step": step,
+            "whole": _numpy(unshard_tree(state, specs, mesh))}
+
+
+class RaiseOnRank:
+    """A launcher failure hook (picklable) that raises on one rank only, at
+    one step, before that step's collectives: the others go on into
+    theirs."""
+
+    def __init__(self, rank, step):
+        self.rank, self.step = rank, step
+
+    def __call__(self, step):
+        import torch.distributed as dist
+
+        if step == self.step and dist.get_rank() == self.rank:
+            raise RuntimeError(f"rank {self.rank} failed at step {step}")
+        return False
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _spec_leaves(specs):
+    from repro_torch.sharding.partition import PartitionSpec
+
+    if isinstance(specs, PartitionSpec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    return [x for t in specs for x in _spec_leaves(t)]
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves_of(t)]
+    return [tree]
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy(v) for v in tree]
+    return tree.detach().numpy()
+
+
 KINDS = {"engine": engine_task, "logits": logits_task,
          "moe_block": moe_block_task, "async": async_task,
-         "counts": counts_task, "refuse": refuse_task, "gate": gate_task}
+         "counts": counts_task, "refuse": refuse_task, "gate": gate_task,
+         "train": train_task, "ckpt_save": ckpt_save_task,
+         "ckpt_restore": ckpt_restore_task}

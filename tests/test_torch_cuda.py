@@ -1953,3 +1953,90 @@ def test_prefill_attention_rows_bit_equal_to_their_halves(dev, Hq, Hkv, hd):
     whole = attend(slice(0, B))
     halves = torch.cat([attend(slice(0, B // 2)), attend(slice(B // 2, B))])
     assert torch.equal(whole, halves)
+
+
+def test_one_rank_nccl_mesh_trains_bit_equal_to_one_device(dev, monkeypatch):
+    """``make_train_step`` under ``configure_sharding_hints`` on a 1x1 NCCL
+    mesh (its own 1-rank group: the loss, the clip's norm and every
+    reduction a collective of one rank), three steps of qwen2-smoke widened
+    so that the planner places every leaf: losses, grad norms, params and
+    moments bit-equal to the one-device step (deterministic algorithms)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import get_config
+    from repro_torch.data import token_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import adamw_init
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already running in this process")
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                              d_model=128, d_ff=256, vocab_size=512,
+                              n_heads=4, n_kv_heads=2, head_dim=32)
+    lr = {"peak_lr": 1e-3, "warmup": 2, "total": 10}
+
+    def run():
+        model, step = steps.make_train_step(cfg, lr_cfg=lr)
+        params = model.init(0, device=dev)
+        state, metrics = (params, adamw_init(params)), []
+        for s in range(3):
+            *state, m = step(*state, token_batch(0, s, 0, 8, 32, 512,
+                                                 device=dev))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        return state, metrics
+
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        one, one_m = run()
+        mesh = make_production_mesh(shape=(1, 1), device=dev)
+        try:
+            steps.configure_sharding_hints(cfg, mesh)
+            got, got_m = run()
+        finally:
+            steps.clear_sharding_hints()
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    assert got_m == one_m
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for t in tree for x in leaves(t)]
+        return [tree]
+
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(one)))
+
+
+def test_compressed_mean_under_nccl(dev):
+    """``compressed_mean`` over a 1-rank NCCL group and over a mesh axis by
+    name: the gathered payload's mean plus the new residual gives the
+    gradient back, the mean bit-equal to the dequantized payload."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import compressed_mean, ef_compress
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already running in this process")
+    g = torch.randn(4096, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    r0 = torch.zeros_like(g)
+    mesh = make_production_mesh(shape=(1, 1), device=dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        for group in (None, "data"):
+            mean, new_r = compressed_mean(g, r0, group, mesh=mesh)
+            q, s, r = ef_compress(g, r0)
+            assert torch.equal(new_r, r)
+            assert torch.equal(mean, q.float() * (s / 1))
+            torch.testing.assert_close(mean + new_r, g, rtol=1e-5,
+                                       atol=1e-6)
+    finally:
+        dist.destroy_process_group()

@@ -62,6 +62,7 @@ def test_import_leaves_jax_out_and_torch_state_alone():
         "import repro_torch.runtime, repro_torch.optim, repro_torch.data\n"
         "import repro_torch.sharding, repro_torch.sharding.collectives\n"
         "import repro_torch.sharding.tp, repro_torch.launch.mesh\n"
+        "import repro_torch.sharding.train, repro_torch.runtime.elastic\n"
         "import repro_torch.serving.mesh_control\n"
         "after = (torch.get_default_dtype(), torch.get_num_threads(),\n"
         "         torch.are_deterministic_algorithms_enabled())\n"

@@ -47,6 +47,7 @@ from repro_torch.quantized import QTensor, dequantize_params, quantize_param
 from repro_torch.runtime import (
     FaultTolerantLoop,
     StragglerMonitor,
+    elastic_restore,
     shard_assignment,
 )
 from repro_torch.weights import from_jax_numpy
@@ -210,11 +211,35 @@ def test_checkpoint_async(tmp_path):
 
 
 def test_shard_assignment():
-    """The elastic path's data assignment (``elastic_restore`` itself waits
-    for the port's sharding)."""
+    """The elastic path's data assignment (``elastic_restore`` below; onto
+    meshes of several ranks in tests/test_torch_train_sharded.py)."""
     assert shard_assignment(64, 4, 3) == (3, 16)
     with pytest.raises(ValueError, match="does not split"):
         shard_assignment(10, 4, 0)
+
+
+def test_elastic_restore_onto_new_mesh(tmp_path, gloo_group):
+    """The reference's ``test_elastic_restore_onto_new_mesh``: a checkpoint
+    restored onto a "new" one-rank mesh by ``elastic_restore``, bit for
+    bit; the JAX package's ``elastic_restore`` reads the same checkpoint to
+    the same leaves."""
+    from repro.checkpoint import Checkpointer as JaxCheckpointer
+    from repro.runtime.elastic import elastic_restore as jax_elastic_restore
+    from repro_torch.launch.mesh import make_production_mesh
+
+    ckpt = Checkpointer(str(tmp_path / "ck"))
+    w = torch.arange(512, dtype=torch.float32).reshape(2, 16, 16)
+    tree = {"blocks": {"w": w}}
+    ckpt.save(1, tree, blocking=True)
+    mesh = make_production_mesh(shape=(1, 1), device="cpu")
+    restored, step = elastic_restore(ckpt, tree, mesh)
+    assert step == 1 and torch.equal(restored["blocks"]["w"], w)
+    jtree = {"blocks": {"w": jnp.arange(512, dtype=jnp.float32).reshape(
+        2, 16, 16)}}
+    jrest, jstep = jax_elastic_restore(JaxCheckpointer(str(tmp_path / "ck")),
+                                       jtree, jax.make_mesh((1,), ("data",)))
+    assert jstep == 1
+    assert np.array_equal(np.asarray(jrest["blocks"]["w"]), w.numpy())
 
 
 # ----------------------------------------------------------- fault tolerance
