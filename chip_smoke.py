@@ -168,10 +168,10 @@ Phases, each of which must pass (nothing here catches a failure):
      and stepwise: every request finishes, the same tokens and ticks, the
      exact launch counts; its tok/s beside phase 4's serve-w8a8-kv8.
   6. serve mistral-nemo-12b — at full width (d_model 5120, 32 q / 8 kv
-     heads of 128, d_ff 14336, vocab 131072, bf16), at every layer that
-     leaves 8 GiB of the card free while ``repro_torch.quantize`` runs
-     (the peak measured at 2 and 4 layers, extrapolated; the depth is
-     logged), through ``repro_torch.serve`` on phase 4's trace:
+     heads of 128, d_ff 14336, vocab 131072, bf16), at ``NEMO_LAYERS`` of
+     its 40 layers (fewer where that would not leave 8 GiB of the card
+     free while ``repro_torch.quantize`` runs: the peak measured at 2 and
+     4 layers, extrapolated; the depth is logged), through ``repro_torch.serve`` on phase 4's trace:
      serve-w8a16 over the bf16 KV cache (the reference's default
      deployment) and serve-w8a8-kv8, each stepwise and fast (graphs
      captured by warmup): fast tokens and ticks equal stepwise, launch
@@ -206,13 +206,12 @@ Phases, each of which must pass (nothing here catches a failure):
   8. the paged pool — qwen2-0.5b at full width on phase 4's settings with
      pages of 32 positions (``PAGED``). 8a: ``repro_torch.serve`` under
      serve-w8a16 over the bf16 KV cache (the default deployment) and
-     serve-w8a8-kv8, each fast after warmup four times in turns
-     (contiguous, paged, paged, contiguous) and paged stepwise, and
-     serve-w8a8-kv8 paged fast with REPRO_FUSED_DECODE=0 (kv_attention
-     over the dense view): every request's tokens and finish tick the
-     contiguous runs' (and phase 4's for serve-w8a8-kv8), launches exact;
-     tok/s paged beside contiguous from the turns, the page pool's and the
-     dense view's bytes. Then ``ServingEngine``s over
+     serve-w8a8-kv8, each fast after warmup contiguous then paged, and
+     paged stepwise, and serve-w8a8-kv8 paged fast with
+     REPRO_FUSED_DECODE=0 (kv_attention over the dense view): every
+     request's tokens and finish tick the contiguous run's (and phase 4's
+     for serve-w8a8-kv8), launches exact; tok/s paged beside contiguous,
+     the page pool's and the dense view's bytes. Then ``ServingEngine``s over
      one serve-w8a16 model: 8b a trace of 16 requests sharing a 192-token
      prefix, reuse on and off — the same tokens, no request later with
      reuse on, prefix hits, fewer prefill chunks, ``cow_copies`` logged;
@@ -264,8 +263,9 @@ Phases, each of which must pass (nothing here catches a failure):
      CPU's leaf by leaf (a LayerNorm shift folded through a weight and an
      absorbed value bias within ``FAMILY_SUM_TOL``), prefill 8 + 16 decode
      steps within ``teacher_forced``'s bound of the CPU. Then at every
-     published width: mamba2-2.7b and zamba2-2.7b at the depth
-     ``cut_depth`` allows (all 64 and 54 layers fit), whisper-tiny whole
+     published width: mamba2-2.7b and zamba2-2.7b at ``FAMILY_MOST``'s
+     depth (16 of 64 and 12 of 54 layers; ``cut_depth`` checks they fit),
+     whisper-tiny whole
      (4 + 4 layers, 1500 frames from ``prng.normal``), each quantized on
      the card under serve-w8a16 and serve-w8a8 and run through
      ``warm_cache`` (whisper), ``model.prefill`` of 8 x 128 tokens and 32
@@ -337,8 +337,8 @@ Phases, each of which must pass (nothing here catches a failure):
      ``w8a8_epilogue`` to the expert-batched qmatmul_w8a8 —, W8A16's
      float32 partials of mixtral's and llama4's expert down at 1x2 within
      W8A16_TOL, and the cut expert gate/up, W8A8 and W8A16). 14a:
-     mixtral-8x22b at full width and phase 9's depth (checked against what
-     two ranks on the card hold), quantized once under serve-w8a8-kv8-tp
+     mixtral-8x22b at full width and ``MOE_TP_LAYERS`` layers (checked
+     against what two ranks on the card hold), quantized once under serve-w8a8-kv8-tp
      and serve-w8a16-tp and saved; one device serves ``MOE_TP``'s trace
      (phase 4's, cut to ``MOE_TP_TRACE`` requests) fast and stepwise; a
      W8A8 prefill chunk of 8 slots bit-equal to its two halves' (the batch a
@@ -387,9 +387,26 @@ Phases, each of which must pass (nothing here catches a failure):
      at that depth after the ranks end: losses and grad norms within
      ``TRAIN_MESH_TOL``'s bf16 gate, each rank's blocks and peak. Every
      gate is logged before the phase fails on one.
+  16. the dry-run (``repro_torch.launch.dryrun``) — 16a: the stated
+     subset ``DRYRUN_CELLS`` of the registry's cells at the 16x16 mesh,
+     each in a process of its own over a fake world of 256 on this host's
+     torch, and ``dry_run`` of 16b's cells on a 1x1 mesh in one more,
+     all started after phase 1 at the lowest CPU priority (they trace on
+     the host's idle cores while phases 2-15 run) and collected here: ok,
+     no CUDA touched; their dominant term, bound, ``fits_hbm`` and
+     seconds. Then 16b, alone on the host: qwen2-0.5b at full width on one
+     device — a decode step at phase 4's shape (W8A16 over the bf16 cache,
+     W8A8 over the int8 cache; the cache filled to 480 of 512 positions by
+     a prefill) and phase 12a's train step (8 x 256, donated) — its time,
+     resident bytes and peak, every kernel launch of the decode runs
+     counted, held to the dry-run's prediction: the step's time at least
+     the roofline's bound, the card's resident argument bytes the
+     dry-run's plus the caching allocator's rounding, the first step's
+     peak above them within ``TEMP_BAND`` of the dry-run's temp bytes.
 
 The line before the last is the kernel table as one JSON object; the last
-line is the device record. Exits non-zero with no result when torch sees no
+line is the device record. Each phase's start, in the script's seconds, also
+goes to stderr. Exits non-zero with no result when torch sees no
 CUDA device, or when the port's sources are not beside this script.
 """
 from __future__ import annotations
@@ -402,11 +419,20 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 and bf16
-# tensor-core operations/s, float32 (CUDA-core) operations/s.
-HBM_BYTES_S = 3.35e12
-INT8_OPS_S = 1979e12
-BF16_OPS_S = 989e12
-F32_OPS_S = 67e12
+# tensor-core operations/s, float32 (CUDA-core) operations/s: keys of the
+# port's ``analysis.roofline.HW_H100``, the dry-run's constants too, so
+# the two cannot drift apart
+HBM_BYTES_S, INT8_OPS_S, BF16_OPS_S, F32_OPS_S = (
+    "hbm_bw", "peak_flops_int8", "peak_flops_bf16", "peak_flops_f32")
+
+
+def hw_peak(key: str) -> float:
+    """``HW_H100[key]`` (the port importable: ``main`` puts ``src`` on the
+    path)."""
+    from repro_torch.analysis.roofline import HW_H100
+
+    return HW_H100[key]
+
 
 # fused_decode's ``out`` against its plain version (expf and the order of the
 # sums differ, so the float32 results are ~1e-7 apart): float32 within
@@ -436,6 +462,17 @@ W8A16_TOL = {"float32": "E = 16 sqrt(K) 2^-24 sqrt(a^2 @ w^2) + 2^-22 (|y|+|b|)"
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
+
+
+def phase(t_script: float, title: str) -> float:
+    """Log phase ``title``'s header, and on stderr the script's seconds so
+    far (the last lines a run stopped at its time limit shows); returns the
+    phase's start."""
+    log(f"== phase {title}")
+    print(f"chip_smoke: phase {title.split(':')[0]} starts at "
+          f"{time.perf_counter() - t_script:.1f} s", file=sys.stderr,
+          flush=True)
+    return time.perf_counter()
 
 
 def smi_line() -> str:
@@ -516,8 +553,8 @@ def _sleep_ms(cycles: int) -> float:
 
 
 def bound_ms(bytes_moved: float, ops: float, ops_rate: float):
-    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    t_ops = ops / ops_rate * 1e3
+    t_bytes = bytes_moved / hw_peak(HBM_BYTES_S) * 1e3
+    t_ops = ops / hw_peak(ops_rate) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1151,7 +1188,7 @@ def check_attention_sweep(torch, dev, gen):
         n_bytes = B * S * Hkv * (2 * hd + 8)
         log(f"  attention split sweep B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} "
             f"({plan.tiles} tiles of {attention_plan.TS}; * the plan's; cache "
-            f"bound {n_bytes / HBM_BYTES_S * 1e6:.2f} us), us kv_attention / "
+            f"bound {n_bytes / hw_peak(HBM_BYTES_S) * 1e6:.2f} us), us kv_attention / "
             f"fused_decode bf16: " + ", ".join(
                 f"{sp}{'*' if sp == plan.splits else ''} {tk:.2f} / {tf:.2f}"
                 for sp, tk, tf in times))
@@ -3084,11 +3121,12 @@ def forwards(run):
             run.stats["prefill_dispatches"] + warm.get("prefill_dispatches", 0))
 
 
-def check_served(run, counts, label, want):
-    """Every request finished with 32 tokens and finite logits; the launch
-    counts (reset just before the run, read just after) are ``want``'s, and
-    0 for every other kernel."""
-    assert len(run.results) == 16, f"{label}: {len(run.results)} of 16 served"
+def check_served(run, counts, label, want, trace=SERVE["trace"]):
+    """Every one of the ``trace`` requests finished with 32 tokens and
+    finite logits; the launch counts (reset just before the run, read just
+    after) are ``want``'s, and 0 for every other kernel."""
+    assert len(run.results) == trace, (
+        f"{label}: {len(run.results)} of {trace} served")
     for r in run.results.values():
         assert r.status == "ok", f"{label}: request {r.rid}: {r.status}"
         assert len(r.tokens) == 32, f"{label}: request {r.rid}: {len(r.tokens)} tokens"
@@ -3098,8 +3136,8 @@ def check_served(run, counts, label, want):
               f"{warm['capture_seconds']:.2f} s (warmup {warm['seconds']:.2f} s),"
               f" graph pool {warm['graph_pool_bytes'] / 2**20:.1f} MiB"
               if "graphs" in warm else "")
-    log(f"  {label}: 16/16 requests finished with 32 tokens and finite "
-        f"logits, {run.generated_tokens} tokens in {run.seconds:.3f} s = "
+    log(f"  {label}: {trace}/{trace} requests finished with 32 tokens and "
+        f"finite logits, {run.generated_tokens} tokens in {run.seconds:.3f} s = "
         f"{run.tokens_per_second:.1f} tok/s ({run.path} path, "
         f"{SERVE['slots']} slots, {st['decode_steps']} decode steps in "
         f"{st['decode_dispatches']} dispatches (mean horizon "
@@ -3573,18 +3611,23 @@ def log_row(name, r):
 # --------------------------------------------------------------- phase 6
 # the serving runs of phase 6: phase 4's trace at mistral-nemo-12b's width
 NEMO = dict(SERVE, arch="mistral-nemo-12b")
+# phase 6 serves at most NEMO_LAYERS of the 40 layers, a cut for the
+# script's time: at the 28 that leave 8 GiB free the phase took 37-54 s
+# on the H100, and the whole script ran past its 1,200 s once
+NEMO_LAYERS = 12
 # device memory quantize must leave free (of the card's total)
 FREE_BYTES = 8 << 30
 
 
-def cut_depth(torch, dev, arch, probe):
-    """The depth a phase serves ``arch`` at: all its layers if
-    ``repro_torch.quantize``'s peak (``torch.cuda.max_memory_allocated``,
-    serve-w8a16: the float32 weights and the copies the flow makes) leaves
-    ``FREE_BYTES`` of the card free, else the deepest that does. The peak
-    is linear in the depth (the embedding and the head, then the same
-    blocks a layer): measured at the two depths ``probe`` and
-    extrapolated; each run checks its own peak."""
+def cut_depth(torch, dev, arch, probe, most=None):
+    """The depth a phase serves ``arch`` at: all its layers (at most
+    ``most``, a cut for the script's time) if ``repro_torch.quantize``'s
+    peak (``torch.cuda.max_memory_allocated``, serve-w8a16: the float32
+    weights and the copies the flow makes) leaves ``FREE_BYTES`` of the
+    card free, else the deepest that does. The peak is linear in the depth
+    (the embedding and the head, then the same blocks a layer): measured at
+    the two depths ``probe`` and extrapolated; each run checks its own
+    peak."""
     import dataclasses
     import gc
 
@@ -3609,13 +3652,14 @@ def cut_depth(torch, dev, arch, probe):
     total = torch.cuda.get_device_properties(dev).total_memory
     room = total - FREE_BYTES - torch.cuda.memory_allocated(dev)
     fits = int((room - fixed) // per_layer)
-    depth = max(1, min(cfg.n_layers, fits))
+    depth = max(1, min(cfg.n_layers, most or cfg.n_layers, fits))
     log(f"  {arch}: quantize peak of serve-w8a16 at {lo} / {hi} layers: "
         f"{peaks[lo] / 2**30:.2f} / {peaks[hi] / 2**30:.2f} GiB -> "
         f"{per_layer / 2**30:.3f} GiB a layer + {fixed / 2**30:.2f} GiB; the "
         f"card holds {total / 2**30:.2f} GiB: {fits} layers leave "
         f"{FREE_BYTES / 2**30:.0f} GiB free -> serving "
-        f"{depth} of {cfg.n_layers} layers")
+        f"{depth} of {cfg.n_layers} layers"
+        + (f" (at most {most}, the script's time)" if most else ""))
     return depth
 
 
@@ -3646,7 +3690,7 @@ def serve_cut(torch, settings, depth, quantize, kv_bits, *, reference):
              + (" stepwise" if reference else ""))
     check_served(run, counts, label,
                  expected_launches(quantize, True, *forwards(run), cfg=cfg,
-                                   kv_bits=kv))
+                                   kv_bits=kv), trace=settings["trace"])
     total = torch.cuda.get_device_properties(0).total_memory
     free = total - run.quantize_peak_bytes
     log(f"  {label}: {run.tokens_per_second:.1f} tok/s; quantize "
@@ -4250,9 +4294,9 @@ def serve_paged(torch, quantize, kv_bits, *, fused=True, reference=False,
 
 def check_paged_serving(torch, runs, stepwise):
     """8a: serve-w8a16 over the bf16 KV cache (the default deployment) and
-    serve-w8a8-kv8, each fast four times in turns — contiguous, paged,
-    paged, contiguous, so that the tok/s compare within one stretch of the
-    card's time — then paged stepwise; serve-w8a8-kv8 paged fast once more
+    serve-w8a8-kv8, each fast twice — contiguous, then paged (four turns,
+    contiguous, paged, paged, contiguous, until the script's time was cut)
+    — then paged stepwise; serve-w8a8-kv8 paged fast once more
     with REPRO_FUSED_DECODE=0 (kv_attention over the dense view). Every
     request's tokens and finish tick equal the first contiguous run's, and
     for serve-w8a8-kv8 phase 4's fast and stepwise runs'; launches exact."""
@@ -4260,7 +4304,7 @@ def check_paged_serving(torch, runs, stepwise):
     for quantize, kv_bits in (("w8a16", None), ("w8a8", 8)):
         label = f"serve-{quantize}" + ("-kv8" if kv_bits else " (bf16 KV)")
         turns = [serve_paged(torch, quantize, kv_bits, page_size=size)[0]
-                 for size in (None, pg, pg, None)]
+                 for size in (None, pg)]
         for run in turns[1:]:
             same_tokens(run, turns[0], f"{label} against its first "
                                        f"contiguous run")
@@ -4274,12 +4318,10 @@ def check_paged_serving(torch, runs, stepwise):
             unfused = serve_paged(torch, quantize, kv_bits, fused=False)[0]
             same_tokens(unfused, turns[1], f"{label} paged unfused against "
                                            f"fused")
-        tps = [run.tokens_per_second for run in turns]
-        flat, paged = (tps[0] + tps[3]) / 2, (tps[1] + tps[2]) / 2
+        flat, paged = (run.tokens_per_second for run in turns)
         log(f"  8a {label}: every paged request's tokens and finish tick "
-            f"equal the contiguous runs'; tok/s in turns (contiguous, paged,"
-            f" paged, contiguous) " + ", ".join(f"{t:.1f}" for t in tps)
-            + f": paged {paged:.1f} / contiguous {flat:.1f} "
+            f"equal the contiguous run's; tok/s paged {paged:.1f} / "
+            f"contiguous {flat:.1f} "
             f"({(paged / flat - 1) * 100:+.1f} %); paged stepwise "
             f"{step.tokens_per_second:.1f}"
             + (f", paged unfused {unfused.tokens_per_second:.1f}"
@@ -4528,7 +4570,7 @@ def time_gather(torch):
         gather = graph_ms(torch, lambda: _paged_view(pool, dense))
         rows = torch.arange(8, device="cuda").repeat(B, 1)
         commit = graph_ms(torch, lambda: _paged_commit(pool, dense, rows))
-        bound = 2 * view / HBM_BYTES_S * 1e3
+        bound = 2 * view / hw_peak(HBM_BYTES_S) * 1e3
         log(f"  paged gather, {'bf16' if kv_bits == 16 else 'int8'} cache: "
             f"dense view {view / 2**20:.2f} MiB (pool "
             f"{pool.cache_bytes() / 2**20:.2f} MiB), gather {gather * 1e3:.1f}"
@@ -4685,6 +4727,10 @@ FAMILY = dict(batch=8, prompt=128, steps=32)
 # mamba layers, each followed by a shared block); whisper-tiny runs whole
 FAMILY_PROBES = {"mamba2-2.7b": (1, 2), "zamba2-2.7b": (6, 12),
                  "whisper-tiny": None}
+# the most layers phase 11 runs of mamba2's 64 and zamba2's 54 (two of its
+# segments), a cut for the script's time (at full depth the phase took
+# 40-57 s on the H100)
+FAMILY_MOST = {"mamba2-2.7b": 16, "zamba2-2.7b": 12}
 # the smoke models' quantize on the card against the CPU's: a bias a
 # rewrite computes by a sum (a LayerNorm shift folded through a weight, an
 # absorbed value bias) sums in another order on the card — within
@@ -5031,7 +5077,8 @@ def check_families(torch, dev):
         check_family_smoke(torch, dev, arch)
         depth = None
         if probe is not None:
-            depth = cut_depth(torch, dev, arch, probe)
+            depth = cut_depth(torch, dev, arch, probe,
+                              most=FAMILY_MOST[arch])
             every = probe[0] if arch.startswith("zamba2") else 1
             depth = max(every, depth // every * every)
         import repro_torch
@@ -5046,13 +5093,13 @@ def check_families(torch, dev):
 # --------------------------------------------------------------- phase 12
 # 12a: the training run (the launcher's flags): qwen2-0.5b at full width, one
 # checkpoint mid-run (step 40) and the final one
-TRAIN = dict(arch="qwen2-0.5b", steps=60, batch=8, seq=256, ckpt_every=40)
+TRAIN = dict(arch="qwen2-0.5b", steps=30, batch=8, seq=256, ckpt_every=20)
 # 12b: the fault path at full width and a cut depth: checkpoints at steps 2
 # and 4 and the end, a failure injected at step 5, a preemption requested
 # once 5 steps are done. The loop restores the latest checkpoint it can
 # see: the step-4 one may still be in writing (saves are asynchronous), but
 # the step-2 one is complete (a save waits for the one before it)
-TRAIN_FAULT = dict(layers=4, steps=6, ckpt_every=2, fail_at=5, preempt_at=5)
+TRAIN_FAULT = dict(layers=1, steps=6, ckpt_every=2, fail_at=5, preempt_at=5)
 # 12a: steps run again under torch.profiler after the launcher's run
 TRAIN_PROFILED = 3
 # 12c: the evaluation tokens (seed, batch, length), the held-out batch of
@@ -5100,7 +5147,7 @@ def train_full_width(torch, dev, smi):
     med, p90 = float(np.median(steady)), float(np.percentile(steady, 90))
     tokens = TRAIN["batch"] * TRAIN["seq"]
     n_params = cfg.param_count()
-    mfu = 6 * n_params * tokens / (med / 1e3) / BF16_OPS_S
+    mfu = 6 * n_params * tokens / (med / 1e3) / hw_peak(BF16_OPS_S)
     first, last = float(np.mean(run.losses[:10])), float(np.mean(run.losses[-10:]))
     assert last < first, f"12a: the loss did not fall ({first:.4f} -> {last:.4f})"
     log(f"  12a qwen2-0.5b ({cfg.n_layers} layers, d {cfg.d_model}, vocab "
@@ -5114,7 +5161,7 @@ def train_full_width(torch, dev, smi):
         f"{float(steady.max()):.2f}; train tokens/s {tokens / (med / 1e3):.0f} "
         f"(at the median); peak device memory {peak / 2**30:.2f} GiB ({smi})")
     log(f"  12a mfu {mfu:.4f} (6 x {n_params} x {tokens} tokens / "
-        f"{med:.2f} ms / {BF16_OPS_S / 1e12:.0f} TFLOP/s bf16 peak)")
+        f"{med:.2f} ms / {hw_peak(BF16_OPS_S) / 1e12:.0f} TFLOP/s bf16 peak)")
     log(f"  12a loss: first 10 steps {first:.4f}, last 10 {last:.4f} "
         f"(step 1 {run.losses[0]:.4f}, step {TRAIN['steps']} "
         f"{run.losses[-1]:.4f}); straggler events "
@@ -5805,6 +5852,14 @@ def check_tensor_parallel(torch, dev, runs, smi):
 # collective through host memory)
 MOE_TP_TRACE = 8
 MOE_TP = dict(MIXTRAL, trace=MOE_TP_TRACE)
+# 14a's depth: MOE_TP_LAYERS of mixtral's 56 (phase 9's 3 before), a cut
+# for the script's time: quantizing and saving the two artifacts took
+# 33.1 s of 14a at 3 layers, 16.1 s at 1, on the H100. At 1 layer W8A16's
+# 1x2 teacher-forced gate read 0.159 of max |logit| against twice the bf16
+# forward's 0.0165 (one layer of bf16 rounding sets too low a bar beside
+# the expert choices a reordered sum can move); at 2 it held (PR 31's
+# proofs 2-4 of the reviewed tree)
+MOE_TP_LAYERS = 2
 MOE_TP_RECIPES = (("w8a8", "serve-w8a8-kv8-tp", 8),
                   ("w8a16", "serve-w8a16-tp", 16))
 # 14c: llama4-scout at smoke size (its shared expert's route), 1x2 W8A8
@@ -6214,9 +6269,9 @@ def one_device_run(torch, qm, sv, fast, label, *, cfg, kv_bits, quantize):
 def check_moe_tensor_parallel(torch, dev, depth, smi):
     """Phase 14: the MoE family served tensor-parallel on the card.
 
-    14a: mixtral-8x22b at full width and ``depth`` layers (phase 9's, the
-    depth the one quantize leaves 8 GiB free at, checked against what two
-    ranks on the card hold), quantized ONCE here under serve-w8a8-kv8-tp
+    14a: mixtral-8x22b at full width and ``depth`` layers (``MOE_TP_LAYERS``,
+    within phase 9's cut; checked against what two ranks on the card
+    hold), quantized ONCE here under serve-w8a8-kv8-tp
     and serve-w8a16-tp and saved; a one-device run of each (fast under
     graphs, stepwise); two ranks spawned on the one card (gloo) load each
     artifact and serve ``MOE_TP``'s trace over 1x2 and 2x1, fast (eager)
@@ -6300,9 +6355,10 @@ def check_moe_tensor_parallel(torch, dev, depth, smi):
         total = torch.cuda.get_device_properties(dev).total_memory
         per_layer = max(sizes.values()) / depth
         hold = int((total - FREE_BYTES) // (2 * 1.5 * per_layer))
-        log(f"  14a depth: {depth} of {cfg.n_layers} layers (the one "
-            f"quantize's peak, phase 9's cut); two ranks holding up to 1.5x "
-            f"the artifact's {per_layer / 2**30:.2f} GiB a layer each could "
+        whole = repro_torch.get_config(MOE_TP["arch"]).n_layers
+        log(f"  14a depth: {depth} of {whole} layers (MOE_TP_LAYERS, within "
+            f"phase 9's cut); two ranks holding up to 1.5x the artifact's"
+            f" {per_layer / 2**30:.2f} GiB a layer each could "
             f"hold {hold}")
         assert hold >= depth, f"two ranks cannot hold {depth} layers"
         l4 = repro_torch.quantize(LLAMA4_SMOKE["arch"],
@@ -7038,6 +7094,341 @@ def check_training_over_mesh(torch, dev, smi):
     assert not failures, "phase 15: " + "; ".join(failures)
 
 
+# --------------------------------------------------------------- phase 16
+# 16a: the dry-run (repro_torch.launch.dryrun) over a fake world of 256 on
+# this host's torch, a subset of the registry's cells stated here — the whole
+# sweep takes tens of minutes of the host's CPU: one cell a family (dense,
+# MoE, SSM, hybrid, encoder-decoder) and the dense train cell, the decode
+# cells W8A16 over the int8 cache (--quantized --kv8); each cell a process
+# of its own (the fake world is the process's default group), all started
+# together after the build, at the lowest CPU priority, tracing on the
+# host's idle cores while phases 2-15 run the card (the sweep took 25-30 s
+# of phase 16 when it ran there)
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k"), ("mixtral-8x22b", "decode_32k"),
+                ("mamba2-2.7b", "long_500k"), ("zamba2-2.7b", "decode_32k"),
+                ("whisper-tiny", "train_4k"), ("qwen2-0.5b", "train_4k"))
+# the most phase 16 waits for the sweep's processes still running (each
+# cell traced in 10-20 s on the H100's host)
+DRYRUN_WAIT = 180
+_DRYRUN_CELL = r"""
+import json, sys
+import torch
+from repro_torch.launch.dryrun import run_cell
+arch, shape, out = sys.argv[1:4]
+q = shape in ("decode_32k", "long_500k")
+r = run_cell(arch, shape, False, quantized=q, kv8=q)
+r["cuda_initialized"] = torch.cuda.is_initialized()
+with open(out, "w") as f:
+    json.dump(r, f)
+"""
+# 16b's predictions: ``dry_run`` of each of ``YARDSTICK_CELLS`` on a 1x1
+# mesh, in one more process of the sweep
+_DRYRUN_YARDSTICK = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from repro_torch.launch.dryrun import dry_run
+out = sys.argv[2]
+r = [dry_run(cfg, shape, (1, 1), quantized=q, probe=False)
+     for cfg, shape, q in (chip_smoke.yardstick_cell(*c)
+                           for c in chip_smoke.YARDSTICK_CELLS)]
+with open(out, "w") as f:
+    json.dump({"preds": r, "cuda_initialized": torch.cuda.is_initialized()},
+              f)
+"""
+# 16b: the dry-run's prediction of one device against the card, qwen2-0.5b
+# at full width — phase 4's decode shape (8 slots, a 512-position cache,
+# the cache filled to 480 by a prefill before the timed steps) and phase
+# 12a's train step (8 x 256); measured after 16a's processes end, so
+# that no step is timed beside them
+YARDSTICK = dict(arch="qwen2-0.5b", seed=0, slots=8, max_len=512, filled=480,
+                 decode_steps=20, train_batch=8, train_seq=256, train_steps=5)
+# 16b's cells: (quantize, kv_bits) of the two decode steps, then the train
+# step's (None, None)
+YARDSTICK_CELLS = (("w8a16", 16), ("w8a8", 8), (None, None))
+# argument bytes: the card's resident bytes of the step's arguments are the
+# dry-run's block bytes plus the caching allocator's rounding — a tensor
+# under 1 MiB up to a multiple of 512 bytes; a larger one takes its block
+# whole where less than 1 MiB of its segment would remain after it (the
+# allocator splits a large block only above that), so up to 1 MiB more
+ALLOC_ROUNDING = 512
+ALLOC_LARGE = 1 << 20
+# temp bytes: the measured peak above the resident arguments, over the
+# dry-run's. Decode: the dry-run traces the plain tier, whose W8A16 GEMM
+# dequantizes each weight before its product and whose attention
+# dequantizes the int8 cache, where the kernels write their outputs only;
+# both hold the compute-dtype copy of the tied float32 embedding (272 MB of
+# ~300): [0.5, 1.25]. Train: no kernel on the path, the same operations on
+# meta and on the card: [0.8, 1.25]
+TEMP_BAND = {"decode": (0.5, 1.25), "train": (0.8, 1.25)}
+
+
+def start_dryrun_sweep():
+    """16a's cells and 16b's predictions, each a process of its own at the
+    lowest CPU priority, started now; ``finish_dryrun_sweep`` collects
+    them (and they are killed if the script ends first)."""
+    import atexit
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(root, "src"),
+                                         env.get("PYTHONPATH", "")])
+    env["OMP_NUM_THREADS"] = "1"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    jobs = {(arch, shape): [_DRYRUN_CELL, arch, shape]
+            for arch, shape in DRYRUN_CELLS}
+    jobs["16b"] = [_DRYRUN_YARDSTICK, root]
+    procs = {}
+    for key, argv in jobs.items():
+        out = os.path.join(tmp, "__".join(key if key != "16b" else (key,))
+                           + ".json")
+        sink = open(out + ".log", "wb")
+        procs[key] = (subprocess.Popen(
+            [sys.executable, "-c", *argv, out], env=env, stdout=sink,
+            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19)),
+            out, sink)
+    sweep = {"procs": procs, "tmp": tmp, "t0": time.perf_counter()}
+    atexit.register(_end_dryrun_sweep, sweep)
+    return sweep
+
+
+def _end_dryrun_sweep(sweep):
+    """Kill the sweep's processes still running; remove its files."""
+    import shutil
+
+    for proc, _, sink in sweep["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        sink.close()
+    shutil.rmtree(sweep["tmp"], ignore_errors=True)
+
+
+def finish_dryrun_sweep(torch, smi, sweep):
+    """16a: every cell of ``DRYRUN_CELLS`` ok, and none touched CUDA;
+    returns 16b's predictions."""
+    t0 = time.perf_counter()
+    deadline = t0 + DRYRUN_WAIT
+    results = {}
+    try:
+        for key, (proc, out, sink) in sweep["procs"].items():
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            sink.close()
+            if proc.returncode != 0:
+                with open(out + ".log") as f:
+                    raise RuntimeError(f"16a {key}: the dry-run failed:\n"
+                                       f"{f.read()[-3000:]}")
+            with open(out) as f:
+                results[key] = json.load(f)
+    finally:
+        _end_dryrun_sweep(sweep)
+    yard = results.pop("16b")
+    assert not yard["cuda_initialized"], "16b's predictions touched CUDA"
+    for (arch, shape), r in results.items():
+        assert r["status"] == "ok", (arch, shape, r)
+        assert not r["cuda_initialized"], (arch, shape)
+        ro = r["roofline"]
+        log(f"  16a {arch} {shape} 16x16"
+            f"{' W8A16 kv8' if 'decode' in shape or 'long' in shape else ''}: "
+            f"{r['status']}, {r['placement']}, dominant {ro['dominant']}, "
+            f"bound {ro['bound_time_s'] * 1e3:.3f} ms (H100 constants), "
+            f"fits_hbm {r['fits_hbm']} ({r['hbm_used_per_device'] / 1e9:.2f} "
+            f"GB a device), per-device flops {r['cost']['flops']:.4e}, "
+            f"collective bytes {r['collectives']['total']}, traced in "
+            f"{r['timings']['total_s']:.1f} s")
+    log(f"  16a: {len(results)} cells ok on torch {torch.__version__}'s fake "
+        f"world, started {t0 - sweep['t0']:.1f} s before phase 16 at the "
+        f"lowest CPU priority; waited {time.perf_counter() - t0:.1f} s for "
+        f"them and 16b's predictions ({smi})")
+    return yard["preds"]
+
+
+def _alloc_slack(tree) -> int:
+    """The most the caching allocator may add to the bytes of ``tree``'s
+    tensors."""
+    from repro_torch.launch.dryrun import tensors
+
+    return sum(ALLOC_LARGE if t.numel() * t.element_size() >= ALLOC_LARGE
+               else ALLOC_ROUNDING for t in tensors(tree, None))
+
+
+def _yardstick_gates(reading, pred, smi, failures):
+    """Log the dry-run's prediction beside the card's reading (a
+    ``yardstick_*`` result), and gate: measured time at least the bound;
+    resident arguments the predicted bytes plus at most the allocator's
+    rounding (``slack``); the step's peak above them within ``TEMP_BAND``
+    of the predicted temp bytes."""
+    label, resident, slack, peak, ms, kind = (
+        reading[k] for k in ("label", "resident", "slack", "peak", "ms",
+                             "kind"))
+    arg = pred["memory"]["argument_size_in_bytes"]
+    temp = pred["memory"]["temp_size_in_bytes"]
+    bound_ms = pred["roofline"]["bound_time_s"] * 1e3
+    lo, hi = TEMP_BAND[kind]
+    log(f"  16b {label}: step {ms:.3f} ms against the bound {bound_ms:.4f} ms "
+        f"({pred['roofline']['dominant']}; measured / bound "
+        f"{ms / bound_ms:.1f}); resident {resident} bytes against the "
+        f"dry-run's arguments {arg} (+{resident - arg}, the allocator's "
+        f"rounding at most {slack}); "
+        f"the step's peak above them {peak} bytes against the dry-run's temp "
+        f"{temp} (ratio {peak / temp:.3f}, band [{lo}, {hi}]) ({smi})")
+    if ms < bound_ms:
+        failures.append(f"{label}: {ms} ms below the bound {bound_ms} ms")
+    if not 0 <= resident - arg <= slack:
+        failures.append(f"{label}: resident {resident} bytes, the dry-run's "
+                        f"arguments {arg}")
+    if not lo <= peak / temp <= hi:
+        failures.append(f"{label}: peak {peak} bytes, the dry-run's temp "
+                        f"{temp}: ratio {peak / temp:.3f}")
+
+
+def yardstick_cell(quantize, kv_bits):
+    """16b's cell of ``YARDSTICK_CELLS`` as the dry-run takes it: (cfg,
+    shape, quantize) of the decode step (``quantize`` weights over a
+    ``kv_bits`` cache), or of phase 12a's train step (``quantize`` None)."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch.models import ShapeConfig
+
+    y = YARDSTICK
+    cfg = repro_torch.get_config(y["arch"])
+    if quantize is None:
+        return cfg, ShapeConfig("train_256", y["train_seq"],
+                                y["train_batch"], "train"), None
+    return (dataclasses.replace(cfg, kv_cache_bits=kv_bits),
+            ShapeConfig("decode_512", y["max_len"], y["slots"], "decode"),
+            quantize)
+
+
+def yardstick_decode(torch, dev, quantize, kv_bits):
+    """16b: one decode step of qwen2-0.5b on the card (``quantize`` weights
+    over a ``kv_bits`` cache): its resident arguments, the first step's
+    peak (the compute-dtype cast made then, as in the dry-run's trace) and
+    the time of a step over a cache filled to ``filled`` positions; with
+    the cell the dry-run is to predict."""
+    import repro_torch
+    from repro_torch.quantized import quantize_for_serving
+
+    y = YARDSTICK
+    cfg, shape, _ = yardstick_cell(quantize, kv_bits)
+    model = repro_torch.build_model(cfg)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = quantize_for_serving(model.init(y["seed"], device=dev),
+                                  model.dfq_plan(), mode=quantize)
+    cache = model.init_cache(y["slots"], y["max_len"], device=dev,
+                             per_slot=True, kv_bits=kv_bits,
+                             dtype=torch.bfloat16)
+    token = torch.zeros((y["slots"], 1), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev) - base
+    slack = _alloc_slack((params, cache, token))
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, cache = model.decode_step(params, token, cache)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base - resident
+    # fill the cache: a prefill to ``filled`` positions, then the steps
+    gen = torch.Generator(device=dev).manual_seed(y["seed"])
+    prompt = torch.randint(0, cfg.vocab_size, (y["slots"], y["filled"] - 1),
+                           device=dev, generator=gen)
+    _, cache = model.prefill(params, prompt, cache)
+    held = {"cache": cache}
+
+    def step():
+        _, held["cache"] = model.decode_step(params, token, held["cache"])
+
+    ms = call_ms(step, y["decode_steps"], warmup=2)
+    cache = held["cache"]
+    assert int(cache["pos"].min()) == y["filled"] + y["decode_steps"] + 2
+    assert int(cache["pos"].max()) <= y["max_len"]
+    label = (f"qwen2-0.5b decode B={y['slots']} S={y['max_len']} "
+             f"{quantize.upper()} over the {'int8' if kv_bits == 8 else 'bf16'}"
+             f" cache")
+    del params, cache, model
+    torch.cuda.empty_cache()
+    return dict(label=label, resident=resident, slack=slack, peak=peak, ms=ms,
+                kind="decode")
+
+
+def yardstick_train(torch, dev):
+    """16b: phase 12a's train step (qwen2-0.5b, 8 x 256, the state
+    donated) on the card, as ``yardstick_decode``'s reading."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import LR_SCHEDULE
+    from repro_torch.optim import adamw_init
+
+    y = YARDSTICK
+    cfg, _, _ = yardstick_cell(None, None)
+    model, step = make_train_step(
+        cfg, lr_cfg=dict(LR_SCHEDULE, total=60), donate=True)
+    stream = TokenStream(seed=0, shard=0, n_shards=1,
+                         batch_per_shard=y["train_batch"],
+                         seq=y["train_seq"], vocab=cfg.vocab_size,
+                         device=dev)
+    batches = [{k: v.to(torch.int32).contiguous()
+                for k, v in stream.batch(s).items()}
+               for s in range(y["train_steps"] + 1)]
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = model.init(y["seed"], device=dev)
+    opt = adamw_init(params)
+    batch = {k: v.clone() for k, v in batches[0].items()}
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev) - base
+    slack = _alloc_slack((params, opt, batch))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt, m = step(params, opt, batch)
+    float(m["loss"])
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base - resident
+    ms = []
+    for b in batches[1:]:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        float(m["loss"])
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    label = (f"qwen2-0.5b train step {y['train_batch']} x {y['train_seq']} "
+             f"(donated), steps 2-{len(ms) + 1} "
+             f"{[round(x, 1) for x in ms]} ms, the least")
+    del params, opt, model
+    torch.cuda.empty_cache()
+    return dict(label=label, resident=resident, slack=slack, peak=peak,
+                ms=min(ms), kind="train")
+
+
+def check_dryrun(torch, dev, smi, sweep):
+    """Phase 16: the card's readings of 16b's cells (the sweep's processes
+    ended, so alone on the host: waited for first if one still runs); the
+    dry-run's sweep (16a, ``start_dryrun_sweep``'s) collected and its
+    predictions of 16b's cells held to the readings; the kernel launches of
+    16b's decode steps (prefill included) by run. Every gate is read and
+    logged before the phase fails on the first that did not hold."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launch_counts
+
+    preds = finish_dryrun_sweep(torch, smi, sweep)
+    failures, counts, readings = [], {}, []
+    for quantize, kv_bits in YARDSTICK_CELLS:
+        if quantize is None:
+            readings.append(yardstick_train(torch, dev))
+            continue
+        reset_launch_counts()
+        readings.append(yardstick_decode(torch, dev, quantize, kv_bits))
+        counts[f"{quantize} kv{kv_bits}"] = launch_counts()
+    for reading, pred in zip(readings, preds, strict=True):
+        _yardstick_gates(reading, pred, smi, failures)
+    for label, c in counts.items():
+        log(f"  16b {label} launches: "
+            + ", ".join(f"{k} {v}" for k, v in sorted(c.items()) if v))
+    assert not failures, "phase 16: " + "; ".join(failures)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -7068,15 +7459,18 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    log("== phase 1: build")
+    t1 = phase(t_script, "1: build")
     lib = _build.build()
     log(f"  built {lib.path.name} in {lib.seconds:.1f} s")
     for line in lib.log.splitlines():
         if ("registers" in line or "spill" in line or line.startswith("==")
                 or "Function properties for" in line):
             log("  " + line.strip())
+    log(f"  phase 1 took {time.perf_counter() - t1:.1f} s")
+    # phase 16a's dry-run cells trace on the host's idle cores from here
+    sweep = start_dryrun_sweep()
 
-    log("== phase 2: kernels against their plain versions")
+    t2 = phase(t_script, "2: kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     tables = {"quantize_act": check_quantize_act(torch, dev, gen),
               "qmatmul_w8a8": check_qmatmul(torch, dev, gen),
@@ -7111,8 +7505,9 @@ def main() -> int:
             torch, dev, gen, MOE_TP_COLUMN, MOE_TP_ROW, TP_M,
             MOE_TP_ATTENTION, MOE_TP_QUANTIZE).items():
         moe_tp_rows.setdefault(name, []).extend(rows)
+    log(f"  phase 2 took {time.perf_counter() - t2:.1f} s ({smi})")
 
-    log("== phase 3: small-input reference")
+    t3 = phase(t_script, "3: small-input reference")
     for recipe in ("serve-w8a16-kv8", "serve-w8a8-kv8", "dfq-int8",
                    "naive-int8", "cle-only", BC_DEPLOY):
         check_reference(torch, dev, recipe)
@@ -7129,8 +7524,10 @@ def main() -> int:
         check_smoke_serving(torch, arch, "w8a16", 8)
     check_torch_tier_on_card(torch)
     check_moe_smoke(torch, dev)
+    log(f"  phase 3 took {time.perf_counter() - t3:.1f} s ({smi})")
 
-    log("== phase 4: serve qwen2-0.5b (full width) through repro_torch.serve")
+    t4 = phase(t_script, "4: serve qwen2-0.5b (full width) through "
+                         "repro_torch.serve")
     log(f"  {smi}")
     runs, stepwise = {}, {}
     for quantize in ("w8a16", "w8a8"):
@@ -7165,9 +7562,11 @@ def main() -> int:
         + ("not measured (the profiler recorded no device time)"
            if busy is None else f"{busy * 100:.1f} %")
         + f" over {prof_run.seconds:.3f} s ({smi})")
+    log(f"  phase 4 took {time.perf_counter() - t4:.1f} s ({smi})")
 
-    log("== phase 5: DFQ of qwen2-0.5b (full width) and its bias-corrected "
-        "w8a8 deployment saved, loaded and served")
+    t5 = phase(t_script, "5: DFQ of qwen2-0.5b (full width) and its "
+                         "bias-corrected w8a8 deployment saved, loaded and "
+                         "served")
     log(f"  {smi}")
     model, params = dfq_full_width(torch, dev)
     bc_fast, bc_stepwise = serve_saved_deployment(torch, dev, model, params)
@@ -7176,12 +7575,12 @@ def main() -> int:
         f"{bc_fast.tokens_per_second:.1f} / {bc_stepwise.tokens_per_second:.1f}"
         f", phase 4's serve-w8a8-kv8 {runs['w8a8'][0].tokens_per_second:.1f} / "
         f"{stepwise['w8a8'].tokens_per_second:.1f} ({smi})")
+    log(f"  phase 5 took {time.perf_counter() - t5:.1f} s ({smi})")
 
-    log("== phase 6: serve mistral-nemo-12b (full width) through "
-        "repro_torch.serve")
+    t6 = phase(t_script, "6: serve mistral-nemo-12b (full width) through "
+                         "repro_torch.serve")
     log(f"  {smi}")
-    t6 = time.perf_counter()
-    depth = cut_depth(torch, dev, NEMO["arch"], (2, 4))
+    depth = cut_depth(torch, dev, NEMO["arch"], (2, 4), most=NEMO_LAYERS)
     nemo = {}
     for quantize, kv_bits in (("w8a16", None), ("w8a8", 8)):
         step = serve_cut(torch, NEMO, depth, quantize, kv_bits,
@@ -7200,18 +7599,17 @@ def main() -> int:
         + f" ({depth} layers; {smi})")
     log(f"  phase 6 took {time.perf_counter() - t6:.1f} s")
 
-    log("== phase 7: the paper's CNN flow (BN folding, CLE, high-bias "
-        "absorption, bias correction) trained and quantized on the card")
+    t7 = phase(t_script, "7: the paper's CNN flow (BN folding, CLE, "
+                         "high-bias absorption, bias correction) trained and "
+                         "quantized on the card")
     log(f"  {smi}")
-    t7 = time.perf_counter()
     cnn_paper_tables(torch, dev, smi)
     mobilenet_v2_published(torch, dev, smi)
     log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
 
-    log("== phase 8: serve qwen2-0.5b (full width) from the paged pool: "
-        "prefix reuse, preemption, chaos, deadlines")
+    t8 = phase(t_script, "8: serve qwen2-0.5b (full width) from the paged "
+                         "pool: prefix reuse, preemption, chaos, deadlines")
     log(f"  {smi}")
-    t8 = time.perf_counter()
     check_paged_serving(torch, runs, stepwise)
     import repro_torch
 
@@ -7226,10 +7624,10 @@ def main() -> int:
     time_gather(torch)
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s ({smi})")
 
-    log("== phase 9: serve mixtral-8x22b (full width, its MoE blocks through "
-        "the expert-batched GEMMs) through repro_torch.serve")
+    t9 = phase(t_script, "9: serve mixtral-8x22b (full width, its MoE blocks "
+                         "through the expert-batched GEMMs) through "
+                         "repro_torch.serve")
     log(f"  {smi}")
-    t9 = time.perf_counter()
     depth9 = cut_depth(torch, dev, MIXTRAL["arch"], (1, 2))
     mixtral = {}
     for quantize, kv_bits in (("w8a16", None), ("w8a8", 8)):
@@ -7254,25 +7652,25 @@ def main() -> int:
         f"pad positions included")
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s ({smi})")
 
-    log("== phase 10: the async front-end (circuit breaker, shedding ladder, "
-        "client retries) serving qwen2-0.5b (full width)")
+    t10 = phase(t_script, "10: the async front-end (circuit breaker, "
+                          "shedding ladder, client retries) serving "
+                          "qwen2-0.5b (full width)")
     log(f"  {smi}")
-    t10 = time.perf_counter()
     async_counts = check_async_front_end(torch)
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s ({smi})")
 
-    log("== phase 11: the SSM, hybrid and encoder-decoder families "
-        "(mamba2-2.7b, zamba2-2.7b, whisper-tiny) at full width through "
-        "repro_torch.quantize, prefill and greedy decode")
+    t11 = phase(t_script, "11: the SSM, hybrid and encoder-decoder families "
+                          "(mamba2-2.7b, zamba2-2.7b, whisper-tiny) at full "
+                          "width through repro_torch.quantize, prefill and "
+                          "greedy decode")
     log(f"  {smi}")
-    t11 = time.perf_counter()
     family_counts = check_families(torch, dev)
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s ({smi})")
 
-    log("== phase 12: train qwen2-0.5b (full width) through "
-        "repro_torch.launch.train, then quantize and serve what it trained")
+    t12 = phase(t_script, "12: train qwen2-0.5b (full width) through "
+                          "repro_torch.launch.train, then quantize and serve "
+                          "what it trained")
     log(f"  {smi}")
-    t12 = time.perf_counter()
     trained_counts = check_training(torch, dev, smi)
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s ({smi})")
 
@@ -7399,11 +7797,11 @@ def main() -> int:
                 "source": csrc + sources[name][0],
                 "replaces": tpu + sources[name][1], "launches": n,
                 "path": f"phase 12: trained qwen2-0.5b {label}, fast path"})
-    log("== phase 13: serve qwen2-0.5b (full width) tensor-parallel over a "
-        "torch.distributed mesh (1x2 and 2x1 over gloo on the one card, 1x1 "
-        "over NCCL under CUDA graphs)")
+    t13 = phase(t_script, "13: serve qwen2-0.5b (full width) tensor-parallel "
+                          "over a torch.distributed mesh (1x2 and 2x1 over "
+                          "gloo on the one card, 1x1 over NCCL under CUDA "
+                          "graphs)")
     log(f"  {smi}")
-    t13 = time.perf_counter()
     tp_counts = check_tensor_parallel(torch, dev, runs, smi)
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s ({smi})")
     # the launches of phase 13's fast and --load runs, each beside phase
@@ -7443,12 +7841,13 @@ def main() -> int:
                 "replaces": tpu + (sources[name][1] if name in sources
                                    else "qmatmul_w8a8/kernel.py:72"),
                 "launches": n, "path": f"phase {label}"})
-    log("== phase 14: serve the MoE family (mixtral-8x22b full width, "
-        "llama4-scout) tensor-parallel over a torch.distributed mesh, and "
-        "--serve-async over a mesh")
+    t14 = phase(t_script, "14: serve the MoE family (mixtral-8x22b full "
+                          "width, llama4-scout) tensor-parallel over a "
+                          "torch.distributed mesh, and --serve-async over a "
+                          "mesh")
     log(f"  {smi}")
-    t14 = time.perf_counter()
-    moe_tp_counts = check_moe_tensor_parallel(torch, dev, depth9, smi)
+    moe_tp_counts = check_moe_tensor_parallel(
+        torch, dev, min(depth9, MOE_TP_LAYERS), smi)
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s ({smi})")
     # the launches of phase 14's fast runs, each beside phase 2's row of
     # the kernel at the shape the run launched it at (the per-rank expert
@@ -7499,14 +7898,36 @@ def main() -> int:
                 "replaces": tpu + (sources[name][1] if name in sources
                                    else "qmatmul_w8a8/kernel.py:72"),
                 "launches": n, "path": f"phase {label}"})
-    log("== phase 15: train over a torch.distributed mesh — qwen2-0.5b "
-        "(full width) over 2x1 (FSDP) and 1x2 (TP) with two gloo ranks on "
-        "the one card, a 1x1 NCCL mesh, the launcher's fault path and "
-        "elastic resume, mixtral-8x22b over 1x2")
+    t15 = phase(t_script, "15: train over a torch.distributed mesh — "
+                          "qwen2-0.5b (full width) over 2x1 (FSDP) and 1x2 "
+                          "(TP) with two gloo ranks on the one card, a 1x1 "
+                          "NCCL mesh, the launcher's fault path and elastic "
+                          "resume, mixtral-8x22b over 1x2")
     log(f"  {smi}")
-    t15 = time.perf_counter()
     check_training_over_mesh(torch, dev, smi)
     log(f"  phase 15 took {time.perf_counter() - t15:.1f} s ({smi})")
+    t16 = phase(t_script, "16: the dry-run (repro_torch.launch.dryrun) over "
+                          "a fake world on this torch, and its roofline and "
+                          "memory held to the card")
+    log(f"  {smi}")
+    dry_counts = check_dryrun(torch, dev, smi, sweep)
+    log(f"  phase 16 took {time.perf_counter() - t16:.1f} s ({smi})")
+    # phase 16b's launches, each beside the kernel's phase-2 row at the
+    # decode shape
+    for label, counted in dry_counts.items():
+        for name, n in sorted(counted.items()):
+            if n == 0:
+                continue
+            row = next(r for r in tables[name] if r["shape"] == main[name][0])
+            kernels.append({
+                **{k: v for k, v in row.items()
+                   if k not in ("splits", "share", "tickets", "bm", "waiters",
+                                "residency", "stepwise_ms")},
+                "name": f"{name} (dry-run yardstick)", "route": "cuda",
+                "source": csrc + sources[name][0],
+                "replaces": tpu + sources[name][1], "launches": n,
+                "path": f"phase 16: qwen2-0.5b {label}, eager decode steps "
+                        f"and one prefill"})
     log(f"  the script took {time.perf_counter() - t_script:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

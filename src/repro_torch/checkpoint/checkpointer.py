@@ -132,7 +132,9 @@ def _to_host(path, leaf) -> tuple:
     """(numpy array, manifest dtype) of one leaf; a bfloat16 tensor becomes
     its raw uint16 words."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        # a copy, always: an asynchronous save writes it while the next
+        # (donated) train step updates the leaf in place
+        t = leaf.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), _BF16
         try:

@@ -81,13 +81,17 @@ def state_specs(model, mesh):
     return (params_shape, opt_shape), (p_spec, o_spec)
 
 
-def _armed_shard(model, held: dict) -> Optional[TrainShard]:
+def armed_shard(model) -> Optional[TrainShard]:
     """The ``TrainShard`` of the armed shard context's mesh (None when no
-    mesh is armed), built once a mesh and mode."""
+    mesh is armed), built once a mesh and mode and kept on ``model`` (the
+    train step's: ``make_train_step`` returns it). Building it draws the
+    whole params on ``meta`` for their specs: the dry-run builds it before
+    it counts a step's memory."""
     from ..models.layers import _SHARD_CTX as ctx
 
     if not ctx["enabled"] or ctx.get("mesh") is None:
         return None
+    held = vars(model).setdefault("_train_shard", {})
     key = (ctx["mesh"], ctx["attn_seq"], ctx["kv_heads_ok"])
     if held.get("key") is None or any(
             a is not b for a, b in zip(held["key"], key)):
@@ -113,7 +117,12 @@ def make_train_step(cfg: ModelConfig, *, lr_cfg: Optional[dict] = None,
     which carry no graph into the next step. ``donate`` (the reference
     launcher's ``donate_argnums``) has it write the given params and
     moments instead (``adamw_update(inplace=True)``: no second copy of the
-    state), which the caller then holds as the new state.
+    state), which the caller then holds as the new state. As a donated
+    JAX buffer is deleted, the params given to a donated step are used up
+    from the moment it starts: it returns them in new containers, and
+    refuses to run again on the containers it last took (the state a
+    step that failed may have half written; a caller restores it from a
+    checkpoint instead).
 
     Under an armed mesh (``configure_sharding_hints``, read at each call)
     ``params`` and ``opt`` are this rank's blocks and ``batch`` the global
@@ -126,10 +135,17 @@ def make_train_step(cfg: ModelConfig, *, lr_cfg: Optional[dict] = None,
     held: dict = {}
 
     def train_step(params, opt, batch):
+        if donate:
+            if params is held.get("donated"):
+                raise RuntimeError(
+                    "these params were donated to an earlier step, which "
+                    "writes them in place: use the state it returned, or "
+                    "restore one from a checkpoint")
+            held["donated"] = params
         # the schedule reads the step on the host: before the forward, while
         # the device queue is empty, so that no read waits on the backward
         lr = cosine_schedule(opt.step, **lr_cfg)
-        shard = _armed_shard(model, held)
+        shard = armed_shard(model)
         leaf_params = _map(lambda p: p.detach().requires_grad_(), params)
         leaves = _leaves(leaf_params)
         with torch.enable_grad(), train_scope(shard):
@@ -151,6 +167,9 @@ def make_train_step(cfg: ModelConfig, *, lr_cfg: Optional[dict] = None,
             new_params, new_opt, gnorm = adamw_update(
                 grads, opt, params, lr=lr, counted=counted, group=group,
                 inplace=donate)
+        if donate:
+            # the same tensors, in containers the step has not taken
+            new_params = _map(lambda t: t, new_params)
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm,
                                      "lr": lr}
 

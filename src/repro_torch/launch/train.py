@@ -224,8 +224,10 @@ def _train(args, mesh, inject_failure, preempt_at) -> TrainRun:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    # donated, as the reference jits its step (donate_argnums=(0, 1)):
+    # AdamW updates the params and moments in place
     model, train_step = make_train_step(
-        cfg, lr_cfg=dict(LR_SCHEDULE, total=args.steps))
+        cfg, lr_cfg=dict(LR_SCHEDULE, total=args.steps), donate=True)
     if mesh is not None:
         configure_sharding_hints(cfg, mesh)
         if device.type == "cuda":
@@ -332,7 +334,9 @@ def _spawned_rank(argv: list, shape: tuple, backend: str, inject_failure,
                       inject_failure, preempt_at)
     if dist.get_rank() == 0:
         run.state = _to_host(run.state)
+        # the model's caches hold device tensors and the mesh's groups
         run.model._prepared = None
+        vars(run.model).pop("_train_shard", None)
     return run
 
 

@@ -27,6 +27,8 @@ class ModelConfig:
     act: str = "silu_glu"                     # silu_glu | gelu_glu | gelu | relu
     norm: str = "rms"                         # rms | ln
     qkv_bias: bool = False
+    mlp_bias: bool = False                    # the DFQ plan pairs an MLP
+                                              # up bias (mlp/bu) with wu
     rope: bool = True
     rope_theta: float = 10000.0
     qk_norm: bool = False                     # chameleon

@@ -404,6 +404,15 @@ def causal_attention_block(p: dict, x: torch.Tensor, dims: AttnDims, *,
     tr = current_train()
     if tr is not None and tr.tp and capture is None:
         return _tp_attention(p, x, dims, tr, positions, mask, chunk_kv)
+    return _whole_attention(p, x, dims, positions, mask, chunk_kv, capture)
+
+
+def _whole_attention(p: dict, x: torch.Tensor, dims: AttnDims, positions,
+                     mask, chunk_kv, capture=None) -> torch.Tensor:
+    """Every head over every position, whole projections: one device's
+    attention (and, under a sharded train step, every rank's where the
+    heads and the positions both do not split over the model axis)."""
+    B, T, _ = x.shape
     q, k, v = _project_qkv(p, x, dims, positions)
     group = dims.n_q // dims.n_kv
     attn = attention_scores_softmax(q, _repeat_kv(k, group),
@@ -431,7 +440,8 @@ def _tp_attention(p: dict, x: torch.Tensor, dims: AttnDims, tr, positions,
     heads gathered. Sequence-parallel: q, k and v whole, this rank's query
     rows attend at their global positions over every key (keys and values
     summing their gradient over "model"), and the rows are gathered before
-    ``wo``."""
+    ``wo``; where the positions do not split over "model" either, every
+    rank runs the whole attention (``_whole_attention``)."""
     B, T, _ = x.shape
     nq, nkv, hd = dims.n_q, dims.n_kv, dims.head_dim
     grp, M, g = nq // nkv, tr.model_n, tr.model_group
@@ -442,8 +452,10 @@ def _tp_attention(p: dict, x: torch.Tensor, dims: AttnDims, tr, positions,
                              "projections; the planner cut "
                              f"{sorted(cut & {'wq', 'wk', 'wv', 'wo'})}")
         if T % M:
-            raise ValueError(f"sequence-parallel attention: {T} positions "
-                             f"do not split over a model axis of {M}")
+            # the positions do not split either (whisper's 1500 frames
+            # over 16): every rank attends over all of them, whole, as
+            # GSPMD replicates what it cannot partition
+            return _whole_attention(p, x, dims, positions, mask, chunk_kv)
         q, k, v = _project_qkv(p, x, dims, positions)
         k = coll.grad_sum(_repeat_kv(k, grp), g)
         v = coll.grad_sum(_repeat_kv(v, grp), g)

@@ -320,6 +320,7 @@ class LMModel:
         else:
             ops.append(DensePairOp(
                 w1=P("mlp", "wu"), w2=P("mlp", "wd"),
+                b1=P("mlp", "bu") if cfg.mlp_bias else None,
                 exact=glu or cfg.act == "relu"))
         if cfg.qkv_bias:
             ops.append(VBiasAbsorbOp(

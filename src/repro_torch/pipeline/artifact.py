@@ -43,11 +43,6 @@ from .state import PipelineError
 _META_FILE = "quantized_model.json"
 _QT_PREFIX = "__qtensor_"
 
-# JAX ModelConfig fields the port has no field for, with the JAX default:
-# another value changes what the model computes, and the port refuses it
-_MUST_BE_DEFAULT = {
-    "mlp_bias": False,            # an MLP bias pair in the DFQ plan
-}
 # JAX ModelConfig fields with no effect on what the model computes
 # (a cost-probe switch, an init-only bias slot)
 _IGNORED = frozenset({"attn_out_bias", "unroll_layers"})
@@ -56,17 +51,11 @@ _PORT_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelConfig))
 
 def _config_from_sidecar(fields: dict) -> ModelConfig:
     """The port's ``ModelConfig`` from an artifact's ``config`` record."""
-    unknown = sorted(set(fields) - _PORT_FIELDS - _IGNORED
-                     - set(_MUST_BE_DEFAULT))
+    unknown = sorted(set(fields) - _PORT_FIELDS - _IGNORED)
     if unknown:
         raise PipelineError(
             f"the artifact's config has fields the port does not know: "
             f"{', '.join(unknown)}")
-    refused = [f"{k}={fields[k]!r}" for k, default in _MUST_BE_DEFAULT.items()
-               if k in fields and fields[k] != default]
-    if refused:
-        raise PipelineError(
-            f"{fields.get('name')}: {', '.join(refused)} is not ported yet")
     return ModelConfig(**{k: v for k, v in fields.items() if k in _PORT_FIELDS})
 
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Mapping
 
+import torch
+
 from ..core.graph import DFQPlan
 from ..core.tree import get_path, set_path
 from .qtensor import QTensor, quantize_param
@@ -24,6 +26,24 @@ def quantize_for_serving(params: Mapping, plan: DFQPlan, *,
         params = set_path(params, site.w, quantize_param(
             get_path(params, site.w), per_channel=per_channel, mode=mode))
     return params
+
+
+def quantize_shapes(params_shape: Mapping, plan: DFQPlan, *,
+                    mode: str = "w8a16", per_channel: bool = False) -> dict:
+    """Shape-level mirror of ``quantize_for_serving`` for the dry-run:
+    every site weight (a ``device="meta"`` tensor) becomes a ``QTensor`` of
+    a meta int8 payload of its shape and a meta float32 scale of
+    ``w.shape[:-2] + (N,)`` (per channel) or ``+ (1,)`` — no allocation."""
+    for site in plan.sites:
+        w = get_path(params_shape, site.w)
+        scale_shape = tuple(w.shape[:-2]) + ((w.shape[-1],) if per_channel
+                                             else (1,))
+        qt = QTensor(
+            torch.empty(w.shape, dtype=torch.int8, device="meta"),
+            torch.empty(scale_shape, dtype=torch.float32, device="meta"),
+            mode)
+        params_shape = set_path(params_shape, site.w, qt)
+    return params_shape
 
 
 def dequantize_params(params: Mapping) -> dict:

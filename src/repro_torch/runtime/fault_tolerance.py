@@ -183,7 +183,9 @@ class FaultTolerantLoop:
             retries_here = 0
             step += 1
             self.metrics.steps_run += 1
-            if step % self.ckpt_every == 0:
+            if step % self.ckpt_every == 0 and step < end:
                 self.ckpt.save(step, state)
+        # the last step's checkpoint is this blocking save alone (the
+        # reference writes it twice: the periodic save, then this one)
         self.ckpt.save(end, state, blocking=True)
         return state, end

@@ -41,16 +41,80 @@ and its backward, the same collectives):
   * ``scatter_forward``: this rank's block forward, the blocks gathered
     backward — a replicated tensor cut to this rank's heads, rows or
     columns.
+
+``record_collectives()`` counts them: inside it, each LOGICAL collective
+above reports its kind — as XLA names it: ``all-reduce``, ``all-gather``
+— and the bytes of its result on this rank, whatever ``all_reduce``
+carries it (a gather is an all-reduce of an n-fold buffer, and counts as
+a gather). FSDP's gradient sum counts as what the port runs, an
+all-reduce of the whole gradient over the data-parallel group: n times
+the block that XLA's reduce-scatter would leave. A collective over a
+group of one rank moves nothing and is not counted. The dry-run reads
+collective bytes from it, as the reference's parses them out of the HLO.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
 
 import torch
 import torch.distributed as dist
 
+#: the kinds a logical collective reports as (XLA's names)
+KINDS = ("all-gather", "all-reduce")
+
+
+@dataclasses.dataclass
+class CollectiveRecord:
+    """Per kind, the result bytes on this rank and the count of the
+    collectives reported; ``total`` the bytes of every kind."""
+    bytes: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(KINDS, 0))
+    counts: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(KINDS, 0))
+
+    @property
+    def total(self) -> int:
+        return sum(self.bytes.values())
+
+
+# the open records: the autograd engine may run a backward (and its
+# collectives) on a thread of its own, which no context variable reaches
+_RECORDS: list = []
+_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """A ``CollectiveRecord`` of every collective reported while the block
+    runs, on any thread."""
+    rec = CollectiveRecord()
+    with _LOCK:
+        _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        with _LOCK:
+            _RECORDS.remove(rec)
+
+
+def _record(kind: str, nbytes: int, group) -> None:
+    if not _RECORDS or dist.get_world_size(group) == 1:
+        return
+    with _LOCK:
+        for rec in _RECORDS:
+            rec.bytes[kind] += int(nbytes)
+            rec.counts[kind] += 1
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
 
 def _reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     """``dist.all_reduce`` in place (skipped over one gloo rank); returns
-    ``x``."""
+    ``x``. Reports nothing: the logical collective that calls it does."""
     if dist.get_world_size(group) > 1 or dist.get_backend(group) != "gloo":
         dist.all_reduce(x, op=op, group=group)
     return x
@@ -58,11 +122,13 @@ def _reduce(x: torch.Tensor, op, group) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``, in place; returns ``x``."""
+    _record("all-reduce", _nbytes(x), group)
     return _reduce(x, dist.ReduceOp.SUM, group)
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max of ``x`` over ``group``, in place; returns ``x``."""
+    _record("all-reduce", _nbytes(x), group)
     return _reduce(x, dist.ReduceOp.MAX, group)
 
 
@@ -70,11 +136,12 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' ``x`` (one shape on every rank) concatenated along ``dim``
     in rank order, bit for bit."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
+    _record("all-gather", _nbytes(x) * n, group)
     dim = dim % x.ndim
     x = x.movedim(dim, 0).contiguous()
     buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     buf[r] = x
-    all_reduce_sum(buf.view(torch.uint8), group)
+    _reduce(buf.view(torch.uint8), dist.ReduceOp.SUM, group)
     out = buf.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
     return out.movedim(0, dim)
 
@@ -84,7 +151,8 @@ def combine(x: torch.Tensor, group) -> torch.Tensor:
     (as bits) on at most one rank — a vocab-parallel lookup's rows —
     exactly: their bytes are summed as ``uint8``. Returns a new tensor."""
     out = x.contiguous().clone()
-    all_reduce_sum(out.view(torch.uint8), group)
+    _record("all-reduce", _nbytes(out), group)
+    _reduce(out.view(torch.uint8), dist.ReduceOp.SUM, group)
     return out
 
 
@@ -98,6 +166,7 @@ def argmax(logits: torch.Tensor, offset: int, group) -> torch.Tensor:
     top = all_reduce_max(best.clone(), group)
     big = torch.iinfo(torch.int64).max
     cand = torch.where(best == top, idx, torch.full_like(idx, big))
+    _record("all-reduce", _nbytes(cand), group)
     _reduce(cand, dist.ReduceOp.MIN, group)
     # a row whose max is NaN on some rank: no rank's value equals the
     # reduced max; the row is quarantined by the non-finite flag, and its
@@ -127,7 +196,8 @@ class _FSDPGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = all_reduce_sum(g.contiguous().clone(), ctx.grad_group)
+        _record("all-reduce", _nbytes(g), ctx.grad_group)
+        g = _reduce(g.contiguous().clone(), dist.ReduceOp.SUM, ctx.grad_group)
         return block_of(g, ctx.dim, ctx.group).contiguous(), None, None, None
 
 

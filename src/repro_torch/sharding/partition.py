@@ -223,6 +223,11 @@ def params_pspecs(params_shapes: Any, mesh, heads: Optional[dict] = None,
     return _rebuild(params_shapes, flat)
 
 
+def replicated_pspecs(tree: Any) -> Any:
+    """A spec tree that replicates every leaf of ``tree``."""
+    return _rebuild(tree, {p: P() for p, _ in _walk(tree)})
+
+
 def batch_pspec(mesh, ndim: int = 2, batch: Optional[int] = None) -> P:
     """Batch dim over (pod, data); replicate when the global batch doesn't
     divide the DP world."""

@@ -228,16 +228,15 @@ def test_load_missing_dir_actionable_error(tmp_path):
 
 
 @pytest.mark.parametrize("edit,match", [
-    ({"mlp_bias": True}, "mlp_bias=True is not ported yet"),
+    ({"mlp_bias": True}, None),
     ({"ssm_chunk": 64, "enc_seq": 3000}, None),
     ({"rotary_scaling": 2.0}, "fields the port does not know: rotary_scaling"),
     ({"max_seq": 128, "remat": False, "logit_chunk": 32}, None),
 ])
 def test_config_sidecar_fields(tmp_path, edit, match):
     """The port takes its own fields (the SSM and encoder-decoder ones
-    among them), ignores the JAX fields that do not change what the model
-    computes, and refuses any other that differs from the JAX default (an
-    MLP bias), or that it does not know."""
+    among them, and ``mlp_bias``), ignores the JAX fields that do not
+    change what the model computes, and refuses any it does not know."""
     d = str(tmp_path)
     repro_torch.quantize(ARCH, recipe="naive-int8", calibration=None,
                          device="cpu").save(d)

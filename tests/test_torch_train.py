@@ -420,6 +420,148 @@ def test_launcher_replays_and_resumes_to_the_same_state(tmp_path):
         _assert_trees(run.state, ref.state, tol=(0, 0), what="end state")
 
 
+def test_donated_launcher_is_todays_launcher(tmp_path, monkeypatch):
+    """The launcher donates its state to the step (the reference's
+    ``donate_argnums=(0, 1)``; AdamW in place): every loss, the end state
+    and every checkpoint (written asynchronously while the next step
+    updates the state in place) equal a run whose step does not donate,
+    bit for bit."""
+    def args(d):
+        return ["--smoke", "--device", "cpu", "--steps", "6", "--batch",
+                "2", "--seq", "32", "--ckpt-dir", str(tmp_path / d),
+                "--ckpt-every", "2"]
+
+    donated = train.main(args("donated"))
+    real = train.make_train_step
+    monkeypatch.setattr(train, "make_train_step", lambda cfg, **kw: real(
+        cfg, **{**kw, "donate": False}))
+    kept = train.main(args("kept"))
+    assert donated.losses == kept.losses
+    _assert_trees(donated.state, kept.state, tol=(0, 0), what="end state")
+    for step in (4, 6):
+        a, _ = Checkpointer(str(tmp_path / "donated")).restore(
+            donated.state, step=step)
+        b, _ = Checkpointer(str(tmp_path / "kept")).restore(kept.state,
+                                                            step=step)
+        _assert_trees(a, b, tol=(0, 0), what=f"checkpoint {step}")
+
+
+# the fault-tolerant loop over donated steps, in both packages: the JAX
+# step jitted with donate_argnums=(0, 1) (its buffers deleted by the
+# call), the port's make_train_step(donate=True)
+DONATED_STEPS = 5
+
+
+def _donated_runs(tmp_path, scenario, ckpt_every):
+    """Each package's ``FaultTolerantLoop`` over donated steps of smoke
+    qwen2 from the JAX init, one fault at step 2: ``inject`` (the loop's
+    hook, before the step), ``after_update`` (raised inside the step once
+    the in-place update is done) or ``nan`` (a non-finite loss reported
+    after the update). Returns {package: (state or None, metrics, the
+    error raised or None)}."""
+    from repro.runtime import FaultTolerantLoop as JaxLoop
+    from repro_torch.runtime import FaultTolerantLoop
+
+    jm, jstep = jax_steps.make_train_step(
+        jax_get_config("qwen2-0.5b", smoke=True), lr_cfg=LR)
+    cfg = get_config("qwen2-0.5b-smoke")
+    _, tstep = steps.make_train_step(cfg, lr_cfg=LR, donate=True)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = from_jax_numpy(jax_to_numpy(jp), cfg, device="cpu")
+    jitted = jax.jit(jstep, donate_argnums=(0, 1))
+    runs = {}
+    for pkg in ("jax", "port"):
+        fired = []
+
+        def fault(s):
+            if s == 2 and not fired:
+                fired.append(s)
+                return True
+            return False
+
+        def step_fn(state, batch, pkg=pkg):
+            params, opt, m = (jitted if pkg == "jax" else tstep)(*state,
+                                                                  batch)
+            loss = float(m["loss"])
+            done = int(opt.step) - 1          # the step just taken
+            if scenario == "after_update" and fault(done):
+                raise RuntimeError("a failure after the in-place update")
+            if scenario == "nan" and fault(done):
+                loss = float("nan")
+            return (params, opt), {"loss": loss}
+
+        if pkg == "jax":
+            loop = JaxLoop(step_fn, lambda s: jax_token_batch(
+                0, s, 0, 2, 32, cfg.vocab_size),
+                JaxCheckpointer(str(tmp_path / pkg)), ckpt_every=ckpt_every)
+            state = (jp, jax_adamw_init(jp))
+        else:
+            loop = FaultTolerantLoop(step_fn, lambda s: token_batch(
+                0, s, 0, 2, 32, cfg.vocab_size, device="cpu"),
+                Checkpointer(str(tmp_path / pkg)), ckpt_every=ckpt_every)
+            state = (tp, adamw_init(tp))
+        try:
+            state, _ = loop.run(state, 0, DONATED_STEPS,
+                                inject_failure=(fault if scenario == "inject"
+                                                else None))
+            runs[pkg] = (state, loop.metrics, None)
+        except Exception as e:  # noqa: BLE001 - the outcome under test
+            runs[pkg] = (None, loop.metrics, e)
+    return runs
+
+
+@pytest.fixture(scope="module")
+def donated_uninterrupted(tmp_path_factory):
+    return _donated_runs(tmp_path_factory.mktemp("donated"), None, 100)
+
+
+@pytest.mark.parametrize("scenario,ckpt_every,outcome", [
+    ("inject", 100, "uninterrupted"),
+    ("after_update", 100, "raises"),
+    ("after_update", 1, "uninterrupted"),
+    ("nan", 100, "stepped twice"),
+])
+def test_retry_on_donated_state_follows_the_reference(
+        scenario, ckpt_every, outcome, tmp_path, donated_uninterrupted):
+    """``FaultTolerantLoop``'s retry over donated state, held to the
+    reference's loop over its jitted, donating step:
+
+    * a failure injected before the first save: no checkpoint, the retry
+      runs on the state as the loop holds it (untouched) — both end on
+      the uninterrupted run's state;
+    * a failure inside the step after the in-place update began: the
+      state the loop holds was given away (JAX: its buffers deleted; the
+      port: the step refuses the params it last took), so with no
+      checkpoint every retry fails and the loop raises after its retries
+      in both; with one, both restore and end on the uninterrupted state;
+    * a non-finite loss under ``abort_on_nan``: the update is kept (the
+      loop took the step's state before the check), the retry runs the
+      step again on it — both end on that state, not the uninterrupted
+      one.
+
+    The port against the reference within ``TRAIN_TOL``; the port against
+    its own uninterrupted run bit for bit where both replay to it."""
+    runs = _donated_runs(tmp_path, scenario, ckpt_every)
+    (jstate, jm, jerr), (tstate, tm, terr) = runs["jax"], runs["port"]
+    assert (jm.retries, jm.restores) == (tm.retries, tm.restores)
+    if outcome == "raises":
+        msg = str(jerr).lower()
+        assert jerr is not None and ("deleted" in msg
+                                     or "invalid buffer" in msg)
+        assert isinstance(terr, RuntimeError) and "donated" in str(terr)
+        assert tm.retries == 3
+        return
+    assert jerr is None and terr is None, (jerr, terr)
+    _assert_trees(tstate, jstate, what=scenario, lr_sum=5e-3)
+    ref = donated_uninterrupted["port"][0]
+    if outcome == "uninterrupted":
+        _assert_trees(tstate, ref, tol=(0, 0), what=scenario)
+    else:
+        moved = max(float((a - b).abs().max()) for a, b in zip(
+            _leaves(tstate[0]), _leaves(ref[0])))
+        assert moved > 1e-5
+
+
 def test_launcher_runs_on_the_card_unless_told_otherwise(monkeypatch,
                                                          tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
