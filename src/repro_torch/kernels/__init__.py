@@ -24,8 +24,8 @@ from .dispatch import (
     reset_launch_counts,
 )
 
-__all__ = ["backends", "iter_specs", "launch_counts", "register_spec",
-           "reset_launch_counts", "serving_kernel_specs"]
+__all__ = ["backends", "iter_specs", "launch_counts", "lower_serving_kernels",
+           "register_spec", "reset_launch_counts", "serving_kernel_specs"]
 
 
 def serving_kernel_specs(*, head_dim: int = 16, n_kv_heads: int = 2,
@@ -42,3 +42,20 @@ def serving_kernel_specs(*, head_dim: int = 16, n_kv_heads: int = 2,
     return iter_specs(head_dim=head_dim, n_kv_heads=n_kv_heads,
                       n_q_heads=n_q_heads, seq=seq, batch=batch, d_in=d_in,
                       d_out=d_out, device=resolve_device(device))
+
+
+def lower_serving_kernels(**shape_kw) -> dict:
+    """{op: OpGraph} of every registered serving op, each recorded once at
+    its spec's shapes (``serving_kernel_specs(**shape_kw)``; ``device``
+    "meta" records shapes alone at the plain tier, nothing runs). The
+    counterpart of the reference's lowered kernels: the port has no
+    compile step, so recording an op means running it."""
+    from ..analysis.lint.graph_model import record_graph
+    from .dispatch import tier_scope
+
+    meta = str(shape_kw.get("device", "cuda")) == "meta"
+    out = {}
+    with tier_scope("torch" if meta else None):
+        for name, (fn, args, kw) in serving_kernel_specs(**shape_kw).items():
+            out[name] = record_graph(name, fn, args, kw)
+    return out

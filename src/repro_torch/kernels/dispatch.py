@@ -32,6 +32,14 @@ Counterpart of ``repro.kernels.dispatch``:
     capture counted (nothing ran) and add it again at every replay through
     ``add_launches``. So ``launch_counts`` says how many launches of each
     kernel ran on the card, eagerly or replayed.
+  * While a graph recorder is open (``recording``: the graph linter's
+    ``analysis.lint.graph_model.GraphRecorder``), ``resolve`` hands out a
+    wrapper of the impl that runs it inside the recorder's kernel scope:
+    every aten op of the call is tagged with the op, and the call is one
+    kernel node carrying its arguments' dtypes and shapes (at the ``cuda``
+    tier the only trace of the kernel, a ``ctypes`` call the dispatcher
+    never sees). With no recorder open ``resolve`` returns the impl
+    itself, so launch counts and CUDA-graph captures are untouched.
   * ``stream_scratch`` is the one per-stream zero scratch of the kernels
     that take a maximum across CTAs (the quantize-out epilogues of both
     GEMMs and of the fused decode). A buffer once handed out is never
@@ -48,6 +56,7 @@ plain tiers and any later padded kernel keep to.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from typing import Any, Callable, Dict, Optional
 
@@ -76,6 +85,8 @@ _SCRATCH: Dict[tuple, torch.Tensor] = {}
 # the buffers a larger request replaced: kept alive for the graphs that
 # captured them
 _OUTGROWN: list = []
+# the open graph recorders, innermost last
+_RECORDERS: list = []
 
 
 def _pad_to(x: torch.Tensor, m: int, dim: int) -> torch.Tensor:
@@ -198,7 +209,31 @@ def resolve(op: str, like: torch.Tensor,
     if tier == "cuda" and like.device.type != "cuda":
         raise ValueError(f"op {op!r}: the {tier!r} tier runs on a CUDA "
                          f"tensor, got one on {like.device}")
+    if _RECORDERS:
+        return _scoped(op, tier, impls[tier], _RECORDERS[-1])
     return impls[tier]
+
+
+def _scoped(op: str, tier: str, impl: Callable, recorder) -> Callable:
+    """``impl`` run inside ``recorder``'s kernel scope for ``op``."""
+
+    @functools.wraps(impl)
+    def call(*args, **kwargs):
+        with recorder.kernel_scope(op, tier, args, kwargs):
+            return impl(*args, **kwargs)
+
+    return call
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Hand ``recorder`` (a ``GraphRecorder``) every kernel call that
+    ``resolve`` gives out inside the block."""
+    _RECORDERS.append(recorder)
+    try:
+        yield recorder
+    finally:
+        _RECORDERS.remove(recorder)
 
 
 def register_spec(op: str):

@@ -206,6 +206,8 @@ def _spec(*, device, d_in: int = 64, d_out: int = 128, **_):
     M, K, N = 8, d_in, d_out
     return (qmatmul_w8a8,
             (torch.zeros((M, K), dtype=torch.int8, device=device),
-             torch.zeros((K, N), dtype=torch.int8, device=device),
+             # the [K, N] view of a contiguous [N, K] buffer: QTensor's
+             # K-major layout, the one the kernel takes
+             torch.zeros((N, K), dtype=torch.int8, device=device).t(),
              torch.ones((M,), device=device), torch.ones((N,), device=device)),
             {})

@@ -537,6 +537,17 @@ def _serve(config: ServeConfig, mesh,
     tier = active_tier(torch.empty(0, device=device))
     print(f"kernel tier: {tier} (" + ("the hand-written CUDA kernels"
           if tier == "cuda" else "the plain PyTorch versions") + ")")
+    if config.lint:
+        from ..analysis.lint import lint_engine
+
+        recipe_name = qm.recipe.name if qm is not None else "fp32"
+        t0 = time.time()
+        findings = lint_engine(engine, recipe_name, verbose=rank0)
+        n_err = sum(f.severity == "error" for f in findings)
+        if rank0:
+            print(f"--lint: {'FAIL' if n_err else 'pass'} "
+                  f"({time.time() - t0:.1f} s; warn-only at runtime — "
+                  f"serving continues)")
     warm = engine.warmup() if config.warmup else None
     if warm is not None and "graphs" in warm:
         print(f"warmup: captured {warm['graphs']} CUDA graphs in "

@@ -1,9 +1,9 @@
 """Typed serving configuration: one dataclass is both the ``serve`` API and
 (through ``build_parser``) the CLI, as in ``repro.launch.serve_config``. It
 has every field of the JAX ``ServeConfig`` with the same flag, type,
-default and validation, except ``lint`` (the QuantLint graph linter, to be
-re-based on torch graphs), which is absent, not a field that can only
-raise.
+default and validation; ``lint`` runs the port's graph linter
+(``analysis.lint.lint_engine``) over the live engine before warmup,
+warn-only, as the JAX launcher's.
 
 ``mesh`` (``--mesh DxM`` or ``PxDxM``, ``parse_mesh``) serves over a
 ``torch.distributed`` device mesh ("data", "model"), as the JAX
@@ -189,6 +189,11 @@ class ServeConfig:
         "arrival; expired requests are shed (queued) or cut short (in "
         "flight) at the next step boundary and report status 'expired'",
         type=float, metavar="T")
+    lint: bool = _f(
+        False, "run the graph linter over this engine's recorded serve "
+        "paths before serving (warn-only here; `python -m "
+        "repro_torch.analysis.lint --check` is the blocking gate)",
+        switch=True)
     straggler_threshold: Optional[float] = _f(
         None, "flag an engine step as a straggler when its wall time "
         "exceeds X times the EMA of recent steps (reported with the fault "

@@ -179,3 +179,44 @@ def resolve_recipe(spec: RecipeLike) -> Recipe:
 
 def list_recipes() -> list:
     return sorted(BUILTIN_RECIPES)
+
+
+def split_recipe_flags(name: str) -> tuple:
+    """``"serve-w8a8-kv8-tp+paged"`` → ``("serve-w8a8-kv8-tp", ("paged",))``.
+
+    Recipe *flags* (``+flag`` suffixes) select a serving-engine geometry
+    variant — they are NOT pipeline stages, so the base name is what
+    ``resolve_recipe`` sees. Known flags: ``paged`` (page-table KV pool).
+    Unknown flags raise RecipeError so a typo can't silently lint the
+    contiguous geometry under a paged contract stem."""
+    base, _, rest = name.partition("+")
+    flags = tuple(f for f in rest.split("+") if f) if rest else ()
+    for f in flags:
+        if f != "paged":
+            raise RecipeError(
+                f"unknown recipe flag {f!r} in {name!r} (known: 'paged')"
+            )
+    return base, flags
+
+
+def lint_mesh_shape(recipe_name: str):
+    """The mesh shape the graph linter checks a recipe under: the
+    reference topology (2 data x 4 model) for ``-tp`` recipes,
+    single-device otherwise. Recipe flags (``+paged``) don't change the
+    topology."""
+    base, _ = split_recipe_flags(recipe_name)
+    return (2, 4) if base.endswith("-tp") else None
+
+
+def contract_stem(recipe_name: str, mesh_shape=None) -> str:
+    """Filename stem of a recipe's lint contract:
+    ``<recipe>`` single-device, ``<recipe>.<DxM>`` under a mesh — so the
+    same recipe can pin contracts for several topologies side by side.
+    Recipe flags come AFTER the mesh suffix (``serve-w8a8-kv8-tp.2x4+paged``)
+    so a recipe's contract family sorts together."""
+    base, flags = split_recipe_flags(recipe_name)
+    resolve_recipe(base)  # fail fast (with did-you-mean) on typos
+    stem = base
+    if mesh_shape:
+        stem = f"{base}.{'x'.join(str(int(s)) for s in mesh_shape)}"
+    return stem + "".join(f"+{f}" for f in flags)

@@ -93,6 +93,7 @@ view, then the commit into the pages), and the engine copies the ``kpos`` /
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import math
@@ -342,6 +343,9 @@ class ServingEngine:
             self._view = {**self.dense, "kpos": self.pool.cache["kpos"],
                           "pos": self.pool.cache["pos"]}
         self.scheduler = FIFOScheduler(max_queue=max_queue)
+        # warmup() has run every warmup shape (the graph linter's capture
+        # guard then wants exactly those graphs)
+        self.warmed = False
         self.straggler = straggler or StragglerMonitor()
         self.graphs = None
         if not fast:
@@ -605,7 +609,8 @@ class ServingEngine:
         key = (name, dim)
         if key not in self.graphs:
             self.graphs.capture(key, fn, args,
-                                warm=functools.partial(self._run_masked, name))
+                                warm=functools.partial(self._run_masked, name),
+                                pool_ptrs=self.pool_pointers())
         return self.graphs.replay(key, args)
 
     # -------------------------------------------------------- host loop
@@ -1158,7 +1163,7 @@ class ServingEngine:
         ticks (one a generated-token step, as on the stepwise path)."""
         self._tell("step")
         t0 = time.monotonic()
-        with tier_scope(self.backend), tp_scope(self.shard):
+        with self.dispatch_scope():
             ticks = self._step()
         self.stats["engine_steps"] += ticks
         self.clock += float(ticks)
@@ -1224,6 +1229,71 @@ class ServingEngine:
                     for k in range(1, self.decode_horizon + 1)}
         return ({("prefill_multi", self.num_slots)}
                 | {("decode_horizon", k) for k in horizons})
+
+    def serve_jit_specs(self, device=None) -> dict:
+        """{name: (fn, args, kwargs)} for each serve path, with every row
+        masked (``_masked_args``: bookkeeping and live K/V stay as they
+        were): the stepwise ``prefill`` and ``decode``, and the fast path's
+        ``prefill_multi`` and ``decode_horizon`` at its widest warmed shape
+        (k = ``decode_horizon``). ``fn`` is the engine's own dispatch
+        (``_prefill`` / ``_decode`` / ``_decode_horizon``), eager; the
+        arguments live on ``device`` (the engine's by default). The caller
+        opens the engine's tier and shard scopes (``dispatch_scope``).
+        The graph linter records each one (``lowered_serve_jits``)."""
+        dev = self.device if device is None else torch.device(device)
+        pre = tuple(torch.from_numpy(a).to(dev)
+                    for a in self._masked_args("prefill_multi"))
+        tokens, remaining = (torch.from_numpy(a).to(dev)
+                             for a in self._masked_args("decode_horizon"))
+        return {
+            "prefill": (self._prefill, pre, {}),
+            "decode": (self._decode, (tokens, remaining > 0), {}),
+            "prefill_multi": (self._prefill, pre, {}),
+            "decode_horizon": (self._decode_horizon, (tokens, remaining),
+                               {"k": self.decode_horizon}),
+        }
+
+    def dispatch_scope(self):
+        """The scopes every dispatch of this engine runs in: its kernel
+        tier (``backend``) and its tensor-parallel shard."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(tier_scope(self.backend))
+        stack.enter_context(tp_scope(self.shard))
+        return stack
+
+    def lowered_serve_jits(self, device=None) -> dict:
+        """{name: OpGraph} of the four serve paths — each RUN once, masked,
+        on the engine's own tensors at its own tier, under the graph
+        linter's recorder (``analysis.lint.graph_model``). The counterpart
+        of the reference's lowered jits: the port has no compile step, so
+        recording a path means running it. ``device="meta"`` records
+        shapes alone at the plain tier, once the caller has put meta
+        copies of the params and pool in place (``analysis.lint.extract``
+        does)."""
+        from ..analysis.lint.graph_model import record_graph
+
+        meta = device is not None and str(device) == "meta"
+        views = self.dense if self.paged else None
+        out = {}
+        with self.dispatch_scope(), tier_scope("torch" if meta else None):
+            for name, (fn, args, kw) in self.serve_jit_specs(
+                    device=device).items():
+                out[name] = record_graph(name, fn, args, kw,
+                                         pool=lambda: self.pool.cache,
+                                         views=views)
+        return out
+
+    def pool_pointers(self) -> dict:
+        """{leaf: data_ptr} of every tensor a captured graph addresses for
+        the pool: its leaves, and a paged engine's page storage and dense
+        view."""
+        ptrs = {name: t.data_ptr() for name, t in self.pool.cache.items()}
+        if self.paged:
+            ptrs.update({f"storage/{n}": t.data_ptr()
+                         for n, t in self.pool.storage.items()})
+            ptrs.update({f"dense/{n}": t.data_ptr()
+                         for n, t in self.dense.items()})
+        return ptrs
 
     def warmup(self) -> dict:
         """Run every ``warmup_shapes()`` shape ahead of traffic — on the
@@ -1308,6 +1378,7 @@ class ServingEngine:
             self.scheduler.admitted_order.clear()
             self.scheduler.admitted_order.extend(snap_order)
             self.scheduler.max_queue = snap_bound
+        self.warmed = True
         if self.graphs is None:
             return {"seconds": time.perf_counter() - t0, **ran}
         torch.cuda.synchronize(self.device)

@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,7 @@ class _Graph:
     staged: "torch.cuda.Event"  # the last staging copy out of ``host``
     outputs: tuple            # static device tensors each replay writes
     launches: Dict[str, int]  # kernel launches one replay makes
+    pool_ptrs: Dict[str, int]  # the pool's addresses it captured
 
 
 class EngineGraphs:
@@ -93,14 +94,26 @@ class EngineGraphs:
     def __len__(self) -> int:
         return len(self._graphs)
 
+    def keys(self) -> set:
+        """The ``(dispatch, dim)`` shapes captured so far."""
+        return set(self._graphs)
+
+    def pool_ptrs(self, key) -> Dict[str, int]:
+        """{leaf: address} of the pool when ``key`` was captured."""
+        return dict(self._graphs[key].pool_ptrs)
+
     def launches(self, key) -> Dict[str, int]:
         """{kernel: launches} one replay of ``key`` makes."""
         return dict(self._graphs[key].launches)
 
     def capture(self, key, fn: Callable, args: tuple,
-                warm: Callable[[], None]) -> None:
+                warm: Callable[[], None],
+                pool_ptrs: Optional[Dict[str, int]] = None) -> None:
         """Capture ``fn`` on static copies of the numpy ``args``, after
-        ``warm()`` (the masked dispatch) ran eagerly on the capture stream."""
+        ``warm()`` (the masked dispatch) ran eagerly on the capture stream.
+        ``pool_ptrs`` ({leaf: address}) records where the pool's tensors
+        were at the capture: a replay writes there (the graph linter holds
+        them to the live pool's, ``pool_pointers``)."""
         t0 = time.perf_counter()
         caller = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(caller)
@@ -125,7 +138,8 @@ class EngineGraphs:
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                      for t in inputs)
         self._graphs[key] = _Graph(graph, inputs, host, torch.cuda.Event(),
-                                   tuple(outputs), counted)
+                                   tuple(outputs), counted,
+                                   dict(pool_ptrs or {}))
         caller.wait_stream(self.stream)
         self.capture_seconds += time.perf_counter() - t0
 

@@ -46,7 +46,8 @@ and its backward, the same collectives):
 above reports its kind — as XLA names it: ``all-reduce``, ``all-gather``
 — and the bytes of its result on this rank, whatever ``all_reduce``
 carries it (a gather is an all-reduce of an n-fold buffer, and counts as
-a gather). FSDP's gradient sum counts as what the port runs, an
+a gather), and appends one event ``(kind, dtype, shape, bytes)`` of that
+result (the graph linter matches the shapes against the KV pool's). FSDP's gradient sum counts as what the port runs, an
 all-reduce of the whole gradient over the data-parallel group: n times
 the block that XLA's reduce-scatter would leave. A collective over a
 group of one rank moves nothing and is not counted. The dry-run reads
@@ -56,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 
 import torch
@@ -68,11 +70,14 @@ KINDS = ("all-gather", "all-reduce")
 @dataclasses.dataclass
 class CollectiveRecord:
     """Per kind, the result bytes on this rank and the count of the
-    collectives reported; ``total`` the bytes of every kind."""
+    collectives reported; ``total`` the bytes of every kind; ``events``
+    each collective in order, ``(kind, dtype, shape, bytes)`` of its
+    result (``dtype`` a ``torch.dtype``, ``shape`` a tuple)."""
     bytes: dict = dataclasses.field(
         default_factory=lambda: dict.fromkeys(KINDS, 0))
     counts: dict = dataclasses.field(
         default_factory=lambda: dict.fromkeys(KINDS, 0))
+    events: list = dataclasses.field(default_factory=list)
 
     @property
     def total(self) -> int:
@@ -99,17 +104,23 @@ def record_collectives():
             _RECORDS.remove(rec)
 
 
-def _record(kind: str, nbytes: int, group) -> None:
+def _record(kind: str, dtype: torch.dtype, shape, group) -> None:
+    """Report one logical collective whose result on this rank is a
+    ``dtype`` tensor of ``shape``."""
     if not _RECORDS or dist.get_world_size(group) == 1:
         return
+    shape = tuple(int(d) for d in shape)
+    nbytes = math.prod(shape) * dtype.itemsize
     with _LOCK:
         for rec in _RECORDS:
-            rec.bytes[kind] += int(nbytes)
+            rec.bytes[kind] += nbytes
             rec.counts[kind] += 1
+            rec.events.append((kind, dtype, shape, nbytes))
 
 
-def _nbytes(x: torch.Tensor) -> int:
-    return x.numel() * x.element_size()
+def _report(kind: str, x: torch.Tensor, group) -> None:
+    """Report a collective whose result has ``x``'s dtype and shape."""
+    _record(kind, x.dtype, x.shape, group)
 
 
 def _reduce(x: torch.Tensor, op, group) -> torch.Tensor:
@@ -122,13 +133,13 @@ def _reduce(x: torch.Tensor, op, group) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``, in place; returns ``x``."""
-    _record("all-reduce", _nbytes(x), group)
+    _report("all-reduce", x, group)
     return _reduce(x, dist.ReduceOp.SUM, group)
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max of ``x`` over ``group``, in place; returns ``x``."""
-    _record("all-reduce", _nbytes(x), group)
+    _report("all-reduce", x, group)
     return _reduce(x, dist.ReduceOp.MAX, group)
 
 
@@ -136,8 +147,9 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' ``x`` (one shape on every rank) concatenated along ``dim``
     in rank order, bit for bit."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    _record("all-gather", _nbytes(x) * n, group)
     dim = dim % x.ndim
+    _record("all-gather", x.dtype, x.shape[:dim] + (n * x.shape[dim],)
+            + x.shape[dim + 1:], group)
     x = x.movedim(dim, 0).contiguous()
     buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     buf[r] = x
@@ -151,7 +163,7 @@ def combine(x: torch.Tensor, group) -> torch.Tensor:
     (as bits) on at most one rank — a vocab-parallel lookup's rows —
     exactly: their bytes are summed as ``uint8``. Returns a new tensor."""
     out = x.contiguous().clone()
-    _record("all-reduce", _nbytes(out), group)
+    _report("all-reduce", out, group)
     _reduce(out.view(torch.uint8), dist.ReduceOp.SUM, group)
     return out
 
@@ -166,7 +178,7 @@ def argmax(logits: torch.Tensor, offset: int, group) -> torch.Tensor:
     top = all_reduce_max(best.clone(), group)
     big = torch.iinfo(torch.int64).max
     cand = torch.where(best == top, idx, torch.full_like(idx, big))
-    _record("all-reduce", _nbytes(cand), group)
+    _report("all-reduce", cand, group)
     _reduce(cand, dist.ReduceOp.MIN, group)
     # a row whose max is NaN on some rank: no rank's value equals the
     # reduced max; the row is quarantined by the non-finite flag, and its
@@ -196,7 +208,7 @@ class _FSDPGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        _record("all-reduce", _nbytes(g), ctx.grad_group)
+        _report("all-reduce", g, ctx.grad_group)
         g = _reduce(g.contiguous().clone(), dist.ReduceOp.SUM, ctx.grad_group)
         return block_of(g, ctx.dim, ctx.group).contiguous(), None, None, None
 

@@ -25,6 +25,9 @@ A task is ``(name, kind, mesh shape, kwargs)``; kinds:
     ``ServeShard`` refuses to serve it cut;
   * ``gate`` — chip_smoke.py's MoE-block gate on layer 0, as it is and
     with a planted fault (the partial sums over "model" not added);
+  * ``teacher`` — chip_smoke.py's teacher-forced gate (its float32
+    reading, its bf16 reading where no expert choice moved, and a planted
+    dropped partial), beside the single-device logits in both dtypes;
   * ``counts`` — a sharded engine's run with every kernel op's calls
     counted by the name its CUDA wrapper counts launches by;
   * ``async`` — the async front-end over a sharded engine
@@ -227,6 +230,48 @@ def logits_task(mesh, *, arch, params, tokens, kv_bits, overrides=None):
         if shard.logits_sharded:
             got = coll.all_gather(got, -1, shard.model_group)
     return {"single": single.numpy(), "sharded": got.numpy()}
+
+
+def teacher_task(mesh, *, arch, params, tokens, kv_bits, chip_smoke,
+                 overrides=None):
+    """chip_smoke.py's teacher-forced gate on the CPU under this mesh's
+    shard: ``tp_teacher_forced`` over each row of ``tokens`` [B, T] as a
+    sequence (its planted dropped partial included), then
+    ``tp_teacher_gate``; beside them every position's single-device
+    logits (``logits_at="all"``) in the config's compute dtype and in
+    float32, for the JAX package's."""
+    import dataclasses
+    import importlib.util
+    import types
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.sharding.partition import shard_tree
+    from repro_torch.sharding.tp import ServeShard
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", chip_smoke)
+    chip = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip)
+    model, p, cfg = _model(arch, overrides, params)
+    toks = torch.as_tensor(tokens, dtype=torch.int64)
+    B, T = toks.shape
+    shard = ServeShard(mesh, cfg, p, num_slots=1, paged=False,
+                       backend="gloo")
+    eng = types.SimpleNamespace(shard=shard,
+                                params=shard_tree(p, shard.specs, mesh))
+    tf = chip.tp_teacher_forced(torch, model, p, eng, toks.tolist(),
+                                kv_bits=kv_bits, device="cpu")
+    fails, line = chip.tp_teacher_gate(tf, "teacher-forced")
+    out = {"tf": tf, "fails": fails, "line": line, "tol": chip.TP_F32_TOL}
+    with torch.no_grad():
+        for name, m in (("single", model), ("f32", build_model(
+                dataclasses.replace(cfg, dtype="float32")))):
+            cache = m.init_cache(B, T, device="cpu", per_slot=True,
+                                 kv_bits=kv_bits)
+            out[name] = m.prefill(p, toks, cache,
+                                  logits_at="all")[0].float().numpy()
+    return out
 
 
 def moe_block_task(mesh, *, arch, params, x, overrides=None):
@@ -639,6 +684,7 @@ def _numpy(tree):
 
 
 KINDS = {"engine": engine_task, "logits": logits_task,
+         "teacher": teacher_task,
          "moe_block": moe_block_task, "async": async_task,
          "counts": counts_task, "refuse": refuse_task, "gate": gate_task,
          "train": train_task, "ckpt_save": ckpt_save_task,

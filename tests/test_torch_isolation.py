@@ -24,7 +24,8 @@ def _imports(path: pathlib.Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(),

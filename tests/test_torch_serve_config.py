@@ -1,7 +1,7 @@
 """The port's ``ServeConfig`` and launcher against the JAX package's
 (``tests/test_serve_config.py`` restated, less its mesh case): the argparse
-surface derived from the dataclass, every JAX field but ``mesh`` and
-``lint`` present with its flag and default, the validation, the artifact
+surface derived from the dataclass, every JAX field (``lint`` with a
+test of its own) present with its flag and default, the validation, the artifact
 round trip and precedence rule (``recipe`` baked), and the launcher's
 behaviours — batch mode on the JAX calibration ids, ``--recipe`` /
 ``--save`` / ``--verbose``, the bounded queue's shed list, the SIGTERM
@@ -30,8 +30,10 @@ from repro_torch.quantized.qtensor import QTensor
 
 import torch
 
-#: the JAX field that comes with later work (the QuantLint graph linter)
-NOT_PORTED = {"lint"}
+#: the JAX fields the port lacks: none (``lint`` came with the graph
+#: linter, and has a test of its own below)
+NOT_PORTED: set = set()
+LINT = {"lint"}
 
 
 def _fake_artifact(recipe="serve-w8a8-kv8", kv_bits=8,
@@ -61,15 +63,9 @@ def _actions(parser):
     return {a.dest: a for a in parser._actions if a.dest != "help"}
 
 
-def test_every_jax_field_but_lint_has_its_port_twin():
-    """Each JAX ``ServeConfig`` field except ``lint`` is a port
-    field of the same name, with the same flag, default, type, choices and
-    kind of switch."""
-    jax_fields = {f.name for f in dataclasses.fields(JaxServeConfig)}
-    port_fields = {f.name for f in dataclasses.fields(ServeConfig)}
-    assert jax_fields - port_fields == NOT_PORTED
+def _same_flags(names):
     jact, pact = _actions(jax_build_parser()), _actions(build_parser())
-    for name in sorted(jax_fields - NOT_PORTED):
+    for name in sorted(names):
         j, p = jact[name], pact[name]
         assert p.option_strings == j.option_strings, name
         assert p.default == j.default, name
@@ -77,7 +73,30 @@ def test_every_jax_field_but_lint_has_its_port_twin():
         assert type(p).__name__ == type(j).__name__, name
         if j.choices is not None:
             assert list(p.choices) == list(j.choices), name
+
+
+def test_every_jax_field_but_lint_has_its_port_twin():
+    """Each JAX ``ServeConfig`` field except ``lint`` (tested below) is a
+    port field of the same name, with the same flag, default, type, choices
+    and kind of switch; no JAX field is missing."""
+    jax_fields = {f.name for f in dataclasses.fields(JaxServeConfig)}
+    port_fields = {f.name for f in dataclasses.fields(ServeConfig)}
+    assert jax_fields - port_fields == NOT_PORTED
+    _same_flags(jax_fields - NOT_PORTED - LINT)
     assert ServeConfig().trace == JaxServeConfig().trace == 0
+
+
+def test_lint_has_its_port_twin():
+    """``lint`` (the graph linter before serving, warn-only) has the JAX
+    field's flag, default and switch, and sits after ``deadline`` as
+    there."""
+    _same_flags(LINT)
+    names = [f.name for f in dataclasses.fields(ServeConfig)]
+    jax_names = [f.name for f in dataclasses.fields(JaxServeConfig)]
+    assert names[names.index("deadline") + 1] == "lint"
+    assert jax_names[jax_names.index("deadline") + 1] == "lint"
+    assert ServeConfig().lint is False
+    assert ServeConfig.from_args(build_parser().parse_args(["--lint"])).lint
 
 
 def test_args_to_config_values():

@@ -229,10 +229,37 @@ def _other_tasks(sides, meshes):
     return tasks
 
 
+#: mixtral's widened smoke config at ONE layer in bf16 (the serving dtype),
+#: W8A16 over 1x2 teacher-forced: the depth at which chip_smoke's 14a read
+#: its sharded logits 0.159 of max |logit| off one device's on the card
+ONE_LAYER = dict(WIDE, n_layers=1, dtype="bfloat16")
+
+
+def _one_layer_side():
+    """(JAX quantized model in bf16 and in float32, its params, numpy
+    params, tokens [16, 16])."""
+    jcfg = dataclasses.replace(get_config(ARCHS[0], smoke=True), **ONE_LAYER)
+    jm = build_model(jcfg)
+    qm = repro.quantize(jm, params=jm.init(jax.random.PRNGKey(0)),
+                        recipe="serve-w8a16-tp")
+    jm32 = build_model(dataclasses.replace(qm.model.cfg, dtype="float32"))
+    toks = np.random.RandomState(11).randint(0, jcfg.vocab_size,
+                                             size=(16, 16))
+    return qm.model, jm32, qm.params, jax_to_numpy(qm.params), toks
+
+
 @pytest.fixture(scope="module")
-def world2(sides, tmp_path_factory):
+def one_layer():
+    return _one_layer_side()
+
+
+@pytest.fixture(scope="module")
+def world2(sides, one_layer, tmp_path_factory):
     tasks = [_engine_task(sides, *c) for c in CASES_2]
-    return run_ranks(2, tasks + _other_tasks(sides, MESHES_2),
+    teacher = (("teacher", (1, 2)), "teacher", (1, 2), dict(
+        arch=_arch(ARCHS[0]), params=one_layer[3], tokens=one_layer[4],
+        kv_bits=16, chip_smoke=str(_CHIP_SMOKE), overrides=ONE_LAYER))
+    return run_ranks(2, tasks + _other_tasks(sides, MESHES_2) + [teacher],
                      tmp_path_factory.mktemp("moe2"))
 
 
@@ -580,3 +607,44 @@ def test_launcher_serves_mixtral_over_a_mesh_and_its_artifact(tmp_path):
     assert again.mesh == (1, 2)
     assert {rid: list(r.tokens) for rid, r in again.results.items()} == \
         {rid: list(r.tokens) for rid, r in first.results.items()}
+
+
+def test_one_layer_w8a16_1x2_is_one_device_up_to_rounding(one_layer,
+                                                          world2):
+    """mixtral (widened smoke, 1 layer) W8A16 over 1x2, teacher-forced over
+    16 sequences of 16, through chip_smoke's own gate (``tp_teacher_forced``
+    and ``tp_teacher_gate``, as 13 and 14a run them on the card). In
+    float32 the sharded logits are one device's up to rounding (the
+    partials summed in another order), every MoE choice one device's, and
+    the gate's bound, ``TP_F32_TOL``, sits far below a planted fault (the
+    last rank's expert-down partial dropped). In bf16 no choice moves
+    here, and the sharded logits stay within twice the bf16 forward's own
+    distance from float32, read where that forward's choices are the
+    float32 one's (a choice that moves makes a step in the function, not
+    rounding: one sequence's moves read 0.31 of max |logit|). The port's
+    one device holds to the JAX package's in float32 within the same
+    bound, and in bf16 within the bf16 bar, its argmax moving only at
+    near-ties."""
+    jm, jm32, jp, _, toks = one_layer
+    r = world2[("teacher", (1, 2))]
+    tf, tol = r["tf"], r["tol"]
+    print(r["line"])                     # the gate's readings (pytest -s)
+    assert not r["fails"], r["fails"]
+    assert all(t["routes_f32"] and t["routes_bf16"] for t in tf), r["line"]
+    assert max(t["f32"] for t in tf) <= tol / 10, r["line"]
+    assert tf[0]["planted"] > 100 * tol, r["line"]
+    clean = [t for t in tf if t["routes_rounding"]]
+    assert len(clean) >= len(tf) - 2, r["line"]
+    bar = max(t["rounding"] for t in clean)
+    assert max(t["bf16"] for t in tf) <= 2 * bar, r["line"]
+
+    ids = jax.numpy.asarray(toks, jax.numpy.int32)
+    for m, mine, limit in ((jm32, r["f32"], tol), (jm, r["single"], 2 * bar)):
+        out = m.apply(jp, ids)
+        theirs = np.asarray(out[0] if isinstance(out, tuple) else out,
+                            np.float32)
+        diff = np.abs(theirs - mine).max()
+        assert diff / np.abs(mine).max() <= limit, (diff, limit)
+        top2 = np.sort(mine, -1)[..., -2:]
+        moved = mine.argmax(-1) != theirs.argmax(-1)
+        assert np.all((top2[..., 1] - top2[..., 0])[moved] <= 2 * diff)
